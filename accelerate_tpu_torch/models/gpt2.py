@@ -1,0 +1,270 @@
+"""GPT-2: the port of `accelerate_tpu.models.gpt2` for serving.
+
+Two forward modes, as the serving path uses them:
+
+  - the full-sequence (non-decode) forward, causal attention over the input,
+    which admission uses to prefill prompts (``kv_out`` collects each layer's
+    K/V for `kv_cache.scatter_rows_to_blocks`);
+  - the paged decode step: one token per row, written at the row's frontier
+    in the `kv_cache.PagedKVCache` pools, attention through the row's block
+    table, either with the CUDA kernel in place (``cache.attention ==
+    "fused"``) or over the gathered view (``"gather"``).
+
+Numerics follow the reference: parameters live in ``param_dtype`` and every
+projection computes in ``dtype`` (inputs, weight and bias cast to it, as flax
+``Dense(dtype=...)`` does); LayerNorm statistics, scale and bias are fp32 with
+``eps=1e-5`` and the result is cast back to ``dtype``; the MLP uses the tanh
+GELU; q, k and v are the contiguous thirds of the ``qkv`` output; the head is
+tied to ``wte`` and its logits accumulate in fp32.
+
+`params_from_jax` turns the reference's param tree into this module's state
+dict, so both packages can run the same weights.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from ..ops.flash_attention import paged_decode_attention
+from ..utils.environment import resolve_device
+from .kv_cache import PagedKVCache, paged_decode_update, paged_decode_write
+
+
+@dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    mlp_ratio: int = 4
+    layer_norm_epsilon: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16  # compute dtype
+    param_dtype: torch.dtype = torch.float32
+
+    @property
+    def head_dim(self) -> int:
+        return self.n_embd // self.n_head
+
+    @classmethod
+    def small(cls, **kw) -> "GPT2Config":
+        return cls(**{**dict(n_embd=768, n_layer=12, n_head=12), **kw})
+
+    @classmethod
+    def medium(cls, **kw) -> "GPT2Config":
+        return cls(**{**dict(n_embd=1024, n_layer=24, n_head=16), **kw})
+
+    @classmethod
+    def large(cls, **kw) -> "GPT2Config":
+        return cls(**{**dict(n_embd=1280, n_layer=36, n_head=20), **kw})
+
+    @classmethod
+    def tiny(cls, **kw) -> "GPT2Config":
+        """Test-sized config."""
+        return cls(**{**dict(vocab_size=256, n_positions=128, n_embd=64, n_layer=2, n_head=2), **kw})
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """fp32 statistics, fp32 scale and bias, fp32 result."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
+                        norm.bias.float(), norm.eps)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, config: GPT2Config, device: torch.device):
+        super().__init__()
+        self.config = config
+        e = config.n_embd
+        self.qkv = nn.Linear(e, 3 * e, device=device, dtype=config.param_dtype)
+        self.proj = nn.Linear(e, e, device=device, dtype=config.param_dtype)
+
+    def forward(self, x: torch.Tensor, layer: int, cache: PagedKVCache | None = None,
+                block_tables: torch.Tensor | None = None,
+                write_mask: torch.Tensor | None = None,
+                kv_out: list | None = None) -> torch.Tensor:
+        cfg = self.config
+        b, s, e = x.shape
+        q, k, v = _dense(x, self.qkv, cfg.dtype).split(e, dim=-1)
+        q = q.reshape(b, s, cfg.n_head, cfg.head_dim)
+        k = k.reshape(b, s, cfg.n_head, cfg.head_dim)
+        v = v.reshape(b, s, cfg.n_head, cfg.head_dim)
+        if cache is not None:
+            # paged decode: the query at cursor idx attends positions <= idx,
+            # a valid span of idx + 1, in both attention paths
+            if cache.attention == "fused":
+                k_pool, v_pool = paged_decode_write(cache, layer, k, v, block_tables, write_mask)
+                out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables,
+                                             cache.index + 1)[:, None]
+            else:
+                k_all, v_all = paged_decode_update(cache, layer, k, v, block_tables, write_mask)
+                kv_pos = torch.arange(k_all.shape[1], device=x.device)
+                mask = (kv_pos[None, :] <= cache.index[:, None])[:, None, None, :]
+                out = attention(q, k_all, v_all, mask=mask, implementation="xla")
+        else:
+            if kv_out is not None:
+                kv_out.append((k, v))
+            out = attention(q, k, v, causal=True)
+        return _dense(out.reshape(b, s, e), self.proj, cfg.dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, config: GPT2Config, device: torch.device):
+        super().__init__()
+        self.config = config
+        hidden = config.mlp_ratio * config.n_embd
+        self.up = nn.Linear(config.n_embd, hidden, device=device, dtype=config.param_dtype)
+        self.down = nn.Linear(hidden, config.n_embd, device=device, dtype=config.param_dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.config.dtype
+        return _dense(F.gelu(_dense(x, self.up, dtype), approximate="tanh"), self.down, dtype)
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block."""
+
+    def __init__(self, config: GPT2Config, device: torch.device):
+        super().__init__()
+        self.config = config
+        e, pd, eps = config.n_embd, config.param_dtype, config.layer_norm_epsilon
+        self.ln_1 = nn.LayerNorm(e, eps=eps, device=device, dtype=pd)
+        self.attn = SelfAttention(config, device)
+        self.ln_2 = nn.LayerNorm(e, eps=eps, device=device, dtype=pd)
+        self.mlp = MLP(config, device)
+
+    def forward(self, x: torch.Tensor, layer: int, **decode: Any) -> torch.Tensor:
+        dtype = self.config.dtype
+        x = x + self.attn(_layer_norm(x, self.ln_1).to(dtype), layer, **decode)
+        return x + self.mlp(_layer_norm(x, self.ln_2).to(dtype))
+
+
+class GPT2LMHead(nn.Module):
+    """Decoder-only LM. ``forward`` returns fp32 logits ``[batch, seq, vocab]``.
+
+    ``device=None`` means CUDA (RuntimeError when it is absent; pass
+    ``device="cpu"`` for the plain path). Weights are drawn from ``seed`` with
+    the reference's initializer scales: normal(0.02) for ``wte``,
+    normal(0.01) for ``wpe``, normal(1/sqrt(fan_in)) for projection kernels,
+    zero biases, unit LayerNorm scales."""
+
+    def __init__(self, config: GPT2Config, device: str | torch.device | None = None,
+                 seed: int = 0):
+        super().__init__()
+        self.config = config
+        device = resolve_device(device)
+        pd = config.param_dtype
+        self.wte = nn.Embedding(config.vocab_size, config.n_embd, device=device, dtype=pd)
+        self.wpe = nn.Embedding(config.n_positions, config.n_embd, device=device, dtype=pd)
+        self.blocks = nn.ModuleList(Block(config, device) for _ in range(config.n_layer))
+        self.ln_f = nn.LayerNorm(config.n_embd, eps=config.layer_norm_epsilon,
+                                 device=device, dtype=pd)
+        self.init_weights(seed)
+
+    @property
+    def device(self) -> torch.device:
+        return self.wte.weight.device
+
+    @torch.no_grad()
+    def init_weights(self, seed: int) -> None:
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        self.wte.weight.normal_(0.0, 0.02, generator=g)
+        self.wpe.weight.normal_(0.0, 0.01, generator=g)
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=g)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [b, s] token ids
+        position_offset: int | torch.Tensor = 0,  # scalar, or [b] per-row offsets
+        *,
+        cache: PagedKVCache | None = None,
+        block_tables: torch.Tensor | None = None,  # [b, blocks_per_slot] (paged decode)
+        write_mask: torch.Tensor | None = None,  # [b] bool: False rows freeze (paged decode)
+        kv_out: list | None = None,  # full forward: collects each layer's (k, v)
+        return_hidden: bool = False,
+    ) -> torch.Tensor:
+        """With ``cache`` this is one paged decode step (``s == 1``): each
+        row's token is written at ``cache.index`` through ``block_tables``
+        (rows where ``write_mask`` is False write nothing) and the cursor of
+        writing rows advances by one. Without it, the causal forward over
+        ``input_ids``. ``return_hidden`` returns the final LayerNorm output in
+        the compute dtype instead of logits (see `logits`)."""
+        cfg = self.config
+        b, s = input_ids.shape
+        decode: dict[str, Any] = {}
+        if cache is not None:
+            if block_tables is None:
+                raise ValueError("paged decode needs block_tables ([b, blocks_per_slot])")
+            if write_mask is None:
+                write_mask = torch.ones(b, dtype=torch.bool, device=input_ids.device)
+            decode = dict(cache=cache, block_tables=block_tables, write_mask=write_mask)
+        elif kv_out is not None:
+            decode = dict(kv_out=kv_out)
+        steps = torch.arange(s, device=input_ids.device)
+        if isinstance(position_offset, torch.Tensor) and position_offset.ndim == 1:
+            positions = position_offset.long()[:, None] + steps  # [b, s]: per-row positions
+        else:
+            positions = (steps + int(position_offset))[None]  # [1, s]: shared by the batch
+        # out-of-range positions clamp, as the reference's gather does
+        positions = positions.clamp(max=cfg.n_positions - 1)
+        x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
+             + F.embedding(positions, self.wpe.weight).to(cfg.dtype))
+        for i, block in enumerate(self.blocks):
+            x = block(x, i, **decode)
+        if cache is not None:
+            cache.index += write_mask.to(cache.index.dtype)
+        x = _layer_norm(x, self.ln_f).to(cfg.dtype)
+        return x if return_hidden else self.logits(x)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied LM head over compute-dtype hidden states: fp32 logits. The
+        product runs on fp32 copies of the compute-dtype operands, so with
+        bf16 weights the products are exact and the sums fp32: the
+        reference's bf16 einsum with ``preferred_element_type=float32``."""
+        dtype = self.config.dtype
+        return F.linear(hidden.to(dtype).float(), self.wte.weight.to(dtype).float())
+
+
+def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """The reference `GPT2LMHead`'s param tree (nested dicts of numpy arrays,
+    per-layer ``block_i`` layout) as this module's state dict. Flax ``Dense``
+    kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``, so
+    kernels are transposed. Load with ``model.load_state_dict(...)``."""
+
+    def t(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd = {
+        "wte.weight": t(tree["wte"]),
+        "wpe.weight": t(tree["wpe"]),
+        "ln_f.weight": t(tree["ln_f"]["scale"]),
+        "ln_f.bias": t(tree["ln_f"]["bias"]),
+    }
+    n_layer = sum(1 for key in tree if key.startswith("block_"))
+    for i in range(n_layer):
+        blk, pre = tree[f"block_{i}"], f"blocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + f"{ln}.weight"] = t(blk[ln]["scale"])
+            sd[pre + f"{ln}.bias"] = t(blk[ln]["bias"])
+        for group, names in (("attn", ("qkv", "proj")), ("mlp", ("up", "down"))):
+            for name in names:
+                sd[pre + f"{group}.{name}.weight"] = t(blk[group][name]["kernel"]).T.contiguous()
+                sd[pre + f"{group}.{name}.bias"] = t(blk[group][name]["bias"])
+    return sd

@@ -1,0 +1,88 @@
+"""Attention ops: the plain PyTorch path of `accelerate_tpu.ops.attention`.
+
+All functions take ``[batch, seq, heads, head_dim]`` ("BSHD") layouts, as the
+reference does, so the port's tests compare like with like. Numerics follow the
+reference: QK^T accumulates in fp32 whatever the input dtype, logits are scaled
+after the product, masked positions take ``finfo(float32).min``, the softmax
+runs in fp32, and the weights return to the input dtype before the product
+with V.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_NEG = torch.finfo(torch.float32).min
+
+
+def causal_mask(q_len: int, kv_len: int, dtype: torch.dtype = torch.float32,
+                offset: int = 0, device: torch.device | str | None = None) -> torch.Tensor:
+    """Additive causal mask ``[q_len, kv_len]``: query i attends to keys <= i+offset."""
+    q_idx = torch.arange(q_len, device=device)[:, None]
+    k_idx = torch.arange(kv_len, device=device)[None, :]
+    allowed = k_idx <= q_idx + offset
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(allowed, zero, torch.finfo(dtype).min)
+
+
+def dot_product_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, H, D]
+    v: torch.Tensor,  # [B, Sk, H, D]
+    mask: torch.Tensor | None = None,  # boolean [B, 1|H, Sq, Sk] or [Sq, Sk], True = keep
+    causal: bool = False,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain attention. The products run on fp32 copies of bf16/fp16 inputs,
+    which is exact for the products and accumulates in fp32, as the
+    reference's ``preferred_element_type=float32`` does; the output returns to
+    the input dtype."""
+    orig_dtype = q.dtype
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        logits = logits + causal_mask(q.shape[1], k.shape[1], device=q.device)
+    if mask is not None:
+        if mask.ndim == 2:
+            mask = mask[None, None]
+        logits = torch.where(mask, logits, _NEG)
+    weights = torch.softmax(logits, dim=-1).to(orig_dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    mask: torch.Tensor | None = None,
+    implementation: str = "auto",
+) -> torch.Tensor:
+    """Dispatching entry point: ``'xla' | 'flash' | 'auto'``, the reference's
+    names. ``'xla'`` is the plain path above. The flash kernels (the
+    reference's `_fwd_kernel`/`_dq_kernel`/`_dkv_kernel`) are not ported yet,
+    so ``'auto'`` always takes the plain path and ``'flash'`` raises. A masked
+    call always takes the plain path, as in the reference: the flash kernel
+    has no arbitrary-mask support. GQA K/V are repeated up to the query heads
+    on the plain path. (The reference's sliding ``window`` and additive
+    ``bias`` come with the models that use them.)"""
+    if implementation not in ("auto", "xla", "flash"):
+        raise ValueError(f"implementation must be 'auto', 'xla' or 'flash', got {implementation!r}")
+    hq, hk = q.shape[2], k.shape[2]
+    if hk != hq and (hk == 0 or hq % hk):
+        raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hk})")
+    if mask is not None:
+        implementation = "xla"
+    if implementation == "flash":
+        raise NotImplementedError(
+            "flash attention is not ported yet: its Hopper kernels (forward and "
+            "backward) are ROADMAP Queue 2, item 1, in slice 2 (GPT-2 training)"
+        )
+    if hk != hq:
+        k = k.repeat_interleave(hq // hk, dim=2)
+        v = v.repeat_interleave(hq // hk, dim=2)
+    return dot_product_attention(q, k, v, causal=causal, mask=mask)

@@ -110,6 +110,12 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: PyTorch-port tests that need an NVIDIA Hopper GPU and nvcc "
+        "(the port's CUDA kernels); they skip elsewhere — run them on the "
+        "card with `pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py`",
+    )
+    config.addinivalue_line(
+        "markers",
         "quant: quantized serving tests (int8 paged KV pools with sibling "
         "scale planes, engine ``weight_quant=`` int8/nf4 packed weights, "
         "per-mode parity oracles — docs/serving.md \"Quantized serving\") — "
