@@ -9,7 +9,10 @@ hand for Hopper under ``ops/csrc/``, built by ``nvcc`` at first use.
 
 Ported so far: GPT-2 continuous-batching serving over a paged KV pool, with
 decode attention reading the pool in place through a CUDA kernel
-(`ops.flash_attention.paged_decode_attention`). Import submodules directly;
+(`ops.flash_attention.paged_decode_attention`); and the GPT-2 training step
+(`accelerator.Accelerator`: ``prepare``, ``make_train_step``), with flash
+attention forward and backward as CUDA kernels
+(`ops.flash_attention.flash_attention`). Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap.
 """

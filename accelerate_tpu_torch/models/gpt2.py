@@ -1,10 +1,11 @@
-"""GPT-2: the port of `accelerate_tpu.models.gpt2` for serving.
+"""GPT-2: the port of `accelerate_tpu.models.gpt2` for serving and training.
 
-Two forward modes, as the serving path uses them:
+Two forward modes:
 
-  - the full-sequence (non-decode) forward, causal attention over the input,
-    which admission uses to prefill prompts (``kv_out`` collects each layer's
-    K/V for `kv_cache.scatter_rows_to_blocks`);
+  - the full-sequence (non-decode) forward, causal attention over the input
+    through ``attention(implementation=config.attention_impl)``: training
+    runs it, and admission uses it to prefill prompts (``kv_out`` collects
+    each layer's K/V for `kv_cache.scatter_rows_to_blocks`);
   - the paged decode step: one token per row, written at the row's frontier
     in the `kv_cache.PagedKVCache` pools, attention through the row's block
     table, either with the CUDA kernel in place (``cache.attention ==
@@ -15,7 +16,12 @@ projection computes in ``dtype`` (inputs, weight and bias cast to it, as flax
 ``Dense(dtype=...)`` does); LayerNorm statistics, scale and bias are fp32 with
 ``eps=1e-5`` and the result is cast back to ``dtype``; the MLP uses the tanh
 GELU; q, k and v are the contiguous thirds of the ``qkv`` output; the head is
-tied to ``wte`` and its logits accumulate in fp32.
+tied to ``wte`` and its logits accumulate in fp32. Dropout (after the
+attention projection and after the MLP, when ``deterministic=False``) draws
+from an explicit `torch.Generator`.
+
+The training losses follow the reference: `cross_entropy_loss`,
+`_next_token_labels` and `lm_loss_fn`.
 
 `params_from_jax` turns the reference's param tree into this module's state
 dict, so both packages can run the same weights.
@@ -46,9 +52,11 @@ class GPT2Config:
     n_layer: int = 12
     n_head: int = 12
     mlp_ratio: int = 4
+    dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
+    attention_impl: str = "auto"  # 'xla' | 'flash' | 'auto' (ops.attention.attention)
 
     @property
     def head_dim(self) -> int:
@@ -76,6 +84,17 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``, in x's dtype. No
+    ``generator`` means no dropout (the deterministic forward)."""
+    if generator is None:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """fp32 statistics, fp32 scale and bias, fp32 result."""
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight.float(),
@@ -93,7 +112,8 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, layer: int, cache: PagedKVCache | None = None,
                 block_tables: torch.Tensor | None = None,
                 write_mask: torch.Tensor | None = None,
-                kv_out: list | None = None) -> torch.Tensor:
+                kv_out: list | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
         b, s, e = x.shape
         q, k, v = _dense(x, self.qkv, cfg.dtype).split(e, dim=-1)
@@ -115,8 +135,8 @@ class SelfAttention(nn.Module):
         else:
             if kv_out is not None:
                 kv_out.append((k, v))
-            out = attention(q, k, v, causal=True)
-        return _dense(out.reshape(b, s, e), self.proj, cfg.dtype)
+            out = attention(q, k, v, causal=True, implementation=cfg.attention_impl)
+        return _dropout(_dense(out.reshape(b, s, e), self.proj, cfg.dtype), cfg.dropout, generator)
 
 
 class MLP(nn.Module):
@@ -127,9 +147,10 @@ class MLP(nn.Module):
         self.up = nn.Linear(config.n_embd, hidden, device=device, dtype=config.param_dtype)
         self.down = nn.Linear(hidden, config.n_embd, device=device, dtype=config.param_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.config.dtype
-        return _dense(F.gelu(_dense(x, self.up, dtype), approximate="tanh"), self.down, dtype)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        cfg = self.config
+        x = _dense(F.gelu(_dense(x, self.up, cfg.dtype), approximate="tanh"), self.down, cfg.dtype)
+        return _dropout(x, cfg.dropout, generator)
 
 
 class Block(nn.Module):
@@ -144,10 +165,11 @@ class Block(nn.Module):
         self.ln_2 = nn.LayerNorm(e, eps=eps, device=device, dtype=pd)
         self.mlp = MLP(config, device)
 
-    def forward(self, x: torch.Tensor, layer: int, **decode: Any) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, layer: int, generator: torch.Generator | None = None,
+                **decode: Any) -> torch.Tensor:
         dtype = self.config.dtype
-        x = x + self.attn(_layer_norm(x, self.ln_1).to(dtype), layer, **decode)
-        return x + self.mlp(_layer_norm(x, self.ln_2).to(dtype))
+        x = x + self.attn(_layer_norm(x, self.ln_1).to(dtype), layer, generator=generator, **decode)
+        return x + self.mlp(_layer_norm(x, self.ln_2).to(dtype), generator)
 
 
 class GPT2LMHead(nn.Module):
@@ -199,13 +221,17 @@ class GPT2LMHead(nn.Module):
         write_mask: torch.Tensor | None = None,  # [b] bool: False rows freeze (paged decode)
         kv_out: list | None = None,  # full forward: collects each layer's (k, v)
         return_hidden: bool = False,
+        deterministic: bool = True,  # False applies dropout (config.dropout > 0)
+        generator: torch.Generator | None = None,  # dropout's random bits
     ) -> torch.Tensor:
         """With ``cache`` this is one paged decode step (``s == 1``): each
         row's token is written at ``cache.index`` through ``block_tables``
         (rows where ``write_mask`` is False write nothing) and the cursor of
         writing rows advances by one. Without it, the causal forward over
         ``input_ids``. ``return_hidden`` returns the final LayerNorm output in
-        the compute dtype instead of logits (see `logits`)."""
+        the compute dtype instead of logits (see `logits`). With
+        ``deterministic=False`` and ``config.dropout > 0``, dropout draws from
+        ``generator``."""
         cfg = self.config
         b, s = input_ids.shape
         decode: dict[str, Any] = {}
@@ -226,8 +252,12 @@ class GPT2LMHead(nn.Module):
         positions = positions.clamp(max=cfg.n_positions - 1)
         x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
              + F.embedding(positions, self.wpe.weight).to(cfg.dtype))
+        if deterministic or cfg.dropout == 0.0:
+            generator = None
+        elif generator is None:
+            raise ValueError("dropout with deterministic=False needs an explicit torch.Generator")
         for i, block in enumerate(self.blocks):
-            x = block(x, i, **decode)
+            x = block(x, i, generator, **decode)
         if cache is not None:
             cache.index += write_mask.to(cache.index.dtype)
         x = _layer_norm(x, self.ln_f).to(cfg.dtype)
@@ -240,6 +270,33 @@ class GPT2LMHead(nn.Module):
         reference's bf16 einsum with ``preferred_element_type=float32``."""
         dtype = self.config.dtype
         return F.linear(hidden.to(dtype).float(), self.wte.weight.to(dtype).float())
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """Token-level cross-entropy with masking, fp32 accumulation: the mean
+    over the positions whose label is not ``ignore_index``, and 0 (not NaN)
+    when every position is ignored."""
+    mask = labels != ignore_index
+    safe_labels = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logprobs, -1, safe_labels[..., None])[..., 0]
+    return -(ll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def _next_token_labels(batch: dict) -> torch.Tensor:
+    """Labels for causal LM: explicit ``labels``, or ``input_ids`` shifted
+    left with the trailing position ignored."""
+    labels = batch.get("labels")
+    if labels is None:
+        labels = F.pad(batch["input_ids"][:, 1:], (0, 1), value=-100)
+    return labels
+
+
+def lm_loss_fn(model, batch: dict) -> torch.Tensor:
+    """Next-token LM loss, usable with `Accelerator.make_train_step`."""
+    logits = model(batch["input_ids"])
+    return cross_entropy_loss(logits, _next_token_labels(batch))
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

@@ -17,6 +17,12 @@ import torch
 _NEG = torch.finfo(torch.float32).min
 
 
+def _on_cuda(t: torch.Tensor) -> bool:
+    """Where ``'auto'`` may pick the flash kernel: a tensor on a CUDA device
+    (the reference's ``on_tpu_platform()``)."""
+    return t.device.type == "cuda"
+
+
 def causal_mask(q_len: int, kv_len: int, dtype: torch.dtype = torch.float32,
                 offset: int = 0, device: torch.device | str | None = None) -> torch.Tensor:
     """Additive causal mask ``[q_len, kv_len]``: query i attends to keys <= i+offset."""
@@ -63,13 +69,15 @@ def attention(
     implementation: str = "auto",
 ) -> torch.Tensor:
     """Dispatching entry point: ``'xla' | 'flash' | 'auto'``, the reference's
-    names. ``'xla'`` is the plain path above. The flash kernels (the
-    reference's `_fwd_kernel`/`_dq_kernel`/`_dkv_kernel`) are not ported yet,
-    so ``'auto'`` always takes the plain path and ``'flash'`` raises. A masked
-    call always takes the plain path, as in the reference: the flash kernel
-    has no arbitrary-mask support. GQA K/V are repeated up to the query heads
-    on the plain path. (The reference's sliding ``window`` and additive
-    ``bias`` come with the models that use them.)"""
+    names. ``'xla'`` is the plain path above; ``'flash'`` is
+    `flash_attention.flash_attention` (the CUDA kernels on a CUDA tensor, their
+    plain versions on the CPU). ``'auto'`` follows the reference's rule with
+    "on a CUDA tensor" for "on TPU": the kernel for self-attention at
+    ``seq >= 1024``, the plain path otherwise. A masked call always takes the
+    plain path, as in the reference: the flash kernel has no arbitrary-mask
+    support. GQA K/V are repeated up to the query heads on the plain path.
+    (The reference's sliding ``window`` and additive ``bias`` come with the
+    models that use them.)"""
     if implementation not in ("auto", "xla", "flash"):
         raise ValueError(f"implementation must be 'auto', 'xla' or 'flash', got {implementation!r}")
     hq, hk = q.shape[2], k.shape[2]
@@ -77,11 +85,13 @@ def attention(
         raise ValueError(f"q heads ({hq}) must be a multiple of kv heads ({hk})")
     if mask is not None:
         implementation = "xla"
+    if implementation == "auto":
+        long_self = q.shape[1] >= 1024 and q.shape[1] == k.shape[1]
+        implementation = "flash" if _on_cuda(q) and long_self else "xla"
     if implementation == "flash":
-        raise NotImplementedError(
-            "flash attention is not ported yet: its Hopper kernels (forward and "
-            "backward) are ROADMAP Queue 2, item 1, in slice 2 (GPT-2 training)"
-        )
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal)
     if hk != hq:
         k = k.repeat_interleave(hq // hk, dim=2)
         v = v.repeat_interleave(hq // hk, dim=2)

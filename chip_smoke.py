@@ -5,7 +5,8 @@ Phases run in order; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi) and its compute
    capability, which must be 9.0;
-2. build: nvcc compiles the kernel library from accelerate_tpu_torch/ops/csrc/;
+2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
+   (one nvcc per source, all started together);
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
@@ -20,7 +21,24 @@ Phases run in order; any failure exits non-zero:
    Then a torch.profiler window over 16 decode steps of the same engine:
    host and device ms per step, the device's idle share, and the kernels
    that take the device time;
-6. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+6. flash kernels: the forward, dQ and dK/dV kernels
+   (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
+   card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
+   causal), in fp32, non-causal, at d 128 and at a ragged s 1000; one JSON
+   line per case and kernel with its error, its times and its bound;
+7. fp32 train-step parity: GPT-2 small at full width and depth, seeded fp32
+   weights, TF32 off, batch 2 x 1024: one `make_train_step` step with
+   ``attention_impl="flash"`` against one with ``"xla"`` (the plain path):
+   loss and global gradient norm agree, and each flash kernel ran n_layer
+   times;
+8. bf16 training: GPT-2 small, batch 8 x 1024, ``mixed_precision="bf16"``,
+   AdamW(lr 1e-4, weight decay 1e-4), bench.py's seeded batch repeated: 2
+   warm-up steps and 10 timed steps; the loss falls and each flash kernel
+   ran n_layer times per step; step ms, tokens/s, MFU by bench.py's FLOP
+   count, peak memory. Then a torch.profiler window over 3 steps: host and
+   device ms per step, the device's idle share, the top kernels and the
+   device time by kind of kernel (fp32 head GEMMs, flash, bf16 GEMMs, ...);
+9. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -35,6 +53,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -46,6 +65,34 @@ KERNEL_ATOL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
 # first decode step of GPT-2 small in bf16, fused vs gather logits: both run
 # the same bf16 model and differ only in the attention rounding above
 BF16_LOGIT_ATOL = 0.1
+# flash kernels against their plain versions, |err| <= atol + rtol * |ref|:
+# fp32 differs in summation order over up to 1024 terms; bf16 rounds p and dS
+# to bf16 before products (a value near a rounding boundary may round the
+# other way) and rounds each output once more
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# fp32 GPT-2 small, one train step, flash vs plain attention: the same fp32
+# arithmetic in another summation order, through 12 layers and the head
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_NORM_RTOL = 1e-3
+# device kernels of the bf16 train step by kind, first match wins, case
+# ignored. The only fp32 products of that step are the tied head's (logits,
+# d hidden, d wte); casts run as copy kernels, so they match before the
+# other elementwise kernels (GELU, residual adds, masks, AdamW's scalars).
+TRAIN_KERNEL_CATEGORIES = (
+    ("fp32 head GEMMs", r"f32f32|sgemm"),
+    ("flash kernels", r"flash_(fwd|dq|dkv)_kernel"),
+    ("bf16 GEMMs", r"nvjet|bf16bf16|gemm.*bf16|bf16.*gemm"),
+    ("AdamW", r"multi_tensor_apply"),
+    ("LayerNorm", r"layer_norm"),
+    ("softmax and cross-entropy", r"softmax|nll_loss|gather"),
+    ("copies and casts", r"copy"),
+    ("other elementwise and reductions", r"elementwise|reduce"),
+)
+FLASH_REPLACES = {
+    "flash_attention_fwd": "accelerate_tpu/ops/flash_attention.py:50",
+    "flash_attention_dq": "accelerate_tpu/ops/flash_attention.py:130",
+    "flash_attention_dkv": "accelerate_tpu/ops/flash_attention.py:165",
+}
 
 
 def card_line() -> str:
@@ -58,12 +105,22 @@ def peak_rates(name: str) -> tuple[float, float, str]:
     """(HBM bytes/s, fp32 non-tensor-core flop/s, label) from the SKU in the
     device name, NVIDIA data sheet figures at full power."""
     if "H200" in name:
-        return 4.8e12, 67e12, "H200 SXM: 4.8 TB/s, 67 TFLOP/s fp32"
+        return 4.8e12, 67e12, "H200 SXM: 4.8 TB/s, 67 TFLOP/s fp32, 989 TFLOP/s bf16 dense"
     if "PCIe" in name:
-        return 2.0e12, 51e12, "H100 PCIe: 2.0 TB/s, 51 TFLOP/s fp32"
+        return 2.0e12, 51e12, "H100 PCIe: 2.0 TB/s, 51 TFLOP/s fp32, 756 TFLOP/s bf16 dense"
     if "NVL" in name:
-        return 3.9e12, 60e12, "H100 NVL: 3.9 TB/s, 60 TFLOP/s fp32"
-    return 3.35e12, 67e12, "H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32"
+        return 3.9e12, 60e12, "H100 NVL: 3.9 TB/s, 60 TFLOP/s fp32, 835 TFLOP/s bf16 dense"
+    return 3.35e12, 67e12, "H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32, 989 TFLOP/s bf16 dense"
+
+
+def bf16_peak(name: str) -> float:
+    """Dense bf16 tensor-core flop/s of the SKU in the device name (NVIDIA
+    data sheets, full power)."""
+    if "PCIe" in name:
+        return 756e12
+    if "NVL" in name:
+        return 835e12
+    return 989e12
 
 
 def device_ms(torch, fn, flush, samples: int = 30) -> float:
@@ -199,32 +256,244 @@ def first_step_logits(torch, model, prompts, attention):
         return model(torch.stack(first)[:, None], pos, cache=cache, block_tables=tables)[:, -1]
 
 
-def profile_decode(torch, engine, requests, steps: int = 16) -> dict:
-    """Admit ``requests`` (first step, unprofiled), then profile ``steps``
-    decode steps: host wall per step, device busy per step (the sum of kernel
-    times on the one stream) and the six kernels with the most device time."""
+def profile_steps(torch, run_step, steps: int) -> tuple[float, dict[str, float]]:
+    """``steps`` calls of ``run_step`` under torch.profiler: the host wall in
+    us (ending in a synchronize) and the device us of each kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    for r in requests:
-        engine.submit(r)
-    engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine.step()
+            run_step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # device kernels and copies; not the user annotations the profiler
+        # mirrors onto the device timeline (they overlap the kernels)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return wall_us, by_name
+
+
+def profile_record(phase: str, steps: int, wall_us: float, by_name: dict[str, float],
+                   top: int = 6, **extra) -> dict:
+    """Host and device ms per step, the device's idle share (1 - busy/wall,
+    the kernels run on one stream) and the ``top`` kernels by device time."""
     busy_us = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "bf16_decode_profile", "steps": steps, "slots": engine.active_slots,
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"phase": phase, "steps": steps, **extra,
             "host_ms_per_step": wall_us / steps / 1e3, "device_ms_per_step": busy_us / steps / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
-            "top_kernels_ms_per_step": {n[:80]: us / steps / 1e3 for n, us in top}}
+            "top_kernels_ms_per_step": {n[:80]: us / steps / 1e3 for n, us in ranked}}
+
+
+def profile_decode(torch, engine, requests, steps: int = 16) -> dict:
+    """Admit ``requests`` (first step, unprofiled), then profile ``steps``
+    decode steps: host wall per step, device busy per step (the sum of kernel
+    times on the one stream) and the six kernels with the most device time."""
+    for r in requests:
+        engine.submit(r)
+    engine.step()
+    wall_us, by_name = profile_steps(torch, engine.step, steps)
+    return profile_record("bf16_decode_profile", steps, wall_us, by_name, slots=engine.active_slots)
+
+
+def flash_counts(fa) -> dict[str, int]:
+    return {n: getattr(fa, n).launches for n in FLASH_REPLACES}
+
+
+def reset_counts(fa) -> None:
+    fa.paged_decode_attention.launches = 0
+    for n in FLASH_REPLACES:
+        getattr(fa, n).launches = 0
+
+
+def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
+    """The three flash kernels against their plain versions on one input
+    (q pre-scaled, ``[b, h, s, d]``), with their times, SDPA's times and the
+    bounds; prints one JSON line per kernel and returns them by kernel."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, s, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
+    k, v, dout = (torch.randn(b, h, s, d, generator=g, device=dev).to(dtype) for _ in range(3))
+    o_ref, lse_ref = fa.flash_attention_forward_reference(q, k, v, causal)
+    delta = (dout.float() * o_ref.float()).sum(-1)
+    bwd = (q, k, v, dout, lse_ref, delta, causal)
+    plain = {"flash_attention_fwd": lambda: fa.flash_attention_forward_reference(q, k, v, causal),
+             "flash_attention_dq": lambda: fa.flash_attention_dq_reference(*bwd),
+             "flash_attention_dkv": lambda: fa.flash_attention_dkv_reference(*bwd)}
+    kernel = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v, causal),
+              "flash_attention_dq": lambda: fa.flash_attention_dq(*bwd),
+              "flash_attention_dkv": lambda: fa.flash_attention_dkv(*bwd)}
+
+    def outputs(fn) -> tuple:
+        out = fn()
+        return out if isinstance(out, tuple) else (out,)
+
+    got = {kname: outputs(fn) for kname, fn in kernel.items()}
+    want = {kname: outputs(fn) for kname, fn in plain.items()}
+    torch.cuda.synchronize()
+
+    # yardstick: SDPA forward, and SDPA's backward (dq, dk and dv together)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, scale=1.0)
+    lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                       scale=1.0), flush)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dout,
+                                                           retain_graph=True), flush)
+    library = {"flash_attention_fwd": lib_fwd, "flash_attention_dq": lib_bwd,
+               "flash_attention_dkv": lib_bwd}
+
+    # least time: each input read once, each output written once; the
+    # products over the (query, key) pairs this mask keeps, 2 d flops each
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    elt = q.element_size()
+    tensor_bytes = b * h * s * d * elt
+    row_bytes = b * h * s * 4  # one fp32 [b, h, s] vector (lse or delta)
+    io = {"flash_attention_fwd": (4 * tensor_bytes + row_bytes, 2),
+          "flash_attention_dq": (5 * tensor_bytes + 2 * row_bytes, 3),
+          "flash_attention_dkv": (6 * tensor_bytes + 2 * row_bytes, 4)}
+    dev_name = torch.cuda.get_device_name(0)
+    bw, fp32_peak, _ = peak_rates(dev_name)
+    peak = bf16_peak(dev_name) if dtype == torch.bfloat16 else fp32_peak
+    atol, rtol = FLASH_TOL[str(dtype).removeprefix("torch.")]
+    recs = {}
+    for kname in FLASH_REPLACES:
+        err, bad = 0.0, 0.0
+        for a, w in zip(got[kname], want[kname]):
+            diff = (a.float() - w.float()).abs()
+            err = max(err, diff.max().item())
+            bad = max(bad, (diff - atol - rtol * w.float().abs()).max().item())
+        if not (math.isfinite(err) and bad <= 0):
+            raise AssertionError(f"flash case {name}, {kname}: max_abs_err {err} exceeds "
+                                 f"atol {atol} + rtol {rtol} * |plain|")
+        n_bytes, products = io[kname]
+        n_flops = products * 2 * d * pairs
+        rec = dict(case=name, kernel=kname, b=b, h=h, s=s, d=d, dtype=str(dtype).removeprefix("torch."),
+                   causal=causal, max_abs_err=err, atol=atol, rtol=rtol,
+                   kernel_ms=device_ms(torch, kernel[kname], flush),
+                   plain_ms=device_ms(torch, plain[kname], flush, samples=10),
+                   library_ms=library[kname],
+                   bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
+                   bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
+                   bytes=n_bytes, flops=n_flops)
+        print(json.dumps(rec), flush=True)
+        recs[kname] = rec
+    return recs
+
+
+def train_flops_per_token(model, seq: int) -> int:
+    """bench.py's count: 6 N for the forward and backward of N parameters,
+    plus 12 s e per layer per token for attention."""
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    return 6 * n_params + cfg.n_layer * 12 * seq * cfg.n_embd
+
+
+def train_parity(torch, np, seed: int) -> dict:
+    """One fp32 train step of GPT-2 small (TF32 off) with flash attention and
+    one with the plain path, from the same weights and batch: loss and global
+    gradient norm (before the optimizer) agree; each flash kernel ran n_layer
+    times in the flash step."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 50257, (2, 1024))).to("cuda")
+    out = {}
+    for impl in ("xla", "flash"):
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, attention_impl=impl),
+                           device="cuda", seed=seed)
+        acc = Accelerator(mixed_precision="no")
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4))
+        # a clip threshold no norm reaches: the step records the norm, scales by 1
+        step = acc.make_train_step(lm_loss_fn, max_grad_norm=1e30)
+        reset_counts(fa)
+        loss = step({"input_ids": ids}).item()
+        out[impl] = (loss, step.grad_norm.item(), flash_counts(fa))
+        del model, acc, step
+        torch.cuda.empty_cache()
+    n_layer = GPT2Config.small().n_layer
+    (loss_x, norm_x, _), (loss_f, norm_f, counts) = out["xla"], out["flash"]
+    rec = {"phase": "fp32_train_parity", "batch": 2, "seq": 1024, "loss_plain": loss_x,
+           "loss_flash": loss_f, "loss_abs_diff": abs(loss_f - loss_x), "loss_atol": TRAIN_LOSS_ATOL,
+           "grad_norm_plain": norm_x, "grad_norm_flash": norm_f,
+           "grad_norm_rel_diff": abs(norm_f - norm_x) / norm_x, "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
+           "launches": counts}
+    print(json.dumps(rec), flush=True)
+    if not (abs(loss_f - loss_x) <= TRAIN_LOSS_ATOL and math.isfinite(loss_f)):
+        raise AssertionError(f"fp32 train step: flash loss {loss_f} vs plain {loss_x}")
+    if not abs(norm_f - norm_x) <= TRAIN_GRAD_NORM_RTOL * norm_x:
+        raise AssertionError(f"fp32 train step: flash grad norm {norm_f} vs plain {norm_x}")
+    if any(n != n_layer for n in counts.values()):
+        raise AssertionError(f"fp32 flash step launches {counts}, expected {n_layer} each")
+    return rec
+
+
+def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> tuple[dict, dict]:
+    """bench.py's training path on GPT-2 small: bf16 mixed precision, AdamW
+    (lr 1e-4, weight decay 1e-4, optax's default), batch 8 x 1024 of seeded
+    ids repeated; ``warmup`` then ``steps`` timed steps with the launch counts
+    set to 0 just before them. Then a profiler window over 3 steps."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    batch, seq = 8, 1024
+    cfg = GPT2Config.small(dtype=torch.bfloat16, attention_impl="flash")
+    model = GPT2LMHead(cfg, device="cuda", seed=seed)
+    acc = Accelerator(mixed_precision="bf16")
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = acc.make_train_step(lm_loss_fn)
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
+    data = {"input_ids": torch.from_numpy(ids).to("cuda")}
+
+    losses = [step(data).item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    timed = [step(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    losses += [t.item() for t in timed]
+    step_ms = wall / steps * 1e3
+    tokens_per_s = batch * seq * steps / wall
+    flops_per_token = train_flops_per_token(model, seq)
+    mfu = tokens_per_s * flops_per_token / bf16_peak(torch.cuda.get_device_name(0))
+    rec = {"phase": "bf16_train", "model": "gpt2-small", "batch": batch, "seq": seq,
+           "warmup_steps": warmup, "steps": steps, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+           "mfu": mfu, "flops_per_token": flops_per_token,
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "launches": counts, "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16 training: the loss did not fall: {losses}")
+    if any(n != cfg.n_layer * steps for n in counts.values()):
+        raise AssertionError(f"bf16 training launches {counts}, expected {cfg.n_layer * steps} each")
+
+    n_prof = 3
+    wall_us, by_name = profile_steps(torch, lambda: step(data), n_prof)
+
+    categories: dict[str, float] = {}
+    for kname, us in by_name.items():
+        cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
+                    if re.search(pattern, kname, re.IGNORECASE)), "other")
+        categories[cat] = categories.get(cat, 0.0) + us / n_prof / 1e3
+    prof = profile_record("bf16_train_profile", n_prof, wall_us, by_name, top=8,
+                          categories_ms_per_step=categories)
+    print(json.dumps(prof), flush=True)
+    del model, acc, step
+    torch.cuda.empty_cache()
+    return rec, prof
 
 
 def main() -> int:
@@ -260,16 +529,22 @@ def main() -> int:
     from accelerate_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load("paged_decode")
+    libraries = ("paged_decode", "flash_attention")
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, libraries))
+    for lib_name in libraries:
+        _build.load(lib_name)
     build_s = time.perf_counter() - t0
-    log = _build.build_log("paged_decode")
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    spills = len(re.findall(r"[1-9]\d* bytes spill stores", log))
-    print(json.dumps({"phase": "build", "build_s": build_s, "kernels": len(regs),
-                      "max_registers": max(regs, default=0), "kernels_spilling": spills}),
-          flush=True)
+    for lib_name in libraries:
+        log = _build.build_log(lib_name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spills = len(re.findall(r"[1-9]\d* bytes spill stores", log))
+        print(json.dumps({"phase": "build", "library": lib_name, "build_s": build_s,
+                          "kernels": len(regs), "max_registers": max(regs, default=0),
+                          "kernels_spilling": spills}), flush=True)
 
     # 3. kernel against its plain version
+    from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops.flash_attention import paged_decode_attention
 
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")  # 64 MiB > L2
@@ -361,12 +636,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     eng = engine()
-    paged_decode_attention.launches = 0
+    reset_counts(fa)
     t0 = time.perf_counter()
     outs = eng.run(bf16_requests())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = paged_decode_attention.launches
+    serving_flash = flash_counts(fa)
     m = eng.metrics
     steps = m.decode_steps.value
     bad = [o.request_id for o in outs if o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64]
@@ -376,7 +652,7 @@ def main() -> int:
         "tokens_per_s": m.tokens_generated.value / wall,
         "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
         "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
-        "decode_steps": steps, "kernel_launches": launches,
+        "decode_steps": steps, "kernel_launches": launches, "flash_launches": serving_flash,
         "first_step_logit_max_abs_diff": logit_err, "logit_atol": BF16_LOGIT_ATOL,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
     }
@@ -388,10 +664,36 @@ def main() -> int:
     long_requests = [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
                      for p in serve_prompts[:16]]
     print(json.dumps(profile_decode(torch, engine(), long_requests)), flush=True)
+    del model, eng
+    torch.cuda.empty_cache()
 
-    # 6. summary lines
+    # 6. flash kernels against their plain versions
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    small = dict(b=8, h=12, s=1024, d=64, flush=flush)
+    flash_cases = [
+        flash_case(torch, "gpt2_small_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed, **small),
+        flash_case(torch, "gpt2_small_fp32_causal", dtype=torch.float32, causal=True,
+                   seed=args.seed + 1, **small),
+        flash_case(torch, "gpt2_small_bf16_full", dtype=torch.bfloat16, causal=False,
+                   seed=args.seed + 2, **small),
+        flash_case(torch, "d128_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 3, **{**small, "d": 128}),
+        flash_case(torch, "ragged_s1000_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 4, **{**small, "s": 1000}),
+    ]
+    del flush
+    torch.cuda.empty_cache()
+
+    # 7. fp32 train-step parity, flash against plain attention
+    train_parity(torch, np, args.seed)
+
+    # 8. bf16 training: bench.py's path
+    train, _ = train_bf16(torch, np, args.seed, card)
+
+    # 9. summary lines
     main_case = cases[0]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
@@ -399,7 +701,19 @@ def main() -> int:
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
-    }]}), flush=True)
+    }]
+    for kname, replaces in FLASH_REPLACES.items():
+        main_rec = flash_cases[0][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": train["launches"][kname],
+            "max_abs_err": max(c[kname]["max_abs_err"] for c in flash_cases),
+            "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,15 @@ conftest imports JAX, hence ``--noconftest``)::
 import pytest
 import torch
 
+from accelerate_tpu_torch.ops.attention import dot_product_attention
 from accelerate_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_dkv,
+    flash_attention_dkv_reference,
+    flash_attention_dq,
+    flash_attention_dq_reference,
+    flash_attention_forward_reference,
+    flash_attention_fwd,
     paged_decode_attention,
     paged_decode_attention_reference,
 )
@@ -100,3 +108,105 @@ def test_paged_decode_kernel_rejects_a_strided_pool(hopper):
     (q, k, v, tables, lens), _ = _inputs(hopper, **CASES["bf16_parked"])
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(q, k[::2], v[::2], tables // 2, lens)
+
+
+# flash attention kernels against their plain versions. fp32: summation order
+# over up to 1024 terms; bf16: p and dS are rounded to bf16 before products and
+# a value near a rounding boundary may round the other way, then the output is
+# rounded once more, so the bar is relative (|err| <= atol + rtol * |ref|)
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+FLASH_CASES = {
+    "bf16_causal_d64": dict(dtype=torch.bfloat16, causal=True, d=64, sq=256, skv=256),
+    "fp32_causal_d64": dict(dtype=torch.float32, causal=True, d=64, sq=256, skv=256),
+    "bf16_full_d128": dict(dtype=torch.bfloat16, causal=False, d=128, sq=192, skv=192),
+    "fp32_full_d128": dict(dtype=torch.float32, causal=False, d=128, sq=160, skv=160),
+    "bf16_causal_ragged": dict(dtype=torch.bfloat16, causal=True, d=64, sq=200, skv=200),
+    "fp32_causal_d128_ragged": dict(dtype=torch.float32, causal=True, d=128, sq=77, skv=77),
+    "bf16_cross_ragged": dict(dtype=torch.bfloat16, causal=True, d=64, sq=100, skv=130),
+    "fp32_cross_full": dict(dtype=torch.float32, causal=False, d=64, sq=70, skv=33),
+}
+
+
+def _flash_inputs(dev, *, dtype, causal, d, sq, skv, b=2, h=3, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, h, sq, d, generator=g, device=dev) / d ** 0.5).to(dtype)
+    k = torch.randn(b, h, skv, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, h, skv, d, generator=g, device=dev).to(dtype)
+    dout = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def _assert_near(got, want, dtype):
+    atol, rtol = FLASH_TOL[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(hopper, name):
+    spec = FLASH_CASES[name]
+    causal, dtype = spec["causal"], spec["dtype"]
+    q, k, v, dout = _flash_inputs(hopper, **spec)
+    o_ref, lse_ref = flash_attention_forward_reference(q, k, v, causal)
+    before = (flash_attention_fwd.launches, flash_attention_dq.launches, flash_attention_dkv.launches)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    delta = (dout.float() * o_ref.float()).sum(-1)
+    dq = flash_attention_dq(q, k, v, dout, lse_ref, delta, causal)
+    dk, dv = flash_attention_dkv(q, k, v, dout, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    after = (flash_attention_fwd.launches, flash_attention_dq.launches, flash_attention_dkv.launches)
+    assert after == tuple(n + 1 for n in before)
+    _assert_near(o, o_ref, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    _assert_near(dq, flash_attention_dq_reference(q, k, v, dout, lse_ref, delta, causal), dtype)
+    dk_ref, dv_ref = flash_attention_dkv_reference(q, k, v, dout, lse_ref, delta, causal)
+    _assert_near(dk, dk_ref, dtype)
+    _assert_near(dv, dv_ref, dtype)
+
+
+@pytest.mark.parametrize("d,hq,hk", [(64, 4, 4), (40, 4, 2)])
+def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
+    """The public BSHD wrapper on the card (pre-scale, head-dim padding, GQA
+    repeat, the autograd.Function) against autograd through the plain path,
+    in fp32 (TF32 off)."""
+    g = torch.Generator(device=hopper).manual_seed(1)
+    q = torch.randn(2, 130, hq, d, generator=g, device=hopper, requires_grad=True)
+    k = torch.randn(2, 130, hk, d, generator=g, device=hopper, requires_grad=True)
+    v = torch.randn(2, 130, hk, d, generator=g, device=hopper, requires_grad=True)
+    ct = torch.randn(2, 130, hq, d, generator=g, device=hopper)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad((out * ct).sum(), (q, k, v))
+        kr, vr = (t.repeat_interleave(hq // hk, dim=2) for t in (k, v))
+        ref = dot_product_attention(q, kr, vr, causal=True)
+        ref_grads = torch.autograd.grad((ref * ct).sum(), (q, k, v))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    for got, want in zip(grads, ref_grads):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("change,exc", [
+    (dict(d=32), ValueError),  # head_dim the kernel is not built for
+    (dict(dtype=torch.float16), TypeError),
+])
+def test_flash_kernel_rejects_what_it_does_not_take(hopper, change, exc):
+    spec = {**FLASH_CASES["bf16_causal_d64"], **change}
+    q, k, v, _ = _flash_inputs(hopper, **spec)
+    with pytest.raises(exc):
+        flash_attention_fwd(q, k, v, True)
+
+
+def test_flash_kernels_reject_shapes_that_disagree(hopper):
+    q, k, v, dout = _flash_inputs(hopper, **FLASH_CASES["bf16_causal_d64"])
+    lse = torch.zeros(q.shape[:3], device=hopper)
+    with pytest.raises(ValueError, match="one b, h and d"):
+        flash_attention_fwd(q, k[:, :2], v[:, :2], True)  # unrepeated GQA heads
+    with pytest.raises(ValueError, match="dO"):
+        flash_attention_dq(q, k, v, dout[:, :, :-1], lse, lse, True)
+    with pytest.raises(ValueError, match="lse and delta"):
+        flash_attention_dkv(q, k, v, dout, lse[..., :-1], lse, True)

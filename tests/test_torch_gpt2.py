@@ -155,10 +155,33 @@ def test_attention_dispatcher_matches_reference(hq, hk, causal):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-def test_flash_attention_is_not_ported_yet():
+def test_flash_route_and_auto_at_long_seq_reach_flash_attention(monkeypatch):
+    """``implementation="flash"`` calls `flash_attention`; ``"auto"`` calls
+    it for self-attention at seq >= 1024 on a CUDA tensor (the device check
+    is stubbed: this runs on the CPU) and takes the plain path otherwise."""
+    from accelerate_tpu_torch.ops import attention as attention_mod
+    from accelerate_tpu_torch.ops import flash_attention as flash_mod
+
+    calls = []
+    real = flash_mod.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append(q.shape[1])
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(flash_mod, "flash_attention", spy)
     x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention(x, x, x, causal=True, implementation="flash")
+    assert attention(x, x, x, causal=True, implementation="flash").shape == x.shape
+    assert calls == [4]
+    long = torch.zeros(1, 1024, 1, 8)
+    attention(long, long, long, causal=True)  # a CPU tensor: the plain path
+    assert calls == [4]
+    monkeypatch.setattr(attention_mod, "_on_cuda", lambda t: True)
+    attention(long, long, long, causal=True)
+    attention(x, x, x, causal=True)  # short: the plain path
+    assert calls == [4, 1024]
     # a masked call takes the plain path whatever was asked, as in the reference
-    keep = torch.ones(4, 4, dtype=torch.bool)
-    assert attention(x, x, x, mask=keep, implementation="flash").shape == x.shape
+    keep = torch.ones(1024, 1024, dtype=torch.bool)
+    attention(long, long, long, mask=keep, implementation="flash")
+    attention(long, long, long, mask=keep)
+    assert calls == [4, 1024]
