@@ -12,7 +12,10 @@ decode attention reading the pool in place through a CUDA kernel
 (`ops.flash_attention.paged_decode_attention`); and the GPT-2 training step
 (`accelerator.Accelerator`: ``prepare``, ``make_train_step``), with flash
 attention forward and backward as CUDA kernels
-(`ops.flash_attention.flash_attention`). Import submodules directly;
+(`ops.flash_attention.flash_attention`), and the tied LM head fused with the
+cross-entropy as CUDA forward, dH and dW kernels
+(`ops.fused_ce.fused_cross_entropy`, `models.gpt2.lm_loss_fn_pallas`).
+Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap.
 """

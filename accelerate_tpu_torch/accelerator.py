@@ -34,6 +34,25 @@ from .state import AcceleratorState, GradientState
 from .utils.precision import PrecisionPolicy
 
 
+class BoundModel:
+    """What ``loss_fn(model, batch)`` receives from the train step (the
+    reference's ``BoundModel``): calling it runs the module on ``params``
+    through `torch.func.functional_call`, so gradients flow back through
+    them. ``params`` is the dict of compute-dtype tensors the call receives
+    (buffers included), so a loss that needs a weight itself, as the fused
+    cross-entropy needs the tied ``wte.weight``, reads the same copy the
+    forward uses, and autograd sums both uses into the fp32 master."""
+
+    __slots__ = ("module", "params")
+
+    def __init__(self, module: nn.Module, params: dict[str, torch.Tensor]):
+        self.module = module
+        self.params = params
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return functional_call(self.module, self.params, args, kwargs)
+
+
 class Accelerator:
     """``device=None`` means CUDA (RuntimeError when it is absent; pass
     ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"`` or
@@ -90,11 +109,12 @@ class Accelerator:
     def make_train_step(self, loss_fn: Callable[[Callable, Any], Any], model: nn.Module | None = None,
                         optimizer: AcceleratedOptimizer | None = None,
                         max_grad_norm: float | None = None) -> Callable[[Any], torch.Tensor]:
-        """``step(batch) -> loss``. ``loss_fn(model, batch)`` calls ``model``
-        like the module (``model(input_ids)``); the call runs the module on
-        the compute-dtype copies of its parameters. With ``max_grad_norm``,
-        ``step.grad_norm`` holds the last boundary's global norm before
-        clipping (a device scalar)."""
+        """``step(batch) -> loss``. ``loss_fn(model, batch)`` gets a
+        `BoundModel`: it calls ``model`` like the module
+        (``model(input_ids)``), and the call runs the module on the
+        compute-dtype copies of its parameters, ``model.params``. With
+        ``max_grad_norm``, ``step.grad_norm`` holds the last boundary's
+        global norm before clipping (a device scalar)."""
         if model is None:
             model = self._models[0]
         if optimizer is None:
@@ -107,11 +127,7 @@ class Accelerator:
         def step(batch: Any) -> torch.Tensor:
             self._do_sync()
             compute = {**policy.cast_to_compute(named), **buffers}
-
-            def bound(*args: Any, **kwargs: Any) -> Any:
-                return functional_call(model, compute, args, kwargs)
-
-            out = loss_fn(bound, batch)
+            out = loss_fn(BoundModel(model, compute), batch)
             loss = (out[0] if isinstance(out, tuple) else out).float()
             loss.backward()
             if gs.sync_gradients:

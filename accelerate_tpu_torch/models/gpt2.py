@@ -21,7 +21,8 @@ attention projection and after the MLP, when ``deterministic=False``) draws
 from an explicit `torch.Generator`.
 
 The training losses follow the reference: `cross_entropy_loss`,
-`_next_token_labels` and `lm_loss_fn`.
+`_next_token_labels`, `lm_loss_fn` and `lm_loss_fn_pallas` (the tied head
+fused with the cross-entropy in the port's CUDA kernels).
 
 `params_from_jax` turns the reference's param tree into this module's state
 dict, so both packages can run the same weights.
@@ -40,6 +41,7 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.flash_attention import paged_decode_attention
+from ..ops.fused_ce import fused_cross_entropy
 from ..utils.environment import resolve_device
 from .kv_cache import PagedKVCache, paged_decode_update, paged_decode_write
 
@@ -297,6 +299,23 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     """Next-token LM loss, usable with `Accelerator.make_train_step`."""
     logits = model(batch["input_ids"])
     return cross_entropy_loss(logits, _next_token_labels(batch))
+
+
+def lm_loss_fn_pallas(model, batch: dict) -> torch.Tensor:
+    """Next-token LM loss with the tied head fused into the cross-entropy
+    (`ops.fused_ce.fused_cross_entropy`): on a CUDA model the forward, dH and
+    dW run in the port's hand-written CUDA kernels and the ``[b * s, V]``
+    logits never reach memory; on the CPU their plain versions run. Named
+    after the reference's Pallas loss it ports; drop-in for `lm_loss_fn`
+    with `Accelerator.make_train_step`, whose `BoundModel` carries the
+    compute-dtype ``wte.weight`` in ``model.params``. The reference's
+    ``block_r``/``block_v`` TPU tiles have no counterpart: the kernels choose
+    their own."""
+    hidden = model(batch["input_ids"], return_hidden=True)
+    labels = _next_token_labels(batch)
+    b, s, e = hidden.shape
+    wte = model.params["wte.weight"].to(hidden.dtype)
+    return fused_cross_entropy(hidden.reshape(b * s, e), wte, labels.reshape(b * s))
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

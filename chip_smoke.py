@@ -38,7 +38,22 @@ Phases run in order; any failure exits non-zero:
    count, peak memory. Then a torch.profiler window over 3 steps: host and
    device ms per step, the device's idle share, the top kernels and the
    device time by kind of kernel (fp32 head GEMMs, flash, bf16 GEMMs, ...);
-9. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+9. fused-CE kernels: the forward, dH and dW kernels (`fused_ce_fwd`/`_dh`/
+   `_dw`) against their plain versions on the card at the fused loss's
+   shapes (N 8192 = 8 x 1024 rows, V 50257, e 768, bf16, 1/16 of the rows
+   ignored), in fp32, at a ragged N 1000, at e 1024 (GPT-2 medium's width)
+   and with every row ignored; one JSON line per case and kernel with its
+   error, its times (the library yardstick is the unfused PyTorch head and
+   cross-entropy) and its bound;
+10. fp32 fused-CE parity: GPT-2 small, fp32, TF32 off, batch 2 x 1024: one
+   `make_train_step` step with `lm_loss_fn_pallas` against one with
+   `lm_loss_fn`: loss and global gradient norm agree, and each fused-CE
+   kernel ran once;
+11. bf16 training with the fused loss: phase 8 with `lm_loss_fn_pallas`
+   (bench.py's ``BENCH_FUSED_CE=2``): the loss falls, each flash kernel ran
+   n_layer times and each fused-CE kernel once per step, and the peak
+   memory stays below phase 8's; then its profiler window;
+12. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -74,11 +89,20 @@ FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # arithmetic in another summation order, through 12 layers and the head
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_NORM_RTOL = 1e-3
+# fused-CE kernels against their plain versions: both take the same fp32
+# logits from the same operands in another summation order. lse and ll (fp32
+# rows): |err| <= 1e-4 + 1e-5 |plain|. dH and dW: |err| <= rtol |plain| +
+# atol max|plain|; fp32 differs in order only; bf16 rounds dlogits to bf16
+# before the products (a value near a rounding boundary may round the other
+# way) and each output once more (2^-8 relative)
+FUSED_CE_ROW_TOL = (1e-4, 1e-5)
+FUSED_CE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 # device kernels of the bf16 train step by kind, first match wins, case
 # ignored. The only fp32 products of that step are the tied head's (logits,
 # d hidden, d wte); casts run as copy kernels, so they match before the
 # other elementwise kernels (GELU, residual adds, masks, AdamW's scalars).
 TRAIN_KERNEL_CATEGORIES = (
+    ("fused-CE kernels", r"fused_ce_(fwd|bwd)_kernel"),
     ("fp32 head GEMMs", r"f32f32|sgemm"),
     ("flash kernels", r"flash_(fwd|dq|dkv)_kernel"),
     ("bf16 GEMMs", r"nvjet|bf16bf16|gemm.*bf16|bf16.*gemm"),
@@ -92,6 +116,11 @@ FLASH_REPLACES = {
     "flash_attention_fwd": "accelerate_tpu/ops/flash_attention.py:50",
     "flash_attention_dq": "accelerate_tpu/ops/flash_attention.py:130",
     "flash_attention_dkv": "accelerate_tpu/ops/flash_attention.py:165",
+}
+FUSED_CE_REPLACES = {
+    "fused_ce_fwd": "accelerate_tpu/ops/fused_ce.py:47",
+    "fused_ce_dh": "accelerate_tpu/ops/fused_ce.py:79",
+    "fused_ce_dw": "accelerate_tpu/ops/fused_ce.py:103",
 }
 
 
@@ -304,10 +333,21 @@ def flash_counts(fa) -> dict[str, int]:
     return {n: getattr(fa, n).launches for n in FLASH_REPLACES}
 
 
+def fused_ce_counts() -> dict[str, int]:
+    from accelerate_tpu_torch.ops import fused_ce
+
+    return {n: getattr(fused_ce, n).launches for n in FUSED_CE_REPLACES}
+
+
 def reset_counts(fa) -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from accelerate_tpu_torch.ops import fused_ce
+
     fa.paged_decode_attention.launches = 0
     for n in FLASH_REPLACES:
         getattr(fa, n).launches = 0
+    for n in FUSED_CE_REPLACES:
+        getattr(fused_ce, n).launches = 0
 
 
 def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
@@ -388,6 +428,97 @@ def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
     return recs
 
 
+def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> dict:
+    """The three fused-CE kernels against their plain versions on one input
+    (h ``[n, e]``, w ``[v, e]`` at GPT-2's init scale, every
+    ``ignore_every``-th row ignored, 1 for all of them), with the gradients
+    of the mean loss (g_lse = mask / count, g_ll = -g_lse); their times, the
+    unfused PyTorch head + cross-entropy's times, and the bounds. Prints one
+    JSON line per kernel and returns them by kernel."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, e, generator=g, device=dev).to(dtype)
+    w = (torch.randn(v, e, generator=g, device=dev) * 0.02).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev)
+    labels[torch.arange(n, device=dev) % ignore_every == ignore_every - 1] = -100
+    mask = labels != -100
+    safe = torch.where(mask, labels, 0).to(torch.int32)
+    g_lse = mask.float() / mask.sum().clamp(min=1)
+    g_ll = -g_lse
+    lse, _ = fc.fused_ce_forward_reference(h, w, safe)
+    bwd = (h, w, safe, lse, g_lse, g_ll)
+    plain = {"fused_ce_fwd": lambda: fc.fused_ce_forward_reference(h, w, safe),
+             "fused_ce_dh": lambda: fc.fused_ce_dh_reference(*bwd),
+             "fused_ce_dw": lambda: fc.fused_ce_dw_reference(*bwd)}
+    kernel = {"fused_ce_fwd": lambda: fc.fused_ce_fwd(h, w, safe),
+              "fused_ce_dh": lambda: fc.fused_ce_dh(*bwd),
+              "fused_ce_dw": lambda: fc.fused_ce_dw(*bwd)}
+
+    # yardstick: the unfused head and cross-entropy, forward, and its
+    # backward (dH and dW together)
+    hl, wl = (t.detach().clone().requires_grad_() for t in (h, w))
+    lib_loss = F.cross_entropy(F.linear(hl, wl).float(), labels)
+    lib_fwd = device_ms(torch, lambda: F.cross_entropy(F.linear(h, w).float(), labels), flush,
+                        samples=10)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(lib_loss, (hl, wl), retain_graph=True),
+                        flush, samples=10)
+    del lib_loss, hl, wl
+    library = {"fused_ce_fwd": lib_fwd, "fused_ce_dh": lib_bwd, "fused_ce_dw": lib_bwd}
+
+    # least time: each input read once and each output written once; the
+    # forward is one [n, e] x [e, v] product, dH and dW two each (the logits
+    # are recomputed from lse)
+    elt = h.element_size()
+    inputs = (n + v) * e * elt + n * 4
+    io = {"fused_ce_fwd": (inputs + 2 * n * 4, 1),
+          "fused_ce_dh": (inputs + 3 * n * 4 + n * e * elt, 2),
+          "fused_ce_dw": (inputs + 3 * n * 4 + v * e * elt, 2)}
+    dev_name = torch.cuda.get_device_name(0)
+    bw, fp32_peak, _ = peak_rates(dev_name)
+    peak = bf16_peak(dev_name) if dtype == torch.bfloat16 else fp32_peak
+    dtype_name = str(dtype).removeprefix("torch.")
+    rtol, atol = FUSED_CE_TOL[dtype_name]
+    samples = 30 if dtype == torch.bfloat16 else 5
+    recs = {}
+    for kname in FUSED_CE_REPLACES:
+        got, want = kernel[kname](), plain[kname]()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, bad = 0.0, 0.0
+        for a, b in zip(got, want):
+            diff = (a.float() - b.float()).abs()
+            ref = b.float().abs()
+            bar = (FUSED_CE_ROW_TOL[0] + FUSED_CE_ROW_TOL[1] * ref if kname == "fused_ce_fwd"
+                   else rtol * ref + atol * ref.max())
+            err = max(err, diff.max().item())
+            bad = max(bad, (diff - bar).max().item())
+        del got, want
+        if not (math.isfinite(err) and bad <= 0):
+            raise AssertionError(f"fused-CE case {name}, {kname}: max_abs_err {err} exceeds its bar")
+        if ignore_every == 1 and kname != "fused_ce_fwd" and err != 0.0:
+            raise AssertionError(f"fused-CE case {name}, {kname}: nonzero gradient, all rows ignored")
+        n_bytes, products = io[kname]
+        n_flops = products * 2 * n * v * e
+        rec = dict(phase="fused_ce_kernels", case=name, kernel=kname, n=n, v=v, e=e, dtype=dtype_name,
+                   ignored_rows=int((~mask).sum().item()), max_abs_err=err,
+                   tol=FUSED_CE_ROW_TOL if kname == "fused_ce_fwd" else (rtol, atol),
+                   kernel_ms=device_ms(torch, kernel[kname], flush, samples=samples),
+                   plain_ms=device_ms(torch, plain[kname], flush, samples=5),
+                   library_ms=library[kname],
+                   bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
+                   bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
+                   bytes=n_bytes, flops=n_flops)
+        print(json.dumps(rec), flush=True)
+        recs[kname] = rec
+    torch.cuda.empty_cache()
+    return recs
+
+
 def train_flops_per_token(model, seq: int) -> int:
     """bench.py's count: 6 N for the forward and backward of N parameters,
     plus 12 s e per layer per token for attention."""
@@ -437,13 +568,62 @@ def train_parity(torch, np, seed: int) -> dict:
     return rec
 
 
-def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> tuple[dict, dict]:
+def fused_ce_parity(torch, np, seed: int) -> dict:
+    """One fp32 train step of GPT-2 small (TF32 off, flash attention) with
+    `lm_loss_fn_pallas` and one with `lm_loss_fn`, from the same weights and
+    batch: loss and global gradient norm (before the optimizer) agree; each
+    fused-CE kernel ran once in the fused step and never in the other."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import (
+        GPT2Config,
+        GPT2LMHead,
+        lm_loss_fn,
+        lm_loss_fn_pallas,
+    )
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 50257, (2, 1024))).to("cuda")
+    out = {}
+    for loss_fn in (lm_loss_fn, lm_loss_fn_pallas):
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, attention_impl="flash"),
+                           device="cuda", seed=seed)
+        acc = Accelerator(mixed_precision="no")
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4))
+        step = acc.make_train_step(loss_fn, max_grad_norm=1e30)
+        reset_counts(fa)
+        loss = step({"input_ids": ids}).item()
+        out[loss_fn.__name__] = (loss, step.grad_norm.item(), fused_ce_counts())
+        del model, acc, step
+        torch.cuda.empty_cache()
+    (loss_p, norm_p, plain_counts), (loss_f, norm_f, counts) = (out["lm_loss_fn"],
+                                                                out["lm_loss_fn_pallas"])
+    rec = {"phase": "fp32_fused_ce_parity", "batch": 2, "seq": 1024, "loss_plain": loss_p,
+           "loss_fused": loss_f, "loss_abs_diff": abs(loss_f - loss_p), "loss_atol": TRAIN_LOSS_ATOL,
+           "grad_norm_plain": norm_p, "grad_norm_fused": norm_f,
+           "grad_norm_rel_diff": abs(norm_f - norm_p) / norm_p, "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL,
+           "launches": counts, "launches_plain_loss": plain_counts}
+    print(json.dumps(rec), flush=True)
+    if not (abs(loss_f - loss_p) <= TRAIN_LOSS_ATOL and math.isfinite(loss_f)):
+        raise AssertionError(f"fp32 train step: fused-CE loss {loss_f} vs plain {loss_p}")
+    if not abs(norm_f - norm_p) <= TRAIN_GRAD_NORM_RTOL * norm_p:
+        raise AssertionError(f"fp32 train step: fused-CE grad norm {norm_f} vs plain {norm_p}")
+    if any(n != 1 for n in counts.values()) or any(plain_counts.values()):
+        raise AssertionError(f"fp32 fused-CE launches {counts} (plain loss {plain_counts}), "
+                             "expected 1 each (0 each)")
+    return rec
+
+
+def train_bf16(torch, np, seed: int, card: str, fused_ce: bool = False, warmup: int = 2,
+               steps: int = 10) -> tuple[dict, dict]:
     """bench.py's training path on GPT-2 small: bf16 mixed precision, AdamW
     (lr 1e-4, weight decay 1e-4, optax's default), batch 8 x 1024 of seeded
     ids repeated; ``warmup`` then ``steps`` timed steps with the launch counts
-    set to 0 just before them. Then a profiler window over 3 steps."""
+    set to 0 just before them. Then a profiler window over 3 steps. The loss
+    is `lm_loss_fn`, or with ``fused_ce`` `lm_loss_fn_pallas`
+    (``BENCH_FUSED_CE=2``)."""
     from accelerate_tpu_torch.accelerator import Accelerator
-    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn, lm_loss_fn_pallas
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     batch, seq = 8, 1024
@@ -451,7 +631,7 @@ def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10
     model = GPT2LMHead(cfg, device="cuda", seed=seed)
     acc = Accelerator(mixed_precision="bf16")
     model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
-    step = acc.make_train_step(lm_loss_fn)
+    step = acc.make_train_step(lm_loss_fn_pallas if fused_ce else lm_loss_fn)
     ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
     data = {"input_ids": torch.from_numpy(ids).to("cuda")}
 
@@ -463,13 +643,14 @@ def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10
     timed = [step(data) for _ in range(steps)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = flash_counts(fa)
+    counts = {**flash_counts(fa), **fused_ce_counts()}
     losses += [t.item() for t in timed]
     step_ms = wall / steps * 1e3
     tokens_per_s = batch * seq * steps / wall
     flops_per_token = train_flops_per_token(model, seq)
     mfu = tokens_per_s * flops_per_token / bf16_peak(torch.cuda.get_device_name(0))
-    rec = {"phase": "bf16_train", "model": "gpt2-small", "batch": batch, "seq": seq,
+    phase = "bf16_train_fused_ce" if fused_ce else "bf16_train"
+    rec = {"phase": phase, "model": "gpt2-small", "batch": batch, "seq": seq,
            "warmup_steps": warmup, "steps": steps, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
            "mfu": mfu, "flops_per_token": flops_per_token,
            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
@@ -477,8 +658,10 @@ def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10
     print(json.dumps(rec), flush=True)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"bf16 training: the loss did not fall: {losses}")
-    if any(n != cfg.n_layer * steps for n in counts.values()):
-        raise AssertionError(f"bf16 training launches {counts}, expected {cfg.n_layer * steps} each")
+    expected = {**{n: cfg.n_layer * steps for n in FLASH_REPLACES},
+                **{n: steps if fused_ce else 0 for n in FUSED_CE_REPLACES}}
+    if counts != expected:
+        raise AssertionError(f"{phase} launches {counts}, expected {expected}")
 
     n_prof = 3
     wall_us, by_name = profile_steps(torch, lambda: step(data), n_prof)
@@ -488,7 +671,7 @@ def train_bf16(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10
         cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
                     if re.search(pattern, kname, re.IGNORECASE)), "other")
         categories[cat] = categories.get(cat, 0.0) + us / n_prof / 1e3
-    prof = profile_record("bf16_train_profile", n_prof, wall_us, by_name, top=8,
+    prof = profile_record(f"{phase}_profile", n_prof, wall_us, by_name, top=8,
                           categories_ms_per_step=categories)
     print(json.dumps(prof), flush=True)
     del model, acc, step
@@ -529,7 +712,7 @@ def main() -> int:
     from accelerate_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libraries = ("paged_decode", "flash_attention")
+    libraries = ("paged_decode", "flash_attention", "fused_ce")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, libraries))
     for lib_name in libraries:
@@ -691,7 +874,34 @@ def main() -> int:
     # 8. bf16 training: bench.py's path
     train, _ = train_bf16(torch, np, args.seed, card)
 
-    # 9. summary lines
+    # 9. fused-CE kernels against their plain versions
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    head = dict(n=8192, v=50257, e=768, flush=flush)
+    fused_cases = [
+        fused_ce_case(torch, "gpt2_small_bf16", dtype=torch.bfloat16, ignore_every=16,
+                      seed=args.seed, **head),
+        fused_ce_case(torch, "gpt2_small_fp32", dtype=torch.float32, ignore_every=16,
+                      seed=args.seed + 1, **head),
+        fused_ce_case(torch, "ragged_n1000_bf16", dtype=torch.bfloat16, ignore_every=16,
+                      seed=args.seed + 2, **{**head, "n": 1000}),
+        fused_ce_case(torch, "e1024_bf16", dtype=torch.bfloat16, ignore_every=16,
+                      seed=args.seed + 3, **{**head, "e": 1024}),
+        fused_ce_case(torch, "all_ignored_bf16", dtype=torch.bfloat16, ignore_every=1,
+                      seed=args.seed + 4, **head),
+    ]
+    del flush
+    torch.cuda.empty_cache()
+
+    # 10. fp32 train-step parity, fused CE against the plain loss
+    fused_ce_parity(torch, np, args.seed)
+
+    # 11. bf16 training with the fused loss: bench.py's BENCH_FUSED_CE=2 path
+    fused_train, _ = train_bf16(torch, np, args.seed, card, fused_ce=True)
+    if not fused_train["peak_mem_bytes"] < train["peak_mem_bytes"]:
+        raise AssertionError(f"fused-CE training peak {fused_train['peak_mem_bytes']} B is not below "
+                             f"the default loss's {train['peak_mem_bytes']} B")
+
+    # 12. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -709,6 +919,17 @@ def main() -> int:
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
             "launches": train["launches"][kname],
             "max_abs_err": max(c[kname]["max_abs_err"] for c in flash_cases),
+            "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+        })
+    for kname, replaces in FUSED_CE_REPLACES.items():
+        main_rec = fused_cases[0][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
+            "launches": fused_train["launches"][kname],
+            "max_abs_err": max(c[kname]["max_abs_err"] for c in fused_cases),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],

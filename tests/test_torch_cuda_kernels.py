@@ -210,3 +210,83 @@ def test_flash_kernels_reject_shapes_that_disagree(hopper):
         flash_attention_dq(q, k, v, dout[:, :, :-1], lse, lse, True)
     with pytest.raises(ValueError, match="lse and delta"):
         flash_attention_dkv(q, k, v, dout, lse[..., :-1], lse, True)
+
+
+# fused LM head + cross-entropy kernels against their plain versions. Both
+# sides take the same fp32 logits from the same operands in another summation
+# order; the bar is |err| <= rtol * |plain| + atol * max|plain|. fp32: order
+# only. bf16: dlogits are rounded to bf16 before the products (a value near a
+# rounding boundary may round the other way) and each output is rounded once.
+FUSED_CE_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+
+FUSED_CE_CASES = {
+    "bf16_e768_ragged": dict(dtype=torch.bfloat16, n=300, v=1000, e=768),
+    "fp32_e768_ragged": dict(dtype=torch.float32, n=77, v=517, e=768),
+    "bf16_e1024": dict(dtype=torch.bfloat16, n=256, v=640, e=1024),
+    "fp32_e1024_ragged": dict(dtype=torch.float32, n=129, v=333, e=1024),
+    "bf16_e1280_split": dict(dtype=torch.bfloat16, n=100, v=300, e=1280),
+    "fp32_e64_tiny": dict(dtype=torch.float32, n=5, v=3, e=64),
+}
+
+
+def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, e, generator=g, device=dev).to(dtype)
+    w = (torch.randn(v, e, generator=g, device=dev) * 0.05).to(dtype)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    mask = torch.arange(n, device=dev) % 8 != 3  # every eighth row ignored
+    labels = torch.where(mask, labels, 0)
+    g_lse = mask.float() / mask.sum()
+    return h, w, labels, g_lse, -g_lse
+
+
+def _assert_fused_near(got, want, dtype):
+    rtol, atol = FUSED_CE_TOL[dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bar = rtol * want.float().abs() + atol * want.float().abs().max()
+    assert ((got.float() - want.float()).abs() <= bar).all(), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_CE_CASES))
+def test_fused_ce_kernels_match_plain(hopper, name):
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    spec = FUSED_CE_CASES[name]
+    h, w, labels, g_lse, g_ll = _fused_ce_inputs(hopper, **spec)
+    before = (fc.fused_ce_fwd.launches, fc.fused_ce_dh.launches, fc.fused_ce_dw.launches)
+    lse, ll = fc.fused_ce_fwd(h, w, labels)
+    lse_ref, ll_ref = fc.fused_ce_forward_reference(h, w, labels)
+    dh = fc.fused_ce_dh(h, w, labels, lse_ref, g_lse, g_ll)
+    dw = fc.fused_ce_dw(h, w, labels, lse_ref, g_lse, g_ll)
+    torch.cuda.synchronize()
+    after = (fc.fused_ce_fwd.launches, fc.fused_ce_dh.launches, fc.fused_ce_dw.launches)
+    assert after == tuple(k + 1 for k in before)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(ll, ll_ref, atol=1e-4, rtol=1e-5)
+    _assert_fused_near(dh, fc.fused_ce_dh_reference(h, w, labels, lse_ref, g_lse, g_ll), spec["dtype"])
+    _assert_fused_near(dw, fc.fused_ce_dw_reference(h, w, labels, lse_ref, g_lse, g_ll), spec["dtype"])
+
+
+def test_fused_cross_entropy_all_ignored_on_the_card(hopper):
+    from accelerate_tpu_torch.ops.fused_ce import fused_cross_entropy
+
+    h, w, _, _, _ = _fused_ce_inputs(hopper, dtype=torch.bfloat16, n=64, v=200, e=128)
+    h.requires_grad_()
+    w.requires_grad_()
+    loss = fused_cross_entropy(h, w, torch.full((64,), -100, device=hopper))
+    loss.backward()
+    assert loss.item() == 0.0
+    assert not h.grad.any() and not w.grad.any()
+
+
+@pytest.mark.parametrize("change,exc", [
+    (dict(e=96), ValueError),  # not a multiple of 64
+    (dict(dtype=torch.float16), TypeError),
+])
+def test_fused_ce_kernel_rejects_what_it_does_not_take(hopper, change, exc):
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    spec = {**FUSED_CE_CASES["bf16_e768_ragged"], **change}
+    h, w, labels, _, _ = _fused_ce_inputs(hopper, **spec)
+    with pytest.raises(exc):
+        fc.fused_ce_fwd(h, w, labels)

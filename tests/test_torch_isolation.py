@@ -32,6 +32,7 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert got["light"] == []
     for mod in ("accelerate_tpu_torch.serving.engine", "accelerate_tpu_torch.models.gpt2",
                 "accelerate_tpu_torch.ops.flash_attention", "accelerate_tpu_torch.ops._build",
+                "accelerate_tpu_torch.ops.fused_ce",
                 "accelerate_tpu_torch.accelerator", "accelerate_tpu_torch.state",
                 "accelerate_tpu_torch.optimizer", "accelerate_tpu_torch.utils.precision"):
         assert mod in got["modules"]
