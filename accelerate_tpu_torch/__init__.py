@@ -14,7 +14,10 @@ decode attention reading the pool in place through a CUDA kernel
 attention forward and backward as CUDA kernels
 (`ops.flash_attention.flash_attention`), and the tied LM head fused with the
 cross-entropy as CUDA forward, dH and dW kernels
-(`ops.fused_ce.fused_cross_entropy`, `models.gpt2.lm_loss_fn_pallas`).
+(`ops.fused_ce.fused_cross_entropy`, `models.gpt2.lm_loss_fn_pallas`); and
+Mistral-class sliding-window training (`models.llama`), with causal and
+windowed attention on CUDA band forward, dQ and dK/dV kernels that read
+grouped-query K/V unrepeated (`flash_attention(..., window=)`).
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap.

@@ -1,2 +1,3 @@
-"""Models of the PyTorch port: GPT-2 (`gpt2`), its paged KV cache (`kv_cache`)
-and batch generation (`generation`)."""
+"""Models of the PyTorch port: GPT-2 (`gpt2`), its paged KV cache (`kv_cache`),
+batch generation (`generation`) and the Llama family for training
+(`llama`)."""

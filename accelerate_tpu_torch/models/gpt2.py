@@ -83,7 +83,10 @@ class GPT2Config:
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """``layer(x)`` computed in ``dtype``: input, weight and bias cast to it,
+    as flax ``Dense(dtype=...)`` does."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:

@@ -39,18 +39,28 @@ def dot_product_attention(
     v: torch.Tensor,  # [B, Sk, H, D]
     mask: torch.Tensor | None = None,  # boolean [B, 1|H, Sq, Sk] or [Sq, Sk], True = keep
     causal: bool = False,
+    window: int | None = None,  # sliding window: query i sees keys in (i - window, i]
     scale: float | None = None,
 ) -> torch.Tensor:
     """Plain attention. The products run on fp32 copies of bf16/fp16 inputs,
     which is exact for the products and accumulates in fp32, as the
     reference's ``preferred_element_type=float32`` does; the output returns to
-    the input dtype."""
+    the input dtype. ``window`` requires ``causal``, as in the reference."""
     orig_dtype = q.dtype
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
         logits = logits + causal_mask(q.shape[1], k.shape[1], device=q.device)
+    if window is not None:
+        if not causal:
+            raise ValueError(
+                "window requires causal=True (one rule across xla and flash paths; "
+                "a low-side-only band would silently attend future keys)"
+            )
+        q_idx = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_idx = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = torch.where(k_idx > q_idx - window, logits, _NEG)
     if mask is not None:
         if mask.ndim == 2:
             mask = mask[None, None]
@@ -66,6 +76,7 @@ def attention(
     *,
     causal: bool = False,
     mask: torch.Tensor | None = None,
+    window: int | None = None,
     implementation: str = "auto",
 ) -> torch.Tensor:
     """Dispatching entry point: ``'xla' | 'flash' | 'auto'``, the reference's
@@ -73,11 +84,16 @@ def attention(
     `flash_attention.flash_attention` (the CUDA kernels on a CUDA tensor, their
     plain versions on the CPU). ``'auto'`` follows the reference's rule with
     "on a CUDA tensor" for "on TPU": the kernel for self-attention at
-    ``seq >= 1024``, the plain path otherwise. A masked call always takes the
-    plain path, as in the reference: the flash kernel has no arbitrary-mask
-    support. GQA K/V are repeated up to the query heads on the plain path.
-    (The reference's sliding ``window`` and additive ``bias`` come with the
-    models that use them.)"""
+    ``seq >= 1024``, the plain path otherwise; a ``window`` over a sequence
+    with no band block (`flash_attention.band_block_default`) takes the plain
+    path. A masked call always takes the plain path, as in the reference: the
+    flash kernel has no arbitrary-mask support. ``window`` is Mistral-class
+    sliding-window attention (query i sees keys in ``(i - window, i]``); on
+    the flash path it runs on the band kernels. GQA K/V pass to the flash
+    path unrepeated (the band kernels read kv head ``h // groups``, the
+    rectangular path repeats them) and are repeated up to the query heads on
+    the plain path. (The reference's additive ``bias`` comes with the models
+    that use it.)"""
     if implementation not in ("auto", "xla", "flash"):
         raise ValueError(f"implementation must be 'auto', 'xla' or 'flash', got {implementation!r}")
     hq, hk = q.shape[2], k.shape[2]
@@ -88,11 +104,16 @@ def attention(
     if implementation == "auto":
         long_self = q.shape[1] >= 1024 and q.shape[1] == k.shape[1]
         implementation = "flash" if _on_cuda(q) and long_self else "xla"
+        if window is not None and implementation == "flash":
+            from .flash_attention import band_block_default
+
+            if band_block_default(q.shape[1]) is None:
+                implementation = "xla"
     if implementation == "flash":
         from .flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, window=window)
     if hk != hq:
         k = k.repeat_interleave(hq // hk, dim=2)
         v = v.repeat_interleave(hq // hk, dim=2)
-    return dot_product_attention(q, k, v, causal=causal, mask=mask)
+    return dot_product_attention(q, k, v, causal=causal, mask=mask, window=window)

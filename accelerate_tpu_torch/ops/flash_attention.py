@@ -1,7 +1,7 @@
 """Flash attention and paged decode attention: the port of
 `accelerate_tpu.ops.flash_attention`.
 
-Two families of hand-written CUDA kernels, each beside its plain PyTorch
+Three families of hand-written CUDA kernels, each beside its plain PyTorch
 version:
 
   - rectangular flash attention (`flash_attention`), the reference's
@@ -9,6 +9,12 @@ version:
     ``csrc/flash_attention.cu``, wrapped by `flash_attention_fwd`,
     `flash_attention_dq` and `flash_attention_dkv` and tied together by a
     `torch.autograd.Function`;
+  - band flash attention (`flash_attention` with ``window=`` or
+    ``triangle_block=``: causal self-attention over the in-band tiles only,
+    optionally with a sliding window, GQA K/V unrepeated), the reference's
+    ``_fwd_band_kernel``, ``_dq_band_kernel`` and ``_dkv_band_kernel``, in
+    the same source over the same tile bodies, wrapped by `flash_band_fwd`,
+    `flash_band_dq` and `flash_band_dkv` and tied together by `_FlashBand`;
   - paged decode attention (`paged_decode_attention`), the reference's
     ``_paged_decode_kernel``, in ``csrc/paged_decode.cu``.
 
@@ -16,9 +22,6 @@ Each wrapper runs its plain version on a CPU tensor and launches its kernel
 on a CUDA tensor or raises: there is no fall back. Each keeps a module-level
 count ``<wrapper>.launches`` that grows by one per kernel launch, so a run can
 show that its steps went through the kernels.
-
-The reference's band kernels (``triangle_block=``/``window=``) are not ported
-yet (ROADMAP Queue 2); `flash_attention` refuses those arguments.
 """
 
 from __future__ import annotations
@@ -41,13 +44,18 @@ NEG_INF = -1e30  # the reference's mask value (not -inf)
 
 
 # ------------------------------------------------------ rectangular flash attention
-def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: int | None = None) -> torch.Tensor:
     """fp32 ``q . k^T`` over ``[b, h, s, d]``, query i masked to keys <= i
-    with NEG_INF when causal, as the reference's kernels mask."""
+    with NEG_INF when causal, and to keys > i - window as well under a
+    window (the reference's ``_band_logits`` rule)."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     if causal:
-        sq, skv = q.shape[2], k.shape[2]
-        keep = torch.arange(skv, device=q.device)[None, :] <= torch.arange(sq, device=q.device)[:, None]
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        keep = j <= i
+        if window is not None:
+            keep &= j > i - window
         s = torch.where(keep, s, NEG_INF)
     return s
 
@@ -59,13 +67,15 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def flash_attention_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                      causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                                      causal: bool, window: int | None = None
+                                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the forward kernel over ``[b, h, s, d]`` with q
     pre-scaled: ``(o, lse)``, o in q's dtype, lse fp32 ``[b, h, sq]``. One
     global-max softmax in fp32; p is rounded to the input dtype before P.V and
     the denominator sums the unrounded p; a row whose denominator is 0 gives
-    zeros, as the kernel's ``l == 0`` guard does."""
-    s = _scores(q, k, causal)
+    zeros, as the kernel's ``l == 0`` guard does. ``window`` (causal only)
+    narrows each row to keys > i - window."""
+    s = _scores(q, k, causal, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -80,28 +90,36 @@ def _delta(o: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * o.float()).sum(dim=-1)
 
 
-def _probs(q, k, lse, causal):
-    return torch.exp(_scores(q, k, causal) - lse[..., None])
+def _probs(q, k, lse, causal, window=None):
+    return torch.exp(_scores(q, k, causal, window) - lse[..., None])
 
 
-def flash_attention_dq_reference(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
+def flash_attention_dq_reference(q, k, v, dout, lse, delta, causal: bool,
+                                 window: int | None = None) -> torch.Tensor:
     """The plain version of the dQ kernel: ``dS = P * (dP - delta)`` with P
     recomputed from lse, rounded to the input dtype before ``dS . K``."""
-    p = _probs(q, k, lse, causal)
+    p = _probs(q, k, lse, causal, window)
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
     ds = p * (dp - delta[..., None])
     return torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype), k.float()).to(q.dtype)
 
 
-def flash_attention_dkv_reference(q, k, v, dout, lse, delta,
-                                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of the dK/dV kernel: ``dV = P^T . dO`` with P rounded
+def _dkv_fp32(q, k, v, dout, lse, delta, causal, window=None):
+    """fp32 (dK, dV) over ``[b, h, s, d]``: ``dV = P^T . dO`` with P rounded
     to dO's dtype, ``dK = dS^T . Q`` with dS rounded to q's dtype."""
-    p = _probs(q, k, lse, causal)
+    p = _probs(q, k, lse, causal, window)
     dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, dout.dtype), dout.float())
     dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
     ds = p * (dp - delta[..., None])
     dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype), q.float())
+    return dk, dv
+
+
+def flash_attention_dkv_reference(q, k, v, dout, lse, delta,
+                                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the dK/dV kernel (`_dkv_fp32`), each gradient
+    rounded once to its input's dtype."""
+    dk, dv = _dkv_fp32(q, k, v, dout, lse, delta, causal)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -117,31 +135,53 @@ def flash_attention_backward_reference(q, k, v, o, lse, dout,
 
 def _flash_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    if lib.flash_attention_fwd.argtypes is None:
+    if lib.flash_attention_error_string.restype is not ctypes.c_char_p:
         p, i = ctypes.c_void_p, ctypes.c_int
-        head = [i, p, i, i, i]  # device, stream, dtype, head_dim, causal
-        lib.flash_attention_fwd.argtypes = head + [p] * 5 + [i] * 3
-        lib.flash_attention_dq.argtypes = head + [p] * 7 + [i] * 3
-        lib.flash_attention_dkv.argtypes = head + [p] * 8 + [i] * 3
-        for fn in (lib.flash_attention_fwd, lib.flash_attention_dq, lib.flash_attention_dkv):
-            fn.restype = ctypes.c_int
+        head = [i, p, i, i]  # device, stream, dtype, head_dim
+        for kind, n_ptrs in (("fwd", 5), ("dq", 7), ("dkv", 8)):
+            rect = getattr(lib, f"flash_attention_{kind}")  # causal, ..., b * h, sq, skv
+            rect.argtypes, rect.restype = head + [i] + [p] * n_ptrs + [i] * 3, i
+            band = getattr(lib, f"flash_band_{kind}")  # ..., b * hq, s, groups, window
+            band.argtypes, band.restype = head + [p] * n_ptrs + [i] * 4, i
         lib.flash_attention_error_string.argtypes = [i]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _kernel_operands(name: str, *tensors: torch.Tensor,
-                     rows: tuple[torch.Tensor, ...] = ()) -> list[torch.Tensor]:
+def _flash_launch(name: str, q: torch.Tensor, *args) -> None:
+    """Call the C entry point ``name`` of ``csrc/flash_attention.cu`` on q's
+    device and current stream, with q's dtype code and head_dim, then
+    ``args`` (a tensor passes as its data pointer); raise if it returns a
+    CUDA error."""
+    lib = _flash_lib()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(q.device):
+        err = getattr(lib, name)(q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
+                                 _DTYPE_CODES[q.dtype], q.shape[-1], *args)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {err})")
+
+
+def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor, ...] = (),
+                     grouped: bool = False) -> list[torch.Tensor]:
     """Validate the kernel's ``[b, h, s, d]`` operands ``(q, k, v[, dO])``
     and fp32 ``[b, h, sq]`` ``rows`` (lse, delta): one CUDA device, shapes
-    that agree, one dtype and a head_dim the kernel is built for. Returns the
-    operands, then the rows, contiguous and 16-byte aligned, as the kernel's
-    vector loads need."""
+    that agree, one dtype and a head_dim the kernel is built for. With
+    ``grouped`` (the band kernels) K/V are ``[b, hkv, s, d]`` with ``hq`` a
+    multiple of ``hkv`` and one s for all. Returns the operands, then the
+    rows, contiguous and 16-byte aligned, as the kernel's vector loads need."""
     q, k, v = tensors[:3]
     dev = q.device
     if any(t.device != dev for t in tensors + rows):
         raise ValueError(f"{name}: every input must be on {dev}")
-    if q.ndim != 4 or k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
+    if grouped:
+        if (q.ndim != 4 or k.shape != v.shape or k.ndim != 4 or k.shape[0] != q.shape[0]
+                or k.shape[2:] != q.shape[2:] or k.shape[1] == 0 or q.shape[1] % k.shape[1]):
+            raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
+                             "must be [b, hq, s, d] and [b, hkv, s, d] with one b, s and d "
+                             "and hq a multiple of hkv")
+    elif q.ndim != 4 or k.shape != v.shape or k.shape[:2] + k.shape[3:] != q.shape[:2] + q.shape[3:]:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} "
                          "must be [b, h, s, d] with one b, h and d")
     if any(t.shape != q.shape for t in tensors[3:]):
@@ -163,12 +203,6 @@ def _kernel_operands(name: str, *tensors: torch.Tensor,
     return out
 
 
-def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {err})")
-
-
 def _on_device(name: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (the plain version); any other device raises."""
@@ -187,16 +221,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_device("flash_attention_fwd", q):
         return flash_attention_forward_reference(q, k, v, causal)
     q, k, v = _kernel_operands("flash_attention_fwd", q, k, v)
-    b, h, sq, d = q.shape
+    b, h, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-            _DTYPE_CODES[q.dtype], d, int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b * h, sq, k.shape[2])
-    _check_launch(lib, "flash_attention_fwd", err)
+    _flash_launch("flash_attention_fwd", q, int(causal), q, k, v, o, lse, b * h, sq, k.shape[2])
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -208,15 +236,10 @@ def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
         return flash_attention_dq_reference(q, k, v, dout, lse, delta, causal)
     q, k, v, dout, lse, delta = _kernel_operands("flash_attention_dq", q, k, v, dout,
                                                   rows=(lse, delta))
-    b, h, sq, d = q.shape
+    b, h, sq, _ = q.shape
     dq = torch.empty_like(q)
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_dq(
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-            _DTYPE_CODES[q.dtype], d, int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq, k.shape[2])
-    _check_launch(lib, "flash_attention_dq", err)
+    _flash_launch("flash_attention_dq", q, int(causal), q, k, v, dout, lse, delta, dq,
+                  b * h, sq, k.shape[2])
     flash_attention_dq.launches += 1
     return dq
 
@@ -228,16 +251,10 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool) -> tuple[torch.
         return flash_attention_dkv_reference(q, k, v, dout, lse, delta, causal)
     q, k, v, dout, lse, delta = _kernel_operands("flash_attention_dkv", q, k, v, dout,
                                                   rows=(lse, delta))
-    b, h, sq, d = q.shape
+    b, h, sq, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_dkv(
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-            _DTYPE_CODES[q.dtype], d, int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, sq, k.shape[2])
-    _check_launch(lib, "flash_attention_dkv", err)
+    _flash_launch("flash_attention_dkv", q, int(causal), q, k, v, dout, lse, delta, dk, dv,
+                  b * h, sq, k.shape[2])
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -268,6 +285,137 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+# ------------------------------------------------------------ band flash attention
+def band_block_default(sq: int) -> int | None:
+    """The reference's default band block for a causal or windowed sequence:
+    the largest divisor of ``sq`` that is <= 512, or None when that divisor
+    is < 8 (a prime length, say). The CUDA kernels choose their own tiles;
+    this only decides, as in the reference, whether a window may take the
+    band route."""
+    best = next(b for b in range(min(512, sq), 0, -1) if sq % b == 0)
+    return best if best >= 8 else None
+
+
+def _repeat_kv(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """``[b, hkv, s, d]`` K or V repeated to the query heads (h // groups
+    reads kv head h)."""
+    return t.repeat_interleave(groups, dim=1) if groups > 1 else t
+
+
+def flash_band_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the band forward kernel: q ``[b, hq, s, d]``
+    pre-scaled, k and v ``[b, hkv, s, d]``; key j is visible from query i iff
+    ``i - window < j <= i`` (``j <= i`` when ``window`` is None). ``(o,
+    lse)`` with the rounding points of `flash_attention_forward_reference`."""
+    groups = q.shape[1] // k.shape[1]
+    return flash_attention_forward_reference(q, _repeat_kv(k, groups), _repeat_kv(v, groups),
+                                             True, window)
+
+
+def flash_band_dq_reference(q, k, v, dout, lse, delta, window: int | None) -> torch.Tensor:
+    """The plain version of the band dQ kernel (shapes as
+    `flash_band_forward_reference`)."""
+    groups = q.shape[1] // k.shape[1]
+    return flash_attention_dq_reference(q, _repeat_kv(k, groups), _repeat_kv(v, groups), dout,
+                                        lse, delta, True, window)
+
+
+def flash_band_dkv_reference(q, k, v, dout, lse, delta,
+                             window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the band dK/dV kernel: each query head's fp32
+    dK and dV, summed over the query heads of its kv head's group in fp32,
+    then rounded once to ``[b, hkv, s, d]`` in K's and V's dtypes."""
+    b, hkv, s, d = k.shape
+    groups = q.shape[1] // hkv
+    dk, dv = _dkv_fp32(q, _repeat_kv(k, groups), _repeat_kv(v, groups), dout, lse, delta,
+                       True, window)
+    dk = dk.reshape(b, hkv, groups, s, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, groups, s, d).sum(dim=2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _band_shape(q: torch.Tensor, k: torch.Tensor, window: int | None) -> tuple[int, int, int, int]:
+    """(b * hq, s, groups, window code) for the C entry points. A window of at
+    least s cuts nothing and passes as 0, no lower edge, which also keeps the
+    kernel's index arithmetic inside int."""
+    b, hq, s, _ = q.shape
+    code = 0 if window is None or window >= s else int(window)
+    return b * hq, s, hq // k.shape[1], code
+
+
+def flash_band_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Band forward: q ``[b, hq, s, d]`` pre-scaled, k and v ``[b, hkv, s,
+    d]`` unrepeated: ``(o, lse)``, lse fp32 ``[b, hq, s]``. CPU:
+    `flash_band_forward_reference`; CUDA: the ``flash_band_fwd_kernel``
+    (fp32/bf16, head_dim 64 or 128, any s)."""
+    if not _on_device("flash_band_fwd", q):
+        return flash_band_forward_reference(q, k, v, window)
+    q, k, v = _kernel_operands("flash_band_fwd", q, k, v, grouped=True)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _flash_launch("flash_band_fwd", q, q, k, v, o, lse, *_band_shape(q, k, window))
+    flash_band_fwd.launches += 1
+    return o, lse
+
+
+def flash_band_dq(q, k, v, dout, lse, delta, window: int | None) -> torch.Tensor:
+    """Band dQ from the saved lse and delta = rowsum(dO * O). CPU:
+    `flash_band_dq_reference`; CUDA: the ``flash_band_dq_kernel``."""
+    if not _on_device("flash_band_dq", q):
+        return flash_band_dq_reference(q, k, v, dout, lse, delta, window)
+    q, k, v, dout, lse, delta = _kernel_operands("flash_band_dq", q, k, v, dout,
+                                                  rows=(lse, delta), grouped=True)
+    dq = torch.empty_like(q)
+    _flash_launch("flash_band_dq", q, q, k, v, dout, lse, delta, dq, *_band_shape(q, k, window))
+    flash_band_dq.launches += 1
+    return dq
+
+
+def flash_band_dkv(q, k, v, dout, lse, delta,
+                   window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Band (dK, dV) in kv-head shape ``[b, hkv, s, d]``, summed over each
+    kv head's query heads. CPU: `flash_band_dkv_reference`; CUDA: the
+    ``flash_band_dkv_kernel``."""
+    if not _on_device("flash_band_dkv", q):
+        return flash_band_dkv_reference(q, k, v, dout, lse, delta, window)
+    q, k, v, dout, lse, delta = _kernel_operands("flash_band_dkv", q, k, v, dout,
+                                                  rows=(lse, delta), grouped=True)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("flash_band_dkv", q, q, k, v, dout, lse, delta, dk, dv,
+                  *_band_shape(q, k, window))
+    flash_band_dkv.launches += 1
+    return dk, dv
+
+
+flash_band_fwd.launches = 0
+flash_band_dq.launches = 0
+flash_band_dkv.launches = 0
+
+
+class _FlashBand(torch.autograd.Function):
+    """The reference's ``_flash_band`` custom VJP (``_bwd_band``): forward
+    saves ``(q, k, v, o, lse)``; backward computes delta in fp32 and runs the
+    band dQ and dK/dV kernels. dK and dV come back in the kv-head shape K and
+    V came in."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int | None):
+        o, lse = flash_band_fwd(q, k, v, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = _delta(o, dout)
+        dq = flash_band_dq(q, k, v, dout, lse, delta, ctx.window)
+        dk, dv = flash_band_dkv(q, k, v, dout, lse, delta, ctx.window)
+        return dq, dk, dv, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,
@@ -281,32 +429,62 @@ def flash_attention(
     window: int | None = None,
 ) -> torch.Tensor:
     """Flash attention over ``[batch, seq, heads, head_dim]`` inputs, as the
-    reference's `flash_attention` on its rectangular path: q is scaled in its
-    own dtype (``scale`` defaults to ``1/sqrt(head_dim)``), head dims that are
-    not a multiple of 64 are zero-padded to a multiple of 128, GQA K/V are
-    repeated up to the query heads, and query i attends keys <= i when
-    ``causal``. ``block_q``/``block_kv`` are the reference's TPU tiles (default
-    1024, shrunk to the sequence): they are checked to divide the sequence
-    lengths as the reference requires; the CUDA kernels choose their own tiles.
+    reference's `flash_attention`: q is scaled in its own dtype (``scale``
+    defaults to ``1/sqrt(head_dim)``), head dims that are not a multiple of
+    64 are zero-padded to a multiple of 128, and query i attends keys <= i
+    when ``causal``.
 
-    ``triangle_block`` and ``window`` select the reference's band kernels,
-    which are not ported: they raise NotImplementedError."""
-    if triangle_block is not None or window is not None:
-        raise NotImplementedError(
-            "flash_attention: the band kernels behind triangle_block=/window= "
-            "(_fwd_band_kernel, _dq_band_kernel, _dkv_band_kernel) are not ported "
-            "yet (ROADMAP Queue 2, item 3)"
-        )
+    ``window=W`` (sliding window: query i attends keys in ``(i - W, i]``) or
+    ``triangle_block`` takes causal self-attention onto the band kernels,
+    which work on the in-band tiles only and read GQA K/V unrepeated (dK and
+    dV come back in kv-head shape). Otherwise the rectangular kernels run,
+    with GQA K/V repeated up to the query heads. The reference's argument
+    rules hold, each a ValueError: a window needs causal self-attention and
+    ``W >= 1``, and a sequence with a band block (`band_block_default`); an
+    explicit ``triangle_block`` needs causal self-attention, excludes
+    ``block_q``/``block_kv`` and must divide the sequence. ``triangle_block``
+    and ``block_q``/``block_kv`` (default 1024, shrunk to the sequence) are
+    the reference's TPU tiles: they are checked as the reference checks them,
+    and the CUDA kernels choose their own tiles. The reference's
+    ``ACCELERATE_TPU_FLASH_*`` environment knobs are not read."""
     b, sq, hn, d = q.shape
     skv, hk = k.shape[1], k.shape[2]
+    if window is not None:
+        if not causal or sq != skv:
+            raise ValueError(
+                "window applies only to causal self-attention (sq == skv); "
+                f"got causal={causal}, sq={sq}, skv={skv}"
+            )
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if triangle_block is None:
+            triangle_block = band_block_default(sq)
+            if triangle_block is None:  # e.g. prime sq: a 1-wide band grid is pathological
+                raise ValueError(
+                    f"window={window} needs a band grid, but seq {sq} has no "
+                    "block divisor >= 8. Pad the sequence to a tileable "
+                    "length, pass triangle_block explicitly, or use "
+                    "implementation='xla'."
+                )
+    if triangle_block is not None:
+        if not causal or sq != skv:
+            raise ValueError(
+                "triangle_block applies only to causal self-attention (sq == skv); "
+                f"got causal={causal}, sq={sq}, skv={skv}"
+            )
+        if block_q is not None or block_kv is not None:
+            raise ValueError("triangle_block and block_q/block_kv are mutually exclusive")
+        if sq % min(triangle_block, sq):
+            raise ValueError(f"triangle_block {triangle_block} must divide seq {sq}")
     if hn != hk and (hk == 0 or hn % hk):
         raise ValueError(f"q heads ({hn}) must be a multiple of kv heads ({hk})")
-    block_q = min(1024 if block_q is None else block_q, sq)
-    block_kv = min(1024 if block_kv is None else block_kv, skv)
-    if sq % block_q or skv % block_kv:
-        raise ValueError(
-            f"seq lengths ({sq}, {skv}) must divide block sizes ({block_q}, {block_kv})"
-        )
+    if triangle_block is None:
+        block_q = min(1024 if block_q is None else block_q, sq)
+        block_kv = min(1024 if block_kv is None else block_kv, skv)
+        if sq % block_q or skv % block_kv:
+            raise ValueError(
+                f"seq lengths ({sq}, {skv}) must divide block sizes ({block_q}, {block_kv})"
+            )
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     # the scale rounded to q's dtype on the host (no device copy, no sync);
     # the product of two such values is exact in fp32 and rounds once, as
@@ -316,10 +494,13 @@ def flash_attention(
     d_pad = 0 if d % 64 == 0 else (128 - d % 128) % 128
     if d_pad:
         qt, kt, vt = (F.pad(t, (0, d_pad)) for t in (qt, kt, vt))
-    if hn != hk:
-        kt = kt.repeat_interleave(hn // hk, dim=1)
-        vt = vt.repeat_interleave(hn // hk, dim=1)
-    out = _FlashAttention.apply(qt.contiguous(), kt.contiguous(), vt.contiguous(), causal)
+    if triangle_block is not None:
+        out = _FlashBand.apply(qt.contiguous(), kt.contiguous(), vt.contiguous(), window)
+    else:
+        if hn != hk:
+            kt = kt.repeat_interleave(hn // hk, dim=1)
+            vt = vt.repeat_interleave(hn // hk, dim=1)
+        out = _FlashAttention.apply(qt.contiguous(), kt.contiguous(), vt.contiguous(), causal)
     if d_pad:
         out = out[..., :d]
     return out.transpose(1, 2)

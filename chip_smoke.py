@@ -53,7 +53,32 @@ Phases run in order; any failure exits non-zero:
    (bench.py's ``BENCH_FUSED_CE=2``): the loss falls, each flash kernel ran
    n_layer times and each fused-CE kernel once per step, and the peak
    memory stays below phase 8's; then its profiler window;
-12. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+12. band flash kernels: the forward, dQ and dK/dV band kernels
+   (`flash_band_fwd`/`_dq`/`_dkv`) against their plain versions on the card
+   at the Mistral training shapes (b 1, 32 query heads over 8 kv heads,
+   s 8192, d 128, window 4096, bf16; the plain versions one kv head's group
+   at a time), at GPT-2 small's causal shapes through ``triangle_block``
+   (beside the rectangular kernels' times on the same function), at a
+   ragged fp32 s 1000 with window 100 and 4 query heads per kv head, at
+   window 1, and at a window past the sequence (held to the rectangular
+   kernels' causal output too); each output held to FLASH_TOL, lse to
+   BAND_LSE_ATOL, and at the Mistral shapes each output also to a bar
+   scaled by its own size (BAND_MAIN_RMS_TOL); one JSON line per case and
+   kernel with its error, its times (the library yardstick is SDPA over an
+   explicit boolean band mask with ``enable_gqa``) and its bound;
+13. fp32 Llama parity: a narrow Mistral shape (hidden 1024, 8 heads over 2
+   kv heads, 2 layers, vocab 32000, batch 1 x 2048, window 512), fp32, TF32
+   off: one `make_train_step(llama_loss_fn)` step with
+   ``attention_impl="flash"`` against one with ``"xla"``: loss and global
+   gradient norm agree, and each band kernel ran once per layer;
+14. bf16 Mistral training, this slice's path: the Mistral-7B-width model
+   (hidden 4096, 32 heads over 8 kv heads, intermediate 14336, vocab 32000,
+   window 4096) cut to 4 layers, fp32 masters, ``mixed_precision="bf16"``,
+   AdamW(lr 1e-4, weight decay 1e-4), one seeded 1 x 8192 batch repeated:
+   2 warm-up and 10 timed steps; the loss falls, each band kernel ran 4
+   times per step and the rectangular ones never; step ms, tokens/s, MFU,
+   peak memory; then its profiler window;
+15. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -61,6 +86,7 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -85,6 +111,17 @@ BF16_LOGIT_ATOL = 0.1
 # to bf16 before products (a value near a rounding boundary may round the
 # other way) and rounds each output once more
 FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# band kernels, besides FLASH_TOL: lse |err| <= BAND_LSE_ATOL in every case
+# (both sides sum the same fp32 scores in another order). At the Mistral
+# shape FLASH_TOL's atol is about a typical value of o, dq and dk in the
+# rows that attend thousands of keys (|o| ~ 0.02 at W 4096), so there each
+# output is also held to rtol |plain| + BAND_MAIN_RMS_TOL rms(plain), rtol
+# FLASH_TOL's: set at about 2.5x the largest reading (0.0213 for o, 0.0052
+# for dq and dk/dv, seed 0), where bf16 rounding of p and dS at other
+# running maxima leaves a small excess on elements that cancel. Not for
+# window 1: there dq and dk are 0 up to rounding and have no size to scale by
+BAND_LSE_ATOL = 1e-4
+BAND_MAIN_RMS_TOL = {"flash_band_fwd": 0.05, "flash_band_dq": 0.015, "flash_band_dkv": 0.015}
 # fp32 GPT-2 small, one train step, flash vs plain attention: the same fp32
 # arithmetic in another summation order, through 12 layers and the head
 TRAIN_LOSS_ATOL = 1e-4
@@ -97,17 +134,22 @@ TRAIN_GRAD_NORM_RTOL = 1e-3
 # way) and each output once more (2^-8 relative)
 FUSED_CE_ROW_TOL = (1e-4, 1e-5)
 FUSED_CE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
-# device kernels of the bf16 train step by kind, first match wins, case
-# ignored. The only fp32 products of that step are the tied head's (logits,
-# d hidden, d wte); casts run as copy kernels, so they match before the
-# other elementwise kernels (GELU, residual adds, masks, AdamW's scalars).
+# device kernels of the bf16 train steps by kind, first match wins, case
+# ignored. The only fp32 products of those steps are the heads' (logits,
+# d hidden, d head weight); casts run as copy kernels, so they match before
+# the other elementwise kernels (GELU, residual adds, masks, AdamW's
+# scalars); SiLU (the Llama steps) before all elementwise. PyTorch runs
+# `F.rms_norm` (the Llama steps) through its layer-norm kernels, so one
+# category holds both norms.
 TRAIN_KERNEL_CATEGORIES = (
+    ("band flash kernels", r"flash_band_(fwd|dq|dkv)_kernel"),
     ("fused-CE kernels", r"fused_ce_(fwd|bwd)_kernel"),
     ("fp32 head GEMMs", r"f32f32|sgemm"),
     ("flash kernels", r"flash_(fwd|dq|dkv)_kernel"),
     ("bf16 GEMMs", r"nvjet|bf16bf16|gemm.*bf16|bf16.*gemm"),
     ("AdamW", r"multi_tensor_apply"),
-    ("LayerNorm", r"layer_norm"),
+    ("LayerNorm and RMSNorm", r"layer_norm|rms_norm"),
+    ("SiLU", r"silu"),
     ("softmax and cross-entropy", r"softmax|nll_loss|gather"),
     ("copies and casts", r"copy"),
     ("other elementwise and reductions", r"elementwise|reduce"),
@@ -116,6 +158,11 @@ FLASH_REPLACES = {
     "flash_attention_fwd": "accelerate_tpu/ops/flash_attention.py:50",
     "flash_attention_dq": "accelerate_tpu/ops/flash_attention.py:130",
     "flash_attention_dkv": "accelerate_tpu/ops/flash_attention.py:165",
+}
+BAND_REPLACES = {
+    "flash_band_fwd": "accelerate_tpu/ops/flash_attention.py:340",
+    "flash_band_dq": "accelerate_tpu/ops/flash_attention.py:372",
+    "flash_band_dkv": "accelerate_tpu/ops/flash_attention.py:399",
 }
 FUSED_CE_REPLACES = {
     "fused_ce_fwd": "accelerate_tpu/ops/fused_ce.py:47",
@@ -150,6 +197,28 @@ def bf16_peak(name: str) -> float:
     if "NVL" in name:
         return 835e12
     return 989e12
+
+
+def timed_steps(torch, step, data, warmup: int, steps: int) -> tuple[list[float], float]:
+    """``warmup`` train steps, then ``steps`` timed ones with the launch
+    counts set to 0 and the peak-memory counter reset just before them:
+    (the loss of every step, the timed steps' host wall in s, ending in a
+    synchronize). Earlier phases' objects that sit in reference cycles (a
+    serving engine and its KV pool) are collected first, so the peak counts
+    what the training holds."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    losses = [step(data).item() for _ in range(warmup)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    timed = [step(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return losses + [t.item() for t in timed], wall
 
 
 def device_ms(torch, fn, flush, samples: int = 30) -> float:
@@ -333,6 +402,10 @@ def flash_counts(fa) -> dict[str, int]:
     return {n: getattr(fa, n).launches for n in FLASH_REPLACES}
 
 
+def band_counts(fa) -> dict[str, int]:
+    return {n: getattr(fa, n).launches for n in BAND_REPLACES}
+
+
 def fused_ce_counts() -> dict[str, int]:
     from accelerate_tpu_torch.ops import fused_ce
 
@@ -344,7 +417,7 @@ def reset_counts(fa) -> None:
     from accelerate_tpu_torch.ops import fused_ce
 
     fa.paged_decode_attention.launches = 0
-    for n in FLASH_REPLACES:
+    for n in (*FLASH_REPLACES, *BAND_REPLACES):
         getattr(fa, n).launches = 0
     for n in FUSED_CE_REPLACES:
         getattr(fused_ce, n).launches = 0
@@ -519,6 +592,294 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
     return recs
 
 
+def profile_train(torch, run_step, phase: str, steps: int = 3, **extra) -> dict:
+    """A profiler window over ``steps`` train steps: host and device ms per
+    step, the idle share, the top kernels and the device ms per step of each
+    kind of kernel (TRAIN_KERNEL_CATEGORIES); prints and returns the record."""
+    wall_us, by_name = profile_steps(torch, run_step, steps)
+    categories: dict[str, float] = {}
+    for kname, us in by_name.items():
+        cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
+                    if re.search(pattern, kname, re.IGNORECASE)), "other")
+        categories[cat] = categories.get(cat, 0.0) + us / steps / 1e3
+    prof = profile_record(phase, steps, wall_us, by_name, top=8, **extra,
+                          categories_ms_per_step=categories)
+    print(json.dumps(prof), flush=True)
+    return prof
+
+
+def band_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs one head attends on the band: sum over i of
+    min(i + 1, window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card,
+              by_group=False, rect=False, rms_tol=None) -> dict:
+    """The three band kernels against their plain versions on one input (q
+    pre-scaled ``[b, hq, s, d]``, K/V ``[b, hkv, s, d]``), with their times,
+    the times of SDPA over an explicit boolean band mask with
+    ``enable_gqa=True`` (forward, and its backward: dq, dk and dv together),
+    and the bounds; prints one JSON line per kernel and returns them by
+    kernel. Each output is held to FLASH_TOL, lse to BAND_LSE_ATOL, and with
+    ``rms_tol`` (by kernel) each output also to rtol |plain| + rms_tol
+    rms(plain). ``by_group`` evaluates the plain versions one kv head's group at
+    a time, to bound their memory. ``rect`` also times the rectangular
+    kernels on the same (causal) function, with K/V repeated to the query
+    heads, and holds the band forward's output to theirs."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, hq, s, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
+    k, v = (torch.randn(b, hkv, s, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    dout = torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+    groups = hq // hkv
+    spans = [(j, j + 1) for j in range(hkv)] if by_group else [(0, hkv)]
+
+    def plain_fwd():
+        outs = [fa.flash_band_forward_reference(q[:, lo * groups:hi * groups], k[:, lo:hi],
+                                                v[:, lo:hi], window) for lo, hi in spans]
+        return torch.cat([o for o, _ in outs], 1), torch.cat([m for _, m in outs], 1)
+
+    o_ref, lse_ref = plain_fwd()
+    delta = (dout.float() * o_ref.float()).sum(-1)
+
+    def split(lo, hi):
+        r = slice(lo * groups, hi * groups)
+        return (q[:, r], k[:, lo:hi], v[:, lo:hi], dout[:, r], lse_ref[:, r], delta[:, r], window)
+
+    def plain_dq():
+        return torch.cat([fa.flash_band_dq_reference(*split(lo, hi)) for lo, hi in spans], 1)
+
+    def plain_dkv():
+        outs = [fa.flash_band_dkv_reference(*split(lo, hi)) for lo, hi in spans]
+        return torch.cat([a for a, _ in outs], 1), torch.cat([c for _, c in outs], 1)
+
+    bwd = (q, k, v, dout, lse_ref, delta, window)
+    plain = {"flash_band_fwd": plain_fwd, "flash_band_dq": plain_dq, "flash_band_dkv": plain_dkv}
+    kernel = {"flash_band_fwd": lambda: fa.flash_band_fwd(q, k, v, window),
+              "flash_band_dq": lambda: fa.flash_band_dq(*bwd),
+              "flash_band_dkv": lambda: fa.flash_band_dkv(*bwd)}
+    dtype_name = str(dtype).removeprefix("torch.")
+    atol, rtol = FLASH_TOL[dtype_name]
+
+    def check(what, got, want, over_rms_tol=math.inf):
+        """(max |err|, max (|err| - rtol |plain|) / rms(plain), rms(plain))
+        over the outputs; raises past FLASH_TOL or ``over_rms_tol``."""
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, bad, over_rms, rms_seen = 0.0, 0.0, 0.0, []
+        for a, w in zip(got, want):
+            if a.shape != w.shape:
+                raise AssertionError(f"band case {name}, {what}: shape {tuple(a.shape)} "
+                                     f"!= {tuple(w.shape)}")
+            w = w.float()
+            diff = (a.float() - w).abs()
+            err = max(err, diff.max().item())
+            bad = max(bad, (diff - atol - rtol * w.abs()).max().item())
+            rms = w.square().mean().sqrt().item()
+            rms_seen.append(rms)
+            over_rms = max(over_rms, (diff - rtol * w.abs()).max().item() / max(rms, 1e-30))
+        if not (math.isfinite(err) and bad <= 0 and over_rms <= over_rms_tol):
+            raise AssertionError(f"band case {name}, {what}: max_abs_err {err}, "
+                                 f"(|err| - {rtol} |plain|) / rms(plain) up to {over_rms}: "
+                                 f"exceeds atol {atol} + rtol {rtol} * |plain| or "
+                                 f"{rtol} * |plain| + {over_rms_tol} * rms(plain)")
+        return err, over_rms, rms_seen
+
+    rms_tol = rms_tol or {}
+    errs, over, rms = {}, {}, {}
+    o, lse = kernel["flash_band_fwd"]()
+    torch.cuda.synchronize()
+    lse_err = (lse - lse_ref).abs().max().item()
+    if not lse_err <= BAND_LSE_ATOL:
+        raise AssertionError(f"band case {name}: lse max_abs_err {lse_err} > {BAND_LSE_ATOL}")
+    errs["flash_band_fwd"], over["flash_band_fwd"], rms["flash_band_fwd"] = check(
+        "flash_band_fwd", o, o_ref, rms_tol.get("flash_band_fwd", math.inf))
+    errs["flash_band_fwd"] = max(errs["flash_band_fwd"], lse_err)
+    del o, lse
+    for kname in ("flash_band_dq", "flash_band_dkv"):
+        got = kernel[kname]()
+        torch.cuda.synchronize()
+        errs[kname], over[kname], rms[kname] = check(kname, got, plain[kname](),
+                                                     rms_tol.get(kname, math.inf))
+        del got
+    rect_rec = {}
+    if rect:
+        kr, vr = (t.repeat_interleave(groups, dim=1) for t in (k, v))
+        rbwd = (q, kr, vr, dout, lse_ref, delta, True)
+        rect_fns = {"flash_attention_fwd": lambda: fa.flash_attention_fwd(q, kr, vr, True),
+                    "flash_attention_dq": lambda: fa.flash_attention_dq(*rbwd),
+                    "flash_attention_dkv": lambda: fa.flash_attention_dkv(*rbwd)}
+        rect_rec["rect_o_max_abs_err"] = check("rect forward", rect_fns["flash_attention_fwd"]()[0],
+                                               o_ref)[0]
+        rect_rec["rect_ms"] = {n: device_ms(torch, fn, flush) for n, fn in rect_fns.items()}
+        del kr, vr, rbwd, rect_fns
+
+    # yardstick: SDPA over the explicit band mask (it does the full s^2
+    # work), forward and backward
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(s, device=dev)[None, :]
+    mask = (j <= i) & ((j > i - window) if window is not None else True)
+    sdpa = dict(attn_mask=mask, scale=1.0, enable_gqa=groups > 1)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, **sdpa)
+    lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), flush,
+                        samples=10)
+    lib_bwd = device_ms(torch, lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), dout,
+                                                           retain_graph=True), flush, samples=10)
+    del sdpa_out, qs, ks, vs, mask
+    library = {"flash_band_fwd": lib_fwd, "flash_band_dq": lib_bwd, "flash_band_dkv": lib_bwd}
+
+    # least time: each input read once, each output written once; 2 d flops
+    # per attended (query, key) pair and product
+    pairs = b * hq * band_pairs(s, window)
+    elt = q.element_size()
+    q_bytes, kv_bytes, rows = b * hq * s * d * elt, b * hkv * s * d * elt, b * hq * s * 4
+    io = {"flash_band_fwd": (2 * q_bytes + 2 * kv_bytes + rows, 2),
+          "flash_band_dq": (3 * q_bytes + 2 * kv_bytes + 2 * rows, 3),
+          "flash_band_dkv": (2 * q_bytes + 4 * kv_bytes + 2 * rows, 4)}
+    bw, fp32_peak, _ = peak_rates(torch.cuda.get_device_name(0))
+    peak = bf16_peak(torch.cuda.get_device_name(0)) if dtype == torch.bfloat16 else fp32_peak
+    recs = {}
+    for kname in BAND_REPLACES:
+        n_bytes, products = io[kname]
+        n_flops = products * 2 * d * pairs
+        rec = dict(phase="flash_band_kernels", case=name, kernel=kname, b=b, hq=hq, hkv=hkv, s=s,
+                   d=d, window=window, dtype=dtype_name, max_abs_err=errs[kname], atol=atol,
+                   rtol=rtol, err_over_rms=over[kname], plain_rms=rms[kname],
+                   rms_tol=rms_tol.get(kname),
+                   **({"lse_max_abs_err": lse_err, "lse_atol": BAND_LSE_ATOL}
+                      if kname == "flash_band_fwd" else {}),
+                   kernel_ms=device_ms(torch, kernel[kname], flush),
+                   plain_ms=device_ms(torch, plain[kname], flush, samples=5),
+                   library_ms=library[kname],
+                   bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
+                   bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
+                   bytes=n_bytes, flops=n_flops, **rect_rec, card=card)
+        print(json.dumps(rec), flush=True)
+        recs[kname] = rec
+    del q, k, v, dout, o_ref, lse_ref, delta
+    torch.cuda.empty_cache()
+    return recs
+
+
+def mistral_config(torch, **kw):
+    """Mistral-7B's published width (mistralai/Mistral-7B-v0.1 config.json;
+    arXiv 2310.06825, Table 1) as a `LlamaConfig`, depth cut to 4 layers:
+    7.24 B parameters at 16 bytes of training state each exceed the card."""
+    from accelerate_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**{**dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_layers=4,
+        num_heads=32, num_kv_heads=8, rope_theta=10000.0, rms_norm_eps=1e-5,
+        max_position_embeddings=8192, sliding_window=4096, attention_impl="flash",
+        dtype=torch.bfloat16), **kw})
+
+
+def llama_band_parity(torch, np, seed: int, card: str) -> dict:
+    """One fp32 train step (TF32 off) of a narrow Mistral shape (hidden 1024,
+    8 heads, 2 kv heads, intermediate 3584, 2 layers, vocab 32000, batch
+    1 x 2048, window 512) with ``attention_impl="flash"`` (the band kernels)
+    and one with ``"xla"`` (the plain path), from the same weights and
+    batch: loss and global gradient norm agree; each band kernel ran once
+    per layer in the flash step and never in the other."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    shape = dict(hidden_size=1024, num_heads=8, num_kv_heads=2, intermediate_size=3584,
+                 num_layers=2, max_position_embeddings=2048, sliding_window=512,
+                 dtype=torch.float32)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 32000, (1, 2048))).to("cuda")
+    out = {}
+    for impl in ("xla", "flash"):
+        model = LlamaForCausalLM(mistral_config(torch, attention_impl=impl, **shape), seed=seed)
+        acc = Accelerator(mixed_precision="no")
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4))
+        step = acc.make_train_step(llama_loss_fn, max_grad_norm=1e30)
+        reset_counts(fa)
+        loss = step({"input_ids": ids}).item()
+        out[impl] = (loss, step.grad_norm.item(), {**band_counts(fa), **flash_counts(fa)})
+        del model, acc, step
+        torch.cuda.empty_cache()
+    (loss_x, norm_x, counts_x), (loss_f, norm_f, counts) = out["xla"], out["flash"]
+    rec = {"phase": "fp32_llama_band_parity", "batch": 1, "seq": 2048, "window": 512,
+           "loss_plain": loss_x, "loss_flash": loss_f, "loss_abs_diff": abs(loss_f - loss_x),
+           "loss_atol": TRAIN_LOSS_ATOL, "grad_norm_plain": norm_x, "grad_norm_flash": norm_f,
+           "grad_norm_rel_diff": abs(norm_f - norm_x) / norm_x,
+           "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL, "launches": counts, "launches_plain": counts_x,
+           "card": card}
+    print(json.dumps(rec), flush=True)
+    if not (abs(loss_f - loss_x) <= TRAIN_LOSS_ATOL and math.isfinite(loss_f)):
+        raise AssertionError(f"fp32 Llama step: band loss {loss_f} vs plain {loss_x}")
+    if not abs(norm_f - norm_x) <= TRAIN_GRAD_NORM_RTOL * norm_x:
+        raise AssertionError(f"fp32 Llama step: band grad norm {norm_f} vs plain {norm_x}")
+    expected = {**{n: shape["num_layers"] for n in BAND_REPLACES}, **{n: 0 for n in FLASH_REPLACES}}
+    if counts != expected or any(counts_x.values()):
+        raise AssertionError(f"fp32 Llama launches {counts} (plain step {counts_x}), "
+                             f"expected {expected} (none)")
+    return rec
+
+
+def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> dict:
+    """The slice's path: the Mistral-7B-width model (4 layers, window 4096),
+    fp32 masters, ``Accelerator(mixed_precision="bf16")``, AdamW (lr 1e-4,
+    weight decay 1e-4), ``make_train_step(llama_loss_fn)`` on one seeded
+    batch of 1 x 8192 ids, repeated; ``warmup`` then ``steps`` timed steps
+    with the launch counts set to 0 just before them. The loss falls over
+    the ``warmup + steps`` steps, and each band kernel ran once per layer per
+    timed step, the rectangular flash kernels never. MFU counts 6 N per
+    token for the N matmul parameters plus 12 L e w per token for
+    attention, w the mean number of keys a query sees. Then a profiler
+    window over 3 steps."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    batch, seq = 1, 8192
+    cfg = mistral_config(torch)
+    model = LlamaForCausalLM(cfg, seed=seed)
+    acc = Accelerator(mixed_precision="bf16")
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = acc.make_train_step(llama_loss_fn)
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
+    data = {"input_ids": torch.from_numpy(ids).to("cuda")}
+
+    losses, wall = timed_steps(torch, step, data, warmup, steps)
+    counts = {**band_counts(fa), **flash_counts(fa)}
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul = sum(p.numel() for p in model.parameters() if p.ndim == 2) - model.embed_tokens.numel()
+    mean_keys = band_pairs(seq, cfg.sliding_window) / seq
+    flops_per_token = 6 * n_matmul + 12 * cfg.num_layers * cfg.hidden_size * mean_keys
+    tokens_per_s = batch * seq * steps / wall
+    mfu = tokens_per_s * flops_per_token / bf16_peak(torch.cuda.get_device_name(0))
+    rec = {"phase": "bf16_train_mistral", "model": "mistral-7b-width, 4 layers", "batch": batch,
+           "seq": seq, "window": cfg.sliding_window, "params": n_params,
+           "matmul_params": n_matmul, "mean_keys_per_query": mean_keys,
+           "warmup_steps": warmup, "steps": steps, "step_ms": wall / steps * 1e3,
+           "tokens_per_s": tokens_per_s, "mfu": mfu, "flops_per_token": flops_per_token,
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "launches": counts, "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mistral training: the loss did not fall: {losses}")
+    expected = {**{n: cfg.num_layers * steps for n in BAND_REPLACES},
+                **{n: 0 for n in FLASH_REPLACES}}
+    if counts != expected:
+        raise AssertionError(f"bf16_train_mistral launches {counts}, expected {expected}")
+    profile_train(torch, lambda: step(data), "bf16_train_mistral_profile", card=card)
+    del model, acc, step
+    torch.cuda.empty_cache()
+    return rec
+
+
 def train_flops_per_token(model, seq: int) -> int:
     """bench.py's count: 6 N for the forward and backward of N parameters,
     plus 12 s e per layer per token for attention."""
@@ -635,16 +996,8 @@ def train_bf16(torch, np, seed: int, card: str, fused_ce: bool = False, warmup: 
     ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
     data = {"input_ids": torch.from_numpy(ids).to("cuda")}
 
-    losses = [step(data).item() for _ in range(warmup)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    timed = [step(data) for _ in range(steps)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    losses, wall = timed_steps(torch, step, data, warmup, steps)
     counts = {**flash_counts(fa), **fused_ce_counts()}
-    losses += [t.item() for t in timed]
     step_ms = wall / steps * 1e3
     tokens_per_s = batch * seq * steps / wall
     flops_per_token = train_flops_per_token(model, seq)
@@ -663,17 +1016,7 @@ def train_bf16(torch, np, seed: int, card: str, fused_ce: bool = False, warmup: 
     if counts != expected:
         raise AssertionError(f"{phase} launches {counts}, expected {expected}")
 
-    n_prof = 3
-    wall_us, by_name = profile_steps(torch, lambda: step(data), n_prof)
-
-    categories: dict[str, float] = {}
-    for kname, us in by_name.items():
-        cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
-                    if re.search(pattern, kname, re.IGNORECASE)), "other")
-        categories[cat] = categories.get(cat, 0.0) + us / n_prof / 1e3
-    prof = profile_record(f"{phase}_profile", n_prof, wall_us, by_name, top=8,
-                          categories_ms_per_step=categories)
-    print(json.dumps(prof), flush=True)
+    prof = profile_train(torch, lambda: step(data), f"{phase}_profile")
     del model, acc, step
     torch.cuda.empty_cache()
     return rec, prof
@@ -901,7 +1244,32 @@ def main() -> int:
         raise AssertionError(f"fused-CE training peak {fused_train['peak_mem_bytes']} B is not below "
                              f"the default loss's {train['peak_mem_bytes']} B")
 
-    # 12. summary lines
+    # 12. band flash kernels against their plain versions
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    band_common = dict(flush=flush, card=card)
+    band_cases = [
+        band_case(torch, "mistral_bf16_w4096", b=1, hq=32, hkv=8, s=8192, d=128, window=4096,
+                  dtype=torch.bfloat16, seed=args.seed, by_group=True, rms_tol=BAND_MAIN_RMS_TOL,
+                  **band_common),
+        band_case(torch, "gpt2_small_bf16_triangle", b=8, hq=12, hkv=12, s=1024, d=64,
+                  window=None, dtype=torch.bfloat16, seed=args.seed + 1, rect=True, **band_common),
+        band_case(torch, "ragged_fp32_w100_g4", b=2, hq=4, hkv=1, s=1000, d=64, window=100,
+                  dtype=torch.float32, seed=args.seed + 2, **band_common),
+        band_case(torch, "window1_bf16", b=1, hq=8, hkv=8, s=512, d=128, window=1,
+                  dtype=torch.bfloat16, seed=args.seed + 3, **band_common),
+        band_case(torch, "window_ge_seq_fp32_g2", b=1, hq=4, hkv=2, s=1024, d=128, window=2048,
+                  dtype=torch.float32, seed=args.seed + 4, rect=True, **band_common),
+    ]
+    del flush
+    torch.cuda.empty_cache()
+
+    # 13. fp32 Llama train-step parity, band kernels against plain attention
+    llama_band_parity(torch, np, args.seed, card)
+
+    # 14. bf16 training of the Mistral-7B-width model: this slice's path
+    mistral = train_mistral(torch, np, args.seed, card)
+
+    # 15. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -930,6 +1298,17 @@ def main() -> int:
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
             "launches": fused_train["launches"][kname],
             "max_abs_err": max(c[kname]["max_abs_err"] for c in fused_cases),
+            "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
+            "library_ms": main_rec["library_ms"],
+        })
+    for kname, replaces in BAND_REPLACES.items():
+        main_rec = band_cases[0][kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": mistral["launches"][kname],
+            "max_abs_err": max(c[kname]["max_abs_err"] for c in band_cases),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],

@@ -19,6 +19,12 @@ from accelerate_tpu_torch.ops.flash_attention import (
     flash_attention_dq_reference,
     flash_attention_forward_reference,
     flash_attention_fwd,
+    flash_band_dkv,
+    flash_band_dkv_reference,
+    flash_band_dq,
+    flash_band_dq_reference,
+    flash_band_forward_reference,
+    flash_band_fwd,
     paged_decode_attention,
     paged_decode_attention_reference,
 )
@@ -210,6 +216,92 @@ def test_flash_kernels_reject_shapes_that_disagree(hopper):
         flash_attention_dq(q, k, v, dout[:, :, :-1], lse, lse, True)
     with pytest.raises(ValueError, match="lse and delta"):
         flash_attention_dkv(q, k, v, dout, lse[..., :-1], lse, True)
+
+
+# band flash kernels (causal, or causal with a sliding window; GQA K/V
+# unrepeated) against their plain versions, at FLASH_TOL
+BAND_CASES = {
+    "bf16_w100_gqa4_ragged": dict(dtype=torch.bfloat16, window=100, hq=8, hk=2, d=64, s=1000),
+    "fp32_w100_gqa4_ragged": dict(dtype=torch.float32, window=100, hq=4, hk=1, d=64, s=1000),
+    "bf16_triangle_d128": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=128, s=256),
+    "fp32_triangle_gqa2_d128_ragged": dict(dtype=torch.float32, window=None, hq=4, hk=2, d=128,
+                                           s=77),
+    "bf16_w1_d128": dict(dtype=torch.bfloat16, window=1, hq=8, hk=8, d=128, s=512),
+    "fp32_w_ge_seq_gqa2_d128": dict(dtype=torch.float32, window=2048, hq=4, hk=2, d=128, s=200),
+    "bf16_w37_gqa8": dict(dtype=torch.bfloat16, window=37, hq=8, hk=1, d=64, s=300),
+}
+
+
+def _band_inputs(dev, *, dtype, window, hq, hk, d, s, b=2, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn(b, hq, s, d, generator=g, device=dev) / d ** 0.5).to(dtype)
+    k = torch.randn(b, hk, s, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, hk, s, d, generator=g, device=dev).to(dtype)
+    dout = torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("name", sorted(BAND_CASES))
+def test_band_kernels_match_plain(hopper, name):
+    spec = BAND_CASES[name]
+    window, dtype = spec["window"], spec["dtype"]
+    q, k, v, dout = _band_inputs(hopper, **spec)
+    o_ref, lse_ref = flash_band_forward_reference(q, k, v, window)
+    delta = (dout.float() * o_ref.float()).sum(-1)
+    before = (flash_band_fwd.launches, flash_band_dq.launches, flash_band_dkv.launches)
+    o, lse = flash_band_fwd(q, k, v, window)
+    dq = flash_band_dq(q, k, v, dout, lse_ref, delta, window)
+    dk, dv = flash_band_dkv(q, k, v, dout, lse_ref, delta, window)
+    torch.cuda.synchronize()
+    after = (flash_band_fwd.launches, flash_band_dq.launches, flash_band_dkv.launches)
+    assert after == tuple(n + 1 for n in before)
+    _assert_near(o, o_ref, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    _assert_near(dq, flash_band_dq_reference(q, k, v, dout, lse_ref, delta, window), dtype)
+    dk_ref, dv_ref = flash_band_dkv_reference(q, k, v, dout, lse_ref, delta, window)
+    assert dk.shape == k.shape and dv.shape == v.shape  # kv-head shape
+    _assert_near(dk, dk_ref, dtype)
+    _assert_near(dv, dv_ref, dtype)
+
+
+@pytest.mark.parametrize("window,hq,hk", [(48, 4, 2), (None, 4, 1)])
+def test_band_flash_attention_grads_match_plain_attention(hopper, window, hq, hk):
+    """The public BSHD wrapper on the band route (pre-scale, `_FlashBand`,
+    GQA K/V unrepeated, a ragged 130) against autograd through the plain
+    windowed path, in fp32 (TF32 off)."""
+    g = torch.Generator(device=hopper).manual_seed(2)
+    q = torch.randn(2, 130, hq, 64, generator=g, device=hopper, requires_grad=True)
+    k = torch.randn(2, 130, hk, 64, generator=g, device=hopper, requires_grad=True)
+    v = torch.randn(2, 130, hk, 64, generator=g, device=hopper, requires_grad=True)
+    ct = torch.randn(2, 130, hq, 64, generator=g, device=hopper)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = flash_band_fwd.launches
+        out = flash_attention(q, k, v, causal=True, window=window, triangle_block=10)
+        assert flash_band_fwd.launches == before + 1
+        grads = torch.autograd.grad((out * ct).sum(), (q, k, v))
+        kr, vr = (t.repeat_interleave(hq // hk, dim=2) for t in (k, v))
+        ref = dot_product_attention(q, kr, vr, causal=True, window=window)
+        ref_grads = torch.autograd.grad((ref * ct).sum(), (q, k, v))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    for got, want in zip(grads, ref_grads):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("change,exc", [
+    (dict(d=32), ValueError),  # head_dim the kernel is not built for
+    (dict(dtype=torch.float16), TypeError),
+    (dict(hq=6, hk=4), ValueError),  # query heads not a multiple of kv heads
+])
+def test_band_kernel_rejects_what_it_does_not_take(hopper, change, exc):
+    spec = {**BAND_CASES["bf16_w37_gqa8"], **change}
+    q, k, v, _ = _band_inputs(hopper, **spec)
+    with pytest.raises(exc):
+        flash_band_fwd(q, k, v, spec["window"])
 
 
 # fused LM head + cross-entropy kernels against their plain versions. Both

@@ -128,13 +128,6 @@ def test_cpu_runs_the_plain_versions_and_launches_nothing():
     assert after == before
 
 
-@pytest.mark.parametrize("kwargs", [dict(triangle_block=64), dict(window=16)])
-def test_band_kernels_are_refused(kwargs):
-    x = torch.zeros(1, 128, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        port.flash_attention(x, x, x, causal=True, **kwargs)
-
-
 def test_reference_refusals_are_kept():
     x = torch.zeros(1, 100, 2, 64)
     with pytest.raises(ValueError, match="must divide block sizes"):
