@@ -18,9 +18,33 @@ cross-entropy as CUDA forward, dH and dW kernels
 Mistral-class sliding-window training (`models.llama`), with causal and
 windowed attention on CUDA band forward, dQ and dK/dV kernels that read
 grouped-query K/V unrepeated (`flash_attention(..., window=)`).
+And quantized GPT-2 serving (`serving.engine.WeightQuantConfig`,
+`utils.quantization`): int8 and nf4 weights, the nf4 projections on a CUDA
+dequant-matmul kernel (`ops.nf4_matmul.nf4_matmul`), and int8 paged KV.
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
-cheap.
+cheap. The quantization names below are also exported here, loaded at first
+access.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_LAZY = {
+    "QuantizationConfig": "utils.quantization",
+    "QuantizedTensor": "utils.quantization",
+    "quantize_params": "utils.quantization",
+    "dequantize_params": "utils.quantization",
+    "quantize_module": "utils.quantization",
+    "dequantize_module": "utils.quantization",
+    "quantized_nbytes": "utils.quantization",
+    "WeightQuantConfig": "serving.engine",
+}
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name: str):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.environment import resolve_device
-from .kv_cache import make_block_pool, scatter_rows_to_blocks
+from .kv_cache import kv_store_dtype, make_block_pool, scatter_rows_to_blocks
 
 BLOCK_TOKENS = 16
 
@@ -82,7 +82,7 @@ def generate(
         )
     bps = -(-cfg.n_positions // BLOCK_TOKENS)
     cache = make_block_pool(cfg.n_layer, b, b * bps, BLOCK_TOKENS, cfg.n_head,
-                            cfg.head_dim, cfg.dtype, device, attention="gather")
+                            cfg.head_dim, kv_store_dtype(cfg), device, attention="gather")
     tables = torch.arange(b * bps, dtype=torch.int32, device=device).reshape(b, bps)
     temps = torch.full((b,), float(temperature), device=device)
     top_ks = torch.full((b,), int(top_k or 0), dtype=torch.long, device=device)

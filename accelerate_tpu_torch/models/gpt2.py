@@ -26,6 +26,18 @@ fused with the cross-entropy in the port's CUDA kernels).
 
 `params_from_jax` turns the reference's param tree into this module's state
 dict, so both packages can run the same weights.
+
+Quantized weights (`utils.quantization.quantize_module`, the serving
+engine's ``weight_quant=``): a `QuantizedLinear` projection runs through
+`ops.nf4_matmul.nf4_matmul`, the CUDA kernel for nf4 weights it routes there
+and ``x @ dequantize(W)`` for the rest (int8, unsupported shapes), with the
+bias added in ``dtype``; a `QuantizedEmbedding` lookup dequantizes only the
+rows it reads, and the tied head dequantizes ``wte``. The dequantized values
+are the reference's: fp32 (the param dtype) cast to ``dtype``, except that
+the nf4 kernel keeps them fp32 and casts its fp32 sums, as the reference's
+kernel does. ``config.kv_cache_dtype=torch.int8`` stores the paged KV pool
+as int8 with fp32 scale planes (`kv_cache`); a prefill that fills such a
+cache attends over the dequantized K/V it stores, as the reference's does.
 """
 
 from __future__ import annotations
@@ -42,8 +54,10 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.flash_attention import paged_decode_attention
 from ..ops.fused_ce import fused_cross_entropy
+from ..ops.nf4_matmul import nf4_matmul
 from ..utils.environment import resolve_device
-from .kv_cache import PagedKVCache, paged_decode_update, paged_decode_write
+from ..utils.quantization import QuantizedEmbedding, QuantizedLinear, dequantize, dequantize_rows
+from .kv_cache import PagedKVCache, _dq, _q, paged_decode_update, paged_decode_write
 
 
 @dataclass(frozen=True)
@@ -59,6 +73,7 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"  # 'xla' | 'flash' | 'auto' (ops.attention.attention)
+    kv_cache_dtype: torch.dtype | None = None  # None (compute dtype) | torch.int8 (kv_cache.py)
 
     @property
     def head_dim(self) -> int:
@@ -82,11 +97,24 @@ class GPT2Config:
         return cls(**{**dict(vocab_size=256, n_positions=128, n_embd=64, n_layer=2, n_head=2), **kw})
 
 
-def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def _dense(x: torch.Tensor, layer: nn.Linear | QuantizedLinear,
+           dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype``: input, weight and bias cast to it,
-    as flax ``Dense(dtype=...)`` does."""
+    as flax ``Dense(dtype=...)`` does. A quantized layer multiplies through
+    `nf4_matmul` and adds the bias after."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    if isinstance(layer, QuantizedLinear):
+        y = nf4_matmul(x.to(dtype), layer.qweight)
+        return y if bias is None else y + bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _embed(table: nn.Embedding | QuantizedEmbedding, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table, in its param dtype (a quantized
+    table dequantizes only those rows)."""
+    if isinstance(table, QuantizedEmbedding):
+        return dequantize_rows(table.qweight, ids)
+    return F.embedding(ids, table.weight)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -129,16 +157,25 @@ class SelfAttention(nn.Module):
             # paged decode: the query at cursor idx attends positions <= idx,
             # a valid span of idx + 1, in both attention paths
             if cache.attention == "fused":
-                k_pool, v_pool = paged_decode_write(cache, layer, k, v, block_tables, write_mask)
+                k_pool, v_pool, scales = paged_decode_write(cache, layer, k, v, block_tables,
+                                                            write_mask)
+                k_sp, v_sp = scales if scales is not None else (None, None)
                 out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables,
-                                             cache.index + 1)[:, None]
+                                             cache.index + 1, k_scale_pool=k_sp,
+                                             v_scale_pool=v_sp)[:, None]
             else:
                 k_all, v_all = paged_decode_update(cache, layer, k, v, block_tables, write_mask)
                 kv_pos = torch.arange(k_all.shape[1], device=x.device)
                 mask = (kv_pos[None, :] <= cache.index[:, None])[:, None, None, :]
                 out = attention(q, k_all, v_all, mask=mask, implementation="xla")
         else:
-            if kv_out is not None:
+            if kv_out is not None and cfg.kv_cache_dtype is not None:
+                # the int8 cache this prefill fills: store the payload and
+                # scales, attend over what they dequantize to
+                (kq, ks), (vq, vs) = _q(k), _q(v)
+                kv_out.append((kq, vq, ks, vs))
+                k, v = _dq(kq, ks, k.dtype), _dq(vq, vs, v.dtype)
+            elif kv_out is not None:
                 kv_out.append((k, v))
             out = attention(q, k, v, causal=True, implementation=cfg.attention_impl)
         return _dropout(_dense(out.reshape(b, s, e), self.proj, cfg.dtype), cfg.dropout, generator)
@@ -201,7 +238,7 @@ class GPT2LMHead(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return self.ln_f.weight.device
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -255,8 +292,7 @@ class GPT2LMHead(nn.Module):
             positions = (steps + int(position_offset))[None]  # [1, s]: shared by the batch
         # out-of-range positions clamp, as the reference's gather does
         positions = positions.clamp(max=cfg.n_positions - 1)
-        x = (F.embedding(input_ids, self.wte.weight).to(cfg.dtype)
-             + F.embedding(positions, self.wpe.weight).to(cfg.dtype))
+        x = _embed(self.wte, input_ids).to(cfg.dtype) + _embed(self.wpe, positions).to(cfg.dtype)
         if deterministic or cfg.dropout == 0.0:
             generator = None
         elif generator is None:
@@ -274,6 +310,8 @@ class GPT2LMHead(nn.Module):
         bf16 weights the products are exact and the sums fp32: the
         reference's bf16 einsum with ``preferred_element_type=float32``."""
         dtype = self.config.dtype
+        if isinstance(self.wte, QuantizedEmbedding):
+            return F.linear(hidden.to(dtype).float(), dequantize(self.wte.qweight, dtype).float())
         return F.linear(hidden.to(dtype).float(), self.wte.weight.to(dtype).float())
 
 

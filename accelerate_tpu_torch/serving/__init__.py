@@ -1,6 +1,6 @@
 """Continuous-batching serving for the PyTorch port (paged KV, GPT-2)."""
 
-from .engine import PagedKVConfig, ServingEngine
+from .engine import PagedKVConfig, ServingEngine, WeightQuantConfig
 from .metrics import ServingMetrics
 from .request import (
     FINISH_ABORTED,
@@ -31,4 +31,5 @@ __all__ = [
     "ServingEngine",
     "ServingMetrics",
     "SubmitResult",
+    "WeightQuantConfig",
 ]

@@ -29,6 +29,14 @@ Retirement (EOS, token budget, context limit) frees the slot's blocks and
 parks its table row at the sentinel id ``num_blocks``, so any later write
 through it is dropped. Dispatch is synchronous (``pipeline_depth=1``).
 
+Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
+``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
+copy of the model (`utils.quantization.quantize_module`; the caller's model
+is not changed) whose nf4 projections run through the CUDA kernel
+`ops.nf4_matmul.nf4_matmul`; the config's ``kv_cache_dtype=torch.int8``
+stores the paged pool as int8 with fp32 scale planes, which the fused path
+hands to the paged-decode kernel. `ServingEngine.quant_stats` reports both.
+
 Typical loop::
 
     engine = ServingEngine(model, max_concurrency=8)
@@ -51,8 +59,20 @@ import numpy as np
 import torch
 
 from ..models.generation import gumbel_noise, sample
-from ..models.kv_cache import BlockAllocator, make_block_pool, scatter_rows_to_blocks
+from ..models.kv_cache import (
+    BlockAllocator,
+    kv_store_dtype,
+    make_block_pool,
+    scatter_rows_to_blocks,
+)
+from ..ops.nf4_matmul import plane_pack, routes_to_kernel
 from ..utils.environment import resolve_device
+from ..utils.quantization import (
+    QuantizationConfig,
+    QuantizedLinear,
+    quantize_module,
+    quantized_nbytes,
+)
 from .metrics import ServingMetrics
 from .request import (
     FINISH_ABORTED,
@@ -78,13 +98,53 @@ class PagedKVConfig:
     num_blocks: int | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class WeightQuantConfig:
+    """Knobs for the engine's ``weight_quant=`` argument (the reference's).
+    ``mode`` picks the packed format: ``"int8"`` (blockwise absmax over the
+    default 64-element blocks: the reference passes no ``block_size`` for
+    int8) or ``"nf4"`` (4-bit NormalFloat over ``block_size``-element
+    blocks). Weights with fewer than ``min_weight_size`` elements, and every
+    1-D leaf (biases, LayerNorm), stay dense."""
+
+    mode: str = "int8"
+    block_size: int = 64
+    min_weight_size: int = 4096
+
+    def __post_init__(self):
+        if self.mode not in ("int8", "nf4"):
+            raise ValueError(f"weight_quant mode must be 'int8' or 'nf4', got {self.mode!r}")
+
+    def quantization_config(self, compute_dtype: torch.dtype) -> QuantizationConfig:
+        """The `utils.quantization.QuantizationConfig` this mode maps onto;
+        ``compute_dtype`` should be the model's param dtype, so dequantized
+        weights enter the model at the precision the dense path used."""
+        if self.mode == "int8":
+            return QuantizationConfig(load_in_8bit=True, compute_dtype=compute_dtype,
+                                      min_weight_size=self.min_weight_size)
+        return QuantizationConfig(load_in_4bit=True, quant_type="nf4",
+                                  block_size=self.block_size, compute_dtype=compute_dtype,
+                                  min_weight_size=self.min_weight_size)
+
+
 class ServingEngine:
     """Request-level continuous batching over a fixed pool of decode slots.
 
     ``model`` is a `models.gpt2.GPT2LMHead` living on ``device``
     (``None`` means CUDA; RuntimeError when it is absent). The context length
-    is the config's ``n_positions``; KV is stored in the config's compute
-    dtype."""
+    is the config's ``n_positions``; KV is stored in the config's
+    ``kv_cache_dtype`` (int8 with scale planes), or else its compute dtype.
+    ``weight_quant`` (a `WeightQuantConfig`, or its mode as a string)
+    serves quantized weights.
+
+    Defaults that differ from the reference engine's: ``pipeline_depth=1``
+    (the reference's 2), ``paged_kv=True`` (False) and
+    ``paged_attention="fused"`` (``"gather"``). The port has neither the
+    contiguous slot pool nor overlapped dispatch yet (both raise), so its
+    only engine is the paged one at depth 1, and its decode attention is
+    the CUDA kernel by default; ``"gather"`` is the plain path, kept as the
+    parity oracle. So ``ServingEngine(model)`` builds a different engine in
+    each package until ROADMAP Queue 1 items 6 and 7 land."""
 
     def __init__(
         self,
@@ -99,6 +159,7 @@ class ServingEngine:
         paged_kv: PagedKVConfig | bool = True,
         paged_attention: str = "fused",
         device: str | torch.device | None = None,
+        weight_quant: WeightQuantConfig | str | None = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -106,6 +167,17 @@ class ServingEngine:
             raise TypeError(f"{type(model).__name__} has no GPT-2 style config")
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, the engine on {self.device}")
+        if isinstance(weight_quant, str):
+            weight_quant = WeightQuantConfig(mode=weight_quant)
+        self.weight_quant = weight_quant
+        # the dense parameter bytes, before quantization (quant_stats)
+        self._dense_param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        if weight_quant is not None:
+            model = quantize_module(model, weight_quant.quantization_config(cfg.param_dtype))
+            # the nf4 kernel's plane layout, built once here on the device
+            for mod in model.modules():
+                if isinstance(mod, QuantizedLinear) and routes_to_kernel(mod.qweight):
+                    plane_pack(mod.qweight)
         self.model = model
         self.max_concurrency = int(max_concurrency)
         if self.max_concurrency < 1:
@@ -165,7 +237,7 @@ class ServingEngine:
 
         b, dev = self.max_concurrency, self.device
         self._cache = make_block_pool(cfg.n_layer, b, n_blocks, bt, cfg.n_head, cfg.head_dim,
-                                      cfg.dtype, dev, attention=self.paged_attention)
+                                      kv_store_dtype(cfg), dev, attention=self.paged_attention)
         # device-resident per-slot state; empty slots stay finished (frozen)
         self._d_tokens = torch.zeros(b, dtype=torch.long, device=dev)
         self._d_pos = torch.zeros(b, dtype=torch.long, device=dev)
@@ -212,6 +284,30 @@ class ServingEngine:
     @property
     def active_slots(self) -> int:
         return int(self._active.sum())
+
+    def quant_stats(self) -> dict[str, Any]:
+        """Quantized-serving gauges (the reference's), ``{}`` for a
+        full-precision engine. Weights (``weight_quant=``): ``weight_bits``,
+        the packed payload and scale bytes with the dense leaves
+        (``weight_packed_bytes``, `quantized_nbytes`), the dense bytes
+        recorded at load and the difference. KV (``kv_cache_dtype=int8``):
+        ``kv_bits`` and the int8 payload and fp32 scale bytes of the pools
+        attention reads (the ``[:num_blocks]`` views, without the sink)."""
+        stats: dict[str, Any] = {}
+        if self.weight_quant is not None:
+            packed = quantized_nbytes(self.model)
+            stats["weight_bits"] = 8 if self.weight_quant.mode == "int8" else 4
+            stats["weight_packed_bytes"] = packed
+            stats["weight_dense_bytes"] = self._dense_param_bytes
+            stats["weight_saved_bytes"] = self._dense_param_bytes - packed
+        if self._cache.quantized:
+            layers = range(len(self._cache.k))
+            stats["kv_bits"] = 8
+            stats["kv_payload_bytes"] = sum(t.numel() * t.element_size()
+                                            for i in layers for t in self._cache.pools(i))
+            stats["kv_scale_bytes"] = sum(t.numel() * t.element_size()
+                                          for i in layers for t in self._cache.scale_pools(i))
+        return stats
 
     # ------------------------------------------------------------ engine loop
     def step(self) -> list[RequestOutput]:

@@ -78,7 +78,27 @@ Phases run in order; any failure exits non-zero:
    2 warm-up and 10 timed steps; the loss falls, each band kernel ran 4
    times per step and the rectangular ones never; step ms, tokens/s, MFU,
    peak memory; then its profiler window;
-15. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+15. nf4 kernel: `nf4_matmul` (the CUDA dequant-matmul) against
+   `nf4_matmul_reference` on the card at the Llama-7B decode shapes of the
+   reference's kernel bench (M 1 and 16, bf16), at GPT-2 small's four
+   projections (M 16, a decode step, and M 512, a prefill), in fp32, with
+   leading dims, and on a weight the kernel does not take (N 192: the
+   dequantize route, no launch); one JSON line per case with its error, its
+   times, its bound and the dense bf16 cuBLAS product as a yardstick of
+   another function;
+16. fp32 quantized-serving parity: GPT-2 small at full width and depth,
+   seeded fp32 weights, TF32 off: the nf4 engine's greedy streams equal a
+   dense engine's over the dequantized copy of the same packed weights, with
+   4 x n_layer nf4 launches per forward (decode step or admission prefill);
+   an int8-KV engine's fused streams equal its gather streams;
+17. bf16 quantized serving, this slice's path: phase 5's 48 requests through
+   the nf4 engine over an int8 KV pool, then through the int8-weights engine;
+   one serving-metrics line each with `quant_stats()` and the memory held
+   after load against the dense engine's; the plane-pack cache's bytes; a
+   profiler window over 16 nf4 decode steps with the nf4 kernel's share;
+   then KV bytes per token (fp32, bf16, int8) and the peak concurrent
+   streams of an fp32 and an int8 pool of equal bytes over one trace;
+18. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -169,6 +189,18 @@ FUSED_CE_REPLACES = {
     "fused_ce_dh": "accelerate_tpu/ops/fused_ce.py:79",
     "fused_ce_dw": "accelerate_tpu/ops/fused_ce.py:103",
 }
+NF4_REPLACES = "accelerate_tpu/ops/nf4_matmul.py:43"
+# nf4 kernel against its plain version, |err| <= atol + rtol |plain|: both sum
+# the same fp32 products of the same dequantized weights, in another order
+# (split-K and warp partials against one fp32 GEMM); a bf16 output is then
+# rounded once (2^-8 relative), a sum near a rounding boundary possibly the
+# other way
+NF4_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+# the Llama-7B decode shapes of the reference's kernel bench
+# (tools/bench_nf4_kernel.py:30), and GPT-2 small's projections (qkv, proj,
+# up, down), all [in, out]
+LLAMA_NF4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+GPT2_NF4_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
 
 
 def card_line() -> str:
@@ -387,15 +419,19 @@ def profile_record(phase: str, steps: int, wall_us: float, by_name: dict[str, fl
             "top_kernels_ms_per_step": {n[:80]: us / steps / 1e3 for n, us in ranked}}
 
 
-def profile_decode(torch, engine, requests, steps: int = 16) -> dict:
+def profile_decode(torch, engine, requests, steps: int = 16,
+                   phase: str = "bf16_decode_profile") -> dict:
     """Admit ``requests`` (first step, unprofiled), then profile ``steps``
     decode steps: host wall per step, device busy per step (the sum of kernel
-    times on the one stream) and the six kernels with the most device time."""
+    times on the one stream), the six kernels with the most device time and
+    the share of device time in the nf4 kernels."""
     for r in requests:
         engine.submit(r)
     engine.step()
     wall_us, by_name = profile_steps(torch, engine.step, steps)
-    return profile_record("bf16_decode_profile", steps, wall_us, by_name, slots=engine.active_slots)
+    nf4_us = sum(us for n, us in by_name.items() if "nf4_" in n)
+    return profile_record(phase, steps, wall_us, by_name, slots=engine.active_slots,
+                          nf4_share_of_device=nf4_us / max(sum(by_name.values()), 1e-9))
 
 
 def flash_counts(fa) -> dict[str, int]:
@@ -416,7 +452,10 @@ def reset_counts(fa) -> None:
     """Every kernel wrapper's launch count to 0."""
     from accelerate_tpu_torch.ops import fused_ce
 
+    from accelerate_tpu_torch.ops import nf4_matmul
+
     fa.paged_decode_attention.launches = 0
+    nf4_matmul.nf4_matmul.launches = 0
     for n in (*FLASH_REPLACES, *BAND_REPLACES):
         getattr(fa, n).launches = 0
     for n in FUSED_CE_REPLACES:
@@ -1022,6 +1061,288 @@ def train_bf16(torch, np, seed: int, card: str, fused_ce: bool = False, warmup: 
     return rec, prof
 
 
+def nf4_case(torch, name, *, M, K, N, dtype, seed, flush, lead=()) -> dict:
+    """`nf4_matmul` against its plain version on one seeded nf4 weight ``[K,
+    N]`` and x ``[M, K]`` (``lead`` splits M into leading dims), with its
+    time, the plain version's, the bound and the library yardstick: ``x @ W``
+    through cuBLAS over a dense bf16 copy of the weight, the dense route that
+    nf4 serving replaces (not the same function; the port never calls it). A
+    weight the kernel does not take must launch nothing and match the
+    dequantize route. Prints one JSON line and returns it."""
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, dequantize, quantize
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qt = quantize(torch.randn(K, N, generator=g, device=dev) / math.sqrt(K),
+                  QuantizationConfig(load_in_4bit=True, quant_type="nf4",
+                                     compute_dtype=torch.float32))
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    xin = x.reshape(*lead, M // math.prod(lead), K) if lead else x
+    routed = nm.routes_to_kernel(qt)
+    before = nm.nf4_matmul.launches
+    out = nm.nf4_matmul(xin, qt).reshape(M, N)
+    launched = nm.nf4_matmul.launches - before
+    if routed:
+        packed, scales2 = nm.plane_pack(qt)
+
+        def plain():
+            return nm.nf4_matmul_reference(x, packed, scales2)
+    else:
+        def plain():
+            return x @ dequantize(qt, dtype)
+    ref = plain()
+    torch.cuda.synchronize()
+    dtype_name = str(dtype).removeprefix("torch.")
+    atol, rtol = NF4_TOL[dtype_name]
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    bad = (diff - atol - rtol * ref.float().abs()).max().item()
+    if launched != int(routed) or not (math.isfinite(err) and bad <= 0):
+        raise AssertionError(f"nf4 case {name}: {launched} launches (routed {routed}), "
+                             f"max_abs_err {err} exceeds atol {atol} + rtol {rtol} |plain|")
+    dense = dequantize(qt, torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    kernel_ms = device_ms(torch, lambda: nm.nf4_matmul(x, qt), flush)
+    plain_ms = device_ms(torch, plain, flush, samples=10)
+    library_ms = device_ms(torch, lambda: xb @ dense, flush)
+    # least time: payload and scales, x read once, the output written once;
+    # 2 M K N fp32 flops on the CUDA cores (the weight stays fp32)
+    elt = x.element_size()
+    n_bytes = qt.nbytes + M * K * elt + M * N * elt
+    n_flops = 2 * M * K * N
+    bw, fp32_peak, _ = peak_rates(torch.cuda.get_device_name(0))
+    rec = dict(phase="nf4_kernels", case=name, M=M, K=K, N=N, lead=list(lead), dtype=dtype_name,
+               routed=routed, launches=launched, max_abs_err=err, tol=(atol, rtol),
+               kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library="x_bf16 @ dense bf16 W, cuBLAS: the dense route, a different function",
+               splits=nm.split_k(M, K, N)[0] if routed else None,
+               bound_ms=max(n_bytes / bw, n_flops / fp32_peak) * 1e3,
+               bound_by="bytes" if n_bytes / bw >= n_flops / fp32_peak else "operations",
+               bytes=n_bytes, flops=n_flops, gb_per_s=n_bytes / kernel_ms / 1e6)
+    print(json.dumps(rec), flush=True)
+    del qt, dense, x, xb, out, ref
+    return rec
+
+
+def count_admissions(engine) -> list[int]:
+    """Wrap ``engine``'s admission so each group that is seated (one prefill
+    forward) adds one to the returned counter."""
+    counter = [0]
+    admit = engine._admit_group
+
+    def counted(group, finished):
+        seated = admit(group, finished)
+        counter[0] += int(seated)
+        return seated
+
+    engine._admit_group = counted
+    return counter
+
+
+def quant_parity(torch, seed: int, prompts: list[list[int]]) -> dict:
+    """fp32 GPT-2 small, TF32 off. (a) The nf4 engine against a dense engine
+    over the dequantized copy of the same packed weights: equal greedy
+    streams, and 4 x n_layer nf4 launches per forward (decode step or
+    admission prefill), none in the dense run. (b) An int8-KV model: the fused
+    engine against the gather engine, equal streams, the paged kernel n_layer
+    times per decode step."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.ops.flash_attention import paged_decode_attention
+    from accelerate_tpu_torch.serving import Request, SamplingParams, ServingEngine
+    from accelerate_tpu_torch.utils.quantization import dequantize_module
+
+    kw = dict(max_concurrency=8, prompt_buckets=BUCKETS)
+
+    def run(engine):
+        admissions = count_admissions(engine)
+        outs = engine.run([Request(prompt=p, params=SamplingParams(max_new_tokens=32))
+                           for p in prompts])
+        return [o.tokens for o in outs], engine.metrics.decode_steps.value, admissions[0]
+
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+    per_forward = 4 * model.config.n_layer
+    nf4 = ServingEngine(model, weight_quant="nf4", **kw)
+    del model
+    nm.nf4_matmul.launches = 0
+    nf4_out, steps, admissions = run(nf4)
+    launches = nm.nf4_matmul.launches
+    dense_out, _, _ = run(ServingEngine(dequantize_module(nf4.model), **kw))
+    dense_launches = nm.nf4_matmul.launches - launches
+    del nf4
+    model8 = GPT2LMHead(GPT2Config.small(dtype=torch.float32, kv_cache_dtype=torch.int8),
+                        device="cuda", seed=seed)
+    gather_out, _, _ = run(ServingEngine(model8, paged_attention="gather", **kw))
+    paged_decode_attention.launches = 0
+    fused_out, fused_steps, _ = run(ServingEngine(model8, paged_attention="fused", **kw))
+    paged = paged_decode_attention.launches
+    rec = {"phase": "fp32_quant_parity", "requests": len(prompts),
+           "nf4_tokens_equal_dense_dequantized": nf4_out == dense_out,
+           "nf4_decode_steps": steps, "nf4_admission_forwards": admissions,
+           "nf4_launches": launches, "nf4_launches_expected": per_forward * (steps + admissions),
+           "nf4_launches_per_forward": per_forward, "dense_run_nf4_launches": dense_launches,
+           "int8_kv_fused_tokens_equal_gather": fused_out == gather_out,
+           "int8_kv_decode_steps": fused_steps, "int8_kv_paged_launches": paged,
+           "int8_kv_paged_launches_expected": model8.config.n_layer * fused_steps}
+    print(json.dumps(rec), flush=True)
+    if nf4_out != dense_out or fused_out != gather_out:
+        raise AssertionError("fp32 quantized streams differ: nf4 vs dense-dequantized, or int8-KV "
+                             "fused vs gather")
+    if any(len(t) != 32 for t in nf4_out + fused_out):
+        raise AssertionError("an fp32 quantized request did not emit its 32 tokens")
+    if launches != rec["nf4_launches_expected"] or steps == 0 or dense_launches != 0:
+        raise AssertionError(f"nf4 launches {launches} != {per_forward} x (decode steps {steps} + "
+                             f"admissions {admissions}), or the dense run launched {dense_launches}")
+    if paged != rec["int8_kv_paged_launches_expected"] or fused_steps == 0:
+        raise AssertionError(f"int8-KV paged launches {paged} != n_layer x decode steps")
+    del model8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def quant_serving(torch, seed: int, requests, long_requests, card: str) -> dict:
+    """bf16 GPT-2 small served with quantized weights (this slice's path):
+    the nf4 engine over an int8 KV pool, then the int8-weights engine over a
+    bf16 pool, each over phase 5's 48 requests after a 4-request warm-up;
+    one serving-metrics line each with `quant_stats()`, the launches, and the
+    memory allocated after load with the dense model freed, beside the dense
+    engine's; the plane-pack cache's bytes on a line of their own; then a
+    profiler window over 16 nf4 decode steps. Returns the nf4 line."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.serving import FINISH_LENGTH, PagedKVConfig, ServingEngine
+    from accelerate_tpu_torch.utils.quantization import QuantizedLinear
+
+    def build(weight_quant, kv_dtype):
+        """An engine and the device bytes it holds (model and pool) once the
+        dense model it was built from is freed."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                            kv_cache_dtype=kv_dtype), device="cuda", seed=seed)
+        engine = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
+                               paged_attention="fused", max_concurrency=16,
+                               prompt_buckets=BUCKETS, weight_quant=weight_quant)
+        del model
+        gc.collect()
+        return engine, torch.cuda.memory_allocated() - base
+
+    dense, dense_bytes = build(None, None)
+    del dense
+    n_layer = GPT2Config.small().n_layer
+    lines = {}
+    for mode, kv_dtype in (("nf4", torch.int8), ("int8", None)):
+        kv_name = "int8" if kv_dtype is not None else "bf16"
+        build(mode, kv_dtype)[0].run(requests()[:4])  # warm-up: handles, allocator pools
+        torch.cuda.synchronize()
+        eng, held = build(mode, kv_dtype)
+        admissions = count_admissions(eng)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        outs = eng.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = nm.nf4_matmul.launches
+        paged = fa.paged_decode_attention.launches
+        m = eng.metrics
+        steps = m.decode_steps.value
+        bad = [o.request_id for o in outs
+               if o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64]
+        expected = 4 * n_layer * (steps + admissions[0]) if mode == "nf4" else 0
+        rec = {"phase": f"bf16_quant_serving_{mode}_w_{kv_name}_kv", "requests": len(outs),
+               "max_new_tokens": 64, "generated_tokens": m.tokens_generated.value, "wall_s": wall,
+               "tokens_per_s": m.tokens_generated.value / wall,
+               "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
+               "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
+               "decode_steps": steps, "admission_forwards": admissions[0],
+               "nf4_launches": launches, "nf4_launches_expected": expected,
+               "paged_decode_launches": paged, "quant_stats": eng.quant_stats(),
+               "memory_allocated_after_load": held, "dense_engine_memory_allocated": dense_bytes,
+               "card": card}
+        print(json.dumps(rec), flush=True)
+        if bad:
+            raise AssertionError(f"{mode}: requests {bad} did not finish with 64 tokens")
+        if launches != expected or paged != n_layer * steps or steps == 0:
+            raise AssertionError(f"{mode}: nf4 launches {launches} (expected {expected}), paged "
+                                 f"launches {paged} (expected {n_layer * steps})")
+        if mode == "nf4":
+            pack = sum(t.numel() * t.element_size()
+                       for mod in eng.model.modules() if isinstance(mod, QuantizedLinear)
+                       for t in (mod.qweight._plane_pack or ()))
+            print(json.dumps({"phase": "nf4_plane_pack_cache", "bytes": pack,
+                              "not_in": "weight_packed_bytes"}), flush=True)
+            lines[mode] = rec
+            prof = profile_decode(torch, build(mode, kv_dtype)[0], long_requests(),
+                                  phase="bf16_quant_decode_profile")
+            print(json.dumps(prof), flush=True)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines["nf4"]
+
+
+def kv_capacity(torch, np, seed: int, card: str) -> dict:
+    """The reference's ``BENCH_SERVE_WORKLOAD=quant`` rows: KV bytes per
+    token of an fp32, a bf16 and an int8 pool at equal block geometry (pool
+    bytes over token capacity, scale planes counted), and the peak concurrent
+    streams of one all-at-once ragged trace through an fp32-KV engine and an
+    int8-KV engine whose pool holds as many bytes (fp32 compute on both, so
+    KV storage is the only variable)."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.models.kv_cache import make_block_pool
+    from accelerate_tpu_torch.serving import PagedKVConfig, Request, SamplingParams, ServingEngine
+
+    cfg = GPT2Config.small()
+    bt, probe_blocks = 16, 64
+    per_token, per_block = {}, {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.int8)):
+        cache = make_block_pool(cfg.n_layer, 1, probe_blocks, bt, cfg.n_head, cfg.head_dim, dtype,
+                                "cuda")
+        views = [t for i in range(cfg.n_layer)
+                 for t in (*cache.pools(i), *(cache.scale_pools(i) or ()))]
+        total = sum(t.numel() * t.element_size() for t in views)
+        per_token[name], per_block[name] = total / (probe_blocks * bt), total // probe_blocks
+        del cache, views
+    fp_blocks = 256
+    int8_blocks = fp_blocks * per_block["fp32"] // per_block["int8"]
+    rng = np.random.default_rng(seed + 7)
+    trace = [rng.integers(0, 50257, int(k)).tolist() for k in rng.integers(16, 701, 48)]
+    peaks, steps = {}, {}
+    for name, kv_dtype, blocks in (("fp32", None, fp_blocks), ("int8", torch.int8, int8_blocks)):
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, kv_cache_dtype=kv_dtype),
+                           device="cuda", seed=seed)
+        eng = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=bt, num_blocks=blocks),
+                            max_concurrency=64, prompt_buckets=BUCKETS)
+        for p in trace:
+            if not eng.submit(Request(prompt=p, params=SamplingParams(max_new_tokens=32))).accepted:
+                raise AssertionError("capacity trace: a request was rejected")
+        peak = 0
+        while eng.has_work:
+            eng.step()
+            peak = max(peak, eng.active_slots)
+        peaks[name], steps[name] = peak, eng.metrics.steps.value
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec = {"phase": "kv_capacity", "kv_bytes_per_token": per_token,
+           "int8_over_bf16": per_token["int8"] / per_token["bf16"],
+           "pool_blocks": {"fp32": fp_blocks, "int8": int8_blocks},
+           "pool_bytes": {"fp32": fp_blocks * per_block["fp32"],
+                          "int8": int8_blocks * per_block["int8"]},
+           "requests": len(trace), "max_new_tokens": 32, "peak_streams": peaks,
+           "int8_over_fp32_peak": peaks["int8"] / peaks["fp32"], "steps": steps, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not rec["int8_over_bf16"] <= 0.55:
+        raise AssertionError(f"int8 KV bytes per token {rec['int8_over_bf16']} of bf16's > 0.55")
+    if not peaks["int8"] > peaks["fp32"]:
+        raise AssertionError(f"int8 pool seated {peaks['int8']} streams, fp32 {peaks['fp32']}")
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1055,7 +1376,7 @@ def main() -> int:
     from accelerate_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libraries = ("paged_decode", "flash_attention", "fused_ce")
+    libraries = ("paged_decode", "flash_attention", "fused_ce", "nf4_matmul")
     with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, libraries))
     for lib_name in libraries:
@@ -1269,7 +1590,35 @@ def main() -> int:
     # 14. bf16 training of the Mistral-7B-width model: this slice's path
     mistral = train_mistral(torch, np, args.seed, card)
 
-    # 15. summary lines
+    # 15. nf4 kernel against its plain version
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    nf4_cases = [nf4_case(torch, f"llama7b_{K}x{N}_m{M}_bf16", M=M, K=K, N=N,
+                          dtype=torch.bfloat16, seed=args.seed + i, flush=flush)
+                 for i, (K, N) in enumerate(LLAMA_NF4_SHAPES) for M in (1, 16)]
+    gpt2_nf4 = [nf4_case(torch, f"gpt2_{K}x{N}_m{M}_bf16", M=M, K=K, N=N, dtype=torch.bfloat16,
+                         seed=args.seed + i, flush=flush)
+                for i, (K, N) in enumerate(GPT2_NF4_SHAPES) for M in (16, 512)]
+    nf4_cases += gpt2_nf4 + [
+        nf4_case(torch, "gpt2_768x2304_m16_fp32", M=16, K=768, N=2304, dtype=torch.float32,
+                 seed=args.seed, flush=flush),
+        nf4_case(torch, "lead_2x8_768x3072_bf16", M=16, K=768, N=3072, dtype=torch.bfloat16,
+                 seed=args.seed, flush=flush, lead=(2,)),
+        nf4_case(torch, "unsupported_n192_fp32", M=16, K=768, N=192, dtype=torch.float32,
+                 seed=args.seed, flush=flush),
+    ]
+    del flush
+    torch.cuda.empty_cache()
+
+    # 16. fp32 quantized-serving parity
+    quant_parity(torch, args.seed, fp32_prompts)
+
+    # 17. bf16 quantized serving: this slice's path; then KV capacity
+    quant = quant_serving(torch, args.seed, bf16_requests,
+                          lambda: [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
+                                   for p in serve_prompts[:16]], card)
+    kv_capacity(torch, np, args.seed, card)
+
+    # 18. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -1302,6 +1651,17 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
         })
+    nf4_main = next(c for c in gpt2_nf4 if c["K"] == 768 and c["N"] == 3072 and c["M"] == 16)
+    kernels.append({
+        "name": "nf4_matmul", "route": "cuda", "source": "accelerate_tpu_torch/ops/csrc/nf4_matmul.cu",
+        "replaces": NF4_REPLACES, "launches": quant["nf4_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in nf4_cases),
+        "ms": nf4_main["kernel_ms"], "plain_ms": nf4_main["plain_ms"],
+        "bound_ms": nf4_main["bound_ms"], "bound_by": nf4_main["bound_by"],
+        # no PyTorch call computes x @ dequantize_nf4(W); the dense bf16
+        # product, another function, stands in the nf4_kernels lines
+        "library_ms": None,
+    })
     for kname, replaces in BAND_REPLACES.items():
         main_rec = band_cases[0][kname]
         kernels.append({

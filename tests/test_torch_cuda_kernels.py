@@ -382,3 +382,102 @@ def test_fused_ce_kernel_rejects_what_it_does_not_take(hopper, change, exc):
     h, w, labels, _, _ = _fused_ce_inputs(hopper, **spec)
     with pytest.raises(exc):
         fc.fused_ce_fwd(h, w, labels)
+
+
+# nf4 dequant-matmul against its plain version: both sum the same fp32
+# products of the same dequantized weights in another order (split-K partials,
+# warp partials), so fp32 agrees to a few ulps of the row's magnitude; bf16
+# and fp16 outputs are rounded once from those fp32 sums (2^-8 relative for
+# bf16), and a sum near a rounding boundary may round the other way
+NF4_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2), torch.float16: (1e-3, 1e-3)}
+NF4_CASES = {
+    "m1_k4096_n4096_bf16": dict(M=1, K=4096, N=4096, dtype=torch.bfloat16),
+    "m16_k768_n2304_bf16": dict(M=16, K=768, N=2304, dtype=torch.bfloat16),
+    "m16_k3072_n768_fp32": dict(M=16, K=3072, N=768, dtype=torch.float32),
+    "m5_k100_n256_fp16": dict(M=5, K=100, N=256, dtype=torch.float16),
+    "m3_k768_n384_fp32": dict(M=3, K=768, N=384, dtype=torch.float32),
+    "m200_k768_n768_bf16": dict(M=200, K=768, N=768, dtype=torch.bfloat16),
+    "m33_k256_n128_fp32": dict(M=33, K=256, N=128, dtype=torch.float32),
+}
+
+
+def _nf4_inputs(dev, *, M, K, N, dtype, seed=0):
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(K, N, generator=g, device=dev) / K ** 0.5
+    qt = quantize(w, QuantizationConfig(load_in_4bit=True, quant_type="nf4",
+                                        compute_dtype=torch.float32))
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    return x, qt
+
+
+@pytest.mark.parametrize("name", sorted(NF4_CASES))
+def test_nf4_matmul_kernel_matches_plain(hopper, name):
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+
+    spec = NF4_CASES[name]
+    x, qt = _nf4_inputs(hopper, **spec)
+    assert nm.routes_to_kernel(qt)
+    before = nm.nf4_matmul.launches
+    out = nm.nf4_matmul(x, qt)
+    torch.cuda.synchronize()
+    assert nm.nf4_matmul.launches == before + 1
+    ref = nm.nf4_matmul_reference(x, *nm.plane_pack(qt))
+    assert out.dtype == x.dtype and out.shape == (spec["M"], spec["N"])
+    atol, rtol = NF4_TOL[spec["dtype"]]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_nf4_matmul_leading_dims_and_plain_route_on_the_card(hopper):
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.utils.quantization import dequantize
+
+    x, qt = _nf4_inputs(hopper, M=6, K=256, N=512, dtype=torch.bfloat16)
+    got = nm.nf4_matmul(x.reshape(2, 3, 256), qt)
+    assert got.shape == (2, 3, 512)
+    torch.testing.assert_close(got.reshape(6, 512), nm.nf4_matmul(x, qt), atol=0, rtol=0)
+    x, odd = _nf4_inputs(hopper, M=4, K=64, N=192, dtype=torch.float32)  # N % 128: plain route
+    before = nm.nf4_matmul.launches
+    out = nm.nf4_matmul(x, odd)
+    assert nm.nf4_matmul.launches == before
+    torch.testing.assert_close(out, x @ dequantize(odd, torch.float32))
+
+
+@pytest.mark.parametrize("bad,exc", [("cpu_weight", ValueError), ("float64", TypeError)])
+def test_nf4_matmul_kernel_rejects_what_it_does_not_take(hopper, bad, exc):
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+
+    x, qt = _nf4_inputs(hopper, M=4, K=256, N=256, dtype=torch.float32)
+    if bad == "cpu_weight":
+        packed, scales = nm.plane_pack(qt)
+        qt._plane_pack = (packed.cpu(), scales.cpu())
+    else:
+        x = x.double()
+    before = nm.nf4_matmul.launches
+    with pytest.raises(exc):
+        nm.nf4_matmul(x, qt)
+    assert nm.nf4_matmul.launches == before
+
+
+def test_int8_kv_engine_step_launches_the_paged_kernel_with_scale_pools(hopper):
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.serving import Request, SamplingParams, ServingEngine
+
+    cfg = GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2, kv_cache_dtype=torch.int8)
+    model = GPT2LMHead(cfg, device=hopper)
+    streams = {}
+    for attention in ("gather", "fused"):
+        engine = ServingEngine(model, max_concurrency=2, prompt_buckets=(64,),
+                               paged_attention=attention, weight_quant="nf4")
+        paged_decode_attention.launches = nm.nf4_matmul.launches = 0
+        engine.submit(Request(prompt=list(range(3, 40)), params=SamplingParams(max_new_tokens=4)))
+        engine.step()  # admission and the first decode step
+        launches = (paged_decode_attention.launches, nm.nf4_matmul.launches)
+        assert launches == ((cfg.n_layer if attention == "fused" else 0), 2 * 4 * cfg.n_layer)
+        while engine.has_work:
+            for out in engine.step():
+                streams[attention] = out.tokens
+        assert engine.quant_stats()["kv_bits"] == 8
+    assert streams["fused"] == streams["gather"]

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing every module of
-`accelerate_tpu_torch` brings in neither JAX nor the JAX package."""
+`accelerate_tpu_torch` brings in neither JAX nor the JAX package, and
+`chip_smoke.py` imports neither anywhere in its source."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -34,5 +36,29 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.ops.flash_attention", "accelerate_tpu_torch.ops._build",
                 "accelerate_tpu_torch.ops.fused_ce", "accelerate_tpu_torch.models.llama",
                 "accelerate_tpu_torch.accelerator", "accelerate_tpu_torch.state",
-                "accelerate_tpu_torch.optimizer", "accelerate_tpu_torch.utils.precision"):
+                "accelerate_tpu_torch.optimizer", "accelerate_tpu_torch.utils.precision",
+                "accelerate_tpu_torch.utils.quantization", "accelerate_tpu_torch.ops.nf4_matmul"):
         assert mod in got["modules"]
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "chip_smoke.py imports by absolute name"
+            roots.add(node.module.split(".")[0])
+    assert "accelerate_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
+
+
+def test_package_root_exports_quantization_names_lazily():
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, accelerate_tpu_torch as p; "
+         "print('torch' in sys.modules, p.WeightQuantConfig.__module__, "
+         "p.quantize_module.__module__)"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.split() == ["False", "accelerate_tpu_torch.serving.engine",
+                                  "accelerate_tpu_torch.utils.quantization"]

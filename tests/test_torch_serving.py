@@ -190,6 +190,22 @@ def test_engine_validation(models, kw, exc, match):
         _port_engine(model, **kw)
 
 
+def test_engine_defaults_pinned_beside_the_reference():
+    """The port's defaults differ from the reference's until the slot pool
+    and overlapped dispatch are ported (the engine's docstring says why):
+    pinned on both sides, so a change to either shows here."""
+    import inspect
+
+    def defaults(cls):
+        sig = inspect.signature(cls.__init__).parameters
+        return {k: sig[k].default for k in ("pipeline_depth", "paged_kv", "paged_attention")}
+
+    assert defaults(ServingEngine) == dict(pipeline_depth=1, paged_kv=True, paged_attention="fused")
+    assert defaults(JaxServingEngine) == dict(pipeline_depth=2, paged_kv=False,
+                                              paged_attention="gather")
+    assert "Defaults that differ from the reference engine's" in ServingEngine.__doc__
+
+
 def test_submit_rejections(models):
     _, _, model = models
     engine = _port_engine(model)
