@@ -28,8 +28,8 @@
 // sequential grid dimension and the running state lives in VMEM scratch across
 // grid steps; the band kernels linearise the band into that axis through
 // scalar-prefetched maps (row-major for the forward and dQ, column-major over
-// (q head in group, q tile) for dK/dV). Here one CTA owns one (b*hq, q tile)
-// (forward, dQ) or one (b*hkv, kv tile) (dK/dV) and loops over the other axis
+// (q head in group, q tile) for dK/dV). Here a CTA owns a (b*hq, q tile)
+// (forward, dQ) or a (b*hkv, kv tile) (dK/dV) and loops over the other axis
 // itself, with its own loop bounds (`Mask`):
 //   - forward and dQ: kv tiles from the first inside the window,
 //     max(0, q_lo - W + 1) / BKV, to the diagonal (causal) or the end;
@@ -38,13 +38,36 @@
 //     min(nq - 1, (k_lo + BKV - 1 + W - 1) / BQ); dK and dV sum in fp32 in
 //     the CTA and are written once, in kv-head shape, with no atomics and no
 //     [b, hq, s, d] gradient to reduce afterwards.
-// Nothing carries between CTAs. Tiles are 64 x 64 (32 x 64 for fp32 at
-// D = 128, to fit shared memory). Every operand tile, the fp32 scores and the
-// fp32 accumulators live in shared memory; products run from shared memory
-// with nvcuda::wmma m16n16k16 bf16 tensor-core fragments (fp32 accumulation),
-// or with scalar fp32 FMAs for fp32 inputs (TF32 would break the fp32 parity
-// tolerance). A ragged last tile is zero-filled on load and masked, so any
+// Nothing carries between q tiles, and a ragged last tile is masked, so any
 // sequence length runs.
+//
+// The bf16 forward (fwd_tile_sm90, both forward kernels) is built for Hopper:
+//   - persistent: one CTA an SM takes q tiles of 128 rows in turn from the
+//     nq x b*hq tiles ordered heaviest causal tile first, in snake order
+//     (odd rounds of the grid run the CTAs backwards), so heavy and light
+//     tiles pair up on each SM;
+//   - warp-specialised: one producer warpgroup gives its registers to two
+//     consumer warpgroups (setmaxnreg) and one of its threads issues TMA
+//     loads (cp.async.bulk.tensor over 3-D maps [b*h, s, D], 128-byte
+//     swizzle, so a ragged tile reads zeros, never the next head's rows) under
+//     mbarriers: Q once a tile, K and V tiles of 128 rows through a two-stage
+//     ring that runs ahead across tiles, with K and V released separately;
+//   - each consumer warpgroup owns 64 query rows: S = Q K^T by wgmma from
+//     shared memory into registers; the mask only on tiles that cut it
+//     (diagonal, window edge, ragged end); an online softmax in registers in
+//     base 2 (ex2 of log2e-scaled scores; row max and sum over the 4 threads
+//     of a quad); P rounded to bf16 in registers is the A operand of
+//     O += P V (wgmma, V read MN-major through the transpose bit), and O stays
+//     in registers. S of tile j + 1 and P V of tile j are in flight while the
+//     softmax of tile j + 1 runs, and the two warpgroups take turns to issue
+//     their products (named barriers), so one's softmax runs under the other's;
+//   - the epilogue writes O / l in bf16 into a swizzled staging tile that one
+//     TMA store writes out (rows >= sq dropped) while the next tile starts.
+// The fp32 forward and all backward kernels keep the first design: tiles of
+// 64 x 64 (32 x 64 for fp32 at D = 128), every operand tile, the fp32 scores
+// and the fp32 accumulators in shared memory, loaded synchronously; products
+// through nvcuda::wmma m16n16k16 bf16 fragments (fp32 accumulation) or scalar
+// fp32 FMAs for fp32 inputs (TF32 would break the fp32 parity tolerance).
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense):
@@ -60,14 +83,17 @@
 //     412.4 GFLOP, 0.417 ms (its 168 MB of q, k, v, o and lse need
 //     0.050 ms); dQ 618.5 GFLOP, 0.625 ms; dK/dV 824.7 GFLOP, 0.834 ms; all
 //     bound by operations.
-// The design keeps the s x s scores out of device memory (each K/V or Q/dO
-// tile is read once per CTA that needs it, from L2 after the first), works
-// only on tiles inside the mask, so band time scales with W and not s^2, and
-// schedules the heaviest causal tiles first. It does not reach either bound:
-// operands go through shared memory with synchronous loads and wmma rather
-// than TMA and wgmma, and at bf16 d 64 a CTA takes about 72 KB (forward),
-// 99 KB (dQ) and 116 KB (dK/dV) of shared memory, so 3, 2 and 1 CTAs share
-// an SM.
+// Every design here keeps the s x s scores out of device memory (each K/V or
+// Q/dO tile is read once per CTA that needs it, from L2 after the first) and
+// works only on tiles inside the mask, so band time scales with W and not
+// s^2. What still holds the bf16 forward from its bound: at d 64 the 64 ex2
+// a thread takes per kv tile cost the SM's 16-a-clock special-function unit
+// as long as the tile's products take the tensor cores, and the two only
+// partly overlap; each K/V tile is read from L2 once per 128-row q tile that
+// needs it; the last tiles of a causal grid leave SMs idle. The backward
+// kernels do not reach theirs: synchronous loads and wmma rather than TMA and
+// wgmma, and at bf16 d 64 a CTA takes 99 KB (dQ) and 116 KB (dK/dV) of
+// shared memory, so 2 and 1 CTAs share an SM.
 //
 // Numerics kept from the TPU kernels:
 //   - masked logits are NEG_INF = -1e30 (not -inf);
@@ -79,7 +105,8 @@
 //     TPU kernel sets the row's p to 1 and wipes it with the next tile's
 //     correction exp(-1e30 - m_new) = 0. Under a window the forward writes
 //     p = 0 for a masked entry instead: the same result without the
-//     transient;
+//     transient. The bf16 forward takes p = 2^(s log2e - m log2e) with the
+//     hardware's ex2 (about 2 ulp), which moves lse by a few fp32 ulps;
 //   - backward: p = exp(s - lse) recomputed; dS = p * (dP - delta) in fp32,
 //     rounded to the input dtype before dS.K and dS^T.Q; p rounded before
 //     P^T.dO. delta = rowsum(dO * O) comes in from the wrapper.
@@ -89,12 +116,14 @@
 // Python wrapper (accelerate_tpu_torch/ops/flash_attention.py) raises if the
 // code is not 0.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -147,6 +176,10 @@ struct Mask {
   __device__ __forceinline__ bool windowed() const { return BAND && window_ > 0; }
   __device__ __forceinline__ bool keep(int qi, int kj) const {
     return kj < skv && (!CAUSAL || kj <= qi) && (!windowed() || kj > qi - window_);
+  }
+  // every pair of queries [q_first, q_last] x keys [k_first, k_last] attends
+  __device__ __forceinline__ bool keeps_all(int q_first, int q_last, int k_first, int k_last) const {
+    return k_last < skv && (!CAUSAL || k_last <= q_first) && (!windowed() || k_first > q_last - window_);
   }
   // kv tiles [kv_begin, kv_end) hold every key the query rows [q_lo, q_lo + bq) see
   __device__ __forceinline__ int kv_begin(int q_lo, int bkv) const {
@@ -388,6 +421,471 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const T* __restric
   }
 }
 
+// ------------------------------------------------- the bf16 forward on sm_90a
+// Hopper primitives through inline PTX: mbarriers, TMA and wgmma.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// one arrival that also announces `bytes` of TMA traffic on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// returns once the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// the box of `map` at coordinates (c0 innermost, c1, c2) into shared memory;
+// completes its bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// shared memory into the box of `map` at (c0, c1, c2); elements outside the
+// tensor are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int c0, int c1,
+                                          int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// a wgmma shared-memory descriptor of a tile in the 128-byte swizzle that TMA
+// writes: start address, leading and stride byte offsets, layout 1 (128B)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// 2^x by the special-function unit (about 2 ulp; subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// wgmma.mma_async m64nNk16, bf16 inputs, fp32 accumulators (N / 2 a thread)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d (+)= A . B, A and B in shared memory (both K-major), scale_d 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d += A . B, A (4 registers of bf16 pairs per thread) from registers, B in
+  // shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d (+)= A . B, A and B in shared memory (both K-major), scale_d 0 overwrites d
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d += A . B, A (4 registers of bf16 pairs per thread) from registers, B in
+  // shared memory MN-major (the transpose bit)
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// The bf16 forward's tiles: a CTA is two consumer warpgroups of 64 query rows
+// each and one producer warpgroup whose first thread issues the TMA loads.
+constexpr int kSm90Threads = 3 * 128;
+
+template <int D>
+struct Sm90Fwd {
+  static constexpr int BQ = 128;
+  static constexpr int BKV = 128;
+  static constexpr int STAGES = 2;  // the K/V ring
+  static constexpr int kQBytes = BQ * D * 2;
+  static constexpr int kKVBytes = BKV * D * 2;  // one K or V tile
+  // Q, the O staging tile, the ring, 1024 bytes of slack to align the tiles
+  // to the swizzle's 8 x 128-byte period, and the mbarriers: full and empty
+  // for Q, and per stage full and empty for K and for V
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * STAGES * kKVBytes + 8 * (2 + 4 * STAGES);
+};
+
+static_assert(Sm90Fwd<128>::kSmem <= kMaxSmem, "bf16 forward tile exceeds shared memory");
+
+// The bf16 forward's TMA maps, q and o over [b * hq, sq, D], k and v over
+// [b * hkv, skv, D], in boxes of 64 columns (one 128-byte swizzle atom), and
+// its count of q rows b * hq (the grid is one CTA an SM)
+struct FwdMaps {
+  CUtensorMap q, k, v, o;
+  int bh;
+};
+
+// The bf16 forward, persistent: CTA blockIdx.x takes one q tile in each
+// round of the grid over the nq x bh tiles, heaviest causal tiles first
+// (tile t is q tile nq - 1 - t / bh of row t % bh = b * hq + h), and writes o
+// (through maps.o) and lse. Shared memory holds Q, an O staging tile and a
+// ring of STAGES K and V tiles, all in the 128-byte swizzle, as [D / 64
+// column blocks][rows][64]; the producer runs ahead across tiles, so the next
+// tile's Q and K/V loads and the last tile's O store overlap the products.
+// S, P and O stay in registers.
+template <int D, typename M>
+__device__ __forceinline__ void fwd_tile_sm90(unsigned char* smem_raw, const FwdMaps& maps,
+                                              float* __restrict__ lse, const M mask) {
+  using C = Sm90Fwd<D>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, S = C::STAGES;
+  constexpr float kLog2e = 1.4426950408889634f;
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* o_s = q_s + C::kQBytes;
+  unsigned char* k_s = o_s + C::kQBytes;       // stage st at + st * kKVBytes
+  unsigned char* v_s = k_s + S * C::kKVBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(v_s + S * C::kKVBytes);
+  uint64_t* empty_q = full_q + 1;
+  uint64_t* full_k = empty_q + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+
+  const int sq = mask.sq, skv = mask.skv;
+  const int nq = (sq + BQ - 1) / BQ;
+  const int bh_rows = maps.bh;
+  const int n_work = nq * bh_rows;
+  // this CTA's k-th tile: round k of the grid, in snake order (odd rounds
+  // run the CTAs backwards), so heavy and light causal tiles pair up
+  auto work_tile = [&](int k) {
+    return k * static_cast<int>(gridDim.x) +
+           (k % 2 ? static_cast<int>(gridDim.x - 1 - blockIdx.x) : static_cast<int>(blockIdx.x));
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 2 * 128);  // every consumer thread releases a buffer
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty_k + st, 2 * 128);
+      mbar_init(empty_v + st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: hands its registers to the consumers; one thread loads each
+    // tile's Q once the last tile's products are done with it, and keeps up
+    // to S K/V tiles ahead of the consumers, across tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 2 * 128) {
+      int fill = 0, n_done = 0;
+      for (int t; (t = work_tile(n_done)) < n_work; ++n_done) {
+        const int q_lo = (nq - 1 - t / bh_rows) * BQ;
+        const int bh = t % bh_rows;
+        const int bkv = bh / mask.groups();
+        const int ik_begin = mask.kv_begin(q_lo, BKV);
+        const int n_tiles = mask.kv_end(q_lo, BQ, BKV) - ik_begin;
+        if (n_done > 0) mbar_wait(empty_q, (n_done - 1) & 1);
+        mbar_expect_tx(full_q, C::kQBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) tma_load(q_s + c * BQ * 128, &maps.q, full_q, 64 * c, q_lo, bh);
+        for (int it = 0; it < n_tiles; ++it, ++fill) {
+          const int st = fill % S;
+          const int kv_row = (ik_begin + it) * BKV;
+          if (fill >= S) mbar_wait(empty_k + st, (fill / S - 1) & 1);  // the consumers released it
+          mbar_expect_tx(full_k + st, C::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(k_s + st * C::kKVBytes + c * BKV * 128, &maps.k, full_k + st, 64 * c, kv_row, bkv);
+          }
+          if (fill >= S) mbar_wait(empty_v + st, (fill / S - 1) & 1);
+          mbar_expect_tx(full_v + st, C::kKVBytes);
+#pragma unroll
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load(v_s + st * C::kKVBytes + c * BKV * 128, &maps.v, full_v + st, 64 * c, kv_row, bkv);
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q_lo + 64 wg + [0, 64) of each
+    // tile; this thread holds rows row0 and row0 + 8 of S and O, columns
+    // 8 j + col0 + {0, 1} (the wgmma accumulator layout)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_addr = smem_addr(q_s) + 64 * wg * 128;
+    float o[D / 2], s[BKV / 2];
+    uint32_t p[BKV / 16][4];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
+    // ping-pong: the two warpgroups take turns to issue their products
+    // (named barriers 3 and 4), so one's softmax runs under the other's;
+    // warpgroup 0 goes first
+    auto turn_begin = [&]() { asm volatile("bar.sync %0, 256;" ::"r"(3 + wg) : "memory"); };
+    auto turn_end = [&]() { asm volatile("bar.arrive %0, 256;" ::"r"(4 - wg) : "memory"); };
+    if (wg == 1) turn_end();
+    int fill = 0, n_done = 0;
+    for (int t; (t = work_tile(n_done)) < n_work; ++n_done) {
+      const int q_lo = (nq - 1 - t / bh_rows) * BQ;
+      const int bh = t % bh_rows;
+      const int ik_begin = mask.kv_begin(q_lo, BKV);
+      const int n_tiles = mask.kv_end(q_lo, BQ, BKV) - ik_begin;
+      const int wg_first = q_lo + 64 * wg, wg_last = wg_first + 63;
+      const int row0 = wg_first + 16 * warp + lane / 4;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's partial row sums
+      float corr[2] = {1.f, 1.f};
+
+      // S = Q K_it^T, issued: both K-major; a k16 step is 32 bytes into a
+      // 64-column block
+      auto issue_s = [&](int it) {
+        const int st = (fill + it) % S;
+        const uint32_t k_addr = smem_addr(k_s) + st * C::kKVBytes;
+        mbar_wait(full_k + st, ((fill + it) / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          Wgmma<BKV>::ss(s, sw128_desc(q_addr + (kk / 4) * BQ * 128 + off, 16, 1024),
+                         sw128_desc(k_addr + (kk / 4) * BKV * 128 + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+      };
+      // O += P_it V_it, issued: V is MN-major (transpose bit); a k16 step is
+      // 16 rows of 128 bytes; LBO steps to the next 64-column block of D
+      auto issue_pv = [&](int it) {
+        const int st = (fill + it) % S;
+        const uint32_t v_addr = smem_addr(v_s) + st * C::kKVBytes;
+        mbar_wait(full_v + st, ((fill + it) / S) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+          Wgmma<D>::rs(o, p[kk], sw128_desc(v_addr + kk * 16 * 128, BKV * 128, 1024));
+        }
+        wgmma_commit();
+      };
+      // the online softmax of tile it's finished S, in place: s becomes the
+      // unrounded p; m, l and corr move
+      auto softmax = [&](int it) {
+        const int k_lo = (ik_begin + it) * BKV;
+        const bool cut = !mask.keeps_all(wg_first, wg_last, k_lo, k_lo + BKV - 1);
+        uint64_t dropped = 0;
+        if (cut) {  // only tiles that cut the mask: diagonal, window edge, ragged end
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i) {
+            if (!mask.keep(row0 + 8 * ((i / 2) % 2), k_lo + 8 * (i / 4) + col0 + i % 2)) {
+              s[i] = kNegInf;
+              dropped |= 1ull << i;
+            }
+          }
+        }
+        if (!mask.windowed()) dropped = 0;  // elsewhere exp(-1e30 - m) is 0 already
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+        float neg[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          corr[r] = fast_exp2((m[r] - m_new) * kLog2e);
+          m[r] = m_new;
+          neg[r] = -m_new * kLog2e;
+          l[r] *= corr[r];
+        }
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          const int r = (i / 2) % 2;
+          float e = fast_exp2(fmaf(s[i], kLog2e, neg[r]));
+          if (dropped >> i & 1) e = 0.f;  // under a window a masked p is exactly 0
+          l[r] += e;  // l sums the unrounded p
+          s[i] = e;
+        }
+      };
+      // p rounded to bf16, the register A operand of P.V: the accumulator
+      // layout of S matches the A fragment layout of m64k16
+      auto round_p = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk) {
+          p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+          p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+          p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+          p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+        }
+      };
+
+      mbar_wait(full_q, n_done & 1);
+      turn_begin();
+      issue_s(0);
+      turn_end();
+      wgmma_wait<0>();
+      mbar_arrive(empty_k + fill % S);
+      softmax(0);
+      round_p();
+      // S of tile it and P V of tile it - 1 run on the tensor cores while
+      // the softmax of tile it runs
+      for (int it = 1; it < n_tiles; ++it) {
+        turn_begin();
+        issue_s(it);
+        issue_pv(it - 1);
+        turn_end();
+        wgmma_wait<1>();  // S of tile it (groups complete in order)
+        mbar_arrive(empty_k + (fill + it) % S);
+        softmax(it);
+        wgmma_wait<0>();
+        mbar_arrive(empty_v + (fill + it - 1) % S);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i / 2) % 2];  // into tile it's max
+        round_p();
+      }
+      mbar_arrive(empty_q);  // the last S product has read Q
+      turn_begin();
+      issue_pv(n_tiles - 1);
+      turn_end();
+      wgmma_wait<0>();
+      mbar_arrive(empty_v + (fill + n_tiles - 1) % S);
+      fill += n_tiles;
+
+      // epilogue: l over the quad; O / l in bf16 into this warpgroup's rows
+      // of the O tile, in the swizzle, once the last tile's store has read
+      // them; then one TMA store that drops rows >= sq; lse = m + log(l),
+      // l == 0 -> 1
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(kFullMask, l[r], 1);
+        l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
+        if (l[r] == 0.f) l[r] = 1.f;
+        inv[r] = 1.f / l[r];
+      }
+      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int r = (i / 2) % 2;
+        const int row = 64 * wg + 16 * warp + lane / 4 + 8 * r;  // in the tile
+        const int col = 8 * (i / 4) + col0;
+        const int cc = col % 64;
+        const int byte = (col / 64) * BQ * 128 + row * 128 + (((cc / 8) ^ (row % 8)) * 16) + (cc % 8) * 2;
+        *reinterpret_cast<uint32_t*>(o_s + byte) = pack_bf16(o[i] * inv[r], o[i + 1] * inv[r]);
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+      if (tid == 0 && wg_first < sq) {
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_store(&maps.o, o_s + c * BQ * 128 + 64 * wg * 128, 64 * c, wg_first, bh);
+        }
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      }
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = row0 + 8 * r;
+          if (qi < sq) lse[static_cast<size_t>(bh) * sq + qi] = m[r] + logf(l[r]);
+        }
+      }
+    }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
 template <typename T, int D>
 constexpr size_t dq_smem() {
   using C = Tiles<T, D>;
@@ -558,12 +1056,29 @@ static_assert(dkv_smem<__nv_bfloat16, 128>() <= kMaxSmem, "dK/dV tile exceeds sh
 
 // The kernels: one __global__ name per TPU kernel replaced, each a tile body
 // under its family's mask.
+// the forward's threads: bf16 runs the sm_90a body (two consumer warpgroups
+// and a producer warpgroup), fp32 the scalar one
+template <typename T>
+struct FwdThreads {
+  static constexpr int value = std::is_same_v<T, __nv_bfloat16> ? kSm90Threads : kThreads;
+};
+
+template <typename T, int D, typename M>
+__device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const T* k, const T* v, T* o,
+                                         float* lse, const M mask, const FwdMaps& maps) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    fwd_tile_sm90<D>(smem, maps, lse, mask);
+  } else {
+    fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
+  }
+}
+
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+__global__ void __launch_bounds__(FwdThreads<T>::value, 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, const Mask<CAUSAL, false> mask) {
+    float* __restrict__ lse, const Mask<CAUSAL, false> mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
+  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps);
 }
 
 template <typename T, int D, bool CAUSAL>
@@ -585,11 +1100,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_band_fwd_kernel(
+__global__ void __launch_bounds__(FwdThreads<T>::value, 1) flash_band_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, const BandMask mask) {
+    float* __restrict__ lse, const BandMask mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
+  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps);
 }
 
 template <typename T, int D>
@@ -628,12 +1143,54 @@ struct Args {
 enum class Kind { kFwd, kDq, kDkv };
 
 template <typename K, typename... A>
-cudaError_t run(K kernel, size_t smem, dim3 grid, cudaStream_t stream, A... args) {
+cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, cudaStream_t stream, A... args) {
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a TMA map over a contiguous bf16 [n, rows, D] tensor in boxes of 64
+// columns (128 bytes, the 128-byte swizzle's width) x box_rows rows x 1: rows
+// past `rows` load as 0 and are not stored, so a ragged tile never touches
+// the next head's rows
+CUresult bf16_map(CUtensorMap* map, const void* ptr, int d, int rows, int n, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <typename T, int D, bool CAUSAL, bool BAND>
@@ -649,29 +1206,49 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
   const dim3 kv_grid((m.skv + C::BKV - 1) / C::BKV, a.bh / m.groups());
   cudaError_t err;
   if (kind == Kind::kFwd) {
-    constexpr size_t smem = fwd_smem<T, D>();
+    FwdMaps maps{};
+    size_t smem = fwd_smem<T, D>();
+    dim3 grid = q_grid;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      using F = Sm90Fwd<D>;
+      const int bh_kv = a.bh / m.groups();
+      CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.k, k, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.v, v, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.o, out0, D, m.sq, a.bh, 64);  // a warpgroup's rows
+      if (r != CUDA_SUCCESS) return static_cast<int>(r);
+      smem = F::kSmem;
+      int dev = 0, sms = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      maps.bh = a.bh;
+      grid = dim3(std::min((m.sq + F::BQ - 1) / F::BQ * a.bh, sms));  // one CTA an SM
+    }
+    constexpr int threads = FwdThreads<T>::value;
     if constexpr (BAND) {
-      err = run(flash_band_fwd_kernel<T, D>, smem, q_grid, a.stream, q, k, v, out0, a.lse_out, m);
+      err = run(flash_band_fwd_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, out0,
+                a.lse_out, m, maps);
     } else {
-      err = run(flash_fwd_kernel<T, D, CAUSAL>, smem, q_grid, a.stream, q, k, v, out0, a.lse_out,
-                m);
+      err = run(flash_fwd_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, out0,
+                a.lse_out, m, maps);
     }
   } else if (kind == Kind::kDq) {
     constexpr size_t smem = dq_smem<T, D>();
     if constexpr (BAND) {
-      err = run(flash_band_dq_kernel<T, D>, smem, q_grid, a.stream, q, k, v, dout, a.lse_in,
+      err = run(flash_band_dq_kernel<T, D>, smem, q_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, m);
     } else {
-      err = run(flash_dq_kernel<T, D, CAUSAL>, smem, q_grid, a.stream, q, k, v, dout, a.lse_in,
+      err = run(flash_dq_kernel<T, D, CAUSAL>, smem, q_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, m);
     }
   } else {
     constexpr size_t smem = dkv_smem<T, D>();
     if constexpr (BAND) {
-      err = run(flash_band_dkv_kernel<T, D>, smem, kv_grid, a.stream, q, k, v, dout, a.lse_in,
+      err = run(flash_band_dkv_kernel<T, D>, smem, kv_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, out1, m);
     } else {
-      err = run(flash_dkv_kernel<T, D, CAUSAL>, smem, kv_grid, a.stream, q, k, v, dout, a.lse_in,
+      err = run(flash_dkv_kernel<T, D, CAUSAL>, smem, kv_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, out1, m);
     }
   }

@@ -170,7 +170,8 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
     that agree, one dtype and a head_dim the kernel is built for. With
     ``grouped`` (the band kernels) K/V are ``[b, hkv, s, d]`` with ``hq`` a
     multiple of ``hkv`` and one s for all. Returns the operands, then the
-    rows, contiguous and 16-byte aligned, as the kernel's vector loads need."""
+    rows, contiguous and 16-byte aligned, as the kernels' vector loads and the
+    bf16 forward's TMA maps need."""
     q, k, v = tensors[:3]
     dev = q.device
     if any(t.device != dev for t in tensors + rows):

@@ -6,7 +6,9 @@ Phases run in order; any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi) and its compute
    capability, which must be 9.0;
 2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together); ptxas's registers, spills
+   and static shared memory of each flash forward kernel, and none of them
+   may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
@@ -24,8 +26,10 @@ Phases run in order; any failure exits non-zero:
 6. flash kernels: the forward, dQ and dK/dV kernels
    (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
    card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
-   causal), in fp32, non-causal, at d 128 and at a ragged s 1000; one JSON
-   line per case and kernel with its error, its times and its bound;
+   causal), in fp32, non-causal, at d 128 and at a ragged s 1000; each
+   output held to FLASH_TOL and lse to LSE_ATOL; one JSON line per case and
+   kernel with its error, its times, its bound, its achieved TFLOP/s and
+   the share of the bound it reaches;
 7. fp32 train-step parity: GPT-2 small at full width and depth, seeded fp32
    weights, TF32 off, batch 2 x 1024: one `make_train_step` step with
    ``attention_impl="flash"`` against one with ``"xla"`` (the plain path):
@@ -62,10 +66,11 @@ Phases run in order; any failure exits non-zero:
    ragged fp32 s 1000 with window 100 and 4 query heads per kv head, at
    window 1, and at a window past the sequence (held to the rectangular
    kernels' causal output too); each output held to FLASH_TOL, lse to
-   BAND_LSE_ATOL, and at the Mistral shapes each output also to a bar
+   LSE_ATOL, and at the Mistral shapes each output also to a bar
    scaled by its own size (BAND_MAIN_RMS_TOL); one JSON line per case and
    kernel with its error, its times (the library yardstick is SDPA over an
-   explicit boolean band mask with ``enable_gqa``) and its bound;
+   explicit boolean band mask with ``enable_gqa``), its bound, its achieved
+   TFLOP/s and the share of the bound it reaches;
 13. fp32 Llama parity: a narrow Mistral shape (hidden 1024, 8 heads over 2
    kv heads, 2 layers, vocab 32000, batch 1 x 2048, window 512), fp32, TF32
    off: one `make_train_step(llama_loss_fn)` step with
@@ -131,8 +136,10 @@ BF16_LOGIT_ATOL = 0.1
 # to bf16 before products (a value near a rounding boundary may round the
 # other way) and rounds each output once more
 FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
-# band kernels, besides FLASH_TOL: lse |err| <= BAND_LSE_ATOL in every case
-# (both sides sum the same fp32 scores in another order). At the Mistral
+# the forward kernels' lse, rect and band, every dtype: |err| <= LSE_ATOL
+# (both sides sum the same fp32 scores in another order, the bf16 kernel in
+# base 2 with the hardware's ex2; the backward kernels recompute p from this
+# lse, so FLASH_TOL's 2e-2 would be far too loose for it). At the Mistral
 # shape FLASH_TOL's atol is about a typical value of o, dq and dk in the
 # rows that attend thousands of keys (|o| ~ 0.02 at W 4096), so there each
 # output is also held to rtol |plain| + BAND_MAIN_RMS_TOL rms(plain), rtol
@@ -140,7 +147,7 @@ FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # for dq and dk/dv, seed 0), where bf16 rounding of p and dS at other
 # running maxima leaves a small excess on elements that cancel. Not for
 # window 1: there dq and dk are 0 up to rounding and have no size to scale by
-BAND_LSE_ATOL = 1e-4
+LSE_ATOL = 1e-4
 BAND_MAIN_RMS_TOL = {"flash_band_fwd": 0.05, "flash_band_dq": 0.015, "flash_band_dkv": 0.015}
 # fp32 GPT-2 small, one train step, flash vs plain attention: the same fp32
 # arithmetic in another summation order, through 12 layers and the head
@@ -207,6 +214,31 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def forward_resources(log: str) -> list[dict]:
+    """ptxas's resources of each flash forward kernel (``flash_fwd_kernel``,
+    ``flash_band_fwd_kernel``) in a build log: its mangled template
+    arguments, registers at entry, spill bytes and static shared memory (the
+    bf16 kernels' tiles are dynamic shared memory, set at launch)."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        fn = block.split("'", 1)[0]
+        m = re.search(r"(flash_(?:band_)?fwd_kernel)I(\w+?)EEEv", fn)
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        args = re.fullmatch(r"(13__nv_bfloat16|f)Li(\d+)(?:ELb([01]))?", m.group(2))
+        out.append({"kernel": m.group(1), "dtype": "bfloat16" if args.group(1) != "f" else "float32",
+                    "d": int(args.group(2)),
+                    **({"causal": args.group(3) == "1"} if args.group(3) else {}),
+                    "registers": int(regs.group(1)) if regs else None,
+                    "spill_store_bytes": int(spill.group(1)) if spill else None,
+                    "spill_load_bytes": int(spill.group(2)) if spill else None,
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0})
+    return out
 
 
 def peak_rates(name: str) -> tuple[float, float, str]:
@@ -491,6 +523,9 @@ def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
     got = {kname: outputs(fn) for kname, fn in kernel.items()}
     want = {kname: outputs(fn) for kname, fn in plain.items()}
     torch.cuda.synchronize()
+    lse_err = (got["flash_attention_fwd"][1] - lse_ref).abs().max().item()
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"flash case {name}: lse max_abs_err {lse_err} > {LSE_ATOL}")
 
     # yardstick: SDPA forward, and SDPA's backward (dq, dk and dv together)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
@@ -527,14 +562,18 @@ def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
                                  f"atol {atol} + rtol {rtol} * |plain|")
         n_bytes, products = io[kname]
         n_flops = products * 2 * d * pairs
+        kernel_ms = device_ms(torch, kernel[kname], flush)
+        bound_ms = max(n_bytes / bw, n_flops / peak) * 1e3
         rec = dict(case=name, kernel=kname, b=b, h=h, s=s, d=d, dtype=str(dtype).removeprefix("torch."),
                    causal=causal, max_abs_err=err, atol=atol, rtol=rtol,
-                   kernel_ms=device_ms(torch, kernel[kname], flush),
+                   **({"lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL}
+                      if kname == "flash_attention_fwd" else {}),
+                   kernel_ms=kernel_ms,
                    plain_ms=device_ms(torch, plain[kname], flush, samples=10),
-                   library_ms=library[kname],
-                   bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
+                   library_ms=library[kname], bound_ms=bound_ms,
                    bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
-                   bytes=n_bytes, flops=n_flops)
+                   bytes=n_bytes, flops=n_flops, tflops=n_flops / kernel_ms * 1e-9,
+                   bound_share=bound_ms / kernel_ms)
         print(json.dumps(rec), flush=True)
         recs[kname] = rec
     return recs
@@ -662,7 +701,7 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     the times of SDPA over an explicit boolean band mask with
     ``enable_gqa=True`` (forward, and its backward: dq, dk and dv together),
     and the bounds; prints one JSON line per kernel and returns them by
-    kernel. Each output is held to FLASH_TOL, lse to BAND_LSE_ATOL, and with
+    kernel. Each output is held to FLASH_TOL, lse to LSE_ATOL, and with
     ``rms_tol`` (by kernel) each output also to rtol |plain| + rms_tol
     rms(plain). ``by_group`` evaluates the plain versions one kv head's group at
     a time, to bound their memory. ``rect`` also times the rectangular
@@ -736,8 +775,8 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     o, lse = kernel["flash_band_fwd"]()
     torch.cuda.synchronize()
     lse_err = (lse - lse_ref).abs().max().item()
-    if not lse_err <= BAND_LSE_ATOL:
-        raise AssertionError(f"band case {name}: lse max_abs_err {lse_err} > {BAND_LSE_ATOL}")
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"band case {name}: lse max_abs_err {lse_err} > {LSE_ATOL}")
     errs["flash_band_fwd"], over["flash_band_fwd"], rms["flash_band_fwd"] = check(
         "flash_band_fwd", o, o_ref, rms_tol.get("flash_band_fwd", math.inf))
     errs["flash_band_fwd"] = max(errs["flash_band_fwd"], lse_err)
@@ -789,18 +828,20 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     for kname in BAND_REPLACES:
         n_bytes, products = io[kname]
         n_flops = products * 2 * d * pairs
+        kernel_ms = device_ms(torch, kernel[kname], flush)
+        bound_ms = max(n_bytes / bw, n_flops / peak) * 1e3
         rec = dict(phase="flash_band_kernels", case=name, kernel=kname, b=b, hq=hq, hkv=hkv, s=s,
                    d=d, window=window, dtype=dtype_name, max_abs_err=errs[kname], atol=atol,
                    rtol=rtol, err_over_rms=over[kname], plain_rms=rms[kname],
                    rms_tol=rms_tol.get(kname),
-                   **({"lse_max_abs_err": lse_err, "lse_atol": BAND_LSE_ATOL}
+                   **({"lse_max_abs_err": lse_err, "lse_atol": LSE_ATOL}
                       if kname == "flash_band_fwd" else {}),
-                   kernel_ms=device_ms(torch, kernel[kname], flush),
+                   kernel_ms=kernel_ms,
                    plain_ms=device_ms(torch, plain[kname], flush, samples=5),
-                   library_ms=library[kname],
-                   bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
+                   library_ms=library[kname], bound_ms=bound_ms,
                    bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
-                   bytes=n_bytes, flops=n_flops, **rect_rec, card=card)
+                   bytes=n_bytes, flops=n_flops, tflops=n_flops / kernel_ms * 1e-9,
+                   bound_share=bound_ms / kernel_ms, **rect_rec, card=card)
         print(json.dumps(rec), flush=True)
         recs[kname] = rec
     del q, k, v, dout, o_ref, lse_ref, delta
@@ -1389,6 +1430,10 @@ def main() -> int:
         print(json.dumps({"phase": "build", "library": lib_name, "build_s": build_s,
                           "kernels": len(regs), "max_registers": max(regs, default=0),
                           "kernels_spilling": spills}), flush=True)
+    forward = forward_resources(_build.build_log("flash_attention"))
+    print(json.dumps({"phase": "build_flash_forward", "kernels": forward}), flush=True)
+    if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in forward):
+        raise AssertionError(f"a flash forward kernel spills: {forward}")
 
     # 3. kernel against its plain version
     from accelerate_tpu_torch.ops import flash_attention as fa

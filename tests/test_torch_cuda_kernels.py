@@ -121,6 +121,12 @@ def test_paged_decode_kernel_rejects_a_strided_pool(hopper):
 # a value near a rounding boundary may round the other way, then the output is
 # rounded once more, so the bar is relative (|err| <= atol + rtol * |ref|)
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# lse of the forward kernels, absolute, every dtype: both sides sum the same
+# fp32 scores (the bf16 kernel in base 2, exp2 of log2e-scaled scores) in
+# another order, so they agree to a few fp32 ulps of the row's magnitude; the
+# backward kernels recompute p from this lse, so it is held far tighter than
+# the outputs
+LSE_ATOL = 1e-4
 
 FLASH_CASES = {
     "bf16_causal_d64": dict(dtype=torch.bfloat16, causal=True, d=64, sq=256, skv=256),
@@ -131,6 +137,15 @@ FLASH_CASES = {
     "fp32_causal_d128_ragged": dict(dtype=torch.float32, causal=True, d=128, sq=77, skv=77),
     "bf16_cross_ragged": dict(dtype=torch.bfloat16, causal=True, d=64, sq=100, skv=130),
     "fp32_cross_full": dict(dtype=torch.float32, causal=False, d=64, sq=70, skv=33),
+    # the bf16 forward's edges: 128-row q tiles of two 64-row warpgroups,
+    # 128-row kv tiles loaded by TMA (zero-filled past the end, then masked)
+    "bf16_causal_s129": dict(dtype=torch.bfloat16, causal=True, d=64, sq=129, skv=129),
+    "bf16_full_s191": dict(dtype=torch.bfloat16, causal=False, d=64, sq=191, skv=191),
+    "bf16_causal_s1000": dict(dtype=torch.bfloat16, causal=True, d=64, sq=1000, skv=1000),
+    "bf16_causal_d128_ragged": dict(dtype=torch.bfloat16, causal=True, d=128, sq=191, skv=191),
+    "bf16_sq1_causal": dict(dtype=torch.bfloat16, causal=True, d=64, sq=1, skv=1),
+    "bf16_sq1_cross_full_d128": dict(dtype=torch.bfloat16, causal=False, d=128, sq=1, skv=130),
+    "bf16_cross_causal_d128": dict(dtype=torch.bfloat16, causal=True, d=128, sq=129, skv=300),
 }
 
 
@@ -164,7 +179,7 @@ def test_flash_kernels_match_plain(hopper, name):
     after = (flash_attention_fwd.launches, flash_attention_dq.launches, flash_attention_dkv.launches)
     assert after == tuple(n + 1 for n in before)
     _assert_near(o, o_ref, dtype)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
     _assert_near(dq, flash_attention_dq_reference(q, k, v, dout, lse_ref, delta, causal), dtype)
     dk_ref, dv_ref = flash_attention_dkv_reference(q, k, v, dout, lse_ref, delta, causal)
     _assert_near(dk, dk_ref, dtype)
@@ -229,6 +244,14 @@ BAND_CASES = {
     "bf16_w1_d128": dict(dtype=torch.bfloat16, window=1, hq=8, hk=8, d=128, s=512),
     "fp32_w_ge_seq_gqa2_d128": dict(dtype=torch.float32, window=2048, hq=4, hk=2, d=128, s=200),
     "bf16_w37_gqa8": dict(dtype=torch.bfloat16, window=37, hq=8, hk=1, d=64, s=300),
+    # the bf16 forward's edges: windows that cut a 128-row tile, ragged ends,
+    # s = 1, GQA groups 4 and 8 under a window at both head dims
+    "bf16_w65_s191": dict(dtype=torch.bfloat16, window=65, hq=4, hk=4, d=64, s=191),
+    "bf16_w129_gqa4_d128": dict(dtype=torch.bfloat16, window=129, hq=8, hk=2, d=128, s=1000),
+    "bf16_w100_gqa8_d128_s129": dict(dtype=torch.bfloat16, window=100, hq=8, hk=1, d=128, s=129),
+    "bf16_w65_gqa4_s1000": dict(dtype=torch.bfloat16, window=65, hq=4, hk=1, d=64, s=1000),
+    "bf16_triangle_d128_s129": dict(dtype=torch.bfloat16, window=None, hq=4, hk=2, d=128, s=129),
+    "bf16_s1_triangle": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=64, s=1),
 }
 
 
@@ -256,7 +279,7 @@ def test_band_kernels_match_plain(hopper, name):
     after = (flash_band_fwd.launches, flash_band_dq.launches, flash_band_dkv.launches)
     assert after == tuple(n + 1 for n in before)
     _assert_near(o, o_ref, dtype)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ATOL, rtol=0)
     _assert_near(dq, flash_band_dq_reference(q, k, v, dout, lse_ref, delta, window), dtype)
     dk_ref, dv_ref = flash_band_dkv_reference(q, k, v, dout, lse_ref, delta, window)
     assert dk.shape == k.shape and dv.shape == v.shape  # kv-head shape
