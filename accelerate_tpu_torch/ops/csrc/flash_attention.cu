@@ -9,8 +9,9 @@
 //   - flash_band_fwd_kernel <- `_fwd_band_kernel` (launched by `_fwd_band`)
 //   - flash_band_dq_kernel  <- `_dq_band_kernel`  (launched by `_bwd_band`)
 //   - flash_band_dkv_kernel <- `_dkv_band_kernel` (launched by `_bwd_band`)
-// Both families run the same three tile bodies (fwd_tile, dq_tile,
-// dkv_tile) under a `Mask` that says which (query i, key j) pairs attend:
+// Both families run the same tile bodies (bf16: fwd_tile_sm90, dq_tile,
+// dkv_tile_sm90; fp32: fwd_tile, dq_tile, dkv_tile) under a `Mask` that
+// says which (query i, key j) pairs attend:
 //   - rectangular: all pairs, or keys j <= i when causal; K/V at the query
 //     head count (the wrapper repeats GQA heads, as the reference does); sq
 //     and skv may differ;
@@ -63,11 +64,41 @@
 //     their products (named barriers), so one's softmax runs under the other's;
 //   - the epilogue writes O / l in bf16 into a swizzled staging tile that one
 //     TMA store writes out (rows >= sq dropped) while the next tile starts.
-// The fp32 forward and all backward kernels keep the first design: tiles of
-// 64 x 64 (32 x 64 for fp32 at D = 128), every operand tile, the fp32 scores
-// and the fp32 accumulators in shared memory, loaded synchronously; products
-// through nvcuda::wmma m16n16k16 bf16 fragments (fp32 accumulation) or scalar
-// fp32 FMAs for fp32 inputs (TF32 would break the fp32 parity tolerance).
+// The bf16 dK/dV (dkv_tile_sm90, both dK/dV kernels) is built the same way:
+//   - a CTA owns a kv tile of 128 rows of one kv head; the grid runs
+//     kv-tile-major, so the heaviest causal and band tiles (the low ones)
+//     start first; K and V are loaded once by TMA;
+//   - one producer warpgroup (setmaxnreg 24): its thread 0 issues TMA loads
+//     of Q and dO through a two-stage ring that runs ahead across q tiles
+//     and query heads of the group, Q and dO released separately; lse and
+//     delta (fp32 rows of sq * 4 bytes, which break TMA's 16-byte stride
+//     rule when sq % 4 != 0) are copied into the stage by its threads, one
+//     row each, loaded before the stage frees and written after, with lse
+//     pre-scaled by -log2e; a stage is full on one TMA arrival and those
+//     threads' arrivals;
+//   - two consumer warpgroups (setmaxnreg 240) own 64 kv rows each and
+//     compute the transposed products, so that no product reads a register
+//     tile it cannot hold: S^T = K Q^T and dP^T = V dO^T by wgmma from
+//     shared memory (K-major, as the forward's S) into registers; P^T =
+//     ex2(S^T log2e - lse log2e), exactly 0 where the mask drops the pair
+//     (tested only on tiles that cut it); dS^T = P^T (dP^T - delta); both
+//     rounded to bf16 in registers as the register A operands of dV += P^T dO
+//     and dK += dS^T Q (wgmma, dO and Q read MN-major through the transpose
+//     bit). q tiles of 128 rows at D 64 and 64 at D 128, so dK + dV and S^T +
+//     dP^T take 192 fp32 registers a thread at both; dK and dV stay in
+//     registers across all q tiles and heads. The two warpgroups take turns
+//     to issue (named barriers), so one's exponentials run under the other's
+//     products;
+//   - the epilogue writes dK and dV in bf16 into the warpgroup's own rows of
+//     the K and V tiles (no other product reads them), in the swizzle, and
+//     two TMA stores write them out (rows >= skv dropped); a kv tile no query
+//     sees loads nothing and writes zeros.
+// The fp32 forward, the dQ kernels and the fp32 dK/dV keep the first design:
+// tiles of 64 x 64 (32 x 64 for fp32 at D = 128), every operand tile, the
+// fp32 scores and the fp32 accumulators in shared memory, loaded
+// synchronously; products through nvcuda::wmma m16n16k16 bf16 fragments
+// (fp32 accumulation) or scalar fp32 FMAs for fp32 inputs (TF32 would break
+// the fp32 parity tolerance).
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense):
@@ -90,10 +121,15 @@
 // a thread takes per kv tile cost the SM's 16-a-clock special-function unit
 // as long as the tile's products take the tensor cores, and the two only
 // partly overlap; each K/V tile is read from L2 once per 128-row q tile that
-// needs it; the last tiles of a causal grid leave SMs idle. The backward
-// kernels do not reach theirs: synchronous loads and wmma rather than TMA and
-// wgmma, and at bf16 d 64 a CTA takes 99 KB (dQ) and 116 KB (dK/dV) of
-// shared memory, so 2 and 1 CTAs share an SM.
+// needs it; the last tiles of a causal grid leave SMs idle. The bf16 dK/dV
+// at d 128 runs S^T and dP^T as m64n64 products with both operands in shared
+// memory: by count, 4 KB of operands a k16 step at the tensor cores' rate
+// is 128 bytes a clock, about all of the SM's shared-memory rate (not
+// measured); at d 64 each CTA has few q tiles, and its K/V load and
+// epilogue are not hidden. The dQ kernels and the fp32 kernels do not reach
+// theirs: synchronous loads and wmma or scalar FMAs rather than TMA and
+// wgmma, and at bf16 d 64 a dQ CTA takes 99 KB of shared memory, so 2 share
+// an SM.
 //
 // Numerics kept from the TPU kernels:
 //   - masked logits are NEG_INF = -1e30 (not -inf);
@@ -109,7 +145,11 @@
 //     hardware's ex2 (about 2 ulp), which moves lse by a few fp32 ulps;
 //   - backward: p = exp(s - lse) recomputed; dS = p * (dP - delta) in fp32,
 //     rounded to the input dtype before dS.K and dS^T.Q; p rounded before
-//     P^T.dO. delta = rowsum(dO * O) comes in from the wrapper.
+//     P^T.dO. delta = rowsum(dO * O) comes in from the wrapper. The bf16
+//     dK/dV takes p = 2^(s log2e - lse log2e) with the hardware's ex2, which
+//     moves dK and dV by a few bf16 ulps at most, and writes p = 0 for a
+//     masked pair (the TPU kernel's exp(-1e30 - lse) is 0 too). No atomics:
+//     two launches give equal bits.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a dtype, head_dim or shape it does not take; the
@@ -1049,17 +1089,280 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
   }
 }
 
+// The bf16 dK/dV tiles: a CTA owns BKV kv rows of one kv head, 64 for each
+// of two consumer warpgroups (the wgmma M), and walks q tiles of BQ rows fed
+// by one producer warpgroup. A consumer thread holds dK and dV (D fp32) and
+// S^T and dP^T (BQ fp32): 192 registers at both head dims.
+template <int D>
+struct Sm90Dkv {
+  static constexpr int BKV = 128;
+  static constexpr int BQ = D == 64 ? 128 : 64;
+  static constexpr int STAGES = 2;              // the Q/dO ring
+  static constexpr int kKVBytes = BKV * D * 2;  // one K or V tile
+  static constexpr int kQBytes = BQ * D * 2;    // one Q or dO tile
+  // K, V, the ring's Q and dO tiles and its rows of -lse log2e and delta,
+  // 1024 bytes of slack to align the tiles to the swizzle's 8 x 128-byte
+  // period, and the mbarriers: full for K/V, and per stage full and empty
+  // for Q and for dO
+  static constexpr size_t kSmem =
+      1024 + 2 * kKVBytes + STAGES * (2 * kQBytes + 2 * BQ * 4) + 8 * (1 + 4 * STAGES);
+};
+
+// The bf16 dK/dV's TMA maps: q and dO over [b * hq, sq, D] in boxes of BQ
+// rows, k and v over [b * hkv, skv, D] in boxes of BKV rows, dk and dv over
+// the same in boxes of 64 rows (a warpgroup's), all of 64 columns
+struct DkvMaps {
+  CUtensorMap q, dout, k, v, dk, dv;
+};
+
+// dK and dV for the kv tile blockIdx.y of kv row blockIdx.x = b * hkv + h
+// (the grid runs kv-tile-major, so the heaviest causal and band tiles, the
+// low ones, start first). Shared memory holds this tile's K and V, loaded
+// once, and a ring of STAGES Q and dO tiles, all in the 128-byte swizzle as
+// [D / 64 column blocks][rows][64], with each stage's -lse log2e and delta
+// rows; the producer runs the ring ahead across q tiles and query heads.
+// Each consumer warpgroup computes, for its 64 kv rows, the transposed
+// products S^T = K Q^T and dP^T = V dO^T into registers, P^T and dS^T there,
+// and dV += P^T dO and dK += dS^T Q with the rounded P^T and dS^T as register
+// A operands; dK and dV stay in registers across all q tiles and leave once.
+template <int D, typename M>
+__device__ __forceinline__ void dkv_tile_sm90(unsigned char* smem_raw, const DkvMaps& maps,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ delta, const M mask) {
+  using C = Sm90Dkv<D>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, S = C::STAGES;
+  constexpr float kLog2e = 1.4426950408889634f;
+  unsigned char* k_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* v_s = k_s + C::kKVBytes;
+  unsigned char* q_s = v_s + C::kKVBytes;  // stage st at + st * kQBytes
+  unsigned char* do_s = q_s + S * C::kQBytes;
+  float* nlse_s = reinterpret_cast<float*>(do_s + S * C::kQBytes);  // [S][BQ]: -lse log2e
+  float* delta_s = nlse_s + S * BQ;                                  // [S][BQ]
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(delta_s + S * BQ);
+  uint64_t* full_q = full_kv + 1;
+  uint64_t* full_do = full_q + S;
+  uint64_t* empty_q = full_do + S;
+  uint64_t* empty_do = empty_q + S;
+
+  const int sq = mask.sq, skv = mask.skv;
+  const int kv_row = blockIdx.x;
+  const int k_lo = blockIdx.y * BKV;
+  const int groups = mask.groups();
+  const int iq_begin = mask.q_begin(k_lo, BQ);
+  const int n_iq = max(0, mask.q_end(k_lo, BQ, BKV) - iq_begin);
+  // q tiles this CTA walks: n_iq for each query head of the group, in turn.
+  // With none (keys no query sees) nothing is loaded and dK, dV are 0
+  const int n = groups * n_iq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full_q + st, 1);
+      mbar_init(full_do + st, BQ);  // thread 0's TMA arrival and the other rows' writers
+      mbar_init(empty_q + st, 2 * 128);  // every consumer thread releases a buffer
+      mbar_init(empty_do + st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: hands its registers to the consumers. Its thread p < BQ
+    // keeps row q_lo + p of each stage's lse and delta (their fp32 rows of
+    // sq * 4 bytes break TMA's 16-byte stride rule when sq % 4 != 0): it
+    // loads the values before it waits for the stage, writes them once the
+    // consumers have released it, and arrives on the stage's dO barrier.
+    // Thread 0 also loads K and V once and issues the stage's TMA loads, up
+    // to S q tiles ahead of the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const int p = threadIdx.x - 2 * 128;
+    if (p == 0 && n > 0) {
+      mbar_expect_tx(full_kv, 2 * C::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(k_s + c * BKV * 128, &maps.k, full_kv, 64 * c, k_lo, kv_row);
+        tma_load(v_s + c * BKV * 128, &maps.v, full_kv, 64 * c, k_lo, kv_row);
+      }
+    }
+    for (int t = 0; t < n && p < BQ; ++t) {
+      const int st = t % S;
+      const int bh = kv_row * groups + t / n_iq;
+      const int q_lo = (iq_begin + t % n_iq) * BQ;
+      const int qi = q_lo + p;
+      const size_t at = static_cast<size_t>(bh) * sq + qi;
+      const float nl = qi < sq ? -lse[at] * kLog2e : 0.f;
+      const float dl = qi < sq ? delta[at] : 0.f;
+      if (t >= S) mbar_wait(empty_do + st, (t / S - 1) & 1);  // the consumers released it
+      nlse_s[st * BQ + p] = nl;
+      delta_s[st * BQ + p] = dl;
+      if (p == 0) {
+        mbar_expect_tx(full_do + st, C::kQBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(do_s + st * C::kQBytes + c * BQ * 128, &maps.dout, full_do + st, 64 * c, q_lo, bh);
+        }
+        if (t >= S) mbar_wait(empty_q + st, (t / S - 1) & 1);
+        mbar_expect_tx(full_q + st, C::kQBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(q_s + st * C::kQBytes + c * BQ * 128, &maps.q, full_q + st, 64 * c, q_lo, bh);
+        }
+      } else {
+        mbar_arrive(full_do + st);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns kv rows k_lo + 64 wg + [0, 64); this
+    // thread holds rows row0 and row0 + 8 of S^T, dP^T, dK and dV, columns
+    // 8 j + col0 + {0, 1} (the wgmma accumulator layout): q rows of S^T and
+    // dP^T, d of dK and dV
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int wg_first = k_lo + 64 * wg, wg_last = wg_first + 63;
+    const int row0 = wg_first + 16 * warp + lane / 4;
+    const uint32_t k_addr = smem_addr(k_s) + 64 * wg * 128;  // this warpgroup's rows
+    const uint32_t v_addr = smem_addr(v_s) + 64 * wg * 128;
+    float dk[D / 2], dv[D / 2], s[BQ / 2], dp[BQ / 2];
+    uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    // ping-pong: the two warpgroups take turns to issue their products
+    // (named barriers 3 and 4), so one's exponentials and dS run under the
+    // other's products; warpgroup 0 goes first
+    auto turn_begin = [&]() { asm volatile("bar.sync %0, 256;" ::"r"(3 + wg) : "memory"); };
+    auto turn_end = [&]() { asm volatile("bar.arrive %0, 256;" ::"r"(4 - wg) : "memory"); };
+    if (wg == 1) turn_end();
+    if (n > 0) mbar_wait(full_kv, 0);
+
+    for (int t = 0; t < n; ++t) {
+      const int st = t % S;
+      const uint32_t parity = (t / S) & 1;
+      const uint32_t q_addr = smem_addr(q_s) + st * C::kQBytes;
+      const uint32_t do_addr = smem_addr(do_s) + st * C::kQBytes;
+      const int q_lo = (iq_begin + t % n_iq) * BQ;
+      mbar_wait(full_q + st, parity);
+      mbar_wait(full_do + st, parity);
+      // S^T = K Q^T and dP^T = V dO^T: all K-major; a k16 step is 32 bytes
+      // into a 64-column block
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        Wgmma<BQ>::ss(s, sw128_desc(k_addr + off, 16, 1024), sw128_desc(q_addr + b_off, 16, 1024),
+                      kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        Wgmma<BQ>::ss(dp, sw128_desc(v_addr + off, 16, 1024), sw128_desc(do_addr + b_off, 16, 1024),
+                      kk > 0);
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+
+      // P^T = 2^(S^T log2e - lse log2e), exactly 0 where the mask drops the
+      // pair (tested only on tiles that cut it: diagonal, window edge, ragged
+      // ends); dS^T = P^T (dP^T - delta), from the unrounded p
+      const float* nl = nlse_s + st * BQ;
+      const float* dl = delta_s + st * BQ;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(nl + 8 * j + col0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * j + e] = fast_exp2(fmaf(s[4 * j + e], kLog2e, e % 2 ? l2.y : l2.x));
+      }
+      if (q_lo + BQ > sq || !mask.keeps_all(q_lo, q_lo + BQ - 1, wg_first, wg_last)) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int qi = q_lo + 8 * (i / 4) + col0 + i % 2;
+          if (!(qi < sq && mask.keep(qi, row0 + 8 * ((i / 2) % 2)))) s[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + col0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - (e % 2 ? d2.y : d2.x));
+      }
+      // P^T and dS^T rounded to bf16, the register A operands: the
+      // accumulator layout matches the A fragment layout of m64k16
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          dsa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q are MN-major (transpose
+      // bit); a k16 step is 16 rows of 128 bytes; LBO steps to the next
+      // 64-column block of D
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        Wgmma<D>::rs(dv, pa[kk], sw128_desc(do_addr + kk * 16 * 128, BQ * 128, 1024));
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        Wgmma<D>::rs(dk, dsa[kk], sw128_desc(q_addr + kk * 16 * 128, BQ * 128, 1024));
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<1>();
+      mbar_arrive(empty_do + st);  // dV has read dO; lse and delta were read before
+      wgmma_wait<0>();
+      mbar_arrive(empty_q + st);
+    }
+
+    // epilogue: dK and dV in bf16 into this warpgroup's rows of the K and V
+    // tiles (only its own products read them, and all are done), in the
+    // swizzle; then one TMA store each, which drops rows >= skv
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = 64 * wg + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);  // in the tile
+      const int col = 8 * (i / 4) + col0;
+      const int cc = col % 64;
+      const int byte = (col / 64) * BKV * 128 + row * 128 + (((cc / 8) ^ (row % 8)) * 16) + (cc % 8) * 2;
+      *reinterpret_cast<uint32_t*>(k_s + byte) = pack_bf16(dk[i], dk[i + 1]);
+      *reinterpret_cast<uint32_t*>(v_s + byte) = pack_bf16(dv[i], dv[i + 1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && wg_first < skv) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store(&maps.dk, k_s + c * BKV * 128 + 64 * wg * 128, 64 * c, wg_first, kv_row);
+        tma_store(&maps.dv, v_s + c * BKV * 128 + 64 * wg * 128, 64 * c, wg_first, kv_row);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
 static_assert(fwd_smem<float, 128>() <= kMaxSmem, "forward tile exceeds shared memory");
 static_assert(dq_smem<float, 128>() <= kMaxSmem, "dQ tile exceeds shared memory");
 static_assert(dkv_smem<float, 128>() <= kMaxSmem, "dK/dV tile exceeds shared memory");
-static_assert(dkv_smem<__nv_bfloat16, 128>() <= kMaxSmem, "dK/dV tile exceeds shared memory");
+static_assert(Sm90Dkv<64>::kSmem <= kMaxSmem && Sm90Dkv<128>::kSmem <= kMaxSmem,
+              "bf16 dK/dV tile exceeds shared memory");
 
 // The kernels: one __global__ name per TPU kernel replaced, each a tile body
 // under its family's mask.
-// the forward's threads: bf16 runs the sm_90a body (two consumer warpgroups
-// and a producer warpgroup), fp32 the scalar one
+// the forward's and dK/dV's threads: bf16 runs the sm_90a bodies (two
+// consumer warpgroups and a producer warpgroup), fp32 the scalar ones
 template <typename T>
-struct FwdThreads {
+struct BodyThreads {
   static constexpr int value = std::is_same_v<T, __nv_bfloat16> ? kSm90Threads : kThreads;
 };
 
@@ -1073,8 +1376,19 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const 
   }
 }
 
+template <typename T, int D, typename M>
+__device__ __forceinline__ void dkv_body(unsigned char* smem, const T* q, const T* k, const T* v,
+                                         const T* dout, const float* lse, const float* delta, T* dk,
+                                         T* dv, const M mask, const DkvMaps& maps) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    dkv_tile_sm90<D>(smem, maps, lse, delta, mask);
+  } else {
+    dkv_tile<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask);
+  }
+}
+
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(FwdThreads<T>::value, 1) flash_fwd_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, const Mask<CAUSAL, false> mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1091,16 +1405,17 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(
 }
 
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, const Mask<CAUSAL, false> mask) {
+    T* __restrict__ dk, T* __restrict__ dv, const Mask<CAUSAL, false> mask,
+    const __grid_constant__ DkvMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask);
+  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(FwdThreads<T>::value, 1) flash_band_fwd_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, const BandMask mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1117,12 +1432,13 @@ __global__ void __launch_bounds__(kThreads) flash_band_dq_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_band_dkv_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, const BandMask mask) {
+    T* __restrict__ dk, T* __restrict__ dv, const BandMask mask,
+    const __grid_constant__ DkvMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_tile<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask);
+  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps);
 }
 
 // Launch arguments of the C entry points.
@@ -1225,7 +1541,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
       maps.bh = a.bh;
       grid = dim3(std::min((m.sq + F::BQ - 1) / F::BQ * a.bh, sms));  // one CTA an SM
     }
-    constexpr int threads = FwdThreads<T>::value;
+    constexpr int threads = BodyThreads<T>::value;
     if constexpr (BAND) {
       err = run(flash_band_fwd_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, out0,
                 a.lse_out, m, maps);
@@ -1243,13 +1559,29 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
                 a.delta, out0, m);
     }
   } else {
-    constexpr size_t smem = dkv_smem<T, D>();
+    DkvMaps maps{};
+    size_t smem = dkv_smem<T, D>();
+    dim3 grid = kv_grid;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      using F = Sm90Dkv<D>;
+      const int bh_kv = a.bh / m.groups();
+      CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.dout, dout, D, m.sq, a.bh, F::BQ);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.k, k, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.v, v, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.dk, out0, D, m.skv, bh_kv, 64);  // a warpgroup's rows
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.dv, out1, D, m.skv, bh_kv, 64);
+      if (r != CUDA_SUCCESS) return static_cast<int>(r);
+      smem = F::kSmem;
+      grid = dim3(bh_kv, (m.skv + F::BKV - 1) / F::BKV);  // kv-tile-major: low (heavy) tiles first
+    }
+    constexpr int threads = BodyThreads<T>::value;
     if constexpr (BAND) {
-      err = run(flash_band_dkv_kernel<T, D>, smem, kv_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, out1, m);
+      err = run(flash_band_dkv_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
+                a.delta, out0, out1, m, maps);
     } else {
-      err = run(flash_dkv_kernel<T, D, CAUSAL>, smem, kv_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, out1, m);
+      err = run(flash_dkv_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, dout,
+                a.lse_in, a.delta, out0, out1, m, maps);
     }
   }
   return static_cast<int>(err);

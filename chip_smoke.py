@@ -7,8 +7,8 @@ Phases run in order; any failure exits non-zero:
    capability, which must be 9.0;
 2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
    (one nvcc per source, all started together); ptxas's registers, spills
-   and static shared memory of each flash forward kernel, and none of them
-   may spill;
+   and static shared memory of each flash forward kernel and of each bf16
+   dK/dV kernel, and none of them may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
@@ -40,8 +40,9 @@ Phases run in order; any failure exits non-zero:
    warm-up steps and 10 timed steps; the loss falls and each flash kernel
    ran n_layer times per step; step ms, tokens/s, MFU by bench.py's FLOP
    count, peak memory. Then a torch.profiler window over 3 steps: host and
-   device ms per step, the device's idle share, the top kernels and the
-   device time by kind of kernel (fp32 head GEMMs, flash, bf16 GEMMs, ...);
+   device ms per step, the device's idle share, the top kernels, the
+   device time by kind of kernel (fp32 head GEMMs, flash, bf16 GEMMs, ...)
+   and by flash kernel (forward, dQ, dK/dV);
 9. fused-CE kernels: the forward, dH and dW kernels (`fused_ce_fwd`/`_dh`/
    `_dw`) against their plain versions on the card at the fused loss's
    shapes (N 8192 = 8 x 1024 rows, V 50257, e 768, bf16, 1/16 of the rows
@@ -216,15 +217,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def forward_resources(log: str) -> list[dict]:
-    """ptxas's resources of each flash forward kernel (``flash_fwd_kernel``,
-    ``flash_band_fwd_kernel``) in a build log: its mangled template
-    arguments, registers at entry, spill bytes and static shared memory (the
-    bf16 kernels' tiles are dynamic shared memory, set at launch)."""
+def kernel_resources(log: str, kind: str) -> list[dict]:
+    """ptxas's resources of each flash kernel of one kind (``fwd``:
+    ``flash_fwd_kernel`` and ``flash_band_fwd_kernel``; ``dkv``: the dK/dV
+    kernels) in a build log: its mangled template arguments, registers at
+    entry, spill bytes and static shared memory (the bf16 kernels' tiles are
+    dynamic shared memory, set at launch)."""
     out = []
     for block in log.split("Compiling entry function '")[1:]:
         fn = block.split("'", 1)[0]
-        m = re.search(r"(flash_(?:band_)?fwd_kernel)I(\w+?)EEEv", fn)
+        m = re.search(rf"(flash_(?:band_)?{kind}_kernel)I(\w+?)EEEv", fn)
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", block)
@@ -239,6 +241,17 @@ def forward_resources(log: str) -> list[dict]:
                     "spill_load_bytes": int(spill.group(2)) if spill else None,
                     "static_smem_bytes": int(smem.group(1)) if smem else 0})
     return out
+
+
+def forward_resources(log: str) -> list[dict]:
+    """`kernel_resources` of the flash forward kernels."""
+    return kernel_resources(log, "fwd")
+
+
+def dkv_resources(log: str) -> list[dict]:
+    """`kernel_resources` of the bf16 dK/dV kernels (``flash_dkv_kernel``,
+    ``flash_band_dkv_kernel``), the ones built on wgmma and TMA."""
+    return [k for k in kernel_resources(log, "dkv") if k["dtype"] == "bfloat16"]
 
 
 def peak_rates(name: str) -> tuple[float, float, str]:
@@ -672,16 +685,22 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
 
 def profile_train(torch, run_step, phase: str, steps: int = 3, **extra) -> dict:
     """A profiler window over ``steps`` train steps: host and device ms per
-    step, the idle share, the top kernels and the device ms per step of each
-    kind of kernel (TRAIN_KERNEL_CATEGORIES); prints and returns the record."""
+    step, the idle share, the top kernels, the device ms per step of each
+    kind of kernel (TRAIN_KERNEL_CATEGORIES) and of each flash kernel (the
+    forward, dQ and dK/dV split of the flash categories); prints and returns
+    the record."""
     wall_us, by_name = profile_steps(torch, run_step, steps)
     categories: dict[str, float] = {}
+    flash: dict[str, float] = {}
     for kname, us in by_name.items():
         cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
                     if re.search(pattern, kname, re.IGNORECASE)), "other")
         categories[cat] = categories.get(cat, 0.0) + us / steps / 1e3
+        m = re.search(r"flash_(?:band_)?(?:fwd|dq|dkv)_kernel", kname)
+        if m:
+            flash[m.group(0)] = flash.get(m.group(0), 0.0) + us / steps / 1e3
     prof = profile_record(phase, steps, wall_us, by_name, top=8, **extra,
-                          categories_ms_per_step=categories)
+                          categories_ms_per_step=categories, flash_kernels_ms_per_step=flash)
     print(json.dumps(prof), flush=True)
     return prof
 
@@ -1430,10 +1449,12 @@ def main() -> int:
         print(json.dumps({"phase": "build", "library": lib_name, "build_s": build_s,
                           "kernels": len(regs), "max_registers": max(regs, default=0),
                           "kernels_spilling": spills}), flush=True)
-    forward = forward_resources(_build.build_log("flash_attention"))
-    print(json.dumps({"phase": "build_flash_forward", "kernels": forward}), flush=True)
-    if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in forward):
-        raise AssertionError(f"a flash forward kernel spills: {forward}")
+    flash_log = _build.build_log("flash_attention")
+    for phase, found in (("build_flash_forward", forward_resources(flash_log)),
+                         ("build_flash_dkv", dkv_resources(flash_log))):
+        print(json.dumps({"phase": phase, "kernels": found}), flush=True)
+        if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):
+            raise AssertionError(f"{phase}: a kernel spills: {found}")
 
     # 3. kernel against its plain version
     from accelerate_tpu_torch.ops import flash_attention as fa

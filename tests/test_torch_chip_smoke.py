@@ -1,6 +1,7 @@
-"""`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels'
-registers, spills and static shared memory, which its build phase prints and
-holds to zero spills. Runs on the CPU against a log in ptxas's format."""
+"""`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels' and
+the bf16 dK/dV kernels' registers, spills and static shared memory, which its
+build phase prints and holds to zero spills. Runs on the CPU against a log in
+ptxas's format."""
 
 import importlib.util
 from pathlib import Path
@@ -20,6 +21,10 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI13__nv_bfloat16Li128ELb1EEEvPKT_S4_S4_PS2_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsE
     16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers, 96 bytes smem
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
 """
 
 
@@ -43,3 +48,12 @@ def test_forward_resources_reads_only_the_forward_kernels():
 
 def test_forward_resources_of_an_empty_log():
     assert _chip_smoke().forward_resources("") == []
+
+
+def test_dkv_resources_reads_only_the_bf16_dkv_kernels():
+    got = _chip_smoke().dkv_resources(LOG)
+    assert got == [
+        {"kernel": "flash_dkv_kernel", "dtype": "bfloat16", "d": 128, "causal": False,
+         "registers": 255, "spill_store_bytes": 8, "spill_load_bytes": 8,
+         "static_smem_bytes": 1024},
+    ]

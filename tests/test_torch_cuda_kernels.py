@@ -146,6 +146,10 @@ FLASH_CASES = {
     "bf16_sq1_causal": dict(dtype=torch.bfloat16, causal=True, d=64, sq=1, skv=1),
     "bf16_sq1_cross_full_d128": dict(dtype=torch.bfloat16, causal=False, d=128, sq=1, skv=130),
     "bf16_cross_causal_d128": dict(dtype=torch.bfloat16, causal=True, d=128, sq=129, skv=300),
+    # the bf16 dK/dV's edges: many q tiles through its Q/dO ring, and keys
+    # past a ragged query range without the causal mask
+    "bf16_causal_s2048_d128": dict(dtype=torch.bfloat16, causal=True, d=128, sq=2048, skv=2048),
+    "bf16_cross_full_sq70_skv333": dict(dtype=torch.bfloat16, causal=False, d=64, sq=70, skv=333),
 }
 
 
@@ -252,6 +256,11 @@ BAND_CASES = {
     "bf16_w65_gqa4_s1000": dict(dtype=torch.bfloat16, window=65, hq=4, hk=1, d=64, s=1000),
     "bf16_triangle_d128_s129": dict(dtype=torch.bfloat16, window=None, hq=4, hk=2, d=128, s=129),
     "bf16_s1_triangle": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=64, s=1),
+    # the bf16 dK/dV's edges: kv tiles whose q ranges end inside the sequence
+    # and a ring that wraps across the group loop; window 1 at d 64
+    "bf16_w4096_gqa8_d128_s4500": dict(dtype=torch.bfloat16, window=4096, hq=8, hk=1, d=128,
+                                       s=4500, b=1),
+    "bf16_w1_d64": dict(dtype=torch.bfloat16, window=1, hq=4, hk=4, d=64, s=300),
 }
 
 
@@ -285,6 +294,25 @@ def test_band_kernels_match_plain(hopper, name):
     assert dk.shape == k.shape and dv.shape == v.shape  # kv-head shape
     _assert_near(dk, dk_ref, dtype)
     _assert_near(dv, dv_ref, dtype)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_dkv_kernels_give_equal_bits_twice(hopper, band):
+    """dK/dV sum in a fixed order with no atomics: two launches on one input
+    agree to the bit."""
+    if band:
+        q, k, v, dout = _band_inputs(hopper, **BAND_CASES["bf16_w129_gqa4_d128"])
+        o, lse = flash_band_forward_reference(q, k, v, 129)
+        args = (q, k, v, dout, lse, (dout.float() * o.float()).sum(-1), 129)
+        first, second = flash_band_dkv(*args), flash_band_dkv(*args)
+    else:
+        q, k, v, dout = _flash_inputs(hopper, **FLASH_CASES["bf16_causal_s1000"])
+        o, lse = flash_attention_forward_reference(q, k, v, True)
+        args = (q, k, v, dout, lse, (dout.float() * o.float()).sum(-1), True)
+        first, second = flash_attention_dkv(*args), flash_attention_dkv(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("window,hq,hk", [(48, 4, 2), (None, 4, 1)])

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
 `accelerate_tpu_torch` brings in neither JAX nor the JAX package, and
-`chip_smoke.py` imports neither anywhere in its source."""
+`chip_smoke.py` and `flash_ab.py` import neither anywhere in their source."""
 
 import ast
 import json
@@ -41,15 +41,26 @@ def test_port_imports_no_jax_and_no_reference_package():
         assert mod in got["modules"]
 
 
-def test_chip_smoke_imports_no_jax_and_no_reference_package():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _import_roots(script: str) -> set[str]:
+    """The top-level package of every import in a script's source."""
     roots = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse((ROOT / script).read_text())):
         if isinstance(node, ast.Import):
             roots.update(alias.name.split(".")[0] for alias in node.names)
         elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, "chip_smoke.py imports by absolute name"
+            assert node.level == 0, f"{script} imports by absolute name"
             roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax_and_no_reference_package():
+    roots = _import_roots("chip_smoke.py")
+    assert "accelerate_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
+
+
+def test_flash_ab_imports_no_jax_and_no_reference_package():
+    roots = _import_roots("flash_ab.py")
     assert "accelerate_tpu_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "flax", "optax", "accelerate_tpu"}
 
