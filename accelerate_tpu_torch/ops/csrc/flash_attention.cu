@@ -9,7 +9,7 @@
 //   - flash_band_fwd_kernel <- `_fwd_band_kernel` (launched by `_fwd_band`)
 //   - flash_band_dq_kernel  <- `_dq_band_kernel`  (launched by `_bwd_band`)
 //   - flash_band_dkv_kernel <- `_dkv_band_kernel` (launched by `_bwd_band`)
-// Both families run the same tile bodies (bf16: fwd_tile_sm90, dq_tile,
+// Both families run the same tile bodies (bf16: fwd_tile_sm90, dq_tile_sm90,
 // dkv_tile_sm90; fp32: fwd_tile, dq_tile, dkv_tile) under a `Mask` that
 // says which (query i, key j) pairs attend:
 //   - rectangular: all pairs, or keys j <= i when causal; K/V at the query
@@ -93,12 +93,32 @@
 //     the K and V tiles (no other product reads them), in the swizzle, and
 //     two TMA stores write them out (rows >= skv dropped); a kv tile no query
 //     sees loads nothing and writes zeros.
-// The fp32 forward, the dQ kernels and the fp32 dK/dV keep the first design:
-// tiles of 64 x 64 (32 x 64 for fp32 at D = 128), every operand tile, the
-// fp32 scores and the fp32 accumulators in shared memory, loaded
-// synchronously; products through nvcuda::wmma m16n16k16 bf16 fragments
-// (fp32 accumulation) or scalar fp32 FMAs for fp32 inputs (TF32 would break
-// the fp32 parity tolerance).
+// The bf16 dQ (dq_tile_sm90, both dQ kernels) is the dK/dV turned around:
+//   - a CTA owns a q tile of 128 rows of one query row; the grid runs
+//     q-tile-major, so the heaviest causal tiles (the last ones) start
+//     first; Q and dO are loaded once by TMA;
+//   - one producer warpgroup (setmaxnreg 24): its thread 0 issues TMA loads
+//     of K and V tiles through a two-stage ring, from the first kv tile
+//     inside the window to the last the tile sees, K and V released
+//     separately; the band kernel reads kv row (b * hq + h) / groups;
+//   - two consumer warpgroups (setmaxnreg 240) own 64 query rows each. A
+//     thread's two rows keep their lse (pre-scaled by -log2e) and delta in
+//     registers, loaded once. S = Q K^T and dP = dO V^T by wgmma from shared
+//     memory (K-major) into registers; P = ex2(S log2e - lse log2e), exactly
+//     0 where the mask drops the pair (tested only on tiles that cut it);
+//     dS = P (dP - delta), rounded to bf16 in registers as the register A
+//     operand of dQ += dS K (wgmma, K read MN-major through the transpose
+//     bit). kv tiles of 128 rows (S + dP + dQ: 160 fp32 registers a thread
+//     at D 64, 192 at D 128); dQ stays in registers across all kv tiles.
+//     The two warpgroups take turns to issue (named barriers), two turns a
+//     tile, so one's exponentials run under the other's products;
+//   - the epilogue writes dQ in bf16 into the warpgroup's own rows of the Q
+//     tile, in the swizzle, and one TMA store writes them out (rows >= sq
+//     dropped).
+// The fp32 kernels keep the first design: tiles of 64 x 64 (32 x 64 at
+// D = 128), every operand tile, the fp32 scores and the fp32 accumulators in
+// shared memory, loaded synchronously; products by scalar fp32 FMAs (TF32
+// would break the fp32 parity tolerance).
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense):
@@ -126,10 +146,13 @@
 // memory: by count, 4 KB of operands a k16 step at the tensor cores' rate
 // is 128 bytes a clock, about all of the SM's shared-memory rate (not
 // measured); at d 64 each CTA has few q tiles, and its K/V load and
-// epilogue are not hidden. The dQ kernels and the fp32 kernels do not reach
-// theirs: synchronous loads and wmma or scalar FMAs rather than TMA and
-// wgmma, and at bf16 d 64 a dQ CTA takes 99 KB of shared memory, so 2 share
-// an SM.
+// epilogue are not hidden. The bf16 dQ has the dK/dV's limits turned
+// around: at d 64 its exponentials (one per pair, as the forward's) load the
+// special-function unit as much as its three products load the tensor
+// cores; S and dP read both operands from shared memory; each CTA is one q
+// tile, so its Q/dO load and epilogue are not hidden, and a causal grid's
+// light first tiles run last. The fp32 kernels do not reach
+// theirs: synchronous loads and scalar FMAs.
 //
 // Numerics kept from the TPU kernels:
 //   - masked logits are NEG_INF = -1e30 (not -inf);
@@ -146,10 +169,10 @@
 //   - backward: p = exp(s - lse) recomputed; dS = p * (dP - delta) in fp32,
 //     rounded to the input dtype before dS.K and dS^T.Q; p rounded before
 //     P^T.dO. delta = rowsum(dO * O) comes in from the wrapper. The bf16
-//     dK/dV takes p = 2^(s log2e - lse log2e) with the hardware's ex2, which
-//     moves dK and dV by a few bf16 ulps at most, and writes p = 0 for a
-//     masked pair (the TPU kernel's exp(-1e30 - lse) is 0 too). No atomics:
-//     two launches give equal bits.
+//     dQ and dK/dV take p = 2^(s log2e - lse log2e) with the hardware's
+//     ex2, which moves dQ, dK and dV by a few bf16 ulps at most, and write
+//     p = 0 for a masked pair (the TPU kernel's exp(-1e30 - lse) is 0 too).
+//     No atomics: two launches give equal bits.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a dtype, head_dim or shape it does not take; the
@@ -160,7 +183,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -168,28 +190,11 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr size_t kMaxSmem = 232448;  // what one CTA may use on sm_90
-
-template <typename T>
-struct Cvt;
-
-template <>
-struct Cvt<float> {
-  static __device__ __forceinline__ float from_f(float x) { return x; }
-  static __device__ __forceinline__ float to_f(float x) { return x; }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-};
 
 // Tile shape for element type T and head dim D: BQ query rows, BKV kv rows.
 template <typename T, int D>
@@ -321,36 +326,6 @@ __device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda,
   }
 }
 
-// bf16 inputs: tensor cores through wmma 16x16x16 fragments with fp32
-// accumulation; the warps take C's 16 x 16 sub-tiles in turn.
-template <int M, int N, int K, bool A_T, bool B_T, bool ACC>
-__device__ __forceinline__ void gemm(float* C, int ldc, const __nv_bfloat16* A, int lda,
-                                     const __nv_bfloat16* B, int ldb) {
-  using LayoutA = std::conditional_t<A_T, wmma::col_major, wmma::row_major>;
-  using LayoutB = std::conditional_t<B_T, wmma::col_major, wmma::row_major>;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += kWarps) {
-    const int tm = t / (N / 16);
-    const int tn = t % (N / 16);
-    float* c_ptr = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (ACC) {
-      wmma::load_matrix_sync(c, c_ptr, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(c, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LayoutB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k * lda + tm * 16 : A + tm * 16 * lda + k, lda);
-      wmma::load_matrix_sync(b, B_T ? B + tn * 16 * ldb + k : B + k * ldb + tn * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(c_ptr, c, ldc, wmma::mem_row_major);
-  }
-}
-
 template <typename T, int D>
 constexpr size_t fwd_smem() {
   using C = Tiles<T, D>;
@@ -424,7 +399,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const T* __restric
       for (int j = 0; j < BKV / 32; ++j) {
         const float p = mask.windowed() && !keep[j] ? 0.f : expf(s[j] - m_new);
         sum += p;
-        p_s[r * C::LDP + lane + 32 * j] = Cvt<T>::from_f(p);
+        p_s[r * C::LDP + lane + 32 * j] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -449,7 +424,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const T* __restric
     const int qi = q_lo + r;
     if (qi < sq) {
       const float l = l_s[r];
-      ob[(size_t)qi * D + c] = Cvt<T>::from_f(acc[r * C::LDA + c] / (l == 0.f ? 1.f : l));
+      ob[(size_t)qi * D + c] = acc[r * C::LDA + c] / (l == 0.f ? 1.f : l);
     }
   }
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
@@ -983,7 +958,7 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const T* __restrict
       const int qi = q_lo + r;
       const bool keep = qi < sq && mask.keep(qi, ik * BKV + c);
       const float p = expf((keep ? s_s[r * C::LDS + c] : kNegInf) - lse_s[r]);
-      ds_s[r * C::LDP + c] = Cvt<T>::from_f(p * (dp_s[r * C::LDS + c] - delta_s[r]));
+      ds_s[r * C::LDP + c] = p * (dp_s[r * C::LDS + c] - delta_s[r]);
     }
     __syncthreads();
     gemm<BQ, D, BKV, false, false, true>(acc, C::LDA, ds_s, C::LDP, k_s, C::LDT);
@@ -993,7 +968,7 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const T* __restrict
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qi = q_lo + r;
-    if (qi < sq) dqb[(size_t)qi * D + c] = Cvt<T>::from_f(acc[r * C::LDA + c]);
+    if (qi < sq) dqb[(size_t)qi * D + c] = acc[r * C::LDA + c];
   }
 }
 
@@ -1062,7 +1037,7 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
         const bool keep = qi < sq && mask.keep(qi, k_lo + c);
         const float p = expf((keep ? p_s[r * C::LDS + c] : kNegInf) - lse_s[r]);
         p_s[r * C::LDS + c] = p;
-        pr_s[r * C::LDP + c] = Cvt<T>::from_f(p);
+        pr_s[r * C::LDP + c] = p;
       }
       __syncthreads();
       gemm<BKV, D, BQ, true, false, true>(dv_acc, C::LDA, pr_s, C::LDP, do_s, C::LDT);
@@ -1070,7 +1045,7 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
       for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
         const int r = i / BKV, c = i % BKV;
         pr_s[r * C::LDP + c] =
-            Cvt<T>::from_f(p_s[r * C::LDS + c] * (dp_s[r * C::LDS + c] - delta_s[r]));
+            p_s[r * C::LDS + c] * (dp_s[r * C::LDS + c] - delta_s[r]);
       }
       __syncthreads();
       gemm<BKV, D, BQ, true, false, true>(dk_acc, C::LDA, pr_s, C::LDP, q_s, C::LDT);
@@ -1083,8 +1058,8 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
     const int r = i / D, c = i % D;
     const int kj = k_lo + r;
     if (kj < skv) {
-      dkb[(size_t)kj * D + c] = Cvt<T>::from_f(dk_acc[r * C::LDA + c]);
-      dvb[(size_t)kj * D + c] = Cvt<T>::from_f(dv_acc[r * C::LDA + c]);
+      dkb[(size_t)kj * D + c] = dk_acc[r * C::LDA + c];
+      dvb[(size_t)kj * D + c] = dv_acc[r * C::LDA + c];
     }
   }
 }
@@ -1351,16 +1326,245 @@ __device__ __forceinline__ void dkv_tile_sm90(unsigned char* smem_raw, const Dkv
   }
 }
 
+// The bf16 dQ tiles, the dK/dV's turned around: a CTA owns BQ query rows of
+// one query row b * hq + h, 64 for each of two consumer warpgroups (the wgmma
+// M), and walks kv tiles of BKV rows fed by one producer warpgroup. A
+// consumer thread holds dQ (D / 2 fp32) and S and dP (BKV / 2 fp32 each):
+// 160 data registers at D 64 and 192 at D 128, with no spill at either (kv
+// tiles of 64 rows at D 128 ran the band dQ 8% slower).
+template <int D>
+struct Sm90Dq {
+  static constexpr int BQ = 128;
+  static constexpr int BKV = 128;
+  static constexpr int STAGES = 2;              // the K/V ring
+  static constexpr int kQBytes = BQ * D * 2;    // the Q or dO tile
+  static constexpr int kKVBytes = BKV * D * 2;  // one K or V tile
+  // Q, dO, the ring, 1024 bytes of slack to align the tiles to the
+  // swizzle's 8 x 128-byte period, and the mbarriers: full for Q/dO, and per
+  // stage full and empty for K and for V
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + 2 * STAGES * kKVBytes + 8 * (1 + 4 * STAGES);
+};
+
+// The bf16 dQ's TMA maps: q and dO over [b * hq, sq, D] in boxes of BQ rows,
+// k and v over [b * hkv, skv, D] in boxes of BKV rows, dq over [b * hq, sq, D]
+// in boxes of 64 rows (a warpgroup's), all of 64 columns
+struct DqMaps {
+  CUtensorMap q, dout, k, v, dq;
+};
+
+// dQ for the q tile nq - 1 - blockIdx.y of query row blockIdx.x = b * hq + h
+// (the grid runs q-tile-major, so the heaviest causal tiles, the last ones,
+// start first). Shared memory holds this tile's Q and dO, loaded once, and a
+// ring of STAGES K and V tiles, all in the 128-byte swizzle as [D / 64 column
+// blocks][rows][64]. Each consumer warpgroup computes, for its 64 query
+// rows, S = Q K^T and dP = dO V^T into registers, P and dS there, and
+// dQ += dS K with the rounded dS as the register A operand; dQ stays in
+// registers across all kv tiles and leaves once.
+template <int D, typename M>
+__device__ __forceinline__ void dq_tile_sm90(unsigned char* smem_raw, const DqMaps& maps,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta, const M mask) {
+  using C = Sm90Dq<D>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, S = C::STAGES;
+  constexpr float kLog2e = 1.4426950408889634f;
+  unsigned char* q_s = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* do_s = q_s + C::kQBytes;
+  unsigned char* k_s = do_s + C::kQBytes;  // stage st at + st * kKVBytes
+  unsigned char* v_s = k_s + S * C::kKVBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(v_s + S * C::kKVBytes);  // Q and dO
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+
+  const int sq = mask.sq;
+  const int bh = blockIdx.x;
+  const int q_lo = ((sq + BQ - 1) / BQ - 1 - static_cast<int>(blockIdx.y)) * BQ;
+  const int ik_begin = mask.kv_begin(q_lo, BKV);
+  // with no kv tile (no key for these queries) nothing is loaded and dQ is 0
+  const int n_tiles = max(0, mask.kv_end(q_lo, BQ, BKV) - ik_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full_k + st, 1);
+      mbar_init(full_v + st, 1);
+      mbar_init(empty_k + st, 2 * 128);  // every consumer thread releases a buffer
+      mbar_init(empty_v + st, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: hands its registers to the consumers; one thread loads Q and
+    // dO once and keeps up to S K/V tiles ahead of the consumers, K and V
+    // released separately (dP is done with V before dQ += dS K with K)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 2 * 128 && n_tiles > 0) {
+      const int kv_row = bh / mask.groups();
+      mbar_expect_tx(full_q, 2 * C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(q_s + c * BQ * 128, &maps.q, full_q, 64 * c, q_lo, bh);
+        tma_load(do_s + c * BQ * 128, &maps.dout, full_q, 64 * c, q_lo, bh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % S;
+        const int k_lo = (ik_begin + it) * BKV;
+        if (it >= S) mbar_wait(empty_k + st, (it / S - 1) & 1);  // the consumers released it
+        mbar_expect_tx(full_k + st, C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(k_s + st * C::kKVBytes + c * BKV * 128, &maps.k, full_k + st, 64 * c, k_lo, kv_row);
+        }
+        if (it >= S) mbar_wait(empty_v + st, (it / S - 1) & 1);
+        mbar_expect_tx(full_v + st, C::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(v_s + st * C::kKVBytes + c * BKV * 128, &maps.v, full_v + st, 64 * c, k_lo, kv_row);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q_lo + 64 wg + [0, 64); this
+    // thread holds rows row0 and row0 + 8 of S, dP and dQ, columns
+    // 8 j + col0 + {0, 1} (the wgmma accumulator layout): keys of S and dP,
+    // d of dQ
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int wg_first = q_lo + 64 * wg, wg_last = wg_first + 63;
+    const int row0 = wg_first + 16 * warp + lane / 4;
+    const uint32_t q_addr = smem_addr(q_s) + 64 * wg * 128;  // this warpgroup's rows
+    const uint32_t do_addr = smem_addr(do_s) + 64 * wg * 128;
+    // the thread's two rows keep their -lse log2e and delta for the whole
+    // CTA: loaded once, 0 past sq (those rows are never stored)
+    float nl[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      const size_t at = static_cast<size_t>(bh) * sq + qi;
+      nl[r] = qi < sq ? -lse[at] * kLog2e : 0.f;
+      dl[r] = qi < sq ? delta[at] : 0.f;
+    }
+    float dq[D / 2], s[BKV / 2], dp[BKV / 2];
+    uint32_t dsa[BKV / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) s[i] = dp[i] = 0.f;
+    // ping-pong: the two warpgroups take turns to issue their products
+    // (named barriers 3 and 4), so one's exponentials and dS run under the
+    // other's products; warpgroup 0 goes first
+    auto turn_begin = [&]() { asm volatile("bar.sync %0, 256;" ::"r"(3 + wg) : "memory"); };
+    auto turn_end = [&]() { asm volatile("bar.arrive %0, 256;" ::"r"(4 - wg) : "memory"); };
+    if (wg == 1) turn_end();
+    if (n_tiles > 0) mbar_wait(full_q, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % S;
+      const uint32_t parity = (it / S) & 1;
+      const uint32_t k_addr = smem_addr(k_s) + st * C::kKVBytes;
+      const uint32_t v_addr = smem_addr(v_s) + st * C::kKVBytes;
+      const int k_lo = (ik_begin + it) * BKV;
+      mbar_wait(full_k + st, parity);
+      mbar_wait(full_v + st, parity);
+      // S = Q K^T and dP = dO V^T: all K-major; a k16 step is 32 bytes into
+      // a 64-column block
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+        Wgmma<BKV>::ss(s, sw128_desc(q_addr + a_off, 16, 1024), sw128_desc(k_addr + b_off, 16, 1024),
+                       kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+        const uint32_t b_off = (kk / 4) * BKV * 128 + (kk % 4) * 32;
+        Wgmma<BKV>::ss(dp, sw128_desc(do_addr + a_off, 16, 1024), sw128_desc(v_addr + b_off, 16, 1024),
+                       kk > 0);
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      mbar_arrive(empty_v + st);  // dP has read V
+
+      // P = 2^(S log2e - lse log2e), exactly 0 where the mask drops the pair
+      // (tested only on tiles that cut it: diagonal, window edge, ragged
+      // end); dS = P (dP - delta), from the unrounded p
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) s[i] = fast_exp2(fmaf(s[i], kLog2e, nl[(i / 2) % 2]));
+      if (!mask.keeps_all(wg_first, wg_last, k_lo, k_lo + BKV - 1)) {
+#pragma unroll
+        for (int i = 0; i < BKV / 2; ++i) {
+          if (!mask.keep(row0 + 8 * ((i / 2) % 2), k_lo + 8 * (i / 4) + col0 + i % 2)) s[i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+      // dS rounded to bf16, the register A operand: the accumulator layout
+      // matches the A fragment layout of m64k16
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+
+      // dQ += dS K: K is MN-major (transpose bit); a k16 step is 16 rows of
+      // 128 bytes; LBO steps to the next 64-column block of D
+      turn_begin();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        Wgmma<D>::rs(dq, dsa[kk], sw128_desc(k_addr + kk * 16 * 128, BKV * 128, 1024));
+      }
+      wgmma_commit();
+      turn_end();
+      wgmma_wait<0>();
+      mbar_arrive(empty_k + st);
+    }
+
+    // epilogue: dQ in bf16 into this warpgroup's rows of the Q tile (only
+    // its own products read them, and all are done), in the swizzle; then
+    // one TMA store, which drops rows >= sq
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int row = 64 * wg + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);  // in the tile
+      const int col = 8 * (i / 4) + col0;
+      const int cc = col % 64;
+      const int byte = (col / 64) * BQ * 128 + row * 128 + (((cc / 8) ^ (row % 8)) * 16) + (cc % 8) * 2;
+      *reinterpret_cast<uint32_t*>(q_s + byte) = pack_bf16(dq[i], dq[i + 1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+    if (tid == 0 && wg_first < sq) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_store(&maps.dq, q_s + c * BQ * 128 + 64 * wg * 128, 64 * c, wg_first, bh);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+  }
+}
+
 static_assert(fwd_smem<float, 128>() <= kMaxSmem, "forward tile exceeds shared memory");
 static_assert(dq_smem<float, 128>() <= kMaxSmem, "dQ tile exceeds shared memory");
 static_assert(dkv_smem<float, 128>() <= kMaxSmem, "dK/dV tile exceeds shared memory");
 static_assert(Sm90Dkv<64>::kSmem <= kMaxSmem && Sm90Dkv<128>::kSmem <= kMaxSmem,
               "bf16 dK/dV tile exceeds shared memory");
+static_assert(Sm90Dq<64>::kSmem <= kMaxSmem && Sm90Dq<128>::kSmem <= kMaxSmem,
+              "bf16 dQ tile exceeds shared memory");
 
 // The kernels: one __global__ name per TPU kernel replaced, each a tile body
 // under its family's mask.
-// the forward's and dK/dV's threads: bf16 runs the sm_90a bodies (two
-// consumer warpgroups and a producer warpgroup), fp32 the scalar ones
+// a kernel's threads: bf16 runs the sm_90a bodies (two consumer warpgroups
+// and a producer warpgroup), fp32 the scalar ones
 template <typename T>
 struct BodyThreads {
   static constexpr int value = std::is_same_v<T, __nv_bfloat16> ? kSm90Threads : kThreads;
@@ -1373,6 +1577,17 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const 
     fwd_tile_sm90<D>(smem, maps, lse, mask);
   } else {
     fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
+  }
+}
+
+template <typename T, int D, typename M>
+__device__ __forceinline__ void dq_body(unsigned char* smem, const T* q, const T* k, const T* v,
+                                        const T* dout, const float* lse, const float* delta, T* dq,
+                                        const M mask, const DqMaps& maps) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    dq_tile_sm90<D>(smem, maps, lse, delta, mask);
+  } else {
+    dq_tile<T, D>(smem, q, k, v, dout, lse, delta, dq, mask);
   }
 }
 
@@ -1396,12 +1611,12 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_fwd_kernel(
 }
 
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, const Mask<CAUSAL, false> mask) {
+    T* __restrict__ dq, const Mask<CAUSAL, false> mask, const __grid_constant__ DqMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_tile<T, D>(smem, q, k, v, dout, lse, delta, dq, mask);
+  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps);
 }
 
 template <typename T, int D, bool CAUSAL>
@@ -1423,12 +1638,12 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_fwd_kerne
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_band_dq_kernel(
+__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, const BandMask mask) {
+    T* __restrict__ dq, const BandMask mask, const __grid_constant__ DqMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_tile<T, D>(smem, q, k, v, dout, lse, delta, dq, mask);
+  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps);
 }
 
 template <typename T, int D>
@@ -1550,13 +1765,28 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
                 a.lse_out, m, maps);
     }
   } else if (kind == Kind::kDq) {
-    constexpr size_t smem = dq_smem<T, D>();
+    DqMaps maps{};
+    size_t smem = dq_smem<T, D>();
+    dim3 grid = q_grid;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      using F = Sm90Dq<D>;
+      const int bh_kv = a.bh / m.groups();
+      CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.dout, dout, D, m.sq, a.bh, F::BQ);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.k, k, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.v, v, D, m.skv, bh_kv, F::BKV);
+      if (r == CUDA_SUCCESS) r = bf16_map(&maps.dq, out0, D, m.sq, a.bh, 64);  // a warpgroup's rows
+      if (r != CUDA_SUCCESS) return static_cast<int>(r);
+      smem = F::kSmem;
+      grid = dim3(a.bh, (m.sq + F::BQ - 1) / F::BQ);  // q-tile-major: last (heavy) tiles first
+    }
+    constexpr int threads = BodyThreads<T>::value;
     if constexpr (BAND) {
-      err = run(flash_band_dq_kernel<T, D>, smem, q_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, m);
+      err = run(flash_band_dq_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
+                a.delta, out0, m, maps);
     } else {
-      err = run(flash_dq_kernel<T, D, CAUSAL>, smem, q_grid, kThreads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, m);
+      err = run(flash_dq_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, dout,
+                a.lse_in, a.delta, out0, m, maps);
     }
   } else {
     DkvMaps maps{};

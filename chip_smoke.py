@@ -8,7 +8,7 @@ Phases run in order; any failure exits non-zero:
 2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
    (one nvcc per source, all started together); ptxas's registers, spills
    and static shared memory of each flash forward kernel and of each bf16
-   dK/dV kernel, and none of them may spill;
+   dQ and dK/dV kernel, and none of them may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
@@ -219,10 +219,10 @@ def card_line() -> str:
 
 def kernel_resources(log: str, kind: str) -> list[dict]:
     """ptxas's resources of each flash kernel of one kind (``fwd``:
-    ``flash_fwd_kernel`` and ``flash_band_fwd_kernel``; ``dkv``: the dK/dV
-    kernels) in a build log: its mangled template arguments, registers at
-    entry, spill bytes and static shared memory (the bf16 kernels' tiles are
-    dynamic shared memory, set at launch)."""
+    ``flash_fwd_kernel`` and ``flash_band_fwd_kernel``; ``dq``: the dQ
+    kernels; ``dkv``: the dK/dV kernels) in a build log: its mangled template
+    arguments, registers at entry, spill bytes and static shared memory (the
+    bf16 kernels' tiles are dynamic shared memory, set at launch)."""
     out = []
     for block in log.split("Compiling entry function '")[1:]:
         fn = block.split("'", 1)[0]
@@ -246,6 +246,12 @@ def kernel_resources(log: str, kind: str) -> list[dict]:
 def forward_resources(log: str) -> list[dict]:
     """`kernel_resources` of the flash forward kernels."""
     return kernel_resources(log, "fwd")
+
+
+def dq_resources(log: str) -> list[dict]:
+    """`kernel_resources` of the bf16 dQ kernels (``flash_dq_kernel``,
+    ``flash_band_dq_kernel``), the ones built on wgmma and TMA."""
+    return [k for k in kernel_resources(log, "dq") if k["dtype"] == "bfloat16"]
 
 
 def dkv_resources(log: str) -> list[dict]:
@@ -1451,6 +1457,7 @@ def main() -> int:
                           "kernels_spilling": spills}), flush=True)
     flash_log = _build.build_log("flash_attention")
     for phase, found in (("build_flash_forward", forward_resources(flash_log)),
+                         ("build_flash_dq", dq_resources(flash_log)),
                          ("build_flash_dkv", dkv_resources(flash_log))):
         print(json.dumps({"phase": phase, "kernels": found}), flush=True)
         if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):

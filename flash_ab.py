@@ -7,7 +7,7 @@ checkout), builds its kernels there, and prints one JSON line: the card's
 name and power limit and each kernel's median device ms (CUDA events, L2
 flushed before each launch), at the shapes ``chip_smoke.py`` holds as main:
 the rect kernels at GPT-2 small's training shape (b 8, h 12, s 1024, d 64,
-causal; dK/dV also full and at d 128) and the band kernels at Mistral-7B's
+causal; dQ and dK/dV also full and at d 128) and the band kernels at Mistral-7B's
 width (b 1, hq 32, hkv 8, s 8192, d 128, window 4096). To compare a change
 with its parent, unpack the parent into a directory ``.gitignore`` lists and
 alternate within one call::
@@ -80,9 +80,11 @@ def main() -> int:
         if d == 64:
             res["rect_fwd"] = ms(lambda: fa.flash_attention_fwd(q, k, v, True))
             res["rect_dq"] = ms(lambda: fa.flash_attention_dq(*bwd, True))
+            res["rect_dq_full"] = ms(lambda: fa.flash_attention_dq(*bwd, False))
             res["rect_dkv"] = ms(lambda: fa.flash_attention_dkv(*bwd, True))
             res["rect_dkv_full"] = ms(lambda: fa.flash_attention_dkv(*bwd, False))
         else:
+            res["rect_dq_d128"] = ms(lambda: fa.flash_attention_dq(*bwd, True))
             res["rect_dkv_d128"] = ms(lambda: fa.flash_attention_dkv(*bwd, True))
     window = 4096
     q, k, v, dout = inputs(g, 1, 32, 8, 8192, 128)

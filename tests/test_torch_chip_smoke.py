@@ -1,6 +1,6 @@
 """`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels' and
-the bf16 dK/dV kernels' registers, spills and static shared memory, which its
-build phase prints and holds to zero spills. Runs on the CPU against a log in
+the bf16 dQ and dK/dV kernels' registers, spills and static shared memory,
+which its build phase prints and holds to zero spills. Runs on the CPU against a log in
 ptxas's format."""
 
 import importlib.util
@@ -25,6 +25,18 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi64EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897915flash_dq_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_S4_S4_S4_PKfS6_PS2_NS_4MaskIXT1_ELb0EEENS_6DqMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897915flash_dq_kernelI13__nv_bfloat16Li64ELb1EEEvPKT_S4_S4_S4_PKfS6_PS2_NS_4MaskIXT1_ELb0EEENS_6DqMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897920flash_band_dq_kernelIfLi128EEEvPKT_S3_S3_S3_PKfS5_PS1_NS_4MaskILb1ELb1EEENS_6DqMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897920flash_band_dq_kernelIfLi128EEEvPKT_S3_S3_S3_PKfS5_PS1_NS_4MaskILb1ELb1EEENS_6DqMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897920flash_band_dq_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_NS_4MaskILb1ELb1EEENS_6DqMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897920flash_band_dq_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_NS_4MaskILb1ELb1EEENS_6DqMapsE
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 16 bytes smem
 """
 
 
@@ -56,4 +68,15 @@ def test_dkv_resources_reads_only_the_bf16_dkv_kernels():
         {"kernel": "flash_dkv_kernel", "dtype": "bfloat16", "d": 128, "causal": False,
          "registers": 255, "spill_store_bytes": 8, "spill_load_bytes": 8,
          "static_smem_bytes": 1024},
+    ]
+
+
+def test_dq_resources_reads_only_the_bf16_dq_kernels():
+    got = _chip_smoke().dq_resources(LOG)
+    assert got == [
+        {"kernel": "flash_dq_kernel", "dtype": "bfloat16", "d": 64, "causal": True,
+         "registers": 168, "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "static_smem_bytes": 0},
+        {"kernel": "flash_band_dq_kernel", "dtype": "bfloat16", "d": 128, "registers": 168,
+         "spill_store_bytes": 4, "spill_load_bytes": 4, "static_smem_bytes": 16},
     ]

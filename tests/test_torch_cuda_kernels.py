@@ -150,6 +150,9 @@ FLASH_CASES = {
     # past a ragged query range without the causal mask
     "bf16_causal_s2048_d128": dict(dtype=torch.bfloat16, causal=True, d=128, sq=2048, skv=2048),
     "bf16_cross_full_sq70_skv333": dict(dtype=torch.bfloat16, causal=False, d=64, sq=70, skv=333),
+    # the bf16 dQ's edges: fewer keys than queries, with a ragged kv tile
+    # under three q tiles of its own
+    "bf16_cross_full_sq333_skv70": dict(dtype=torch.bfloat16, causal=False, d=64, sq=333, skv=70),
 }
 
 
@@ -261,6 +264,9 @@ BAND_CASES = {
     "bf16_w4096_gqa8_d128_s4500": dict(dtype=torch.bfloat16, window=4096, hq=8, hk=1, d=128,
                                        s=4500, b=1),
     "bf16_w1_d64": dict(dtype=torch.bfloat16, window=1, hq=4, hk=4, d=64, s=300),
+    # the bf16 dQ's edges: a window that starts inside a kv tile of its K/V
+    # ring, at d 128 with GQA 8
+    "bf16_w200_gqa8_d128_s700": dict(dtype=torch.bfloat16, window=200, hq=8, hk=1, d=128, s=700),
 }
 
 
@@ -313,6 +319,24 @@ def test_dkv_kernels_give_equal_bits_twice(hopper, band):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_dq_kernels_give_equal_bits_twice(hopper, band):
+    """dQ sums over kv tiles in a fixed order with no atomics: two launches on
+    one input agree to the bit."""
+    if band:
+        q, k, v, dout = _band_inputs(hopper, **BAND_CASES["bf16_w200_gqa8_d128_s700"])
+        o, lse = flash_band_forward_reference(q, k, v, 200)
+        args = (q, k, v, dout, lse, (dout.float() * o.float()).sum(-1), 200)
+        first, second = flash_band_dq(*args), flash_band_dq(*args)
+    else:
+        q, k, v, dout = _flash_inputs(hopper, **FLASH_CASES["bf16_causal_s1000"])
+        o, lse = flash_attention_forward_reference(q, k, v, True)
+        args = (q, k, v, dout, lse, (dout.float() * o.float()).sum(-1), True)
+        first, second = flash_attention_dq(*args), flash_attention_dq(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("window,hq,hk", [(48, 4, 2), (None, 4, 1)])
