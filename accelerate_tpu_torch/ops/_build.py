@@ -8,8 +8,9 @@ Pointers cross as ``c_void_p`` and the launch stream as
 CUDA error code of its launch for the wrapper to check.
 
 The library lands in ``ops/build/`` (listed in ``.gitignore``) under a name
-that carries a hash of the source and the flags, so an edited source is never
-served by a stale build. A failed build raises with nvcc's output.
+that carries a hash of the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is never served by a stale build. A
+failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -49,8 +50,12 @@ def nvcc_path() -> str:
 
 def _artifact(name: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so", BUILD_DIR / f"{name}-{digest}.log"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what a source may include
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{tag}.so", BUILD_DIR / f"{name}-{tag}.log"
 
 
 def build(name: str) -> Path:

@@ -1,9 +1,10 @@
 // Fused tied LM head + cross-entropy, forward and backward, for NVIDIA Hopper (sm_90a).
 //
 // Replaces three TPU kernels of accelerate_tpu/ops/fused_ce.py:
-//   - fused_ce_fwd_kernel              <- `_fwd_kernel` (launched by `_lse_ll` through pl.pallas_call)
-//   - fused_ce_bwd_kernel<T, false>    <- `_dh_kernel`  (launched by `_fused_bwd`)
-//   - fused_ce_bwd_kernel<T, true>     <- `_dw_kernel`  (launched by `_fused_bwd`)
+//   - fused_ce_fwd_kernel                 <- `_fwd_kernel` (launched by `_lse_ll`,
+//                                            through pl.pallas_call)
+//   - fused_ce_bwd_kernel<T, false, ...>  <- `_dh_kernel`  (launched by `_fused_bwd`)
+//   - fused_ce_bwd_kernel<T, true, ...>   <- `_dw_kernel`  (launched by `_fused_bwd`)
 //
 // Layout: h [N, e] and w [V, e] contiguous, one dtype (fp32 or bf16); labels
 // int32 [N] (already safe: an ignored row carries 0 and a zero gradient);
@@ -11,46 +12,85 @@
 // e is a multiple of 64; N and V are any positive counts.
 //
 // What each kernel computes, as the TPU kernels do, with logits = h . w^T in
-// fp32 from the input-dtype operands and columns >= V masked to NEG_INF:
+// fp32 from the input-dtype operands and columns >= V masked out:
 //   - forward: per row, lse = logsumexp over the vocab (online, m and l in
 //     fp32; l == 0 gives lse = m + log 1) and ll = the logit of the label;
 //   - dH = dlogits . W and dW = dlogits^T . H, with p = exp(logits - lse)
 //     recomputed and dlogits = g_lse * p + g_ll * onehot(label) in fp32,
 //     rounded to the operand dtype before the product, accumulated in fp32
-//     and written once in the output dtype.
+//     and written once in the output dtype. No atomics: two launches give
+//     equal bits.
 //
 // What differs from the TPU kernels: on the TPU the reduction axis is the
 // last, sequential grid axis (vocab for forward and dH, rows for dW) and the
 // running state lives in VMEM scratch across grid steps. Here one CTA owns a
 // tile of "own" rows (h rows for forward and dH, w rows for dW) and walks
-// every tile of the "other" matrix itself, so nothing crosses CTAs and no
-// atomics are needed. The reduction width is the model width e (768 for
-// GPT-2 small), not a head dim: a 64 x e operand tile does not fit beside an
-// fp32 accumulator in shared memory, so the logits tile is a k-loop over e in
-// 64-wide chunks, double-buffered with cp.async (zero-filled past N or V, so
-// w is read in place and never padded). The backward keeps its fp32
-// accumulator [32 own rows, ES] in shared memory (ES <= 1024 columns of e:
-// 129 KB); an e above 1024 is split over ceil(e / 1024) CTAs per row tile,
-// each recomputing its logits. dlogits . other goes through the same chunked
-// operand buffers. bf16 products run on tensor cores through nvcuda::wmma
-// 16x16x16 fragments with fp32 accumulation (the logits' accumulators stay
-// in registers across the k-loop); fp32 products run as scalar FMAs (TF32
-// would break the fp32 tolerance).
+// every tile of the "other" matrix itself, so nothing crosses CTAs. The
+// reduction depth of the logits and the width of dH and dW are both the model
+// width e (768 for GPT-2 small), not a head dim.
+//
+// The bf16 backward (bwd_tile_sm90, both fused_ce_bwd_kernel<bf16, DW, NH>):
+//   - a CTA owns 64 own rows and one slice of e's output columns: e's
+//     64-column chunks are dealt into C = ceil(e / 512) slices (384 + 384 at
+//     e 768); the grid is (own tiles rounded up to the cluster, C). Each
+//     slice's CTA recomputes the logits over the full e, so the kernel runs
+//     C + 1 products where the bound counts 2: 3 at e 768, 1.5x the bound's
+//     work;
+//   - clusters of 2 CTAs along the own axis (same slice) walk the same other
+//     tiles: each other chunk [128 rows, 64 columns] reaches both from one
+//     TMA multicast per CTA, each loading 64 of its rows; a stage is refilled
+//     only when the consumers of both CTAs have released it (remote mbarrier
+//     arrivals); no CTA leaves before the cluster's last barrier, and a
+//     padding tile runs on zero-filled rows and stores nothing;
+//   - a producer warpgroup (setmaxnreg 40) runs an 8-stage TMA ring of 24 KB
+//     stages, per other tile first the e chunks that S needs, each beside the
+//     own tile's chunk of the same columns (unicast), then the slice's other
+//     chunks again for the product. The own tile streams rather than staying
+//     resident: at equal ring depth the two ran alike, and the shared memory
+//     a resident [64, e] tile takes (96 KB at e 768) bought a deeper ring,
+//     which ran faster (PERF.md, PR 10). For dW its threads stage each other tile's 128
+//     row vectors (lse pre-scaled by log2e, g_lse, g_ll, label), one row a
+//     thread, loaded before the buffer wait;
+//   - two consumer warpgroups (setmaxnreg 232) both take the CTA's 64 own
+//     rows. Each computes S for its 64 of the tile's 128 other rows by
+//     wgmma (m64n64k16, both operands K-major in shared memory) into 32
+//     registers, chunk by chunk with one chunk's products in flight; forms
+//     dl there (ex2 in base 2; dH keeps its two rows' vectors in registers,
+//     dW reads the staged ones; vocab columns past V give exactly 0); and
+//     writes dl in bf16, in the 128-byte swizzle, into its half of a shared
+//     [64, 128] dl tile. After a named barrier over both, each adds
+//     dl . other to its half of the slice's output chunks (wgmma, dl
+//     K-major, the other chunk MN-major through the transpose bit). The
+//     halves are disjoint, so no sum crosses warpgroups; the output stays in
+//     fp32 registers (at most 4 chunks, 128 a thread) across all other tiles
+//     and leaves by TMA stores from the ring, rows past the own count
+//     dropped. A warpgroup with fewer chunks than the launch's most runs its
+//     last product into an accumulator it never stores, so every wgmma is
+//     issued unconditionally.
+// The fp32 backward and both forwards keep the first design: the logits tile
+// is a k-loop over e in 64-wide chunks, double-buffered with cp.async; the
+// fp32 backward keeps its accumulator [32 own rows, <= 1024 columns of e] in
+// shared memory; bf16 forward products run on nvcuda::wmma 16x16x16
+// fragments, fp32 products as scalar FMAs (TF32 would break the fp32
+// tolerance).
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense) at GPT-2 small, N 8192, V 50257, e 768, bf16:
 //   - forward: one product, 2 N V e = 632 GFLOP, 0.64 ms; bytes (h, w,
 //     labels, lse, ll: 90 MB, 0.027 ms): bound by operations;
-//   - dH, dW: two products each (the logits are recomputed from lse), 1.28 ms.
-// The design reads w once per row tile and h once per vocab tile (from L2
-// after the first), and the backward reads its other tile twice (logits, then
-// the product); it does not reach the bound: synchronous wmma out of shared
-// memory rather than wgmma, one or two CTAs per SM.
+//   - dH, dW: two products each (the logits are recomputed from lse),
+//     1.264 TFLOP, 1.279 ms; bound by operations.
+// What holds the bf16 backward from its bound: the third product (C + 1 =
+// 3); shared-memory bandwidth, since both m64n64k16 products read both
+// operands from shared memory (4 KB a wgmma, the SM's 128 bytes a clock at
+// the tensor cores' rate) while TMA writes each stage beside them; and the
+// ring's latency, which its depth only partly hides.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a dtype or shape it does not take; the Python
 // wrapper (accelerate_tpu_torch/ops/fused_ce.py) raises if the code is not 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,6 +98,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"  // mbarriers, TMA (multicast too), wgmma, clusters, tensor maps
 
 namespace {
 
@@ -67,7 +109,7 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 64;          // e chunk of every product
-constexpr int kMaxSlice = 1024;  // columns of e one backward CTA accumulates
+constexpr int kMaxSlice = 1024;  // columns of e one fp32 backward CTA accumulates
 constexpr unsigned kFullMask = 0xffffffffu;
 
 template <typename T>
@@ -76,11 +118,6 @@ struct Cvt;
 template <>
 struct Cvt<float> {
   static __device__ __forceinline__ float from_f(float x) { return x; }
-};
-
-template <>
-struct Cvt<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
 };
 
 // Tiles by element type: BO own rows per CTA, BW other rows per step.
@@ -112,10 +149,9 @@ struct Smem {
   static constexpr size_t total(int es) { return fixed + acc(es); }
 };
 
-static_assert(Smem<float, true>::total(kMaxSlice) <= 232448, "fp32 backward exceeds shared memory");
-static_assert(Smem<__nv_bfloat16, true>::total(kMaxSlice) <= 232448,
-              "bf16 backward exceeds shared memory");
-static_assert(Smem<float, false>::total(0) <= 232448, "fp32 forward exceeds shared memory");
+static_assert(Smem<float, true>::total(kMaxSlice) <= kMaxSmem,
+              "fp32 backward exceeds shared memory");
+static_assert(Smem<float, false>::total(0) <= kMaxSmem, "fp32 forward exceeds shared memory");
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -302,28 +338,6 @@ __device__ __forceinline__ void gemm_acc(float* c_s, int ldc, const float* a_s, 
     for (int j = 0; j < TN; ++j) c_s[(ty * TM + i) * ldc + tx + j * 16] = acc[i][j];
 }
 
-// bf16: wmma fragments, the warps take C's 16 x 16 sub-tiles in turn
-template <int M, int N, int K>
-__device__ __forceinline__ void gemm_acc(float* c_s, int ldc, const __nv_bfloat16* a_s, int lda,
-                                         const __nv_bfloat16* b_s, int ldb) {
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += kWarps) {
-    const int tm = t / (N / 16), tn = t % (N / 16);
-    float* c_ptr = c_s + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::load_matrix_sync(c, c_ptr, ldc, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, a_s + tm * 16 * lda + k, lda);
-      wmma::load_matrix_sync(b, b_s + k * ldb + tn * 16, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(c_ptr, c, ldc, wmma::mem_row_major);
-  }
-}
-
 // One CTA per 64-row tile of h; walks every vocab tile of w.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_ce_fwd_kernel(
@@ -406,10 +420,11 @@ __device__ __forceinline__ void load_row_vecs(float* lse_s, float* glse_s, float
   }
 }
 
-// DW false (dH): own = h rows, other = w (vocab), out [N, e] += dl . w.
-// DW true (dW): own = w rows (vocab), other = h rows, out [V, e] += dl^T . h.
-// One CTA per (32 own rows, slice of e); the logits tile is own . other^T, so
-// for dW it is the transposed logits and the row vectors follow the other side.
+// The fp32 backward. DW false (dH): own = h rows, other = w (vocab),
+// out [N, e] += dl . w. DW true (dW): own = w rows (vocab), other = h rows,
+// out [V, e] += dl^T . h. One CTA per (32 own rows, slice of e); the logits
+// tile is own . other^T, so for dW it is the transposed logits and the row
+// vectors follow the other side.
 template <typename T, bool DW>
 __global__ void __launch_bounds__(kThreads) fused_ce_bwd_kernel(
     const T* __restrict__ h, const T* __restrict__ w, const int* __restrict__ labels,
@@ -488,6 +503,365 @@ __global__ void __launch_bounds__(kThreads) fused_ce_bwd_kernel(
   }
 }
 
+// ------------------------------------------------ the bf16 backward on sm_90a
+
+constexpr int kCluster = 2;      // CTAs of a cluster, along the own axis
+constexpr int kStages = 8;       // the TMA ring
+constexpr int kSliceChunks = 8;  // 64-column chunks of e one CTA outputs: 512 columns
+constexpr int kSpanChunks = 4;   // chunks of S one wgmma accumulator chain sums
+
+// The bf16 backward's tiles: a CTA owns BM own rows and one slice of e's
+// columns, and walks the other matrix in tiles of BN rows, 64 for each of two
+// consumer warpgroups; a producer warpgroup feeds them.
+struct Sm90Bwd {
+  static constexpr int BM = 64;
+  static constexpr int BN = 128;
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kOwnChunk = BM * 128;  // bytes of [64 rows][64 columns] in bf16
+  static constexpr int kOthChunk = BN * 128;  // [128 rows][64 columns]
+  static constexpr int kStage = kOthChunk + kOwnChunk;  // a ring stage: other chunk, own chunk
+  static constexpr int kVecBytes = 4 * BN * 4;  // a tile's -lse log2e, g_lse, g_ll and label
+  // 1024 bytes of slack to align the tiles to the swizzle's 8 x 128-byte
+  // period; the ring; the dl tile [2 column blocks][64][64]; two tiles'
+  // vectors (dW); the mbarriers: full and empty per stage, full and empty per
+  // vector buffer
+  static constexpr size_t kSmem =
+      1024 + kStages * kStage + 2 * kOwnChunk + 2 * kVecBytes + 8 * (2 * kStages + 4);
+};
+
+static_assert(Sm90Bwd::kSmem <= kMaxSmem, "bf16 backward exceeds shared memory");
+static_assert(kStages * Sm90Bwd::kStage >= kSliceChunks * Sm90Bwd::kOwnChunk,
+              "the ring cannot stage a slice's output");
+
+// The bf16 backward's launch: TMA maps over own [n_own, e] (boxes of 64 rows),
+// other [n_oth, e] (boxes of BN / kCluster rows, one CTA's multicast share)
+// and out [n_own, e] (boxes of 64 rows), all of 64 columns; the row vectors
+// (of h's rows: the own rows for dH, the other rows for dW); e's 64-column
+// chunks and the slices they are dealt into (blockIdx.y)
+struct BwdParams {
+  CUtensorMap own, oth, out;
+  const int* labels;
+  const float* lse;
+  const float* glse;
+  const float* gll;
+  int n, v, nk, slices;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// out[own rows, slice] = dl . other[:, slice] over all other tiles, with
+// S = own . other^T and dl = g_lse exp(S - lse) + g_ll onehot(label) rounded
+// to bf16. DW false (dH): own = h, other = w, the vectors follow the own
+// rows. DW true (dW): own = w, other = h, the vectors follow the other rows.
+// CTA (blockIdx.x, blockIdx.y) owns own rows 64 blockIdx.x + [0, 64) and
+// slice blockIdx.y of e; the CTAs of a cluster (kCluster consecutive own
+// tiles, one slice) walk the same other tiles, and each other chunk reaches
+// all of them from one multicast TMA load per CTA, each loading BN / kCluster
+// of its rows. Per other tile the ring carries the nk chunks of e that S
+// needs, each beside the own tile's chunk of the same columns (loaded by each
+// CTA for itself), then the slice's other chunks again for the product. A
+// consumer warpgroup computes S for its 64 other rows into registers, writes
+// its half of the dl tile to shared memory, and, once both halves are there,
+// adds dl . other to its half of the slice's output chunks, which stay in
+// fp32 registers (NH chunks at most, 32 a thread each) across all other
+// tiles.
+template <bool DW, int NH>
+__device__ __forceinline__ void bwd_tile_sm90(unsigned char* smem_raw, const BwdParams& p) {
+  using C = Sm90Bwd;
+  constexpr int S = kStages, CL = kCluster, BN = C::BN;
+  constexpr int kShare = BN / CL;  // other rows each CTA of the cluster loads for all
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int nk = p.nk;
+  // stage st at ring + st * kStage: the other chunk, then the own chunk
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* dl_s = ring + S * C::kStage;
+  float* vec_s = reinterpret_cast<float*>(dl_s + 2 * C::kOwnChunk);  // [2][4][BN]
+  uint64_t* full = reinterpret_cast<uint64_t*>(vec_s + 2 * 4 * BN);
+  uint64_t* empty = full + S;
+  uint64_t* full_vec = empty + S;
+  uint64_t* empty_vec = full_vec + 2;
+
+  const int own0 = blockIdx.x * C::BM;
+  const int n_own = DW ? p.v : p.n, n_oth = DW ? p.n : p.v;
+  const int nt = (n_oth + BN - 1) / BN;
+  // this CTA's slice: e's chunks [chunk0, chunk0 + nsl), dealt evenly;
+  // warpgroup 0 outputs the slice's chunks [0, h0), warpgroup 1 [h0, nsl)
+  const int per = nk / p.slices, extra = nk % p.slices, y = blockIdx.y;
+  const int nsl = per + (y < extra);
+  const int chunk0 = y * per + min(y, extra);
+  const int h0 = (nsl + 1) / 2;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 8 * CL);  // every consumer warp of every CTA of the cluster
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(full_vec + b, 128);  // every producer thread writes a row
+      mbar_init(empty_vec + b, 8);   // every consumer warp has read them
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are set before a multicast or remote arrival
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: hands its registers to the consumers. Thread 0 runs the
+    // ring, each stage refilled once the consumers of every CTA of the
+    // cluster have released it; for dW each thread also stages row
+    // oth0 + pt of each other tile's vectors, loaded before it waits for the
+    // buffer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = threadIdx.x - 2 * 128;
+    const uint32_t rank = cluster_ctarank();
+    int fill = 0;
+    for (int t = 0; t < nt && (DW || pt == 0); ++t) {
+      const int oth0 = t * BN;
+      if (DW) {
+        const int row = oth0 + pt;
+        const bool ok = row < p.n;
+        const float nl = ok ? -p.lse[row] * kLog2e : 0.f;
+        const float gs = ok ? p.glse[row] : 0.f;
+        const float gl = ok ? p.gll[row] : 0.f;
+        const int lab = ok ? p.labels[row] : -1;
+        const int b = t & 1;
+        if (t >= 2) mbar_wait(empty_vec + b, ((t >> 1) - 1) & 1);
+        float* v = vec_s + b * 4 * BN;
+        v[pt] = nl;
+        v[BN + pt] = gs;
+        v[2 * BN + pt] = gl;
+        reinterpret_cast<int*>(v)[3 * BN + pt] = lab;
+        mbar_arrive(full_vec + b);
+      }
+      if (pt != 0) continue;
+      for (int q = 0; q < nk + nsl; ++q, ++fill) {
+        const int st = fill % S;
+        const bool s_chunk = q < nk;  // S's chunks first, then the slice's
+        const int col = 64 * (s_chunk ? q : chunk0 + q - nk);
+        unsigned char* dst = ring + st * C::kStage;
+        if (fill >= S) mbar_wait(empty + st, (fill / S - 1) & 1);
+        mbar_expect_tx(full + st, C::kOthChunk + (s_chunk ? C::kOwnChunk : 0));
+        tma_load_multicast(dst + rank * kShare * 128, &p.oth, full + st, col,
+                           oth0 + rank * kShare, 0, static_cast<uint16_t>((1 << CL) - 1));
+        if (s_chunk) tma_load(dst + C::kOthChunk, &p.own, full + st, col, own0, 0);
+      }
+    }
+  } else {
+    // consumers: both warpgroups take the CTA's 64 own rows; this thread
+    // holds rows r0 and r0 + 8 of S and of the output chunks, columns
+    // 8 j + col0 + {0, 1} (the wgmma accumulator layout); S's columns are
+    // the other rows 64 wg + [0, 64) of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int r0 = 16 * warp + lane / 4;
+    const int lo = wg == 0 ? 0 : h0, hi = wg == 0 ? h0 : nsl;  // this warpgroup's chunks
+    // dH: the thread's two own rows are h's: their vectors, loaded once (0
+    // and label -1 past N, so those rows' dl is 0)
+    float nl[2] = {0.f, 0.f}, gs[2] = {0.f, 0.f}, gl[2] = {0.f, 0.f};
+    int lab[2] = {-1, -1};
+    if (!DW) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = own0 + r0 + 8 * r;
+        if (row < p.n) {
+          nl[r] = -p.lse[row] * kLog2e;
+          gs[r] = p.glse[row];
+          gl[r] = p.gll[row];
+          lab[r] = p.labels[row];
+        }
+      }
+    }
+    float s[32], sp[32], out[NH][32];
+#pragma unroll
+    for (int c = 0; c < NH; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) out[c][i] = 0.f;
+    }
+    // a stage's release: each warp arrives once on the stage's empty barrier
+    // of every CTA of the cluster
+    auto release = [&](int f) {
+      __syncwarp();
+      if (lane < CL) mbar_arrive_cluster(empty + f % S, lane);
+    };
+    auto wait_full = [&](int f) { mbar_wait(full + f % S, (f / S) & 1); };
+    const uint32_t ring_addr = smem_addr(ring), dl_addr = smem_addr(dl_s);
+
+    int fill = 0;
+    for (int t = 0; t < nt; ++t) {
+      const int oth0 = t * BN;
+      // S = own . other^T over e's chunks, both K-major (a k16 step is 32
+      // bytes into a chunk), the next chunk's products issued while the last
+      // chunk's run; a chunk's stage is released once its products are done.
+      // The tensor cores' fp32 sums lose bits over a long chain, so the
+      // products of each span of kSpanChunks chunks (256 columns of e) sum in
+      // sp, and the spans add into s with rounded fp32 adds
+      for (int kc = 0; kc < nk; ++kc) {
+        const int f = fill + kc;
+        const uint32_t st_addr = ring_addr + (f % S) * C::kStage;
+        const uint32_t a_addr = st_addr + C::kOthChunk;
+        const uint32_t b_addr = st_addr + 64 * wg * 128;
+        const bool span_end = kc % kSpanChunks == kSpanChunks - 1 || kc == nk - 1;
+        wait_full(f);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<64>::ss(sp, sw128_desc(a_addr + kk * 32, 16, 1024),
+                        sw128_desc(b_addr + kk * 32, 16, 1024), kc % kSpanChunks > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kc % kSpanChunks > 0) release(f - 1);  // else released at the last span's end
+        if (span_end) {
+          wgmma_wait<0>();
+          release(f);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) s[i] = kc < kSpanChunks ? sp[i] : s[i] + sp[i];
+        }
+      }
+      fill += nk;
+
+      // with fewer chunks of e than ring stages, the ring does not order the
+      // other warpgroup's last products (they read the whole dl tile) before
+      // this warpgroup's next dl: a barrier does
+      if (nk < S && t > 0) bar_sync(2, 256);
+      // dl = g_lse 2^(S log2e - lse log2e) + g_ll [column is the label],
+      // rounded to bf16 into this warpgroup's column block of the dl tile
+      // (K-major for the product, in the swizzle); exactly 0 on vocab
+      // columns past V (dH: other rows TMA read as 0)
+      if (DW) mbar_wait(full_vec + (t & 1), (t >> 1) & 1);
+      const float* vec = vec_s + (t & 1) * 4 * BN + 64 * wg;
+      const bool ragged = !DW && oth0 + BN > p.v;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + col0;  // in the warpgroup's 64 columns
+        float2 vnl = make_float2(0.f, 0.f), vgs = vnl, vgl = vnl;
+        int2 vlab = make_int2(-1, -1);
+        if (DW) {
+          vnl = *reinterpret_cast<const float2*>(vec + c);
+          vgs = *reinterpret_cast<const float2*>(vec + BN + c);
+          vgl = *reinterpret_cast<const float2*>(vec + 2 * BN + c);
+          vlab = *reinterpret_cast<const int2*>(vec + 3 * BN + c);
+        }
+#pragma unroll
+        for (int e2 = 0; e2 < 4; ++e2) {
+          const int i = 4 * j + e2, r = e2 / 2, cc = e2 % 2;
+          float x;
+          if (DW) {
+            const int vocab = own0 + r0 + 8 * r;
+            x = (cc ? vgs.y : vgs.x) * fast_exp2(fmaf(s[i], kLog2e, cc ? vnl.y : vnl.x));
+            if (vocab == (cc ? vlab.y : vlab.x)) x += cc ? vgl.y : vgl.x;
+          } else {
+            const int vocab = oth0 + 64 * wg + c + cc;
+            x = gs[r] * fast_exp2(fmaf(s[i], kLog2e, nl[r]));
+            if (vocab == lab[r]) x += gl[r];
+            if (ragged && vocab >= p.v) x = 0.f;
+          }
+          s[i] = x;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          const int byte = wg * C::kOwnChunk + row * 128 + ((j ^ (row % 8)) * 16) + col0 * 2;
+          *reinterpret_cast<uint32_t*>(dl_s + byte) =
+              pack_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+        }
+      }
+      if (DW) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_vec + (t & 1));
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bar_sync(1, 256);  // both halves of the dl tile are written
+
+      // out[:, chunk] += dl . other[:, chunk] for this warpgroup's chunks of
+      // the slice: dl K-major (a k16 step is 32 bytes into a column block of
+      // 64), the other chunk MN-major through the transpose bit (a k16 step
+      // is 16 rows of 128 bytes). A stage the other warpgroup reads is
+      // released once it is full. A warpgroup with fewer than NH chunks runs
+      // its last product on the dl tile into an accumulator it never stores,
+      // so that every product is issued unconditionally
+      if (wg == 1) {
+        for (int j = 0; j < lo; ++j) {
+          wait_full(fill + j);
+          release(fill + j);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < NH; ++jj) {
+        const int j = lo + jj;
+        uint32_t b_addr = dl_addr;
+        if (j < hi) {
+          wait_full(fill + j);
+          b_addr = ring_addr + ((fill + j) % S) * C::kStage;
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const uint32_t a_addr = dl_addr + (kk / 4) * C::kOwnChunk + (kk % 4) * 32;
+          Wgmma<64>::ss<1>(out[jj], sw128_desc(a_addr, 16, 1024),
+                           sw128_desc(b_addr + kk * 16 * 128, C::kOthChunk, 1024), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (jj > 0 && j - 1 < hi) release(fill + j - 1);
+      }
+      // the next tile's S waits for this one's products: issuing it under the
+      // last product group ran slower
+      wgmma_wait<0>();
+      if (lo + NH - 1 < hi) release(fill + lo + NH - 1);
+      if (wg == 0) {
+        for (int j = hi; j < nsl; ++j) {
+          wait_full(fill + j);
+          release(fill + j);
+        }
+      }
+      fill += nsl;
+    }
+
+    // epilogue: once no product of either warpgroup reads the ring, each
+    // writes its chunks in bf16 into the ring (every stage is consumed), in
+    // the swizzle, and one thread stores them by TMA (rows >= n_own dropped;
+    // a cluster's padding tile stores nothing)
+    bar_sync(3, 256);
+#pragma unroll
+    for (int jj = 0; jj < NH; ++jj) {
+      if (lo + jj < hi) {
+        unsigned char* slot = ring + (lo + jj) * C::kOwnChunk;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = r0 + 8 * ((i / 2) % 2);
+          const int col = 8 * (i / 4) + col0;
+          const int byte = row * 128 + (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+          *reinterpret_cast<uint32_t*>(slot + byte) = pack_bf16(out[jj][i], out[jj][i + 1]);
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(4 + wg, 128);
+    if (tid == 0 && own0 < n_own) {
+      for (int j = lo; j < hi; ++j) {
+        tma_store(&p.out, ring + j * C::kOwnChunk, 64 * (chunk0 + j), own0, 0);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    }
+  }
+  // no CTA leaves while another of its cluster may still multicast into its
+  // shared memory or arrive on its barriers
+  cluster_sync();
+}
+
+template <typename T, bool DW, int NH>
+__global__ void __launch_bounds__(Sm90Bwd::kThreads, 1) fused_ce_bwd_kernel(
+    const __grid_constant__ BwdParams p) {
+  static_assert(std::is_same_v<T, __nv_bfloat16>, "the sm_90a backward is bf16");
+  extern __shared__ __align__(128) unsigned char smem[];
+  bwd_tile_sm90<DW, NH>(smem, p);
+}
+
 struct Args {
   const void* h;
   const void* w;
@@ -522,6 +896,92 @@ int launch_bwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// How the bf16 backward runs at model width e: e's chunks dealt into slices of
+// at most kSliceChunks, NH (a warpgroup's output chunks at most), and the
+// grid (own tiles rounded up to whole clusters, slices)
+struct BwdPlan {
+  int nk, slices, nh;
+  dim3 grid;
+};
+
+BwdPlan plan_bwd(int e, int n_own) {
+  BwdPlan pl{};
+  pl.nk = e / 64;
+  pl.slices = (pl.nk + kSliceChunks - 1) / kSliceChunks;
+  const int widest = (pl.nk + pl.slices - 1) / pl.slices;
+  pl.nh = (widest + 1) / 2;
+  const int tiles = (n_own + Sm90Bwd::BM - 1) / Sm90Bwd::BM;
+  pl.grid = dim3((tiles + kCluster - 1) / kCluster * kCluster, pl.slices);
+  return pl;
+}
+
+// the launch configuration of the bf16 backward: a cluster of kCluster CTAs
+// along the own axis
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(const BwdPlan& pl, cudaStream_t stream) {
+    cfg.gridDim = pl.grid;
+    cfg.blockDim = dim3(Sm90Bwd::kThreads);
+    cfg.dynamicSmemBytes = Sm90Bwd::kSmem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// the bf16 kernel for a plan, its shared memory limit raised
+using Sm90Kernel = void (*)(BwdParams);
+
+template <bool DW>
+Sm90Kernel sm90_kernel_of(int nh) {
+  switch (nh) {
+    case 1: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 1>;
+    case 2: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 2>;
+    case 3: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 3>;
+    default: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 4>;
+  }
+}
+
+cudaError_t sm90_kernel(bool dw, const BwdPlan& pl, Sm90Kernel* kernel) {
+  static_assert((kSliceChunks + 1) / 2 == 4, "sm90_kernel_of covers NH 1 to 4");
+  *kernel = dw ? sm90_kernel_of<true>(pl.nh) : sm90_kernel_of<false>(pl.nh);
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Sm90Bwd::kSmem));
+}
+
+template <bool DW>
+int launch_bwd_sm90(const Args& a) {
+  const int n_own = DW ? a.v : a.n, n_oth = DW ? a.n : a.v;
+  const void* own = DW ? a.w : a.h;
+  const void* oth = DW ? a.h : a.w;
+  const BwdPlan pl = plan_bwd(a.e, n_own);
+  BwdParams p{};
+  CUresult r = bf16_map(&p.own, own, a.e, n_own, 1, Sm90Bwd::BM);
+  if (r == CUDA_SUCCESS) r = bf16_map(&p.oth, oth, a.e, n_oth, 1, Sm90Bwd::BN / kCluster);
+  if (r == CUDA_SUCCESS) r = bf16_map(&p.out, a.out, a.e, n_own, 1, Sm90Bwd::BM);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  p.labels = a.labels;
+  p.lse = a.lse_in;
+  p.glse = a.glse;
+  p.gll = a.gll;
+  p.n = a.n;
+  p.v = a.v;
+  p.nk = pl.nk;
+  p.slices = pl.slices;
+  Sm90Kernel kernel = nullptr;
+  cudaError_t err = sm90_kernel(DW, pl, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch launch(pl, a.stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(Kind kind, const Args& a) {
   if (a.n <= 0 || a.v <= 0 || a.e <= 0 || a.e % kBK) return static_cast<int>(cudaErrorInvalidValue);
@@ -538,7 +998,11 @@ int launch(Kind kind, const Args& a) {
                                                a.ll_out, a.n, a.v, a.e);
     return static_cast<int>(cudaGetLastError());
   }
-  return kind == Kind::kDh ? launch_bwd<T, false>(a) : launch_bwd<T, true>(a);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return kind == Kind::kDh ? launch_bwd_sm90<false>(a) : launch_bwd_sm90<true>(a);
+  } else {
+    return kind == Kind::kDh ? launch_bwd<T, false>(a) : launch_bwd<T, true>(a);
+  }
 }
 
 int dispatch(int device, int dtype, Kind kind, const Args& a) {
@@ -579,6 +1043,29 @@ extern "C" int fused_ce_dw(int device, void* stream, int dtype, const void* h, c
                static_cast<const float*>(glse), static_cast<const float*>(gll), dw, nullptr,
                nullptr, n, v, e, static_cast<cudaStream_t>(stream)};
   return dispatch(device, dtype, Kind::kDw, a);
+}
+
+// The bf16 dH (dw 0) or dW (dw 1) kernel's launch at model width e, into
+// out[6]: how many of its clusters the device runs at once
+// (cudaOccupancyMaxActiveClusters), CTAs a cluster, ring stages, dynamic
+// shared memory bytes, slices of e, and output chunks a warpgroup holds.
+// Returns the CUDA error code.
+extern "C" int fused_ce_bwd_plan(int device, int dw, int e, int* out) {
+  if (e <= 0 || e % kBK) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdPlan pl = plan_bwd(e, Sm90Bwd::BM * kCluster);
+  Sm90Kernel kernel = nullptr;
+  err = sm90_kernel(dw != 0, pl, &kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch launch(pl, nullptr);
+  err = cudaOccupancyMaxActiveClusters(&out[0], kernel, &launch.cfg);
+  out[1] = kCluster;
+  out[2] = kStages;
+  out[3] = static_cast<int>(Sm90Bwd::kSmem);
+  out[4] = pl.slices;
+  out[5] = pl.nh;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* fused_ce_error_string(int code) {

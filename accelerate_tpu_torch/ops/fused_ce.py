@@ -138,6 +138,8 @@ def _lib() -> ctypes.CDLL:
         lib.fused_ce_dw.argtypes = head + [p] * 7 + [i] * 3
         for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw):
             fn.restype = ctypes.c_int
+        lib.fused_ce_bwd_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.fused_ce_bwd_plan.restype = ctypes.c_int
         lib.fused_ce_error_string.argtypes = [i]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
     return lib
@@ -196,6 +198,22 @@ def fused_ce_dw(h, w, labels, lse, g_lse, g_ll) -> torch.Tensor:
          g_lse.data_ptr(), g_ll.data_ptr(), dw.data_ptr(), h=h, v=w.shape[0])
     fused_ce_dw.launches += 1
     return dw
+
+
+def bwd_plan(dw: bool, e: int) -> dict[str, int]:
+    """How the bf16 dH (``dw`` False) or dW kernel launches at model width
+    ``e`` on the current card: the clusters it runs at once
+    (``cudaOccupancyMaxActiveClusters``), CTAs a cluster, ring stages, dynamic
+    shared memory bytes, slices of e, and output chunks a warpgroup holds."""
+    lib = _lib()
+    out = (ctypes.c_int * 6)()
+    err = lib.fused_ce_bwd_plan(torch.cuda.current_device(), int(dw), e, out)
+    if err != 0:
+        msg = lib.fused_ce_error_string(err).decode()
+        raise RuntimeError(f"fused_ce_bwd_plan failed: {msg} (cuda error {err})")
+    keys = ("max_active_clusters", "cluster_ctas", "ring_stages", "smem_bytes", "slices",
+            "chunks_per_warpgroup")
+    return dict(zip(keys, (int(x) for x in out)))
 
 
 fused_ce_fwd.launches = 0

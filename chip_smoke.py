@@ -7,8 +7,10 @@ Phases run in order; any failure exits non-zero:
    capability, which must be 9.0;
 2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
    (one nvcc per source, all started together); ptxas's registers, spills
-   and static shared memory of each flash forward kernel and of each bf16
-   dQ and dK/dV kernel, and none of them may spill;
+   and static shared memory of each flash forward kernel, of each bf16
+   dQ and dK/dV kernel and of each bf16 fused-CE dH and dW kernel (with the
+   dH and dW launches at e 768: CTAs a cluster, ring stages, shared memory
+   and how many clusters the card runs at once), and none of them may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
@@ -49,7 +51,8 @@ Phases run in order; any failure exits non-zero:
    ignored), in fp32, at a ragged N 1000, at e 1024 (GPT-2 medium's width)
    and with every row ignored; one JSON line per case and kernel with its
    error, its times (the library yardstick is the unfused PyTorch head and
-   cross-entropy) and its bound;
+   cross-entropy), its bound, its achieved TFLOP/s and the share of the
+   bound it reaches;
 10. fp32 fused-CE parity: GPT-2 small, fp32, TF32 off, batch 2 x 1024: one
    `make_train_step` step with `lm_loss_fn_pallas` against one with
    `lm_loss_fn`: loss and global gradient norm agree, and each fused-CE
@@ -57,7 +60,8 @@ Phases run in order; any failure exits non-zero:
 11. bf16 training with the fused loss: phase 8 with `lm_loss_fn_pallas`
    (bench.py's ``BENCH_FUSED_CE=2``): the loss falls, each flash kernel ran
    n_layer times and each fused-CE kernel once per step, and the peak
-   memory stays below phase 8's; then its profiler window;
+   memory stays below phase 8's; then its profiler window, which also splits
+   the fused-CE kernels' device time into forward, dH and dW;
 12. band flash kernels: the forward, dQ and dK/dV band kernels
    (`flash_band_fwd`/`_dq`/`_dkv`) against their plain versions on the card
    at the Mistral training shapes (b 1, 32 query heads over 8 kv heads,
@@ -217,25 +221,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_resources(log: str, kind: str) -> list[dict]:
-    """ptxas's resources of each flash kernel of one kind (``fwd``:
-    ``flash_fwd_kernel`` and ``flash_band_fwd_kernel``; ``dq``: the dQ
-    kernels; ``dkv``: the dK/dV kernels) in a build log: its mangled template
-    arguments, registers at entry, spill bytes and static shared memory (the
-    bf16 kernels' tiles are dynamic shared memory, set at launch)."""
+def kernel_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[dict]:
+    """ptxas's resources of each kernel whose name matches the regex
+    ``pattern`` (no capturing groups) in a build log: its name, its element
+    type (``dtype``) and each further template argument, an int or a bool,
+    under the next name of ``fields`` (fewer arguments, fewer keys); its
+    registers at entry, spill bytes and static shared memory (the sm_90a
+    kernels' tiles are dynamic shared memory, set at launch)."""
     out = []
     for block in log.split("Compiling entry function '")[1:]:
         fn = block.split("'", 1)[0]
-        m = re.search(rf"(flash_(?:band_)?{kind}_kernel)I(\w+?)EEEv", fn)
+        m = re.search(rf"({pattern})I(13__nv_bfloat16|f)((?:L[bi]\d+E)*?(?:L[bi]\d+)?)EEEv", fn)
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         smem = re.search(r"(\d+) bytes smem", block)
-        args = re.fullmatch(r"(13__nv_bfloat16|f)Li(\d+)(?:ELb([01]))?", m.group(2))
-        out.append({"kernel": m.group(1), "dtype": "bfloat16" if args.group(1) != "f" else "float32",
-                    "d": int(args.group(2)),
-                    **({"causal": args.group(3) == "1"} if args.group(3) else {}),
+        values = [bool(int(x)) if kind == "b" else int(x)
+                  for kind, x in re.findall(r"L([bi])(\d+)", m.group(3))]
+        out.append({"kernel": m.group(1), "dtype": "float32" if m.group(2) == "f" else "bfloat16",
+                    **dict(zip(fields, values)),
                     "registers": int(regs.group(1)) if regs else None,
                     "spill_store_bytes": int(spill.group(1)) if spill else None,
                     "spill_load_bytes": int(spill.group(2)) if spill else None,
@@ -243,21 +248,35 @@ def kernel_resources(log: str, kind: str) -> list[dict]:
     return out
 
 
+FLASH_FIELDS = ("d", "causal")  # the flash kernels' template arguments after the type
+
+
 def forward_resources(log: str) -> list[dict]:
-    """`kernel_resources` of the flash forward kernels."""
-    return kernel_resources(log, "fwd")
+    """`kernel_resources` of the flash forward kernels (``flash_fwd_kernel``
+    and ``flash_band_fwd_kernel``)."""
+    return kernel_resources(log, r"flash_(?:band_)?fwd_kernel", FLASH_FIELDS)
 
 
 def dq_resources(log: str) -> list[dict]:
     """`kernel_resources` of the bf16 dQ kernels (``flash_dq_kernel``,
     ``flash_band_dq_kernel``), the ones built on wgmma and TMA."""
-    return [k for k in kernel_resources(log, "dq") if k["dtype"] == "bfloat16"]
+    return [k for k in kernel_resources(log, r"flash_(?:band_)?dq_kernel", FLASH_FIELDS)
+            if k["dtype"] == "bfloat16"]
 
 
 def dkv_resources(log: str) -> list[dict]:
     """`kernel_resources` of the bf16 dK/dV kernels (``flash_dkv_kernel``,
     ``flash_band_dkv_kernel``), the ones built on wgmma and TMA."""
-    return [k for k in kernel_resources(log, "dkv") if k["dtype"] == "bfloat16"]
+    return [k for k in kernel_resources(log, r"flash_(?:band_)?dkv_kernel", FLASH_FIELDS)
+            if k["dtype"] == "bfloat16"]
+
+
+def fused_ce_bwd_resources(log: str) -> list[dict]:
+    """`kernel_resources` of the bf16 fused-CE dH and dW kernels
+    (``fused_ce_bwd_kernel<bf16, DW, NH>``: ``dw`` and the output chunks a
+    warpgroup holds), the ones built on wgmma, TMA and clusters."""
+    return [k for k in kernel_resources(log, r"fused_ce_bwd_kernel", ("dw", "chunks_per_warpgroup"))
+            if k["dtype"] == "bfloat16"]
 
 
 def peak_rates(name: str) -> tuple[float, float, str]:
@@ -683,21 +702,33 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
                    bound_ms=max(n_bytes / bw, n_flops / peak) * 1e3,
                    bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
                    bytes=n_bytes, flops=n_flops)
+        rec.update(tflops=n_flops / rec["kernel_ms"] * 1e-9, bound_share=rec["bound_ms"] / rec["kernel_ms"])
         print(json.dumps(rec), flush=True)
         recs[kname] = rec
     torch.cuda.empty_cache()
     return recs
 
 
+def fused_ce_part(kname: str) -> str | None:
+    """Which fused-CE kernel a profiled kernel name is: ``forward``, ``dH`` or
+    ``dW`` (the bool after the type in ``fused_ce_bwd_kernel<T, DW, ...>``),
+    else None."""
+    if "fused_ce_fwd_kernel" in kname:
+        return "forward"
+    m = re.search(r"fused_ce_bwd_kernel<[^,>]+, (false|true)\b", kname)
+    return ("dW" if m.group(1) == "true" else "dH") if m else None
+
+
 def profile_train(torch, run_step, phase: str, steps: int = 3, **extra) -> dict:
     """A profiler window over ``steps`` train steps: host and device ms per
     step, the idle share, the top kernels, the device ms per step of each
-    kind of kernel (TRAIN_KERNEL_CATEGORIES) and of each flash kernel (the
-    forward, dQ and dK/dV split of the flash categories); prints and returns
-    the record."""
+    kind of kernel (TRAIN_KERNEL_CATEGORIES), of each flash kernel (the
+    forward, dQ and dK/dV split of the flash categories) and of each fused-CE
+    kernel (forward, dH, dW); prints and returns the record."""
     wall_us, by_name = profile_steps(torch, run_step, steps)
     categories: dict[str, float] = {}
     flash: dict[str, float] = {}
+    fused: dict[str, float] = {}
     for kname, us in by_name.items():
         cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
                     if re.search(pattern, kname, re.IGNORECASE)), "other")
@@ -705,8 +736,12 @@ def profile_train(torch, run_step, phase: str, steps: int = 3, **extra) -> dict:
         m = re.search(r"flash_(?:band_)?(?:fwd|dq|dkv)_kernel", kname)
         if m:
             flash[m.group(0)] = flash.get(m.group(0), 0.0) + us / steps / 1e3
+        part = fused_ce_part(kname)
+        if part:
+            fused[part] = fused.get(part, 0.0) + us / steps / 1e3
     prof = profile_record(phase, steps, wall_us, by_name, top=8, **extra,
-                          categories_ms_per_step=categories, flash_kernels_ms_per_step=flash)
+                          categories_ms_per_step=categories, flash_kernels_ms_per_step=flash,
+                          fused_ce_kernels_ms_per_step=fused)
     print(json.dumps(prof), flush=True)
     return prof
 
@@ -1462,6 +1497,14 @@ def main() -> int:
         print(json.dumps({"phase": phase, "kernels": found}), flush=True)
         if any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):
             raise AssertionError(f"{phase}: a kernel spills: {found}")
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    found = fused_ce_bwd_resources(_build.build_log("fused_ce"))
+    print(json.dumps({"phase": "build_fused_ce", "kernels": found,
+                      "launch_e768": {"dH": fc.bwd_plan(False, 768), "dW": fc.bwd_plan(True, 768)}}),
+          flush=True)
+    if len(found) != 8 or any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):
+        raise AssertionError(f"build_fused_ce: a bf16 dH/dW kernel is missing or spills: {found}")
 
     # 3. kernel against its plain version
     from accelerate_tpu_torch.ops import flash_attention as fa

@@ -1,7 +1,8 @@
 """`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels' and
-the bf16 dQ and dK/dV kernels' registers, spills and static shared memory,
-which its build phase prints and holds to zero spills. Runs on the CPU against a log in
-ptxas's format."""
+the bf16 dQ, dK/dV and fused-CE dH/dW kernels' registers, spills and static
+shared memory, which its build phase prints and holds to zero spills; and its
+split of profiled kernel names into the fused-CE forward, dH and dW. Runs on
+the CPU against a log in ptxas's format."""
 
 import importlib.util
 from pathlib import Path
@@ -37,6 +38,22 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897920flash_band_dq_kernelI13__nv_bfloat16Li128EEEvPKT_S4_S4_S4_PKfS6_PS2_NS_4MaskILb1ELb1EEENS_6DqMapsE
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers, 16 bytes smem
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelIfLb0EEEvPKT_S3_PKiPKfS7_S7_PS1_iiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelIfLb0EEEvPKT_S3_PKiPKfS7_S7_PS1_iiii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelI13__nv_bfloat16Lb0ELi3EEEvNS_9BwdParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelI13__nv_bfloat16Lb0ELi3EEEvNS_9BwdParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI13__nv_bfloat16EEvPKT_S3_PKiPfS6_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI13__nv_bfloat16EEvPKT_S3_PKiPfS6_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelI13__nv_bfloat16Lb1ELi4EEEvNS_9BwdParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_bwd_kernelI13__nv_bfloat16Lb1ELi4EEEvNS_9BwdParamsE
+    16 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 32 bytes smem
 """
 
 
@@ -80,3 +97,34 @@ def test_dq_resources_reads_only_the_bf16_dq_kernels():
         {"kernel": "flash_band_dq_kernel", "dtype": "bfloat16", "d": 128, "registers": 168,
          "spill_store_bytes": 4, "spill_load_bytes": 4, "static_smem_bytes": 16},
     ]
+
+
+def test_fused_ce_bwd_resources_reads_only_the_bf16_bwd_kernels():
+    got = _chip_smoke().fused_ce_bwd_resources(LOG)
+    assert got == [
+        {"kernel": "fused_ce_bwd_kernel", "dtype": "bfloat16", "dw": False,
+         "chunks_per_warpgroup": 3, "registers": 168,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "static_smem_bytes": 0},
+        {"kernel": "fused_ce_bwd_kernel", "dtype": "bfloat16", "dw": True,
+         "chunks_per_warpgroup": 4, "registers": 168,
+         "spill_store_bytes": 16, "spill_load_bytes": 12, "static_smem_bytes": 32},
+    ]
+
+
+def test_kernel_resources_takes_the_name_pattern_and_its_fields():
+    got = _chip_smoke().kernel_resources(LOG, r"fused_ce_(?:fwd|bwd)_kernel", ("dw",))
+    assert [(k["dtype"], k.get("dw"), k["spill_store_bytes"]) for k in got] == [
+        ("float32", False, 4), ("bfloat16", False, 0), ("bfloat16", True, 16)]
+    assert _chip_smoke().kernel_resources("", r"fused_ce_bwd_kernel", ("dw",)) == []
+
+
+def test_fused_ce_part_splits_forward_dh_and_dw():
+    part = _chip_smoke().fused_ce_part
+    ns = "void (anonymous namespace)::"
+    assert part(ns + "fused_ce_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)") == "forward"
+    assert part(ns + "fused_ce_bwd_kernel<__nv_bfloat16, false, 3>("
+                "(anonymous namespace)::BwdParams)") == "dH"
+    assert part(ns + "fused_ce_bwd_kernel<__nv_bfloat16, true, 3>("
+                "(anonymous namespace)::BwdParams)") == "dW"
+    assert part(ns + "fused_ce_bwd_kernel<float, true>(float const*, int)") == "dW"
+    assert part(ns + "flash_dq_kernel<__nv_bfloat16, 64, true>(int)") is None

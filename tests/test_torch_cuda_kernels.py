@@ -393,10 +393,21 @@ FUSED_CE_CASES = {
     "fp32_e1024_ragged": dict(dtype=torch.float32, n=129, v=333, e=1024),
     "bf16_e1280_split": dict(dtype=torch.bfloat16, n=100, v=300, e=1280),
     "fp32_e64_tiny": dict(dtype=torch.float32, n=5, v=3, e=64),
+    # the bf16 backward's own edges: one slice whose warpgroups hold 3 and 2
+    # output chunks; 8 slices of e; three own tiles, so a cluster runs a
+    # padding tile; one vocab entry (and e 128, fewer chunks than ring
+    # stages). With one entry p is 1 and the loss's g_ll = -g_lse gives a
+    # gradient of exactly 0, so the bar would be 0 and an ulp of p between
+    # two summation orders of the logit would fail it: that case takes
+    # g_ll = -g_lse / 2
+    "bf16_e320": dict(dtype=torch.bfloat16, n=200, v=700, e=320),
+    "bf16_e4096": dict(dtype=torch.bfloat16, n=130, v=300, e=4096),
+    "bf16_n130": dict(dtype=torch.bfloat16, n=130, v=150, e=768),
+    "bf16_v1": dict(dtype=torch.bfloat16, n=64, v=1, e=128, g_ll_scale=0.5),
 }
 
 
-def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0):
+def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0, g_ll_scale=1.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn(n, e, generator=g, device=dev).to(dtype)
     w = (torch.randn(v, e, generator=g, device=dev) * 0.05).to(dtype)
@@ -404,7 +415,7 @@ def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0):
     mask = torch.arange(n, device=dev) % 8 != 3  # every eighth row ignored
     labels = torch.where(mask, labels, 0)
     g_lse = mask.float() / mask.sum()
-    return h, w, labels, g_lse, -g_lse
+    return h, w, labels, g_lse, -g_ll_scale * g_lse
 
 
 def _assert_fused_near(got, want, dtype):
@@ -432,6 +443,20 @@ def test_fused_ce_kernels_match_plain(hopper, name):
     torch.testing.assert_close(ll, ll_ref, atol=1e-4, rtol=1e-5)
     _assert_fused_near(dh, fc.fused_ce_dh_reference(h, w, labels, lse_ref, g_lse, g_ll), spec["dtype"])
     _assert_fused_near(dw, fc.fused_ce_dw_reference(h, w, labels, lse_ref, g_lse, g_ll), spec["dtype"])
+
+
+@pytest.mark.parametrize("kernel", ["dh", "dw"])
+def test_fused_ce_bwd_kernels_give_equal_bits_twice(hopper, kernel):
+    """dH and dW sum over the other tiles in a fixed order with no atomics:
+    two launches on one input agree to the bit."""
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_ll = _fused_ce_inputs(hopper, **FUSED_CE_CASES["bf16_e768_ragged"])
+    lse, _ = fc.fused_ce_forward_reference(h, w, labels)
+    fn = fc.fused_ce_dh if kernel == "dh" else fc.fused_ce_dw
+    first, second = (fn(h, w, labels, lse, g_lse, g_ll) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_cross_entropy_all_ignored_on_the_card(hopper):
