@@ -165,20 +165,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// 16 bytes global -> shared without registers; src_size 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // columns [k0, k0 + 64) of rows [row0, row0 + ROWS) of a contiguous [n_rows, e]
 // matrix into shared memory (leading dim LD); rows >= n_rows are zero-filled
 template <typename T, int ROWS, int LD>
@@ -190,7 +176,7 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0, int n
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * e + k0 + c, ok);
+    cp_async<16>(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * e + k0 + c, ok);
   }
 }
 

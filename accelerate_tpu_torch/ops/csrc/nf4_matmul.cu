@@ -9,11 +9,10 @@
 //
 // What differs from the TPU kernel: the TPU kernel walks a sequential K grid
 // axis, accumulating into its output block, and writes a [2, M, P] fp32
-// result that the wrapper concatenates and casts. Here the K loop runs inside
-// the CTA and the CTA writes its [M, N] outputs in x's dtype directly; when
-// the output tiles alone cannot fill the card, K is split over CTAs and a
-// second pass sums the splits' fp32 partials in a fixed order (no atomics, so
-// the sum is the same in every run).
+// result that the wrapper concatenates and casts. Here K is split over the
+// CTAs of one thread-block cluster, and the cluster sums their fp32 partials
+// through distributed shared memory in split order inside the one launch: no
+// workspace, no second pass, no atomics, so the sum is the same in every run.
 //
 // Bound: at decode M (1..16) the product is bound by bytes: the 4-bit payload
 // plus one fp32 scale per 64 weights, K * N * (0.5 + 4 / 64) bytes, 9.4 MB at
@@ -21,38 +20,59 @@
 // about 10 rows the fp32 multiply-adds on the CUDA cores (67 TFLOP/s) bound it
 // instead: the dequantized weight stays fp32, as in the TPU kernel.
 // What the design does about it:
-//   - a thread owns 4 adjacent byte columns (one 4-byte load a row) and so 8
-//     outputs, columns c..c+3 and P+c..P+c+3: every byte loaded yields both
-//     planes' weights, and a warp reads one 128-byte row segment, coalesced;
-//   - the 4 warps of a CTA share the column tile and take every 4th row, each
-//     with 8 rows' loads in flight (4 past 4 rows of x), and add their partial
-//     sums through shared memory at the end, in warp order;
-//   - K is split over more CTAs at small M (up to 8 a SM at one row), so
-//     enough loads are in flight to keep the memory busy;
-//   - the x rows of the CTA's M tile (up to 16) are staged in shared memory,
-//     fp32, a K chunk at a time, and read as broadcasts; each dequantized
-//     weight is reused across them from registers;
-//   - the 16-entry codebook sits in shared memory, where 32 lanes looking up
-//     16 entries hit 16 banks; one fp32 scale covers a lane's 4 columns;
-//   - M is tiled in the grid (ROWS = the next power of two of M, at most 16),
-//     so prefill's thousands of rows run on the same kernel.
+//   - grid (splits, ceil(P / 128), ceil(M / ROWS)), cluster (splits, 1, 1):
+//     a CTA owns 128 byte columns of the plane (256 outputs, columns c..c+127
+//     and P+c..P+c+127), ROWS rows of x (the next power of two of M, at most
+//     16) and the cluster rank's run of K rows; the wrapper's `split_k` picks
+//     the splits so the grid fills the card;
+//   - the run streams through a ring of kStages stages of shared memory, each
+//     [kStageRows, 128 bytes] of the plane (one TMA box, completing on the
+//     stage's mbarrier) with its rows' four scales (two planes x two 64-column
+//     blocks, by cp.async), so kStages - 1 stages of bytes are in flight while
+//     one is computed; rows past K load as zeros;
+//   - the run's x rows are staged once in shared memory, fp32, with 16-byte
+//     loads where x's rows allow, and read as float4 broadcasts;
+//   - a thread owns 4 adjacent byte columns, so every byte it reads yields
+//     both planes' weights, and a warp reads one 128-byte row segment; a warp
+//     takes 4 rows at a time and reuses each dequantized weight across the
+//     ROWS rows of x from registers; the 16-entry codebook sits in shared
+//     memory (32 lanes hit 16 banks); one fp32 scale covers a lane's 4
+//     columns of a plane;
+//   - the 4 warps' partials are added in warp order in shared memory; after
+//     a cluster barrier each CTA sums one slice of the tile over the
+//     cluster's partials (distributed shared memory, rank order) and writes
+//     it in x's dtype; a second cluster barrier keeps every CTA's partial
+//     alive until its peers have read it.
 //
-// The C entry point returns cudaGetLastError() after the launches; the Python
-// wrapper (accelerate_tpu_torch/ops/nf4_matmul.py) raises if it is not 0. The
-// wrapper allocates the [splits, M, N] fp32 workspace.
+// The C entry point allocates nothing, never synchronises and reads no device
+// data on the host, so a CUDA graph can capture it; it returns
+// cudaGetLastError() after the launch, and the Python wrapper
+// (accelerate_tpu_torch/ops/nf4_matmul.py) raises if it is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <algorithm>
+
+#include "sm90.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kTileBytes = 128;  // byte columns of a CTA: 32 lanes x 4 bytes
-constexpr int kMaxRows = 16;     // M rows of a CTA
-constexpr int kChunk = 128;      // K rows of x staged in shared memory at a time
+constexpr int kTileBytes = 128;   // byte columns of a CTA: 32 lanes x 4 bytes
+constexpr int kTileOut = 2 * kTileBytes;  // outputs a row of the tile
+constexpr int kMaxRows = 16;      // M rows of a CTA
+constexpr int kStageRows = 32;    // K rows a ring stage holds: 8 a warp
+constexpr int kStages = 6;        // ring depth
+constexpr int kRingOff = 128;     // the codebook sits first in shared memory, the ring after it
+constexpr int kGroupRows = 4;     // K rows a warp takes at a time
+constexpr int kStageBytes = kStageRows * kTileBytes + kStageRows * 4 * sizeof(float);
+constexpr int kMaxSplits = 16;    // CTAs a cluster (past 8: the non-portable size)
+constexpr size_t kXBudget = 96 * 1024;  // shared memory for the staged x rows
 
 __constant__ float kNf4[16] = {
     -1.0f, -0.6961928009986877f, -0.5250730514526367f, -0.39491748809814453f,
@@ -82,173 +102,316 @@ struct Cvt<__half> {
   static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
 };
 
-// grid (ceil(P / 128), ceil(M / ROWS), splits); block 128 threads. CTA
-// (bx, by, bz) computes rows [by * ROWS, +ROWS) of x against byte columns
-// [bx * 128, +128) over K rows [bz * rows_per_split, +rows_per_split). With
-// one split it writes out[M, N] in T; with more it writes its fp32 partial
-// sums to ws[bz][M][N].
+struct Params {
+  CUtensorMap plane;       // the [K, P] plane in boxes of kStageRows x 128 bytes
+  const void* x;           // [M, K] in T
+  const float* scales;     // [2, K, P / 64] fp32
+  void* out;               // [M, N] in T
+  int M, K, N;
+  int rows_per_split;      // K rows of a cluster rank (a multiple of 8 past one rank)
+  int xcap;                // staged x row length (rows_per_split rounded up to 8)
+  int x_off;               // byte offset of the staged x rows
+  int x_vec;               // x rows load as 16-byte pieces
+};
+
+// CTA (rank, by, bz) of its cluster computes rows [bz * ROWS, +ROWS) of x
+// against byte columns [by * 128, +128) over K rows [rank * rows_per_split,
+// +rows_per_split); the cluster's sum of those partials is written to out.
 template <typename T, int ROWS>
-__global__ void __launch_bounds__(kThreads)
-nf4_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
-                  const float* __restrict__ scales, T* __restrict__ out,
-                  float* __restrict__ ws, int M, int K, int N, int rows_per_split) {
-  constexpr int UNROLL = ROWS <= 4 ? 8 : 4;  // rows a warp keeps in flight
-  __shared__ float code[16];
-  __shared__ float xs[ROWS][kChunk];
-  __shared__ float red[kWarps][8][32];
+__global__ void __launch_bounds__(kThreads) nf4_matmul_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem_base[];
+  // the codebook first in the dynamic block: a lookup's address is the
+  // nibble times 4 plus a constant
+  float* code = reinterpret_cast<float*>(smem_base);
+  unsigned char* smem = smem_base + kRingOff;
+  __shared__ __align__(8) uint64_t full[kStages];  // a stage's plane rows have landed
 
-  const int P = N / 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int split = static_cast<int>(cluster_ctarank());
+  const int splits = static_cast<int>(cluster_nctarank());
+  const int P = p.N / 2;
   const int scale_cols = P / 64;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * kTileBytes + 4 * lane;  // the lane's first byte column
-  const bool live = col < P;
-  const int m0 = blockIdx.y * ROWS;
-  const int k_begin = blockIdx.z * rows_per_split;
-  const int k_end = min(K, k_begin + rows_per_split);
-  const float* scale_lo = scales;                 // plane 0: columns 0..P-1
-  const float* scale_hi = scales + (size_t)K * scale_cols;  // plane 1: P..N-1
+  const int c0 = blockIdx.y * kTileBytes;  // the tile's first byte column
+  const int m0 = blockIdx.z * ROWS;
+  const int k0 = min(p.K, split * p.rows_per_split);
+  const int k1 = min(p.K, k0 + p.rows_per_split);
+  const int nrows = k1 - k0;
+  const int nst = (nrows + kStageRows - 1) / kStageRows;
 
-  if (threadIdx.x < 16) code[threadIdx.x] = kNf4[threadIdx.x];
+  if (tid < 16) code[tid] = kNf4[tid];
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) mbar_init(full + s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage s: plane rows [k0 + s * kStageRows, +kStageRows) of the tile by TMA
+  // (rows past K and columns past P land as zeros; rows past the run meet
+  // zeros in x), then each row's scales by cp.async: plane 0's blocks of the
+  // tile, then plane 1's, 8 bytes a plane where both blocks exist
+  auto issue = [&](int s) {
+    const int slot = s % kStages;
+    unsigned char* st = smem + slot * kStageBytes;
+    float* ss = reinterpret_cast<float*>(st + kStageRows * kTileBytes);
+    const int kb = k0 + s * kStageRows;
+    if (tid == 0) {
+      mbar_expect_tx(full + slot, kStageRows * kTileBytes);
+      tma_load(st, &p.plane, full + slot, c0, kb, 0);
+    }
+    if (tid < 2 * kStageRows) {
+      const int r = tid >> 1;
+      const int plane = tid & 1;
+      const int k = kb + r;
+      const int blk = c0 / 64;
+      const float* src = p.scales + (static_cast<size_t>(plane) * p.K + k) * scale_cols + blk;
+      float* dst = ss + r * 4 + 2 * plane;
+      if (scale_cols % 2 == 0) {  // rows of whole 8-byte pairs
+        cp_async<8>(dst, k < k1 ? src : p.scales, k < k1);
+      } else {
+        cp_async<4>(dst, k < k1 ? src : p.scales, k < k1);
+        const bool second = k < k1 && blk + 1 < scale_cols;
+        cp_async<4>(dst + 1, second ? src + 1 : p.scales, second);
+      }
+    }
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) issue(s);
+    cp_async_commit();
+  }
+
+  // x rows [m0, m0 + ROWS) x the run's K rows, fp32, zero past M and K
+  float* xs = reinterpret_cast<float*>(smem + p.x_off);
+  const T* xg = static_cast<const T*>(p.x);
+  if (p.x_vec) {
+    constexpr int VE = 16 / sizeof(T);
+    const int per_row = p.xcap / VE;
+    for (int i = tid; i < ROWS * per_row; i += kThreads) {
+      const int m = i / per_row;
+      const int r = (i - m * per_row) * VE;
+      float v[VE];
+      if (m0 + m < p.M && r < nrows) {  // whole pieces: K and the run start are multiples of VE
+        const T* src = xg + static_cast<size_t>(m0 + m) * p.K + k0 + r;
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
+        T vals[VE];
+        memcpy(vals, &raw, sizeof(raw));
+#pragma unroll
+        for (int e = 0; e < VE; ++e) v[e] = Cvt<T>::to_f(vals[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VE; ++e) v[e] = 0.0f;
+      }
+#pragma unroll
+      for (int e = 0; e < VE; ++e) xs[m * p.xcap + r + e] = v[e];
+    }
+  } else {
+    for (int i = tid; i < ROWS * p.xcap; i += kThreads) {
+      const int m = i / p.xcap;
+      const int r = i - m * p.xcap;
+      xs[i] = (m0 + m < p.M && r < nrows) ? Cvt<T>::to_f(xg[static_cast<size_t>(m0 + m) * p.K + k0 + r])
+                                           : 0.0f;
+    }
+  }
 
   float acc[ROWS][8];
 #pragma unroll
   for (int m = 0; m < ROWS; ++m)
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[m][i] = 0.0f;
+  const bool live = c0 + 4 * lane < P;
+  const int sb = lane >> 4;  // the lane's 64-column scale block within the tile
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kChunk) {
-    const int rows = min(kChunk, k_end - k0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = threadIdx.x; e < ROWS * kChunk; e += kThreads) {
-      const int m = e / kChunk, r = e % kChunk;
-      xs[m][r] = (m0 + m < M && r < rows)
-                     ? Cvt<T>::to_f(x[(size_t)(m0 + m) * K + k0 + r]) : 0.0f;
-    }
-    __syncthreads();
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kStages - 2>();
+    mbar_wait(full + s % kStages, (s / kStages) & 1);
+    __syncthreads();  // stage s (and, at s 0, x) is in; slot s - 1 is free
+    if (s + kStages - 1 < nst) issue(s + kStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (s % kStages) * kStageBytes;
+    const float* ss = reinterpret_cast<const float*>(st + kStageRows * kTileBytes);
+    const int nr = min(kStageRows, nrows - s * kStageRows);
+    const float* xk = xs + s * kStageRows;
     if (!live) continue;
-    for (int r0 = warp; r0 < rows; r0 += kWarps * UNROLL) {
-      uint32_t word[UNROLL];
-      float s_lo[UNROLL], s_hi[UNROLL];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int r = r0 + u * kWarps;
-        word[u] = 0u;
-        s_lo[u] = s_hi[u] = 0.0f;
-        if (r < rows) {
-          const int k = k0 + r;
-          word[u] = __ldg(reinterpret_cast<const uint32_t*>(packed + (size_t)k * P + col));
-          s_lo[u] = __ldg(scale_lo + (size_t)k * scale_cols + col / 64);
-          s_hi[u] = __ldg(scale_hi + (size_t)k * scale_cols + col / 64);
-        }
+    for (int gi = 0; gi < kStageRows / kWarps / kGroupRows; ++gi) {
+      const int r0 = warp * (kStageRows / kWarps) + gi * kGroupRows;
+      if (r0 >= nr) break;  // rows past the run meet zeros in x: skipping them changes nothing
+      uint32_t word[kGroupRows];
+      float2 sc[kGroupRows];
+#pragma unroll
+      for (int u = 0; u < kGroupRows; ++u) {
+        word[u] = *reinterpret_cast<const uint32_t*>(st + (r0 + u) * kTileBytes + 4 * lane);
+        sc[u] = make_float2(ss[(r0 + u) * 4 + sb], ss[(r0 + u) * 4 + 2 + sb]);
       }
+      float w[kGroupRows][8];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int r = r0 + u * kWarps;
-        if (r >= rows) break;
-        float w[8];
+      for (int u = 0; u < kGroupRows; ++u) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const uint32_t byte = (word[u] >> (8 * i)) & 0xFFu;
-          w[i] = code[byte >> 4] * s_lo[u];       // column col + i
-          w[4 + i] = code[byte & 0xFu] * s_hi[u];  // column P + col + i
+          w[u][i] = code[byte >> 4] * sc[u].x;        // column c + i
+          w[u][4 + i] = code[byte & 0xFu] * sc[u].y;  // column P + c + i
         }
+      }
 #pragma unroll
-        for (int m = 0; m < ROWS; ++m) {
-          const float xv = xs[m][r];
+      for (int m = 0; m < ROWS; ++m) {
+        const float4 xv = *reinterpret_cast<const float4*>(xk + m * p.xcap + r0);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[m][i] = fmaf(xv, w[i], acc[m][i]);
+        for (int i = 0; i < 8; ++i) {
+          float a = acc[m][i];
+          a = fmaf(xv.x, w[0][i], a);
+          a = fmaf(xv.y, w[1][i], a);
+          a = fmaf(xv.z, w[2][i], a);
+          a = fmaf(xv.w, w[3][i], a);
+          acc[m][i] = a;
         }
       }
     }
   }
 
-  // the warps' partial sums, added in warp order; warp w then writes the
-  // lane's outputs 2w and 2w + 1 of each row
-  const int i0 = 2 * warp;
+  // the warps' partials, added in warp order into warp 0's slot
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][ROWS][kTileOut]
 #pragma unroll
   for (int m = 0; m < ROWS; ++m) {
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[warp][i][lane] = acc[m][i];
-    __syncthreads();
-    if (!live || m0 + m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += red[w][i0 + j][lane];
-      const int n = (i0 < 4) ? col + i0 + j : P + col + i0 - 4 + j;
-      const size_t at = (size_t)(m0 + m) * N + n;
-      if (gridDim.z == 1) {
-        out[at] = Cvt<T>::from_f(s);
-      } else {
-        ws[(size_t)blockIdx.z * M * N + at] = s;
-      }
-    }
+    float* r = red + (warp * ROWS + m) * kTileOut + 4 * lane;
+    *reinterpret_cast<float4*>(r) = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    *reinterpret_cast<float4*>(r + kTileBytes) = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
   }
+  __syncthreads();
+  for (int i = tid; i < ROWS * kTileOut; i += kThreads) {
+    float s = red[i];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * ROWS * kTileOut + i];
+    red[i] = s;
+  }
+
+  // every CTA's partial is in its shared memory: each CTA sums one slice of
+  // the tile over the cluster's ranks 0, 1, ... in turn (one rank: its own
+  // partial, no cluster barrier)
+  if (splits > 1) cluster_sync();
+  else __syncthreads();
+  const int nout = ROWS * kTileOut;
+  const int slice = (nout + splits - 1) / splits;
+  const int lo = split * slice;
+  const int hi = min(nout, lo + slice);
+  T* out = static_cast<T*>(p.out);
+  for (int i = lo + tid; i < hi; i += kThreads) {
+    const int m = i / kTileOut;
+    const int j = i - m * kTileOut;
+    const int col = c0 + (j % kTileBytes);
+    if (m0 + m >= p.M || col >= P) continue;
+    float part[kMaxSplits];  // every rank's load in flight before the sum
+#pragma unroll
+    for (int r = 0; r < kMaxSplits; ++r) part[r] = r < splits ? ld_dsmem(red + i, r) : 0.0f;
+    float s = part[0];
+#pragma unroll
+    for (int r = 1; r < kMaxSplits; ++r) s += part[r];
+    out[static_cast<size_t>(m0 + m) * p.N + (j < kTileBytes ? col : P + col)] = Cvt<T>::from_f(s);
+  }
+  if (splits > 1) cluster_sync();  // no CTA leaves while a peer may still read its partial
 }
 
-// out[i] = sum over s of ws[s][i], in split order, cast to T.
-template <typename T>
-__global__ void nf4_splitk_sum_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                                      size_t count, int splits) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < count;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += ws[(size_t)z * count + i];
-    out[i] = Cvt<T>::from_f(s);
-  }
+// a TMA map over the [K, P] uint8 plane in boxes of kStageRows rows x 128
+// bytes, unswizzled; boxes past the plane's edges load zeros
+CUresult plane_map(CUtensorMap* map, const void* packed, int K, int P) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(P), static_cast<cuuint64_t>(K), 1};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(P),
+                                 static_cast<cuuint64_t>(P) * static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[3] = {kTileBytes, kStageRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(packed), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <typename T, int ROWS>
-int launch_rows(cudaStream_t stream, const void* x, const void* packed, const void* scales,
-                void* out, void* ws, int M, int K, int N, int splits, int rows_per_split) {
-  const int P = N / 2;
-  const dim3 grid((P + kTileBytes - 1) / kTileBytes, (M + ROWS - 1) / ROWS, splits);
-  nf4_matmul_kernel<T, ROWS><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<T*>(out), static_cast<float*>(ws),
-      M, K, N, rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t count = (size_t)M * N;
-  const int blocks = (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
-  nf4_splitk_sum_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                                       static_cast<T*>(out), count, splits);
+int launch(Params p, int splits, cudaStream_t stream) {
+  const size_t ring = static_cast<size_t>(kStages) * kStageBytes;
+  const size_t xbytes = static_cast<size_t>(ROWS) * p.xcap * sizeof(float);
+  const size_t red = static_cast<size_t>(kWarps) * ROWS * kTileOut * sizeof(float);
+  const size_t smem = kRingOff + std::max(ring + xbytes, red);
+  if (smem + kStages * sizeof(uint64_t) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  p.x_off = static_cast<int>(ring);
+  auto kernel = nf4_matmul_kernel<T, ROWS>;
+  static const cudaError_t prepared = allow_max_smem(kernel);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  const int P = p.N / 2;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(splits, (P + kTileBytes - 1) / kTileBytes, (p.M + ROWS - 1) / ROWS);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// ROWS: the next power of two of M, at most 16, halved while the staged x
+// rows would not fit their budget
 template <typename T>
-int dispatch_rows(cudaStream_t stream, const void* x, const void* packed, const void* scales,
-                  void* out, void* ws, int M, int K, int N, int splits, int rows_per_split) {
-  if (M <= 1) return launch_rows<T, 1>(stream, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-  if (M <= 2) return launch_rows<T, 2>(stream, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-  if (M <= 4) return launch_rows<T, 4>(stream, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-  if (M <= 8) return launch_rows<T, 8>(stream, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-  return launch_rows<T, kMaxRows>(stream, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
+int dispatch_rows(Params p, int splits, cudaStream_t stream) {
+  int rows = 1;
+  while (rows < p.M && rows < kMaxRows) rows *= 2;
+  while (rows > 1 && static_cast<size_t>(rows) * p.xcap * sizeof(float) > kXBudget) rows /= 2;
+  if (static_cast<size_t>(rows) * p.xcap * sizeof(float) > kXBudget)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.x_vec = (static_cast<size_t>(p.K) * sizeof(T)) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(p.x) % 16 == 0;
+  switch (rows) {
+    case 1: return launch<T, 1>(p, splits, stream);
+    case 2: return launch<T, 2>(p, splits, stream);
+    case 4: return launch<T, 4>(p, splits, stream);
+    case 8: return launch<T, 8>(p, splits, stream);
+    default: return launch<T, kMaxRows>(p, splits, stream);
+  }
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16 (x and out). x [M, K], packed
-// [K, N/2] uint8, scales [2, K, N/128] fp32, out [M, N]; ws [splits, M, N]
-// fp32 when splits > 1. Needs N % 128 == 0 and 4-byte aligned rows. Returns
-// cudaGetLastError() after the launches, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// [K, N/2] uint8 (16-byte aligned), scales [2, K, N/128] fp32, out [M, N].
+// `splits` CTAs of a cluster (at most 16) split K into runs of
+// `rows_per_split` rows, a multiple of 8 when there is more than one. Needs
+// N % 128 == 0. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int nf4_matmul(int device, void* stream, int dtype, const void* x,
-                          const void* packed, const void* scales, void* out, void* ws,
+                          const void* packed, const void* scales, void* out,
                           int M, int K, int N, int splits, int rows_per_split) {
-  if (M < 1 || K < 1 || N < 128 || N % 128 || splits < 1 || rows_per_split < 1 ||
-      (long long)splits * rows_per_split < K || (splits > 1 && ws == nullptr))
+  if (M < 1 || K < 1 || N < 128 || N % 128 || splits < 1 || splits > kMaxSplits ||
+      rows_per_split < 1 || (long long)splits * rows_per_split < K ||
+      (splits > 1 && rows_per_split % 8) || reinterpret_cast<uintptr_t>(packed) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  Params p{};
+  p.x = x;
+  p.scales = static_cast<const float*>(scales);
+  p.out = out;
+  p.M = M;
+  p.K = K;
+  p.N = N;
+  p.rows_per_split = rows_per_split;
+  p.xcap = (std::min(rows_per_split, K) + 7) / 8 * 8;
+  const CUresult mapped = plane_map(&p.plane, packed, K, N / 2);
+  if (mapped != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_rows<float>(s, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-    case 1: return dispatch_rows<__nv_bfloat16>(s, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
-    case 2: return dispatch_rows<__half>(s, x, packed, scales, out, ws, M, K, N, splits, rows_per_split);
+    case 0: return dispatch_rows<float>(p, splits, s);
+    case 1: return dispatch_rows<__nv_bfloat16>(p, splits, s);
+    case 2: return dispatch_rows<__half>(p, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

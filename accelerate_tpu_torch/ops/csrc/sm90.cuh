@@ -1,7 +1,9 @@
 // Hopper (sm_90a) primitives shared by the port's CUDA sources, through
 // inline PTX: mbarriers (local and across a thread-block cluster), TMA loads
 // (unicast and cluster multicast) and stores, wgmma descriptors and products,
-// the cluster's rank and barrier, and the host-side tensor-map encoder.
+// the cluster's rank, size and barrier, loads from distributed shared memory,
+// cp.async copies, and on the host the shared-memory attribute and the
+// tensor-map encoder.
 // Every helper sits in an anonymous namespace: each source that includes this
 // header is one library of its own (accelerate_tpu_torch/ops/_build.py), whose
 // content hash covers this header too.
@@ -220,6 +222,73 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar)),
       "h"(mask)
       : "memory");
+}
+
+// the number of CTAs in this CTA's cluster
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+// the float at `p`'s offset in the shared memory of the cluster's CTA `cta`
+// (distributed shared memory; this CTA's own included)
+__device__ __forceinline__ float ld_dsmem(const float* p, uint32_t cta) {
+  float v;
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %1, %2;\n"
+      "ld.shared::cluster.f32 %0, [ra];\n}\n"
+      : "=f"(v)
+      : "r"(smem_addr(p)), "r"(cta)
+      : "memory");
+  return v;
+}
+
+// ------------------------------------------------------- asynchronous copies
+
+// BYTES (4, 8 or 16) from global to shared memory without the registers;
+// `valid` false reads nothing and fills the destination with zeros. Completes
+// with the commit group it is issued in (cp_async_commit, cp_async_wait).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async moves 4, 8 or 16 bytes");
+  const uint32_t n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(n)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(smem_addr(dst)), "l"(src),
+                 "n"(BYTES), "r"(n)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// returns once at most N of this thread's commit groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------------------ host: launches
+
+// Let `kernel` take all the dynamic shared memory a CTA may use beside its
+// static shared memory, and clusters past the portable 8 CTAs. Called once a
+// kernel (a function-local static), so a launch sets no attribute.
+template <typename Kernel>
+cudaError_t allow_max_smem(Kernel kernel) {
+  cudaFuncAttributes fa{};
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSmem - fa.sharedSizeBytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
 }
 
 // ------------------------------------------------------- host: tensor maps

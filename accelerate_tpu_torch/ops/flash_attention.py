@@ -37,8 +37,7 @@ from .attention import dot_product_attention
 
 # dtype codes of the C entry points (csrc/paged_decode.cu, csrc/flash_attention.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
-KERNEL_HEAD_DIMS = (64, 128)
-KERNEL_GROUPS = (1, 2, 4, 8)
+FLASH_KERNEL_HEAD_DIMS = (64, 128)
 FLASH_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30  # the reference's mask value (not -inf)
 
@@ -193,8 +192,9 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
         raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k, v and dO must share one dtype")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    if q.shape[-1] not in FLASH_KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} kernel supports head_dim {FLASH_KERNEL_HEAD_DIMS}, "
+                         f"got {q.shape[-1]}")
     out = []
     for t in tensors + tuple(r.float() for r in rows):
         t = t.contiguous()
@@ -608,10 +608,6 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, k_scale_pool, v_scale_pool
             f"pool dtype {k_pool.dtype}/{v_pool.dtype} must match q dtype {q.dtype} "
             "(or be int8 with scale planes)"
         )
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged_decode_attention kernel supports head_dim {KERNEL_HEAD_DIMS}, got {d}")
-    if groups not in KERNEL_GROUPS:
-        raise ValueError(f"paged_decode_attention kernel supports GQA groups {KERNEL_GROUPS}, got {groups}")
     pools = [k_pool, v_pool] + ([k_scale_pool, v_scale_pool] if quant else [])
     if not all(t.is_contiguous() for t in pools):
         # a silent .contiguous() would copy the whole pool every call
@@ -620,6 +616,8 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, k_scale_pool, v_scale_pool
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    if b == 0:
+        return out
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -664,8 +662,8 @@ def paged_decode_attention(
 
     On the CPU this is `paged_decode_attention_reference`. On a CUDA device
     it launches the ``sm_90a`` kernel (pool dtypes fp32/bf16/fp16, or int8
-    with scale planes; head_dim 64 or 128; GQA groups 1, 2, 4 or 8) and
-    raises on anything it does not take."""
+    with scale planes; any head_dim and GQA group) and raises on anything it
+    does not take."""
     _check_args(q, k_pool, v_pool, k_scale_pool, v_scale_pool)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(

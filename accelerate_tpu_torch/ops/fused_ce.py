@@ -29,13 +29,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .flash_attention import _on_device
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/fused_ce.cu
-E_MULTIPLE = 64  # the kernels' e chunk
+E_MULTIPLE = 64  # the kernels' e chunk: the wrappers zero-pad e to a multiple
 
 
 # ------------------------------------------------------------ plain versions
@@ -110,15 +111,17 @@ def _check(name: str, h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 def _operands(name: str, h, w, labels, rows=()) -> list[torch.Tensor]:
     """What the kernel takes, contiguous and 16-byte aligned: h and w in
-    fp32 or bf16 with e a multiple of 64, int32 labels, fp32 row vectors."""
+    fp32 or bf16, zero-padded along e to a multiple of 64 (the kernels' e
+    chunk; zero columns add nothing to the logits, so the loss is exact, and
+    dH and dW drop them), int32 labels, fp32 row vectors. No copy of h or w
+    when e is already a multiple of 64."""
     if h.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{name} kernel takes {KERNEL_DTYPES} inputs, got {h.dtype}")
-    e = h.shape[1]
-    if e == 0 or e % E_MULTIPLE:
-        raise ValueError(f"{name} kernel takes a model width e that is a multiple of "
-                         f"{E_MULTIPLE}, got {e}")
-    if h.shape[0] == 0 or w.shape[0] == 0:
-        raise ValueError(f"{name} kernel needs at least one row and one vocab entry")
+    if h.shape[0] == 0 or w.shape[0] == 0 or h.shape[1] == 0:
+        raise ValueError(f"{name} kernel needs at least one row, one vocab entry and e >= 1")
+    pad = -h.shape[1] % E_MULTIPLE
+    if pad:
+        h, w = F.pad(h, (0, pad)), F.pad(w, (0, pad))
     out = []
     for t in (h, w, labels.to(torch.int32)) + tuple(r.float() for r in rows):
         t = t.contiguous()
@@ -159,7 +162,7 @@ def _run(name: str, *pointers: int, h: torch.Tensor, v: int) -> None:
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor,
                  labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(lse, ll)``, fp32 ``[N]``. CPU: `fused_ce_forward_reference`; CUDA:
-    ``fused_ce_fwd_kernel`` (fp32/bf16, e a multiple of 64, any N and V)."""
+    ``fused_ce_fwd_kernel`` (fp32/bf16, any N, V and e)."""
     _check("fused_ce_fwd", h, w, labels)
     if not _on_device("fused_ce_fwd", h):
         return fused_ce_forward_reference(h, w, labels)
@@ -178,12 +181,13 @@ def fused_ce_dh(h, w, labels, lse, g_lse, g_ll) -> torch.Tensor:
     _check("fused_ce_dh", h, w, labels, (lse, g_lse, g_ll))
     if not _on_device("fused_ce_dh", h):
         return fused_ce_dh_reference(h, w, labels, lse, g_lse, g_ll)
+    e = h.shape[1]
     h, w, labels, lse, g_lse, g_ll = _operands("fused_ce_dh", h, w, labels, (lse, g_lse, g_ll))
     dh = torch.empty_like(h)
     _run("fused_ce_dh", h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
          g_lse.data_ptr(), g_ll.data_ptr(), dh.data_ptr(), h=h, v=w.shape[0])
     fused_ce_dh.launches += 1
-    return dh
+    return dh if dh.shape[1] == e else dh[:, :e].contiguous()
 
 
 def fused_ce_dw(h, w, labels, lse, g_lse, g_ll) -> torch.Tensor:
@@ -192,12 +196,13 @@ def fused_ce_dw(h, w, labels, lse, g_lse, g_ll) -> torch.Tensor:
     _check("fused_ce_dw", h, w, labels, (lse, g_lse, g_ll))
     if not _on_device("fused_ce_dw", h):
         return fused_ce_dw_reference(h, w, labels, lse, g_lse, g_ll)
+    e = h.shape[1]
     h, w, labels, lse, g_lse, g_ll = _operands("fused_ce_dw", h, w, labels, (lse, g_lse, g_ll))
     dw = torch.empty_like(w)
     _run("fused_ce_dw", h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
          g_lse.data_ptr(), g_ll.data_ptr(), dw.data_ptr(), h=h, v=w.shape[0])
     fused_ce_dw.launches += 1
-    return dw
+    return dw if dw.shape[1] == e else dw[:, :e].contiguous()
 
 
 def bwd_plan(dw: bool, e: int) -> dict[str, int]:

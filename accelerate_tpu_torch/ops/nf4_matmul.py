@@ -35,7 +35,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BLOCK_K, _BLOCK_N = 256, 128
 _TILE_BYTES = 128  # byte columns of one CTA (csrc/nf4_matmul.cu kTileBytes)
 _MAX_ROWS = 16  # M rows of one CTA (csrc/nf4_matmul.cu kMaxRows)
-_SMS = 132  # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 16  # CTAs of a cluster (csrc/nf4_matmul.cu kMaxSplits)
+_FILL_CTAS = 4 * 132  # four CTAs for each of an H100 SXM's 132 SMs
 
 
 def _block_size(qt: QuantizedTensor) -> int:
@@ -121,7 +122,7 @@ def _kernel_lib() -> ctypes.CDLL:
     fn = lib.nf4_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, i, p, p, p, p, p, i, i, i, i, i]
+        fn.argtypes = [i, p, i, p, p, p, p, i, i, i, i, i]
         fn.restype = i
         lib.nf4_matmul_error_string.argtypes = [i]
         lib.nf4_matmul_error_string.restype = ctypes.c_char_p
@@ -129,16 +130,17 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def split_k(M: int, K: int, N: int) -> tuple[int, int]:
-    """(K splits, rows per split) of a launch. K is split over CTAs while the
-    output tiles alone give fewer CTAs than the card wants in flight: 16 /
-    rows-per-CTA CTAs a SM, between 2 and 8 (a one-row CTA keeps few bytes
-    in flight, a 16-row CTA many registers), with at least 64 rows in each
-    split. A second pass sums the splits in order."""
+    """(K splits, rows per split) of a launch: the CTAs of one cluster that
+    share an output tile (128 byte columns by up to 16 rows of x) and the K
+    rows each streams. K is split while the tiles alone give the card fewer
+    than four CTAs a SM, into at most `MAX_SPLITS` runs of a multiple of 8
+    rows; the cluster sums the runs' fp32 partials in its shared memory, in
+    split order, inside the one launch (no workspace)."""
     rows_per_cta = min(_MAX_ROWS, 1 << max(0, M - 1).bit_length())
-    per_sm = max(2, min(8, _MAX_ROWS // rows_per_cta))
     tiles = -(-(N // 2) // _TILE_BYTES) * -(-M // rows_per_cta)
-    splits = max(1, min(-(-per_sm * _SMS // tiles), K // 64))
+    splits = max(1, min(MAX_SPLITS, -(-_FILL_CTAS // tiles), -(-K // 8)))
     rows = -(-K // splits)
+    rows = -(-rows // 8) * 8
     return -(-K // rows), rows
 
 
@@ -151,21 +153,19 @@ def _launch(x2: torch.Tensor, packed: torch.Tensor, scales2: torch.Tensor,
         raise TypeError(f"nf4_matmul kernel takes {tuple(_DTYPE_CODES)} inputs, got {x2.dtype}")
     if packed.dtype != torch.uint8 or scales2.dtype != torch.float32:
         raise TypeError("nf4_matmul kernel takes a uint8 plane and fp32 scales")
-    if not (packed.is_contiguous() and scales2.is_contiguous()) or packed.data_ptr() % 4:
-        raise ValueError("nf4_matmul kernel needs a contiguous, 4-byte aligned plane")
+    if not (packed.is_contiguous() and scales2.is_contiguous()) or packed.data_ptr() % 16:
+        raise ValueError("nf4_matmul kernel needs a contiguous, 16-byte aligned plane")
     M, K = x2.shape
     x2 = x2.contiguous()
     out = torch.empty((M, N), dtype=x2.dtype, device=dev)
     if M == 0:
         return out
     splits, rows = split_k(M, K, N)
-    ws = torch.empty((splits, M, N) if splits > 1 else (0,), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         err = lib.nf4_matmul(dev.index, torch.cuda.current_stream(dev).cuda_stream,
                              _DTYPE_CODES[x2.dtype], x2.data_ptr(), packed.data_ptr(),
-                             scales2.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                             M, K, N, splits, rows)
+                             scales2.data_ptr(), out.data_ptr(), M, K, N, splits, rows)
     if err != 0:
         msg = lib.nf4_matmul_error_string(err).decode()
         raise RuntimeError(f"nf4_matmul kernel launch failed: {msg} (cuda error {err})")

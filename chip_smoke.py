@@ -8,14 +8,19 @@ Phases run in order; any failure exits non-zero:
 2. build: nvcc compiles the kernel libraries from accelerate_tpu_torch/ops/csrc/
    (one nvcc per source, all started together); ptxas's registers, spills
    and static shared memory of each flash forward kernel, of each bf16
-   dQ and dK/dV kernel and of each bf16 fused-CE dH and dW kernel (with the
+   dQ and dK/dV kernel, of each bf16 fused-CE dH and dW kernel (with the
    dH and dW launches at e 768: CTAs a cluster, ring stages, shared memory
-   and how many clusters the card runs at once), and none of them may spill;
+   and how many clusters the card runs at once), of every paged-decode
+   kernel (register and general bodies) and of every nf4 kernel, and none
+   of them may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
    `paged_decode_attention_reference` on the card at GPT-2-small shapes
    (ragged lengths up to 1024, block boundaries, a zero-length row and a
-   sentinel-parked row), a GQA case and an int8 pool with scale planes; one
-   JSON line per case with its error and its times;
+   sentinel-parked row), a GQA case, an int8 pool with scale planes, and the
+   shapes the general body takes: head_dim 96 and 256, 3 and 6 query heads
+   per kv head, beside an int8 pool at head_dim 128 with 4; one JSON line
+   per case with its error, its times (SDPA over the gathered view as the
+   library yardstick), its bound and the share of the bound it reaches;
 4. fp32 slice: GPT-2 small at full width, seeded fp32 weights, TF32 off:
    the same greedy requests through the fused and the gather engine give equal
    token streams, and the kernel ran n_layer times per decode step;
@@ -93,9 +98,11 @@ Phases run in order; any failure exits non-zero:
    reference's kernel bench (M 1 and 16, bf16), at GPT-2 small's four
    projections (M 16, a decode step, and M 512, a prefill), in fp32, with
    leading dims, and on a weight the kernel does not take (N 192: the
-   dequantize route, no launch); one JSON line per case with its error, its
-   times, its bound and the dense bf16 cuBLAS product as a yardstick of
-   another function;
+   dequantize route, no launch); each routed call is one launch (a
+   profiler window around one call holds one runtime launch and no device
+   kernel but the nf4 one); one JSON line per case with its error, its
+   times, its bound, the share of the bound it reaches and the dense bf16
+   cuBLAS product as a yardstick of another function;
 16. fp32 quantized-serving parity: GPT-2 small at full width and depth,
    seeded fp32 weights, TF32 off: the nf4 engine's greedy streams equal a
    dense engine's over the dequantized copy of the same packed weights, with
@@ -221,30 +228,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[dict]:
-    """ptxas's resources of each kernel whose name matches the regex
-    ``pattern`` (no capturing groups) in a build log: its name, its element
-    type (``dtype``) and each further template argument, an int or a bool,
-    under the next name of ``fields`` (fewer arguments, fewer keys); its
-    registers at entry, spill bytes and static shared memory (the sm_90a
-    kernels' tiles are dynamic shared memory, set at launch)."""
-    out = []
+def ptxas_entries(log: str, pattern: str):
+    """(the regex match, ptxas's resources) of each kernel whose mangled
+    name matches ``pattern`` in a build log: registers at entry, spill
+    bytes and static shared memory (the sm_90a kernels' tiles are dynamic
+    shared memory, set at launch)."""
     for block in log.split("Compiling entry function '")[1:]:
-        fn = block.split("'", 1)[0]
-        m = re.search(rf"({pattern})I(13__nv_bfloat16|f)((?:L[bi]\d+E)*?(?:L[bi]\d+)?)EEEv", fn)
+        m = re.search(pattern, block.split("'", 1)[0])
         if not m:
             continue
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
         smem = re.search(r"(\d+) bytes smem", block)
+        yield m, {"registers": int(regs.group(1)) if regs else None,
+                  "spill_store_bytes": int(spill.group(1)) if spill else None,
+                  "spill_load_bytes": int(spill.group(2)) if spill else None,
+                  "static_smem_bytes": int(smem.group(1)) if smem else 0}
+
+
+def kernel_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[dict]:
+    """`ptxas_entries` of each kernel whose name matches the regex
+    ``pattern`` (no capturing groups): its name, its element type
+    (``dtype``) and each further template argument, an int or a bool, under
+    the next name of ``fields`` (fewer arguments, fewer keys)."""
+    out = []
+    mangled = rf"({pattern})I(13__nv_bfloat16|f)((?:L[bi]\d+E)*?(?:L[bi]\d+)?)EEEv"
+    for m, res in ptxas_entries(log, mangled):
         values = [bool(int(x)) if kind == "b" else int(x)
                   for kind, x in re.findall(r"L([bi])(\d+)", m.group(3))]
         out.append({"kernel": m.group(1), "dtype": "float32" if m.group(2) == "f" else "bfloat16",
-                    **dict(zip(fields, values)),
-                    "registers": int(regs.group(1)) if regs else None,
-                    "spill_store_bytes": int(spill.group(1)) if spill else None,
-                    "spill_load_bytes": int(spill.group(2)) if spill else None,
-                    "static_smem_bytes": int(smem.group(1)) if smem else 0})
+                    **dict(zip(fields, values)), **res})
     return out
 
 
@@ -277,6 +290,54 @@ def fused_ce_bwd_resources(log: str) -> list[dict]:
     warpgroup holds), the ones built on wgmma, TMA and clusters."""
     return [k for k in kernel_resources(log, r"fused_ce_bwd_kernel", ("dw", "chunks_per_warpgroup"))
             if k["dtype"] == "bfloat16"]
+
+
+def entry_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[dict]:
+    """`ptxas_entries` of each kernel whose mangled name matches the regex
+    ``pattern``, whose groups name the kernel's template arguments under
+    ``fields`` (a type as its mangled name, a number as an int)."""
+    return [{**{k: int(v) if v.isdigit() else v for k, v in zip(fields, m.groups())}, **res}
+            for m, res in ptxas_entries(log, pattern)]
+
+
+_MANGLED_TYPES = r"(f|13__nv_bfloat16|6__half)"
+
+
+def paged_decode_resources(log: str) -> list[dict]:
+    """`entry_resources` of the paged-decode kernels
+    (``paged_decode_kernel<TQ, TKV, QUANT, D, G, PB>``: D and G 0 for the
+    general body; pool ``S1_`` is q's type, ``a`` int8)."""
+    pattern = rf"paged_decode_kernelI{_MANGLED_TYPES}(f|S1_|a)Lb([01])ELi(\d+)ELi(\d+)ELi(\d+)E"
+    return entry_resources(log, pattern, ("q", "pool", "quant", "d", "groups", "piece_bytes"))
+
+
+def nf4_resources(log: str) -> list[dict]:
+    """`entry_resources` of the nf4 kernels (``nf4_matmul_kernel<T, ROWS>``)."""
+    return entry_resources(log, rf"nf4_matmul_kernelI{_MANGLED_TYPES}Li(\d+)E", ("dtype", "rows"))
+
+
+def device_work(torch, fn) -> tuple[int, list[str]]:
+    """What one call of ``fn`` puts on the device, from a torch.profiler
+    window around it: (the runtime calls that launch a kernel, set or copy
+    memory, the device kernels by name, one per launch). The call sits
+    between two spin kernels of PyTorch's own of about a millisecond each,
+    left out of both: the profiler can drop device kernels near a short
+    window's edges (and then the runtime calls still count them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(2_000_000)
+        fn()
+        torch.cuda._sleep(2_000_000)
+        torch.cuda.synchronize()
+    events = prof.events()
+    calls = sum(ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith(("cudaLaunch", "cudaMemset", "cudaMemcpy")) for ev in events)
+    kernels = [ev.name for ev in events
+               if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation
+               and "spin_kernel" not in ev.name]
+    return calls - 2, kernels
 
 
 def peak_rates(name: str) -> tuple[float, float, str]:
@@ -415,6 +476,7 @@ def kernel_case(torch, name, *, b, hq, kvh, d, bt, lengths, dtype, quant, seed, 
     rec = dict(case=name, b=b, hq=hq, kvh=kvh, d=d, bt=bt, pool=str(k_pool.dtype).removeprefix("torch."),
                q=str(dtype).removeprefix("torch."), max_abs_err=err, atol=tol, kernel_ms=kernel_ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+               bound_share=bound_ms / kernel_ms,
                bound_by="bytes" if n_bytes / bw >= n_flops / flops_peak else "operations",
                bytes=n_bytes, flops=n_flops)
     print(json.dumps(rec), flush=True)
@@ -1202,6 +1264,11 @@ def nf4_case(torch, name, *, M, K, N, dtype, seed, flush, lead=()) -> dict:
     if launched != int(routed) or not (math.isfinite(err) and bad <= 0):
         raise AssertionError(f"nf4 case {name}: {launched} launches (routed {routed}), "
                              f"max_abs_err {err} exceeds atol {atol} + rtol {rtol} |plain|")
+    calls, on_device = device_work(torch, lambda: nm.nf4_matmul(xin, qt)) if routed else (0, [])
+    if routed and (calls != 1 or len(on_device) > 1
+                   or any("nf4_matmul_kernel" not in k for k in on_device)):
+        raise AssertionError(f"nf4 case {name}: one call made {calls} launches and ran {on_device} "
+                             "on the device, not the one nf4 kernel")
     dense = dequantize(qt, torch.bfloat16)
     xb = x.to(torch.bfloat16)
     kernel_ms = device_ms(torch, lambda: nm.nf4_matmul(x, qt), flush)
@@ -1218,7 +1285,9 @@ def nf4_case(torch, name, *, M, K, N, dtype, seed, flush, lead=()) -> dict:
                kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                library="x_bf16 @ dense bf16 W, cuBLAS: the dense route, a different function",
                splits=nm.split_k(M, K, N)[0] if routed else None,
+               device_launches_per_call=calls, device_kernels_seen=len(on_device),
                bound_ms=max(n_bytes / bw, n_flops / fp32_peak) * 1e3,
+               bound_share=max(n_bytes / bw, n_flops / fp32_peak) * 1e3 / kernel_ms,
                bound_by="bytes" if n_bytes / bw >= n_flops / fp32_peak else "operations",
                bytes=n_bytes, flops=n_flops, gb_per_s=n_bytes / kernel_ms / 1e6)
     print(json.dumps(rec), flush=True)
@@ -1505,6 +1574,20 @@ def main() -> int:
           flush=True)
     if len(found) != 8 or any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):
         raise AssertionError(f"build_fused_ce: a bf16 dH/dW kernel is missing or spills: {found}")
+    for phase, found in (("build_paged_decode", paged_decode_resources(_build.build_log("paged_decode"))),
+                         ("build_nf4", nf4_resources(_build.build_log("nf4_matmul")))):
+        spilling = [k for k in found if k["spill_store_bytes"] or k["spill_load_bytes"]]
+        if phase == "build_paged_decode":  # 65 instances: the register body's main one, and maxima
+            summary = {"kernels": len(found),
+                       "main": [k for k in found if (k["q"], k["pool"], k["d"], k["groups"])
+                                == ("13__nv_bfloat16", "S1_", 64, 1)],
+                       "max_registers_register_body": max(k["registers"] for k in found if k["d"]),
+                       "max_registers_general_body": max(k["registers"] for k in found if not k["d"])}
+        else:
+            summary = {"kernels": found}
+        print(json.dumps({"phase": phase, **summary, "spilling": spilling}), flush=True)
+        if not found or spilling:
+            raise AssertionError(f"{phase}: a kernel is missing or spills: {spilling}")
 
     # 3. kernel against its plain version
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -1523,6 +1606,18 @@ def main() -> int:
                     **{**gpt2, "hq": 32, "kvh": 8, "d": 128}),
         kernel_case(torch, "gpt2_small_int8_pool", lengths=ragged, dtype=torch.bfloat16,
                     quant=True, seed=args.seed + 3, parked=(15,), **gpt2),
+        # the general body: head_dims off 64 and 128, group counts off 1, 2, 4, 8
+        kernel_case(torch, "d96_bf16", lengths=ragged, dtype=torch.bfloat16, quant=False,
+                    seed=args.seed + 4, parked=(15,), **{**gpt2, "d": 96}),
+        kernel_case(torch, "d256_bf16", lengths=ragged, dtype=torch.bfloat16, quant=False,
+                    seed=args.seed + 5, parked=(15,), **{**gpt2, "hq": 16, "kvh": 16, "d": 256}),
+        kernel_case(torch, "gqa3_6q_2kv_bf16", lengths=ragged, dtype=torch.bfloat16, quant=False,
+                    seed=args.seed + 6, parked=(15,), **{**gpt2, "hq": 6, "kvh": 2}),
+        kernel_case(torch, "gqa6_12q_2kv_bf16", lengths=ragged, dtype=torch.bfloat16, quant=False,
+                    seed=args.seed + 7, parked=(15,), **{**gpt2, "hq": 12, "kvh": 2}),
+        kernel_case(torch, "int8_pool_32q_8kv_d128", lengths=ragged, dtype=torch.bfloat16,
+                    quant=True, seed=args.seed + 8, parked=(15,),
+                    **{**gpt2, "hq": 32, "kvh": 8, "d": 128}),
     ]
     del flush
     torch.cuda.empty_cache()

@@ -10,13 +10,20 @@ the rect kernels at GPT-2 small's training shape (b 8, h 12, s 1024, d 64,
 causal; dQ and dK/dV also full and at d 128), the band kernels at Mistral-7B's
 width (b 1, hq 32, hkv 8, s 8192, d 128, window 4096), and the fused-CE dH and
 dW kernels and the forward at GPT-2 small's head (N 8192, V 50257, e 768,
-every sixteenth row ignored). To compare a change with its parent, unpack the
-parent into a directory ``.gitignore`` lists and alternate within one call::
+every sixteenth row ignored), and the serving kernels: paged decode at
+``chip_smoke.py``'s main case (GPT-2 small, 16 rows of ragged length up to
+1024, bf16) and the nf4 dequant-matmul at GPT-2 small's ``up`` projection
+(768 x 3072) at M 16 and 512 and Llama-7B's 4096 x 4096 at M 1 and 16 and
+4096 x 32000 at M 1. To
+compare a change with its parent, unpack the parent into a directory
+``.gitignore`` lists and alternate within one call::
 
     for t in .archive/parent . . .archive/parent; do python3 flash_ab.py --tree $t; done
 
-``--probe`` looks at the fused-CE dH and dW alone, on inputs drawn as
-``tests/test_torch_cuda_kernels.py`` draws them. ``--probe widths`` prints
+``--probe serving`` times the serving kernels alone (a quick A/B of them).
+``--probe widths`` and ``--probe precision`` look at the fused-CE dH and dW
+alone, on inputs drawn as
+``tests/test_torch_cuda_kernels.py`` draws them: ``--probe widths`` prints
 their median ms at N 8192 and V 50257 for e 768 and e 1024 (GPT-2 medium).
 ``--probe precision`` prints one line per shape (e 768 to 4096): for dH and
 dW, the elements past the ``cuda`` tests' bar ``1e-2 |plain| + 1e-3
@@ -44,8 +51,9 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--probe", choices=("widths", "precision"), default=None,
-                        help="the fused-CE dH and dW alone (default: the A/B timing)")
+    parser.add_argument("--probe", choices=("serving", "widths", "precision"), default=None,
+                        help="the serving kernels alone, or the fused-CE dH and dW alone "
+                             "(default: the A/B timing of every kernel)")
     args = parser.parse_args()
     import torch
 
@@ -61,14 +69,15 @@ def main() -> int:
 
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")  # 64 MiB > L2
 
-    def ms(fn, samples: int = 30) -> float:
+    def ms(fn, samples: int = 30, cold: bool = True) -> float:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         times = []
         for _ in range(samples):
-            flush.zero_()
+            if cold:  # else the inputs stay in L2 from the run before
+                flush.zero_()
             torch.cuda._sleep(2_000_000)  # keep the stream busy while the host enqueues
             start.record()
             fn()
@@ -87,7 +96,10 @@ def main() -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {"tree": str(tree), "card": card.splitlines()[0]}
-    if args.probe == "widths":
+    if args.probe == "serving":
+        serving(res, g, ms)
+        print(json.dumps(res), flush=True)
+    elif args.probe == "widths":
         print(json.dumps({**res, **probe_widths(torch, ms)}), flush=True)
     elif args.probe == "precision":
         for rec in probe_precision(torch):
@@ -95,6 +107,7 @@ def main() -> int:
     else:
         flash(res, g, ms, inputs)
         fused_ce(res, g, ms)
+        serving(res, g, ms)
         print(json.dumps(res), flush=True)
     return 0
 
@@ -147,6 +160,49 @@ def fused_ce(res: dict, g, ms) -> None:
     res["fused_ce_fwd"] = ms(lambda: fc.fused_ce_fwd(h, w, safe), 10)
     res["fused_ce_dh"] = ms(lambda: fc.fused_ce_dh(*bwd), 10)
     res["fused_ce_dw"] = ms(lambda: fc.fused_ce_dw(*bwd), 10)
+
+
+def serving(res: dict, g, ms) -> None:
+    """Paged decode at ``chip_smoke.py``'s main case (also with its inputs
+    left in L2, and with every row at 1024 tokens) and the nf4 kernel at
+    GPT-2's ``up`` projection and Llama-7B's 4096 x 4096 and 4096 x 32000
+    (M 1 also warm), into ``res``, beside the floor of the timing itself
+    (one tiny elementwise kernel)."""
+    import torch
+
+    from accelerate_tpu_torch.ops.flash_attention import paged_decode_attention
+    from accelerate_tpu_torch.ops.nf4_matmul import nf4_matmul
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize
+
+    b, h, d, bt, bps = 16, 12, 64, 16, 64
+    lengths = [1, 15, 16, 17, 100, 255, 256, 257, 511, 512, 640, 767, 900, 1023, 1024, 40]
+    num_blocks = b * bps + 8
+    q = torch.randn(b, h, d, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(num_blocks, bt, h, d, generator=g, device="cuda").bfloat16() for _ in range(2))
+    tables = torch.randperm(num_blocks, generator=g, device="cuda")[: b * bps].reshape(b, bps).int()
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // bt):] = num_blocks
+    tables[15] = num_blocks
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    # the timing's floor: the same events around one tiny PyTorch kernel
+    tiny = torch.zeros(16, device="cuda")
+    res["floor_tiny_add"] = ms(lambda: tiny.add_(1.0))
+    res["paged_decode_gpt2_bf16"] = ms(lambda: paged_decode_attention(q, k, v, tables, lens))
+    res["paged_decode_gpt2_bf16_warm"] = ms(lambda: paged_decode_attention(q, k, v, tables, lens),
+                                            cold=False)
+    full = torch.full_like(lens, bps * bt)
+    whole = torch.randperm(num_blocks, generator=g, device="cuda")[: b * bps].reshape(b, bps).int()
+    res["paged_decode_all_1024"] = ms(lambda: paged_decode_attention(q, k, v, whole, full))
+    for name, M, K, N in (("nf4_gpt2_up_m16", 16, 768, 3072), ("nf4_gpt2_up_m512", 512, 768, 3072),
+                          ("nf4_llama_4096_m1", 1, 4096, 4096), ("nf4_llama_4096_m16", 16, 4096, 4096),
+                          ("nf4_llama_4096x32000_m1", 1, 4096, 32000)):
+        qt = quantize(torch.randn(K, N, generator=g, device="cuda") / math.sqrt(K),
+                      QuantizationConfig(load_in_4bit=True, quant_type="nf4",
+                                         compute_dtype=torch.float32))
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        res[name] = ms(lambda: nf4_matmul(x, qt))
+        if name == "nf4_llama_4096_m1":
+            res[name + "_warm"] = ms(lambda: nf4_matmul(x, qt), cold=False)
 
 
 def probe_inputs(torch, n, v, e, seed=0):

@@ -128,3 +128,36 @@ def test_fused_ce_part_splits_forward_dh_and_dw():
                 "(anonymous namespace)::BwdParams)") == "dW"
     assert part(ns + "fused_ce_bwd_kernel<float, true>(float const*, int)") == "dW"
     assert part(ns + "flash_dq_kernel<__nv_bfloat16, 64, true>(int)") is None
+
+
+SERVING_LOG = """\
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__74e36811_15_paged_decode_cu_ad584a0a19paged_decode_kernelI13__nv_bfloat16S1_Lb0ELi64ELi1ELi16EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__74e36811_15_paged_decode_cu_ad584a0a19paged_decode_kernelI13__nv_bfloat16S1_Lb0ELi64ELi1ELi16EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__74e36811_15_paged_decode_cu_ad584a0a19paged_decode_kernelIfaLb1ELi0ELi0ELi4EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__74e36811_15_paged_decode_cu_ad584a0a19paged_decode_kernelIfaLb1ELi0ELi0ELi4EEEvNS_6ParamsE
+    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__8eec4b19_13_nf4_matmul_cu_75e1ed4317nf4_matmul_kernelI13__nv_bfloat16Li16EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__8eec4b19_13_nf4_matmul_cu_75e1ed4317nf4_matmul_kernelI13__nv_bfloat16Li16EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 240 registers, used 1 barriers, 64 bytes smem
+"""
+
+
+def test_serving_kernel_resources_name_each_instance():
+    """The paged-decode kernels' template arguments (D and G 0: the general
+    body) and the nf4 kernels' rows, each with its registers and spills."""
+    cs = _chip_smoke()
+    assert cs.paged_decode_resources(SERVING_LOG) == [
+        {"q": "13__nv_bfloat16", "pool": "S1_", "quant": 0, "d": 64, "groups": 1, "piece_bytes": 16,
+         "registers": 56, "spill_store_bytes": 0, "spill_load_bytes": 0, "static_smem_bytes": 0},
+        {"q": "f", "pool": "a", "quant": 1, "d": 0, "groups": 0, "piece_bytes": 4,
+         "registers": 64, "spill_store_bytes": 8, "spill_load_bytes": 4, "static_smem_bytes": 0},
+    ]
+    assert cs.nf4_resources(SERVING_LOG) == [
+        {"dtype": "13__nv_bfloat16", "rows": 16, "registers": 240, "spill_store_bytes": 0,
+         "spill_load_bytes": 0, "static_smem_bytes": 64},
+    ]
+    assert cs.paged_decode_resources(LOG) == [] and cs.nf4_resources(LOG) == []

@@ -45,6 +45,18 @@ CASES = {
     "int8_fp32q": dict(dtype=torch.float32, hq=2, kvh=2, d=64, lengths=[3, 48, 250], quant=True),
     "int8_bf16q_gqa2": dict(dtype=torch.bfloat16, hq=4, kvh=2, d=128, lengths=[70, 7], quant=True,
                             parked=(1,)),
+    # the general body: head_dims off 64 and 128 (16-, 4- and 2-byte row
+    # pieces) and group counts off 1, 2, 4 and 8 (16: two chunks of 8)
+    "bf16_d32": dict(dtype=torch.bfloat16, hq=4, kvh=4, d=32, lengths=[5, 64, 33, 40], parked=(3,)),
+    "bf16_gqa3": dict(dtype=torch.bfloat16, hq=6, kvh=2, d=64, lengths=[5, 64, 33, 40], parked=(3,)),
+    "fp32_d40_gqa2": dict(dtype=torch.float32, hq=4, kvh=2, d=40, lengths=[0, 17, 200]),
+    "bf16_d96_gqa6": dict(dtype=torch.bfloat16, hq=12, kvh=2, d=96, lengths=[9, 100, 255]),
+    "bf16_d256": dict(dtype=torch.bfloat16, hq=4, kvh=4, d=256, lengths=[1, 130, 256]),
+    "fp16_gqa16_d128": dict(dtype=torch.float16, hq=16, kvh=1, d=128, lengths=[31, 250]),
+    "bf16_d33": dict(dtype=torch.bfloat16, hq=2, kvh=1, d=33, lengths=[40, 3, 0]),
+    "int8_bf16q_d96_gqa3": dict(dtype=torch.bfloat16, hq=6, kvh=2, d=96, lengths=[70, 7],
+                                quant=True),
+    "int8_fp32q_d36": dict(dtype=torch.float32, hq=2, kvh=2, d=36, lengths=[3, 250], quant=True),
 }
 
 
@@ -99,8 +111,6 @@ def test_paged_decode_kernel_matches_plain(hopper, name):
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(d=32), ValueError),  # head_dim the kernel is not built for
-    (dict(hq=6, kvh=2), ValueError),  # GQA groups of 3
     (dict(dtype=torch.float64), TypeError),
 ])
 def test_paged_decode_kernel_rejects_what_it_does_not_take(hopper, change, exc):
@@ -108,6 +118,52 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(hopper, change, exc):
     args, _ = _inputs(hopper, **spec)
     with pytest.raises(exc):
         paged_decode_attention(*args)
+
+
+@pytest.mark.parametrize("name", ["bf16_parked", "bf16_d96_gqa6", "int8_bf16q_gqa2"])
+def test_paged_decode_kernel_gives_equal_bits_twice(hopper, name):
+    """A row's splits are merged in split order with no atomics: two launches
+    on one input agree to the bit."""
+    args, scales = _inputs(hopper, **CASES[name])
+    first, second = (paged_decode_attention(*args, **scales) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _graph_replays_like_eager(fn, refill):
+    """Capture ``fn()`` in a CUDA graph after an eager warm-up (the build, the
+    library load, the nf4 plane pack), replay it, then refill its inputs in
+    place and replay again: each replay equals an eager call on the inputs
+    of the moment, to the bit."""
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    refill()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn())
+
+
+def test_paged_decode_kernel_replays_from_a_cuda_graph(hopper):
+    args, scales = _inputs(hopper, **CASES["int8_bf16q_gqa2"])
+    q, lens = args[0], args[4]
+    before = paged_decode_attention.launches
+
+    def refill():
+        q.copy_(torch.randn_like(q.float()).to(q.dtype))
+        lens.copy_(torch.tensor([33, 200], dtype=torch.int32, device=hopper))
+
+    _graph_replays_like_eager(lambda: paged_decode_attention(*args, **scales), refill)
+    assert paged_decode_attention.launches > before
 
 
 def test_paged_decode_kernel_rejects_a_strided_pool(hopper):
@@ -404,6 +460,9 @@ FUSED_CE_CASES = {
     "bf16_e4096": dict(dtype=torch.bfloat16, n=130, v=300, e=4096),
     "bf16_n130": dict(dtype=torch.bfloat16, n=130, v=150, e=768),
     "bf16_v1": dict(dtype=torch.bfloat16, n=64, v=1, e=128, g_ll_scale=0.5),
+    # a width off the kernels' 64-column chunk: the wrappers zero-pad e
+    "bf16_e96": dict(dtype=torch.bfloat16, n=100, v=300, e=96),
+    "fp32_e40": dict(dtype=torch.float32, n=33, v=70, e=40),
 }
 
 
@@ -472,7 +531,6 @@ def test_fused_cross_entropy_all_ignored_on_the_card(hopper):
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(e=96), ValueError),  # not a multiple of 64
     (dict(dtype=torch.float16), TypeError),
 ])
 def test_fused_ce_kernel_rejects_what_it_does_not_take(hopper, change, exc):
@@ -527,6 +585,35 @@ def test_nf4_matmul_kernel_matches_plain(hopper, name):
     assert out.dtype == x.dtype and out.shape == (spec["M"], spec["N"])
     atol, rtol = NF4_TOL[spec["dtype"]]
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("M", [1, 16, 512])
+def test_nf4_matmul_kernel_gives_equal_bits_twice_without_a_workspace(hopper, M):
+    """A tile's K splits are summed in one cluster's shared memory in split
+    order: two launches agree to the bit, and a call allocates its output
+    and nothing else."""
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+
+    x, qt = _nf4_inputs(hopper, M=M, K=768, N=3072, dtype=torch.bfloat16)
+    first = nm.nf4_matmul(x, qt)  # also packs and caches the planes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    second = nm.nf4_matmul(x, qt)
+    torch.cuda.synchronize()
+    # the caching allocator's block of the output: 512-byte steps below 1 MiB,
+    # at most the next 2 MiB above
+    block = 512 if second.nbytes < 1 << 20 else 2 << 20
+    assert torch.cuda.max_memory_allocated() - base <= -(-second.nbytes // block) * block
+    assert torch.equal(first, second)
+
+
+def test_nf4_matmul_kernel_replays_from_a_cuda_graph(hopper):
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+
+    x, qt = _nf4_inputs(hopper, M=16, K=768, N=3072, dtype=torch.bfloat16)
+    _graph_replays_like_eager(lambda: nm.nf4_matmul(x, qt),
+                              lambda: x.copy_(torch.randn_like(x.float()).to(x.dtype)))
 
 
 def test_nf4_matmul_leading_dims_and_plain_route_on_the_card(hopper):

@@ -53,10 +53,10 @@ PARAM_ATOL = 5e-4
 B, S = 8, 32
 
 
-def _inputs(n, v, dtype=np.float32):
+def _inputs(n, v, dtype=np.float32, e=E):
     rng = np.random.default_rng(n + v)
-    h = rng.normal(size=(n, E)).astype(dtype)
-    w = (rng.normal(size=(v, E)) * 0.1).astype(dtype)
+    h = rng.normal(size=(n, e)).astype(dtype)
+    w = (rng.normal(size=(v, e)) * 0.1).astype(dtype)
     labels = rng.integers(0, v, n).astype(np.int32)
     labels[3] = -100
     labels[n // 2] = -100
@@ -98,6 +98,44 @@ def test_value_and_grads_match_the_reference_bf16(n, v):
     np.testing.assert_allclose(got[0], want[0], rtol=BF16_LOSS_RTOL)
     np.testing.assert_allclose(got[1], want[1], atol=BF16_GRAD_ATOL, rtol=BF16_GRAD_RTOL)
     np.testing.assert_allclose(got[2], want[2], atol=BF16_GRAD_ATOL, rtol=BF16_GRAD_RTOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_value_and_grads_match_the_reference_at_e96(dtype):
+    """A width that is not a multiple of the kernels' 64-column chunk (the
+    CUDA wrappers zero-pad it)."""
+    h, w, labels = _inputs(40, 300, e=96)
+    want = _jax_value_and_grads(h, w, labels, getattr(jnp, dtype))
+    got = _port_value_and_grads(h, w, labels, getattr(torch, dtype))
+    atol, rtol = (GRAD_ATOL, GRAD_RTOL) if dtype == "float32" else (BF16_GRAD_ATOL, BF16_GRAD_RTOL)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got[1], want[1], atol=atol, rtol=rtol)
+    np.testing.assert_allclose(got[2], want[2], atol=atol, rtol=rtol)
+
+
+def test_kernel_operands_zero_pad_e_exactly():
+    """The CUDA wrappers' operands: e 96 padded with zero columns to 128,
+    which add nothing to the logits (lse and the label logits agree up to
+    summation order); dH and dW over the padded operands, cut back to e,
+    agree with the unpadded ones; e 128 is passed through without a copy."""
+    h, w, labels = (torch.from_numpy(x) for x in _inputs(24, 70, e=96))
+    hp, wp, lp = fused_ce._operands("fused_ce_fwd", h, w, labels)
+    assert hp.shape == (24, 128) and wp.shape == (70, 128) and lp.dtype == torch.int32
+    assert not hp[:, 96:].any() and not wp[:, 96:].any()
+    assert torch.equal(hp[:, :96], h) and torch.equal(wp[:, :96], w)
+    lse, ll = fused_ce.fused_ce_forward_reference(h, w, labels)
+    lse_p, ll_p = fused_ce.fused_ce_forward_reference(hp, wp, lp)
+    torch.testing.assert_close(lse_p, lse, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ll_p, ll, atol=1e-6, rtol=1e-6)
+    g = torch.full((24,), 1 / 24)
+    args, args_p = (h, w, labels, lse, g, -g), (hp, wp, lp, lse, g, -g)
+    torch.testing.assert_close(fused_ce.fused_ce_dh_reference(*args_p)[:, :96],
+                               fused_ce.fused_ce_dh_reference(*args), atol=1e-7, rtol=1e-6)
+    torch.testing.assert_close(fused_ce.fused_ce_dw_reference(*args_p)[:, :96],
+                               fused_ce.fused_ce_dw_reference(*args), atol=1e-7, rtol=1e-6)
+    h128, w128, _ = (torch.from_numpy(x) for x in _inputs(8, 10, e=128))
+    hq, wq, _ = fused_ce._operands("fused_ce_fwd", h128, w128, torch.zeros(8, dtype=torch.int32))
+    assert hq.data_ptr() == h128.data_ptr() and wq.data_ptr() == w128.data_ptr()
 
 
 def test_all_ignored_batch_gives_zero_and_zero_grads():

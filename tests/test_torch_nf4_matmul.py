@@ -125,3 +125,28 @@ def test_split_k_covers_k_and_fills_the_card():
         assert splits * rows >= K > (splits - 1) * rows
         if M <= 16 and K >= 64 * 16:
             assert splits > 1
+
+
+# the shapes of chip_smoke.py's nf4 phase: the Llama-7B decode shapes at M 1
+# and 16, GPT-2 small's projections at M 16 and 512, GPT-2's qkv in fp32
+PHASE15_SHAPES = ([(M, K, N) for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+                   for M in (1, 16)]
+                  + [(M, K, N) for K, N in ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+                     for M in (16, 512)])
+
+
+@pytest.mark.parametrize("M,K,N", PHASE15_SHAPES)
+def test_split_k_plan_is_one_cluster_of_whole_pieces(M, K, N):
+    """The K splits of an output tile are the CTAs of one cluster (they sum
+    their partials in its shared memory, so there is no workspace), each run
+    is a multiple of 8 rows (x's 16-byte pieces), every split has rows, and
+    the grid reaches every one of the card's 132 SMs where the shape has the
+    work for it, with no split once the tiles alone give four CTAs a SM."""
+    splits, rows = tops.split_k(M, K, N)
+    assert 1 <= splits <= tops.MAX_SPLITS
+    assert splits * rows >= K > (splits - 1) * rows
+    assert splits == 1 or rows % 8 == 0
+    tiles = -(-(N // 2) // 128) * -(-M // min(16, 1 << max(0, M - 1).bit_length()))
+    assert tiles * splits >= min(132, tiles * tops.MAX_SPLITS)
+    if tiles >= 4 * 132:
+        assert splits == 1

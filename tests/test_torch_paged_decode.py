@@ -65,6 +65,11 @@ CASES = {
     "int8_pool": dict(b=3, hq=2, kvh=2, d=64, bt=8, bps=4, lengths=[3, 8, 30], quant=True),
     "int8_gqa_parked": dict(b=3, hq=4, kvh=2, d=32, bt=8, bps=4, lengths=[12, 1, 20],
                             quant=True, parked=(2,)),
+    # shapes the CUDA kernel's general body takes: a head_dim off 64 and 128,
+    # 3 query heads per kv head, and both with an int8 pool
+    "d96": dict(b=3, hq=2, kvh=2, d=96, bt=16, bps=3, lengths=[5, 48, 30]),
+    "gqa_groups3": dict(b=3, hq=6, kvh=2, d=32, bt=8, bps=4, lengths=[12, 1, 31], parked=(1,)),
+    "int8_groups3_d40": dict(b=2, hq=3, kvh=1, d=40, bt=8, bps=3, lengths=[20, 9], quant=True),
 }
 
 
