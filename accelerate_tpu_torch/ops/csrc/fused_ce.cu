@@ -23,12 +23,48 @@
 //
 // What differs from the TPU kernels: on the TPU the reduction axis is the
 // last, sequential grid axis (vocab for forward and dH, rows for dW) and the
-// running state lives in VMEM scratch across grid steps. Here one CTA owns a
+// running state lives in VMEM scratch across grid steps. Here a CTA owns a
 // tile of "own" rows (h rows for forward and dH, w rows for dW) and walks
-// every tile of the "other" matrix itself, so nothing crosses CTAs. The
-// reduction depth of the logits and the width of dH and dW are both the model
-// width e (768 for GPT-2 small), not a head dim.
+// the tiles of the "other" matrix itself; only the bf16 forward splits that
+// walk, over the CTAs of a thread-block cluster that merge their states in
+// distributed shared memory. The reduction depth of the logits and the
+// width of dH and dW are both the model width e (768 for GPT-2 small), not
+// a head dim.
 //
+// The bf16 forward (fwd_tile_sm90, fused_ce_fwd_kernel<bf16, BN>):
+//   - a CTA owns 128 h rows and one split of the vocab: the grid is (row
+//     tiles, splits), and the splits of a row tile form one cluster (at
+//     most 16 CTAs, past 8 the non-portable size). The Python wrapper
+//     (`fwd_plan`) picks the split count that takes the fewest vocab tiles
+//     a CTA times waves of clusters the card holds at once (N 8192: 2; N
+//     1000: 8), 1 when the row tiles alone fill the card;
+//   - the CTAs of a cluster walk the same number of vocab tiles of 128 w
+//     rows in lockstep (tiles past V are zero-filled by TMA and masked) and
+//     share each h chunk by TMA multicast: each loads 128 / splits h rows
+//     for all, and its own w rows. A stage is refilled once the consumers
+//     of every CTA of the cluster have released it (remote mbarrier
+//     arrivals);
+//   - a producer warpgroup (setmaxnreg 40) runs a kFwdStages-deep TMA ring;
+//     a stage is one 64-column chunk of e of the CTA's h rows and of the
+//     vocab tile's w rows (32 KB). h streams rather than staying resident
+//     ([128, 4096] bf16 is 1 MB at Mistral's width);
+//   - two consumer warpgroups (setmaxnreg 232) take 64 h rows each and
+//     compute S = h . w^T for the tile by wgmma (m64n128k16, both operands
+//     K-major in the 128-byte swizzle) into 64 fp32 registers a thread,
+//     each span of 4 chunks (256 columns of e) in its own accumulator
+//     chain and the spans added in fp32, as the backward does. S never
+//     leaves the registers: the online logsumexp runs there (the row max
+//     and sum over the 4 threads of a quad by two shuffles, one ex2 an
+//     element with log2e folded into one fmaf, one rescale a row), and the
+//     thread whose column is the row's label keeps that logit. A tile's
+//     reduction runs while the next tile's first chunk is on the tensor
+//     cores;
+//   - each CTA leaves its split's (m, l, ll) for its 128 rows in shared
+//     memory; after a cluster barrier each CTA of a row tile merges a
+//     1 / splits slice of the rows over the splits in split order through
+//     distributed shared memory and writes lse and ll; a second cluster
+//     barrier comes before any CTA exits. Equal bits on every run, no
+//     atomics, no workspace, one launch.
 // The bf16 backward (bwd_tile_sm90, both fused_ce_bwd_kernel<bf16, DW, NH>):
 //   - a CTA owns 64 own rows and one slice of e's output columns: e's
 //     64-column chunks are dealt into C = ceil(e / 512) slices (384 + 384 at
@@ -67,12 +103,10 @@
 //     dropped. A warpgroup with fewer chunks than the launch's most runs its
 //     last product into an accumulator it never stores, so every wgmma is
 //     issued unconditionally.
-// The fp32 backward and both forwards keep the first design: the logits tile
-// is a k-loop over e in 64-wide chunks, double-buffered with cp.async; the
-// fp32 backward keeps its accumulator [32 own rows, <= 1024 columns of e] in
-// shared memory; bf16 forward products run on nvcuda::wmma 16x16x16
-// fragments, fp32 products as scalar FMAs (TF32 would break the fp32
-// tolerance).
+// The fp32 kernels keep the first design: the logits tile is a k-loop over
+// e in 64-wide chunks, double-buffered with cp.async, of scalar FMAs (TF32
+// would break the fp32 tolerance); the fp32 backward keeps its accumulator
+// [32 own rows, <= 1024 columns of e] in shared memory.
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense) at GPT-2 small, N 8192, V 50257, e 768, bf16:
@@ -84,7 +118,13 @@
 // 3); shared-memory bandwidth, since both m64n64k16 products read both
 // operands from shared memory (4 KB a wgmma, the SM's 128 bytes a clock at
 // the tensor cores' rate) while TMA writes each stage beside them; and the
-// ring's latency, which its depth only partly hides.
+// ring's latency, which its depth only partly hides. What holds the bf16
+// forward from its bound: every CTA streams both operands from L2 (h once a
+// vocab tile, w once a row tile), so by count L2 carries about
+// 64 x 77 MB of w and half as much h at GPT-2 small; the reductions (about
+// 400 instructions a thread a tile), only partly under the next tile's
+// products; the span sums' drain (one wait for all products every 4
+// chunks). PERF.md (section 6, PR 12) gives the measured share of each.
 //
 // Each C entry point returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for a dtype or shape it does not take; the Python
@@ -94,7 +134,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -102,8 +141,6 @@
 #include "sm90.cuh"  // mbarriers, TMA (multicast too), wgmma, clusters, tensor maps
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
@@ -120,12 +157,11 @@ struct Cvt<float> {
   static __device__ __forceinline__ float from_f(float x) { return x; }
 };
 
-// Tiles by element type: BO own rows per CTA, BW other rows per step.
+// The fp32 kernels' tiles: BO own rows per CTA, BW other rows per step.
 template <typename T, bool BWD>
 struct Tiles {
-  static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int BO = BWD ? 32 : 64;
-  static constexpr int BW = kBf16 ? 128 : 64;
+  static constexpr int BW = 64;
   static constexpr int LDK = kBK + 16 / (int)sizeof(T);  // operand chunks [rows][LDK] in T
   static constexpr int LDS = BW + 4;                      // fp32 logits tile [BO][LDS]
   static constexpr int LDD = BW + 16 / (int)sizeof(T);    // rounded dlogits [BO][LDD] in T
@@ -180,51 +216,11 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0, int n
   }
 }
 
-// Accumulator of a [BO][BW] logits tile across the e chunks. bf16: wmma
-// fragments, warps 2 x 4 over the tile; fp32: each thread owns a
-// (BO/16) x (BW/16) block (columns strided by 16).
+// Accumulator of a [BO][BW] logits tile across the e chunks, for the fp32
+// kernels: each thread owns a (BO/16) x (BW/16) block (columns strided by
+// 16) and sums scalar FMAs (TF32 would break the fp32 tolerance).
 template <typename T, int BO, int BW, int LDK>
-struct TileAcc {
-  static constexpr int FM = BO / 32, FN = BW / 64;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[FM][FN];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::fill_fragment(c[i][j], 0.f);
-  }
-
-  // += A[BO][64] . B[BW][64]^T
-  __device__ __forceinline__ void mma(const T* a_s, const T* b_s) {
-    const int warp = threadIdx.x / 32;
-    const int r0 = (warp / 4) * FM * 16, c0 = (warp % 4) * FN * 16;
-#pragma unroll
-    for (int k = 0; k < kBK; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) wmma::load_matrix_sync(a[i], a_s + (r0 + i * 16) * LDK + k, LDK);
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::load_matrix_sync(b[j], b_s + (c0 + j * 16) * LDK + k, LDK);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* s, int lds) {
-    const int warp = threadIdx.x / 32;
-    const int r0 = (warp / 4) * FM * 16, c0 = (warp % 4) * FN * 16;
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(s + (r0 + i * 16) * lds + c0 + j * 16, c[i][j], lds,
-                                wmma::mem_row_major);
-  }
-};
+struct TileAcc;
 
 template <int BO, int BW, int LDK>
 struct TileAcc<float, BO, BW, LDK> {
@@ -848,6 +844,271 @@ __global__ void __launch_bounds__(Sm90Bwd::kThreads, 1) fused_ce_bwd_kernel(
   bwd_tile_sm90<DW, NH>(smem, p);
 }
 
+// ------------------------------------------------- the bf16 forward on sm_90a
+
+constexpr int kFwdStages = 4;   // the forward's TMA ring
+constexpr int kMaxCluster = 16;  // CTAs of a cluster (past 8: the non-portable size)
+
+// The bf16 forward's tiles: a CTA owns BM h rows (64 for each of two
+// consumer warpgroups) and walks its split's vocab tiles of BN w rows; a
+// ring stage holds one 64-column chunk of e of both.
+template <int BN>
+struct Sm90Fwd {
+  static constexpr int BM = 128;
+  static constexpr int kThreads = 3 * 128;
+  static constexpr int kHChunk = BM * 128;  // bytes of [128 rows][64 columns] in bf16
+  static constexpr int kWChunk = BN * 128;
+  static constexpr int kStage = kHChunk + kWChunk;
+  // 1024 bytes of slack to align the ring to the swizzle's 8 x 128-byte
+  // period; the ring; the split's state (m, l, ll) of the BM rows; the
+  // mbarriers: full and empty per stage
+  static constexpr size_t kSmem = 1024 + kFwdStages * kStage + 3 * BM * 4 + 8 * 2 * kFwdStages;
+};
+
+constexpr int kFwdBN = 128;  // the vocab tile: S is [64, 128] a warpgroup, 64 fp32 a thread
+static_assert(Sm90Fwd<kFwdBN>::kSmem <= kMaxSmem, "bf16 forward exceeds shared memory");
+
+// The bf16 forward's launch: TMA maps over h [n, e] in boxes of BM / splits
+// rows (a CTA's multicast share of its row tile) and w [v, e] in boxes of BN
+// rows, both of 64 columns; e's 64-column chunks; the splits of the vocab
+// (the cluster) and the vocab tiles of one split.
+struct FwdParams {
+  CUtensorMap h, w;
+  const int* labels;
+  float* lse;
+  float* ll;
+  int n, v, nk, splits, tiles_per_split;
+};
+
+// lse and ll of the rows of h against w, as fused_ce_fwd_kernel<float>
+// computes them. CTA (blockIdx.x, blockIdx.y) owns h rows BM blockIdx.x +
+// [0, BM) and split blockIdx.y of the vocab: vocab tiles
+// [y tiles_per_split, (y + 1) tiles_per_split), past V zero-filled by TMA
+// and masked. The splits of a row tile are one cluster and share each h
+// chunk (each loads BM / splits of its rows for all by multicast); each
+// loads its own w chunks. All CTAs of a cluster walk the same
+// number of tiles in lockstep; a stage is refilled once the consumers of
+// every CTA of the cluster have released it. A consumer warpgroup computes
+// S = h . w^T for its 64 rows of a tile into registers (wgmma, both operands
+// K-major, spans of kSpanChunks chunks summed in fp32 as in bwd_tile_sm90)
+// and folds it into its rows' online (m, l) and label logit there. Each CTA
+// then leaves its split's state in shared memory, and after a cluster
+// barrier the splits of a row tile merge in split order through distributed
+// shared memory, each CTA writing a 1 / splits slice of the rows.
+template <int BN>
+__device__ __forceinline__ void fwd_tile_sm90(unsigned char* smem_raw, const FwdParams& p) {
+  using C = Sm90Fwd<BN>;
+  constexpr int S = kFwdStages, BM = C::BM;
+  constexpr float kLog2e = 1.4426950408889634f;
+  unsigned char* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  float* state = reinterpret_cast<float*>(ring + S * C::kStage);  // [3][BM]: m, l, ll
+  uint64_t* full = reinterpret_cast<uint64_t*>(state + 3 * BM);
+  uint64_t* empty = full + S;
+
+  const int splits = p.splits, nk = p.nk, nt = p.tiles_per_split;
+  const int cy = blockIdx.y;  // the split: this CTA's rank in the cluster
+  const int row0 = blockIdx.x * BM;
+  const int tile0 = cy * nt;  // the split's first vocab tile
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < S; ++st) {
+      mbar_init(full + st, 1);
+      mbar_init(empty + st, 8 * splits);  // every consumer warp of every CTA of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // every CTA's barriers are set before a multicast or remote arrival
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: hands its registers to the consumers; thread 0 runs the
+    // ring: per vocab tile, e's chunks in order, each stage an h chunk (this
+    // CTA's share multicast to every split) and a w chunk
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 2 * 128) {
+      const uint16_t every = static_cast<uint16_t>((1u << splits) - 1);
+      const int h_off = cy * (BM / splits);
+      int fill = 0;
+      for (int t = 0; t < nt; ++t) {
+        const int v0 = (tile0 + t) * BN;
+        for (int kc = 0; kc < nk; ++kc, ++fill) {
+          const int st = fill % S;
+          unsigned char* dst = ring + st * C::kStage;
+          if (fill >= S) mbar_wait(empty + st, (fill / S - 1) & 1);
+          mbar_expect_tx(full + st, C::kStage);
+          if (splits == 1) {
+            tma_load(dst, &p.h, full + st, 64 * kc, row0, 0);
+          } else {
+            tma_load_multicast(dst + h_off * 128, &p.h, full + st, 64 * kc, row0 + h_off, 0, every);
+          }
+          tma_load(dst + C::kHChunk, &p.w, full + st, 64 * kc, v0, 0);
+        }
+      }
+    }
+    cluster_sync();  // the states are written
+    cluster_sync();  // the merge has read them
+  } else {
+    // consumers: warpgroup wg owns rows 64 wg + [0, 64) of the tile; this
+    // thread holds rows rl and rl + 8 of S, columns 8 j + col0 + {0, 1}
+    // (the wgmma accumulator layout), and those rows' running m (the same
+    // in the 4 threads of a quad), its part of l, and the label logit if
+    // the label's column is one of its own
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int col0 = 2 * (lane % 4);
+    const int rl = 64 * wg + 16 * warp + lane / 4;
+    int lab[2];
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, ll[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + rl + 8 * r;
+      const int x = row < p.n ? p.labels[row] : -1;
+      lab[r] = x >= 0 && x < p.v ? x : -1;  // outside [0, V): no column, ll 0
+    }
+    float s[BN / 2], sp[BN / 2];
+    // a stage's release: each warp arrives once on the stage's empty barrier
+    // of every CTA of the cluster
+    auto release = [&](int f) {
+      __syncwarp();
+      if (lane < splits) mbar_arrive_cluster(empty + f % S, lane);
+    };
+    // fold tile v0's S (in s) into the rows' (m, l) and label logit: columns
+    // >= V masked to NEG_INF before the max and given p = 0; one ex2 an
+    // element with log2e folded into one fmaf, one rescale a row
+    auto reduce = [&](int v0) {
+      const bool ragged = v0 + BN > p.v;
+      if (ragged) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          if (v0 + 8 * (i / 4) + col0 + i % 2 >= p.v) s[i] = kNegInf;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (static_cast<unsigned>(lab[r] - v0) < static_cast<unsigned>(BN)) {  // rare
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            if ((i / 2) % 2 == r && v0 + 8 * (i / 4) + col0 + i % 2 == lab[r]) ll[r] = s[i];
+          }
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      float neg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFullMask, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        l[r] *= fast_exp2((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        neg[r] = -m_new * kLog2e;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int r = (i / 2) % 2;
+        float e = fast_exp2(fmaf(s[i], kLog2e, neg[r]));
+        if (ragged && v0 + 8 * (i / 4) + col0 + i % 2 >= p.v) e = 0.f;
+        l[r] += e;
+      }
+    };
+
+    // S over e's chunks, both K-major (a k16 step is 32 bytes into a
+    // chunk), one chunk's products in flight while the next is issued; a
+    // stage is released once its products are done. The tensor cores' fp32
+    // sums lose bits over a long chain, so each span of kSpanChunks chunks
+    // (256 columns of e) sums in sp, and the spans add into s in fp32. The
+    // last tile's reduction runs once the next tile's first chunk is queued
+    // on the tensor cores, before its first span ends and overwrites s. That
+    // first chunk is peeled off the loop over the rest: with the reduction
+    // inside the loop, ptxas waited for every chunk's products before the
+    // next chunk's issue (5% slower at GPT-2 small, PERF.md)
+    const uint32_t ring_addr = smem_addr(ring);
+    int f = 0, unreleased = 0;
+    // chunk kc of the tile, issued from ring fill f
+    auto issue = [&](int kc) {
+      const uint32_t st_addr = ring_addr + (f % S) * C::kStage;
+      const uint32_t a_addr = st_addr + 64 * wg * 128;
+      const uint32_t b_addr = st_addr + C::kHChunk;
+      mbar_wait(full + f % S, (f / S) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<BN>::ss(sp, sw128_desc(a_addr + kk * 32, 16, 1024),
+                      sw128_desc(b_addr + kk * 32, 16, 1024), kc % kSpanChunks > 0 || kk > 0);
+      }
+      wgmma_commit();
+    };
+    // once chunk kc's products are issued: release the last chunk's stage,
+    // and at a span's end wait for kc too, release it and add the span into s
+    auto retire = [&](int kc) {
+      wgmma_wait<1>();
+      if (unreleased < f) release(unreleased++);
+      if (kc % kSpanChunks == kSpanChunks - 1 || kc == nk - 1) {
+        wgmma_wait<0>();
+        release(unreleased++);
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) s[i] = kc < kSpanChunks ? sp[i] : s[i] + sp[i];
+      }
+      ++f;
+    };
+    for (int t = 0; t < nt; ++t) {
+      issue(0);
+      if (t > 0) reduce((tile0 + t - 1) * BN);
+      retire(0);
+      for (int kc = 1; kc < nk; ++kc) {
+        issue(kc);
+        retire(kc);
+      }
+    }
+    if (nt > 0) reduce((tile0 + nt - 1) * BN);
+
+    // the split's state: l and ll over the quad, one thread a quad writes
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFullMask, l[r], 1);
+      l[r] += __shfl_xor_sync(kFullMask, l[r], 2);
+      ll[r] += __shfl_xor_sync(kFullMask, ll[r], 1);
+      ll[r] += __shfl_xor_sync(kFullMask, ll[r], 2);
+      if (lane % 4 == 0) {
+        state[rl + 8 * r] = m[r];
+        state[BM + rl + 8 * r] = l[r];
+        state[2 * BM + rl + 8 * r] = ll[r];
+      }
+    }
+    cluster_sync();
+    // the merge: this CTA writes rows cy BM / splits + [0, BM / splits) of
+    // its row tile from the states of splits 0, 1, ... in turn (an empty
+    // split has m = NEG_INF and l = 0 and adds nothing); lse = m + log(l),
+    // l == 0 read as 1; rows >= n write nothing
+    const int per = BM / splits;
+    for (int i = threadIdx.x; i < per; i += 256) {
+      const int r = cy * per + i;
+      float mm = kNegInf;
+      for (int y = 0; y < splits; ++y) mm = fmaxf(mm, ld_dsmem(state + r, y));
+      float ls = 0.f, lls = 0.f;
+      for (int y = 0; y < splits; ++y) {
+        ls += ld_dsmem(state + BM + r, y) * expf(ld_dsmem(state + r, y) - mm);
+        lls += ld_dsmem(state + 2 * BM + r, y);
+      }
+      if (row0 + r < p.n) {
+        p.lse[row0 + r] = mm + logf(ls == 0.f ? 1.f : ls);
+        p.ll[row0 + r] = lls;
+      }
+    }
+    cluster_sync();  // no CTA leaves while a peer may still read its state
+  }
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(Sm90Fwd<BN>::kThreads, 1) fused_ce_fwd_kernel(
+    const __grid_constant__ FwdParams p) {
+  static_assert(std::is_same_v<T, __nv_bfloat16>, "the sm_90a forward is bf16");
+  extern __shared__ __align__(128) unsigned char smem[];
+  fwd_tile_sm90<BN>(smem, p);
+}
+
 struct Args {
   const void* h;
   const void* w;
@@ -860,23 +1121,56 @@ struct Args {
   float* ll_out;
   int n, v, e;
   cudaStream_t stream;
+  int splits;  // the bf16 forward's vocab splits, its cluster (ops/fused_ce.py `fwd_plan`)
 };
 
 enum class Kind { kFwd, kDh, kDw };
+
+// Every kernel's shared-memory limit raised and clusters past 8 CTAs
+// allowed, once a process: a launch sets no attribute, so each C entry is
+// safe to capture in a CUDA graph
+cudaError_t attributes_once() {
+  static const cudaError_t err = [] {
+    const cudaError_t errs[] = {
+        allow_max_smem(fused_ce_fwd_kernel<float>),
+        allow_max_smem(fused_ce_fwd_kernel<__nv_bfloat16, kFwdBN>),
+        allow_max_smem(fused_ce_bwd_kernel<float, false>),
+        allow_max_smem(fused_ce_bwd_kernel<float, true>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 1>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 2>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 3>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 4>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, true, 1>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, true, 2>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, true, 3>),
+        allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, true, 4>),
+    };
+    for (const cudaError_t e : errs) {
+      if (e != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  }();
+  return err;
+}
+
+template <typename T>
+int launch_fwd(const Args& a) {
+  using C = Tiles<T, false>;
+  const dim3 grid((a.n + C::BO - 1) / C::BO);
+  fused_ce_fwd_kernel<T><<<grid, kThreads, Smem<T, false>::total(0), a.stream>>>(
+      static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels, a.lse_out, a.ll_out, a.n,
+      a.v, a.e);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T, bool DW>
 int launch_bwd(const Args& a) {
   using C = Tiles<T, true>;
   const int slices = (a.e + kMaxSlice - 1) / kMaxSlice;
   const int slice = ((a.e / kBK + slices - 1) / slices) * kBK;
-  const size_t smem = Smem<T, true>::total(slice);
-  auto kernel = fused_ce_bwd_kernel<T, DW>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Smem<T, true>::total(kMaxSlice));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int n_own = DW ? a.v : a.n;
   const dim3 grid((n_own + C::BO - 1) / C::BO, (a.e + slice - 1) / slice);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
+  fused_ce_bwd_kernel<T, DW><<<grid, kThreads, Smem<T, true>::total(slice), a.stream>>>(
       static_cast<const T*>(a.h), static_cast<const T*>(a.w), a.labels, a.lse_in, a.glse, a.gll,
       static_cast<T*>(a.out), a.n, a.v, a.e, slice);
   return static_cast<int>(cudaGetLastError());
@@ -901,43 +1195,38 @@ BwdPlan plan_bwd(int e, int n_own) {
   return pl;
 }
 
-// the launch configuration of the bf16 backward: a cluster of kCluster CTAs
-// along the own axis
+// the launch configuration of an sm_90a kernel in clusters of `cluster`
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(const BwdPlan& pl, cudaStream_t stream) {
-    cfg.gridDim = pl.grid;
-    cfg.blockDim = dim3(Sm90Bwd::kThreads);
-    cfg.dynamicSmemBytes = Sm90Bwd::kSmem;
+  ClusterLaunch(dim3 grid, int threads, size_t smem, dim3 cluster, cudaStream_t stream) {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
+    attr[0].val.clusterDim.x = cluster.x;
+    attr[0].val.clusterDim.y = cluster.y;
+    attr[0].val.clusterDim.z = cluster.z;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
   }
+  ClusterLaunch(const BwdPlan& pl, cudaStream_t stream)
+      : ClusterLaunch(pl.grid, Sm90Bwd::kThreads, Sm90Bwd::kSmem, dim3(kCluster, 1, 1), stream) {}
 };
 
-// the bf16 kernel for a plan, its shared memory limit raised
+// the bf16 backward kernel for a plan
 using Sm90Kernel = void (*)(BwdParams);
 
 template <bool DW>
 Sm90Kernel sm90_kernel_of(int nh) {
+  static_assert((kSliceChunks + 1) / 2 == 4, "sm90_kernel_of covers NH 1 to 4");
   switch (nh) {
     case 1: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 1>;
     case 2: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 2>;
     case 3: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 3>;
     default: return fused_ce_bwd_kernel<__nv_bfloat16, DW, 4>;
   }
-}
-
-cudaError_t sm90_kernel(bool dw, const BwdPlan& pl, Sm90Kernel* kernel) {
-  static_assert((kSliceChunks + 1) / 2 == 4, "sm90_kernel_of covers NH 1 to 4");
-  *kernel = dw ? sm90_kernel_of<true>(pl.nh) : sm90_kernel_of<false>(pl.nh);
-  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(Sm90Bwd::kSmem));
 }
 
 template <bool DW>
@@ -959,57 +1248,77 @@ int launch_bwd_sm90(const Args& a) {
   p.v = a.v;
   p.nk = pl.nk;
   p.slices = pl.slices;
-  Sm90Kernel kernel = nullptr;
-  cudaError_t err = sm90_kernel(DW, pl, &kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
   ClusterLaunch launch(pl, a.stream);
-  err = cudaLaunchKernelEx(&launch.cfg, kernel, p);
+  const cudaError_t err = cudaLaunchKernelEx(&launch.cfg, sm90_kernel_of<DW>(pl.nh), p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(Kind kind, const Args& a) {
-  if (a.n <= 0 || a.v <= 0 || a.e <= 0 || a.e % kBK) return static_cast<int>(cudaErrorInvalidValue);
-  if (kind == Kind::kFwd) {
-    using C = Tiles<T, false>;
-    constexpr size_t smem = Smem<T, false>::total(0);
-    auto kernel = fused_ce_fwd_kernel<T>;
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((a.n + C::BO - 1) / C::BO);
-    kernel<<<grid, kThreads, smem, a.stream>>>(static_cast<const T*>(a.h),
-                                               static_cast<const T*>(a.w), a.labels, a.lse_out,
-                                               a.ll_out, a.n, a.v, a.e);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return kind == Kind::kDh ? launch_bwd_sm90<false>(a) : launch_bwd_sm90<true>(a);
-  } else {
-    return kind == Kind::kDh ? launch_bwd<T, false>(a) : launch_bwd<T, true>(a);
-  }
+// the bf16 forward's splits, its cluster: a power of two (each CTA's h
+// share, BM / splits rows, is whole swizzle periods of 8 rows), at most
+// kMaxCluster
+bool fwd_splits_ok(int splits) {
+  return splits >= 1 && splits <= kMaxCluster && (splits & (splits - 1)) == 0;
 }
 
+ClusterLaunch fwd_launch(int n, int splits, cudaStream_t stream) {
+  using C = Sm90Fwd<kFwdBN>;
+  return ClusterLaunch(dim3((n + C::BM - 1) / C::BM, splits), C::kThreads, C::kSmem,
+                       dim3(1, splits, 1), stream);
+}
+
+int launch_fwd_sm90(const Args& a) {
+  using C = Sm90Fwd<kFwdBN>;
+  if (!fwd_splits_ok(a.splits)) return static_cast<int>(cudaErrorInvalidValue);
+  FwdParams p{};
+  CUresult r = bf16_map(&p.h, a.h, a.e, a.n, 1, C::BM / a.splits);
+  if (r == CUDA_SUCCESS) r = bf16_map(&p.w, a.w, a.e, a.v, 1, kFwdBN);
+  if (r != CUDA_SUCCESS) return static_cast<int>(r);
+  p.labels = a.labels;
+  p.lse = a.lse_out;
+  p.ll = a.ll_out;
+  p.n = a.n;
+  p.v = a.v;
+  p.nk = a.e / 64;
+  p.splits = a.splits;
+  p.tiles_per_split = ((a.v + kFwdBN - 1) / kFwdBN + a.splits - 1) / a.splits;
+  ClusterLaunch launch = fwd_launch(a.n, a.splits, a.stream);
+  const cudaError_t err =
+      cudaLaunchKernelEx(&launch.cfg, fused_ce_fwd_kernel<__nv_bfloat16, kFwdBN>, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype 0 float32, 1 bfloat16
 int dispatch(int device, int dtype, Kind kind, const Args& a) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  switch (dtype) {
-    case 0: return launch<float>(kind, a);
-    case 1: return launch<__nv_bfloat16>(kind, a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n <= 0 || a.v <= 0 || a.e <= 0 || a.e % kBK || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = attributes_once();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool bf16 = dtype == 1;
+  switch (kind) {
+    case Kind::kFwd: return bf16 ? launch_fwd_sm90(a) : launch_fwd<float>(a);
+    case Kind::kDh: return bf16 ? launch_bwd_sm90<false>(a) : launch_bwd<float, false>(a);
+    default: return bf16 ? launch_bwd_sm90<true>(a) : launch_bwd<float, true>(a);
   }
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16. h [n, e], w [v, e] contiguous, labels
-// int32 [n], row vectors fp32 [n]. Each returns cudaGetLastError() after its launch.
+// int32 [n], row vectors fp32 [n]. Each returns cudaGetLastError() after its
+// launch; none allocates, synchronises or reads device memory on the host,
+// so each may be captured in a CUDA graph. The forward's bf16 kernel splits
+// the vocab `splits` ways, one cluster a row tile (the Python wrapper's plan,
+// ops/fused_ce.py `fwd_plan`); the fp32 kernel ignores it.
 extern "C" int fused_ce_fwd(int device, void* stream, int dtype, const void* h, const void* w,
-                            const void* labels, void* lse, void* ll, int n, int v, int e) {
+                            const void* labels, void* lse, void* ll, int n, int v, int e,
+                            int splits) {
   const Args a{h, w, static_cast<const int*>(labels), nullptr, nullptr, nullptr, nullptr,
                static_cast<float*>(lse), static_cast<float*>(ll), n, v, e,
-               static_cast<cudaStream_t>(stream)};
+               static_cast<cudaStream_t>(stream), splits};
   return dispatch(device, dtype, Kind::kFwd, a);
 }
 
@@ -1039,18 +1348,35 @@ extern "C" int fused_ce_dw(int device, void* stream, int dtype, const void* h, c
 extern "C" int fused_ce_bwd_plan(int device, int dw, int e, int* out) {
   if (e <= 0 || e % kBK) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = attributes_once();
   if (err != cudaSuccess) return static_cast<int>(err);
   const BwdPlan pl = plan_bwd(e, Sm90Bwd::BM * kCluster);
-  Sm90Kernel kernel = nullptr;
-  err = sm90_kernel(dw != 0, pl, &kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
   ClusterLaunch launch(pl, nullptr);
-  err = cudaOccupancyMaxActiveClusters(&out[0], kernel, &launch.cfg);
+  err = cudaOccupancyMaxActiveClusters(&out[0], dw ? sm90_kernel_of<true>(pl.nh) : sm90_kernel_of<false>(pl.nh),
+                                       &launch.cfg);
   out[1] = kCluster;
   out[2] = kStages;
   out[3] = static_cast<int>(Sm90Bwd::kSmem);
   out[4] = pl.slices;
   out[5] = pl.nh;
+  return static_cast<int>(err);
+}
+
+// The bf16 forward's launch with the vocab split `splits` ways, into out[4]:
+// how many of its clusters of `splits` CTAs the device runs at once
+// (cudaOccupancyMaxActiveClusters), ring stages, dynamic shared memory
+// bytes, and the rows a vocab tile holds. Returns the CUDA error code.
+extern "C" int fused_ce_fwd_plan(int device, int splits, int* out) {
+  if (!fwd_splits_ok(splits)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = attributes_once();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch launch = fwd_launch(Sm90Fwd<kFwdBN>::BM, splits, nullptr);
+  err = cudaOccupancyMaxActiveClusters(&out[0], fused_ce_fwd_kernel<__nv_bfloat16, kFwdBN>,
+                                       &launch.cfg);
+  out[1] = kFwdStages;
+  out[2] = static_cast<int>(Sm90Fwd<kFwdBN>::kSmem);
+  out[3] = kFwdBN;
   return static_cast<int>(err);
 }
 

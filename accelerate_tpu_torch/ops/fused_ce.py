@@ -27,6 +27,7 @@ lane-broadcast layout of the row vectors, a TPU tiling artifact: they are
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +38,13 @@ from .flash_attention import _on_device
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/fused_ce.cu
 E_MULTIPLE = 64  # the kernels' e chunk: the wrappers zero-pad e to a multiple
+# the bf16 forward kernel's tiles (csrc/fused_ce.cu, Sm90Fwd and kFwdBN) and
+# the vocab splits it takes: 128 h rows a CTA, vocab tiles of 128 w rows, a
+# power of two of splits a row tile, one cluster (past 8 CTAs, the
+# non-portable size)
+FWD_ROW_TILE = 128
+FWD_VOCAB_TILE = 128
+FWD_SPLITS = (1, 2, 4, 8, 16)
 
 
 # ------------------------------------------------------------ plain versions
@@ -136,41 +144,85 @@ def _lib() -> ctypes.CDLL:
     if lib.fused_ce_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [i, p, i]  # device, stream, dtype
-        lib.fused_ce_fwd.argtypes = head + [p] * 5 + [i] * 3
+        lib.fused_ce_fwd.argtypes = head + [p] * 5 + [i] * 4
         lib.fused_ce_dh.argtypes = head + [p] * 7 + [i] * 3
         lib.fused_ce_dw.argtypes = head + [p] * 7 + [i] * 3
         for fn in (lib.fused_ce_fwd, lib.fused_ce_dh, lib.fused_ce_dw):
             fn.restype = ctypes.c_int
         lib.fused_ce_bwd_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.fused_ce_bwd_plan.restype = ctypes.c_int
+        lib.fused_ce_fwd_plan.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.fused_ce_fwd_plan.restype = ctypes.c_int
         lib.fused_ce_error_string.argtypes = [i]
         lib.fused_ce_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _run(name: str, *pointers: int, h: torch.Tensor, v: int) -> None:
+def _run(name: str, *pointers: int, h: torch.Tensor, v: int, extra: tuple[int, ...] = ()) -> None:
     lib = _lib()
     dev = h.device
     with torch.cuda.device(dev):
         err = getattr(lib, name)(dev.index, torch.cuda.current_stream(dev).cuda_stream,
-                                 _DTYPE_CODES[h.dtype], *pointers, h.shape[0], v, h.shape[1])
+                                 _DTYPE_CODES[h.dtype], *pointers, h.shape[0], v, h.shape[1],
+                                 *extra)
     if err != 0:
         msg = lib.fused_ce_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cuda error {err})")
 
 
+def fwd_plan(n: int, v: int, resident: dict[int, int]) -> dict:
+    """How the bf16 forward kernel splits ``N`` rows against ``V`` vocab
+    entries: ``row_tiles`` of 128 rows, ``vocab_tiles`` of 128 entries, and
+    ``splits`` of the vocab a row tile (its cluster), each split walking
+    ``tiles_per_split`` vocab tiles (split ``y`` tiles ``[y t, (y + 1) t)``,
+    those past ``vocab_tiles`` masked). ``resident[s]`` is how many
+    clusters of ``s`` CTAs, for each ``s`` of `FWD_SPLITS`, the card runs at
+    once (`card_limits`; on an H100 a cluster lies inside one GPC, so
+    fewer than ``SMs / s``). The split count takes the fewest steps,
+    ``waves x tiles_per_split`` with ``waves`` the rounds of resident
+    clusters the row tiles need; then the fewest waves; then the fewest
+    splits. So 1 split when the row tiles alone fill the card in whole
+    waves. Also the ``grid`` (row tiles, splits) and the ``waves``."""
+    if n <= 0 or v <= 0:
+        raise ValueError(f"fwd_plan needs positive n and v, got {n} and {v}")
+    row_tiles = -(-n // FWD_ROW_TILE)
+    vocab_tiles = -(-v // FWD_VOCAB_TILE)
+    best = None
+    for splits in FWD_SPLITS:
+        if resident[splits] <= 0 or (splits > 1 and splits > vocab_tiles):
+            continue
+        waves = -(-row_tiles // resident[splits])
+        tiles = -(-vocab_tiles // splits)
+        key = (waves * tiles, waves, splits)
+        if best is None or key < best[0]:
+            best = (key, {"row_tiles": row_tiles, "vocab_tiles": vocab_tiles, "splits": splits,
+                          "tiles_per_split": tiles, "waves": waves, "grid": (row_tiles, splits)})
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def card_limits(index: int) -> dict[int, int]:
+    """`fwd_plan`'s ``resident`` on CUDA device ``index``: the clusters of
+    each split count the bf16 forward runs there at once, read once a
+    process."""
+    with torch.cuda.device(index):
+        return {s: fwd_launch(s)["max_active_clusters"] for s in FWD_SPLITS}
+
+
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor,
                  labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(lse, ll)``, fp32 ``[N]``. CPU: `fused_ce_forward_reference`; CUDA:
-    ``fused_ce_fwd_kernel`` (fp32/bf16, any N, V and e)."""
+    ``fused_ce_fwd_kernel`` (fp32/bf16, any N, V and e; bf16 in clusters
+    laid out by `fwd_plan`)."""
     _check("fused_ce_fwd", h, w, labels)
     if not _on_device("fused_ce_fwd", h):
         return fused_ce_forward_reference(h, w, labels)
     h, w, labels = _operands("fused_ce_fwd", h, w, labels)
     lse = torch.empty(h.shape[0], dtype=torch.float32, device=h.device)
     ll = torch.empty_like(lse)
+    plan = fwd_plan(h.shape[0], w.shape[0], card_limits(h.device.index))
     _run("fused_ce_fwd", h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-         ll.data_ptr(), h=h, v=w.shape[0])
+         ll.data_ptr(), h=h, v=w.shape[0], extra=(plan["splits"],))
     fused_ce_fwd.launches += 1
     return lse, ll
 
@@ -218,6 +270,21 @@ def bwd_plan(dw: bool, e: int) -> dict[str, int]:
         raise RuntimeError(f"fused_ce_bwd_plan failed: {msg} (cuda error {err})")
     keys = ("max_active_clusters", "cluster_ctas", "ring_stages", "smem_bytes", "slices",
             "chunks_per_warpgroup")
+    return dict(zip(keys, (int(x) for x in out)))
+
+
+def fwd_launch(splits: int) -> dict[str, int]:
+    """How the bf16 forward kernel launches with the vocab split ``splits``
+    ways on the current card: the clusters of ``splits`` CTAs it runs at
+    once (``cudaOccupancyMaxActiveClusters``), ring stages, dynamic shared
+    memory bytes, and the rows of a vocab tile."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.fused_ce_fwd_plan(torch.cuda.current_device(), splits, out)
+    if err != 0:
+        msg = lib.fused_ce_error_string(err).decode()
+        raise RuntimeError(f"fused_ce_fwd_plan failed: {msg} (cuda error {err})")
+    keys = ("max_active_clusters", "ring_stages", "smem_bytes", "vocab_tile")
     return dict(zip(keys, (int(x) for x in out)))
 
 

@@ -10,7 +10,8 @@ Phases run in order; any failure exits non-zero:
    and static shared memory of each flash forward kernel, of each bf16
    dQ and dK/dV kernel, of each bf16 fused-CE dH and dW kernel (with the
    dH and dW launches at e 768: CTAs a cluster, ring stages, shared memory
-   and how many clusters the card runs at once), of every paged-decode
+   and how many clusters the card runs at once) and of the bf16 fused-CE
+   forward (with its launch at each split count), of every paged-decode
    kernel (register and general bodies) and of every nf4 kernel, and none
    of them may spill;
 3. kernel: `paged_decode_attention` (the CUDA kernel) against
@@ -53,11 +54,13 @@ Phases run in order; any failure exits non-zero:
 9. fused-CE kernels: the forward, dH and dW kernels (`fused_ce_fwd`/`_dh`/
    `_dw`) against their plain versions on the card at the fused loss's
    shapes (N 8192 = 8 x 1024 rows, V 50257, e 768, bf16, 1/16 of the rows
-   ignored), in fp32, at a ragged N 1000, at e 1024 (GPT-2 medium's width)
-   and with every row ignored; one JSON line per case and kernel with its
-   error, its times (the library yardstick is the unfused PyTorch head and
-   cross-entropy), its bound, its achieved TFLOP/s and the share of the
-   bound it reaches;
+   ignored), in fp32, at a ragged N 1000, at e 1024 (GPT-2 medium's width),
+   at Mistral-7B's untied head (N 8192, V 32000, e 4096) and with every row
+   ignored; one JSON line per case and kernel with its error, its times (the
+   library yardstick is the unfused PyTorch head and cross-entropy), its
+   bound, its achieved TFLOP/s and the share of the bound it reaches; the
+   bf16 forward's lines also give its plan (vocab splits, the cluster, ring
+   stages);
 10. fp32 fused-CE parity: GPT-2 small, fp32, TF32 off, batch 2 x 1024: one
    `make_train_step` step with `lm_loss_fn_pallas` against one with
    `lm_loss_fn`: loss and global gradient norm agree, and each fused-CE
@@ -289,6 +292,14 @@ def fused_ce_bwd_resources(log: str) -> list[dict]:
     (``fused_ce_bwd_kernel<bf16, DW, NH>``: ``dw`` and the output chunks a
     warpgroup holds), the ones built on wgmma, TMA and clusters."""
     return [k for k in kernel_resources(log, r"fused_ce_bwd_kernel", ("dw", "chunks_per_warpgroup"))
+            if k["dtype"] == "bfloat16"]
+
+
+def fused_ce_fwd_resources(log: str) -> list[dict]:
+    """`kernel_resources` of the bf16 fused-CE forward kernel
+    (``fused_ce_fwd_kernel<bf16, BN>``: ``vocab_tile`` BN), the one built on
+    wgmma, TMA and a cluster split of the vocab."""
+    return [k for k in kernel_resources(log, r"fused_ce_fwd_kernel", ("vocab_tile",))
             if k["dtype"] == "bfloat16"]
 
 
@@ -740,7 +751,7 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err, bad = 0.0, 0.0
+        err, bad, share = 0.0, 0.0, 0.0
         for a, b in zip(got, want):
             diff = (a.float() - b.float()).abs()
             ref = b.float().abs()
@@ -748,6 +759,7 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
                    else rtol * ref + atol * ref.max())
             err = max(err, diff.max().item())
             bad = max(bad, (diff - bar).max().item())
+            share = max(share, (diff / bar.clamp(min=1e-30)).max().item())
         del got, want
         if not (math.isfinite(err) and bad <= 0):
             raise AssertionError(f"fused-CE case {name}, {kname}: max_abs_err {err} exceeds its bar")
@@ -756,7 +768,7 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
         n_bytes, products = io[kname]
         n_flops = products * 2 * n * v * e
         rec = dict(phase="fused_ce_kernels", case=name, kernel=kname, n=n, v=v, e=e, dtype=dtype_name,
-                   ignored_rows=int((~mask).sum().item()), max_abs_err=err,
+                   ignored_rows=int((~mask).sum().item()), max_abs_err=err, err_over_bar=share,
                    tol=FUSED_CE_ROW_TOL if kname == "fused_ce_fwd" else (rtol, atol),
                    kernel_ms=device_ms(torch, kernel[kname], flush, samples=samples),
                    plain_ms=device_ms(torch, plain[kname], flush, samples=5),
@@ -765,6 +777,10 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
                    bound_by="bytes" if n_bytes / bw >= n_flops / peak else "operations",
                    bytes=n_bytes, flops=n_flops)
         rec.update(tflops=n_flops / rec["kernel_ms"] * 1e-9, bound_share=rec["bound_ms"] / rec["kernel_ms"])
+        if kname == "fused_ce_fwd" and dtype == torch.bfloat16:  # the cluster split of the vocab
+            plan = fc.fwd_plan(n, v, fc.card_limits(torch.cuda.current_device()))
+            rec.update(plan=plan, cluster_ctas=plan["splits"],
+                       ring_stages=fc.fwd_launch(plan["splits"])["ring_stages"])
         print(json.dumps(rec), flush=True)
         recs[kname] = rec
     torch.cuda.empty_cache()
@@ -1569,11 +1585,15 @@ def main() -> int:
     from accelerate_tpu_torch.ops import fused_ce as fc
 
     found = fused_ce_bwd_resources(_build.build_log("fused_ce"))
-    print(json.dumps({"phase": "build_fused_ce", "kernels": found,
-                      "launch_e768": {"dH": fc.bwd_plan(False, 768), "dW": fc.bwd_plan(True, 768)}}),
+    found_fwd = fused_ce_fwd_resources(_build.build_log("fused_ce"))
+    print(json.dumps({"phase": "build_fused_ce", "kernels": found, "forward": found_fwd,
+                      "launch_e768": {"dH": fc.bwd_plan(False, 768), "dW": fc.bwd_plan(True, 768)},
+                      "forward_launch_by_splits": {s: fc.fwd_launch(s) for s in fc.FWD_SPLITS}}),
           flush=True)
-    if len(found) != 8 or any(k["spill_store_bytes"] or k["spill_load_bytes"] for k in found):
-        raise AssertionError(f"build_fused_ce: a bf16 dH/dW kernel is missing or spills: {found}")
+    if len(found) != 8 or len(found_fwd) != 1 or any(
+            k["spill_store_bytes"] or k["spill_load_bytes"] for k in found + found_fwd):
+        raise AssertionError(f"build_fused_ce: a bf16 forward, dH or dW kernel is missing or spills: "
+                             f"{found_fwd} {found}")
     for phase, found in (("build_paged_decode", paged_decode_resources(_build.build_log("paged_decode"))),
                          ("build_nf4", nf4_resources(_build.build_log("nf4_matmul")))):
         spilling = [k for k in found if k["spill_store_bytes"] or k["spill_load_bytes"]]
@@ -1761,6 +1781,8 @@ def main() -> int:
                       seed=args.seed + 2, **{**head, "n": 1000}),
         fused_ce_case(torch, "e1024_bf16", dtype=torch.bfloat16, ignore_every=16,
                       seed=args.seed + 3, **{**head, "e": 1024}),
+        fused_ce_case(torch, "mistral_head_e4096_bf16", dtype=torch.bfloat16, ignore_every=16,
+                      seed=args.seed + 5, **{**head, "v": 32000, "e": 4096}),
         fused_ce_case(torch, "all_ignored_bf16", dtype=torch.bfloat16, ignore_every=1,
                       seed=args.seed + 4, **head),
     ]

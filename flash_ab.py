@@ -21,6 +21,11 @@ compare a change with its parent, unpack the parent into a directory
     for t in .archive/parent . . .archive/parent; do python3 flash_ab.py --tree $t; done
 
 ``--probe serving`` times the serving kernels alone (a quick A/B of them).
+``--probe fwd`` times the fused-CE forward alone at ``chip_smoke.py``'s
+bf16 cases: GPT-2 small's head (N 8192, V 50257, e 768), a ragged N 1000,
+e 1024, and Mistral-7B's untied head (N 8192, V 32000, e 4096); where the
+tree has the vocab-split plan, also at every split count the case can take
+(``fwd_s<splits>``), beside the clusters of each size the card holds.
 ``--probe widths`` and ``--probe precision`` look at the fused-CE dH and dW
 alone, on inputs drawn as
 ``tests/test_torch_cuda_kernels.py`` draws them: ``--probe widths`` prints
@@ -51,9 +56,9 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--probe", choices=("serving", "widths", "precision"), default=None,
-                        help="the serving kernels alone, or the fused-CE dH and dW alone "
-                             "(default: the A/B timing of every kernel)")
+    parser.add_argument("--probe", choices=("serving", "fwd", "widths", "precision"), default=None,
+                        help="the serving kernels alone, the fused-CE forward alone, or the "
+                             "fused-CE dH and dW alone (default: the A/B timing of every kernel)")
     args = parser.parse_args()
     import torch
 
@@ -99,6 +104,8 @@ def main() -> int:
     if args.probe == "serving":
         serving(res, g, ms)
         print(json.dumps(res), flush=True)
+    elif args.probe == "fwd":
+        print(json.dumps({**res, **probe_fwd(torch, ms)}), flush=True)
     elif args.probe == "widths":
         print(json.dumps({**res, **probe_widths(torch, ms)}), flush=True)
     elif args.probe == "precision":
@@ -140,21 +147,26 @@ def flash(res: dict, g, ms, inputs) -> None:
     res["band_dkv"] = ms(lambda: fa.flash_band_dkv(*bwd), 10)
 
 
-def fused_ce(res: dict, g, ms) -> None:
-    """The fused-CE forward, dH and dW at GPT-2 small's head, as
-    ``chip_smoke.py``'s main fused-CE case draws it, into ``res``."""
+def head_inputs(g, n, v, e):
+    """h, w, safe labels and the mean loss's g_lse, as ``chip_smoke.py``'s
+    fused-CE cases draw them (w at GPT-2's init scale, every sixteenth row
+    ignored)."""
     import torch
 
-    from accelerate_tpu_torch.ops import fused_ce as fc
-
-    n, v, e = 8192, 50257, 768
     h = torch.randn(n, e, generator=g, device="cuda").bfloat16()
     w = (torch.randn(v, e, generator=g, device="cuda") * 0.02).bfloat16()
     labels = torch.randint(0, v, (n,), generator=g, device="cuda")
     labels[torch.arange(n, device="cuda") % 16 == 15] = -100
     mask = labels != -100
-    safe = torch.where(mask, labels, 0).to(torch.int32)
-    g_lse = mask.float() / mask.sum()
+    return h, w, torch.where(mask, labels, 0).to(torch.int32), mask.float() / mask.sum()
+
+
+def fused_ce(res: dict, g, ms) -> None:
+    """The fused-CE forward, dH and dW at GPT-2 small's head, as
+    ``chip_smoke.py``'s main fused-CE case draws it, into ``res``."""
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    h, w, safe, g_lse = head_inputs(g, 8192, 50257, 768)
     lse, _ = fc.fused_ce_fwd(h, w, safe)
     bwd = (h, w, safe, lse, g_lse, -g_lse)
     res["fused_ce_fwd"] = ms(lambda: fc.fused_ce_fwd(h, w, safe), 10)
@@ -203,6 +215,37 @@ def serving(res: dict, g, ms) -> None:
         res[name] = ms(lambda: nf4_matmul(x, qt))
         if name == "nf4_llama_4096_m1":
             res[name + "_warm"] = ms(lambda: nf4_matmul(x, qt), cold=False)
+
+
+FWD_SHAPES = {"gpt2_small": (8192, 50257, 768), "ragged_n1000": (1000, 50257, 768),
+              "e1024": (8192, 50257, 1024), "mistral_head_e4096": (8192, 32000, 4096)}
+
+
+def probe_fwd(torch, ms) -> dict:
+    """The fused-CE forward's median ms at FWD_SHAPES; where the tree has
+    the vocab-split plan, its plan and the kernel at every split count the
+    case can take (the C entry called directly with that count)."""
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    res = {}
+    split = hasattr(fc, "fwd_plan")
+    if split:
+        res["resident_clusters"] = fc.card_limits(torch.cuda.current_device())
+    for name, (n, v, e) in FWD_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        h, w, safe, _ = head_inputs(g, n, v, e)
+        res[f"fwd_{name}"] = ms(lambda: fc.fused_ce_fwd(h, w, safe), 10)
+        if split:
+            plan = fc.fwd_plan(n, v, fc.card_limits(torch.cuda.current_device()))
+            res[f"plan_{name}"] = plan
+            lse, ll = (torch.empty(n, device="cuda") for _ in range(2))
+            for k in fc.FWD_SPLITS:
+                if k <= plan["vocab_tiles"]:
+                    res[f"fwd_{name}_s{k}"] = ms(lambda: fc._run(
+                        "fused_ce_fwd", h.data_ptr(), w.data_ptr(), safe.data_ptr(),
+                        lse.data_ptr(), ll.data_ptr(), h=h, v=v, extra=(k,)), 10)
+        del h, w
+    return res
 
 
 def probe_inputs(torch, n, v, e, seed=0):

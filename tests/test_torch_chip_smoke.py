@@ -1,8 +1,8 @@
 """`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels' and
-the bf16 dQ, dK/dV and fused-CE dH/dW kernels' registers, spills and static
-shared memory, which its build phase prints and holds to zero spills; and its
-split of profiled kernel names into the fused-CE forward, dH and dW. Runs on
-the CPU against a log in ptxas's format."""
+the bf16 dQ, dK/dV and fused-CE forward, dH and dW kernels' registers,
+spills and static shared memory, which its build phase prints and holds to
+zero spills; and its split of profiled kernel names into the fused-CE
+forward, dH and dW. Runs on the CPU against a log in ptxas's format."""
 
 import importlib.util
 from pathlib import Path
@@ -99,8 +99,32 @@ def test_dq_resources_reads_only_the_bf16_dq_kernels():
     ]
 
 
+FUSED_FWD_LOG = """\
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI13__nv_bfloat16Li128EEEvNS_9FwdParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI13__nv_bfloat16Li128EEEvNS_9FwdParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelIfEEvPKT_S3_PKiPfS6_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelIfEEvPKT_S3_PKiPfS6_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+"""
+
+
+def test_fused_ce_fwd_resources_reads_only_the_bf16_sm90_forward():
+    """The bf16 forward (``fused_ce_fwd_kernel<bf16, 128>(FwdParams)``), not
+    the fp32 one, nor any backward kernel."""
+    got = _chip_smoke().fused_ce_fwd_resources(LOG + FUSED_FWD_LOG)
+    assert got == [
+        {"kernel": "fused_ce_fwd_kernel", "dtype": "bfloat16", "vocab_tile": 128, "registers": 168,
+         "spill_store_bytes": 0, "spill_load_bytes": 0, "static_smem_bytes": 0},
+    ]
+    assert _chip_smoke().fused_ce_fwd_resources(LOG) == []
+
+
 def test_fused_ce_bwd_resources_reads_only_the_bf16_bwd_kernels():
     got = _chip_smoke().fused_ce_bwd_resources(LOG)
+    assert _chip_smoke().fused_ce_bwd_resources(LOG + FUSED_FWD_LOG) == got
     assert got == [
         {"kernel": "fused_ce_bwd_kernel", "dtype": "bfloat16", "dw": False,
          "chunks_per_warpgroup": 3, "registers": 168,
@@ -122,6 +146,8 @@ def test_fused_ce_part_splits_forward_dh_and_dw():
     part = _chip_smoke().fused_ce_part
     ns = "void (anonymous namespace)::"
     assert part(ns + "fused_ce_fwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)") == "forward"
+    assert part(ns + "fused_ce_fwd_kernel<__nv_bfloat16, 128>("
+                "(anonymous namespace)::FwdParams)") == "forward"
     assert part(ns + "fused_ce_bwd_kernel<__nv_bfloat16, false, 3>("
                 "(anonymous namespace)::BwdParams)") == "dH"
     assert part(ns + "fused_ce_bwd_kernel<__nv_bfloat16, true, 3>("

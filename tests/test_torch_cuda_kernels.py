@@ -463,14 +463,25 @@ FUSED_CE_CASES = {
     # a width off the kernels' 64-column chunk: the wrappers zero-pad e
     "bf16_e96": dict(dtype=torch.bfloat16, n=100, v=300, e=96),
     "fp32_e40": dict(dtype=torch.float32, n=33, v=70, e=40),
+    # the bf16 forward's vocab split (`fused_ce.fwd_plan`): one row and one
+    # row tile split 8 and 16 ways; a vocabulary inside one vocab tile (one
+    # split); 17 vocab tiles over 16 splits of 2, so the last splits hold
+    # none and merge an empty state; every label the last vocab entry
+    "bf16_n1": dict(dtype=torch.bfloat16, n=1, v=1000, e=768),
+    "bf16_n64": dict(dtype=torch.bfloat16, n=64, v=5000, e=768),
+    "bf16_v100": dict(dtype=torch.bfloat16, n=300, v=100, e=768),
+    "bf16_empty_splits": dict(dtype=torch.bfloat16, n=1, v=17 * 128 - 5, e=256),
+    "bf16_label_last": dict(dtype=torch.bfloat16, n=300, v=1000, e=768, label=-1),
 }
 
 
-def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0, g_ll_scale=1.0):
+def _fused_ce_inputs(dev, *, dtype, n, v, e, seed=0, g_ll_scale=1.0, label=None):
     g = torch.Generator(device=dev).manual_seed(seed)
     h = torch.randn(n, e, generator=g, device=dev).to(dtype)
     w = (torch.randn(v, e, generator=g, device=dev) * 0.05).to(dtype)
     labels = torch.randint(0, v, (n,), generator=g, device=dev, dtype=torch.int32)
+    if label is not None:  # every row's label the vocab entry `label` (from the end if < 0)
+        labels = torch.full_like(labels, label % v)
     mask = torch.arange(n, device=dev) % 8 != 3  # every eighth row ignored
     labels = torch.where(mask, labels, 0)
     g_lse = mask.float() / mask.sum()
@@ -516,6 +527,45 @@ def test_fused_ce_bwd_kernels_give_equal_bits_twice(hopper, kernel):
     first, second = (fn(h, w, labels, lse, g_lse, g_ll) for _ in range(2))
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def test_fused_ce_fwd_gives_equal_bits_twice(hopper):
+    """The bf16 forward merges its vocab splits in split order with no
+    atomics: two launches on one input agree to the bit."""
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, _, _ = _fused_ce_inputs(hopper, **FUSED_CE_CASES["bf16_e768_ragged"])
+    assert fc.fwd_plan(h.shape[0], w.shape[0], fc.card_limits(hopper.index or 0))["splits"] > 1
+    first, second = (fc.fused_ce_fwd(h, w, labels) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dh", "dw"])
+def test_fused_ce_kernels_replay_from_a_cuda_graph(hopper, kernel):
+    """Each bf16 fused-CE C entry allocates nothing, never synchronises and
+    sets its attributes once: a captured call replays like an eager one, to
+    the bit, also after its inputs change in place."""
+    from accelerate_tpu_torch.ops import fused_ce as fc
+
+    h, w, labels, g_lse, g_ll = _fused_ce_inputs(hopper, **FUSED_CE_CASES["bf16_e768_ragged"])
+    lse, _ = fc.fused_ce_forward_reference(h, w, labels)
+    name = f"fused_ce_{kernel}"
+    fn = getattr(fc, name)
+    before = fn.launches
+    if kernel == "fwd":
+        def call():
+            return torch.stack(fn(h, w, labels))
+    else:
+        def call():
+            return fn(h, w, labels, lse, g_lse, g_ll)
+
+    def refill():
+        h.copy_(torch.randn_like(h.float()).to(h.dtype))
+        labels.copy_(torch.randint_like(labels, w.shape[0]))
+
+    _graph_replays_like_eager(call, refill)
+    assert fn.launches > before
 
 
 def test_fused_cross_entropy_all_ignored_on_the_card(hopper):

@@ -173,6 +173,60 @@ def test_refusals():
         fused_ce.fused_ce_fwd(h, w, labels[:-1])
 
 
+# the clusters of each split count that an H100 SXM (132 SMs) runs at once
+# for the bf16 forward kernel (`fused_ce.fwd_launch`, cudaOccupancyMaxActiveClusters
+# on the card): a cluster lies inside one GPC, so 16-CTA clusters fit 7 at once
+H100_RESIDENT = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# a card of 132 SMs whose clusters could take any SMs
+IDEAL_RESIDENT = {k: 132 // k for k in (1, 2, 4, 8, 16)}
+# (N, V) -> the split count the plan gives on an H100: GPT-2 small's head
+# (2: 64 clusters of 2 in one round); a short batch (8, not 16: eight
+# 16-CTA clusters need two rounds); one row; one vocab entry; Mistral's
+# head; 17 vocab tiles for one row (16 splits of 2 tiles, the last 7
+# empty); row tiles that fill the card alone
+H100_SPLITS = {(8192, 50257): 2, (1000, 50257): 8, (1, 50257): 16, (8192, 1): 1, (1, 1): 1,
+               (8192, 32000): 2, (1, 17 * 128 - 5): 16, (132 * 128, 50257): 1}
+
+
+@pytest.mark.parametrize("resident", [IDEAL_RESIDENT, H100_RESIDENT], ids=["ideal", "h100"])
+@pytest.mark.parametrize("n,v", sorted(H100_SPLITS) + [(140 * 128, 50257), (300, 1000)])
+def test_fwd_plan_splits_cover_the_vocab_in_the_fewest_steps(n, v, resident):
+    """The bf16 forward's split plan: every vocab tile lies in exactly one
+    split; a split count is a power of two of at most 16 CTAs (one cluster)
+    and no more than the vocab tiles; no other split count takes fewer
+    steps (rounds of resident clusters x vocab tiles a CTA), fewer rounds
+    at equal steps, or fewer splits at both equal; and up to one row tile
+    an SM the plan runs in one round."""
+    plan = fused_ce.fwd_plan(n, v, resident)
+    row_tiles, vocab_tiles = -(-n // 128), -(-v // 128)
+    splits, per = plan["splits"], plan["tiles_per_split"]
+    assert (plan["row_tiles"], plan["vocab_tiles"]) == (row_tiles, vocab_tiles)
+    assert plan["grid"] == (row_tiles, splits)
+    assert splits in (1, 2, 4, 8, 16) and (splits == 1 or splits <= vocab_tiles)
+    owned = [t for y in range(splits) for t in range(y * per, (y + 1) * per) if t < vocab_tiles]
+    assert sorted(owned) == list(range(vocab_tiles))
+    def cost(k):
+        rounds = -(-row_tiles // resident[k])
+        return rounds * -(-vocab_tiles // k), rounds, k
+
+    assert plan["waves"] == cost(splits)[1]
+    assert cost(splits) == min(cost(k) for k in (1, 2, 4, 8, 16) if k == 1 or k <= vocab_tiles)
+    if row_tiles <= 132:
+        assert plan["waves"] == 1
+    if resident is H100_RESIDENT and (n, v) in H100_SPLITS:
+        assert splits == H100_SPLITS[n, v]
+
+
+def test_fwd_plan_can_leave_splits_empty_and_refuses_nothing_positive():
+    """17 vocab tiles over 16 splits of 2: splits 9 to 15 hold no tile (the
+    kernel merges an empty state for them); a count <= 0 raises."""
+    plan = fused_ce.fwd_plan(1, 17 * 128 - 5, H100_RESIDENT)
+    first = [y * plan["tiles_per_split"] for y in range(plan["splits"])]
+    assert [y for y, t in enumerate(first) if t >= plan["vocab_tiles"]] == list(range(9, 16))
+    with pytest.raises(ValueError):
+        fused_ce.fwd_plan(0, 10, H100_RESIDENT)
+
+
 @pytest.fixture(scope="module")
 def reference():
     jmod = JaxGPT2LMHead(JaxGPT2Config.tiny(dtype=jnp.float32))
