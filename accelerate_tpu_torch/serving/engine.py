@@ -13,21 +13,47 @@ Independent requests share one decode step over a fixed set of
   - admission prefills up to ``admit_batch`` queued requests of one prompt
     bucket in one causal forward, samples their first tokens, and scatters
     their K/V into the reserved blocks (`kv_cache.scatter_rows_to_blocks`);
-  - `step` decodes every slot in one forward. With ``paged_attention=
-    "fused"`` (the default) every layer's attention reads the pool in place
-    through the CUDA kernel `ops.flash_attention.paged_decode_attention`;
-    ``"gather"`` runs the plain path over the gathered view, the parity
-    oracle;
+  - `step` dispatches one decode step for every slot: ``tokens_per_sync``
+    iterations of forward, sample, freeze finished rows and advance. With
+    ``paged_attention="fused"`` (the default) every layer's attention reads
+    the pool in place through the CUDA kernel
+    `ops.flash_attention.paged_decode_attention`; ``"gather"`` runs the
+    plain path over the gathered view, the parity oracle;
   - per-slot decode state (last token, position, remaining budget, finished
-    mask, block tables, sampling settings) stays on the device between
-    steps, as in the reference. A finished slot is frozen inside the step
-    (its KV write is dropped, its token and position carried). The host
-    fetches one ``[2, b]`` tensor per step: the sampled tokens and the
-    finished mask.
+    mask, block tables, sampling settings) lives in fixed device buffers
+    that the step updates in place, as the reference keeps it on the device.
+    A finished slot is frozen inside the step (its KV write is dropped, its
+    token and position carried). Each step writes one ``[k, 2, b]`` plane:
+    the sampled tokens and the finished mask of each of its ``k``
+    iterations.
+
+Dispatch is overlapped, as the reference's: up to ``pipeline_depth`` steps
+and admissions are in flight at once. Each queues its output's copy into a
+pinned host buffer of its own (a ring of ``pipeline_depth + 1``) behind the
+work, then an event; the host reads results the device has finished
+without blocking (`torch.cuda.Event.query`), and blocks on the oldest only
+when more than ``pipeline_depth - 1`` are in flight. Admission uploads go
+through pinned staging buffers, so nothing makes the host wait on the
+stream. A finish or first token surfaces when its fetch lands, up to
+``pipeline_depth - 1`` `step` calls after the device produced it; a
+per-slot generation counter discards the lagged results of a slot that was
+retired, cancelled or reseated meanwhile. Every piece of device work runs
+on one stream, so a lagged step that still writes through a released slot's
+blocks runs before any later admission's prefill scatter into them.
+``pipeline_depth=1`` is the synchronous flow.
+
+On CUDA the whole decode step is ONE replay of a `torch.cuda.CUDAGraph`,
+captured when the engine is built, while every slot is still frozen; a
+failed capture or replay raises (there is no eager decode on CUDA). The
+Gumbel noise of sampled slots stays outside the graph: before each replay
+the host fills a fixed uniform buffer with one ``[vocab]`` draw per
+iteration from each sampled slot's own `torch.Generator`, the draws
+`models.generation.generate` makes. On the CPU the same step function runs
+eagerly.
 
 Retirement (EOS, token budget, context limit) frees the slot's blocks and
 parks its table row at the sentinel id ``num_blocks``, so any later write
-through it is dropped. Dispatch is synchronous (``pipeline_depth=1``).
+through it is dropped.
 
 Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
 ``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
@@ -51,6 +77,7 @@ or just ``outputs = engine.run(requests)``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import deque
 from typing import Any, Iterable
@@ -65,7 +92,8 @@ from ..models.kv_cache import (
     make_block_pool,
     scatter_rows_to_blocks,
 )
-from ..ops.nf4_matmul import plane_pack, routes_to_kernel
+from ..ops.flash_attention import paged_decode_attention
+from ..ops.nf4_matmul import nf4_matmul, plane_pack, routes_to_kernel
 from ..utils.environment import resolve_device
 from ..utils.quantization import (
     QuantizationConfig,
@@ -127,6 +155,26 @@ class WeightQuantConfig:
                                   min_weight_size=self.min_weight_size)
 
 
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched, not yet fetched piece of device work: an admission's
+    ``[2, nb]`` first tokens and finished flags, or a decode step's ``[k, 2,
+    b]`` plane. ``host`` is the pinned buffer its copy lands in, ``event``
+    the CUDA event recorded after that copy (None on the CPU, where the copy
+    is done at dispatch). ``slots``/``epochs`` pin each result to the slot
+    generation it was dispatched against, so a result that outlived a
+    retirement or cancel is dropped instead of reaching the slot's next
+    tenant. ``staging`` keeps an admission's pinned upload buffers alive
+    until the entry is fetched, which is after their copies ran."""
+
+    kind: str  # "step" | "admit"
+    host: torch.Tensor
+    slots: tuple[int, ...]
+    epochs: tuple[int, ...]
+    event: Any = None
+    staging: Any = None
+
+
 class ServingEngine:
     """Request-level continuous batching over a fixed pool of decode slots.
 
@@ -137,14 +185,20 @@ class ServingEngine:
     ``weight_quant`` (a `WeightQuantConfig`, or its mode as a string)
     serves quantized weights.
 
-    Defaults that differ from the reference engine's: ``pipeline_depth=1``
-    (the reference's 2), ``paged_kv=True`` (False) and
-    ``paged_attention="fused"`` (``"gather"``). The port has neither the
-    contiguous slot pool nor overlapped dispatch yet (both raise), so its
-    only engine is the paged one at depth 1, and its decode attention is
-    the CUDA kernel by default; ``"gather"`` is the plain path, kept as the
-    parity oracle. So ``ServingEngine(model)`` builds a different engine in
-    each package until ROADMAP Queue 1 items 6 and 7 land."""
+    ``pipeline_depth`` bounds how many dispatches (decode steps and
+    admissions) may be in flight before the host blocks on the oldest fetch
+    (1 = synchronous). ``tokens_per_sync`` is the decode iterations one
+    dispatch runs between host fetches (one graph replay on CUDA).
+    ``admit_batch`` caps how many same-bucket queued requests one prefill
+    admits (batch buckets are the powers of two up to it).
+
+    Defaults that differ from the reference engine's: ``paged_kv=True``
+    (False) and ``paged_attention="fused"`` (``"gather"``). The port has
+    no contiguous slot pool yet (``paged_kv=False`` raises), so its only
+    engine is the paged one, and its decode attention is the CUDA kernel by
+    default; ``"gather"`` is the plain path, kept as the parity oracle. So
+    ``ServingEngine(model)`` builds a different engine in each package
+    until ROADMAP Queue 1 item 6 lands."""
 
     def __init__(
         self,
@@ -154,12 +208,13 @@ class ServingEngine:
         prompt_buckets: tuple[int, ...] = (32, 128, 512),
         max_queue: int = 128,
         eos_token_id: int | None = None,
-        pipeline_depth: int = 1,
+        pipeline_depth: int = 2,
         admit_batch: int = 4,
         paged_kv: PagedKVConfig | bool = True,
         paged_attention: str = "fused",
         device: str | torch.device | None = None,
         weight_quant: WeightQuantConfig | str | None = None,
+        tokens_per_sync: int = 1,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -214,11 +269,9 @@ class ServingEngine:
         self.pipeline_depth = int(pipeline_depth)
         if self.pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
-        if self.pipeline_depth > 1:
-            raise NotImplementedError(
-                "pipeline_depth > 1 (overlapped dispatch) is not ported yet: "
-                "ROADMAP Queue 1, serving modules deferred by slice 1"
-            )
+        self.tokens_per_sync = int(tokens_per_sync)
+        if self.tokens_per_sync < 1:
+            raise ValueError(f"tokens_per_sync must be >= 1, got {tokens_per_sync}")
         if int(admit_batch) < 1:
             raise ValueError(f"admit_batch must be >= 1, got {admit_batch}")
         # batch buckets: powers of two up to admit_batch
@@ -235,10 +288,12 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.metrics = ServingMetrics()
 
-        b, dev = self.max_concurrency, self.device
+        b, dev, k = self.max_concurrency, self.device, self.tokens_per_sync
         self._cache = make_block_pool(cfg.n_layer, b, n_blocks, bt, cfg.n_head, cfg.head_dim,
                                       kv_store_dtype(cfg), dev, attention=self.paged_attention)
-        # device-resident per-slot state; empty slots stay finished (frozen)
+        # device-resident per-slot state; empty slots stay finished (frozen).
+        # The decode step updates these buffers in place, and on CUDA its
+        # graph holds their addresses: they are never rebound
         self._d_tokens = torch.zeros(b, dtype=torch.long, device=dev)
         self._d_pos = torch.zeros(b, dtype=torch.long, device=dev)
         self._d_remaining = torch.zeros(b, dtype=torch.long, device=dev)
@@ -247,15 +302,37 @@ class ServingEngine:
         self._d_topks = torch.zeros(b, dtype=torch.long, device=dev)
         self._d_tables = torch.full((b, self._blocks_per_slot), n_blocks,
                                     dtype=torch.int32, device=dev)
+        # the step's inputs and outputs: uniform draws for the Gumbel noise
+        # of sampled slots, one [vocab] row per iteration and slot, and the
+        # tokens and finished flags of each iteration
+        self._d_uniform = torch.zeros((k, b, cfg.vocab_size), dtype=torch.float32, device=dev)
+        self._d_out = torch.zeros((k, 2, b), dtype=torch.long, device=dev)
         self._eos = -1 if eos_token_id is None else int(eos_token_id)
         # host-side slot bookkeeping
         self._active = np.zeros(b, bool)
         self._slot_out: list[RequestOutput | None] = [None] * b
         self._slot_gen: list[torch.Generator | None] = [None] * b  # sampled slots only
+        # the reference's slot generation: bumped at admission and release,
+        # so lagged results of an earlier tenant are recognised and dropped
+        self._slot_epoch = np.zeros(b, np.int64)
         self._slot_last_token_t = [0.0] * b
         self._slot_priv: list[list[int]] = [[] for _ in range(b)]
         self._free: deque[int] = deque(range(b))
         self._next_id = 0
+        self._inflight: deque[_Inflight] = deque()
+        # one host buffer per dispatch in flight: every dispatch drains to
+        # pipeline_depth - 1 in flight, so pipeline_depth + 1 buffers never
+        # hand out one whose entry is still unfetched
+        pinned = dev.type == "cuda"
+        self._fetch_ring = [torch.empty(k * 2 * b, dtype=torch.long, pin_memory=pinned)
+                            for _ in range(self.pipeline_depth + 1)]
+        self._ring_next = 0
+        self._graph: torch.cuda.CUDAGraph | None = None
+        # kernel launches one decode replay makes, by wrapper name (empty on
+        # the CPU): the wrappers count only while the graph is captured
+        self.graph_launches: dict[str, int] = {}
+        if dev.type == "cuda":
+            self._capture()
 
     # --------------------------------------------------------------- requests
     def submit(self, request: Request | Iterable[int],
@@ -279,7 +356,8 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        return bool(self._active.any()) or self.scheduler.queue_depth > 0
+        """Active slots, queued requests or unfetched dispatches remain."""
+        return bool(self._active.any()) or self.scheduler.queue_depth > 0 or bool(self._inflight)
 
     @property
     def active_slots(self) -> int:
@@ -311,13 +389,34 @@ class ServingEngine:
 
     # ------------------------------------------------------------ engine loop
     def step(self) -> list[RequestOutput]:
-        """Admit into free slots, decode one token for every active slot, and
-        return the requests that finished during this call."""
+        """Fetch the results the device has finished, admit into free slots,
+        dispatch one decode step (``tokens_per_sync`` iterations) for every
+        slot, fetch results lagging by up to ``pipeline_depth`` dispatches,
+        and return the requests whose completion was observed during this
+        call (at depth > 1 a finish surfaces when its fetch lands, up to
+        ``pipeline_depth - 1`` calls after the device produced it)."""
         finished: list[RequestOutput] = []
+        self._reap_ready(finished)
         self._admit_pending(finished)
         self.metrics.steps.inc()
         if self._active.any():
-            self._decode(finished)
+            self._fill_uniform()
+            if self._graph is not None:
+                self._graph.replay()
+            else:
+                with torch.no_grad():
+                    self._decode_step()
+            self.metrics.decode_dispatches.inc()
+            self.metrics.decode_steps.inc(self.tokens_per_sync)
+            self.metrics.dispatch_depth.observe(len(self._inflight) + 1)
+            self._inflight.append(self._fetch(
+                "step", self._d_out, tuple(range(self.max_concurrency)),
+                tuple(int(e) for e in self._slot_epoch)))
+            self._drain_to(self.pipeline_depth - 1, finished)
+        if not self._active.any():
+            # nothing left to overlap with: flush the lagged tail so every
+            # finish is returned before the caller sees has_work False
+            self._drain_to(0, finished)
         return finished
 
     def run(self, requests: Iterable[Request], max_steps: int | None = None
@@ -359,9 +458,30 @@ class ServingEngine:
                 break
         return [outputs[k] for k in sorted(outputs)]
 
+    def cancel(self, request_id: int) -> RequestOutput | None:
+        """Abort one request wherever it is: queued (removed) or seated
+        (slot retired with `FINISH_ABORTED`, the tokens fetched so far
+        returned; in-flight results for it are dropped by the slot's
+        generation bump). None if the id is unknown or already finished."""
+        now = time.perf_counter()
+        queued = self.scheduler.cancel(request_id)
+        if queued is not None:
+            self.metrics.requests_cancelled.inc()
+            return RequestOutput(
+                request_id=request_id, prompt_len=len(queued.prompt), tokens=[],
+                finish_reason=FINISH_ABORTED, arrival_time=queued.arrival_time, finish_time=now)
+        for slot, out in enumerate(self._slot_out):
+            if out is not None and out.request_id == request_id:
+                finished: list[RequestOutput] = []
+                self._retire(slot, FINISH_ABORTED, now, finished)
+                self.metrics.requests_cancelled.inc()
+                return finished[0]
+        return None
+
     def abort_all(self) -> list[RequestOutput]:
         """Retire every active slot and drop every queued request with
-        `FINISH_ABORTED` (partial tokens kept)."""
+        `FINISH_ABORTED` (partial tokens kept). In-flight results are
+        dropped unfetched."""
         now = time.perf_counter()
         aborted: list[RequestOutput] = []
         for slot in np.flatnonzero(self._active):
@@ -372,6 +492,7 @@ class ServingEngine:
             aborted.append(RequestOutput(
                 request_id=req.request_id, prompt_len=len(req.prompt), tokens=[],
                 finish_reason=FINISH_ABORTED, arrival_time=req.arrival_time, finish_time=now))
+        self._inflight.clear()  # every entry now predates a generation bump
         return aborted
 
     # ------------------------------------------------------------- admission
@@ -407,41 +528,64 @@ class ServingEngine:
         dev = self.device
         gens = [torch.Generator(device=dev).manual_seed(int(r.params.seed))
                 if r.params.temperature > 0 else None for r in group]
-        slots_t = torch.tensor(slots, dtype=torch.long, device=dev)
-        lens_t = torch.from_numpy(lens).to(dev)
+        n_written = -(-bucket // self._block_tokens)
+        staging, (ids, slots_t, lens_t, budgets_t, tables_t, dest_t, temps, topks) = self._upload(
+            padded, np.asarray(slots, np.int64), lens, budgets, tables,
+            np.ascontiguousarray(dest[:, :n_written]),
+            np.asarray([r.params.temperature for r in group], np.float32),
+            np.asarray([r.params.top_k or 0 for r in group], np.int64))
         with torch.no_grad():
             kv: list = []
-            hidden = self.model(torch.from_numpy(padded).to(dev), kv_out=kv, return_hidden=True)
+            hidden = self.model(ids, kv_out=kv, return_hidden=True)
             last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
-            temps = torch.tensor([float(r.params.temperature) for r in group],
-                                 dtype=torch.float32, device=dev)
-            topks = torch.tensor([int(r.params.top_k or 0) for r in group],
-                                 dtype=torch.long, device=dev)
             first = self._sample(last, temps, topks, gens)
-            n_written = -(-bucket // self._block_tokens)
-            scatter_rows_to_blocks(self._cache, kv, slots_t,
-                                   torch.from_numpy(dest[:, :n_written]).to(dev),
-                                   lens_t.to(torch.int32))
-            rem0 = torch.from_numpy(budgets).to(dev) - 1
+            scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t, lens_t.to(torch.int32))
+            rem0 = budgets_t - 1
             fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos))
-            self._d_tables[slots_t] = torch.from_numpy(tables).to(dev)
+            self._d_tables[slots_t] = tables_t
             self._d_tokens[slots_t] = first
             self._d_pos[slots_t] = lens_t
             self._d_remaining[slots_t] = rem0
             self._d_finished[slots_t] = fin0
             self._d_temps[slots_t] = temps
             self._d_topks[slots_t] = topks
-            fetched = torch.stack([first, fin0.long()]).cpu().numpy()
-        now = time.perf_counter()
+            out = torch.stack([first, fin0.long()])
+        epochs = []
         for i, (slot, request) in enumerate(zip(slots, group)):
+            self._slot_epoch[slot] += 1
+            epochs.append(int(self._slot_epoch[slot]))
             self._active[slot] = True
             self._slot_gen[slot] = gens[i]
             self._slot_out[slot] = RequestOutput(
                 request_id=request.request_id, prompt_len=len(request.prompt), tokens=[],
-                finish_reason="", arrival_time=request.arrival_time, first_token_time=now)
-            self.metrics.ttft_s.observe(max(0.0, now - request.arrival_time))
-            self._deliver(slot, int(fetched[0, i]), bool(fetched[1, i]), now, finished)
+                finish_reason="", arrival_time=request.arrival_time)
+        self.metrics.admit_batch_size.observe(nb)
+        self._inflight.append(self._fetch("admit", out, tuple(slots), tuple(epochs),
+                                          staging=staging))
+        # at depth 1 this fetches the first tokens now: an EOS or a 1-token
+        # budget frees its slot before the next group is sized
+        self._drain_to(self.pipeline_depth - 1, finished)
         return True
+
+    def _upload(self, *arrays: np.ndarray) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        """Host arrays to the device without a stream synchronisation: packed
+        into one staging buffer (pinned on CUDA; PyTorch synchronises the
+        stream for a copy from pageable memory, which would wait for every
+        dispatch in flight), copied ``non_blocking``, and viewed back by
+        dtype and shape on the device. Returns the staging buffer, which must
+        outlive the copy, and the device views."""
+        offsets, total = [], 0
+        for a in arrays:
+            offsets.append(total)
+            total += -(-a.nbytes // 8) * 8  # every view starts 8-byte aligned
+        staging = torch.empty(total, dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+        flat = staging.numpy()
+        for a, off in zip(arrays, offsets):
+            flat[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        dev = staging.to(self.device, non_blocking=True)
+        views = [dev[off:off + a.nbytes].view(torch.from_numpy(a[:0]).dtype).reshape(a.shape)
+                 for a, off in zip(arrays, offsets)]
+        return staging, views
 
     def _reserve_blocks(self, group: list[Request]) -> list[list[int]] | None:
         """All-or-nothing block reservation for one admission group: each
@@ -501,28 +645,167 @@ class ServingEngine:
                 noise[i] = gumbel_noise((1, logits.shape[-1]), g, self.device)[0]
         return sample(logits, temps, topks, noise)
 
-    def _decode(self, finished: list[RequestOutput]) -> None:
-        with torch.no_grad():
+    def _fill_uniform(self) -> None:
+        """Before each decode dispatch: one ``[vocab]`` uniform draw per
+        iteration for every active sampled slot, from the slot's own
+        generator in iteration order, which are the draws
+        `models.generation.gumbel_noise` makes for one token each. The step
+        turns them into Gumbel noise; greedy rows ignore theirs. At depth > 1
+        a slot whose finish is not fetched yet draws once more, which its
+        stream never sees: its generator is dropped at retirement."""
+        for slot in np.flatnonzero(self._active):
+            gen = self._slot_gen[slot]
+            if gen is not None:
+                for t in range(self.tokens_per_sync):
+                    self._d_uniform[t, slot].uniform_(generator=gen)
+
+    def _decode_step(self) -> None:
+        """One decode dispatch, ``tokens_per_sync`` iterations over every
+        slot: forward, sample, freeze finished rows (token, position and
+        budget carried; their KV writes dropped), advance, and finish on EOS
+        or budget. Every piece of state is written in place into the fixed
+        buffers, and iteration ``t``'s tokens and finished flags into
+        ``_d_out[t]``: on CUDA this is the body of the captured graph."""
+        noise = -torch.log(-torch.log(self._d_uniform))
+        for t in range(self.tokens_per_sync):
             live = ~self._d_finished
             logits = self.model(self._d_tokens[:, None], self._d_pos, cache=self._cache,
                                 block_tables=self._d_tables, write_mask=live)
-            gens = [self._slot_gen[s] if self._active[s] else None
-                    for s in range(self.max_concurrency)]
-            nxt = self._sample(logits[:, -1], self._d_temps, self._d_topks, gens)
-            # finished slots are frozen: token, position and budget carried
+            nxt = sample(logits[:, -1], self._d_temps, self._d_topks, noise[t])
             nxt = torch.where(live, nxt, self._d_tokens)
-            self._d_pos = torch.where(live, self._d_pos + 1, self._d_pos)
-            self._d_remaining = torch.where(live, self._d_remaining - 1, self._d_remaining)
+            self._d_pos.add_(live.long())
+            self._d_remaining.sub_(live.long())
             hit_eos = (self._eos >= 0) & (nxt == self._eos)
-            self._d_finished = self._d_finished | (live & (hit_eos | (self._d_remaining <= 0)))
-            self._d_tokens = nxt
-            fetched = torch.stack([nxt, self._d_finished.long()]).cpu().numpy()
-        self.metrics.decode_steps.inc()
+            self._d_finished.logical_or_(live & (hit_eos | (self._d_remaining <= 0)))
+            self._d_tokens.copy_(nxt)
+            self._d_out[t, 0].copy_(nxt)
+            self._d_out[t, 1].copy_(self._d_finished)
+
+    def _capture(self) -> None:
+        """Capture `_decode_step` as this engine's CUDA graph. Every slot is
+        still frozen, so the warm-up runs before the capture change nothing
+        the engine reads: writes go to the sink block, cursors advance by 0,
+        tokens are carried. They also build and load the kernel libraries
+        (nvcc at first use) and set the kernels' attributes, which must not
+        happen inside a capture. The wrappers' launch counts advance while
+        the graph is recorded: the difference is what each replay
+        launches.
+
+        Nothing may call an unsafe CUDA function while the graph is recorded,
+        or the capture is invalidated. Two guards: the garbage collector runs
+        before the capture and is off during it, since collecting a dropped
+        engine held in a reference cycle destroys its graph, and PyTorch no
+        longer collects before a capture; and the capture is
+        ``thread_local``, so another thread's calls (an event query, a
+        memory query) do not invalidate it, as they do under PyTorch's
+        default, ``global``. This thread's own unsafe calls still do."""
+        dev = self.device
+        counters = (paged_decode_attention, nf4_matmul)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(2):
+                self._decode_step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = [fn.launches for fn in counters]
+        graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._decode_step()
+        except RuntimeError as exc:
+            raise RuntimeError(f"capturing the decode step as a CUDA graph failed: {exc}") from exc
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph_launches = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
+        self._graph = graph
+
+    # ---------------------------------------------------------------- fetches
+    def _fetch(self, kind: str, out: torch.Tensor, slots: tuple[int, ...],
+               epochs: tuple[int, ...], staging: Any = None) -> _Inflight:
+        """Queue the copy of ``out`` into the next host ring buffer behind the
+        work that produces it, then an event; the host reads it once the
+        event has passed. The device reuses ``_d_out`` only after this copy,
+        by stream order."""
+        host = self._fetch_ring[self._ring_next][:out.numel()].view(out.shape)
+        self._ring_next = (self._ring_next + 1) % len(self._fetch_ring)
+        host.copy_(out, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return _Inflight(kind, host, slots, epochs, event, staging)
+
+    def _reap_ready(self, finished: list[RequestOutput]) -> None:
+        """Process, without blocking, the in-flight results the device has
+        already finished, oldest first. A finished slot that waits to be
+        fetched costs a frozen decode row per step, so reaping eagerly keeps
+        occupancy at the synchronous level; lag remains only while the
+        device is still busy, which is when overlap pays."""
+        while self._inflight and (self._inflight[0].event is None
+                                  or self._inflight[0].event.query()):
+            self._process_oldest(finished)
+
+    def _drain_to(self, limit: int, finished: list[RequestOutput]) -> None:
+        """Block on the oldest in-flight results until at most ``limit``
+        dispatches remain in flight (0 = synchronous)."""
+        while len(self._inflight) > limit:
+            self._process_oldest(finished)
+
+    def _process_oldest(self, finished: list[RequestOutput]) -> None:
+        entry = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if entry.event is not None:
+            entry.event.synchronize()
+        fetched = entry.host.numpy().copy()
+        self.metrics.host_blocked_s.observe(time.perf_counter() - t0)
         now = time.perf_counter()
-        for slot in np.flatnonzero(self._active):
-            slot = int(slot)
-            self.metrics.inter_token_s.observe(now - self._slot_last_token_t[slot])
-            self._deliver(slot, int(fetched[0, slot]), bool(fetched[1, slot]), now, finished)
+        if entry.kind == "admit":
+            self._process_admit(entry, fetched, now, finished)
+        else:
+            self._process_step(entry, fetched, now, finished)
+
+    def _live(self, slot: int, epoch: int) -> bool:
+        """The slot still holds the tenant a result was dispatched for."""
+        return self._slot_epoch[slot] == epoch and self._slot_out[slot] is not None
+
+    def _process_admit(self, entry: _Inflight, fetched: np.ndarray, now: float,
+                       finished: list[RequestOutput]) -> None:
+        for i, (slot, epoch) in enumerate(zip(entry.slots, entry.epochs)):
+            if not self._live(slot, epoch):
+                continue  # cancelled while the prefill was in flight
+            out = self._slot_out[slot]
+            out.first_token_time = now
+            self.metrics.ttft_s.observe(max(0.0, now - out.arrival_time))
+            self._deliver(slot, int(fetched[0, i]), bool(fetched[1, i]), now, finished)
+
+    def _process_step(self, entry: _Inflight, fetched: np.ndarray, now: float,
+                      finished: list[RequestOutput]) -> None:
+        tokens, fins = fetched[:, 0], fetched[:, 1]  # [k, b] each
+        k = tokens.shape[0]
+        # one fetch lands up to k tokens per slot at once: the gap since the
+        # slot's last token is split evenly over the tokens this entry
+        # appends for it (up to its finish), so ITL stays per token
+        gaps: dict[int, float] = {}
+        for slot, epoch in zip(entry.slots, entry.epochs):
+            if self._live(slot, epoch):
+                n = next((t + 1 for t in range(k) if fins[t, slot]), k)
+                gaps[slot] = (now - self._slot_last_token_t[slot]) / n
+        appended = 0
+        # iteration outer, slot inner: token t of every slot retires before
+        # token t + 1 of any slot, the order of k single-token dispatches
+        for t in range(k):
+            for slot, epoch in zip(entry.slots, entry.epochs):
+                if not self._live(slot, epoch):
+                    continue  # retired, cancelled or reseated, mid-scan too
+                self.metrics.inter_token_s.observe(gaps[slot])
+                self._deliver(slot, int(tokens[t, slot]), bool(fins[t, slot]), now, finished)
+                appended += 1
+        if appended:
+            self.metrics.tokens_per_dispatch.observe(appended)
 
     def _deliver(self, slot: int, token: int, done: bool, now: float,
                  finished: list[RequestOutput]) -> None:
@@ -545,8 +828,12 @@ class ServingEngine:
 
     def _release_slot(self, slot: int) -> None:
         """Return a slot and its blocks. The table row is parked at the
-        sentinel ``num_blocks`` so any later write through it is dropped, and
-        the slot is marked finished (frozen) until the next admission."""
+        sentinel ``num_blocks`` so any later write through it is dropped, the
+        slot is marked finished (frozen) until the next admission, and the
+        generation bump drops its results still in flight. Steps dispatched
+        before these writes may still write through the old row: they run
+        before any later admission's prefill scatter into the freed blocks,
+        by stream order."""
         self._allocator.free(self._slot_priv[slot])
         self._slot_priv[slot] = []
         self._d_tables[slot] = self._allocator.num_blocks
@@ -554,4 +841,5 @@ class ServingEngine:
         self._slot_out[slot] = None
         self._slot_gen[slot] = None
         self._active[slot] = False
+        self._slot_epoch[slot] += 1
         self._free.append(slot)

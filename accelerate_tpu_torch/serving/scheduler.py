@@ -111,6 +111,14 @@ class FIFOScheduler:
         the block pool short goes back in its original order)."""
         self._queue.appendleft(request)
 
+    def cancel(self, request_id: int) -> Request | None:
+        """Remove a queued request by id (None if not queued here)."""
+        for r in self._queue:
+            if r.request_id == request_id:
+                self._queue.remove(r)
+                return r
+        return None
+
     def drain_queue(self) -> list[Request]:
         """Remove and return everything queued (abort path)."""
         drained = list(self._queue)

@@ -27,6 +27,7 @@ quantized weights itself (`models.gpt2`): an nf4 projection through the
 from __future__ import annotations
 
 import copy
+import functools
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
@@ -179,9 +180,13 @@ def quantize(tensor: torch.Tensor, config: QuantizationConfig) -> QuantizedTenso
                            config.compute_dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def _byte_values(quant_type: str, device: torch.device) -> torch.Tensor:
     """``[256, 2]`` fp32: the codebook values of a packed byte's high and
-    low nibble, so a payload dequantizes in one gather."""
+    low nibble, so a payload dequantizes in one gather. Built once per
+    codebook and device: its copy from host memory could not run inside a
+    CUDA graph capture (the serving engine's decode step dequantizes a
+    quantized tied head and embedding there)."""
     code = torch.from_numpy(_codebook(quant_type)).to(device)
     byte = torch.arange(256, device=device)
     return torch.stack([code[byte >> 4], code[byte & 0xF]], dim=-1)

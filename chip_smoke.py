@@ -23,14 +23,23 @@ Phases run in order; any failure exits non-zero:
    per case with its error, its times (SDPA over the gathered view as the
    library yardstick), its bound and the share of the bound it reaches;
 4. fp32 slice: GPT-2 small at full width, seeded fp32 weights, TF32 off:
-   the same greedy requests through the fused and the gather engine give equal
-   token streams, and the kernel ran n_layer times per decode step;
+   the same greedy requests through the gather engine and through the fused
+   engine at ``pipeline_depth`` 2 with ``tokens_per_sync`` 1 and 4 (each
+   decode step one CUDA graph replay) give exactly the streams `generate`
+   (eager, gather path) gives for each request alone; the kernel ran
+   n_layer times per decode forward, counted through the replays, and a
+   profiler window around one replay holds n_layer x tokens_per_sync
+   paged-decode kernels;
 5. bf16 slice: the same model in bf16 serves 48 seeded requests (greedy and
-   sampled) through the fused engine; the first decode step's logits agree
-   with the gather path; one JSON line of serving metrics;
-   Then a torch.profiler window over 16 decode steps of the same engine:
-   host and device ms per step, the device's idle share, and the kernels
-   that take the device time;
+   sampled) through the fused engine at (depth, tokens_per_sync) (1, 1),
+   (2, 1) and (2, 4): identical token streams, sampled ones included; the
+   first decode step's logits agree with the gather path; one serving line
+   each (tokens/s, TTFT and ITL p50/p99, the host's blocked time per fetch,
+   decode replays, the kernel's launches through the replays, peak
+   memory). Then a torch.profiler window over the decode steps of an engine
+   at each of the three: host and device ms per step and per decode
+   iteration, the device's idle share, and the kernels that take the device
+   time;
 6. flash kernels: the forward, dQ and dK/dV kernels
    (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
    card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
@@ -107,12 +116,14 @@ Phases run in order; any failure exits non-zero:
    times, its bound, the share of the bound it reaches and the dense bf16
    cuBLAS product as a yardstick of another function;
 16. fp32 quantized-serving parity: GPT-2 small at full width and depth,
-   seeded fp32 weights, TF32 off: the nf4 engine's greedy streams equal a
-   dense engine's over the dequantized copy of the same packed weights, with
-   4 x n_layer nf4 launches per forward (decode step or admission prefill);
-   an int8-KV engine's fused streams equal its gather streams;
-17. bf16 quantized serving, this slice's path: phase 5's 48 requests through
-   the nf4 engine over an int8 KV pool, then through the int8-weights engine;
+   seeded fp32 weights, TF32 off, engines at depth 2: the nf4 engine's
+   greedy streams equal a dense engine's over the dequantized copy of the
+   same packed weights, with 4 x n_layer nf4 launches per forward (decode
+   step, counted through the replays, or admission prefill) and as many nf4
+   kernels in a profiler window around one replay; an int8-KV engine's
+   fused streams equal its gather streams;
+17. bf16 quantized serving: phase 5's 48 requests through the nf4 engine
+   over an int8 KV pool, then through the int8-weights engine, at depth 2;
    one serving-metrics line each with `quant_stats()` and the memory held
    after load against the dense engine's; the plane-pack cache's bytes; a
    profiler window over 16 nf4 decode steps with the nf4 kernel's share;
@@ -565,16 +576,61 @@ def profile_record(phase: str, steps: int, wall_us: float, by_name: dict[str, fl
 def profile_decode(torch, engine, requests, steps: int = 16,
                    phase: str = "bf16_decode_profile") -> dict:
     """Admit ``requests`` (first step, unprofiled), then profile ``steps``
-    decode steps: host wall per step, device busy per step (the sum of kernel
-    times on the one stream), the six kernels with the most device time and
-    the share of device time in the nf4 kernels."""
+    `step` calls, each one decode dispatch of ``tokens_per_sync``
+    iterations: host wall per step and per decode iteration, device busy
+    per step and per iteration (the sum of kernel times on the one stream),
+    the six kernels with the most device time and the share of device time
+    in the nf4 kernels."""
     for r in requests:
         engine.submit(r)
     engine.step()
     wall_us, by_name = profile_steps(torch, engine.step, steps)
     nf4_us = sum(us for n, us in by_name.items() if "nf4_" in n)
-    return profile_record(phase, steps, wall_us, by_name, slots=engine.active_slots,
-                          nf4_share_of_device=nf4_us / max(sum(by_name.values()), 1e-9))
+    rec = profile_record(phase, steps, wall_us, by_name, slots=engine.active_slots,
+                         pipeline_depth=engine.pipeline_depth,
+                         tokens_per_sync=engine.tokens_per_sync,
+                         nf4_share_of_device=nf4_us / max(sum(by_name.values()), 1e-9))
+    rec["host_ms_per_iteration"] = rec["host_ms_per_step"] / engine.tokens_per_sync
+    rec["device_ms_per_iteration"] = rec["device_ms_per_step"] / engine.tokens_per_sync
+    return rec
+
+
+def replay_launches(engine, name: str, eager: int) -> int:
+    """Launches of the kernel behind wrapper ``name`` (``paged_decode_attention``,
+    ``nf4_matmul``) in a serving run: ``eager``, the wrapper's own count over
+    the run (the admission prefills it launched), plus what one decode
+    replay launches (counted by the wrapper while the engine captured its
+    graph) times the decode replays."""
+    return eager + engine.graph_launches.get(name, 0) * engine.metrics.decode_dispatches.value
+
+
+def graph_kernels(torch, engine, pattern: str) -> int:
+    """Device kernels whose name holds ``pattern`` in a profiler window
+    around one replay of ``engine``'s decode graph (every slot frozen, so
+    the replay changes nothing that is read)."""
+    if engine.active_slots:
+        raise AssertionError("graph_kernels replays a decode step: every slot must be free")
+    _, kernels = device_work(torch, engine._graph.replay)
+    return sum(pattern in k for k in kernels)
+
+
+def serving_line(engine, outs, wall_s: float, launches: int, peak_mem_bytes: int, card: str,
+                 phase: str = "bf16_serving", **extra) -> dict:
+    """One serving run's line: the engine's depth and iterations per
+    dispatch, tokens/s over the run's host wall, TTFT and ITL p50/p99, the
+    host's blocked time per fetch p50, decode replays and the forwards they
+    ran, the paged kernel's launches counted through the replays, and the
+    peak memory."""
+    m = engine.metrics
+    return {"phase": phase, "pipeline_depth": engine.pipeline_depth,
+            "tokens_per_sync": engine.tokens_per_sync, "requests": len(outs),
+            "generated_tokens": m.tokens_generated.value, "wall_s": wall_s,
+            "tokens_per_s": m.tokens_generated.value / wall_s,
+            "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
+            "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
+            "host_blocked_p50_s": m.host_blocked_s.quantile(0.5),
+            "decode_replays": m.decode_dispatches.value, "decode_steps": m.decode_steps.value,
+            "kernel_launches": launches, "peak_mem_bytes": peak_mem_bytes, **extra, "card": card}
 
 
 def flash_counts(fa) -> dict[str, int]:
@@ -1311,14 +1367,18 @@ def nf4_case(torch, name, *, M, K, N, dtype, seed, flush, lead=()) -> dict:
     return rec
 
 
-def count_admissions(engine) -> list[int]:
+def count_admissions(engine) -> list:
     """Wrap ``engine``'s admission so each group that is seated (one prefill
-    forward) adds one to the returned counter."""
-    counter = [0]
+    forward) adds one to the returned counter's first entry, and the host
+    wall of every admission call (the eager prefill's launches, and at depth
+    1 its fetch) to its second."""
+    counter = [0, 0.0]
     admit = engine._admit_group
 
     def counted(group, finished):
+        t0 = time.perf_counter()
         seated = admit(group, finished)
+        counter[1] += time.perf_counter() - t0
         counter[0] += int(seated)
         return seated
 
@@ -1330,9 +1390,10 @@ def quant_parity(torch, seed: int, prompts: list[list[int]]) -> dict:
     """fp32 GPT-2 small, TF32 off. (a) The nf4 engine against a dense engine
     over the dequantized copy of the same packed weights: equal greedy
     streams, and 4 x n_layer nf4 launches per forward (decode step or
-    admission prefill), none in the dense run. (b) An int8-KV model: the fused
-    engine against the gather engine, equal streams, the paged kernel n_layer
-    times per decode step."""
+    admission prefill; a decode step's counted through the replays, and
+    seen in a profiler window around one replay), none in the dense run. (b)
+    An int8-KV model: the fused engine against the gather engine, equal
+    streams, the paged kernel n_layer times per decode step."""
     from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
     from accelerate_tpu_torch.ops import nf4_matmul as nm
     from accelerate_tpu_torch.ops.flash_attention import paged_decode_attention
@@ -1353,25 +1414,33 @@ def quant_parity(torch, seed: int, prompts: list[list[int]]) -> dict:
     del model
     nm.nf4_matmul.launches = 0
     nf4_out, steps, admissions = run(nf4)
-    launches = nm.nf4_matmul.launches
-    dense_out, _, _ = run(ServingEngine(dequantize_module(nf4.model), **kw))
-    dense_launches = nm.nf4_matmul.launches - launches
-    del nf4
+    launches = replay_launches(nf4, "nf4_matmul", nm.nf4_matmul.launches)
+    nf4_in_replay = graph_kernels(torch, nf4, "nf4_matmul_kernel")
+    dense = ServingEngine(dequantize_module(nf4.model), **kw)
+    nm.nf4_matmul.launches = 0
+    dense_out, _, _ = run(dense)
+    dense_launches = replay_launches(dense, "nf4_matmul", nm.nf4_matmul.launches)
+    del nf4, dense
     model8 = GPT2LMHead(GPT2Config.small(dtype=torch.float32, kv_cache_dtype=torch.int8),
                         device="cuda", seed=seed)
     gather_out, _, _ = run(ServingEngine(model8, paged_attention="gather", **kw))
+    fused = ServingEngine(model8, paged_attention="fused", **kw)
     paged_decode_attention.launches = 0
-    fused_out, fused_steps, _ = run(ServingEngine(model8, paged_attention="fused", **kw))
-    paged = paged_decode_attention.launches
-    rec = {"phase": "fp32_quant_parity", "requests": len(prompts),
+    fused_out, fused_steps, _ = run(fused)
+    paged = replay_launches(fused, "paged_decode_attention", paged_decode_attention.launches)
+    del fused
+    rec = {"phase": "fp32_quant_parity", "requests": len(prompts), "pipeline_depth": 2,
            "nf4_tokens_equal_dense_dequantized": nf4_out == dense_out,
            "nf4_decode_steps": steps, "nf4_admission_forwards": admissions,
            "nf4_launches": launches, "nf4_launches_expected": per_forward * (steps + admissions),
-           "nf4_launches_per_forward": per_forward, "dense_run_nf4_launches": dense_launches,
+           "nf4_launches_per_forward": per_forward, "nf4_kernels_in_one_replay": nf4_in_replay,
+           "dense_run_nf4_launches": dense_launches,
            "int8_kv_fused_tokens_equal_gather": fused_out == gather_out,
            "int8_kv_decode_steps": fused_steps, "int8_kv_paged_launches": paged,
            "int8_kv_paged_launches_expected": model8.config.n_layer * fused_steps}
     print(json.dumps(rec), flush=True)
+    if nf4_in_replay != per_forward:
+        raise AssertionError(f"one nf4 replay ran {nf4_in_replay} nf4 kernels, not {per_forward}")
     if nf4_out != dense_out or fused_out != gather_out:
         raise AssertionError("fp32 quantized streams differ: nf4 vs dense-dequantized, or int8-KV "
                              "fused vs gather")
@@ -1432,8 +1501,8 @@ def quant_serving(torch, seed: int, requests, long_requests, card: str) -> dict:
         outs = eng.run(requests())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = nm.nf4_matmul.launches
-        paged = fa.paged_decode_attention.launches
+        launches = replay_launches(eng, "nf4_matmul", nm.nf4_matmul.launches)
+        paged = replay_launches(eng, "paged_decode_attention", fa.paged_decode_attention.launches)
         m = eng.metrics
         steps = m.decode_steps.value
         bad = [o.request_id for o in outs
@@ -1444,6 +1513,7 @@ def quant_serving(torch, seed: int, requests, long_requests, card: str) -> dict:
                "tokens_per_s": m.tokens_generated.value / wall,
                "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
                "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
+               "pipeline_depth": eng.pipeline_depth, "decode_replays": m.decode_dispatches.value,
                "decode_steps": steps, "admission_forwards": admissions[0],
                "nf4_launches": launches, "nf4_launches_expected": expected,
                "paged_decode_launches": paged, "quant_stats": eng.quant_stats(),
@@ -1657,7 +1727,7 @@ def main() -> int:
     def prompts(n):
         return [rng.integers(0, 50257, int(k)).tolist() for k in rng.integers(16, 701, n)]
 
-    # 4. fp32 slice: fused == gather, token for token
+    # 4. fp32 slice: the graph engines == gather == generate, token for token
     model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=args.seed)
     n_layer = model.config.n_layer
     fp32_prompts = prompts(8)
@@ -1668,24 +1738,40 @@ def main() -> int:
     gather = ServingEngine(model, paged_attention="gather", max_concurrency=8,
                            prompt_buckets=BUCKETS)
     gather_out = [o.tokens for o in gather.run(fp32_requests())]
-    paged_decode_attention.launches = 0
-    fused = ServingEngine(model, paged_attention="fused", max_concurrency=8,
-                          prompt_buckets=BUCKETS)
-    fused_out = [o.tokens for o in fused.run(fp32_requests())]
-    launches = paged_decode_attention.launches
-    steps = fused.metrics.decode_steps.value
-    solo = generate(model, torch.tensor([fp32_prompts[0]]), 32)[0].tolist()
-    print(json.dumps({"phase": "fp32_slice", "requests": len(fused_out),
-                      "tokens_equal": fused_out == gather_out, "solo_equal": solo == fused_out[0],
-                      "decode_steps": steps, "launches": launches,
-                      "launches_expected": n_layer * steps}), flush=True)
-    if fused_out != gather_out or solo != fused_out[0]:
-        raise AssertionError("fp32 token streams differ between fused, gather and solo generate")
-    if any(len(t) != 32 for t in fused_out):
+    del gather
+    solos = [generate(model, torch.tensor([p]), 32)[0].tolist() for p in fp32_prompts]
+    fp32 = {"phase": "fp32_slice", "requests": len(fp32_prompts), "pipeline_depth": 2,
+            "gather_equal_generate": gather_out == solos}
+    for sync in (1, 4):
+        fused = ServingEngine(model, paged_attention="fused", max_concurrency=8,
+                              prompt_buckets=BUCKETS, pipeline_depth=2, tokens_per_sync=sync)
+        paged_decode_attention.launches = 0
+        fused_out = [o.tokens for o in fused.run(fp32_requests())]
+        steps = fused.metrics.decode_steps.value
+        launches = replay_launches(fused, "paged_decode_attention", paged_decode_attention.launches)
+        in_replay = graph_kernels(torch, fused, "paged_decode_kernel")
+        fp32[f"k{sync}"] = {"tokens_equal_generate": fused_out == solos, "decode_steps": steps,
+                            "decode_replays": fused.metrics.decode_dispatches.value,
+                            "launches": launches, "launches_expected": n_layer * steps,
+                            "paged_kernels_in_one_replay": in_replay,
+                            "expected_in_one_replay": n_layer * sync}
+        if fused_out != solos:
+            raise AssertionError(f"fp32 graph engine (tokens_per_sync {sync}) streams differ "
+                                 "from generate's")
+        if launches != n_layer * steps or steps == 0:
+            raise AssertionError(f"kernel launches {launches} != n_layer x decode steps "
+                                 f"{n_layer * steps}")
+        if in_replay != n_layer * sync:
+            raise AssertionError(f"one replay ran {in_replay} paged-decode kernels, not "
+                                 f"n_layer x tokens_per_sync = {n_layer * sync}")
+        del fused
+    print(json.dumps(fp32), flush=True)
+    if gather_out != solos:
+        raise AssertionError("fp32 token streams differ between the gather engine and generate")
+    if any(len(t) != 32 for t in solos):
         raise AssertionError("an fp32 request did not emit its 32 tokens")
-    if launches != n_layer * steps or steps == 0:
-        raise AssertionError(f"kernel launches {launches} != n_layer x decode steps {n_layer * steps}")
-    del model, gather, fused
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 5. bf16 slice: serving through the fused engine
@@ -1706,43 +1792,54 @@ def main() -> int:
                     top_k=50 if i % 2 else None, seed=i))
                 for i, p in enumerate(serve_prompts)]
 
-    def engine():
+    def engine(depth=2, sync=1):
         return ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
-                             paged_attention="fused", max_concurrency=16, prompt_buckets=BUCKETS)
+                             paged_attention="fused", max_concurrency=16, prompt_buckets=BUCKETS,
+                             pipeline_depth=depth, tokens_per_sync=sync)
 
     engine().run(bf16_requests()[:4])  # warm-up: cuBLAS handles, allocator pools
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eng = engine()
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    outs = eng.run(bf16_requests())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = paged_decode_attention.launches
-    serving_flash = flash_counts(fa)
-    m = eng.metrics
-    steps = m.decode_steps.value
-    bad = [o.request_id for o in outs if o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64]
-    serving = {
-        "phase": "bf16_serving", "requests": len(outs), "max_new_tokens": 64,
-        "generated_tokens": m.tokens_generated.value, "wall_s": wall,
-        "tokens_per_s": m.tokens_generated.value / wall,
-        "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
-        "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
-        "decode_steps": steps, "kernel_launches": launches, "flash_launches": serving_flash,
-        "first_step_logit_max_abs_diff": logit_err, "logit_atol": BF16_LOGIT_ATOL,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card,
-    }
-    print(json.dumps(serving), flush=True)
-    if bad:
-        raise AssertionError(f"requests {bad} did not finish with 64 tokens")
-    if launches != n_layer * steps or steps == 0:
-        raise AssertionError(f"kernel launches {launches} != n_layer x decode steps {n_layer * steps}")
+    streams, lines = {}, {}
+    for depth, sync in ((1, 1), (2, 1), (2, 4)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()  # the engine's pool, buffers and graph count
+        eng = engine(depth, sync)
+        admissions = count_admissions(eng)
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        outs = eng.run(bf16_requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = replay_launches(eng, "paged_decode_attention", paged_decode_attention.launches)
+        steps = eng.metrics.decode_steps.value
+        line = serving_line(eng, outs, wall, launches, torch.cuda.max_memory_allocated(), card,
+                            max_new_tokens=64, admission_forwards=admissions[0],
+                            admission_host_s=admissions[1],
+                            admission_share_of_wall=admissions[1] / wall,
+                            flash_launches=flash_counts(fa),
+                            first_step_logit_max_abs_diff=logit_err, logit_atol=BF16_LOGIT_ATOL)
+        print(json.dumps(line), flush=True)
+        bad = [o.request_id for o in outs
+               if o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64]
+        if bad:
+            raise AssertionError(f"requests {bad} did not finish with 64 tokens")
+        if launches != n_layer * steps or steps == 0:
+            raise AssertionError(f"kernel launches {launches} != n_layer x decode steps "
+                                 f"{n_layer * steps}")
+        streams[(depth, sync)], lines[(depth, sync)] = [o.tokens for o in outs], line
+        del eng
+    if not streams[(1, 1)] == streams[(2, 1)] == streams[(2, 4)]:
+        raise AssertionError("bf16 streams differ across (depth, tokens_per_sync) (1, 1), (2, 1), "
+                             "(2, 4)")
+    serving = lines[(2, 1)]
     long_requests = [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
                      for p in serve_prompts[:16]]
-    print(json.dumps(profile_decode(torch, engine(), long_requests)), flush=True)
-    del model, eng
+    for depth, sync, steps in ((1, 1, 16), (2, 1, 16), (2, 4, 8)):
+        print(json.dumps(profile_decode(torch, engine(depth, sync), long_requests, steps=steps)),
+              flush=True)
+    del model
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 6. flash kernels against their plain versions
@@ -1857,7 +1954,7 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
-        "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "launches": serving["kernel_launches"], "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],

@@ -21,6 +21,14 @@ compare a change with its parent, unpack the parent into a directory
     for t in .archive/parent . . .archive/parent; do python3 flash_ab.py --tree $t; done
 
 ``--probe serving`` times the serving kernels alone (a quick A/B of them).
+``--probe engine`` serves ``chip_smoke.py`` phase 5's traffic (bf16 GPT-2
+small, 48 requests of 16..700 prompt tokens and 64 new ones, every second
+sampled, 16 slots) through the tree's fused engine after a 4-request
+warm-up: one line per engine setting the tree takes (``pipeline_depth`` and
+``tokens_per_sync`` (1, 1), (2, 1) and (2, 4) where it has them, else the
+engine at depth 1) with tokens/s, the host wall per decode forward, TTFT
+and ITL p50/p99, peak memory, and a hash of every token stream, which must
+agree across trees and settings.
 ``--probe fwd`` times the fused-CE forward alone at ``chip_smoke.py``'s
 bf16 cases: GPT-2 small's head (N 8192, V 50257, e 768), a ragged N 1000,
 e 1024, and Mistral-7B's untied head (N 8192, V 32000, e 4096); where the
@@ -56,9 +64,11 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--probe", choices=("serving", "fwd", "widths", "precision"), default=None,
-                        help="the serving kernels alone, the fused-CE forward alone, or the "
-                             "fused-CE dH and dW alone (default: the A/B timing of every kernel)")
+    parser.add_argument("--probe", choices=("serving", "engine", "fwd", "widths", "precision"),
+                        default=None,
+                        help="the serving kernels alone, the serving engine, the fused-CE "
+                             "forward alone, or the fused-CE dH and dW alone (default: the A/B "
+                             "timing of every kernel)")
     args = parser.parse_args()
     import torch
 
@@ -104,6 +114,9 @@ def main() -> int:
     if args.probe == "serving":
         serving(res, g, ms)
         print(json.dumps(res), flush=True)
+    elif args.probe == "engine":
+        for rec in probe_engine(torch):
+            print(json.dumps({**res, **rec}), flush=True)
     elif args.probe == "fwd":
         print(json.dumps({**res, **probe_fwd(torch, ms)}), flush=True)
     elif args.probe == "widths":
@@ -215,6 +228,66 @@ def serving(res: dict, g, ms) -> None:
         res[name] = ms(lambda: nf4_matmul(x, qt))
         if name == "nf4_llama_4096_m1":
             res[name + "_warm"] = ms(lambda: nf4_matmul(x, qt), cold=False)
+
+
+def probe_engine(torch) -> list[dict]:
+    """`ServingEngine` end to end at ``chip_smoke.py`` phase 5's traffic, one
+    record per engine setting the tree takes."""
+    import gc
+    import hashlib
+    import inspect
+    import time
+
+    import numpy as np
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import PagedKVConfig, Request, SamplingParams, ServingEngine
+
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                       device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 50257, int(k)).tolist() for k in rng.integers(16, 701, 48)]
+
+    def requests():
+        return [Request(prompt=p, params=SamplingParams(
+                    max_new_tokens=64, temperature=0.8 if i % 2 else 0.0,
+                    top_k=50 if i % 2 else None, seed=i))
+                for i, p in enumerate(prompts)]
+
+    overlapped = "tokens_per_sync" in inspect.signature(ServingEngine.__init__).parameters
+    settings = ((1, 1), (2, 1), (2, 4)) if overlapped else ((1, 1),)
+
+    def engine(depth, sync):
+        kw = dict(tokens_per_sync=sync) if overlapped else {}
+        return ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
+                             paged_attention="fused", max_concurrency=16,
+                             prompt_buckets=(64, 128, 256, 512, 768), pipeline_depth=depth, **kw)
+
+    engine(*settings[0]).run(requests()[:4])  # warm-up: cuBLAS handles, allocator pools
+    records = []
+    for depth, sync in settings:
+        gc.collect()  # an engine sits in a reference cycle: free the last one's pool and graph
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine(depth, sync)
+        t0 = time.perf_counter()
+        outs = eng.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        m = eng.metrics
+        streams = json.dumps([o.tokens for o in outs]).encode()
+        records.append({
+            "probe": "engine", "pipeline_depth": depth, "tokens_per_sync": sync,
+            "tokens_per_s": m.tokens_generated.value / wall, "wall_s": wall,
+            "decode_steps": m.decode_steps.value,
+            "wall_ms_per_decode_step": wall * 1e3 / m.decode_steps.value,
+            "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
+            "itl_p50_s": m.inter_token_s.quantile(0.5), "itl_p99_s": m.inter_token_s.quantile(0.99),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "streams_sha1": hashlib.sha1(streams).hexdigest()})
+        del eng
+    return records
 
 
 FWD_SHAPES = {"gpt2_small": (8192, 50257, 768), "ragged_n1000": (1000, 50257, 768),

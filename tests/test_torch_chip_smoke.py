@@ -1,11 +1,16 @@
 """`chip_smoke.py`'s reading of a ptxas log: the flash forward kernels' and
 the bf16 dQ, dK/dV and fused-CE forward, dH and dW kernels' registers,
 spills and static shared memory, which its build phase prints and holds to
-zero spills; and its split of profiled kernel names into the fused-CE
-forward, dH and dW. Runs on the CPU against a log in ptxas's format."""
+zero spills; its split of profiled kernel names into the fused-CE forward,
+dH and dW; and its serving bookkeeping: kernel launches counted through
+decode graph replays, and the fields of a serving line. Runs on the CPU
+against a log in ptxas's format and a CPU engine."""
 
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
+
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -187,3 +192,41 @@ def test_serving_kernel_resources_name_each_instance():
          "spill_load_bytes": 0, "static_smem_bytes": 64},
     ]
     assert cs.paged_decode_resources(LOG) == [] and cs.nf4_resources(LOG) == []
+
+
+def test_replay_launches_adds_each_replays_captured_launches():
+    from accelerate_tpu_torch.serving import ServingMetrics
+
+    engine = SimpleNamespace(graph_launches={"paged_decode_attention": 48, "nf4_matmul": 192},
+                             metrics=ServingMetrics())
+    engine.metrics.decode_dispatches.inc(5)
+    replay_launches = _chip_smoke().replay_launches
+    assert replay_launches(engine, "paged_decode_attention", 0) == 5 * 48
+    assert replay_launches(engine, "nf4_matmul", 96) == 96 + 5 * 192  # prefills launch eagerly
+    assert replay_launches(engine, "flash_attention_fwd", 7) == 7  # never in the graph
+    engine.graph_launches = {}  # an engine on the CPU: no graph
+    assert replay_launches(engine, "paged_decode_attention", 3) == 3
+
+
+def test_serving_line_reads_the_engine_run():
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import Request, SamplingParams, ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu")
+    engine = ServingEngine(model, device="cpu", max_concurrency=2, prompt_buckets=(16,),
+                           pipeline_depth=2, tokens_per_sync=4)
+    outs = engine.run([Request(prompt=[3, 4, 5], params=SamplingParams(max_new_tokens=9))
+                       for _ in range(3)])
+    line = _chip_smoke().serving_line(engine, outs, 2.0, 123, 4567, "H100, 700 W", extra=1)
+    m = engine.metrics
+    assert line["phase"] == "bf16_serving" and line["card"] == "H100, 700 W"
+    assert (line["pipeline_depth"], line["tokens_per_sync"], line["requests"]) == (2, 4, 3)
+    assert line["generated_tokens"] == 27 and line["tokens_per_s"] == 13.5
+    assert line["decode_replays"] == m.decode_dispatches.value > 0
+    assert line["decode_steps"] == 4 * line["decode_replays"]
+    assert (line["kernel_launches"], line["peak_mem_bytes"], line["extra"]) == (123, 4567, 1)
+    assert line["host_blocked_p50_s"] == m.host_blocked_s.quantile(0.5) >= 0
+    for key in ("ttft_p50_s", "ttft_p99_s", "itl_p50_s", "itl_p99_s"):
+        assert line[key] >= 0
+    assert line["itl_p50_s"] <= line["itl_p99_s"]
+    assert list(line)[-1] == "card"

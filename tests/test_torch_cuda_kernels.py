@@ -708,13 +708,147 @@ def test_int8_kv_engine_step_launches_the_paged_kernel_with_scale_pools(hopper):
     for attention in ("gather", "fused"):
         engine = ServingEngine(model, max_concurrency=2, prompt_buckets=(64,),
                                paged_attention=attention, weight_quant="nf4")
+        paged = cfg.n_layer if attention == "fused" else 0
+        assert engine.graph_launches == {"paged_decode_attention": paged,
+                                         "nf4_matmul": 4 * cfg.n_layer}
         paged_decode_attention.launches = nm.nf4_matmul.launches = 0
         engine.submit(Request(prompt=list(range(3, 40)), params=SamplingParams(max_new_tokens=4)))
-        engine.step()  # admission and the first decode step
-        launches = (paged_decode_attention.launches, nm.nf4_matmul.launches)
-        assert launches == ((cfg.n_layer if attention == "fused" else 0), 2 * 4 * cfg.n_layer)
+        engine.step()  # admission (eager) and the first decode step (one graph replay)
+        assert engine.metrics.decode_dispatches.value == 1
+        # the replay's launches were counted by the wrappers during the capture
+        launches = tuple(fn.launches + engine.graph_launches[fn.__name__]
+                         for fn in (paged_decode_attention, nm.nf4_matmul))
+        assert launches == (paged, 2 * 4 * cfg.n_layer)
         while engine.has_work:
             for out in engine.step():
                 streams[attention] = out.tokens
         assert engine.quant_stats()["kv_bits"] == 8
     assert streams["fused"] == streams["gather"]
+
+
+def _graph_engine_requests(sampled: bool):
+    from accelerate_tpu_torch.serving import Request, SamplingParams
+
+    g = torch.Generator().manual_seed(5)
+    lens = torch.randint(3, 60, (6,), generator=g).tolist()
+    prompts = [torch.randint(0, 256, (n,), generator=g).tolist() for n in lens]
+    return [Request(prompt=p, params=SamplingParams(
+                max_new_tokens=20, temperature=0.8 if sampled and i % 2 else 0.0,
+                top_k=7 if sampled and i % 2 else None, seed=i))
+            for i, p in enumerate(prompts)]
+
+
+def test_graph_engine_streams_equal_generate(hopper):
+    """The decode step as one CUDA graph replay, depth 2, four iterations a
+    replay, six requests over four slots (backfill): fp32 greedy streams
+    equal the eager, gather-path `generate` of each request alone, and so do
+    the sampled ones, with the noise drawn from a generator seeded alike."""
+    from accelerate_tpu_torch.models.generation import generate
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2,
+                           tokens_per_sync=4)
+    assert engine.graph_launches["paged_decode_attention"] == 4 * model.config.n_layer
+    requests = _graph_engine_requests(sampled=True)
+    outs = engine.run(requests)
+    for r, o in zip(requests, outs):
+        sp = r.params
+        gen = torch.Generator(device=hopper).manual_seed(sp.seed)
+        assert o.tokens == generate(model, torch.tensor([r.prompt]), 20, temperature=sp.temperature,
+                                    top_k=sp.top_k, generator=gen)[0].tolist()
+    assert engine.metrics.decode_dispatches.value * 4 == engine.metrics.decode_steps.value
+
+
+def test_graph_engine_runs_give_equal_bits(hopper):
+    """Two bf16 engines serve the same greedy and sampled requests: equal
+    token streams and equal KV pool bytes."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = GPT2Config.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16, n_embd=128, n_head=2)
+    model = GPT2LMHead(cfg, device=hopper)
+    runs = []
+    for _ in range(2):
+        engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64),
+                               tokens_per_sync=2)
+        outs = [o.tokens for o in engine.run(_graph_engine_requests(sampled=True))]
+        torch.cuda.synchronize()
+        # the storages without the sink block, which takes dropped writes
+        runs.append((outs, [t[:-1].clone() for layer in range(cfg.n_layer)
+                            for t in engine._cache.storages(layer)]))
+    (outs, pools), (outs2, pools2) = runs
+    assert outs == outs2
+    assert all(torch.equal(a, b) for a, b in zip(pools, pools2))
+
+
+def test_graph_engine_capture_survives_another_threads_cuda_calls(hopper):
+    """The decode step is captured while another thread of the process
+    keeps querying an event and the free memory (as the profiler's CUPTI
+    threads call into CUDA after a profiled window): every capture holds,
+    and the engines serve equal streams."""
+    import threading
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    stop, calls = threading.Event(), [0]
+
+    def query():
+        stream = torch.cuda.Stream(hopper)
+        with torch.cuda.stream(stream):
+            event = torch.cuda.Event()
+            event.record()
+            while not stop.is_set():
+                event.query()
+                torch.cuda.mem_get_info(hopper)
+                calls[0] += 1
+
+    thread = threading.Thread(target=query)
+    thread.start()
+    try:
+        engines = [ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+                   for _ in range(4)]
+    finally:
+        stop.set()
+        thread.join()
+    assert calls[0] > 0
+    streams = [[o.tokens for o in e.run(_graph_engine_requests(sampled=False))] for e in engines]
+    assert all(s == streams[0] for s in streams)
+
+
+def test_graph_engine_capture_runs_no_garbage_collection(hopper):
+    """A collection inside the decode step's capture could destroy the graph
+    of an engine dropped in a reference cycle, an unsafe call that
+    invalidates the capture. With the collector set to run at almost every
+    allocation, none runs while a graph is recorded, and engines dropped in
+    a cycle do not break the next capture."""
+    import gc
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    during = []
+
+    def watch(phase, info):
+        if phase == "start":
+            during.append(torch.cuda.is_current_stream_capturing())
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1)
+    try:
+        for _ in range(3):
+            old = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+            old.cycle = old
+            del old
+            engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+    finally:
+        gc.callbacks.remove(watch)
+        gc.set_threshold(*threshold)
+    assert during and not any(during)
+    outs = engine.run(_graph_engine_requests(sampled=False))
+    assert all(len(o.tokens) == 20 for o in outs)

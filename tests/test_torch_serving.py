@@ -157,7 +157,7 @@ def test_block_exhaustion_delays_admission(models, reference):
 
 def test_retired_slot_table_row_parks_at_sentinel(models):
     _, _, model = models
-    engine = _port_engine(model)
+    engine = _port_engine(model, pipeline_depth=1)  # synchronous: a finish shows in its step
     sentinel = engine._allocator.num_blocks
     engine.submit(Request(prompt=[1, 2, 3], params=SamplingParams(max_new_tokens=2)))
     engine.submit(Request(prompt=list(range(30)), params=SamplingParams(max_new_tokens=8)))
@@ -178,8 +178,8 @@ def test_retired_slot_table_row_parks_at_sentinel(models):
     (dict(paged_kv=PagedKVConfig(num_blocks=4)), ValueError, "num_blocks"),
     (dict(paged_attention="pallas"), ValueError, "gather.*fused"),
     (dict(paged_kv=False), NotImplementedError, "ROADMAP"),
-    (dict(pipeline_depth=2), NotImplementedError, "ROADMAP"),
     (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
+    (dict(tokens_per_sync=0), ValueError, "tokens_per_sync"),
     (dict(max_concurrency=0), ValueError, "max_concurrency"),
     (dict(admit_batch=0), ValueError, "admit_batch"),
     (dict(prompt_buckets=(512,)), ValueError, "no prompt bucket"),
@@ -192,15 +192,15 @@ def test_engine_validation(models, kw, exc, match):
 
 def test_engine_defaults_pinned_beside_the_reference():
     """The port's defaults differ from the reference's until the slot pool
-    and overlapped dispatch are ported (the engine's docstring says why):
-    pinned on both sides, so a change to either shows here."""
+    is ported (the engine's docstring says why); its pipeline depth is the
+    reference's: pinned on both sides, so a change to either shows here."""
     import inspect
 
     def defaults(cls):
         sig = inspect.signature(cls.__init__).parameters
         return {k: sig[k].default for k in ("pipeline_depth", "paged_kv", "paged_attention")}
 
-    assert defaults(ServingEngine) == dict(pipeline_depth=1, paged_kv=True, paged_attention="fused")
+    assert defaults(ServingEngine) == dict(pipeline_depth=2, paged_kv=True, paged_attention="fused")
     assert defaults(JaxServingEngine) == dict(pipeline_depth=2, paged_kv=False,
                                               paged_attention="gather")
     assert "Defaults that differ from the reference engine's" in ServingEngine.__doc__
@@ -235,7 +235,8 @@ def test_sampled_requests_are_deterministic_alone_or_batched(models):
 
 def test_run_max_steps_aborts_the_rest(models):
     _, _, model = models
-    outs = _port_engine(model).run(
+    # synchronous, so every dispatched token is fetched before the abort
+    outs = _port_engine(model, pipeline_depth=1).run(
         [Request(prompt=[1, 2, 3], params=SamplingParams(max_new_tokens=50)) for _ in range(6)],
         max_steps=3)
     assert len(outs) == 6 and all(o.finish_reason == "aborted" for o in outs)
