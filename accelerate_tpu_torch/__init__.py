@@ -21,6 +21,11 @@ grouped-query K/V unrepeated (`flash_attention(..., window=)`).
 And quantized GPT-2 serving (`serving.engine.WeightQuantConfig`,
 `utils.quantization`): int8 and nf4 weights, the nf4 projections on a CUDA
 dequant-matmul kernel (`ops.nf4_matmul.nf4_matmul`), and int8 paged KV.
+And decode over the slot KV cache (`models.kv_cache.SlotKVCache`) for GPT-2
+and Llama: `models.generation.generate` for either, the serving engine's
+slot-pool mode (its default, as the reference's), and big-model inference:
+safetensors checkpoints (`utils.safetensors_io`, `checkpointing`) loaded and
+quantized on the card (`utils.quantization.load_and_quantize_model`).
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first
@@ -39,6 +44,8 @@ _LAZY = {
     "quantize_module": "utils.quantization",
     "dequantize_module": "utils.quantization",
     "quantized_nbytes": "utils.quantization",
+    "quantize_model": "utils.quantization",
+    "load_and_quantize_model": "utils.quantization",
     "WeightQuantConfig": "serving.engine",
 }
 __all__ = sorted(_LAZY)

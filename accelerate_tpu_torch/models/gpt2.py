@@ -1,11 +1,18 @@
 """GPT-2: the port of `accelerate_tpu.models.gpt2` for serving and training.
 
-Two forward modes:
+Three forward modes:
 
   - the full-sequence (non-decode) forward, causal attention over the input
     through ``attention(implementation=config.attention_impl)``: training
     runs it, and admission uses it to prefill prompts (``kv_out`` collects
-    each layer's K/V for `kv_cache.scatter_rows_to_blocks`);
+    each layer's K/V for `kv_cache.scatter_rows_to_blocks` or
+    `kv_cache.scatter_cache_slots`);
+  - decode over the slot cache (`kv_cache.SlotKVCache`, the reference's
+    ``decode=True`` branch): the step's ``s`` tokens are written at the
+    cache's index (scalar, or per slot with a write mask) and attend the
+    whole ``[b, n_positions, ...]`` buffer under a mask, ``[s, n_positions]``
+    for a scalar index and ``[b, 1, s, n_positions]`` per slot, through the
+    plain attention (the reference's ``implementation="xla"``: no kernel);
   - the paged decode step: one token per row, written at the row's frontier
     in the `kv_cache.PagedKVCache` pools, attention through the row's block
     table, either with the CUDA kernel in place (``cache.attention ==
@@ -35,9 +42,10 @@ bias added in ``dtype``; a `QuantizedEmbedding` lookup dequantizes only the
 rows it reads, and the tied head dequantizes ``wte``. The dequantized values
 are the reference's: fp32 (the param dtype) cast to ``dtype``, except that
 the nf4 kernel keeps them fp32 and casts its fp32 sums, as the reference's
-kernel does. ``config.kv_cache_dtype=torch.int8`` stores the paged KV pool
-as int8 with fp32 scale planes (`kv_cache`); a prefill that fills such a
-cache attends over the dequantized K/V it stores, as the reference's does.
+kernel does. ``config.kv_cache_dtype=torch.int8`` stores the KV cache (slot
+or paged) as int8 with fp32 scale planes (`kv_cache`); a prefill that fills
+such a cache attends over the dequantized K/V it stores, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -57,7 +65,18 @@ from ..ops.fused_ce import fused_cross_entropy
 from ..ops.nf4_matmul import nf4_matmul
 from ..utils.environment import resolve_device
 from ..utils.quantization import QuantizedEmbedding, QuantizedLinear, dequantize, dequantize_rows
-from .kv_cache import PagedKVCache, _dq, _q, paged_decode_update, paged_decode_write
+from ..utils.safetensors_io import unflatten_state_dict
+from .kv_cache import (
+    PagedKVCache,
+    SlotKVCache,
+    _dq,
+    _q,
+    advance_index,
+    decode_cache_update,
+    paged_decode_update,
+    paged_decode_write,
+    slot_attention_mask,
+)
 
 
 @dataclass(frozen=True)
@@ -109,12 +128,14 @@ def _dense(x: torch.Tensor, layer: nn.Linear | QuantizedLinear,
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
-def _embed(table: nn.Embedding | QuantizedEmbedding, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` of an embedding table, in its param dtype (a quantized
-    table dequantizes only those rows)."""
+def _embed(table: nn.Embedding | QuantizedEmbedding | torch.Tensor,
+           ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table (a module, or a bare ``[num, dim]``
+    tensor), in its param dtype (a quantized table dequantizes only those
+    rows)."""
     if isinstance(table, QuantizedEmbedding):
         return dequantize_rows(table.qweight, ids)
-    return F.embedding(ids, table.weight)
+    return F.embedding(ids, table if isinstance(table, torch.Tensor) else table.weight)
 
 
 def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
@@ -142,9 +163,11 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(e, 3 * e, device=device, dtype=config.param_dtype)
         self.proj = nn.Linear(e, e, device=device, dtype=config.param_dtype)
 
-    def forward(self, x: torch.Tensor, layer: int, cache: PagedKVCache | None = None,
+    def forward(self, x: torch.Tensor, layer: int,
+                cache: SlotKVCache | PagedKVCache | None = None,
                 block_tables: torch.Tensor | None = None,
                 write_mask: torch.Tensor | None = None,
+                write_len: torch.Tensor | None = None,
                 kv_out: list | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
@@ -153,7 +176,11 @@ class SelfAttention(nn.Module):
         q = q.reshape(b, s, cfg.n_head, cfg.head_dim)
         k = k.reshape(b, s, cfg.n_head, cfg.head_dim)
         v = v.reshape(b, s, cfg.n_head, cfg.head_dim)
-        if cache is not None:
+        if isinstance(cache, SlotKVCache):
+            k_all, v_all, idx = decode_cache_update(cache, layer, k, v, write_mask, write_len)
+            mask = slot_attention_mask(idx, s, cache.max_len)
+            out = attention(q, k_all, v_all, mask=mask, implementation="xla")
+        elif cache is not None:
             # paged decode: the query at cursor idx attends positions <= idx,
             # a valid span of idx + 1, in both attention paths
             if cache.attention == "fused":
@@ -258,26 +285,33 @@ class GPT2LMHead(nn.Module):
         input_ids: torch.Tensor,  # [b, s] token ids
         position_offset: int | torch.Tensor = 0,  # scalar, or [b] per-row offsets
         *,
-        cache: PagedKVCache | None = None,
+        cache: SlotKVCache | PagedKVCache | None = None,
         block_tables: torch.Tensor | None = None,  # [b, blocks_per_slot] (paged decode)
-        write_mask: torch.Tensor | None = None,  # [b] bool: False rows freeze (paged decode)
+        write_mask: torch.Tensor | None = None,  # [b] bool: False rows freeze (per slot, paged)
+        write_len: torch.Tensor | None = None,  # [b] int: per-row segment cap (slot, per slot)
         kv_out: list | None = None,  # full forward: collects each layer's (k, v)
         return_hidden: bool = False,
         deterministic: bool = True,  # False applies dropout (config.dropout > 0)
         generator: torch.Generator | None = None,  # dropout's random bits
     ) -> torch.Tensor:
-        """With ``cache`` this is one paged decode step (``s == 1``): each
-        row's token is written at ``cache.index`` through ``block_tables``
-        (rows where ``write_mask`` is False write nothing) and the cursor of
-        writing rows advances by one. Without it, the causal forward over
-        ``input_ids``. ``return_hidden`` returns the final LayerNorm output in
+        """With a `SlotKVCache` this is decode over the slot cache: the
+        ``s`` tokens of each row are written at ``cache.index`` (see
+        `kv_cache.decode_cache_update` for ``write_mask`` and ``write_len``,
+        per-slot caches only) and the index advances past them. With a
+        `PagedKVCache` it is one paged decode step (``s == 1``): each row's
+        token is written at ``cache.index`` through ``block_tables`` (rows
+        where ``write_mask`` is False write nothing) and the cursor of
+        writing rows advances by one. Without a cache, the causal forward
+        over ``input_ids``. ``return_hidden`` returns the final LayerNorm output in
         the compute dtype instead of logits (see `logits`). With
         ``deterministic=False`` and ``config.dropout > 0``, dropout draws from
         ``generator``."""
         cfg = self.config
         b, s = input_ids.shape
         decode: dict[str, Any] = {}
-        if cache is not None:
+        if isinstance(cache, SlotKVCache):
+            decode = dict(cache=cache, write_mask=write_mask, write_len=write_len)
+        elif cache is not None:
             if block_tables is None:
                 raise ValueError("paged decode needs block_tables ([b, blocks_per_slot])")
             if write_mask is None:
@@ -289,7 +323,9 @@ class GPT2LMHead(nn.Module):
         if isinstance(position_offset, torch.Tensor) and position_offset.ndim == 1:
             positions = position_offset.long()[:, None] + steps  # [b, s]: per-row positions
         else:
-            positions = (steps + int(position_offset))[None]  # [1, s]: shared by the batch
+            # [1, s], shared by the batch; a 0-d device tensor (a slot cache's
+            # index) is read on the device, so a CUDA graph can capture the step
+            positions = (steps + position_offset)[None]
         # out-of-range positions clamp, as the reference's gather does
         positions = positions.clamp(max=cfg.n_positions - 1)
         x = _embed(self.wte, input_ids).to(cfg.dtype) + _embed(self.wpe, positions).to(cfg.dtype)
@@ -299,7 +335,9 @@ class GPT2LMHead(nn.Module):
             raise ValueError("dropout with deterministic=False needs an explicit torch.Generator")
         for i, block in enumerate(self.blocks):
             x = block(x, i, generator, **decode)
-        if cache is not None:
+        if isinstance(cache, SlotKVCache):
+            advance_index(cache, s, write_mask, write_len)
+        elif cache is not None:
             cache.index += write_mask.to(cache.index.dtype)
         x = _layer_norm(x, self.ln_f).to(cfg.dtype)
         return x if return_hidden else self.logits(x)
@@ -363,10 +401,24 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """The reference `GPT2LMHead`'s param tree (nested dicts of numpy arrays,
     per-layer ``block_i`` layout) as this module's state dict. Flax ``Dense``
     kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out, in]``, so
-    kernels are transposed. Load with ``model.load_state_dict(...)``."""
+    kernels are transposed. Load with ``model.load_state_dict(...)``. The tree
+    may also be flat, dotted as a safetensors checkpoint of the reference
+    stores it (``block_0.attn.qkv.kernel``), with torch tensors for leaves,
+    which keep their dtype (pass this function as
+    `utils.safetensors_io.load_checkpoint_in_model`'s ``mapper``)."""
+    if any("." in key for key in tree):
+        tree = unflatten_state_dict(tree)
 
     def t(x):
+        if isinstance(x, torch.Tensor):
+            return x
         return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def _transposed(kernel):
+        # a torch leaf stays a transposed view (moved to a device as it
+        # lies, `safetensors_io.to_device`); a numpy one becomes contiguous
+        w = t(kernel).T
+        return w if isinstance(kernel, torch.Tensor) else w.contiguous()
 
     sd = {
         "wte.weight": t(tree["wte"]),
@@ -382,6 +434,6 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             sd[pre + f"{ln}.bias"] = t(blk[ln]["bias"])
         for group, names in (("attn", ("qkv", "proj")), ("mlp", ("up", "down"))):
             for name in names:
-                sd[pre + f"{group}.{name}.weight"] = t(blk[group][name]["kernel"]).T.contiguous()
+                sd[pre + f"{group}.{name}.weight"] = _transposed(blk[group][name]["kernel"])
                 sd[pre + f"{group}.{name}.bias"] = t(blk[group][name]["bias"])
     return sd

@@ -1,4 +1,5 @@
-"""Llama family: the port of `accelerate_tpu.models.llama` for training.
+"""Llama family: the port of `accelerate_tpu.models.llama`, for training and
+decode.
 
 A decoder stack of RMSNorm (fp32 statistics), rotary position embeddings,
 grouped-query attention, a SwiGLU MLP and no biases. With
@@ -13,10 +14,25 @@ fp32 and casts the result to its input's dtype; RoPE rotates split halves in
 fp32 and casts back; the untied head gives fp32 logits from compute-dtype
 operands.
 
-Ported: the full-sequence forward (training), `llama_loss_fn` and
-`params_from_jax`. Not yet: the decode branch with its slot KV cache and
-``attention_impl="ring"`` (both raise NotImplementedError naming their
-ROADMAP item), ``remat``, ``fp8_recipe`` and `llama_loss_fn_fused`.
+Decode runs over the slot KV cache (`kv_cache.SlotKVCache`, the reference's
+``decode=True`` branch): the step's tokens are rotated at ``position_offset``,
+written at the cache's index (int8 with fp32 scales under
+``LlamaConfig.kv_cache_dtype=torch.int8``), and attend the whole
+``[b, max_position_embeddings, ...]`` buffer under the mask ``k_idx <= q_pos``
+(and ``k_idx > q_pos - window`` with a sliding window) through the plain
+attention, which repeats GQA K/V heads as the reference's does.
+
+Quantized weights (`utils.quantization.quantize_module`, `quantize_model`,
+`load_and_quantize_model`) take GPT-2's route: a `QuantizedLinear`
+projection runs through `ops.nf4_matmul.nf4_matmul` (the CUDA kernel for the
+nf4 weights it routes there, ``x @ dequantize(W)`` for the rest), and the
+quantized ``embed_tokens`` and ``lm_head`` (`QuantizedEmbedding`)
+dequantize the rows they read and the whole head.
+
+Ported: the full-sequence forward (training), decode, `llama_loss_fn` and
+`params_from_jax`. Not yet: ``attention_impl="ring"`` (it raises
+NotImplementedError naming its ROADMAP item), ``remat``, ``fp8_recipe`` and
+`llama_loss_fn_fused`.
 """
 
 from __future__ import annotations
@@ -31,7 +47,15 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..utils.environment import resolve_device
-from .gpt2 import _dense, _next_token_labels, cross_entropy_loss
+from ..utils.quantization import QuantizedEmbedding, dequantize
+from ..utils.safetensors_io import unflatten_state_dict
+from .gpt2 import _dense, _embed, _next_token_labels, cross_entropy_loss
+from .kv_cache import (
+    SlotKVCache,
+    advance_index,
+    decode_cache_update,
+    slot_attention_mask,
+)
 
 
 @dataclass(frozen=True)
@@ -49,6 +73,7 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"  # 'xla' | 'flash' | 'auto' | 'ring' (not ported)
     sliding_window: int | None = None  # Mistral-class: query i sees keys in (i-W, i]
+    kv_cache_dtype: torch.dtype | None = None  # None (compute dtype) | torch.int8 (kv_cache.py)
 
     @property
     def head_dim(self) -> int:
@@ -110,7 +135,9 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(e, config.num_kv_heads * hd, bias=False, device=device, dtype=pd)
         self.o_proj = nn.Linear(config.num_heads * hd, e, bias=False, device=device, dtype=pd)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, layer: int = 0,
+                cache: SlotKVCache | None = None, write_mask: torch.Tensor | None = None,
+                write_len: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.config
         b, s, e = x.shape
         hd = cfg.head_dim
@@ -118,10 +145,16 @@ class LlamaAttention(nn.Module):
         k = _dense(x, self.k_proj, cfg.dtype).reshape(b, s, cfg.num_kv_heads, hd)
         v = _dense(x, self.v_proj, cfg.dtype).reshape(b, s, cfg.num_kv_heads, hd)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        # GQA K/V go through unrepeated: the band kernels read the grouped kv
-        # head directly, the other paths repeat inside attention()
-        out = attention(q, k, v, causal=True, window=cfg.sliding_window,
-                        implementation=cfg.attention_impl)
+        if cache is not None:
+            k_all, v_all, idx = decode_cache_update(cache, layer, k, v, write_mask, write_len)
+            mask = slot_attention_mask(idx, s, cache.max_len, cfg.sliding_window)
+            # GQA heads are repeated inside attention(), as in training
+            out = attention(q, k_all, v_all, mask=mask, implementation="xla")
+        else:
+            # GQA K/V go through unrepeated: the band kernels read the grouped
+            # kv head directly, the other paths repeat inside attention()
+            out = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                            implementation=cfg.attention_impl)
         return _dense(out.reshape(b, s, e), self.o_proj, cfg.dtype)
 
 
@@ -151,8 +184,9 @@ class LlamaBlock(nn.Module):
         self.post_attn_norm = RMSNorm(e, eps, device, pd)
         self.mlp = LlamaMLP(config, device)
 
-    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.input_norm(x), cos, sin)
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, layer: int = 0,
+                **decode) -> torch.Tensor:
+        x = x + self.attn(self.input_norm(x), cos, sin, layer, **decode)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -163,7 +197,13 @@ class LlamaForCausalLM(nn.Module):
     ``device="cpu"`` for the plain path). Weights are drawn from ``seed``:
     normal(0.02) for ``embed_tokens`` and ``lm_head`` (the reference's
     initializers), normal(1/sqrt(fan_in)) for projection weights, unit
-    RMSNorm scales."""
+    RMSNorm scales. On ``device="meta"`` nothing is drawn: the module only
+    has shapes, for `utils.quantization.load_and_quantize_model` to fill
+    from a checkpoint."""
+
+    # bare tables that `utils.quantization` may quantize, as the reference
+    # quantizes every large leaf; forward and `logits` read them quantized
+    quantizable_tables = ("embed_tokens", "lm_head")
 
     def __init__(self, config: LlamaConfig, device: str | torch.device | None = None,
                  seed: int = 0):
@@ -180,11 +220,12 @@ class LlamaForCausalLM(nn.Module):
         self.layers = nn.ModuleList(LlamaBlock(config, device) for _ in range(config.num_layers))
         self.final_norm = RMSNorm(e, config.rms_norm_eps, device, pd)
         self.lm_head = nn.Parameter(torch.empty(v, e, device=device, dtype=pd))
-        self.init_weights(seed)
+        if device.type != "meta":
+            self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:
-        return self.embed_tokens.device
+        return self.final_norm.scale.device
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
@@ -197,24 +238,35 @@ class LlamaForCausalLM(nn.Module):
                 mod.scale.fill_(1.0)
         self.lm_head.normal_(0.0, 0.02, generator=g)
 
-    def forward(self, input_ids: torch.Tensor, position_offset: int = 0, *,
-                decode: bool = False, return_hidden: bool = False) -> torch.Tensor:
-        """The causal forward over ``input_ids`` ``[b, s]`` at positions
-        ``position_offset + arange(s)``. ``return_hidden`` returns the final
+    def forward(self, input_ids: torch.Tensor, position_offset: int | torch.Tensor = 0, *,
+                decode: bool = False, cache: SlotKVCache | None = None,
+                write_mask: torch.Tensor | None = None,
+                write_len: torch.Tensor | None = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """The forward over ``input_ids`` ``[b, s]`` at positions
+        ``position_offset + arange(s)``: causal over the input, or, with
+        ``cache`` (``decode=True`` says the same and needs one), decode over
+        the slot cache: the tokens are written at ``cache.index`` (see
+        `kv_cache.decode_cache_update` for ``write_mask`` and ``write_len``)
+        and the index advances past them. ``return_hidden`` returns the final
         RMSNorm output in the compute dtype instead of logits (see
-        `logits`)."""
-        if decode:
-            raise NotImplementedError(
-                "LlamaForCausalLM decode (the slot KV cache) is not ported yet "
-                "(ROADMAP Queue 1, item 6)"
-            )
+        `logits`). ``position_offset`` may be a 0-d device tensor (a slot
+        cache's index), read without a host sync, so a CUDA graph can
+        capture a decode step."""
+        if decode and cache is None:
+            raise ValueError("decode=True needs the slot cache: pass "
+                             "cache=kv_cache.make_cache(model, batch)")
         cfg = self.config
         s = input_ids.shape[1]
-        positions = int(position_offset) + torch.arange(s, device=input_ids.device)
+        positions = torch.arange(s, device=input_ids.device) + position_offset
         cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
-        x = F.embedding(input_ids, self.embed_tokens).to(cfg.dtype)
-        for layer in self.layers:
-            x = layer(x, cos, sin)
+        x = _embed(self.embed_tokens, input_ids).to(cfg.dtype)
+        step = {} if cache is None else dict(cache=cache, write_mask=write_mask,
+                                             write_len=write_len)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, cos, sin, i, **step)
+        if cache is not None:
+            advance_index(cache, s, write_mask, write_len)
         x = self.final_norm(x)
         return x if return_hidden else self.logits(x)
 
@@ -224,6 +276,9 @@ class LlamaForCausalLM(nn.Module):
         bf16 weights the products are exact and the sums fp32: the
         reference's bf16 einsum with ``preferred_element_type=float32``."""
         dtype = self.config.dtype
+        if isinstance(self.lm_head, QuantizedEmbedding):
+            return F.linear(hidden.to(dtype).float(),
+                            dequantize(self.lm_head.qweight, dtype).float())
         return F.linear(hidden.to(dtype).float(), self.lm_head.to(dtype).float())
 
 
@@ -238,10 +293,24 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     arrays, per-layer ``layer_i`` layout) as this module's state dict. Flax
     ``Dense`` kernels are ``[in, out]``; ``nn.Linear`` weights are ``[out,
     in]``, so kernels are transposed. ``embed_tokens`` and ``lm_head`` stay
-    ``[vocab, hidden]``. Load with ``model.load_state_dict(...)``."""
+    ``[vocab, hidden]``. Load with ``model.load_state_dict(...)``. The tree
+    may also be flat, dotted as a safetensors checkpoint of the reference
+    stores it (``layer_0.attn.q_proj.kernel``), with torch tensors for
+    leaves, which keep their dtype (`utils.safetensors_io` reads such a
+    checkpoint; pass this function as its ``mapper``)."""
+    if any("." in key for key in tree):
+        tree = unflatten_state_dict(tree)
 
     def t(x):
+        if isinstance(x, torch.Tensor):
+            return x
         return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def _transposed(kernel):
+        # a torch leaf stays a transposed view (moved to a device as it
+        # lies, `safetensors_io.to_device`); a numpy one becomes contiguous
+        w = t(kernel).T
+        return w if isinstance(kernel, torch.Tensor) else w.contiguous()
 
     sd = {
         "embed_tokens": t(tree["embed_tokens"]),
@@ -256,5 +325,6 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         for group, names in (("attn", ("q_proj", "k_proj", "v_proj", "o_proj")),
                              ("mlp", ("gate_proj", "up_proj", "down_proj"))):
             for name in names:
-                sd[pre + f"{group}.{name}.weight"] = t(blk[group][name]["kernel"]).T.contiguous()
+                sd[pre + f"{group}.{name}.weight"] = _transposed(blk[group][name]["kernel"])
     return sd
+

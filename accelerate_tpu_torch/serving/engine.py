@@ -1,31 +1,41 @@
-"""Continuous-batching serving engine over a paged KV pool: the port of
-`accelerate_tpu.serving.engine` ``ServingEngine`` in its paged mode.
+"""Continuous-batching serving engine: the port of `accelerate_tpu.serving.engine`
+``ServingEngine``, in its slot-pool and paged modes.
 
 Independent requests share one decode step over a fixed set of
-``max_concurrency`` slots:
+``max_concurrency`` slots. Where their KV lives is the mode:
 
-  - KV lives only in a shared per-layer block pool
-    (`models.kv_cache.PagedKVCache`); each slot's block table says where its
-    tokens sit. Admission reserves every block a request can ever need
-    (prompt + budget, capped at the context) up front, all or nothing, so a
-    decode write never finds the pool empty; a group that does not fit goes
-    back to the queue front (backpressure, never a crash);
-  - admission prefills up to ``admit_batch`` queued requests of one prompt
-    bucket in one causal forward, samples their first tokens, and scatters
-    their K/V into the reserved blocks (`kv_cache.scatter_rows_to_blocks`);
-  - `step` dispatches one decode step for every slot: ``tokens_per_sync``
-    iterations of forward, sample, freeze finished rows and advance. With
-    ``paged_attention="fused"`` (the default) every layer's attention reads
-    the pool in place through the CUDA kernel
-    `ops.flash_attention.paged_decode_attention`; ``"gather"`` runs the
-    plain path over the gathered view, the parity oracle;
-  - per-slot decode state (last token, position, remaining budget, finished
-    mask, block tables, sampling settings) lives in fixed device buffers
-    that the step updates in place, as the reference keeps it on the device.
-    A finished slot is frozen inside the step (its KV write is dropped, its
-    token and position carried). Each step writes one ``[k, 2, b]`` plane:
-    the sampled tokens and the finished mask of each of its ``k``
-    iterations.
+  - slot pool (``paged_kv=False``, the default, as in the reference): one
+    contiguous ``[max_concurrency, n_positions, ...]`` row per slot and layer
+    (`models.kv_cache.SlotKVCache`, `make_cache`) with a per-slot write
+    index. Admission prefills up to ``admit_batch`` queued requests of one
+    prompt bucket in one causal forward, samples their first tokens, and
+    writes their K/V into their slots' rows (`kv_cache.scatter_cache_slots`,
+    which sets each row's index to its true prompt length); every decode
+    step writes at each live row's index (``write_mask``: a finished row's
+    buffers and index stay bit-identical) and attends the whole row under a
+    mask through the plain attention, as the reference's XLA step does: no
+    kernel runs there;
+  - paged (``paged_kv=True`` or a `PagedKVConfig`): KV lives only in a
+    shared per-layer block pool (`models.kv_cache.PagedKVCache`); each
+    slot's block table says where its tokens sit. Admission reserves every
+    block a request can ever need (prompt + budget, capped at the context)
+    up front, all or nothing, so a decode write never finds the pool empty;
+    a group that does not fit goes back to the queue front (backpressure,
+    never a crash), and the prefill's K/V is scattered into the reserved
+    blocks (`kv_cache.scatter_rows_to_blocks`). With
+    ``paged_attention="fused"`` every layer's decode attention reads the pool
+    in place through the CUDA kernel
+    `ops.flash_attention.paged_decode_attention`; ``"gather"`` (the default)
+    runs the plain path over the gathered view, the parity oracle;
+
+In both, `step` dispatches one decode step for every slot:
+``tokens_per_sync`` iterations of forward, sample, freeze finished rows and
+advance. Per-slot decode state (last token, position, remaining budget,
+finished mask, block tables, sampling settings) lives in fixed device
+buffers that the step updates in place, as the reference keeps it on the
+device. A finished slot is frozen inside the step (its KV write is dropped,
+its token and position carried). Each step writes one ``[k, 2, b]`` plane:
+the sampled tokens and the finished mask of each of its ``k`` iterations.
 
 Dispatch is overlapped, as the reference's: up to ``pipeline_depth`` steps
 and admissions are in flight at once. Each queues its output's copy into a
@@ -39,7 +49,7 @@ stream. A finish or first token surfaces when its fetch lands, up to
 per-slot generation counter discards the lagged results of a slot that was
 retired, cancelled or reseated meanwhile. Every piece of device work runs
 on one stream, so a lagged step that still writes through a released slot's
-blocks runs before any later admission's prefill scatter into them.
+row or blocks runs before any later admission's prefill scatter into them.
 ``pipeline_depth=1`` is the synchronous flow.
 
 On CUDA the whole decode step is ONE replay of a `torch.cuda.CUDAGraph`,
@@ -51,17 +61,19 @@ iteration from each sampled slot's own `torch.Generator`, the draws
 `models.generation.generate` makes. On the CPU the same step function runs
 eagerly.
 
-Retirement (EOS, token budget, context limit) frees the slot's blocks and
-parks its table row at the sentinel id ``num_blocks``, so any later write
-through it is dropped.
+Retirement (EOS, token budget, context limit) frees the slot: in paged mode
+its blocks return to the pool and its table row is parked at the sentinel id
+``num_blocks``, so any later write through it is dropped; in slot mode the
+row stays frozen (finished) until the next admission overwrites it.
 
 Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
 ``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
 copy of the model (`utils.quantization.quantize_module`; the caller's model
 is not changed) whose nf4 projections run through the CUDA kernel
-`ops.nf4_matmul.nf4_matmul`; the config's ``kv_cache_dtype=torch.int8``
-stores the paged pool as int8 with fp32 scale planes, which the fused path
-hands to the paged-decode kernel. `ServingEngine.quant_stats` reports both.
+`ops.nf4_matmul.nf4_matmul`, in either mode; the config's
+``kv_cache_dtype=torch.int8`` stores the slot rows or the paged pool as int8
+with fp32 scale planes, which the paged fused path hands to the
+paged-decode kernel. `ServingEngine.quant_stats` reports both.
 
 Typical loop::
 
@@ -77,7 +89,6 @@ or just ``outputs = engine.run(requests)``.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import time
 from collections import deque
 from typing import Any, Iterable
@@ -85,11 +96,14 @@ from typing import Any, Iterable
 import numpy as np
 import torch
 
-from ..models.generation import gumbel_noise, sample
+from ..models.generation import capture_graph, gumbel_noise, sample
 from ..models.kv_cache import (
     BlockAllocator,
+    SlotKVCache,
     kv_store_dtype,
     make_block_pool,
+    make_cache,
+    scatter_cache_slots,
     scatter_rows_to_blocks,
 )
 from ..ops.flash_attention import paged_decode_attention
@@ -192,13 +206,11 @@ class ServingEngine:
     ``admit_batch`` caps how many same-bucket queued requests one prefill
     admits (batch buckets are the powers of two up to it).
 
-    Defaults that differ from the reference engine's: ``paged_kv=True``
-    (False) and ``paged_attention="fused"`` (``"gather"``). The port has
-    no contiguous slot pool yet (``paged_kv=False`` raises), so its only
-    engine is the paged one, and its decode attention is the CUDA kernel by
-    default; ``"gather"`` is the plain path, kept as the parity oracle. So
-    ``ServingEngine(model)`` builds a different engine in each package
-    until ROADMAP Queue 1 item 6 lands."""
+    ``paged_kv`` picks the mode: False (the default) is the slot pool, True
+    or a `PagedKVConfig` the paged pool. ``paged_attention`` is the paged
+    decode attention: ``"gather"`` (the default, the plain path) or
+    ``"fused"`` (the CUDA kernel), which requires ``paged_kv``. The defaults
+    are the reference engine's."""
 
     def __init__(
         self,
@@ -210,8 +222,8 @@ class ServingEngine:
         eos_token_id: int | None = None,
         pipeline_depth: int = 2,
         admit_batch: int = 4,
-        paged_kv: PagedKVConfig | bool = True,
-        paged_attention: str = "fused",
+        paged_kv: PagedKVConfig | bool = False,
+        paged_attention: str = "gather",
         device: str | torch.device | None = None,
         weight_quant: WeightQuantConfig | str | None = None,
         tokens_per_sync: int = 1,
@@ -237,34 +249,37 @@ class ServingEngine:
         self.max_concurrency = int(max_concurrency)
         if self.max_concurrency < 1:
             raise ValueError(f"max_concurrency must be >= 1, got {max_concurrency}")
-        if not paged_kv:
-            raise NotImplementedError(
-                "paged_kv=False (the contiguous slot-pool cache) is not ported yet: "
-                "ROADMAP Queue 1, serving modules deferred by slice 1"
-            )
-        pk = paged_kv if isinstance(paged_kv, PagedKVConfig) else PagedKVConfig()
-        bt = int(pk.block_tokens)
+        self.paged = bool(paged_kv)
         self.max_len = int(cfg.n_positions)
-        if bt < 1 or (bt & (bt - 1)) or self.max_len % bt:
-            raise ValueError(
-                f"paged_kv block_tokens must be a power of two dividing "
-                f"n_positions={self.max_len}, got {bt}"
-            )
-        self._block_tokens = bt
-        self._blocks_per_slot = self.max_len // bt
-        n_blocks = (int(pk.num_blocks) if pk.num_blocks is not None
-                    else self.max_concurrency * self._blocks_per_slot)
-        if n_blocks < self._blocks_per_slot:
-            raise ValueError(
-                f"num_blocks={n_blocks} cannot seat even one full-context request "
-                f"({self._blocks_per_slot} blocks of {bt} tokens): admission would "
-                "backpressure forever"
-            )
-        self._allocator = BlockAllocator(n_blocks)
+        self._allocator: BlockAllocator | None = None
+        if self.paged:
+            pk = paged_kv if isinstance(paged_kv, PagedKVConfig) else PagedKVConfig()
+            bt = int(pk.block_tokens)
+            if bt < 1 or (bt & (bt - 1)) or self.max_len % bt:
+                raise ValueError(
+                    f"paged_kv block_tokens must be a power of two dividing "
+                    f"n_positions={self.max_len}, got {bt}"
+                )
+            self._block_tokens = bt
+            self._blocks_per_slot = self.max_len // bt
+            n_blocks = (int(pk.num_blocks) if pk.num_blocks is not None
+                        else self.max_concurrency * self._blocks_per_slot)
+            if n_blocks < self._blocks_per_slot:
+                raise ValueError(
+                    f"num_blocks={n_blocks} cannot seat even one full-context request "
+                    f"({self._blocks_per_slot} blocks of {bt} tokens): admission would "
+                    "backpressure forever"
+                )
+            self._allocator = BlockAllocator(n_blocks)
         self.paged_attention = str(paged_attention)
         if self.paged_attention not in ("gather", "fused"):
             raise ValueError(
                 f"paged_attention must be 'gather' or 'fused', got {paged_attention!r}"
+            )
+        if self.paged_attention == "fused" and not self.paged:
+            raise ValueError(
+                "paged_attention='fused' requires paged_kv: the fused kernel reads the "
+                "block pool through the block tables"
             )
         self.pipeline_depth = int(pipeline_depth)
         if self.pipeline_depth < 1:
@@ -284,13 +299,17 @@ class ServingEngine:
         # emit at least one token
         self.scheduler = FIFOScheduler(prompt_buckets=buckets, max_queue=max_queue,
                                        max_prompt_len=min(buckets[-1], self.max_len - 1))
-        self.scheduler.capacity_fn = self._paged_capacity
+        if self.paged:
+            self.scheduler.capacity_fn = self._paged_capacity
         self.eos_token_id = eos_token_id
         self.metrics = ServingMetrics()
 
         b, dev, k = self.max_concurrency, self.device, self.tokens_per_sync
-        self._cache = make_block_pool(cfg.n_layer, b, n_blocks, bt, cfg.n_head, cfg.head_dim,
-                                      kv_store_dtype(cfg), dev, attention=self.paged_attention)
+        if self.paged:
+            self._cache = make_block_pool(cfg.n_layer, b, n_blocks, bt, cfg.n_head, cfg.head_dim,
+                                          kv_store_dtype(cfg), dev, attention=self.paged_attention)
+        else:
+            self._cache = make_cache(model, b)
         # device-resident per-slot state; empty slots stay finished (frozen).
         # The decode step updates these buffers in place, and on CUDA its
         # graph holds their addresses: they are never rebound
@@ -300,8 +319,9 @@ class ServingEngine:
         self._d_finished = torch.ones(b, dtype=torch.bool, device=dev)
         self._d_temps = torch.zeros(b, dtype=torch.float32, device=dev)
         self._d_topks = torch.zeros(b, dtype=torch.long, device=dev)
-        self._d_tables = torch.full((b, self._blocks_per_slot), n_blocks,
-                                    dtype=torch.int32, device=dev)
+        # paged: the block tables, the only indirection decode follows
+        self._d_tables = (torch.full((b, self._blocks_per_slot), n_blocks, dtype=torch.int32,
+                                     device=dev) if self.paged else None)
         # the step's inputs and outputs: uniform draws for the Gumbel noise
         # of sampled slots, one [vocab] row per iteration and slot, and the
         # tokens and finished flags of each iteration
@@ -369,8 +389,9 @@ class ServingEngine:
         the packed payload and scale bytes with the dense leaves
         (``weight_packed_bytes``, `quantized_nbytes`), the dense bytes
         recorded at load and the difference. KV (``kv_cache_dtype=int8``):
-        ``kv_bits`` and the int8 payload and fp32 scale bytes of the pools
-        attention reads (the ``[:num_blocks]`` views, without the sink)."""
+        ``kv_bits`` and the int8 payload and fp32 scale bytes of what
+        attention reads (the slot rows, or the paged pools' ``[:num_blocks]``
+        views, without the sink)."""
         stats: dict[str, Any] = {}
         if self.weight_quant is not None:
             packed = quantized_nbytes(self.model)
@@ -379,12 +400,15 @@ class ServingEngine:
             stats["weight_dense_bytes"] = self._dense_param_bytes
             stats["weight_saved_bytes"] = self._dense_param_bytes - packed
         if self._cache.quantized:
-            layers = range(len(self._cache.k))
+            cache = self._cache
+            if self.paged:
+                payload = [t for i in range(len(cache.k)) for t in cache.pools(i)]
+                scales = [t for i in range(len(cache.k)) for t in cache.scale_pools(i)]
+            else:
+                payload, scales = cache.k + cache.v, cache.k_scale + cache.v_scale
             stats["kv_bits"] = 8
-            stats["kv_payload_bytes"] = sum(t.numel() * t.element_size()
-                                            for i in layers for t in self._cache.pools(i))
-            stats["kv_scale_bytes"] = sum(t.numel() * t.element_size()
-                                          for i in layers for t in self._cache.scale_pools(i))
+            stats["kv_payload_bytes"] = sum(t.numel() * t.element_size() for t in payload)
+            stats["kv_scale_bytes"] = sum(t.numel() * t.element_size() for t in scales)
         return stats
 
     # ------------------------------------------------------------ engine loop
@@ -507,10 +531,13 @@ class ServingEngine:
 
     def _admit_group(self, group: list[Request], finished: list[RequestOutput]) -> bool:
         """Prefill one same-bucket group, sample its first tokens and seat it
-        in free slots. False (group requeued) when the pool is short."""
-        reservation = self._reserve_blocks(group)
-        if reservation is None:
-            return False
+        in free slots. False (group requeued) when the paged pool is
+        short."""
+        reservation = None
+        if self.paged:
+            reservation = self._reserve_blocks(group)
+            if reservation is None:
+                return False
         nb = len(group)
         slots = [self._free.popleft() for _ in group]
         bucket = self.scheduler.bucket_for(max(r.prefill_len for r in group))
@@ -524,25 +551,32 @@ class ServingEngine:
             # the context is fixed-size: cap generation so cache writes stay
             # inside [0, n_positions)
             budgets[i] = min(int(request.params.max_new_tokens), self.max_len - plen)
-        tables, dest = self._commit_reservation(reservation, group, slots)
         dev = self.device
         gens = [torch.Generator(device=dev).manual_seed(int(r.params.seed))
                 if r.params.temperature > 0 else None for r in group]
-        n_written = -(-bucket // self._block_tokens)
-        staging, (ids, slots_t, lens_t, budgets_t, tables_t, dest_t, temps, topks) = self._upload(
-            padded, np.asarray(slots, np.int64), lens, budgets, tables,
-            np.ascontiguousarray(dest[:, :n_written]),
-            np.asarray([r.params.temperature for r in group], np.float32),
-            np.asarray([r.params.top_k or 0 for r in group], np.int64))
+        arrays = [padded, np.asarray(slots, np.int64), lens, budgets,
+                  np.asarray([r.params.temperature for r in group], np.float32),
+                  np.asarray([r.params.top_k or 0 for r in group], np.int64)]
+        if self.paged:
+            tables, dest = self._commit_reservation(reservation, group, slots)
+            n_written = -(-bucket // self._block_tokens)
+            arrays += [tables, np.ascontiguousarray(dest[:, :n_written])]
+        staging, views = self._upload(*arrays)
+        ids, slots_t, lens_t, budgets_t, temps, topks = views[:6]
         with torch.no_grad():
             kv: list = []
             hidden = self.model(ids, kv_out=kv, return_hidden=True)
             last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
             first = self._sample(last, temps, topks, gens)
-            scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t, lens_t.to(torch.int32))
+            if self.paged:
+                tables_t, dest_t = views[6:]
+                scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t, lens_t.to(torch.int32))
+                self._d_tables[slots_t] = tables_t
+            else:
+                scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, lens_t), slots_t,
+                                    lens_t)
             rem0 = budgets_t - 1
             fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos))
-            self._d_tables[slots_t] = tables_t
             self._d_tokens[slots_t] = first
             self._d_pos[slots_t] = lens_t
             self._d_remaining[slots_t] = rem0
@@ -667,10 +701,11 @@ class ServingEngine:
         buffers, and iteration ``t``'s tokens and finished flags into
         ``_d_out[t]``: on CUDA this is the body of the captured graph."""
         noise = -torch.log(-torch.log(self._d_uniform))
+        paged = {"block_tables": self._d_tables} if self.paged else {}
         for t in range(self.tokens_per_sync):
             live = ~self._d_finished
             logits = self.model(self._d_tokens[:, None], self._d_pos, cache=self._cache,
-                                block_tables=self._d_tables, write_mask=live)
+                                write_mask=live, **paged)
             nxt = sample(logits[:, -1], self._d_temps, self._d_topks, noise[t])
             nxt = torch.where(live, nxt, self._d_tokens)
             self._d_pos.add_(live.long())
@@ -682,23 +717,15 @@ class ServingEngine:
             self._d_out[t, 1].copy_(self._d_finished)
 
     def _capture(self) -> None:
-        """Capture `_decode_step` as this engine's CUDA graph. Every slot is
+        """Capture `_decode_step` as this engine's CUDA graph
+        (`models.generation.capture_graph`, with its guards). Every slot is
         still frozen, so the warm-up runs before the capture change nothing
-        the engine reads: writes go to the sink block, cursors advance by 0,
-        tokens are carried. They also build and load the kernel libraries
-        (nvcc at first use) and set the kernels' attributes, which must not
-        happen inside a capture. The wrappers' launch counts advance while
-        the graph is recorded: the difference is what each replay
-        launches.
-
-        Nothing may call an unsafe CUDA function while the graph is recorded,
-        or the capture is invalidated. Two guards: the garbage collector runs
-        before the capture and is off during it, since collecting a dropped
-        engine held in a reference cycle destroys its graph, and PyTorch no
-        longer collects before a capture; and the capture is
-        ``thread_local``, so another thread's calls (an event query, a
-        memory query) do not invalidate it, as they do under PyTorch's
-        default, ``global``. This thread's own unsafe calls still do."""
+        the engine reads: writes go to the sink block or re-write a frozen
+        row's entries, cursors advance by 0, tokens are carried. They also
+        build and load the kernel libraries (nvcc at first use) and set the
+        kernels' attributes, which must not happen inside a capture. The
+        wrappers' launch counts advance while the graph is recorded: the
+        difference is what each replay launches."""
         dev = self.device
         counters = (paged_decode_attention, nf4_matmul)
         side = torch.cuda.Stream(dev)
@@ -708,18 +735,10 @@ class ServingEngine:
                 self._decode_step()
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [fn.launches for fn in counters]
-        graph = torch.cuda.CUDAGraph()
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
         try:
-            with torch.no_grad(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._decode_step()
+            graph = capture_graph(self._decode_step, dev)
         except RuntimeError as exc:
             raise RuntimeError(f"capturing the decode step as a CUDA graph failed: {exc}") from exc
-        finally:
-            if collecting:
-                gc.enable()
         self.graph_launches = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
         self._graph = graph
 
@@ -827,16 +846,17 @@ class ServingEngine:
         finished.append(out)
 
     def _release_slot(self, slot: int) -> None:
-        """Return a slot and its blocks. The table row is parked at the
-        sentinel ``num_blocks`` so any later write through it is dropped, the
-        slot is marked finished (frozen) until the next admission, and the
-        generation bump drops its results still in flight. Steps dispatched
-        before these writes may still write through the old row: they run
-        before any later admission's prefill scatter into the freed blocks,
-        by stream order."""
-        self._allocator.free(self._slot_priv[slot])
-        self._slot_priv[slot] = []
-        self._d_tables[slot] = self._allocator.num_blocks
+        """Return a slot (and, paged, its blocks). A paged table row is parked
+        at the sentinel ``num_blocks`` so any later write through it is
+        dropped; the slot is marked finished (frozen) until the next
+        admission, and the generation bump drops its results still in
+        flight. Steps dispatched before these writes may still write through
+        the old row: they run before any later admission's prefill scatter
+        into the freed blocks or row, by stream order."""
+        if self.paged:
+            self._allocator.free(self._slot_priv[slot])
+            self._slot_priv[slot] = []
+            self._d_tables[slot] = self._allocator.num_blocks
         self._d_finished[slot] = True
         self._slot_out[slot] = None
         self._slot_gen[slot] = None

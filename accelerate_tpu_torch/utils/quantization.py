@@ -15,25 +15,38 @@ layout (``x @ W``), so it is quantized from ``nn.Linear.weight.T``; its
 the plane packing of `ops.nf4_matmul` applies unchanged. Embedding tables
 keep their ``[num, dim]`` layout.
 
-`quantize_module` is the counterpart of the reference's ``QuantizedModule``
-for an ``nn.Module``: it returns a copy of the module in which every eligible
-``nn.Linear`` and ``nn.Embedding`` is a `QuantizedLinear` or
-`QuantizedEmbedding` over a `QuantizedTensor`. Dense leaves (biases, norms)
-are shared with the caller's module, which is never changed. The model reads
-quantized weights itself (`models.gpt2`): an nf4 projection through the
-`ops.nf4_matmul` kernel, every other one through `dequantize`.
+`quantize_module` swaps layers where the reference wraps the forward: it
+returns a copy of the module in which every eligible ``nn.Linear`` and
+``nn.Embedding`` is a `QuantizedLinear` or `QuantizedEmbedding` over a
+`QuantizedTensor`, and so is every eligible bare table a module names in its
+``quantizable_tables`` (Llama's ``embed_tokens`` and ``lm_head``). Dense
+leaves (biases, norms) are shared with the caller's module, which is never
+changed. The model reads quantized weights itself (`models.gpt2`,
+`models.llama`): an nf4 projection through the `ops.nf4_matmul` kernel,
+every other one through `dequantize`. So the reference's ``QuantizedModule``
+shim, which dequantizes every leaf on entry to the forward, has no
+counterpart: the swapped layers play its role. `quantize_model` makes the
+swap in place on a model (what ``Accelerator.prepare`` returns is the model
+itself), and `load_and_quantize_model` fills a model from a safetensors
+checkpoint, quantizing on the card leaf by leaf (`quantize(on_device=True)`,
+the pass of `quantize_params(on_device=True)`), so the dense weights never
+sit on the card whole.
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import os
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
 import numpy as np
 import torch
 from torch import nn
+
+from .environment import resolve_device
+from .safetensors_io import load_safetensors_checkpoint, to_device
 
 # NF4: the 16 quantiles of a standard normal scaled to [-1, 1] (QLoRA).
 NF4_CODE = np.array(
@@ -152,15 +165,15 @@ def from_numpy(data: np.ndarray, scales: np.ndarray, shape, bits: int, quant_typ
 
 
 @torch.no_grad()
-def quantize(tensor: torch.Tensor, config: QuantizationConfig) -> QuantizedTensor:
-    """Blockwise-quantize one tensor on its own device, as the reference's
-    host path does: zero-pad the flattened tensor to whole blocks, take each
-    block's absmax (1.0 for an all-zero block), then int8 ``clip(round(x /
-    absmax * 127))`` or the nearest 4-bit code by binary search over the
+def _quantize_blocks(tensor: torch.Tensor, block: int, kind: str
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blockwise pass, on the tensor's own device, as the reference's
+    host path does it: zero-pad the flattened tensor to whole blocks, take
+    each block's absmax (1.0 for an all-zero block), then int8 ``clip(round(x
+    / absmax * 127))`` or the nearest 4-bit code by binary search over the
     sorted codebook's midpoints (``bucketize(right=False)`` is numpy's
-    ``searchsorted(side="left")``)."""
+    ``searchsorted(side="left")``). Returns ``(payload, fp32 scales)``."""
     flat = tensor.detach().reshape(-1).float()
-    block = int(config.block_size)
     pad = (-flat.numel()) % block
     if pad:
         flat = torch.cat([flat, flat.new_zeros(pad)])
@@ -168,14 +181,40 @@ def quantize(tensor: torch.Tensor, config: QuantizationConfig) -> QuantizedTenso
     absmax = blocks.abs().amax(dim=1)
     scales = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
     normed = blocks / scales[:, None]
-    if config.bits == 8:
-        payload = torch.clamp(torch.round(normed * 127.0), -127, 127).to(torch.int8).reshape(-1)
+    del flat, blocks, absmax
+    if kind == "int8":
+        return torch.clamp(torch.round(normed * 127.0), -127, 127).to(torch.int8).reshape(-1), scales
+    mids, order = _search_tables(kind)
+    pos = torch.bucketize(normed.reshape(-1), torch.from_numpy(mids).to(normed.device), right=False)
+    del normed
+    idx = torch.from_numpy(order).to(pos.device)[pos]
+    return (idx[0::2] << 4) | idx[1::2], scales  # two nibbles per byte
+
+
+def _quantize_leaf_device(a: torch.Tensor, block: int, kind: str,
+                          device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise-quantize ONE leaf on ``device`` (the reference's
+    ``_quantize_leaf_device``): the leaf is copied there, quantized in one
+    pass, and its copy freed when the pass returns, so a quantized load
+    holds the packed payload plus one leaf (and the pass's temporaries) on
+    the card. The nearest-code search is the host path's, as in
+    `_quantize_blocks`: the payload and scales are the reference's (its
+    device pass takes the nearest code by a distance argmin, which can pick
+    the other code only on a tie at a midpoint in fp32)."""
+    return _quantize_blocks(to_device(a, device), block, kind)
+
+
+def quantize(tensor: torch.Tensor, config: QuantizationConfig, on_device: bool = False,
+             device: str | torch.device | None = None) -> QuantizedTensor:
+    """Blockwise-quantize one tensor (see `_quantize_blocks`), where it
+    lives, or with ``on_device=True`` on ``device`` (None: CUDA), where the
+    result then lives."""
+    kind = "int8" if config.bits == 8 else config.quant_type
+    if on_device:
+        payload, scales = _quantize_leaf_device(tensor, int(config.block_size), kind,
+                                                resolve_device(device))
     else:
-        mids, order = _search_tables(config.quant_type)
-        pos = torch.bucketize(normed.reshape(-1), torch.from_numpy(mids).to(flat.device),
-                              right=False)
-        idx = torch.from_numpy(order).to(flat.device)[pos]
-        payload = (idx[0::2] << 4) | idx[1::2]  # two nibbles per byte
+        payload, scales = _quantize_blocks(tensor, int(config.block_size), kind)
     return QuantizedTensor(payload, scales, tuple(tensor.shape), config.bits, config.quant_type,
                            config.compute_dtype)
 
@@ -233,12 +272,16 @@ def _eligible(name: str, tensor: torch.Tensor, config: QuantizationConfig) -> bo
             and not any(s in name for s in skip))
 
 
-def quantize_params(params: dict[str, Any], config: QuantizationConfig) -> dict[str, Any]:
+def quantize_params(params: dict[str, Any], config: QuantizationConfig, on_device: bool = False,
+                    device: str | torch.device | None = None) -> dict[str, Any]:
     """A new ``{name: leaf}`` dict with every eligible tensor quantized (see
     `QuantizationConfig`); other leaves, and leaves already quantized, pass
     through. Each tensor is quantized in the layout given: pass a
-    projection as ``weight.T`` to get the reference's bytes."""
-    return {name: (quantize(leaf, config) if isinstance(leaf, torch.Tensor)
+    projection as ``weight.T`` to get the reference's bytes.
+    ``on_device=True`` quantizes each eligible leaf on ``device`` (None:
+    CUDA), one at a time (`_quantize_leaf_device`): a host leaf goes to the
+    card, is quantized there, and its dense copy is freed before the next."""
+    return {name: (quantize(leaf, config, on_device, device) if isinstance(leaf, torch.Tensor)
                    and _eligible(name, leaf, config) else leaf)
             for name, leaf in params.items()}
 
@@ -263,11 +306,15 @@ class QuantizedLinear(nn.Module):
 
 class QuantizedEmbedding(nn.Module):
     """An ``nn.Embedding`` whose ``[num_embeddings, embedding_dim]`` table
-    is a `QuantizedTensor`."""
+    is a `QuantizedTensor`. ``bare`` marks one that stands for a bare table
+    parameter of its parent (a ``quantizable_tables`` entry) rather than for
+    an ``nn.Embedding``: its leaf name is the parameter's own, without
+    ``.weight``."""
 
-    def __init__(self, qweight: QuantizedTensor):
+    def __init__(self, qweight: QuantizedTensor, bare: bool = False):
         super().__init__()
         self.qweight = qweight
+        self.bare = bare
         self.num_embeddings, self.embedding_dim = qweight.shape
 
 
@@ -279,42 +326,121 @@ def named_leaves(module: nn.Module) -> Iterator[tuple[str, Any]]:
     for prefix, mod in module.named_modules():
         dot = f"{prefix}." if prefix else ""
         if isinstance(mod, (QuantizedLinear, QuantizedEmbedding)):
-            yield dot + "weight", mod.qweight
+            yield prefix if getattr(mod, "bare", False) else dot + "weight", mod.qweight
         for pname, p in mod.named_parameters(recurse=False):
             yield dot + pname, p.T if isinstance(mod, nn.Linear) and pname == "weight" else p
 
 
-def quantize_module(module: nn.Module, config: QuantizationConfig, _name: str = "") -> nn.Module:
-    """A quantized copy of ``module`` (the counterpart of the reference's
-    ``QuantizedModule`` over ``quantize_params``): every ``nn.Linear`` and
-    ``nn.Embedding`` whose weight passes the eligibility rule (named
-    ``<layer>.weight``, a projection quantized as ``weight.T``) becomes a
-    `QuantizedLinear` or `QuantizedEmbedding`, quantized on the weight's
-    device. Every other module is copied shallowly, so dense parameters are
-    shared and ``module`` itself is left as it was. Raises TypeError for an
-    eligible parameter of another kind of module."""
+def _swap(module: nn.Module, config: QuantizationConfig, name: str,
+          load: Any = None, device: torch.device | None = None) -> nn.Module:
+    """The layer swap of `quantize_module` (``load`` None: the module's own
+    weights, quantized where they live) and `load_and_quantize_model`
+    (``load(name)``: the named checkpoint tensor in host memory; each
+    eligible one is quantized on ``device`` by `quantize(on_device=True)`,
+    every other one copied there)."""
+
+    def quantized(pname: str, p: torch.Tensor, transpose: bool = False) -> QuantizedTensor:
+        t = p.detach() if load is None else load(pname)
+        return quantize(t.T if transpose else t, config, on_device=load is not None,
+                        device=device)
+
+    def keep(pname: str, p: nn.Parameter) -> nn.Parameter:  # a dense leaf of the result
+        if load is None:
+            return p
+        return nn.Parameter(to_device(load(pname), device).to(p.dtype), requires_grad=False)
+
     weight = getattr(module, "weight", None)
-    if isinstance(module, nn.Linear) and _eligible(f"{_name}weight", weight, config):
-        return QuantizedLinear(quantize(weight.detach().T.contiguous(), config), module.bias)
-    if isinstance(module, nn.Embedding) and _eligible(f"{_name}weight", weight, config):
-        return QuantizedEmbedding(quantize(weight.detach(), config))
+    if isinstance(module, nn.Linear) and _eligible(f"{name}weight", weight, config):
+        bias = None if module.bias is None else keep(f"{name}bias", module.bias)
+        return QuantizedLinear(quantized(f"{name}weight", weight, transpose=True), bias)
+    if isinstance(module, nn.Embedding) and _eligible(f"{name}weight", weight, config):
+        return QuantizedEmbedding(quantized(f"{name}weight", weight))
     dense_kind = isinstance(module, (nn.Linear, nn.Embedding))
-    for pname, p in module.named_parameters(recurse=False):
-        if not dense_kind and _eligible(_name + pname, p, config):
-            raise TypeError(f"cannot quantize {_name}{pname} of a {type(module).__name__}")
+    tables = getattr(module, "quantizable_tables", ())
     out = copy.copy(module)
-    out._modules = {
-        name: None if child is None else quantize_module(child, config, f"{_name}{name}.")
-        for name, child in module._modules.items()}
+    out._parameters, out._modules = {}, {}
+    for pname, p in module._parameters.items():
+        if p is not None and not dense_kind and _eligible(name + pname, p, config):
+            if pname not in tables:
+                raise TypeError(f"cannot quantize {name}{pname} of a {type(module).__name__}")
+            out._modules[pname] = QuantizedEmbedding(quantized(name + pname, p), bare=True)
+        else:
+            out._parameters[pname] = None if p is None else keep(name + pname, p)
+    for cname, child in module._modules.items():
+        out._modules[cname] = None if child is None else _swap(child, config, f"{name}{cname}.",
+                                                               load, device)
     return out
+
+
+def quantize_module(module: nn.Module, config: QuantizationConfig) -> nn.Module:
+    """A quantized copy of ``module`` (the reference's ``quantize_params``
+    over a model): every ``nn.Linear`` and ``nn.Embedding`` whose weight
+    passes the eligibility rule (named ``<layer>.weight``, a projection
+    quantized as ``weight.T``) becomes a `QuantizedLinear` or
+    `QuantizedEmbedding`, quantized on the weight's device, and so does every
+    eligible bare table a module lists in ``quantizable_tables``. Every other
+    module is copied shallowly, so dense parameters are shared and ``module``
+    itself is left as it was. Raises TypeError for any other eligible
+    parameter."""
+    return _swap(module, config, "")
+
+
+def quantize_model(model: nn.Module, config: QuantizationConfig) -> nn.Module:
+    """Quantize a prepared model's weights in place (the reference's
+    ``quantize_model``, whose layer-swap role this takes literally): the
+    swap of `quantize_module`, written into ``model`` itself, which is
+    returned. ``Accelerator.prepare`` returns the model, so this takes what
+    it returns. The dense weights that were swapped out are freed once
+    nothing else holds them."""
+    if not isinstance(model, nn.Module):
+        raise TypeError(f"Cannot quantize object of type {type(model)}")
+    swapped = quantize_module(model, config)
+    model._parameters, model._modules = swapped._parameters, swapped._modules
+    return model
+
+
+def load_and_quantize_model(model: nn.Module, weights_location: str | os.PathLike,
+                            quantization_config: QuantizationConfig,
+                            mapper: Any = None,
+                            device: str | torch.device | None = None) -> nn.Module:
+    """Fill ``model`` from a safetensors checkpoint and quantize it (the
+    reference's ``load_and_quantize_model``), in place; returns ``model``.
+
+    ``model`` gives the structure: build it on ``device="meta"`` so no dense
+    weight is allocated. The checkpoint is read to host memory (``mapper``
+    turns its names and layout into the model's state dict, as in
+    `safetensors_io.load_checkpoint_in_model`); then, leaf by leaf, each
+    eligible weight goes to ``device`` (None: CUDA), is quantized there and
+    its dense copy freed (`quantize(on_device=True)`, i.e.
+    `_quantize_leaf_device`, the pass `quantize_params(on_device=True)`
+    makes), and every other leaf goes there in the parameter's dtype. The
+    card holds the packed payload and one leaf at a time."""
+    dev = resolve_device(device)
+    flat = load_safetensors_checkpoint(weights_location)
+    state = mapper(flat) if mapper is not None else flat
+    del flat
+    unused = set(state)
+
+    def load(name: str) -> torch.Tensor:
+        if name not in state:
+            raise KeyError(f"{name} is not in the checkpoint at {weights_location}")
+        unused.discard(name)
+        return state[name]
+
+    swapped = _swap(model, quantization_config, "", load, dev)
+    if unused:
+        raise ValueError(f"checkpoint entries the model has no place for: {sorted(unused)[:8]}")
+    model._parameters, model._modules = swapped._parameters, swapped._modules
+    return model
 
 
 def dequantize_module(module: nn.Module, dtype: torch.dtype | None = None) -> nn.Module:
     """A dense copy of a quantized module (the reference's
     ``dequantize_params`` over a model): each `QuantizedLinear` and
-    `QuantizedEmbedding` becomes an ``nn.Linear`` or ``nn.Embedding`` holding
-    `dequantize` of its weight in ``dtype`` (default: the tensor's
-    ``compute_dtype``); other parameters are shared."""
+    `QuantizedEmbedding` becomes an ``nn.Linear`` or ``nn.Embedding`` (a bare
+    one its parent's table parameter again) holding `dequantize` of its
+    weight in ``dtype`` (default: the tensor's ``compute_dtype``); other
+    parameters are shared."""
     out = copy.copy(module)
     out._modules = dict(module._modules)
     for child_name, child in list(out._modules.items()):
@@ -325,6 +451,10 @@ def dequantize_module(module: nn.Module, dtype: torch.dtype | None = None) -> nn
             lin.weight = nn.Parameter(w.T.contiguous(), requires_grad=False)
             lin.bias = child.bias
             out._modules[child_name] = lin
+        elif isinstance(child, QuantizedEmbedding) and child.bare:
+            del out._modules[child_name]
+            out._parameters = {**out._parameters, child_name: nn.Parameter(
+                dequantize(child.qweight, dtype), requires_grad=False)}
         elif isinstance(child, QuantizedEmbedding):
             w = dequantize(child.qweight, dtype)
             emb = nn.Embedding(*w.shape, device=w.device, dtype=w.dtype)

@@ -23,23 +23,27 @@ Phases run in order; any failure exits non-zero:
    per case with its error, its times (SDPA over the gathered view as the
    library yardstick), its bound and the share of the bound it reaches;
 4. fp32 slice: GPT-2 small at full width, seeded fp32 weights, TF32 off:
-   the same greedy requests through the gather engine and through the fused
-   engine at ``pipeline_depth`` 2 with ``tokens_per_sync`` 1 and 4 (each
-   decode step one CUDA graph replay) give exactly the streams `generate`
-   (eager, gather path) gives for each request alone; the kernel ran
-   n_layer times per decode forward, counted through the replays, and a
-   profiler window around one replay holds n_layer x tokens_per_sync
-   paged-decode kernels;
+   the same greedy requests through the paged gather engine, through the
+   slot-pool engine (the default) and through the paged fused engine, both
+   at ``pipeline_depth`` 2 with ``tokens_per_sync`` 1 and 4 (each decode
+   step one CUDA graph replay) give exactly the streams `generate` (over
+   the slot cache, its decode step replayed from a graph of its own) gives
+   for each request alone; the slot engine's
+   graph holds no kernel; the paged kernel ran n_layer times per decode
+   forward, counted through the replays, and a profiler window around one
+   replay holds n_layer x tokens_per_sync paged-decode kernels;
 5. bf16 slice: the same model in bf16 serves 48 seeded requests (greedy and
    sampled) through the fused engine at (depth, tokens_per_sync) (1, 1),
    (2, 1) and (2, 4): identical token streams, sampled ones included; the
    first decode step's logits agree with the gather path; one serving line
    each (tokens/s, TTFT and ITL p50/p99, the host's blocked time per fetch,
    decode replays, the kernel's launches through the replays, peak
-   memory). Then a torch.profiler window over the decode steps of an engine
-   at each of the three: host and device ms per step and per decode
-   iteration, the device's idle share, and the kernels that take the device
-   time;
+   memory). Then the slot-pool engine at (2, 1) over the same requests: one
+   serving line (``bf16_serving_slot``: no paged kernel launched, its
+   streams beside the fused engine's). Then a torch.profiler window over the
+   decode steps of an engine at each of the three, and of the slot engine:
+   host and device ms per step and per decode iteration, the device's idle
+   share, and the kernels that take the device time;
 6. flash kernels: the forward, dQ and dK/dV kernels
    (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
    card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
@@ -129,7 +133,29 @@ Phases run in order; any failure exits non-zero:
    profiler window over 16 nf4 decode steps with the nf4 kernel's share;
    then KV bytes per token (fp32, bf16, int8) and the peak concurrent
    streams of an fp32 and an int8 pool of equal bytes over one trace;
-18. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+18. fp32 Llama decode parity: Llama-2-7B's width (hidden 4096, 32 heads,
+   intermediate 11008, vocab 32000) cut to 2 layers, 512 positions, seeded
+   fp32 weights, TF32 off: `generate` over the slot cache gives the no-cache
+   forward's argmax at every step and the eager step's tokens (batch 2, a
+   64-token prompt, 16 tokens), and the nf4 model (its projections on the
+   nf4 kernel, 7 launches a layer each forward, counted through the
+   replays of `generate`'s graph, 7 a layer in a profiler window around one
+   replay) gives the tokens of the dense model over its dequantized
+   weights;
+19. big-model inference, the reference tool's flow
+   (``tools/bench_inference.py`` at its defaults): Llama-2-7B at full depth
+   (``BIG_MODEL_LAYERS``), 512 positions, a synthetic fp16 safetensors
+   checkpoint written to a temporary directory (removed after), a 64-token
+   prompt and 20 new tokens through `generate` (a second call, its decode
+   step replayed from the CUDA graph the first captured, its nf4 launches
+   counted through the replays, and once more eagerly: equal tokens); one
+   line per row, fp16 -> bf16, nf4, int8 and nf4 over an int8 KV cache,
+   each built alone and freed before the next: ``load_s``, ``s_per_token``
+   and ``s_per_token_eager``, the bytes bound of a token, ``packed_gb``,
+   peak memory, the host and device ms of a replayed decode step (and the
+   nf4 kernels in one replay: 7 a layer for nf4, none otherwise) and of an
+   eager one;
+20. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -1400,7 +1426,7 @@ def quant_parity(torch, seed: int, prompts: list[list[int]]) -> dict:
     from accelerate_tpu_torch.serving import Request, SamplingParams, ServingEngine
     from accelerate_tpu_torch.utils.quantization import dequantize_module
 
-    kw = dict(max_concurrency=8, prompt_buckets=BUCKETS)
+    kw = dict(max_concurrency=8, prompt_buckets=BUCKETS, paged_kv=True)
 
     def run(engine):
         admissions = count_admissions(engine)
@@ -1410,13 +1436,13 @@ def quant_parity(torch, seed: int, prompts: list[list[int]]) -> dict:
 
     model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
     per_forward = 4 * model.config.n_layer
-    nf4 = ServingEngine(model, weight_quant="nf4", **kw)
+    nf4 = ServingEngine(model, weight_quant="nf4", paged_attention="fused", **kw)
     del model
     nm.nf4_matmul.launches = 0
     nf4_out, steps, admissions = run(nf4)
     launches = replay_launches(nf4, "nf4_matmul", nm.nf4_matmul.launches)
     nf4_in_replay = graph_kernels(torch, nf4, "nf4_matmul_kernel")
-    dense = ServingEngine(dequantize_module(nf4.model), **kw)
+    dense = ServingEngine(dequantize_module(nf4.model), paged_attention="fused", **kw)
     nm.nf4_matmul.launches = 0
     dense_out, _, _ = run(dense)
     dense_launches = replay_launches(dense, "nf4_matmul", nm.nf4_matmul.launches)
@@ -1572,7 +1598,7 @@ def kv_capacity(torch, np, seed: int, card: str) -> dict:
         model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, kv_cache_dtype=kv_dtype),
                            device="cuda", seed=seed)
         eng = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=bt, num_blocks=blocks),
-                            max_concurrency=64, prompt_buckets=BUCKETS)
+                            paged_attention="fused", max_concurrency=64, prompt_buckets=BUCKETS)
         for p in trace:
             if not eng.submit(Request(prompt=p, params=SamplingParams(max_new_tokens=32))).accepted:
                 raise AssertionError("capacity trace: a request was rejected")
@@ -1597,6 +1623,320 @@ def kv_capacity(torch, np, seed: int, card: str) -> dict:
     if not peaks["int8"] > peaks["fp32"]:
         raise AssertionError(f"int8 pool seated {peaks['int8']} streams, fp32 {peaks['fp32']}")
     return rec
+
+
+LLAMA_7B_PROMPT, LLAMA_7B_NEW_TOKENS, LLAMA_7B_POSITIONS = 64, 20, 512
+# the big-model phase's depth: Llama-2-7B's own 32 layers
+BIG_MODEL_LAYERS = 32
+
+
+def top2_margin(torch, logits) -> float:
+    """The smallest gap between the two largest logits of any row."""
+    top = logits.float().topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]).min().item()
+
+
+def captured_launches(held, eager: int, replays: int) -> int:
+    """nf4 kernel launches of one `generate` call: ``eager``, the wrapper's
+    own count over the call (the prefill it launched), plus what one replay
+    of the kept decode graph launches (counted by the wrapper while the
+    graph was recorded) times the replays the call made (``replays``, the
+    kept step's count before it)."""
+    return eager + held.launches.get("nf4_matmul", 0) * (held.replays - replays)
+
+
+def counted_generate(nm, generation, model, ids, n_new: int):
+    """A `generate` call that replays the decode graph an earlier call
+    captured, its nf4 launches counted (`captured_launches`): (tokens,
+    launches). Fails if the call captured anew."""
+    held = generation._CAPTURED[model]
+    graph, replays = held.graph, held.replays
+    nm.nf4_matmul.launches = 0
+    out = generation.generate(model, ids, n_new)
+    if generation._CAPTURED.get(model) is not held or held.graph is not graph:
+        raise AssertionError("the counted generate captured its decode step anew")
+    return out, captured_launches(held, nm.nf4_matmul.launches, replays)
+
+
+def replay_kernels(torch, generation, model, pattern: str) -> int:
+    """Device kernels whose name holds ``pattern`` in a profiler window
+    around one replay of the decode graph `generate` keeps for ``model``
+    (the replay writes past the last call's tokens, which the next call
+    masks)."""
+    _, kernels = device_work(torch, generation._CAPTURED[model].graph.replay)
+    return sum(pattern in k for k in kernels)
+
+
+def llama_decode_parity(torch, np, seed: int, card: str) -> dict:
+    """Llama-2-7B's width (hidden 4096, 32 heads, intermediate 11008, vocab
+    32000) cut to 2 layers, 512 positions, seeded fp32 weights, TF32 off.
+    (a) `generate` over the slot cache (a 64-token prefill, then one decode
+    step a token, replayed from a captured CUDA graph) gives the eager
+    step's tokens and the no-cache forward's argmax at each step, batch 2,
+    16 tokens. (b) The nf4 copy of the model (every projection on the nf4
+    kernel, the embedding and head quantized too) gives the tokens of a dense
+    model over its dequantized weights and of its own eager step. Its second
+    `generate` call replays the first call's graph: 7 nf4 launches a layer
+    each forward (the prefill's counted by the wrapper, the decode steps'
+    through the replays), 7 a layer in a profiler window around one replay,
+    and none in the dense model's call or graph."""
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.models.generation import _generate, generate
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig,
+        dequantize_module,
+        quantize_module,
+    )
+
+    cfg = LlamaConfig.llama2_7b(num_layers=2, dtype=torch.float32, param_dtype=torch.float32,
+                                max_position_embeddings=LLAMA_7B_POSITIONS)
+    model = LlamaForCausalLM(cfg, seed=seed)
+    n_new = 16
+    ids = torch.from_numpy(np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (2, LLAMA_7B_PROMPT))).cuda()
+
+    def eager(m):
+        return _generate(m, ids, n_new, 0.0, None, None, m.device, capture=False)
+
+    cached = generate(model, ids, n_new)
+    eager_tokens = eager(model)
+    seq, margins = ids, []
+    with torch.no_grad():
+        for _ in range(n_new):
+            last = model(seq)[:, -1]
+            margins.append(top2_margin(torch, last))
+            seq = torch.cat([seq, last.argmax(-1)[:, None]], dim=1)
+    nocache = seq[:, LLAMA_7B_PROMPT:]
+    qmodel = quantize_module(model, QuantizationConfig(load_in_4bit=True,
+                                                       compute_dtype=torch.float32))
+    generation.release_captured(model)
+    del model
+    dense = dequantize_module(qmodel)
+    nf4_eager = eager(qmodel)
+    generate(qmodel, ids, n_new)  # captures the nf4 decode step
+    nf4_tokens, nf4_launches = counted_generate(nm, generation, qmodel, ids, n_new)
+    nf4_in_replay = replay_kernels(torch, generation, qmodel, "nf4_matmul_kernel")
+    generate(dense, ids, n_new)
+    dense_tokens, dense_launches = counted_generate(nm, generation, dense, ids, n_new)
+    dense_in_replay = replay_kernels(torch, generation, dense, "nf4_matmul_kernel")
+    per_forward = 7 * cfg.num_layers
+    rec = {"phase": "fp32_llama_decode_parity", "model": "llama-2-7b width, 2 layers",
+           "batch": 2, "prompt": LLAMA_7B_PROMPT, "new_tokens": n_new,
+           "max_positions": LLAMA_7B_POSITIONS,
+           "cached_equal_nocache_argmax": torch.equal(cached, nocache),
+           "captured_equal_eager": torch.equal(cached, eager_tokens),
+           "nf4_captured_equal_eager": torch.equal(nf4_tokens, nf4_eager),
+           "nocache_min_top2_margin": min(margins),
+           "nf4_tokens_equal_dense_dequantized": torch.equal(nf4_tokens, dense_tokens),
+           "nf4_launches": nf4_launches, "nf4_launches_per_forward": per_forward,
+           "nf4_launches_expected": per_forward * n_new,
+           "nf4_kernels_in_one_replay": nf4_in_replay,
+           "dense_run_nf4_launches": dense_launches,
+           "dense_replay_nf4_kernels": dense_in_replay, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not (rec["cached_equal_nocache_argmax"] and rec["captured_equal_eager"]
+            and rec["nf4_captured_equal_eager"]):
+        raise AssertionError("Llama slot-cache decode: captured, eager and no-cache argmax "
+                             f"tokens differ: {rec}")
+    if not rec["nf4_tokens_equal_dense_dequantized"]:
+        raise AssertionError("nf4 Llama tokens differ from the dense dequantized model's")
+    if (nf4_launches != per_forward * n_new or nf4_in_replay != per_forward
+            or dense_launches or dense_in_replay):
+        raise AssertionError(f"nf4 launches {nf4_launches} != {per_forward} x {n_new} forwards, "
+                             f"{nf4_in_replay} nf4 kernels in a replay (want {per_forward}), "
+                             f"or the dense model launched {dense_launches} "
+                             f"({dense_in_replay} in a replay)")
+    del qmodel, dense
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def synthetic_checkpoint(torch, cfg, path) -> int:
+    """The reference tool's synthetic checkpoint (``tools/bench_inference.py``):
+    zeros in fp16, in the reference's param layout (``layer_i`` blocks,
+    ``[in, out]`` kernels), sharded at 5 GB with an index. Returns the
+    parameter count."""
+    from accelerate_tpu_torch.utils.safetensors_io import save_safetensors_checkpoint
+
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kvd = cfg.num_kv_heads * cfg.head_dim
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float16)
+
+    tree = {"embed_tokens": z(v, e), "final_norm": {"scale": z(e)}, "lm_head": z(v, e)}
+    for i in range(cfg.num_layers):
+        tree[f"layer_{i}"] = {
+            "input_norm": {"scale": z(e)}, "post_attn_norm": {"scale": z(e)},
+            "attn": {"q_proj": {"kernel": z(e, e)}, "k_proj": {"kernel": z(e, kvd)},
+                     "v_proj": {"kernel": z(e, kvd)}, "o_proj": {"kernel": z(e, e)}},
+            "mlp": {"gate_proj": {"kernel": z(e, f)}, "up_proj": {"kernel": z(e, f)},
+                    "down_proj": {"kernel": z(f, e)}}}
+    save_safetensors_checkpoint(tree, path, max_shard_size="5GB")
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def _tensors(tree):
+    for value in tree.values():
+        yield from (_tensors(value) if isinstance(value, dict) else (value,))
+
+
+def big_model_inference(torch, card: str) -> list[dict]:
+    """The reference's big-model-inference row (``tools/bench_inference.py``,
+    its defaults: Llama-2-7B capped at 512 positions, a 64-token prompt of
+    ones, 20 new tokens) through the port, on the card. The synthetic fp16
+    checkpoint is written once to a temporary directory, removed at the end.
+    Rows, built one after another and each freed before the next: fp16 ->
+    bf16 (`load_checkpoint_in_model`, cast on the card), nf4, int8, and nf4
+    over an int8 KV cache (`load_and_quantize_model` into a model on the
+    meta device: each leaf quantized on the card). ``load_s`` is disk to
+    card, quantization included (the checkpoint read once before, so every
+    row reads it from the page cache); ``s_per_token`` is a second
+    `generate`'s wall over its new tokens, prefill included, as the tool
+    times it (the first call captured the decode step's graph, as the
+    tool's first call compiles; the second replays it, its nf4 launches
+    counted: the prefill's by the wrapper, the decode steps' through the
+    replays), and ``s_per_token_eager`` the same with every step run
+    eagerly (`generation._generate`), whose tokens must be the replayed
+    ones. Each line has the bytes bound of a token (the weight bytes and the
+    slot cache's bytes, which every decode step reads whole, over the HBM
+    rate), the peak memory, a profile of three replays of the decode graph
+    (host against device ms, the nf4 kernels in one replay) and one of an
+    eager decode step."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.models.generation import _generate, generate
+    from accelerate_tpu_torch.models.kv_cache import make_cache, tree_nbytes
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, params_from_jax
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig,
+        load_and_quantize_model,
+        quantized_nbytes,
+    )
+    from accelerate_tpu_torch.utils.safetensors_io import (
+        load_checkpoint_in_model,
+        load_safetensors_checkpoint,
+    )
+
+    bw = peak_rates(torch.cuda.get_device_name(0))[0]
+    tmp = Path(tempfile.mkdtemp(prefix="bench_inference_llama2_7b_"))
+    lines = []
+    try:
+        base = LlamaConfig.llama2_7b(num_layers=BIG_MODEL_LAYERS, dtype=torch.bfloat16,
+                                     param_dtype=torch.bfloat16,
+                                     max_position_embeddings=LLAMA_7B_POSITIONS)
+        t0 = time.perf_counter()
+        n_params = synthetic_checkpoint(torch, base, tmp)
+        write_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in tmp.iterdir())
+        t0 = time.perf_counter()
+        load_safetensors_checkpoint(tmp)  # into the page cache; the host read's time
+        read_s = time.perf_counter() - t0
+        for quant, kv in (("", None), ("nf4", None), ("int8", None), ("nf4", torch.int8)):
+            cfg = LlamaConfig.llama2_7b(num_layers=BIG_MODEL_LAYERS, dtype=torch.bfloat16,
+                                        param_dtype=torch.bfloat16,
+                                        max_position_embeddings=LLAMA_7B_POSITIONS,
+                                        kv_cache_dtype=kv)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if quant:
+                qcfg = QuantizationConfig(load_in_4bit=quant == "nf4", load_in_8bit=quant == "int8",
+                                          compute_dtype=cfg.dtype)
+                model = load_and_quantize_model(LlamaForCausalLM(cfg, device="meta"), tmp, qcfg,
+                                                mapper=params_from_jax)
+            else:
+                model = LlamaForCausalLM(cfg, device="meta").to_empty(device="cuda")
+                load_checkpoint_in_model(model, tmp, mapper=params_from_jax)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            load_peak = torch.cuda.max_memory_allocated()
+            weight_bytes = quantized_nbytes(model)
+            prompt = torch.ones((1, LLAMA_7B_PROMPT), dtype=torch.long, device="cuda")
+            generate(model, prompt, LLAMA_7B_NEW_TOKENS)  # warm-up, as the tool's first call
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, launches = counted_generate(nm, generation, model, prompt,
+                                             LLAMA_7B_NEW_TOKENS)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+            replay = profile_record("replay_step", 3,
+                                    *profile_steps(torch, generation._CAPTURED[model].graph.replay,
+                                                   3), top=5)
+            nf4_in_replay = replay_kernels(torch, generation, model, "nf4_matmul_kernel")
+            t0 = time.perf_counter()
+            eager = _generate(model, prompt, LLAMA_7B_NEW_TOKENS, 0.0, None, None, model.device,
+                              capture=False)
+            torch.cuda.synchronize()
+            eager_s = time.perf_counter() - t0
+            cache = make_cache(model, 1, per_slot=False)
+            kv_bytes = tree_nbytes(cache)
+            with torch.no_grad():
+                model(prompt, 0, cache=cache)
+                pos = [LLAMA_7B_PROMPT]
+
+                def decode_step():
+                    model(prompt[:, :1], pos[0], cache=cache)
+                    pos[0] += 1
+
+                decode_step()
+                wall_us, by_name = profile_steps(torch, decode_step, 3)
+            prof = profile_record("eager_step", 3, wall_us, by_name, top=5)
+            bound_s = (weight_bytes + kv_bytes) / bw
+            rec = {"phase": "big_model_inference", "preset": "llama2_7b",
+                   "layers": cfg.num_layers, "quant": quant or "fp16", "kv_cache": "int8" if kv
+                   else "full", "params_b": n_params / 1e9,
+                   "load_s": load_s, "s_per_token": gen_s / LLAMA_7B_NEW_TOKENS,
+                   "s_per_token_eager": eager_s / LLAMA_7B_NEW_TOKENS,
+                   "captured_equal_eager": torch.equal(out, eager),
+                   "new_tokens": LLAMA_7B_NEW_TOKENS, "prompt": LLAMA_7B_PROMPT,
+                   "max_positions": LLAMA_7B_POSITIONS,
+                   "bound_s_per_token": bound_s, "bound_share": bound_s * LLAMA_7B_NEW_TOKENS / gen_s,
+                   "weight_bytes": weight_bytes, "kv_cache_bytes": kv_bytes,
+                   **({"packed_gb": weight_bytes / 1e9} if quant else {}),
+                   "nf4_launches": launches, "nf4_kernels_in_one_replay": nf4_in_replay,
+                   "peak_mem_bytes_load": load_peak,
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "checkpoint_bytes": ckpt_bytes, "checkpoint_write_s": write_s,
+                   "checkpoint_read_s": read_s,
+                   "replay_step_host_ms": replay["host_ms_per_step"],
+                   "replay_step_device_ms": replay["device_ms_per_step"],
+                   "replay_step_idle_share": replay["device_idle_share"],
+                   "replay_step_top_kernels_ms": replay["top_kernels_ms_per_step"],
+                   "eager_step_host_ms": prof["host_ms_per_step"],
+                   "eager_step_device_ms": prof["device_ms_per_step"],
+                   "eager_step_idle_share": prof["device_idle_share"],
+                   "eager_step_top_kernels_ms": prof["top_kernels_ms_per_step"],
+                   "reference_row": "GPT-J-6B fp16: 8.7 s load, 0.05 s/token "
+                                    "(BASELINE.md, 2x Titan RTX)", "card": card}
+            print(json.dumps(rec), flush=True)
+            lines.append(rec)
+            if tuple(out.shape) != (1, LLAMA_7B_NEW_TOKENS) or not bool(
+                    ((out >= 0) & (out < cfg.vocab_size)).all()):
+                raise AssertionError(f"big-model {quant or 'fp16'}: bad tokens {out.tolist()}")
+            if not rec["captured_equal_eager"]:
+                raise AssertionError(f"big-model {quant or 'fp16'}: captured and eager tokens "
+                                     "differ")
+            per_forward = 7 * cfg.num_layers if quant == "nf4" else 0
+            if launches != per_forward * LLAMA_7B_NEW_TOKENS or nf4_in_replay != per_forward:
+                raise AssertionError(f"big-model {quant or 'fp16'}: the timed generate launched "
+                                     f"the nf4 kernel {launches} times, {nf4_in_replay} in one "
+                                     f"replay; want {per_forward} a forward")
+            generation.release_captured(model)
+            del model, cache, out, eager
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines
 
 
 def main() -> int:
@@ -1714,6 +2054,7 @@ def main() -> int:
 
     from accelerate_tpu_torch.models.generation import generate
     from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.models.kv_cache import tree_nbytes
     from accelerate_tpu_torch.serving import (
         FINISH_LENGTH,
         PagedKVConfig,
@@ -1735,7 +2076,7 @@ def main() -> int:
     def fp32_requests():
         return [Request(prompt=p, params=SamplingParams(max_new_tokens=32)) for p in fp32_prompts]
 
-    gather = ServingEngine(model, paged_attention="gather", max_concurrency=8,
+    gather = ServingEngine(model, paged_kv=True, paged_attention="gather", max_concurrency=8,
                            prompt_buckets=BUCKETS)
     gather_out = [o.tokens for o in gather.run(fp32_requests())]
     del gather
@@ -1743,7 +2084,20 @@ def main() -> int:
     fp32 = {"phase": "fp32_slice", "requests": len(fp32_prompts), "pipeline_depth": 2,
             "gather_equal_generate": gather_out == solos}
     for sync in (1, 4):
-        fused = ServingEngine(model, paged_attention="fused", max_concurrency=8,
+        # the slot-pool engine (the default): one replay a step, no kernel in it
+        slot = ServingEngine(model, max_concurrency=8, prompt_buckets=BUCKETS, pipeline_depth=2,
+                             tokens_per_sync=sync)
+        slot_out = [o.tokens for o in slot.run(fp32_requests())]
+        fp32[f"slot_k{sync}"] = {"tokens_equal_generate": slot_out == solos,
+                                 "tokens_equal_paged_gather": slot_out == gather_out,
+                                 "decode_steps": slot.metrics.decode_steps.value,
+                                 "decode_replays": slot.metrics.decode_dispatches.value,
+                                 "graph_launches": slot.graph_launches}
+        if slot_out != solos or slot._graph is None or any(slot.graph_launches.values()):
+            raise AssertionError(f"fp32 slot engine (tokens_per_sync {sync}): streams differ from "
+                                 f"generate's, or no graph, or kernels in it: {fp32}")
+        del slot
+        fused = ServingEngine(model, paged_kv=True, paged_attention="fused", max_concurrency=8,
                               prompt_buckets=BUCKETS, pipeline_depth=2, tokens_per_sync=sync)
         paged_decode_attention.launches = 0
         fused_out = [o.tokens for o in fused.run(fp32_requests())]
@@ -1833,11 +2187,41 @@ def main() -> int:
         raise AssertionError("bf16 streams differ across (depth, tokens_per_sync) (1, 1), (2, 1), "
                              "(2, 4)")
     serving = lines[(2, 1)]
+    # the slot-pool engine (the default) at (2, 1): no kernel on its decode path
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    slot = ServingEngine(model, max_concurrency=16, prompt_buckets=BUCKETS, pipeline_depth=2)
+    admissions = count_admissions(slot)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    outs = slot.run(bf16_requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slot_streams = [o.tokens for o in outs]
+    line = serving_line(slot, outs, wall, replay_launches(slot, "paged_decode_attention",
+                                                          paged_decode_attention.launches),
+                        torch.cuda.max_memory_allocated(), card, phase="bf16_serving_slot",
+                        max_new_tokens=64, admission_forwards=admissions[0],
+                        admission_host_s=admissions[1], admission_share_of_wall=admissions[1] / wall,
+                        streams_equal_fused=sum(a == b for a, b in zip(slot_streams,
+                                                                       streams[(2, 1)])),
+                        kv_cache_bytes=tree_nbytes(slot._cache))
+    print(json.dumps(line), flush=True)
+    if any(o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64 for o in outs):
+        raise AssertionError("bf16 slot engine: a request did not finish with 64 tokens")
+    if line["kernel_launches"] or slot.metrics.decode_steps.value == 0:
+        raise AssertionError(f"bf16 slot engine ran {line['kernel_launches']} paged kernels")
+    del slot
     long_requests = [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
                      for p in serve_prompts[:16]]
     for depth, sync, steps in ((1, 1, 16), (2, 1, 16), (2, 4, 8)):
         print(json.dumps(profile_decode(torch, engine(depth, sync), long_requests, steps=steps)),
               flush=True)
+    print(json.dumps(profile_decode(
+        torch, ServingEngine(model, max_concurrency=16, prompt_buckets=BUCKETS, pipeline_depth=2),
+        long_requests, phase="bf16_decode_profile_slot")), flush=True)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1948,7 +2332,13 @@ def main() -> int:
                                    for p in serve_prompts[:16]], card)
     kv_capacity(torch, np, args.seed, card)
 
-    # 18. summary lines
+    # 18. Llama decode parity at Llama-2-7B's width, 2 layers, fp32
+    llama_decode_parity(torch, np, args.seed, card)
+
+    # 19. big-model inference: the reference tool's flow at Llama-2-7B
+    big_model_inference(torch, card)
+
+    # 20. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",

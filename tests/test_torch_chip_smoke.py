@@ -214,7 +214,8 @@ def test_serving_line_reads_the_engine_run():
 
     model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu")
     engine = ServingEngine(model, device="cpu", max_concurrency=2, prompt_buckets=(16,),
-                           pipeline_depth=2, tokens_per_sync=4)
+                           pipeline_depth=2, tokens_per_sync=4, paged_kv=True,
+                           paged_attention="fused")
     outs = engine.run([Request(prompt=[3, 4, 5], params=SamplingParams(max_new_tokens=9))
                        for _ in range(3)])
     line = _chip_smoke().serving_line(engine, outs, 2.0, 123, 4567, "H100, 700 W", extra=1)
@@ -230,3 +231,30 @@ def test_serving_line_reads_the_engine_run():
         assert line[key] >= 0
     assert line["itl_p50_s"] <= line["itl_p99_s"]
     assert list(line)[-1] == "card"
+
+
+def test_top2_margin_is_the_smallest_row_gap():
+    logits = torch.tensor([[0.0, 3.0, 2.5], [1.0, 1.25, -4.0]])
+    assert _chip_smoke().top2_margin(torch, logits) == 0.25
+
+
+def test_synthetic_checkpoint_is_the_reference_tools_layout(tmp_path):
+    """The big-model phase's checkpoint: zeros in fp16, the reference's
+    names and ``[in, out]`` kernels, loadable into the port's Llama through
+    `params_from_jax`; the parameter count is the model's."""
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, params_from_jax
+    from accelerate_tpu_torch.utils.safetensors_io import (
+        load_checkpoint_in_model,
+        load_safetensors_checkpoint,
+    )
+
+    cfg = LlamaConfig.tiny(num_kv_heads=2)
+    n = _chip_smoke().synthetic_checkpoint(torch, cfg, tmp_path)
+    flat = load_safetensors_checkpoint(tmp_path)
+    assert all(t.dtype == torch.float16 and not t.any() for t in flat.values())
+    assert tuple(flat["layer_1.attn.k_proj.kernel"].shape) == (64, 32)
+    assert tuple(flat["layer_0.mlp.down_proj.kernel"].shape) == (128, 64)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    assert n == sum(p.numel() for p in model.parameters())
+    load_checkpoint_in_model(model, tmp_path, mapper=params_from_jax)
+    assert not any(p.any() for p in model.parameters())

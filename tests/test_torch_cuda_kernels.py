@@ -706,7 +706,7 @@ def test_int8_kv_engine_step_launches_the_paged_kernel_with_scale_pools(hopper):
     model = GPT2LMHead(cfg, device=hopper)
     streams = {}
     for attention in ("gather", "fused"):
-        engine = ServingEngine(model, max_concurrency=2, prompt_buckets=(64,),
+        engine = ServingEngine(model, max_concurrency=2, prompt_buckets=(64,), paged_kv=True,
                                paged_attention=attention, weight_quant="nf4")
         paged = cfg.n_layer if attention == "fused" else 0
         assert engine.graph_launches == {"paged_decode_attention": paged,
@@ -724,6 +724,10 @@ def test_int8_kv_engine_step_launches_the_paged_kernel_with_scale_pools(hopper):
                 streams[attention] = out.tokens
         assert engine.quant_stats()["kv_bits"] == 8
     assert streams["fused"] == streams["gather"]
+
+
+# the paged engine with the decode kernel (the engine's default is the slot pool)
+PAGED = dict(paged_kv=True, paged_attention="fused")
 
 
 def _graph_engine_requests(sampled: bool):
@@ -749,7 +753,7 @@ def test_graph_engine_streams_equal_generate(hopper):
 
     model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
     engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2,
-                           tokens_per_sync=4)
+                           tokens_per_sync=4, **PAGED)
     assert engine.graph_launches["paged_decode_attention"] == 4 * model.config.n_layer
     requests = _graph_engine_requests(sampled=True)
     outs = engine.run(requests)
@@ -772,7 +776,7 @@ def test_graph_engine_runs_give_equal_bits(hopper):
     runs = []
     for _ in range(2):
         engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64),
-                               tokens_per_sync=2)
+                               tokens_per_sync=2, **PAGED)
         outs = [o.tokens for o in engine.run(_graph_engine_requests(sampled=True))]
         torch.cuda.synchronize()
         # the storages without the sink block, which takes dropped writes
@@ -809,7 +813,7 @@ def test_graph_engine_capture_survives_another_threads_cuda_calls(hopper):
     thread = threading.Thread(target=query)
     thread.start()
     try:
-        engines = [ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+        engines = [ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED)
                    for _ in range(4)]
     finally:
         stop.set()
@@ -842,13 +846,178 @@ def test_graph_engine_capture_runs_no_garbage_collection(hopper):
     gc.set_threshold(1)
     try:
         for _ in range(3):
-            old = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+            old = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED)
             old.cycle = old
             del old
-            engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64))
+            engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED)
     finally:
         gc.callbacks.remove(watch)
         gc.set_threshold(*threshold)
     assert during and not any(during)
     outs = engine.run(_graph_engine_requests(sampled=False))
     assert all(len(o.tokens) == 20 for o in outs)
+
+
+def test_slot_graph_engine_streams_equal_generate(hopper):
+    """The slot-pool engine (the default) decodes as one CUDA graph replay
+    too, and launches no kernel there (the slot step is plain PyTorch, as
+    the reference's is XLA): at depth 2, four iterations a replay, its fp32
+    greedy and sampled streams equal `generate`'s over the slot cache."""
+    from accelerate_tpu_torch.models.generation import generate
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2,
+                           tokens_per_sync=4)
+    assert engine._graph is not None and not engine.paged
+    assert engine.graph_launches == {"paged_decode_attention": 0, "nf4_matmul": 0}
+    requests = _graph_engine_requests(sampled=True)
+    outs = engine.run(requests)
+    for r, o in zip(requests, outs):
+        sp = r.params
+        gen = torch.Generator(device=hopper).manual_seed(sp.seed)
+        assert o.tokens == generate(model, torch.tensor([r.prompt]), 20, temperature=sp.temperature,
+                                    top_k=sp.top_k, generator=gen)[0].tolist()
+
+
+def test_slot_graph_engine_runs_give_equal_bits(hopper):
+    """Two bf16 slot engines serve the same requests: equal streams and
+    equal slot-cache bytes, index included."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    cfg = GPT2Config.tiny(dtype=torch.bfloat16, param_dtype=torch.bfloat16, n_embd=128, n_head=2)
+    model = GPT2LMHead(cfg, device=hopper)
+    runs = []
+    for _ in range(2):
+        engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64),
+                               tokens_per_sync=2)
+        outs = [o.tokens for o in engine.run(_graph_engine_requests(sampled=True))]
+        torch.cuda.synchronize()
+        runs.append((outs, [t.clone() for t in engine._cache.k + engine._cache.v
+                            + [engine._cache.index]]))
+    (outs, cache), (outs2, cache2) = runs
+    assert outs == outs2
+    assert all(torch.equal(a, b) for a, b in zip(cache, cache2))
+
+
+def test_llama_nf4_decode_runs_the_kernel(hopper):
+    """An nf4 Llama (widths the kernel takes: N a multiple of 128) decodes
+    through `generate` on the kernel, 7 projections a layer each forward:
+    the eager prefill's launches counted by the wrapper, the decode steps'
+    through the replays of the captured graph (what the wrapper counted
+    while it was recorded, times the replays). Its greedy tokens equal the
+    dense model's over the dequantized copy (fp32, TF32 off), which
+    launches none, and the eager step's."""
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.utils.quantization import (
+        QuantizationConfig,
+        dequantize_module,
+        quantize_module,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig.tiny(dtype=torch.float32, hidden_size=256, intermediate_size=512,
+                           num_heads=4, num_kv_heads=2, sliding_window=24)
+    model = quantize_module(LlamaForCausalLM(cfg, device=hopper),
+                            QuantizationConfig(load_in_4bit=True, compute_dtype=torch.float32))
+    dense = dequantize_module(model)
+    ids = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(3))
+    per_forward = 7 * cfg.num_layers
+    got = generation.generate(model, ids, 12)  # captures the decode step
+    held = generation._CAPTURED[model]
+    assert held.launches == {"nf4_matmul": per_forward}
+    graph, replays = held.graph, held.replays
+    nm.nf4_matmul.launches = 0
+    again = generation.generate(model, ids, 12)  # replays it from the first step
+    assert held.graph is graph and held.replays - replays == 11
+    assert nm.nf4_matmul.launches == per_forward  # the prefill
+    assert nm.nf4_matmul.launches + per_forward * (held.replays - replays) == per_forward * 12
+    assert torch.equal(again, got)
+    nm.nf4_matmul.launches = 0
+    assert torch.equal(got, generation.generate(dense, ids, 12))
+    assert nm.nf4_matmul.launches == 0 and generation._CAPTURED[dense].launches == {"nf4_matmul": 0}
+    assert torch.equal(got, generation._generate(model, ids, 12, 0.0, None, None, model.device,
+                                                 capture=False))
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "llama_int8_kv"])
+def test_captured_generate_equals_eager(hopper, kind):
+    """`generate` replays its decode step as a captured CUDA graph; the
+    eager step (`generation._generate` with ``capture=False``) gives the
+    same tokens, greedy and sampled (the noise drawn from a generator seeded
+    alike)."""
+    from accelerate_tpu_torch.models.generation import _generate, generate
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+
+    if kind == "gpt2":
+        model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device=hopper)
+    else:
+        model = LlamaForCausalLM(LlamaConfig.tiny(dtype=torch.float32, sliding_window=5,
+                                                  kv_cache_dtype=torch.int8), device=hopper)
+    g = torch.Generator().manual_seed(4)
+    for temperature, top_k in ((0.0, None), (0.9, 20)):
+        # the second call of a batch size replays the first call's graph
+        for prompt_len in (7, 12):
+            ids = torch.randint(0, 256, (3, prompt_len), generator=g)
+            replayed = generate(model, ids, 12, temperature=temperature, top_k=top_k,
+                                generator=torch.Generator(device=hopper).manual_seed(9))
+            eager = _generate(model, ids, 12, temperature, top_k,
+                              torch.Generator(device=hopper).manual_seed(9), model.device,
+                              capture=False)
+            assert torch.equal(replayed, eager)
+
+
+def test_generate_keeps_one_captured_step_a_model(hopper):
+    """`generate` keeps one captured step a model: a call with another batch
+    size or mode replaces it (nothing holds the old one), and
+    `release_captured` frees its slot cache at once."""
+    import gc
+    import weakref
+
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.models.kv_cache import tree_nbytes
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device=hopper)
+    ids = torch.randint(0, 256, (4, 6), generator=torch.Generator().manual_seed(5))
+    dropped = []
+    for b, temperature in ((4, 0.0), (2, 0.0), (2, 0.8), (4, 0.0)):
+        generation.generate(model, ids[:b], 8, temperature=temperature,
+                            generator=torch.Generator(device=hopper).manual_seed(1))
+        kept = generation._CAPTURED[model]
+        assert (kept.batch, kept.sampled) == (b, temperature > 0)
+        gc.collect()
+        assert all(ref() is None for ref in dropped)
+        dropped.append(weakref.ref(kept))
+    torch.cuda.synchronize(hopper)
+    nbytes = tree_nbytes(kept.cache)
+    del kept
+    before = torch.cuda.memory_allocated(hopper)
+    generation.release_captured(model)
+    gc.collect()
+    assert model not in generation._CAPTURED and dropped[-1]() is None
+    assert before - torch.cuda.memory_allocated(hopper) >= nbytes > 0
+
+
+def test_captured_generate_recaptures_after_an_in_place_swap(hopper):
+    """A model quantized in place (`quantize_model`) reads new tensors: the
+    kept graph is captured anew, and its tokens are the eager ones."""
+    from accelerate_tpu_torch.models import generation
+    from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize_model
+
+    cfg = LlamaConfig.tiny(dtype=torch.float32, hidden_size=256, intermediate_size=512)
+    model = LlamaForCausalLM(cfg, device=hopper)
+    ids = torch.randint(0, 256, (2, 5), generator=torch.Generator().manual_seed(2))
+    generation.generate(model, ids, 8)
+    first = generation._CAPTURED[model].graph
+    quantize_model(model, QuantizationConfig(load_in_4bit=True, compute_dtype=torch.float32))
+    got = generation.generate(model, ids, 8)
+    assert generation._CAPTURED[model].graph is not first
+    assert torch.equal(got, generation._generate(model, ids, 8, 0.0, None, None, model.device,
+                                                 capture=False))

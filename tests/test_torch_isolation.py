@@ -37,7 +37,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.ops.fused_ce", "accelerate_tpu_torch.models.llama",
                 "accelerate_tpu_torch.accelerator", "accelerate_tpu_torch.state",
                 "accelerate_tpu_torch.optimizer", "accelerate_tpu_torch.utils.precision",
-                "accelerate_tpu_torch.utils.quantization", "accelerate_tpu_torch.ops.nf4_matmul"):
+                "accelerate_tpu_torch.utils.quantization", "accelerate_tpu_torch.ops.nf4_matmul",
+                "accelerate_tpu_torch.utils.safetensors_io", "accelerate_tpu_torch.checkpointing",
+                "accelerate_tpu_torch.models.generation", "accelerate_tpu_torch.models.kv_cache"):
         assert mod in got["modules"]
 
 

@@ -192,8 +192,10 @@ def test_params_from_jax_layout(params):
 
 
 def test_decode_is_refused(params):
+    """Decode runs over an explicit slot cache (tests/test_torch_llama_decode.py);
+    ``decode=True`` without one is refused, naming where the cache comes from."""
     model = _port_model(params)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
+    with pytest.raises(ValueError, match="make_cache"):
         model(torch.zeros((1, 4), dtype=torch.long), decode=True)
 
 

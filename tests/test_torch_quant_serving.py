@@ -111,8 +111,8 @@ def _port_engine(weights, name, attention):
                                        kv_cache_dtype=torch.int8 if int8_kv else None, **TINY),
                        device="cpu")
     model.load_state_dict(params_from_jax(weights))
-    return ServingEngine(model, device="cpu", paged_attention=attention, weight_quant=wq,
-                         **ENGINE_KW)
+    return ServingEngine(model, device="cpu", paged_kv=True, paged_attention=attention,
+                         weight_quant=wq, **ENGINE_KW)
 
 
 @pytest.mark.parametrize("attention", ["fused", "gather"])

@@ -45,6 +45,8 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
 PROMPT_LENS = (5, 23, 40, 9, 16, 33, 61)  # 7 requests over 4 slots; buckets 16 and 64
 N_NEW = 12
 ENGINE_KW = dict(max_concurrency=4, prompt_buckets=(16, 64))
+# the port's paged engine (its default is the slot pool, as the reference's)
+PAGED = dict(paged_kv=True, paged_attention="fused")
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +72,7 @@ def _jax_run(jmod, params, prompts, eos=None):
 
 
 def _port_engine(model, **kw):
-    return ServingEngine(model, device="cpu", **{**ENGINE_KW, **kw})
+    return ServingEngine(model, device="cpu", **{**PAGED, **ENGINE_KW, **kw})
 
 
 def _port_run(model, prompts, params=None, **kw):
@@ -177,7 +179,7 @@ def test_retired_slot_table_row_parks_at_sentinel(models):
     (dict(paged_kv=PagedKVConfig(block_tokens=256)), ValueError, "power of two dividing"),
     (dict(paged_kv=PagedKVConfig(num_blocks=4)), ValueError, "num_blocks"),
     (dict(paged_attention="pallas"), ValueError, "gather.*fused"),
-    (dict(paged_kv=False), NotImplementedError, "ROADMAP"),
+    (dict(paged_kv=False, paged_attention="fused"), ValueError, "requires paged_kv"),
     (dict(pipeline_depth=0), ValueError, "pipeline_depth"),
     (dict(tokens_per_sync=0), ValueError, "tokens_per_sync"),
     (dict(max_concurrency=0), ValueError, "max_concurrency"),
@@ -191,19 +193,32 @@ def test_engine_validation(models, kw, exc, match):
 
 
 def test_engine_defaults_pinned_beside_the_reference():
-    """The port's defaults differ from the reference's until the slot pool
-    is ported (the engine's docstring says why); its pipeline depth is the
-    reference's: pinned on both sides, so a change to either shows here."""
+    """The port's engine defaults are the reference's (the slot pool, the
+    gather oracle, depth 2): pinned on both sides, so a change to either
+    shows here."""
     import inspect
 
     def defaults(cls):
         sig = inspect.signature(cls.__init__).parameters
         return {k: sig[k].default for k in ("pipeline_depth", "paged_kv", "paged_attention")}
 
-    assert defaults(ServingEngine) == dict(pipeline_depth=2, paged_kv=True, paged_attention="fused")
-    assert defaults(JaxServingEngine) == dict(pipeline_depth=2, paged_kv=False,
-                                              paged_attention="gather")
-    assert "Defaults that differ from the reference engine's" in ServingEngine.__doc__
+    assert defaults(ServingEngine) == defaults(JaxServingEngine) == dict(
+        pipeline_depth=2, paged_kv=False, paged_attention="gather")
+
+
+def test_paged_kv_false_serves_from_the_slot_pool(models, reference):
+    """``paged_kv=False`` (the default) builds the slot-pool engine: no block
+    pool, allocator or tables, a ``[max_concurrency]`` write index, and the
+    reference paged engine's greedy streams, which its own tests hold equal
+    to its slot engine's."""
+    _, _, model = models
+    prompts, plain, _, _ = reference
+    engine = ServingEngine(model, device="cpu", paged_kv=False, **ENGINE_KW)
+    assert not engine.paged and engine._allocator is None and engine._d_tables is None
+    assert tuple(engine._cache.index.shape) == (ENGINE_KW["max_concurrency"],)
+    reqs = [Request(prompt=list(p), params=SamplingParams(max_new_tokens=N_NEW, seed=i))
+            for i, p in enumerate(prompts)]
+    assert {o.request_id: (o.tokens, o.finish_reason) for o in engine.run(reqs)} == plain
 
 
 def test_submit_rejections(models):

@@ -39,6 +39,8 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
 N_NEW = 12
 ENGINE_KW = dict(max_concurrency=4, prompt_buckets=(16, 64))
 CANCEL_KW = dict(max_concurrency=2, prompt_buckets=(8,))
+# the port's paged engine (its default is the slot pool, as the reference's)
+PAGED = dict(paged_kv=True, paged_attention="fused")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +70,7 @@ def _requests(prompts, n_new=N_NEW):
 
 
 def _port_run(model, prompts, n_new=N_NEW, **kw):
-    engine = ServingEngine(model, device="cpu", **{**ENGINE_KW, **kw})
+    engine = ServingEngine(model, device="cpu", **{**PAGED, **ENGINE_KW, **kw})
     return {o.request_id: (o.tokens, o.finish_reason) for o in engine.run(_requests(prompts, n_new))}
 
 
@@ -137,7 +139,7 @@ def test_cancel_mid_flight_with_full_pipeline(models, reference, sync):
     *_, prompts, cancel = reference
     refs = [cancel[i][0] for i in range(3)]
     engine = ServingEngine(model, device="cpu", pipeline_depth=4, tokens_per_sync=sync,
-                           **CANCEL_KW)
+                           **PAGED, **CANCEL_KW)
     a = engine.submit(Request(prompts[0], SamplingParams(max_new_tokens=24)))
     b = engine.submit(Request(prompts[1], SamplingParams(max_new_tokens=24)))
     for _ in range(4 if sync > 1 else 6):  # past the pipeline's depth, short of the budget
@@ -161,7 +163,7 @@ def test_cancel_mid_flight_with_full_pipeline(models, reference, sync):
 
 def test_cancel_queued_and_unknown_requests(models):
     _, _, model = models
-    engine = ServingEngine(model, device="cpu", **CANCEL_KW)
+    engine = ServingEngine(model, device="cpu", **PAGED, **CANCEL_KW)
     ids = [engine.submit(Request([1, 2, 3], SamplingParams(max_new_tokens=4))).request_id
            for _ in range(3)]
     engine.step()  # seats two; the third stays queued
@@ -191,7 +193,8 @@ def test_depth_one_admit_one_is_the_synchronous_flow(models):
     before the next, so finishes surface in the step() call that produced
     them."""
     _, _, model = models
-    engine = ServingEngine(model, device="cpu", pipeline_depth=1, admit_batch=1, **CANCEL_KW)
+    engine = ServingEngine(model, device="cpu", pipeline_depth=1, admit_batch=1, **PAGED,
+                           **CANCEL_KW)
     for p in _prompts(23, (4, 5)):
         engine.submit(Request(p, SamplingParams(max_new_tokens=3)))
     per_step = [len(engine.step()) for _ in range(3)]
@@ -205,7 +208,8 @@ def test_depth_one_admit_one_is_the_synchronous_flow(models):
 
 def test_depth_two_observes_a_finish_one_call_later(models):
     _, _, model = models
-    engine = ServingEngine(model, device="cpu", pipeline_depth=2, admit_batch=1, **CANCEL_KW)
+    engine = ServingEngine(model, device="cpu", pipeline_depth=2, admit_batch=1, **PAGED,
+                           **CANCEL_KW)
     for p in _prompts(23, (4, 5)):
         engine.submit(Request(p, SamplingParams(max_new_tokens=3)))
     per_step = [len(engine.step()) for _ in range(3)]
@@ -229,7 +233,7 @@ def test_sampled_streams_equal_generate_at_every_depth_and_sync(models, depth, s
                                             max_new_tokens=10))
             for i, p in enumerate(prompts)]
     engine = ServingEngine(model, device="cpu", pipeline_depth=depth, tokens_per_sync=sync,
-                           **ENGINE_KW)
+                           **PAGED, **ENGINE_KW)
     outs = engine.run(reqs)
     for r, o in zip(reqs, outs):
         sp = r.params
@@ -246,7 +250,7 @@ def test_dispatch_metrics(models, reference, depth, sync):
     _, _, model = models
     prompts, *_ = reference
     engine = ServingEngine(model, device="cpu", pipeline_depth=depth, tokens_per_sync=sync,
-                           **ENGINE_KW)
+                           **PAGED, **ENGINE_KW)
     outs = engine.run(_requests(prompts))
     m = engine.metrics
     tokens = sum(len(o.tokens) for o in outs)
