@@ -26,6 +26,11 @@ and Llama: `models.generation.generate` for either, the serving engine's
 slot-pool mode (its default, as the reference's), and big-model inference:
 safetensors checkpoints (`utils.safetensors_io`, `checkpointing`) loaded and
 quantized on the card (`utils.quantization.load_and_quantize_model`).
+And the serving engine's prefix KV cache (`serving.prefix_cache`,
+``prefix_cache=``) and speculative decoding (`serving.speculation`,
+``speculation=``), and the Llama loss with its untied head on the fused-CE
+kernels (`models.llama.llama_loss_fn_fused`); flash attention runs at
+head_dim 64, 128, 192 and 256.
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first

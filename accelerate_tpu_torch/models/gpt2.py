@@ -16,7 +16,9 @@ Three forward modes:
   - the paged decode step: one token per row, written at the row's frontier
     in the `kv_cache.PagedKVCache` pools, attention through the row's block
     table, either with the CUDA kernel in place (``cache.attention ==
-    "fused"``) or over the gathered view (``"gather"``).
+    "fused"``) or over the gathered view (``"gather"``); a multi-token
+    segment under ``write_len`` (the speculative verify step) always takes
+    the gathered view, as in the reference: the kernel is single-query.
 
 Numerics follow the reference: parameters live in ``param_dtype`` and every
 projection computes in ``dtype`` (inputs, weight and bias cast to it, as flax
@@ -182,8 +184,9 @@ class SelfAttention(nn.Module):
             out = attention(q, k_all, v_all, mask=mask, implementation="xla")
         elif cache is not None:
             # paged decode: the query at cursor idx attends positions <= idx,
-            # a valid span of idx + 1, in both attention paths
-            if cache.attention == "fused":
+            # a valid span of idx + 1, in both attention paths; query j of a
+            # segment sits at idx + j
+            if cache.attention == "fused" and s == 1 and write_len is None:
                 k_pool, v_pool, scales = paged_decode_write(cache, layer, k, v, block_tables,
                                                             write_mask)
                 k_sp, v_sp = scales if scales is not None else (None, None)
@@ -191,9 +194,11 @@ class SelfAttention(nn.Module):
                                              cache.index + 1, k_scale_pool=k_sp,
                                              v_scale_pool=v_sp)[:, None]
             else:
-                k_all, v_all = paged_decode_update(cache, layer, k, v, block_tables, write_mask)
+                k_all, v_all = paged_decode_update(cache, layer, k, v, block_tables, write_mask,
+                                                   write_len)
                 kv_pos = torch.arange(k_all.shape[1], device=x.device)
-                mask = (kv_pos[None, :] <= cache.index[:, None])[:, None, None, :]
+                q_pos = cache.index.long()[:, None] + torch.arange(s, device=x.device)
+                mask = (kv_pos[None, None, :] <= q_pos[:, :, None])[:, None]
                 out = attention(q, k_all, v_all, mask=mask, implementation="xla")
         else:
             if kv_out is not None and cfg.kv_cache_dtype is not None:
@@ -288,7 +293,7 @@ class GPT2LMHead(nn.Module):
         cache: SlotKVCache | PagedKVCache | None = None,
         block_tables: torch.Tensor | None = None,  # [b, blocks_per_slot] (paged decode)
         write_mask: torch.Tensor | None = None,  # [b] bool: False rows freeze (per slot, paged)
-        write_len: torch.Tensor | None = None,  # [b] int: per-row segment cap (slot, per slot)
+        write_len: torch.Tensor | None = None,  # [b] int: per-row segment cap (per slot, paged)
         kv_out: list | None = None,  # full forward: collects each layer's (k, v)
         return_hidden: bool = False,
         deterministic: bool = True,  # False applies dropout (config.dropout > 0)
@@ -301,7 +306,10 @@ class GPT2LMHead(nn.Module):
         `PagedKVCache` it is one paged decode step (``s == 1``): each row's
         token is written at ``cache.index`` through ``block_tables`` (rows
         where ``write_mask`` is False write nothing) and the cursor of
-        writing rows advances by one. Without a cache, the causal forward
+        writing rows advances by one; with ``write_len``, a segment of ``s``
+        tokens of which each row writes its first ``clip(write_len, 0, s)``
+        (`kv_cache.paged_frontier_write`) and advances by as many. Without a
+        cache, the causal forward
         over ``input_ids``. ``return_hidden`` returns the final LayerNorm output in
         the compute dtype instead of logits (see `logits`). With
         ``deterministic=False`` and ``config.dropout > 0``, dropout draws from
@@ -316,7 +324,8 @@ class GPT2LMHead(nn.Module):
                 raise ValueError("paged decode needs block_tables ([b, blocks_per_slot])")
             if write_mask is None:
                 write_mask = torch.ones(b, dtype=torch.bool, device=input_ids.device)
-            decode = dict(cache=cache, block_tables=block_tables, write_mask=write_mask)
+            decode = dict(cache=cache, block_tables=block_tables, write_mask=write_mask,
+                          write_len=write_len)
         elif kv_out is not None:
             decode = dict(kv_out=kv_out)
         steps = torch.arange(s, device=input_ids.device)
@@ -338,7 +347,10 @@ class GPT2LMHead(nn.Module):
         if isinstance(cache, SlotKVCache):
             advance_index(cache, s, write_mask, write_len)
         elif cache is not None:
-            cache.index += write_mask.to(cache.index.dtype)
+            step = write_mask.to(cache.index.dtype)
+            if write_len is not None:
+                step = step * write_len.to(cache.index.dtype).clamp(0, s)
+            cache.index += step
         x = _layer_norm(x, self.ln_f).to(cfg.dtype)
         return x if return_hidden else self.logits(x)
 

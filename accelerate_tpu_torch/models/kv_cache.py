@@ -28,6 +28,15 @@ write would make the host wait on the device, so such writes are steered
 into the sink block, which nothing ever reads. `PagedKVCache.pools` hands out
 the ``[:num_blocks]`` views that attention reads.
 
+The prefix cache's pieces (`serving.prefix_cache`): `make_prefix_block_pool`
+carves a slot cache's leaves into a block pool of the same `PagedKVCache`
+layout, `scatter_block_rows` donates a slot row's blocks into it, and
+`gather_block_rows` assembles rows for a cached admission out of either pool
+(the prefix pool in slot mode, the engine's own pool in paged mode).
+`rewind_frontier` moves the write cursor back without touching KV, the
+speculative verify step's rollback; the paged frontier write lands a
+multi-token segment under ``write_len``, as the verify step needs.
+
 int8 storage (``kv_cache_dtype=torch.int8``), in both, as the reference's:
 the K and V buffers hold int8 values and sibling fp32 scale planes (slot:
 ``[b, max_len, kv_heads]``; paged: ``[num_blocks + 1, block_tokens,
@@ -428,53 +437,68 @@ def make_block_pool(n_layer: int, batch: int, num_blocks: int, block_tokens: int
 
 def paged_frontier_write(
     storages: tuple[torch.Tensor, ...],  # [num_blocks + 1, block_tokens, ...] each
-    news: tuple[torch.Tensor, ...],  # congruent [b, 1, ...] new rows (K, V[, scales])
+    news: tuple[torch.Tensor, ...],  # congruent [b, s, ...] new rows (K, V[, scales])
     idx: torch.Tensor,  # [b] int32 write cursors
     mask: torch.Tensor,  # [b] bool: False rows freeze (dropped write)
     block_tables: torch.Tensor,  # [b, blocks_per_slot] int pool block ids
+    write_len: torch.Tensor | None = None,  # [b] int per-row segment cap, or None (s == 1)
 ) -> None:
-    """The append-at-frontier write (the reference's ``_paged_frontier_write``,
-    one-token branch), in place: row ``i``'s new entry lands in block
-    ``block_tables[i, idx[i] // block_tokens]`` at offset ``idx[i] %
-    block_tokens``. Frozen rows and table ids at or past ``num_blocks`` (the
-    released-slot sentinel) write into the sink block instead, so they change
-    nothing any reader sees. A cursor past the table's last column reads that
-    column, as the reference's clamped gather does."""
+    """The append-at-frontier write (the reference's ``_paged_frontier_write``),
+    in place. Without ``write_len`` (one token, ``s == 1``): row ``i``'s new
+    entry lands in block ``block_tables[i, idx[i] // block_tokens]`` at
+    offset ``idx[i] % block_tokens``. With ``write_len`` (the speculative
+    verify segment): row ``i``'s first ``clip(write_len[i], 0, s)`` entries
+    land at positions ``idx[i], idx[i] + 1, ...`` through its table, and the
+    rest go to the sink, so a segment never writes into blocks the row's
+    reservation does not own. Frozen rows and table ids at or past
+    ``num_blocks`` (the released-slot sentinel) write into the sink block
+    too, so they change nothing any reader sees. A cursor past the table's
+    last column reads that column, as the reference's clamped gather does."""
     sink = storages[0].shape[0] - 1
     block_tokens = storages[0].shape[1]
-    b = idx.shape[0]
-    rows = torch.arange(b, device=idx.device)
+    b, s = news[0].shape[:2]
     idx = idx.long()
-    col = torch.clamp(idx // block_tokens, max=block_tables.shape[1] - 1)
-    bids = block_tables[rows, col].long()
-    keep = mask & (bids >= 0) & (bids < sink)
+    if write_len is None:
+        if s != 1:
+            raise ValueError(
+                f"paged decode writes one token per step, got a length-{s} segment "
+                "(prefill writes through scatter_rows_to_blocks; multi-token verify "
+                "segments pass write_len)"
+            )
+        cols, valid = idx[:, None], mask[:, None]
+    else:
+        wl = write_len.long().clamp(0, s) * mask.long()
+        steps = torch.arange(s, device=idx.device)
+        cols = idx[:, None] + steps[None, :]  # [b, s]
+        valid = steps[None, :] < wl[:, None]
+    rows = torch.arange(b, device=idx.device)[:, None]
+    bids = block_tables[rows, (cols // block_tokens).clamp(max=block_tables.shape[1] - 1)].long()
+    keep = valid & (bids >= 0) & (bids < sink)
     bids = torch.where(keep, bids, torch.full_like(bids, sink))
-    offs = idx % block_tokens
+    offs = cols % block_tokens
     for storage, new in zip(storages, news):
-        storage[bids, offs] = new[:, 0].to(storage.dtype)
+        storage[bids, offs] = new.to(storage.dtype)
 
 
 def paged_decode_write(cache: PagedKVCache, layer: int, k: torch.Tensor, v: torch.Tensor,
-                       block_tables: torch.Tensor, write_mask: torch.Tensor
+                       block_tables: torch.Tensor, write_mask: torch.Tensor,
+                       write_len: torch.Tensor | None = None,
                        ) -> tuple[torch.Tensor, torch.Tensor,
                                   tuple[torch.Tensor, torch.Tensor] | None]:
-    """Write-only step for the fused path: land ``k``/``v`` (``[b, 1,
-    kv_heads, head_dim]``, quantized for an int8 pool) at each row's frontier
-    and return layer ``layer``'s pools for the kernel to read in place, with
-    their scale planes (None at full precision). The cursor is not advanced
-    here (see `PagedKVCache`)."""
-    if k.shape[1] != 1:
-        raise ValueError(
-            f"paged decode writes one token per step, got a length-{k.shape[1]} "
-            "segment (prefill writes through scatter_rows_to_blocks)"
-        )
+    """Write-only step: land ``k``/``v`` (``[b, s, kv_heads, head_dim]``,
+    ``s == 1`` unless ``write_len`` caps a segment; quantized for an int8
+    pool) at each row's frontier (`paged_frontier_write`) and return layer
+    ``layer``'s pools for the kernel to read in place, with their scale
+    planes (None at full precision). The cursor is not advanced here (see
+    `PagedKVCache`)."""
     paged_frontier_write(cache.storages(layer), cache.new_rows(k, v), cache.index,
-                         write_mask, block_tables)
+                         write_mask, block_tables, write_len)
     return (*cache.pools(layer), cache.scale_pools(layer))
 
 
 def paged_decode_update(cache: PagedKVCache, layer: int, k: torch.Tensor, v: torch.Tensor,
-                        block_tables: torch.Tensor, write_mask: torch.Tensor
+                        block_tables: torch.Tensor, write_mask: torch.Tensor,
+                        write_len: torch.Tensor | None = None,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """The gather path: the same frontier write, then the attended view, each
     row's table blocks concatenated in token order, ``[b, blocks_per_slot *
@@ -482,7 +506,8 @@ def paged_decode_update(cache: PagedKVCache, layer: int, k: torch.Tensor, v: tor
     index ``p``, so the caller masks positions past the cursor. Sentinel
     table ids read block ``num_blocks - 1``, masked like every position
     past the frontier. An int8 view is dequantized to k's dtype."""
-    k_pool, v_pool, scales = paged_decode_write(cache, layer, k, v, block_tables, write_mask)
+    k_pool, v_pool, scales = paged_decode_write(cache, layer, k, v, block_tables, write_mask,
+                                                write_len)
     b, bps = block_tables.shape
     tables = block_tables.long().clamp(max=cache.num_blocks - 1)
     span = bps * cache.block_tokens
@@ -530,6 +555,93 @@ def scatter_rows_to_blocks(
                 new = torch.nn.functional.pad(new, (0, 0) * (new.ndim - 2) + (0, pad))
             storage[dest] = new.reshape((nb * n_blk, bt) + tuple(new.shape[2:])).to(storage.dtype)
     cache.index[slots.long()] = cache_index.to(cache.index.dtype)
+
+
+def rewind_frontier(cache: SlotKVCache | PagedKVCache, new_index: torch.Tensor) -> None:
+    """Move the ``[b]`` write cursor to ``new_index``, in place, without
+    touching a KV byte: the speculative verify step's rollback (the
+    reference's ``rewind_frontier``). A rejected draft's entries stay behind
+    the cursor as dead state: the next write lands on top of them and the
+    frontier mask keeps attention from reading past the cursor. The slot
+    cache (per slot) and the paged pool share the one cursor."""
+    if cache.index.ndim != 1:
+        raise ValueError("rewind_frontier needs a per-slot [b] cursor")
+    cache.index.copy_(new_index.to(cache.index.dtype))
+
+
+def make_prefix_block_pool(cache: SlotKVCache, num_blocks: int,
+                           block_tokens: int) -> PagedKVCache:
+    """The prefix cache's block pool in slot mode (the reference's
+    ``make_block_pool(cache, num_blocks, block_tokens)``): every leaf of the
+    slot cache ``cache`` carved into ``[num_blocks + 1, block_tokens, ...]``
+    blocks (the last the drop sink, as in every `PagedKVCache`), zeroed, in
+    the cache's dtypes, on its device, int8 scale planes included. Its
+    ``index`` is an empty placeholder: occupancy lives in the host trie."""
+    if cache.max_len % block_tokens:
+        raise ValueError(f"block_tokens {block_tokens} must divide the cache's "
+                         f"{cache.max_len} positions")
+    num_blocks = int(num_blocks)
+
+    def planes(leaves):
+        return [torch.zeros((num_blocks + 1, block_tokens) + tuple(t.shape[2:]), dtype=t.dtype,
+                            device=t.device) for t in leaves]
+
+    return PagedKVCache(
+        k=planes(cache.k), v=planes(cache.v),
+        index=torch.zeros(0, dtype=torch.int32, device=cache.index.device),
+        k_scale=planes(cache.k_scale) if cache.quantized else None,
+        v_scale=planes(cache.v_scale) if cache.quantized else None,
+    )
+
+
+def gather_block_rows(pool: PagedKVCache, block_tables: torch.Tensor,
+                      cache_index: torch.Tensor) -> SlotKVCache:
+    """Assemble ``nb`` per-slot cache rows out of pool blocks, one gather per
+    leaf (the reference's ``gather_block_rows``): row ``i`` is
+    ``block_tables[i]``'s blocks concatenated along the token axis,
+    ``blocks_per_row * block_tokens`` positions, and its index is
+    ``cache_index[i]`` (the cached prefix length), so a suffix prefill over
+    the rows writes and attends from each row's cached end. Table entries
+    past a row's prefix may point anywhere: the positions they fill are
+    overwritten by the suffix or sit past the index, masked; ids at or past
+    ``num_blocks`` read block ``num_blocks - 1``. A new cache: the pool is
+    not changed."""
+    nb, bpr = block_tables.shape
+    tables = block_tables.long().clamp(0, pool.num_blocks - 1)
+    span = bpr * pool.block_tokens
+
+    def rows(leaves):
+        return [t[tables].reshape((nb, span) + tuple(t.shape[2:])) for t in leaves]
+
+    return SlotKVCache(
+        k=rows(pool.k), v=rows(pool.v), index=cache_index.to(torch.int32).clone(),
+        k_scale=rows(pool.k_scale) if pool.quantized else None,
+        v_scale=rows(pool.v_scale) if pool.quantized else None,
+    )
+
+
+def scatter_block_rows(pool: PagedKVCache, cache: SlotKVCache, slot: int | torch.Tensor,
+                       dest_blocks: torch.Tensor) -> None:
+    """Donate slot row ``slot``'s KV into pool blocks, in place, one indexed
+    write per leaf (the reference's ``scatter_block_rows``, the prefix
+    cache's donation): the row's ``j``-th block of ``block_tokens`` positions
+    lands at pool block ``dest_blocks[j]`` (``[max_len // block_tokens]``);
+    ids at or past ``num_blocks`` go to the sink, which is how blocks already
+    in the trie and the region past the donated prefix are skipped."""
+    sink, bt = pool.num_blocks, pool.block_tokens
+    dest = dest_blocks.long().to(pool.k[0].device)
+    dest = torch.where((dest >= 0) & (dest < sink), dest, torch.full_like(dest, sink))
+    n_blk = dest.shape[0]
+    for layer in range(len(pool.k)):
+        olds, rows = pool.storages(layer), cache.storages(layer)
+        if len(olds) != len(rows):
+            raise ValueError(f"layer {layer}: {len(rows)} cache leaves for {len(olds)} pool leaves")
+        for buf, row in zip(olds, rows):
+            row = row[slot]
+            if row.shape[0] != n_blk * bt:
+                raise ValueError(f"dest_blocks covers {n_blk * bt} positions, the row holds "
+                                 f"{row.shape[0]}")
+            buf[dest] = row.reshape((n_blk, bt) + tuple(row.shape[1:])).to(buf.dtype)
 
 
 def _leaves(tree):

@@ -29,10 +29,10 @@ nf4 weights it routes there, ``x @ dequantize(W)`` for the rest), and the
 quantized ``embed_tokens`` and ``lm_head`` (`QuantizedEmbedding`)
 dequantize the rows they read and the whole head.
 
-Ported: the full-sequence forward (training), decode, `llama_loss_fn` and
+Ported: the full-sequence forward (training), decode, `llama_loss_fn`,
+`llama_loss_fn_fused` (the untied head through the fused-CE kernels) and
 `params_from_jax`. Not yet: ``attention_impl="ring"`` (it raises
-NotImplementedError naming its ROADMAP item), ``remat``, ``fp8_recipe`` and
-`llama_loss_fn_fused`.
+NotImplementedError naming its ROADMAP item), ``remat`` and ``fp8_recipe``.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.fused_ce import fused_cross_entropy
 from ..utils.environment import resolve_device
 from ..utils.quantization import QuantizedEmbedding, dequantize
 from ..utils.safetensors_io import unflatten_state_dict
@@ -286,6 +287,25 @@ def llama_loss_fn(model, batch: dict) -> torch.Tensor:
     """Next-token LM loss, usable with `Accelerator.make_train_step`."""
     logits = model(batch["input_ids"])
     return cross_entropy_loss(logits, _next_token_labels(batch))
+
+
+def llama_loss_fn_fused(model, batch: dict, block_r: int | None = None,
+                        block_v: int | None = None) -> torch.Tensor:
+    """Next-token LM loss with the untied ``lm_head`` fused into the
+    cross-entropy (`ops.fused_ce.fused_cross_entropy`): on a CUDA model the
+    forward, dH and dW run in the port's CUDA kernels and the ``[b * s, V]``
+    logits never reach memory; on the CPU their plain versions run. The
+    reference's ``llama_loss_fn_fused``; drop-in for `llama_loss_fn` with
+    `Accelerator.make_train_step`, whose `BoundModel` carries the head in
+    ``model.params``, cast to the hidden states' dtype. ``block_r`` and
+    ``block_v`` are the reference's TPU tiles: accepted and ignored, the
+    kernels choose their own."""
+    del block_r, block_v
+    hidden = model(batch["input_ids"], return_hidden=True)
+    labels = _next_token_labels(batch)
+    b, s, e = hidden.shape
+    head = model.params["lm_head"].to(hidden.dtype)
+    return fused_cross_entropy(hidden.reshape(b * s, e), head, labels.reshape(b * s))
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

@@ -23,7 +23,9 @@
 //
 // Layout: q, o, dO, dq are contiguous [b*hq, sq, D]; k, v, dk, dv are
 // [b*hkv, skv, D] (hkv = hq for the rectangular kernels); lse and delta are
-// fp32 [b*hq, sq]. D is 64 or 128.
+// fp32 [b*hq, sq]. D is 64, 128, 192 or 256: every head_dim the wrapper's
+// padding gives up to 256 (a head_dim off a multiple of 64 is padded to one
+// of 128).
 //
 // What differs from the TPU kernels: on the TPU the kv (or q) axis is the last,
 // sequential grid dimension and the running state lives in VMEM scratch across
@@ -118,7 +120,12 @@
 // The fp32 kernels keep the first design: tiles of 64 x 64 (32 x 64 at
 // D = 128), every operand tile, the fp32 scores and the fp32 accumulators in
 // shared memory, loaded synchronously; products by scalar fp32 FMAs (TF32
-// would break the fp32 parity tolerance).
+// would break the fp32 parity tolerance). D 192 and 256 run that scalar
+// design in both types, on tiles of 32 x 32 (the fp32 dK/dV's two [32][D]
+// fp32 accumulators and its operand tiles fill 211 KB of the 227 KB at
+// D 256); in bf16 it loads bf16 tiles and computes in fp32, rounding p and
+// dS to bf16 where the sm_90a bodies do. The sm_90a bodies are built for D 64
+// and 128 only (`kSm90Body`): a Hopper design at D 256 is later work.
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense):
@@ -200,8 +207,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Tile shape for element type T and head dim D: BQ query rows, BKV kv rows.
 template <typename T, int D>
 struct Tiles {
-  static constexpr int BQ = (sizeof(T) == 4 && D == 128) ? 32 : 64;
-  static constexpr int BKV = 64;
+  static constexpr bool kWide = D > 128;  // D 192 and 256: smaller tiles, to fit shared memory
+  static constexpr int BQ = kWide ? 32 : (sizeof(T) == 4 && D == 128) ? 32 : 64;
+  static constexpr int BKV = kWide ? 32 : 64;
   static constexpr int LDT = D + 8;     // operand tiles [rows][D] in T
   static constexpr int LDS = BKV + 4;   // fp32 score tiles [BQ][BKV]
   static constexpr int LDP = BKV + 8;   // rounded probability tiles [BQ][BKV] in T
@@ -247,6 +255,20 @@ struct Mask {
 
 using BandMask = Mask<true, true>;
 
+// element <-> fp32 for the scalar bodies: bf16 tiles compute in fp32, and
+// their results (p, dS, outputs) round to nearest on the way back
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x) {
+  if constexpr (std::is_same_v<T, float>) {
+    return x;
+  } else {
+    return __float2bfloat16(x);
+  }
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
@@ -286,10 +308,10 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0
 
 // C[M][N] (=, or += when ACC) op(A)[M][K] . op(B)[K][N], all in shared memory.
 // A_T: A is stored [K][M] (use its transpose), else [M][K]. B_T: B is stored
-// [N][K], else [K][N]. fp32 inputs: scalar FMAs, each thread owns a
-// (M/16) x (N/16) block of C (columns strided by 16).
-template <int M, int N, int K, bool A_T, bool B_T, bool ACC>
-__device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda, const float* B,
+// [N][K], else [K][N]. fp32 or bf16 inputs, fp32 scalar FMAs: each thread
+// owns a (M/16) x (N/16) block of C (columns strided by 16).
+template <int M, int N, int K, bool A_T, bool B_T, bool ACC, typename TA, typename TB>
+__device__ __forceinline__ void gemm(float* C, int ldc, const TA* A, int lda, const TB* B,
                                      int ldb) {
   constexpr int TM = M / 16;
   constexpr int TN = N / 16;
@@ -307,12 +329,12 @@ __device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda,
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int m = ty * TM + i;
-      a[i] = A_T ? A[k * lda + m] : A[m * lda + k];
+      a[i] = to_f(A_T ? A[k * lda + m] : A[m * lda + k]);
     }
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = tx + j * 16;
-      b[j] = B_T ? B[n * ldb + k] : B[k * ldb + n];
+      b[j] = to_f(B_T ? B[n * ldb + k] : B[k * ldb + n]);
     }
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -400,7 +422,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const T* __restric
       for (int j = 0; j < BKV / 32; ++j) {
         const float p = mask.windowed() && !keep[j] ? 0.f : expf(s[j] - m_new);
         sum += p;
-        p_s[r * C::LDP + lane + 32 * j] = p;
+        p_s[r * C::LDP + lane + 32 * j] = from_f<T>(p);
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -425,7 +447,7 @@ __device__ __forceinline__ void fwd_tile(unsigned char* smem, const T* __restric
     const int qi = q_lo + r;
     if (qi < sq) {
       const float l = l_s[r];
-      ob[(size_t)qi * D + c] = acc[r * C::LDA + c] / (l == 0.f ? 1.f : l);
+      ob[(size_t)qi * D + c] = from_f<T>(acc[r * C::LDA + c] / (l == 0.f ? 1.f : l));
     }
   }
   for (int r = threadIdx.x; r < BQ; r += kThreads) {
@@ -793,7 +815,7 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const T* __restrict
       const int qi = q_lo + r;
       const bool keep = qi < sq && mask.keep(qi, ik * BKV + c);
       const float p = expf((keep ? s_s[r * C::LDS + c] : kNegInf) - lse_s[r]);
-      ds_s[r * C::LDP + c] = p * (dp_s[r * C::LDS + c] - delta_s[r]);
+      ds_s[r * C::LDP + c] = from_f<T>(p * (dp_s[r * C::LDS + c] - delta_s[r]));
     }
     __syncthreads();
     gemm<BQ, D, BKV, false, false, true>(acc, C::LDA, ds_s, C::LDP, k_s, C::LDT);
@@ -803,7 +825,7 @@ __device__ __forceinline__ void dq_tile(unsigned char* smem, const T* __restrict
   for (int i = threadIdx.x; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int qi = q_lo + r;
-    if (qi < sq) dqb[(size_t)qi * D + c] = acc[r * C::LDA + c];
+    if (qi < sq) dqb[(size_t)qi * D + c] = from_f<T>(acc[r * C::LDA + c]);
   }
 }
 
@@ -872,7 +894,7 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
         const bool keep = qi < sq && mask.keep(qi, k_lo + c);
         const float p = expf((keep ? p_s[r * C::LDS + c] : kNegInf) - lse_s[r]);
         p_s[r * C::LDS + c] = p;
-        pr_s[r * C::LDP + c] = p;
+        pr_s[r * C::LDP + c] = from_f<T>(p);
       }
       __syncthreads();
       gemm<BKV, D, BQ, true, false, true>(dv_acc, C::LDA, pr_s, C::LDP, do_s, C::LDT);
@@ -880,7 +902,7 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
       for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
         const int r = i / BKV, c = i % BKV;
         pr_s[r * C::LDP + c] =
-            p_s[r * C::LDS + c] * (dp_s[r * C::LDS + c] - delta_s[r]);
+            from_f<T>(p_s[r * C::LDS + c] * (dp_s[r * C::LDS + c] - delta_s[r]));
       }
       __syncthreads();
       gemm<BKV, D, BQ, true, false, true>(dk_acc, C::LDA, pr_s, C::LDP, q_s, C::LDT);
@@ -893,8 +915,8 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
     const int r = i / D, c = i % D;
     const int kj = k_lo + r;
     if (kj < skv) {
-      dkb[(size_t)kj * D + c] = dk_acc[r * C::LDA + c];
-      dvb[(size_t)kj * D + c] = dv_acc[r * C::LDA + c];
+      dkb[(size_t)kj * D + c] = from_f<T>(dk_acc[r * C::LDA + c]);
+      dvb[(size_t)kj * D + c] = from_f<T>(dv_acc[r * C::LDA + c]);
     }
   }
 }
@@ -1395,20 +1417,34 @@ static_assert(Sm90Dkv<64>::kSmem <= kMaxSmem && Sm90Dkv<128>::kSmem <= kMaxSmem,
               "bf16 dK/dV tile exceeds shared memory");
 static_assert(Sm90Dq<64>::kSmem <= kMaxSmem && Sm90Dq<128>::kSmem <= kMaxSmem,
               "bf16 dQ tile exceeds shared memory");
+// D 192 and 256: the scalar bodies in fp32 and in bf16 (fp32 is the larger)
+static_assert(fwd_smem<float, 256>() <= kMaxSmem && fwd_smem<float, 192>() <= kMaxSmem &&
+                  fwd_smem<__nv_bfloat16, 256>() <= kMaxSmem,
+              "D 192/256 forward tile exceeds shared memory");
+static_assert(dq_smem<float, 256>() <= kMaxSmem && dq_smem<float, 192>() <= kMaxSmem &&
+                  dq_smem<__nv_bfloat16, 256>() <= kMaxSmem,
+              "D 192/256 dQ tile exceeds shared memory");
+static_assert(dkv_smem<float, 256>() <= kMaxSmem && dkv_smem<float, 192>() <= kMaxSmem &&
+                  dkv_smem<__nv_bfloat16, 256>() <= kMaxSmem,
+              "D 192/256 dK/dV tile exceeds shared memory");
 
 // The kernels: one __global__ name per TPU kernel replaced, each a tile body
 // under its family's mask.
-// a kernel's threads: bf16 runs the sm_90a bodies (two consumer warpgroups
-// and a producer warpgroup), fp32 the scalar ones
-template <typename T>
+// which body a (type, head_dim) runs: bf16 at D 64 and 128 the sm_90a
+// bodies (two consumer warpgroups and a producer warpgroup), everything else
+// (fp32, and bf16 at D 192 and 256) the scalar ones; and its threads
+template <typename T, int D>
+constexpr bool kSm90Body = std::is_same_v<T, __nv_bfloat16> && D <= 128;
+
+template <typename T, int D>
 struct BodyThreads {
-  static constexpr int value = std::is_same_v<T, __nv_bfloat16> ? kSm90Threads : kThreads;
+  static constexpr int value = kSm90Body<T, D> ? kSm90Threads : kThreads;
 };
 
 template <typename T, int D, typename M>
 __device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const T* k, const T* v, T* o,
                                          float* lse, const M mask, const FwdMaps& maps) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (kSm90Body<T, D>) {
     fwd_tile_sm90<D>(smem, maps, lse, mask);
   } else {
     fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
@@ -1419,7 +1455,7 @@ template <typename T, int D, typename M>
 __device__ __forceinline__ void dq_body(unsigned char* smem, const T* q, const T* k, const T* v,
                                         const T* dout, const float* lse, const float* delta, T* dq,
                                         const M mask, const DqMaps& maps) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (kSm90Body<T, D>) {
     dq_tile_sm90<D>(smem, maps, lse, delta, mask);
   } else {
     dq_tile<T, D>(smem, q, k, v, dout, lse, delta, dq, mask);
@@ -1430,7 +1466,7 @@ template <typename T, int D, typename M>
 __device__ __forceinline__ void dkv_body(unsigned char* smem, const T* q, const T* k, const T* v,
                                          const T* dout, const float* lse, const float* delta, T* dk,
                                          T* dv, const M mask, const DkvMaps& maps) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+  if constexpr (kSm90Body<T, D>) {
     dkv_tile_sm90<D>(smem, maps, lse, delta, mask);
   } else {
     dkv_tile<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask);
@@ -1438,7 +1474,7 @@ __device__ __forceinline__ void dkv_body(unsigned char* smem, const T* q, const 
 }
 
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_fwd_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, const Mask<CAUSAL, false> mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1446,7 +1482,7 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_fwd_kernel(
 }
 
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dq_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, const Mask<CAUSAL, false> mask, const __grid_constant__ DqMaps maps) {
@@ -1455,7 +1491,7 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dq_kernel(
 }
 
 template <typename T, int D, bool CAUSAL>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dkv_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, const Mask<CAUSAL, false> mask,
@@ -1465,7 +1501,7 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_dkv_kernel(
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_fwd_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
     float* __restrict__ lse, const BandMask mask, const __grid_constant__ FwdMaps maps) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1473,7 +1509,7 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_fwd_kerne
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_dq_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dq, const BandMask mask, const __grid_constant__ DqMaps maps) {
@@ -1482,7 +1518,7 @@ __global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_dq_kernel
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BodyThreads<T>::value, 1) flash_band_dkv_kernel(
+__global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, const BandMask mask,
@@ -1533,7 +1569,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     FwdMaps maps{};
     size_t smem = fwd_smem<T, D>();
     dim3 grid = q_grid;
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (kSm90Body<T, D>) {
       using F = Sm90Fwd<D>;
       const int bh_kv = a.bh / m.groups();
       CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
@@ -1549,7 +1585,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
       maps.bh = a.bh;
       grid = dim3(std::min((m.sq + F::BQ - 1) / F::BQ * a.bh, sms));  // one CTA an SM
     }
-    constexpr int threads = BodyThreads<T>::value;
+    constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_fwd_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, out0,
                 a.lse_out, m, maps);
@@ -1561,7 +1597,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     DqMaps maps{};
     size_t smem = dq_smem<T, D>();
     dim3 grid = q_grid;
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (kSm90Body<T, D>) {
       using F = Sm90Dq<D>;
       const int bh_kv = a.bh / m.groups();
       CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
@@ -1573,7 +1609,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
       smem = F::kSmem;
       grid = dim3(a.bh, (m.sq + F::BQ - 1) / F::BQ);  // q-tile-major: last (heavy) tiles first
     }
-    constexpr int threads = BodyThreads<T>::value;
+    constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_dq_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, m, maps);
@@ -1585,7 +1621,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     DkvMaps maps{};
     size_t smem = dkv_smem<T, D>();
     dim3 grid = kv_grid;
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if constexpr (kSm90Body<T, D>) {
       using F = Sm90Dkv<D>;
       const int bh_kv = a.bh / m.groups();
       CUresult r = bf16_map(&maps.q, q, D, m.sq, a.bh, F::BQ);
@@ -1598,7 +1634,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
       smem = F::kSmem;
       grid = dim3(bh_kv, (m.skv + F::BKV - 1) / F::BKV);  // kv-tile-major: low (heavy) tiles first
     }
-    constexpr int threads = BodyThreads<T>::value;
+    constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_dkv_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
                 a.delta, out0, out1, m, maps);
@@ -1623,6 +1659,10 @@ int dispatch(int device, int dtype, int head_dim, Kind kind, const Args& a,
   if (dtype == 0 && head_dim == 128) return launch<float, 128>(kind, a, m);
   if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(kind, a, m);
   if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(kind, a, m);
+  if (dtype == 0 && head_dim == 192) return launch<float, 192>(kind, a, m);
+  if (dtype == 0 && head_dim == 256) return launch<float, 256>(kind, a, m);
+  if (dtype == 1 && head_dim == 192) return launch<__nv_bfloat16, 192>(kind, a, m);
+  if (dtype == 1 && head_dim == 256) return launch<__nv_bfloat16, 256>(kind, a, m);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

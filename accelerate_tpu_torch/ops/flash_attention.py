@@ -37,7 +37,9 @@ from .attention import dot_product_attention
 
 # dtype codes of the C entry points (csrc/paged_decode.cu, csrc/flash_attention.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
-FLASH_KERNEL_HEAD_DIMS = (64, 128)
+# every head_dim `flash_attention`'s padding gives up to 256: a multiple of 64
+# stays, any other pads to a multiple of 128 (136 and 200 to 256)
+FLASH_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 FLASH_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30  # the reference's mask value (not -inf)
 
@@ -193,8 +195,8 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k, v and dO must share one dtype")
     if q.shape[-1] not in FLASH_KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim {FLASH_KERNEL_HEAD_DIMS}, "
-                         f"got {q.shape[-1]}")
+        raise ValueError(f"{name} kernel supports head_dim {FLASH_KERNEL_HEAD_DIMS} (at most "
+                         f"{FLASH_KERNEL_HEAD_DIMS[-1]}), got {q.shape[-1]}")
     out = []
     for t in tensors + tuple(r.float() for r in rows):
         t = t.contiguous()
@@ -218,7 +220,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward over ``[b, h, s, d]`` (q pre-scaled, K/V at q's head count):
     ``(o, lse)``. CPU: `flash_attention_forward_reference`; CUDA: the
-    ``flash_fwd_kernel`` (fp32/bf16, head_dim 64 or 128, any lengths)."""
+    ``flash_fwd_kernel`` (fp32/bf16, head_dim 64, 128, 192 or 256, any
+    lengths)."""
     if not _on_device("flash_attention_fwd", q):
         return flash_attention_forward_reference(q, k, v, causal)
     q, k, v = _kernel_operands("flash_attention_fwd", q, k, v)
@@ -350,7 +353,7 @@ def flash_band_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Band forward: q ``[b, hq, s, d]`` pre-scaled, k and v ``[b, hkv, s,
     d]`` unrepeated: ``(o, lse)``, lse fp32 ``[b, hq, s]``. CPU:
     `flash_band_forward_reference`; CUDA: the ``flash_band_fwd_kernel``
-    (fp32/bf16, head_dim 64 or 128, any s)."""
+    (fp32/bf16, head_dim 64, 128, 192 or 256, any s)."""
     if not _on_device("flash_band_fwd", q):
         return flash_band_forward_reference(q, k, v, window)
     q, k, v = _kernel_operands("flash_band_fwd", q, k, v, grouped=True)

@@ -66,6 +66,41 @@ its blocks return to the pool and its table row is parked at the sentinel id
 ``num_blocks``, so any later write through it is dropped; in slot mode the
 row stays frozen (finished) until the next admission overwrites it.
 
+Prefix KV reuse, as the reference's (``prefix_cache=``, `PrefixCacheConfig`;
+`serving.prefix_cache`): admission takes each request's longest cached
+block-aligned prefix (pinned until the slot retires) and prefills only the
+uncached suffix, the scheduler bucketing runs by that suffix. The matched
+rows are gathered out of the block pool (`kv_cache.gather_block_rows`) and
+the suffix prefills over them, each row at its own ``position_offset`` =
+its cached length, through the slot cache's decode path. Slot mode then
+writes the rows into the slots as a plain admission does, and owns a
+separate block pool: retirement copies the prompt's new full blocks into it
+(`PrefixCache.insert`). Paged mode aliases the trie's blocks in the slot's
+block table (zero copy: the suffix scatter drops the aliased entries),
+retirement moves the prompt's full blocks, never one at or past the
+frontier, into the trie (`PrefixCache.adopt`), and under block pressure the
+reservation evicts unpinned trie leaves (`PrefixCache.reclaim`); evictable
+blocks count as free capacity. The cached admission runs eagerly, as every
+admission does; the decode graph reads the tables from their fixed buffer,
+so an alias changes only table contents.
+
+Speculative decoding, as the reference's (``speculation=``: a draft depth k,
+a `SpeculationConfig` or a drafter; `serving.speculation`; refused with
+``tokens_per_sync > 1``): before each dispatch the host drafts up to k tokens
+for every greedy slot from its own view of the stream (up to
+``pipeline_depth - 1`` tokens stale, which costs acceptance only) into a
+fixed ``[b, k]`` device buffer, through pinned memory. The dispatch is one
+verify step: one k+1-position forward of the last token and the drafts
+(each live row writes ``min(remaining + 1, k + 1)`` KV entries, the rest go
+to the sink or are dropped), the longest draft prefix equal to the target's
+own greedy choices is accepted (sampled rows take one token, their position
+0 sample), cut at the first EOS and at the budget, and the write cursor is
+rewound to the accepted frontier (`kv_cache.rewind_frontier`). Paged, the
+verify forward takes the gathered view, as the reference's does: the paged
+kernel is single-query. On CUDA the verify step is the captured graph. The
+reference's watchdog (non-finite logits, poison injection, quarantine) is
+not ported: a live slot is taken as healthy.
+
 Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
 ``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
 copy of the model (`utils.quantization.quantize_module`; the caller's model
@@ -100,9 +135,11 @@ from ..models.generation import capture_graph, gumbel_noise, sample
 from ..models.kv_cache import (
     BlockAllocator,
     SlotKVCache,
+    gather_block_rows,
     kv_store_dtype,
     make_block_pool,
     make_cache,
+    rewind_frontier,
     scatter_cache_slots,
     scatter_rows_to_blocks,
 )
@@ -116,6 +153,7 @@ from ..utils.quantization import (
     quantized_nbytes,
 )
 from .metrics import ServingMetrics
+from .prefix_cache import NO_MATCH, PrefixCache, PrefixCacheConfig, PrefixMatch
 from .request import (
     FINISH_ABORTED,
     FINISH_EOS,
@@ -127,6 +165,7 @@ from .request import (
     SubmitResult,
 )
 from .scheduler import FIFOScheduler
+from .speculation import resolve_drafter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,8 +211,10 @@ class WeightQuantConfig:
 @dataclasses.dataclass
 class _Inflight:
     """One dispatched, not yet fetched piece of device work: an admission's
-    ``[2, nb]`` first tokens and finished flags, or a decode step's ``[k, 2,
-    b]`` plane. ``host`` is the pinned buffer its copy lands in, ``event``
+    ``[2, nb]`` first tokens and finished flags, a decode step's ``[k, 2,
+    b]`` plane, or a verify step's ``[k + 2, 2, b]`` (``[:k + 1]`` the
+    tokens and finished flags of each position, ``[k + 1, 0]`` how many
+    tokens each slot emitted). ``host`` is the pinned buffer its copy lands in, ``event``
     the CUDA event recorded after that copy (None on the CPU, where the copy
     is done at dispatch). ``slots``/``epochs`` pin each result to the slot
     generation it was dispatched against, so a result that outlived a
@@ -181,7 +222,7 @@ class _Inflight:
     tenant. ``staging`` keeps an admission's pinned upload buffers alive
     until the entry is fetched, which is after their copies ran."""
 
-    kind: str  # "step" | "admit"
+    kind: str  # "step" | "spec" | "admit"
     host: torch.Tensor
     slots: tuple[int, ...]
     epochs: tuple[int, ...]
@@ -210,7 +251,13 @@ class ServingEngine:
     or a `PagedKVConfig` the paged pool. ``paged_attention`` is the paged
     decode attention: ``"gather"`` (the default, the plain path) or
     ``"fused"`` (the CUDA kernel), which requires ``paged_kv``. The defaults
-    are the reference engine's."""
+    are the reference engine's.
+
+    ``prefix_cache`` (True or a `PrefixCacheConfig`) turns on prefix KV
+    reuse; in paged mode its ``block_tokens`` must equal the pool's.
+    ``speculation`` (a draft depth, a `SpeculationConfig` or a drafter)
+    turns every decode dispatch into a verify step; it needs
+    ``tokens_per_sync == 1``."""
 
     def __init__(
         self,
@@ -227,6 +274,8 @@ class ServingEngine:
         device: str | torch.device | None = None,
         weight_quant: WeightQuantConfig | str | None = None,
         tokens_per_sync: int = 1,
+        prefix_cache: PrefixCacheConfig | bool = False,
+        speculation: Any = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -287,6 +336,16 @@ class ServingEngine:
         self.tokens_per_sync = int(tokens_per_sync)
         if self.tokens_per_sync < 1:
             raise ValueError(f"tokens_per_sync must be >= 1, got {tokens_per_sync}")
+        self._drafter: Any = None
+        self.draft_tokens = 0
+        if speculation is not None:
+            if self.tokens_per_sync > 1:
+                raise ValueError(
+                    "speculation requires tokens_per_sync == 1: the verify step is itself "
+                    "the multi-token dispatch, and nesting it in a scan would need host "
+                    "drafts mid-scan"
+                )
+            self._drafter, self.draft_tokens = resolve_drafter(speculation)
         if int(admit_batch) < 1:
             raise ValueError(f"admit_batch must be >= 1, got {admit_batch}")
         # batch buckets: powers of two up to admit_batch
@@ -310,6 +369,25 @@ class ServingEngine:
                                           kv_store_dtype(cfg), dev, attention=self.paged_attention)
         else:
             self._cache = make_cache(model, b)
+        self.prefix_cache: PrefixCache | None = None
+        if prefix_cache:
+            pc = (prefix_cache if isinstance(prefix_cache, PrefixCacheConfig)
+                  else PrefixCacheConfig())
+            if self.paged:
+                if int(pc.block_tokens) != self._block_tokens:
+                    raise ValueError(
+                        f"prefix_cache block_tokens={pc.block_tokens} must equal paged_kv "
+                        f"block_tokens={self._block_tokens}: the trie aliases the engine's "
+                        "pool blocks directly"
+                    )
+                # no pool of its own: the trie pins blocks of the engine's pool
+                self.prefix_cache = PrefixCache(None, max_len=self.max_len, block_tokens=bt,
+                                                metrics=self.metrics, allocator=self._allocator)
+            else:
+                self.prefix_cache = PrefixCache(self._cache, max_len=self.max_len,
+                                                block_tokens=pc.block_tokens,
+                                                num_blocks=pc.num_blocks, metrics=self.metrics)
+            self.scheduler.prefill_len_fn = self._prefill_len
         # device-resident per-slot state; empty slots stay finished (frozen).
         # The decode step updates these buffers in place, and on CUDA its
         # graph holds their addresses: they are never rebound
@@ -326,11 +404,26 @@ class ServingEngine:
         # of sampled slots, one [vocab] row per iteration and slot, and the
         # tokens and finished flags of each iteration
         self._d_uniform = torch.zeros((k, b, cfg.vocab_size), dtype=torch.float32, device=dev)
-        self._d_out = torch.zeros((k, 2, b), dtype=torch.long, device=dev)
+        # a verify step's plane is [k_draft + 2, 2, b]: the k_draft + 1
+        # positions' tokens and finished flags, then each slot's emitted count
+        rows = self.draft_tokens + 2 if self.draft_tokens else k
+        self._d_out = torch.zeros((rows, 2, b), dtype=torch.long, device=dev)
+        # speculation: the drafts of the next verify step, filled before each
+        # dispatch from a ring of pinned host buffers (a buffer is rewritten
+        # only after its copy ran: see _fetch_ring)
+        self._d_drafts = torch.zeros((b, max(self.draft_tokens, 1)), dtype=torch.long, device=dev)
         self._eos = -1 if eos_token_id is None else int(eos_token_id)
         # host-side slot bookkeeping
         self._active = np.zeros(b, bool)
         self._slot_out: list[RequestOutput | None] = [None] * b
+        self._slot_req: list[Request | None] = [None] * b
+        # prefix cache: each slot's pinned match and whether it hit; paged,
+        # the host copy of its table row (what adopt donates from) and how
+        # many leading entries alias trie blocks
+        self._slot_match: list[PrefixMatch | None] = [None] * b
+        self._slot_hit = np.zeros(b, bool)
+        self._slot_table_host: list[np.ndarray | None] = [None] * b
+        self._slot_aliased = np.zeros(b, np.int64)
         self._slot_gen: list[torch.Generator | None] = [None] * b  # sampled slots only
         # the reference's slot generation: bumped at admission and release,
         # so lagged results of an earlier tenant are recognised and dropped
@@ -344,9 +437,12 @@ class ServingEngine:
         # pipeline_depth - 1 in flight, so pipeline_depth + 1 buffers never
         # hand out one whose entry is still unfetched
         pinned = dev.type == "cuda"
-        self._fetch_ring = [torch.empty(k * 2 * b, dtype=torch.long, pin_memory=pinned)
+        self._fetch_ring = [torch.empty(rows * 2 * b, dtype=torch.long, pin_memory=pinned)
+                            for _ in range(self.pipeline_depth + 1)]
+        self._draft_ring = [torch.zeros(self._d_drafts.shape, dtype=torch.long, pin_memory=pinned)
                             for _ in range(self.pipeline_depth + 1)]
         self._ring_next = 0
+        self._draft_next = 0
         self._graph: torch.cuda.CUDAGraph | None = None
         # kernel launches one decode replay makes, by wrapper name (empty on
         # the CPU): the wrappers count only while the graph is captured
@@ -424,18 +520,24 @@ class ServingEngine:
         self._admit_pending(finished)
         self.metrics.steps.inc()
         if self._active.any():
+            if self.draft_tokens:
+                # drafting happens at dispatch time, from the host's
+                # (possibly pipeline-lagged) view of each stream
+                self._stage_drafts()
             self._fill_uniform()
             if self._graph is not None:
                 self._graph.replay()
             else:
                 with torch.no_grad():
-                    self._decode_step()
+                    self._step_body()
             self.metrics.decode_dispatches.inc()
             self.metrics.decode_steps.inc(self.tokens_per_sync)
+            if self.draft_tokens:
+                self.metrics.spec_forwards.inc()
             self.metrics.dispatch_depth.observe(len(self._inflight) + 1)
             self._inflight.append(self._fetch(
-                "step", self._d_out, tuple(range(self.max_concurrency)),
-                tuple(int(e) for e in self._slot_epoch)))
+                "spec" if self.draft_tokens else "step", self._d_out,
+                tuple(range(self.max_concurrency)), tuple(int(e) for e in self._slot_epoch)))
             self._drain_to(self.pipeline_depth - 1, finished)
         if not self._active.any():
             # nothing left to overlap with: flush the lagged tail so every
@@ -520,65 +622,145 @@ class ServingEngine:
         return aborted
 
     # ------------------------------------------------------------- admission
+    def _prefill_len(self, request: Request) -> int:
+        """Scheduler probe: the prompt tokens admission would prefill for
+        ``request`` now, its uncached suffix (the grouping key of
+        suffix-bucketed admission). It pins nothing: admission re-walks and
+        pins."""
+        if not request.cache_prefix:
+            return request.prefill_len
+        return len(request.prompt) - self.prefix_cache.match_len(request.prompt)
+
     def _admit_pending(self, finished: list[RequestOutput]) -> None:
         while self._free:
             run_len = self.scheduler.peek_run(min(len(self._free), self._admit_sizes[-1]))
             if run_len == 0:
                 return
             nb = max(s for s in self._admit_sizes if s <= run_len)
-            if not self._admit_group(self.scheduler.pop_run(nb), finished):
+            group = self.scheduler.pop_run(nb)
+            matches = None
+            if self.prefix_cache is not None:
+                # pin now: nothing changes the trie between the peek_run
+                # probe and this acquire, so the match agrees with the
+                # suffix bucket the group was sized by
+                matches = [self.prefix_cache.acquire(r.prompt) if r.cache_prefix else NO_MATCH
+                           for r in group]
+                if not any(m.tokens for m in matches):
+                    for r in group:
+                        if r.cache_prefix:
+                            self.metrics.prefix_misses.inc()
+                    matches = None  # all missed: the plain admission
+            if not self._admit_group(group, finished, matches):
                 return  # block-pool backpressure: group requeued
 
-    def _admit_group(self, group: list[Request], finished: list[RequestOutput]) -> bool:
+    def _trim_matches(self, group: list[Request], matches: list[PrefixMatch]) -> int:
+        """The suffix bucket of a cached group, after trimming every match
+        whose cached prefix plus that bucket would overrun ``n_positions``
+        (the suffix prefill would write past the row). Trimming grows a
+        suffix, which can grow the shared bucket and push other rows over:
+        iterate to a fixed point (the bucket only grows and matches only
+        shrink; at worst every match is empty)."""
+        pc = self.prefix_cache
+        while True:
+            bucket = self.scheduler.bucket_for(
+                max(len(r.prompt) - m.tokens for r, m in zip(group, matches)))
+            over = [i for i, m in enumerate(matches)
+                    if m.tokens and m.tokens + bucket > self.max_len]
+            if not over:
+                return bucket
+            keep = max(0, (self.max_len - bucket) // pc.block_tokens)
+            for i in over:
+                matches[i] = pc.trim(matches[i], keep)
+
+    def _admit_group(self, group: list[Request], finished: list[RequestOutput],
+                     matches: list[PrefixMatch] | None = None) -> bool:
         """Prefill one same-bucket group, sample its first tokens and seat it
-        in free slots. False (group requeued) when the paged pool is
-        short."""
+        in free slots. False (group requeued) when the paged pool is short.
+
+        ``matches`` (pinned prefix matches, at least one a hit) takes the
+        cached admission: the matched rows are gathered out of the block
+        pool and only the suffixes prefill over them, each row from its own
+        cached length, through the slot cache's decode path; every row's
+        budget is priced on its full prompt, so a hit emits what a cold
+        admission would."""
+        nb = len(group)
+        if matches is None:
+            bucket = self.scheduler.bucket_for(max(r.prefill_len for r in group))
+            cached = [0] * nb
+        else:
+            bucket = self._trim_matches(group, matches)
+            cached = [m.tokens for m in matches]
         reservation = None
         if self.paged:
-            reservation = self._reserve_blocks(group)
+            reservation = self._reserve_blocks(group, matches)
             if reservation is None:
                 return False
-        nb = len(group)
         slots = [self._free.popleft() for _ in group]
-        bucket = self.scheduler.bucket_for(max(r.prefill_len for r in group))
         padded = np.zeros((nb, bucket), np.int64)
-        lens = np.zeros(nb, np.int64)
+        lens = np.zeros(nb, np.int64)  # the tokens each row prefills
         budgets = np.zeros(nb, np.int64)
         for i, request in enumerate(group):
             plen = len(request.prompt)
-            padded[i, :plen] = request.prompt
-            lens[i] = plen
+            padded[i, :plen - cached[i]] = request.prompt[cached[i]:]
+            lens[i] = plen - cached[i]
             # the context is fixed-size: cap generation so cache writes stay
             # inside [0, n_positions)
             budgets[i] = min(int(request.params.max_new_tokens), self.max_len - plen)
+            if matches is not None:
+                if cached[i]:
+                    self.metrics.prefix_hits.inc()
+                    self.metrics.prefix_tokens_reused.inc(cached[i])
+                elif request.cache_prefix:
+                    self.metrics.prefix_misses.inc()
         dev = self.device
         gens = [torch.Generator(device=dev).manual_seed(int(r.params.seed))
                 if r.params.temperature > 0 else None for r in group]
-        arrays = [padded, np.asarray(slots, np.int64), lens, budgets,
-                  np.asarray([r.params.temperature for r in group], np.float32),
+        arrays = [padded, np.asarray(slots, np.int64), lens, np.asarray(cached, np.int64),
+                  budgets, np.asarray([r.params.temperature for r in group], np.float32),
                   np.asarray([r.params.top_k or 0 for r in group], np.int64)]
+        # the blocks the prefill's rows span: the bucket for a plain
+        # admission; for a cached one, the longest cached prefix plus the
+        # suffix bucket (the trim keeps it inside the row), so the gather,
+        # the suffix's attention and the write back cover no more
         if self.paged:
-            tables, dest = self._commit_reservation(reservation, group, slots)
-            n_written = -(-bucket // self._block_tokens)
-            arrays += [tables, np.ascontiguousarray(dest[:, :n_written])]
+            tables, dest = self._commit_reservation(reservation, group, matches, slots)
+            span = -(-(max(cached) + bucket) // self._block_tokens)
+            arrays += [tables, np.ascontiguousarray(dest[:, :span])]
+        elif matches is not None:
+            span = -(-(max(cached) + bucket) // self.prefix_cache.block_tokens)
+            # pool blocks of each row's match; entries past it read block 0,
+            # positions the suffix overwrites or the mask hides
+            tables = np.zeros((nb, span), np.int64)
+            for i, m in enumerate(matches):
+                tables[i, :len(m.block_ids)] = m.block_ids
+            arrays.append(tables)
         staging, views = self._upload(*arrays)
-        ids, slots_t, lens_t, budgets_t, temps, topks = views[:6]
+        ids, slots_t, lens_t, cached_t, budgets_t, temps, topks = views[:7]
         with torch.no_grad():
-            kv: list = []
-            hidden = self.model(ids, kv_out=kv, return_hidden=True)
+            if matches is None:
+                kv: list = []
+                hidden = self.model(ids, kv_out=kv, return_hidden=True)
+            else:
+                pool = self._cache if self.paged else self.prefix_cache.pool
+                rows = gather_block_rows(pool, views[7][:, :span], cached_t)
+                hidden = self.model(ids, cached_t, cache=rows, return_hidden=True)
+                kv = [rows.storages(layer) for layer in range(len(rows.k))]
             last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
             first = self._sample(last, temps, topks, gens)
+            # decode resumes from the full prompt end: cached prefix + suffix
+            prompt_lens = cached_t + lens_t
             if self.paged:
-                tables_t, dest_t = views[6:]
-                scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t, lens_t.to(torch.int32))
-                self._d_tables[slots_t] = tables_t
+                tables_t, dest_t = views[7:]
+                scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t,
+                                       prompt_lens.to(torch.int32))
+                self._d_tables[slots_t] = tables_t.to(torch.int32)
             else:
-                scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, lens_t), slots_t,
-                                    lens_t)
+                scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, prompt_lens), slots_t,
+                                    prompt_lens)
             rem0 = budgets_t - 1
             fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos))
             self._d_tokens[slots_t] = first
-            self._d_pos[slots_t] = lens_t
+            self._d_pos[slots_t] = prompt_lens
             self._d_remaining[slots_t] = rem0
             self._d_finished[slots_t] = fin0
             self._d_temps[slots_t] = temps
@@ -590,9 +772,15 @@ class ServingEngine:
             epochs.append(int(self._slot_epoch[slot]))
             self._active[slot] = True
             self._slot_gen[slot] = gens[i]
+            self._slot_req[slot] = request
             self._slot_out[slot] = RequestOutput(
                 request_id=request.request_id, prompt_len=len(request.prompt), tokens=[],
                 finish_reason="", arrival_time=request.arrival_time)
+            if matches is not None:
+                # the pins travel with the slot, released at retirement
+                self._slot_match[slot] = matches[i] if matches[i].nodes else None
+                self._slot_hit[slot] = bool(matches[i].tokens)
+        self.metrics.prefill_tokens.inc(int(lens.sum()))
         self.metrics.admit_batch_size.observe(nb)
         self._inflight.append(self._fetch("admit", out, tuple(slots), tuple(epochs),
                                           staging=staging))
@@ -621,43 +809,75 @@ class ServingEngine:
                  for a, off in zip(arrays, offsets)]
         return staging, views
 
-    def _reserve_blocks(self, group: list[Request]) -> list[list[int]] | None:
+    def _reserve_blocks(self, group: list[Request], matches: list[PrefixMatch] | None
+                        ) -> list[tuple[int, list[int]]] | None:
         """All-or-nothing block reservation for one admission group: each
         request needs blocks covering ``min(prompt + max_new_tokens,
-        max_len)`` tokens, reserved up front. On shortfall the group goes back
-        to the queue front in its original order and None is returned."""
-        needs = [self._blocks_needed(r) for r in group]
-        if self._allocator.free_count < sum(needs):
+        max_len)`` tokens, less its trie-aliased prefix, reserved up front.
+        On shortfall unpinned trie leaves are evicted; if still short, the
+        pins are dropped, the group goes back to the queue front in its
+        original order and None is returned. Otherwise ``(aliased blocks,
+        private block ids)`` per request."""
+        alloc, bt = self._allocator, self._block_tokens
+        needs = []
+        for i, request in enumerate(group):
+            aliased = matches[i].tokens // bt if matches is not None else 0
+            n_res = -(-FIFOScheduler.decode_extent(request, self.max_len) // bt)
+            needs.append((aliased, max(0, n_res - aliased)))
+        total = sum(n for _, n in needs)
+        if alloc.free_count < total and self.prefix_cache is not None:
+            self.prefix_cache.reclaim(total - alloc.free_count)
+        if alloc.free_count < total:
+            for m in matches or ():
+                if m.nodes:
+                    self.prefix_cache.release(m)
             for request in reversed(group):
                 self.scheduler.requeue(request)
             return None
-        return [self._allocator.alloc(n) or [] for n in needs]
+        return [(aliased, alloc.alloc(n) or []) for aliased, n in needs]
 
-    def _commit_reservation(self, reservation: list[list[int]], group: list[Request],
-                            slots: list[int]) -> tuple[np.ndarray, np.ndarray]:
-        """The admission's table rows (the slot's blocks, sentinel past them)
-        and scatter destinations (only the blocks the prefill writes:
-        ``[0, ceil(prefill_len / block_tokens))``; reserved decode blocks are
-        filled in place by decode before anything reads them)."""
+    def _commit_reservation(self, reservation: list[tuple[int, list[int]]], group: list[Request],
+                            matches: list[PrefixMatch] | None, slots: list[int]
+                            ) -> tuple[np.ndarray, np.ndarray]:
+        """The admission's table rows (the trie's aliased blocks, then the
+        slot's own, the sentinel past them, so a stray read clamps and a
+        stray write drops) and scatter destinations: only the blocks the
+        prefill writes, ``[aliased, ceil(prefill_len / block_tokens))``. The
+        aliased prefix is never written, and reserved decode blocks are
+        filled in place by decode before anything reads them."""
         bt, sentinel = self._block_tokens, self._allocator.num_blocks
         nb = len(group)
-        tables = np.full((nb, self._blocks_per_slot), sentinel, np.int32)
+        tables = np.full((nb, self._blocks_per_slot), sentinel, np.int64)
         dest = np.full((nb, self._blocks_per_slot), sentinel, np.int64)
-        for i, (request, slot, priv) in enumerate(zip(group, slots, reservation)):
-            tables[i, :len(priv)] = priv
+        for i, (request, slot) in enumerate(zip(group, slots)):
+            aliased, priv = reservation[i]
+            if aliased:
+                tables[i, :aliased] = matches[i].block_ids[:aliased]
+            tables[i, aliased:aliased + len(priv)] = priv
             n_written = -(-request.prefill_len // bt)
-            dest[i, :n_written] = tables[i, :n_written]
+            dest[i, aliased:n_written] = tables[i, aliased:n_written]
+            self._slot_table_host[slot] = tables[i].copy()
             self._slot_priv[slot] = list(priv)
+            self._slot_aliased[slot] = aliased
         return tables, dest
 
     def _blocks_needed(self, request: Request) -> int:
-        extent = FIFOScheduler.decode_extent(request, self.max_len)
-        return -(-extent // self._block_tokens)  # the frontier block counts whole
+        """Blocks admitting ``request`` now would reserve (the capacity
+        probe's price: unpinned, so the reservation checks again)."""
+        n_res = -(-FIFOScheduler.decode_extent(request, self.max_len)
+                  // self._block_tokens)  # the frontier block counts whole
+        if self.prefix_cache is not None and request.cache_prefix:
+            n_res -= self.prefix_cache.match_len(request.prompt) // self._block_tokens
+        return max(0, n_res)
 
     def _paged_capacity(self, requests: list[Request]) -> int:
-        """Scheduler hook: how many of the front-run requests the pool's free
-        blocks can seat."""
+        """Scheduler hook: how many of the front-run requests the pool can
+        seat: its free blocks, plus what trie eviction could reclaim
+        (optimistic by one race, an evictable block the group's own acquire
+        then pins: the reservation checks again and requeues)."""
         avail, n = self._allocator.free_count, 0
+        if self.prefix_cache is not None:
+            avail += int(self.prefix_cache.memory_stats()["blocks_evictable"])
         for request in requests:
             need = self._blocks_needed(request)
             if need > avail:
@@ -693,6 +913,100 @@ class ServingEngine:
                 for t in range(self.tokens_per_sync):
                     self._d_uniform[t, slot].uniform_(generator=gen)
 
+    def _stage_drafts(self) -> None:
+        """Before a verify dispatch: one ``[b, k]`` draft plane from the
+        drafter and the host's view of each greedy slot's stream (prompt +
+        fetched tokens), into the next pinned ring buffer and from there
+        into the device buffer the verify step reads (``non_blocking``, so
+        the host does not wait on the stream). Sampled slots draft nothing:
+        they advance one token a dispatch. Unfilled positions stay 0, a
+        draft of token 0 that the verifier accepts only if it is greedy's."""
+        k, vocab = self.draft_tokens, self.model.config.vocab_size
+        host = self._draft_ring[self._draft_next]
+        self._draft_next = (self._draft_next + 1) % len(self._draft_ring)
+        drafts = host.numpy()
+        drafts.fill(0)
+        for slot in np.flatnonzero(self._active):
+            request, out = self._slot_req[slot], self._slot_out[slot]
+            if request.params.temperature > 0:
+                continue
+            m = 0
+            for t in self._drafter.propose(request.prompt, out.tokens):
+                t = int(t)
+                if m >= k or not 0 <= t < vocab:
+                    break  # an out-of-vocab proposal cannot be verified: stop there
+                drafts[slot, m] = t
+                m += 1
+            if m:
+                self.metrics.spec_proposed.inc(m)
+        self._d_drafts.copy_(host, non_blocking=True)
+
+    def _step_body(self) -> None:
+        """The dispatch a decode step runs: the verify step with speculation,
+        else ``tokens_per_sync`` plain iterations. On CUDA this is what the
+        graph holds."""
+        if self.draft_tokens:
+            self._spec_step()
+        else:
+            self._decode_step()
+
+    def _spec_step(self) -> None:
+        """One verify step over every slot (the reference's
+        ``_build_spec_step_fn``), in place into the fixed buffers:
+
+        - the forward scores ``[token, drafts]`` at positions ``pos ..
+          pos + k``; each live row writes ``min(remaining + 1, k + 1)`` KV
+          entries (``write_len``), which stay inside its reservation, and a
+          frozen row none;
+        - position 0 samples as the plain step does (Gumbel noise from the
+          slot's draw for sampled rows); positions 1.. are the target's
+          greedy choices. A greedy row accepts the longest draft prefix that
+          equals those choices and emits it plus one; a sampled row emits its
+          one sample. The count is cut at the first EOS and at the budget, so
+          finishes land where single steps would put them;
+        - position, budget and finished flags advance by what was emitted,
+          the token becomes the last emitted, and the write cursor is
+          rewound to the accepted frontier: the rejected entries stay past
+          it, dead, until the next write lands on them.
+
+        ``_d_out[:k + 1]`` gets each position's token and finished flag,
+        ``_d_out[k + 1, 0]`` each slot's emitted count (0 for a frozen
+        row)."""
+        k = self.draft_tokens
+        s = k + 1
+        tokens, pos, remaining = self._d_tokens, self._d_pos, self._d_remaining
+        live = ~self._d_finished
+        seq = torch.cat([tokens[:, None], self._d_drafts], dim=1)  # [b, s]
+        write_len = (remaining + 1).clamp(0, s) * live.long()
+        paged = {"block_tables": self._d_tables} if self.paged else {}
+        logits = self.model(seq, pos, cache=self._cache, write_mask=live, write_len=write_len,
+                            **paged)  # [b, s, vocab]
+        greedy = logits.argmax(dim=-1)
+        noise = -torch.log(-torch.log(self._d_uniform[0]))
+        first = sample(logits[:, 0], self._d_temps, self._d_topks, noise)
+        out_tokens = torch.cat([first[:, None], greedy[:, 1:]], dim=1)  # [b, s]
+        accepted = torch.cumprod((self._d_drafts == greedy[:, :k]).long(), dim=1).sum(dim=1)
+        n_cand = torch.where(self._d_temps > 0, torch.ones_like(accepted), accepted + 1)
+        hit = (self._eos >= 0) & (out_tokens == self._eos)  # [b, s]
+        first_eos = torch.where(hit.any(dim=1), hit.long().argmax(dim=1),
+                                torch.full_like(accepted, s))
+        n = torch.minimum(n_cand, torch.minimum(remaining.clamp(min=1), first_eos + 1))  # >= 1
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        steps = torch.arange(s, device=tokens.device)[None, :]
+        emit = live[:, None] & (steps < n[:, None])  # [b, s]
+        # a budget can run out only at position n - 1, and an EOS inside the
+        # accepted prefix cut n there, so only the last emitted token finishes
+        fins = emit & (hit | (remaining[:, None] - (steps + 1) <= 0))
+        self._d_out[:s, 0].copy_(out_tokens.T)
+        self._d_out[:s, 1].copy_(fins.T)
+        self._d_out[s, 0].copy_(torch.where(live, n, torch.zeros_like(n)))
+        new_pos = torch.where(live, pos + n, pos)
+        self._d_finished.logical_or_(live & (hit[rows, n - 1] | (remaining - n <= 0)))
+        tokens.copy_(torch.where(live, out_tokens[rows, n - 1], tokens))
+        remaining.sub_(torch.where(live, n, torch.zeros_like(n)))
+        pos.copy_(new_pos)
+        rewind_frontier(self._cache, new_pos)
+
     def _decode_step(self) -> None:
         """One decode dispatch, ``tokens_per_sync`` iterations over every
         slot: forward, sample, freeze finished rows (token, position and
@@ -717,7 +1031,8 @@ class ServingEngine:
             self._d_out[t, 1].copy_(self._d_finished)
 
     def _capture(self) -> None:
-        """Capture `_decode_step` as this engine's CUDA graph
+        """Capture `_step_body` (the decode or the verify step) as this
+        engine's CUDA graph
         (`models.generation.capture_graph`, with its guards). Every slot is
         still frozen, so the warm-up runs before the capture change nothing
         the engine reads: writes go to the sink block or re-write a frozen
@@ -732,11 +1047,11 @@ class ServingEngine:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.no_grad(), torch.cuda.stream(side):
             for _ in range(2):
-                self._decode_step()
+                self._step_body()
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [fn.launches for fn in counters]
         try:
-            graph = capture_graph(self._decode_step, dev)
+            graph = capture_graph(self._step_body, dev)
         except RuntimeError as exc:
             raise RuntimeError(f"capturing the decode step as a CUDA graph failed: {exc}") from exc
         self.graph_launches = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
@@ -784,6 +1099,8 @@ class ServingEngine:
         now = time.perf_counter()
         if entry.kind == "admit":
             self._process_admit(entry, fetched, now, finished)
+        elif entry.kind == "spec":
+            self._process_spec(entry, fetched, now, finished)
         else:
             self._process_step(entry, fetched, now, finished)
 
@@ -798,7 +1115,11 @@ class ServingEngine:
                 continue  # cancelled while the prefill was in flight
             out = self._slot_out[slot]
             out.first_token_time = now
-            self.metrics.ttft_s.observe(max(0.0, now - out.arrival_time))
+            ttft = max(0.0, now - out.arrival_time)
+            self.metrics.ttft_s.observe(ttft)
+            if self.prefix_cache is not None and self._slot_req[slot].cache_prefix:
+                (self.metrics.ttft_hit_s if self._slot_hit[slot]
+                 else self.metrics.ttft_miss_s).observe(ttft)
             self._deliver(slot, int(fetched[0, i]), bool(fetched[1, i]), now, finished)
 
     def _process_step(self, entry: _Inflight, fetched: np.ndarray, now: float,
@@ -826,6 +1147,36 @@ class ServingEngine:
         if appended:
             self.metrics.tokens_per_dispatch.observe(appended)
 
+    def _process_spec(self, entry: _Inflight, fetched: np.ndarray, now: float,
+                      finished: list[RequestOutput]) -> None:
+        """A verify step's fetch: slot ``i`` appends its ``ns[i]`` tokens
+        (0 for a frozen row), position outer and slot inner as in
+        `_process_step`, so retirement order is what ``ns`` single steps
+        would give. Each greedy slot's accepted draft length (``ns - 1``)
+        feeds ``spec_accepted`` and ``spec_accept_len``."""
+        s = self.draft_tokens + 1
+        tokens, fins, ns = fetched[:s, 0], fetched[:s, 1], fetched[s, 0]
+        gaps: dict[int, float] = {}
+        for slot, epoch in zip(entry.slots, entry.epochs):
+            if not self._live(slot, epoch):
+                continue
+            n = int(ns[slot])
+            gaps[slot] = (now - self._slot_last_token_t[slot]) / max(1, n)
+            if n and self._slot_req[slot].params.temperature <= 0:
+                self.metrics.spec_accepted.inc(n - 1)
+                self.metrics.spec_accept_len.observe(n - 1)
+        appended = 0
+        for t in range(s):
+            for slot, epoch in zip(entry.slots, entry.epochs):
+                if not self._live(slot, epoch) or t >= int(ns[slot]):
+                    continue  # retired, cancelled or reseated mid-walk, or done
+                self.metrics.inter_token_s.observe(gaps[slot])
+                self._deliver(slot, int(tokens[t, slot]), bool(fins[t, slot]), now, finished)
+                appended += 1
+        if appended:
+            self.metrics.tokens_per_dispatch.observe(appended)
+            self.metrics.spec_tokens.inc(appended)
+
     def _deliver(self, slot: int, token: int, done: bool, now: float,
                  finished: list[RequestOutput]) -> None:
         self._slot_out[slot].tokens.append(token)
@@ -842,23 +1193,55 @@ class ServingEngine:
         out.finish_reason = reason
         out.finish_time = now
         self.metrics.requests_finished.inc()
+        request = self._slot_req[slot]
+        if self.prefix_cache is not None and request.cache_prefix:
+            self._donate(slot, request.prompt)
         self._release_slot(slot)
         finished.append(out)
 
+    def _donate(self, slot: int, prompt: list[int]) -> None:
+        """Give a retiring slot's prompt KV to the prefix cache. Safe under
+        pipelining: decode writes land at or past the prompt's end and a
+        finished slot is frozen on the device, so the prompt region is the
+        admission's prefill whenever this runs, and the copy (slot mode) is
+        ordered on the stream after that prefill. Paged, ownership of the
+        prompt's full blocks moves to the trie (``adopt``; a duplicate goes
+        back to the allocator, the aliased prefix stays the trie's); a block
+        at or past the frontier, which decode wrote or a lagged dispatch may
+        still write, is never adopted: `_release_slot` frees it once the
+        table row is parked."""
+        if not self.paged:
+            self.prefix_cache.insert(prompt, self._cache, slot)
+            return
+        n_full = len(prompt) // self._block_tokens
+        if n_full:
+            aliased = int(self._slot_aliased[slot])
+            self.prefix_cache.adopt(prompt, [int(x) for x in self._slot_table_host[slot][:n_full]],
+                                    owned_from=aliased)
+            self._slot_priv[slot] = self._slot_priv[slot][max(0, n_full - aliased):]
+
     def _release_slot(self, slot: int) -> None:
-        """Return a slot (and, paged, its blocks). A paged table row is parked
+        """Return a slot (and, paged, its own blocks; the pins of its prefix
+        match are dropped). A paged table row is parked
         at the sentinel ``num_blocks`` so any later write through it is
         dropped; the slot is marked finished (frozen) until the next
         admission, and the generation bump drops its results still in
         flight. Steps dispatched before these writes may still write through
         the old row: they run before any later admission's prefill scatter
         into the freed blocks or row, by stream order."""
+        if self._slot_match[slot] is not None:
+            self.prefix_cache.release(self._slot_match[slot])
+        self._slot_match[slot] = None
+        self._slot_hit[slot] = False
         if self.paged:
             self._allocator.free(self._slot_priv[slot])
             self._slot_priv[slot] = []
+            self._slot_table_host[slot] = None
+            self._slot_aliased[slot] = 0
             self._d_tables[slot] = self._allocator.num_blocks
         self._d_finished[slot] = True
         self._slot_out[slot] = None
+        self._slot_req[slot] = None
         self._slot_gen[slot] = None
         self._active[slot] = False
         self._slot_epoch[slot] += 1

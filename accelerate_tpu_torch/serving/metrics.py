@@ -1,14 +1,16 @@
 """Serving counters and histograms: the port of the part of
-`accelerate_tpu.serving.metrics` the paged GPT-2 slice feeds (requests,
-generated tokens, tokens/s, TTFT, inter-token latency, steps, and the
-overlapped dispatch's host-blocked time, depth, admission batch sizes and
-tokens per fetch). Host-side bookkeeping only; nothing here touches the
-device."""
+`accelerate_tpu.serving.metrics` the port's engine feeds (requests,
+generated and prefilled tokens, tokens/s, TTFT, inter-token latency, steps,
+the overlapped dispatch's host-blocked time, depth, admission batch sizes
+and tokens per fetch, the prefix cache's counters and the speculative verify
+step's), and the reference's flat `ServingMetrics.snapshot` for them.
+Host-side bookkeeping only; nothing here touches the device."""
 
 from __future__ import annotations
 
 import math
 import time
+from typing import Any
 
 
 def nearest_rank(ordered: list[float], q: float) -> float:
@@ -78,6 +80,15 @@ class Histogram:
         """Nearest-rank quantile of the reservoir."""
         return nearest_rank(sorted(self._samples), q)
 
+    def summary(self) -> dict[str, float]:
+        """``count``, and once observed ``mean``, ``min``, ``max``, ``p50``,
+        ``p90``, ``p99`` (the reference's keys)."""
+        if not self.count:
+            return {"count": 0}
+        return {"count": self.count, "mean": self.mean, "min": self.min, "max": self.max,
+                "p50": self.quantile(0.50), "p90": self.quantile(0.90),
+                "p99": self.quantile(0.99)}
+
 
 class ServingMetrics:
     """The engine's counters and histograms in one bag. Latencies are host
@@ -93,7 +104,23 @@ class ServingMetrics:
     at each decode dispatch, 1 = synchronous) is sampled at each dispatch,
     ``admit_batch_size`` (requests per prefill) at each admission, and
     ``tokens_per_dispatch`` (tokens one decode fetch appended over all
-    slots) at each decode fetch."""
+    slots) at each decode fetch. ``prefill_tokens`` counts the prompt tokens
+    admissions ran through the model (only the uncached suffix of a prefix
+    hit).
+
+    Prefix cache (`serving.prefix_cache`): ``prefix_hits`` and
+    ``prefix_misses`` count admissions that reused at least one cached block
+    or none, ``prefix_tokens_reused`` the prompt tokens whose prefill a hit
+    skipped, ``prefix_blocks_donated`` the blocks retirements gave the trie,
+    ``prefix_evictions`` the blocks LRU eviction took back; ``ttft_hit_s`` and
+    ``ttft_miss_s`` split TTFT by outcome.
+
+    Speculation (`serving.speculation`): ``spec_proposed`` and
+    ``spec_accepted`` count draft tokens proposed and accepted (greedy slots),
+    ``spec_forwards`` the verify dispatches, ``spec_tokens`` the tokens they
+    emitted, and ``spec_accept_len`` is each greedy slot's accepted draft
+    length per verify (0..k). ``serving/accepted_tokens_per_forward`` in
+    `snapshot` is ``spec_tokens / spec_forwards`` over all slots."""
 
     def __init__(self):
         self.requests_submitted = Counter()
@@ -101,15 +128,28 @@ class ServingMetrics:
         self.requests_finished = Counter()
         self.requests_cancelled = Counter()
         self.tokens_generated = Counter()
+        self.prefill_tokens = Counter()
+        self.prefix_hits = Counter()
+        self.prefix_misses = Counter()
+        self.prefix_tokens_reused = Counter()
+        self.prefix_blocks_donated = Counter()
+        self.prefix_evictions = Counter()
+        self.spec_proposed = Counter()
+        self.spec_accepted = Counter()
+        self.spec_forwards = Counter()
+        self.spec_tokens = Counter()
         self.steps = Counter()
         self.decode_dispatches = Counter()
         self.decode_steps = Counter()
         self.ttft_s = Histogram()
+        self.ttft_hit_s = Histogram()
+        self.ttft_miss_s = Histogram()
         self.inter_token_s = Histogram()
         self.host_blocked_s = Histogram()
         self.dispatch_depth = Histogram()
         self.admit_batch_size = Histogram()
         self.tokens_per_dispatch = Histogram()
+        self.spec_accept_len = Histogram()
         self._start: float | None = None
 
     def mark_start(self) -> None:
@@ -123,3 +163,25 @@ class ServingMetrics:
             return 0.0
         dt = time.perf_counter() - self._start
         return self.tokens_generated.value / dt if dt > 0 else 0.0
+
+    def snapshot(self) -> dict[str, Any]:
+        """Flat scalar dict under the reference's ``serving/...`` keys: every
+        counter, ``tokens_per_sec``, ``accepted_tokens_per_forward``, and each
+        histogram's `Histogram.summary` as ``serving/<name>/<stat>``."""
+        out: dict[str, Any] = {
+            f"serving/{name}": getattr(self, name).value for name in (
+                "requests_submitted", "requests_rejected", "requests_finished",
+                "requests_cancelled", "tokens_generated", "prefill_tokens", "prefix_hits",
+                "prefix_misses", "prefix_tokens_reused", "prefix_blocks_donated",
+                "prefix_evictions", "steps", "decode_dispatches", "decode_steps",
+                "spec_proposed", "spec_accepted", "spec_forwards", "spec_tokens")
+        }
+        out["serving/tokens_per_sec"] = self.tokens_per_sec()
+        out["serving/accepted_tokens_per_forward"] = (
+            self.spec_tokens.value / self.spec_forwards.value if self.spec_forwards.value else 0.0)
+        for name in ("ttft_s", "ttft_hit_s", "ttft_miss_s", "inter_token_s", "host_blocked_s",
+                     "dispatch_depth", "admit_batch_size", "tokens_per_dispatch",
+                     "spec_accept_len"):
+            for stat, value in getattr(self, name).summary().items():
+                out[f"serving/{name}/{stat}"] = value
+        return out

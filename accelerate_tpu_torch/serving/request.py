@@ -1,7 +1,7 @@
 """Request/response surface of the serving engine: the port of
-`accelerate_tpu.serving.request`, for the fields the paged GPT-2 slice reads.
-(The reference's SLO, tenant, priority and crash-resume fields come with the
-modules that read them.)"""
+`accelerate_tpu.serving.request`, for the fields the port's engine reads
+(``cache_prefix`` since the prefix cache). The reference's SLO, tenant,
+priority and crash-resume fields come with the modules that read them."""
 
 from __future__ import annotations
 
@@ -35,12 +35,16 @@ class SamplingParams:
 class Request:
     """One generation request: a token-id prompt plus its sampling params.
     ``request_id``/``arrival_time`` are stamped by `ServingEngine.submit`;
-    supply ``arrival_time`` explicitly to replay a recorded trace."""
+    supply ``arrival_time`` explicitly to replay a recorded trace.
+    ``cache_prefix=False`` opts the request out of prefix-KV reuse (an engine
+    with ``prefix_cache=``): it neither reads cached blocks nor donates its
+    prompt's."""
 
     prompt: list[int]
     params: SamplingParams = field(default_factory=SamplingParams)
     request_id: int | None = None
     arrival_time: float | None = None
+    cache_prefix: bool = True
 
     @property
     def prefill_len(self) -> int:

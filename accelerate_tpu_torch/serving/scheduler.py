@@ -2,8 +2,11 @@
 port of `accelerate_tpu.serving.scheduler` ``FIFOScheduler``.
 
 Bucketing pads a prompt to the smallest configured bucket that holds it, so
-batched admission prefills same-shape groups. The queue is bounded; a full
-queue rejects with a reason instead of growing without limit.
+batched admission prefills same-shape groups. With a prefix cache the engine
+sets ``prefill_len_fn`` and a request is bucketed by the uncached suffix it
+will prefill, and a run never mixes requests that read the cache with ones
+that opted out. The queue is bounded; a full queue rejects with a reason
+instead of growing without limit.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ class FIFOScheduler:
         # the engine caps this at n_positions - 1 so every admitted request has
         # room for at least one generated token
         self.max_prompt_len = int(max_prompt_len or self.buckets[-1])
+        # prefix-cache hook (set by the engine when its prefix cache is on):
+        # maps a request to the prompt tokens admission will actually
+        # prefill, its uncached suffix, so runs group by suffix bucket
+        self.prefill_len_fn = None
         # paged-KV capacity hook (set by the engine): maps the front run's
         # requests to how many of them the block pool can seat right now, so
         # admission is gated on blocks, not just free slots
@@ -51,11 +58,30 @@ class FIFOScheduler:
             f"prompt length {prompt_len} exceeds the largest bucket {self.buckets[-1]}"
         )
 
+    def prefill_bucket_for(self, request: Request) -> int:
+        """The bucket admission pads this request's prefill to: its prompt's,
+        or with a prefix cache probing through ``prefill_len_fn``, that of
+        just the uncached suffix."""
+        n = request.prefill_len
+        if self.prefill_len_fn is not None:
+            n = max(1, min(n, int(self.prefill_len_fn(request))))
+        return self.bucket_for(n)
+
+    def _run_key(self, request: Request) -> tuple[int, bool]:
+        """The batched-admission grouping key: the prefill bucket and, with a
+        prefix cache probing, the request's ``cache_prefix`` flag: a cached
+        and an opted-out request take different admission paths and never
+        share a run."""
+        return (self.prefill_bucket_for(request),
+                bool(request.cache_prefix) if self.prefill_len_fn is not None else False)
+
     @staticmethod
     def decode_extent(request: Request, max_len: int) -> int:
         """The furthest KV position + 1 this request can ever occupy:
         ``min(prompt + max_new_tokens, max_len)``. It prices paged block
-        reservations and bounds every decode write."""
+        reservations and bounds every decode write: the admission budget
+        keeps ``pos + remaining + 1 <= extent`` for a live slot, which lets
+        a speculative verify segment cap its write at ``remaining + 1``."""
         return min(len(request.prompt) + int(request.params.max_new_tokens), int(max_len))
 
     def _validate(self, request: Request) -> SubmitResult | None:
@@ -86,16 +112,18 @@ class FIFOScheduler:
 
     def peek_run(self, max_n: int) -> int:
         """Length (up to ``max_n``) of the contiguous run of queued requests at
-        the front that share the head's prompt bucket: the group one batched
-        admission can prefill together, shrunk to what ``capacity_fn`` says
-        the block pool can seat. Only the front run counts: batching later
-        arrivals past a differently-bucketed head would break FIFO order."""
+        the front that share the head's prefill bucket (the suffix bucket when
+        a prefix cache probes) and, with the cache, its ``cache_prefix`` flag
+        (`_run_key`): the group one batched admission can prefill together,
+        shrunk to what ``capacity_fn`` says the block pool can seat. Only the
+        front run counts: batching later arrivals past a differently-bucketed
+        head would break FIFO order."""
         if not self._queue or max_n <= 0:
             return 0
-        head = self.bucket_for(self._queue[0].prefill_len)
+        head = self._run_key(self._queue[0])
         n = 0
         for r in self._queue:
-            if n >= max_n or self.bucket_for(r.prefill_len) != head:
+            if n >= max_n or self._run_key(r) != head:
                 break
             n += 1
         if n and self.capacity_fn is not None:

@@ -47,7 +47,8 @@ Phases run in order; any failure exits non-zero:
 6. flash kernels: the forward, dQ and dK/dV kernels
    (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
    card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
-   causal), in fp32, non-causal, at d 128 and at a ragged s 1000; each
+   causal), in fp32, non-causal, at d 128, at a ragged s 1000, and at d 192
+   and d 256 (4 and 3 heads, the scalar bodies); each
    output held to FLASH_TOL and lse to LSE_ATOL; one JSON line per case and
    kernel with its error, its times, its bound, its achieved TFLOP/s and
    the share of the bound it reaches;
@@ -90,8 +91,9 @@ Phases run in order; any failure exits non-zero:
    at a time), at GPT-2 small's causal shapes through ``triangle_block``
    (beside the rectangular kernels' times on the same function), at a
    ragged fp32 s 1000 with window 100 and 4 query heads per kv head, at
-   window 1, and at a window past the sequence (held to the rectangular
-   kernels' causal output too); each output held to FLASH_TOL, lse to
+   window 1, at a window past the sequence (held to the rectangular
+   kernels' causal output too), and at d 192 and d 256 (16 query heads
+   over 4, s 8192, window 4096: the scalar bodies); each output held to FLASH_TOL, lse to
    LSE_ATOL, and at the Mistral shapes each output also to a bar
    scaled by its own size (BAND_MAIN_RMS_TOL); one JSON line per case and
    kernel with its error, its times (the library yardstick is SDPA over an
@@ -155,7 +157,35 @@ Phases run in order; any failure exits non-zero:
    peak memory, the host and device ms of a replayed decode step (and the
    nf4 kernels in one replay: 7 a layer for nf4, none otherwise) and of an
    eager one;
-20. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+20. prefix-cached serving: GPT-2 small, 16 slots, depth 2, buckets (32,
+   128, 512), 48 requests of a shared seeded 384-token system prompt and a
+   unique 16-96-token suffix, 64 new tokens, every second sampled, through
+   the slot engine and the paged fused engine, each with the prefix cache
+   off and on: at least 32 hits of 384 tokens each, the paged kernel's
+   launches counted through the replays; in fp32 (TF32 off) the streams
+   are equal with the cache on and off, sampled ones too
+   (`fp32_prefix_serving`); in bf16 the same runs give tokens/s, TTFT with
+   hits and misses apart, ITL, the admissions' host share of the wall, the
+   tokens prefilled, the prefix counters and the streams equal to the
+   cache-off run's, with the position and top-2 margin where any part
+   (`bf16_prefix_serving`); then the bf16 nf4 engine with the cache on
+   (`bf16_prefix_serving_nf4`: the nf4 and paged kernels both launched);
+21. speculative serving: the same model, 32 greedy requests whose prompts
+   repeat a seeded 32-token pattern, 64 new tokens, ``speculation=4`` (the
+   n-gram drafter) against off, in the slot and paged fused engines: in
+   fp32 (TF32 off) the streams are equal and the verify step replays from
+   its graph (`float32_spec_serving`); in bf16 the same runs report
+   tokens/s, ITL, accepted tokens per forward and the streams equal to
+   spec-off's, with where any part (`bfloat16_spec_serving`), and a profiler window over each
+   spec engine (`bf16_spec_decode_profile`);
+22. the Llama fused loss: one fp32 step (TF32 off) of the Mistral-7B-width
+   model at 2 layers, batch 1 x 2048, `llama_loss_fn_fused` against
+   `llama_loss_fn` (`fp32_llama_fused_ce_parity`: loss and gradient norm
+   agree, each fused-CE kernel ran once); then phase 14's bf16 run with
+   `llama_loss_fn_fused` (`bf16_train_mistral_fused_ce` and its profile:
+   the fused-CE forward, dH and dW at e 4096 against phase 14's fp32 head
+   GEMMs) and `mistral_loss_comparison`;
+23. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -1128,7 +1158,8 @@ def llama_band_parity(torch, np, seed: int, card: str) -> dict:
     return rec
 
 
-def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> dict:
+def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10,
+                  fused_ce: bool = False) -> dict:
     """The slice's path: the Mistral-7B-width model (4 layers, window 4096),
     fp32 masters, ``Accelerator(mixed_precision="bf16")``, AdamW (lr 1e-4,
     weight decay 1e-4), ``make_train_step(llama_loss_fn)`` on one seeded
@@ -1138,9 +1169,11 @@ def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int =
     timed step, the rectangular flash kernels never. MFU counts 6 N per
     token for the N matmul parameters plus 12 L e w per token for
     attention, w the mean number of keys a query sees. Then a profiler
-    window over 3 steps."""
+    window over 3 steps. With ``fused_ce`` the loss is `llama_loss_fn_fused`
+    (the untied head on the fused-CE kernels at e 4096; each ran once a
+    step) and the phase ``bf16_train_mistral_fused_ce``."""
     from accelerate_tpu_torch.accelerator import Accelerator
-    from accelerate_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn
+    from accelerate_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn, llama_loss_fn_fused
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     batch, seq = 1, 8192
@@ -1148,19 +1181,20 @@ def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int =
     model = LlamaForCausalLM(cfg, seed=seed)
     acc = Accelerator(mixed_precision="bf16")
     model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
-    step = acc.make_train_step(llama_loss_fn)
+    step = acc.make_train_step(llama_loss_fn_fused if fused_ce else llama_loss_fn)
     ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
     data = {"input_ids": torch.from_numpy(ids).to("cuda")}
 
     losses, wall = timed_steps(torch, step, data, warmup, steps)
-    counts = {**band_counts(fa), **flash_counts(fa)}
+    counts = {**band_counts(fa), **flash_counts(fa), **fused_ce_counts()}
+    phase = "bf16_train_mistral_fused_ce" if fused_ce else "bf16_train_mistral"
     n_params = sum(p.numel() for p in model.parameters())
     n_matmul = sum(p.numel() for p in model.parameters() if p.ndim == 2) - model.embed_tokens.numel()
     mean_keys = band_pairs(seq, cfg.sliding_window) / seq
     flops_per_token = 6 * n_matmul + 12 * cfg.num_layers * cfg.hidden_size * mean_keys
     tokens_per_s = batch * seq * steps / wall
     mfu = tokens_per_s * flops_per_token / bf16_peak(torch.cuda.get_device_name(0))
-    rec = {"phase": "bf16_train_mistral", "model": "mistral-7b-width, 4 layers", "batch": batch,
+    rec = {"phase": phase, "model": "mistral-7b-width, 4 layers", "batch": batch,
            "seq": seq, "window": cfg.sliding_window, "params": n_params,
            "matmul_params": n_matmul, "mean_keys_per_query": mean_keys,
            "warmup_steps": warmup, "steps": steps, "step_ms": wall / steps * 1e3,
@@ -1171,10 +1205,11 @@ def train_mistral(torch, np, seed: int, card: str, warmup: int = 2, steps: int =
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"Mistral training: the loss did not fall: {losses}")
     expected = {**{n: cfg.num_layers * steps for n in BAND_REPLACES},
-                **{n: 0 for n in FLASH_REPLACES}}
+                **{n: 0 for n in FLASH_REPLACES},
+                **{n: steps if fused_ce else 0 for n in FUSED_CE_REPLACES}}
     if counts != expected:
-        raise AssertionError(f"bf16_train_mistral launches {counts}, expected {expected}")
-    profile_train(torch, lambda: step(data), "bf16_train_mistral_profile", card=card)
+        raise AssertionError(f"{phase} launches {counts}, expected {expected}")
+    rec["profile"] = profile_train(torch, lambda: step(data), f"{phase}_profile", card=card)
     del model, acc, step
     torch.cuda.empty_cache()
     return rec
@@ -1394,16 +1429,16 @@ def nf4_case(torch, name, *, M, K, N, dtype, seed, flush, lead=()) -> dict:
 
 
 def count_admissions(engine) -> list:
-    """Wrap ``engine``'s admission so each group that is seated (one prefill
-    forward) adds one to the returned counter's first entry, and the host
-    wall of every admission call (the eager prefill's launches, and at depth
-    1 its fetch) to its second."""
+    """Wrap ``engine``'s admission (plain or prefix-cached) so each group that
+    is seated (one prefill forward) adds one to the returned counter's first
+    entry, and the host wall of every admission call (the eager prefill's
+    launches, and at depth 1 its fetch) to its second."""
     counter = [0, 0.0]
     admit = engine._admit_group
 
-    def counted(group, finished):
+    def counted(group, finished, *matches):
         t0 = time.perf_counter()
-        seated = admit(group, finished)
+        seated = admit(group, finished, *matches)
         counter[1] += time.perf_counter() - t0
         counter[0] += int(seated)
         return seated
@@ -1939,6 +1974,320 @@ def big_model_inference(torch, card: str) -> list[dict]:
     return lines
 
 
+# the prefix-cached serving phase's traffic: a shared system prompt, then a
+# unique suffix of 16-96 tokens per request
+PREFIX_SYSTEM_TOKENS = 384
+PREFIX_BUCKETS = (32, 128, 512)
+
+
+def first_divergences(torch, model, prompts, got, want, sampled) -> list[dict]:
+    """Where streams ``got`` and ``want`` of the same requests part: the
+    request, its first differing position and, for a greedy request, the
+    top-2 margin of ``model``'s logits there (one full forward over the
+    prompt and the tokens both streams share): a near-tie, or a fault."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        t = next((j for j in range(min(len(a), len(b))) if a[j] != b[j]), min(len(a), len(b)))
+        rec = {"request": i, "position": t, "sampled": bool(sampled[i])}
+        if not sampled[i]:
+            with torch.no_grad():
+                logits = model(torch.tensor([prompts[i] + a[:t]], device="cuda"))[:, -1]
+            rec["top2_margin"] = top2_margin(torch, logits)
+        out.append(rec)
+    return out
+
+
+def prefix_serving(torch, np, seed: int, card: str) -> list[dict]:
+    """GPT-2 small, 16 slots, depth 2, admit 1, ``prompt_buckets``
+    PREFIX_BUCKETS, ``block_tokens`` 16: 48 requests, each a shared seeded
+    384-token system prompt plus a unique 16-96-token suffix, 64 new tokens,
+    every second one sampled; through the slot engine and the paged fused
+    engine, each with the prefix cache off and on. In every run with the
+    cache, at least 32 hits (the first 16 admissions precede every
+    retirement, so every later one can hit) of 384 tokens each; in the paged
+    fused engine, the paged kernel launched n_layer times a decode step,
+    counted through the replays. First fp32 (TF32 off): the streams are
+    equal with the cache on and off, sampled ones too (`fp32_prefix_serving`
+    lines). Then bf16 (`bf16_prefix_serving` lines: tokens/s, TTFT with hits
+    and misses apart, ITL p50/p99, the admissions' host share of the wall,
+    the tokens prefilled, the prefix counters, and how many streams equal
+    the cache-off run's, with where any part: a cached suffix prefills over
+    the gathered prefix, at other shapes than the cold prompt, so bf16 may
+    round it differently). Then the nf4 engine (paged fused) with the cache
+    on, once: the nf4 kernel beside the paged one."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import nf4_matmul as nm
+    from accelerate_tpu_torch.ops.flash_attention import paged_decode_attention
+    from accelerate_tpu_torch.serving import (
+        FINISH_LENGTH,
+        PagedKVConfig,
+        PrefixCacheConfig,
+        Request,
+        SamplingParams,
+        ServingEngine,
+    )
+
+    rng = np.random.default_rng(seed + 20)
+    system = rng.integers(0, 50257, PREFIX_SYSTEM_TOKENS).tolist()
+    prompts = [system + rng.integers(0, 50257, int(n)).tolist() for n in rng.integers(16, 97, 48)]
+    sampled = [i % 2 == 1 for i in range(len(prompts))]
+
+    def requests():
+        return [Request(prompt=p, params=SamplingParams(
+                    max_new_tokens=64, temperature=0.8 if sampled[i] else 0.0,
+                    top_k=50 if sampled[i] else None, seed=i))
+                for i, p in enumerate(prompts)]
+
+    modes = {"slot": {}, "paged_fused": dict(paged_kv=PagedKVConfig(block_tokens=16),
+                                             paged_attention="fused")}
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dtype_name = "fp32" if dtype == torch.float32 else "bf16"
+        model = GPT2LMHead(GPT2Config.small(dtype=dtype, param_dtype=dtype), device="cuda",
+                           seed=seed)
+        n_layer = model.config.n_layer
+
+        def engine(mode, cache, **kw):
+            return ServingEngine(model, max_concurrency=16, prompt_buckets=PREFIX_BUCKETS,
+                                 pipeline_depth=2, admit_batch=1,
+                                 prefix_cache=PrefixCacheConfig(block_tokens=16) if cache else False,
+                                 **modes[mode], **kw)
+
+        engine("paged_fused", True).run(requests()[:4])  # warm-up: allocator pools, cuBLAS
+        for mode in modes:
+            streams = {}
+            for cache in (False, True):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                eng = engine(mode, cache)
+                admissions = count_admissions(eng)
+                paged_decode_attention.launches = 0
+                t0 = time.perf_counter()
+                outs = eng.run(requests())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                m = eng.metrics
+                streams[cache] = [o.tokens for o in outs]
+                launches = replay_launches(eng, "paged_decode_attention",
+                                           paged_decode_attention.launches)
+                parted = (first_divergences(torch, model, prompts, streams[True], streams[False],
+                                            sampled) if cache else [])
+                line = serving_line(
+                    eng, outs, wall, launches, torch.cuda.max_memory_allocated(), card,
+                    phase=f"{dtype_name}_prefix_serving", mode=mode, prefix_cache=cache,
+                    max_new_tokens=64, admission_forwards=admissions[0],
+                    admission_host_s=admissions[1], admission_share_of_wall=admissions[1] / wall,
+                    prefill_tokens=m.prefill_tokens.value, prefix_hits=m.prefix_hits.value,
+                    prefix_misses=m.prefix_misses.value,
+                    prefix_tokens_reused=m.prefix_tokens_reused.value,
+                    prefix_blocks_donated=m.prefix_blocks_donated.value,
+                    prefix_evictions=m.prefix_evictions.value,
+                    ttft_hit_p50_s=m.ttft_hit_s.quantile(0.5),
+                    ttft_miss_p50_s=m.ttft_miss_s.quantile(0.5),
+                    prefix_pool_bytes=eng.prefix_cache.pool_nbytes if cache else 0,
+                    **({"streams_equal_cache_off": len(outs) - len(parted),
+                        "streams_parted": parted} if cache else {}))
+                print(json.dumps(line), flush=True)
+                lines.append(line)
+                if any(o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64 for o in outs):
+                    raise AssertionError(f"{dtype_name} prefix serving {mode}, cache {cache}: a "
+                                         "request did not finish with 64 tokens")
+                if cache and not (m.prefix_hits.value >= 32 and m.prefix_tokens_reused.value
+                                  == PREFIX_SYSTEM_TOKENS * m.prefix_hits.value):
+                    raise AssertionError(f"{dtype_name} prefix serving {mode}: "
+                                         f"{m.prefix_hits.value} hits, "
+                                         f"{m.prefix_tokens_reused.value} tokens reused")
+                steps = m.decode_steps.value
+                if mode == "paged_fused" and (launches != n_layer * steps or steps == 0):
+                    raise AssertionError(f"{dtype_name} prefix serving {mode}, cache {cache}: "
+                                         f"paged kernel launches {launches} != n_layer x "
+                                         "decode steps")
+                if cache and dtype == torch.float32 and parted:
+                    raise AssertionError(f"fp32 prefix serving {mode}: streams differ with the "
+                                         f"cache on and off: {parted}")
+                del eng
+        if dtype == torch.float32:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # the bf16 nf4 engine with the cache on: kernel #11 beside kernel #1
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = engine("paged_fused", True, weight_quant="nf4")
+    nm.nf4_matmul.launches = 0
+    paged_decode_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nf4 = replay_launches(eng, "nf4_matmul", nm.nf4_matmul.launches)
+    paged = replay_launches(eng, "paged_decode_attention", paged_decode_attention.launches)
+    m = eng.metrics
+    line = serving_line(eng, outs, wall, paged, torch.cuda.max_memory_allocated(), card,
+                        phase="bf16_prefix_serving_nf4", mode="paged_fused", prefix_cache=True,
+                        nf4_launches=nf4, prefix_hits=m.prefix_hits.value,
+                        prefix_tokens_reused=m.prefix_tokens_reused.value,
+                        prefill_tokens=m.prefill_tokens.value)
+    print(json.dumps(line), flush=True)
+    lines.append(line)
+    if not (nf4 > 0 and paged == n_layer * m.decode_steps.value > 0 and m.prefix_hits.value >= 32):
+        raise AssertionError(f"nf4 prefix serving: nf4 launches {nf4}, paged {paged}, "
+                             f"{m.prefix_hits.value} hits")
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lines
+
+
+def spec_prompts(np, seed: int, n: int = 32) -> list[list[int]]:
+    """``n`` prompts of 64-256 tokens, each a seeded 32-token pattern
+    repeated: the n-gram drafter's prompt-lookup has matches from the first
+    verify on."""
+    rng = np.random.default_rng(seed + 21)
+    pattern = rng.integers(0, 50257, 32).tolist()
+    return [(pattern * 8)[:int(k)] for k in rng.integers(64, 257, n)]
+
+
+def spec_serving(torch, np, seed: int, card: str) -> list[dict]:
+    """GPT-2 small, 16 slots, depth 2, ``prompt_buckets`` PREFIX_BUCKETS: 32
+    greedy requests over `spec_prompts`, 64 new tokens, with
+    ``speculation=4`` (the n-gram drafter) against off, in the slot and the
+    paged fused engines. First fp32 (TF32 off): spec-on streams equal
+    spec-off, and the verify step ran from its graph (one replay a
+    dispatch). Then bf16: one line each with tokens/s, ITL, the verify
+    steps' accepted tokens per forward and whether the streams equal
+    spec-off's (the paged fused engine's plain step attends through kernel
+    #1 and its verify step over the gathered view, which round bf16
+    differently); then a profiler window over 16 steps of each spec engine:
+    host against device ms per dispatch."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import (
+        FINISH_LENGTH,
+        PagedKVConfig,
+        Request,
+        SamplingParams,
+        ServingEngine,
+    )
+
+    prompts = spec_prompts(np, seed)
+    modes = {"slot": {}, "paged_fused": dict(paged_kv=PagedKVConfig(block_tokens=16),
+                                             paged_attention="fused")}
+
+    def requests():
+        return [Request(prompt=p, params=SamplingParams(max_new_tokens=64)) for p in prompts]
+
+    lines = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dtype_name = str(dtype).removeprefix("torch.")
+        model = GPT2LMHead(GPT2Config.small(dtype=dtype, param_dtype=dtype), device="cuda",
+                           seed=seed)
+        for mode in modes:
+            streams = {}
+            for spec in (None, 4):
+                gc.collect()
+                torch.cuda.empty_cache()
+                eng = ServingEngine(model, max_concurrency=16, prompt_buckets=PREFIX_BUCKETS,
+                                    pipeline_depth=2, speculation=spec, **modes[mode])
+                t0 = time.perf_counter()
+                outs = eng.run(requests())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                streams[spec] = [o.tokens for o in outs]
+                m = eng.metrics
+                snap = m.snapshot()
+                line = serving_line(
+                    eng, outs, wall, 0, torch.cuda.max_memory_allocated(), card,
+                    phase=f"{dtype_name}_spec_serving", mode=mode, speculation=spec or 0,
+                    graph=eng._graph is not None, spec_forwards=m.spec_forwards.value,
+                    spec_tokens=m.spec_tokens.value, spec_proposed=m.spec_proposed.value,
+                    spec_accepted=m.spec_accepted.value,
+                    accepted_tokens_per_forward=snap["serving/accepted_tokens_per_forward"],
+                    accept_len_mean=m.spec_accept_len.mean,
+                    **({"streams_equal_spec_off": sum(a == b for a, b in zip(streams[spec],
+                                                                            streams[None])),
+                        "streams_parted": first_divergences(
+                            torch, model, prompts, streams[spec], streams[None],
+                            [False] * len(prompts))} if spec else {}))
+                print(json.dumps(line), flush=True)
+                lines.append(line)
+                if any(o.finish_reason != FINISH_LENGTH or len(o.tokens) != 64 for o in outs):
+                    raise AssertionError(f"{dtype_name} spec serving {mode}: a request did not "
+                                         "finish with 64 tokens")
+                if spec and not (eng._graph is not None and m.spec_forwards.value
+                                 == m.decode_dispatches.value > 0
+                                 and m.spec_tokens.value == m.tokens_generated.value - len(outs)
+                                 and m.spec_accepted.value <= m.spec_proposed.value):
+                    raise AssertionError(f"{dtype_name} spec serving {mode}: the verify step did "
+                                         f"not replay from its graph, or its counts disagree: "
+                                         f"{line}")
+                if spec and dtype == torch.bfloat16:
+                    lines.append(profile_decode(torch, ServingEngine(
+                        model, max_concurrency=16, prompt_buckets=PREFIX_BUCKETS,
+                        pipeline_depth=2, speculation=spec, **modes[mode]), requests()[:16],
+                        phase="bf16_spec_decode_profile"))
+                    lines[-1].update(mode=mode, card=card)
+                    print(json.dumps(lines[-1]), flush=True)
+                del eng
+            if dtype == torch.float32 and streams[4] != streams[None]:
+                diff = sum(a != b for a, b in zip(streams[4], streams[None]))
+                raise AssertionError(f"fp32 spec serving {mode}: {diff} streams differ spec-on "
+                                     "and spec-off")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return lines
+
+
+def llama_fused_parity(torch, np, seed: int, card: str) -> dict:
+    """One fp32 train step (TF32 off) of the Mistral-7B-width model cut to 2
+    layers, batch 1 x 2048, with `llama_loss_fn_fused` (the untied head on
+    the fused-CE kernels at e 4096) and one with `llama_loss_fn`, from the
+    same weights and batch: loss and global gradient norm agree; each
+    fused-CE kernel ran once in the fused step and never in the other."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.llama import LlamaForCausalLM, llama_loss_fn, llama_loss_fn_fused
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 32000, (1, 2048))).to("cuda")
+    out = {}
+    for fn in (llama_loss_fn, llama_loss_fn_fused):
+        model = LlamaForCausalLM(mistral_config(torch, num_layers=2, dtype=torch.float32),
+                                 seed=seed)
+        acc = Accelerator(mixed_precision="no")
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4))
+        step = acc.make_train_step(fn, max_grad_norm=1e30)
+        reset_counts(fa)
+        loss = step({"input_ids": ids}).item()
+        out[fn.__name__] = (loss, step.grad_norm.item(), fused_ce_counts())
+        del model, acc, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (loss_p, norm_p, counts_p), (loss_f, norm_f, counts) = out["llama_loss_fn"], \
+        out["llama_loss_fn_fused"]
+    rec = {"phase": "fp32_llama_fused_ce_parity", "model": "mistral-7b-width, 2 layers",
+           "batch": 1, "seq": 2048, "loss_plain": loss_p, "loss_fused": loss_f,
+           "loss_abs_diff": abs(loss_f - loss_p), "loss_atol": TRAIN_LOSS_ATOL,
+           "grad_norm_plain": norm_p, "grad_norm_fused": norm_f,
+           "grad_norm_rel_diff": abs(norm_f - norm_p) / norm_p,
+           "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL, "launches": counts,
+           "launches_plain": counts_p, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not (abs(loss_f - loss_p) <= TRAIN_LOSS_ATOL and math.isfinite(loss_f)):
+        raise AssertionError(f"fp32 Llama fused step: loss {loss_f} vs plain {loss_p}")
+    if not abs(norm_f - norm_p) <= TRAIN_GRAD_NORM_RTOL * norm_p:
+        raise AssertionError(f"fp32 Llama fused step: grad norm {norm_f} vs plain {norm_p}")
+    if counts != {n: 1 for n in FUSED_CE_REPLACES} or any(counts_p.values()):
+        raise AssertionError(f"fp32 Llama fused step launches {counts} (plain {counts_p})")
+    return rec
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2240,6 +2589,12 @@ def main() -> int:
                    seed=args.seed + 3, **{**small, "d": 128}),
         flash_case(torch, "ragged_s1000_bf16_causal", dtype=torch.bfloat16, causal=True,
                    seed=args.seed + 4, **{**small, "s": 1000}),
+        # head_dim 192 and 256 (the scalar bodies) at GPT-2 small's width,
+        # 768 = h x d, and its training sequence
+        flash_case(torch, "d192_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 5, **{**small, "h": 4, "d": 192}),
+        flash_case(torch, "d256_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 6, **{**small, "h": 3, "d": 256}),
     ]
     del flush
     torch.cuda.empty_cache()
@@ -2294,6 +2649,12 @@ def main() -> int:
                   dtype=torch.bfloat16, seed=args.seed + 3, **band_common),
         band_case(torch, "window_ge_seq_fp32_g2", b=1, hq=4, hkv=2, s=1024, d=128, window=2048,
                   dtype=torch.float32, seed=args.seed + 4, rect=True, **band_common),
+        # head_dim 192 and 256 (the scalar bodies) at the Mistral sequence,
+        # window and GQA ratio, 16 query heads over 4
+        band_case(torch, "d192_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=192, window=4096,
+                  dtype=torch.bfloat16, seed=args.seed + 5, by_group=True, **band_common),
+        band_case(torch, "d256_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=256, window=4096,
+                  dtype=torch.bfloat16, seed=args.seed + 6, by_group=True, **band_common),
     ]
     del flush
     torch.cuda.empty_cache()
@@ -2338,7 +2699,25 @@ def main() -> int:
     # 19. big-model inference: the reference tool's flow at Llama-2-7B
     big_model_inference(torch, card)
 
-    # 20. summary lines
+    # 20. prefix-cached serving
+    prefix_serving(torch, np, args.seed, card)
+
+    # 21. speculative serving
+    spec_serving(torch, np, args.seed, card)
+
+    # 22. the Llama loss with the untied head on the fused-CE kernels
+    llama_fused_parity(torch, np, args.seed, card)
+    mistral_fused = train_mistral(torch, np, args.seed, card, fused_ce=True)
+    print(json.dumps({"phase": "mistral_loss_comparison", "step_ms": mistral["step_ms"],
+                      "step_ms_fused_ce": mistral_fused["step_ms"],
+                      "tokens_per_s": mistral["tokens_per_s"],
+                      "tokens_per_s_fused_ce": mistral_fused["tokens_per_s"],
+                      "mfu": mistral["mfu"], "mfu_fused_ce": mistral_fused["mfu"],
+                      "peak_mem_bytes": mistral["peak_mem_bytes"],
+                      "peak_mem_bytes_fused_ce": mistral_fused["peak_mem_bytes"],
+                      "card": card}), flush=True)
+
+    # 23. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",

@@ -3,8 +3,10 @@ the bf16 dQ, dK/dV and fused-CE forward, dH and dW kernels' registers,
 spills and static shared memory, which its build phase prints and holds to
 zero spills; its split of profiled kernel names into the fused-CE forward,
 dH and dW; and its serving bookkeeping: kernel launches counted through
-decode graph replays, and the fields of a serving line. Runs on the CPU
-against a log in ptxas's format and a CPU engine."""
+decode graph replays, the fields of a serving line, the admission counter
+through prefix-cached admissions, phase 21's prompts and its verify
+counts; and the head_dim 192 and 256 kernels' ptxas entries. Runs on the
+CPU against a log in ptxas's format and a CPU engine."""
 
 import importlib.util
 from pathlib import Path
@@ -258,3 +260,78 @@ def test_synthetic_checkpoint_is_the_reference_tools_layout(tmp_path):
     assert n == sum(p.numel() for p in model.parameters())
     load_checkpoint_in_model(model, tmp_path, mapper=params_from_jax)
     assert not any(p.any() for p in model.parameters())
+
+
+WIDE_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI13__nv_bfloat16Li256ELb1EEEvPKT_S4_S4_PS2_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI13__nv_bfloat16Li256ELb1EEEvPKT_S4_S4_PS2_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi192EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi192EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+def test_resources_read_the_wide_head_dims():
+    """The head_dim 192 and 256 instances (the scalar bodies, bf16 ones
+    included) parse with their head_dim, so the build phase holds them to
+    zero spills too."""
+    cs = _chip_smoke()
+    assert cs.forward_resources(WIDE_LOG) == [
+        {"kernel": "flash_fwd_kernel", "dtype": "bfloat16", "d": 256, "causal": True,
+         "registers": 79, "spill_store_bytes": 0, "spill_load_bytes": 0, "static_smem_bytes": 0},
+    ]
+    assert [(k["kernel"], k["dtype"], k["d"]) for k in cs.kernel_resources(
+        WIDE_LOG, r"flash_(?:band_)?dkv_kernel", cs.FLASH_FIELDS)] == [
+        ("flash_band_dkv_kernel", "float32", 192)]
+
+
+def _tiny_engine(**kw):
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu")
+    return ServingEngine(model, device="cpu", max_concurrency=2, prompt_buckets=(16, 64), **kw)
+
+
+def test_count_admissions_counts_cached_admissions_too():
+    """Phase 20's admission share: the wrapper passes a cached admission's
+    prefix matches through and counts each seated group once."""
+    from accelerate_tpu_torch.serving import Request, SamplingParams
+
+    engine = _tiny_engine(prefix_cache=True, admit_batch=1)
+    counter = _chip_smoke().count_admissions(engine)
+    prefix = list(range(40))
+    engine.run([Request(prompt=prefix + [100 + i], params=SamplingParams(max_new_tokens=3))
+                for i in range(5)])
+    m = engine.metrics
+    assert counter[0] == m.admit_batch_size.count == 5 and counter[1] > 0
+    assert m.prefix_hits.value == 3 and m.prefix_tokens_reused.value == 3 * 32
+
+
+def test_spec_prompts_repeat_one_pattern():
+    import numpy as np
+
+    prompts = _chip_smoke().spec_prompts(np, 0)
+    assert len(prompts) == 32 and all(64 <= len(p) <= 256 for p in prompts)
+    pattern = prompts[0][:32]
+    assert all(p == (pattern * 8)[:len(p)] for p in prompts)
+    assert all(0 <= t < 50257 for t in pattern)
+
+
+def test_serving_line_carries_the_verify_counts():
+    """A spec engine's run through `serving_line`, as phase 21 prints it:
+    every token after a request's first came from a verify dispatch."""
+    from accelerate_tpu_torch.serving import Request, SamplingParams
+
+    engine = _tiny_engine(speculation=3)
+    outs = engine.run([Request(prompt=[5, 6, 7] * 4, params=SamplingParams(max_new_tokens=9))
+                       for _ in range(3)])
+    m = engine.metrics
+    line = _chip_smoke().serving_line(engine, outs, 1.0, 0, 0, "H100, 700 W",
+                                      phase="bfloat16_spec_serving",
+                                      spec_tokens=m.spec_tokens.value)
+    assert line["phase"] == "bfloat16_spec_serving" and line["generated_tokens"] == 27
+    assert line["spec_tokens"] == 27 - 3 and line["decode_replays"] == m.spec_forwards.value

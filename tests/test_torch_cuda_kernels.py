@@ -209,6 +209,13 @@ FLASH_CASES = {
     # the bf16 dQ's edges: fewer keys than queries, with a ragged kv tile
     # under three q tiles of its own
     "bf16_cross_full_sq333_skv70": dict(dtype=torch.bfloat16, causal=False, d=64, sq=333, skv=70),
+    # head_dim 192 and 256 (the scalar bodies in both types, 32 x 32 tiles):
+    # ragged ends, cross lengths, causal and not
+    "bf16_causal_d192": dict(dtype=torch.bfloat16, causal=True, d=192, sq=200, skv=200),
+    "fp32_full_d192_cross": dict(dtype=torch.float32, causal=False, d=192, sq=70, skv=129),
+    "bf16_causal_d256": dict(dtype=torch.bfloat16, causal=True, d=256, sq=257, skv=257),
+    "bf16_full_d256_cross": dict(dtype=torch.bfloat16, causal=False, d=256, sq=129, skv=45),
+    "fp32_causal_d256_ragged": dict(dtype=torch.float32, causal=True, d=256, sq=77, skv=77),
 }
 
 
@@ -249,7 +256,7 @@ def test_flash_kernels_match_plain(hopper, name):
     _assert_near(dv, dv_ref, dtype)
 
 
-@pytest.mark.parametrize("d,hq,hk", [(64, 4, 4), (40, 4, 2)])
+@pytest.mark.parametrize("d,hq,hk", [(64, 4, 4), (40, 4, 2), (136, 4, 2), (192, 2, 2)])
 def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
     """The public BSHD wrapper on the card (pre-scale, head-dim padding, GQA
     repeat, the autograd.Function) against autograd through the plain path,
@@ -276,6 +283,7 @@ def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
 
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
+    (dict(d=320), ValueError),  # past the largest, 256
     (dict(dtype=torch.float16), TypeError),
 ])
 def test_flash_kernel_rejects_what_it_does_not_take(hopper, change, exc):
@@ -323,6 +331,14 @@ BAND_CASES = {
     # the bf16 dQ's edges: a window that starts inside a kv tile of its K/V
     # ring, at d 128 with GQA 8
     "bf16_w200_gqa8_d128_s700": dict(dtype=torch.bfloat16, window=200, hq=8, hk=1, d=128, s=700),
+    # head_dim 192 and 256 (the scalar bodies, 32 x 32 tiles): windows that
+    # cut tiles, GQA, ragged ends
+    "bf16_w100_gqa4_d192": dict(dtype=torch.bfloat16, window=100, hq=8, hk=2, d=192, s=300),
+    "fp32_triangle_gqa2_d192_ragged": dict(dtype=torch.float32, window=None, hq=4, hk=2, d=192,
+                                           s=77),
+    "bf16_w65_gqa2_d256": dict(dtype=torch.bfloat16, window=65, hq=4, hk=2, d=256, s=333),
+    "fp32_w37_d256": dict(dtype=torch.float32, window=37, hq=2, hk=2, d=256, s=130),
+    "bf16_triangle_d256_s129": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=256, s=129),
 }
 
 
@@ -425,6 +441,7 @@ def test_band_flash_attention_grads_match_plain_attention(hopper, window, hq, hk
 
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
+    (dict(d=384), ValueError),  # past the largest, 256
     (dict(dtype=torch.float16), TypeError),
     (dict(hq=6, hk=4), ValueError),  # query heads not a multiple of kv heads
 ])
