@@ -30,7 +30,11 @@ And the serving engine's prefix KV cache (`serving.prefix_cache`,
 ``prefix_cache=``) and speculative decoding (`serving.speculation`,
 ``speculation=``), and the Llama loss with its untied head on the fused-CE
 kernels (`models.llama.llama_loss_fn_fused`); flash attention runs at
-head_dim 64, 128, 192 and 256.
+head_dim 64, 128, 192 and 256 and at every multiple of 64 above (the
+padding's head_dims). And crash-exact serving: the durable request journal
+(`serving.journal`), the engine's snapshot and resume, its in-step health
+flag with quarantine, queue deadlines and drain, and `reliability` (fault
+injection, retry, SIGTERM preemption).
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first

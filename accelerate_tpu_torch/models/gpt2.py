@@ -392,16 +392,18 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     return cross_entropy_loss(logits, _next_token_labels(batch))
 
 
-def lm_loss_fn_pallas(model, batch: dict) -> torch.Tensor:
+def lm_loss_fn_pallas(model, batch: dict, block_r: int | None = None,
+                      block_v: int | None = None) -> torch.Tensor:
     """Next-token LM loss with the tied head fused into the cross-entropy
     (`ops.fused_ce.fused_cross_entropy`): on a CUDA model the forward, dH and
     dW run in the port's hand-written CUDA kernels and the ``[b * s, V]``
     logits never reach memory; on the CPU their plain versions run. Named
     after the reference's Pallas loss it ports; drop-in for `lm_loss_fn`
     with `Accelerator.make_train_step`, whose `BoundModel` carries the
-    compute-dtype ``wte.weight`` in ``model.params``. The reference's
-    ``block_r``/``block_v`` TPU tiles have no counterpart: the kernels choose
-    their own."""
+    compute-dtype ``wte.weight`` in ``model.params``. ``block_r`` and
+    ``block_v`` are the reference's TPU tiles: accepted, so a call written
+    for the reference runs, and ignored, since the CUDA kernels choose their
+    own tiles."""
     hidden = model(batch["input_ids"], return_hidden=True)
     labels = _next_token_labels(batch)
     b, s, e = hidden.shape

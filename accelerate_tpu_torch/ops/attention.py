@@ -78,6 +78,8 @@ def attention(
     mask: torch.Tensor | None = None,
     window: int | None = None,
     implementation: str = "auto",
+    block_q: int | None = None,
+    block_kv: int | None = None,
 ) -> torch.Tensor:
     """Dispatching entry point: ``'xla' | 'flash' | 'auto'``, the reference's
     names. ``'xla'`` is the plain path above; ``'flash'`` is
@@ -93,7 +95,11 @@ def attention(
     path unrepeated (the band kernels read kv head ``h // groups``, the
     rectangular path repeats them) and are repeated up to the query heads on
     the plain path. (The reference's additive ``bias`` comes with the models
-    that use it.)"""
+    that use it.) ``block_q`` and ``block_kv`` are the reference's TPU
+    tiles: accepted and, as in the reference, handed to `flash_attention` on
+    the flash path, which checks them as the reference does and ignores them
+    (the CUDA kernels choose their own tiles); the plain path ignores
+    them."""
     if implementation not in ("auto", "xla", "flash"):
         raise ValueError(f"implementation must be 'auto', 'xla' or 'flash', got {implementation!r}")
     hq, hk = q.shape[2], k.shape[2]
@@ -112,7 +118,8 @@ def attention(
     if implementation == "flash":
         from .flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=causal, window=window)
+        return flash_attention(q, k, v, causal=causal, window=window, block_q=block_q,
+                               block_kv=block_kv)
     if hk != hq:
         k = k.repeat_interleave(hq // hk, dim=2)
         v = v.repeat_interleave(hq // hk, dim=2)

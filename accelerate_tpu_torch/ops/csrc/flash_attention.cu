@@ -23,9 +23,10 @@
 //
 // Layout: q, o, dO, dq are contiguous [b*hq, sq, D]; k, v, dk, dv are
 // [b*hkv, skv, D] (hkv = hq for the rectangular kernels); lse and delta are
-// fp32 [b*hq, sq]. D is 64, 128, 192 or 256: every head_dim the wrapper's
-// padding gives up to 256 (a head_dim off a multiple of 64 is padded to one
-// of 128).
+// fp32 [b*hq, sq]. D is 64, 128, 192 or 256, the head_dims with bodies of
+// their own, or any multiple of 64 above 256, which the runtime-head_dim body
+// takes: every head_dim the wrapper's padding gives (a head_dim off a
+// multiple of 64 is padded to one of 128).
 //
 // What differs from the TPU kernels: on the TPU the kv (or q) axis is the last,
 // sequential grid dimension and the running state lives in VMEM scratch across
@@ -126,6 +127,19 @@
 // D 256); in bf16 it loads bf16 tiles and computes in fp32, rounding p and
 // dS to bf16 where the sm_90a bodies do. The sm_90a bodies are built for D 64
 // and 128 only (`kSm90Body`): a Hopper design at D 256 is later work.
+// Every head_dim above 256 (a multiple of 64) runs one more scalar design,
+// whose head_dim is a run-time value (fwd_tile_dyn, dq_tile_dyn,
+// dkv_tile_dyn; the template's D is 0): tiles of 32 x 32, and the head
+// dimension walked in chunks of 64 columns. S = Q K^T (and dP = dO V^T) sums
+// the chunks' products into one fp32 score tile; P V, dS K, P^T dO and
+// dS^T Q are formed chunk by chunk. The row tile's fp32 accumulators (O, dQ,
+// or dK and dV) live in a workspace in device memory that the wrapper
+// allocates, one slab of [32][d] (two for dK/dV) per CTA, read and written a
+// chunk at a time through shared memory; no CTA touches another's slab, so
+// there are no atomics. Shared memory no longer grows with d, so no limit is
+// left but device memory. Right, not fast: every chunk of Q (or K/V) is
+// loaded again for each kv (or q) tile, and each accumulator chunk makes a
+// round trip to memory per tile.
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense):
@@ -207,7 +221,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 // Tile shape for element type T and head dim D: BQ query rows, BKV kv rows.
 template <typename T, int D>
 struct Tiles {
-  static constexpr bool kWide = D > 128;  // D 192 and 256: smaller tiles, to fit shared memory
+  // D 192 and 256, and D 0 (the runtime-head_dim body): smaller tiles, to fit
+  // shared memory
+  static constexpr bool kWide = D > 128 || D == 0;
   static constexpr int BQ = kWide ? 32 : (sizeof(T) == 4 && D == 128) ? 32 : 64;
   static constexpr int BKV = kWide ? 32 : 64;
   static constexpr int LDT = D + 8;     // operand tiles [rows][D] in T
@@ -921,6 +937,339 @@ __device__ __forceinline__ void dkv_tile(unsigned char* smem, const T* __restric
   }
 }
 
+// ------------------------------------- the runtime-head_dim scalar bodies
+// Any head_dim above 256 (see the header): tiles of kDynB x kDynB rows, the
+// head dimension in chunks of kDc columns, the accumulators in a device
+// workspace of one [kDynB][d] fp32 slab per CTA (two for dK/dV).
+constexpr int kDynB = 32;
+constexpr int kDc = 64;
+constexpr int kLdc = kDc + 8;    // operand chunks [rows][kDc] in T
+constexpr int kLds = kDynB + 4;  // fp32 score tiles [kDynB][kDynB]
+constexpr int kLdp = kDynB + 8;  // rounded probability tiles in T
+constexpr int kLda = kDc + 4;    // fp32 accumulator chunks [rows][kDc]
+
+// The run-time head_dim and the workspace of the dyn bodies (ignored by the
+// fixed-D bodies).
+struct Wide {
+  int d;
+  float* ws;
+};
+
+// columns [col0, col0 + kDc) of rows [row0, row0 + ROWS) of a contiguous
+// [n_rows, d] matrix into shared memory (leading dim kLdc); rows >= n_rows
+// and columns >= d are 0
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0, int n_rows, int d,
+                                           int col0) {
+  for (int i = threadIdx.x; i < ROWS * kDc; i += kThreads) {
+    const int r = i / kDc, c = i % kDc;
+    T val = from_f<T>(0.f);
+    if (row0 + r < n_rows && col0 + c < d) val = src[(size_t)(row0 + r) * d + col0 + c];
+    dst[r * kLdc + c] = val;
+  }
+}
+
+// an accumulator chunk between a CTA's [kDynB][d] workspace slab and shared
+// memory (leading dim kLda); `zero` gives 0 instead of reading
+__device__ __forceinline__ void ws_load(float* dst, const float* slab, int d, int col0,
+                                        bool zero) {
+  for (int i = threadIdx.x; i < kDynB * kDc; i += kThreads) {
+    const int r = i / kDc, c = i % kDc;
+    dst[r * kLda + c] = zero || col0 + c >= d ? 0.f : slab[(size_t)r * d + col0 + c];
+  }
+}
+
+__device__ __forceinline__ void ws_store(float* slab, const float* src, int d, int col0) {
+  for (int i = threadIdx.x; i < kDynB * kDc; i += kThreads) {
+    const int r = i / kDc, c = i % kDc;
+    if (col0 + c < d) slab[(size_t)r * d + col0 + c] = src[r * kLda + c];
+  }
+}
+
+// rows [row0, row0 + kDynB) of an [n_rows, d] output from a CTA's slab,
+// chunk by chunk through shared memory, each row divided by div[r] (null:
+// by 1); an empty slab (`zero`) writes zeros
+template <typename T>
+__device__ __forceinline__ void ws_write_out(T* out, float* a_s, const float* slab, int row0,
+                                             int n_rows, int d, bool zero, const float* div) {
+  for (int c0 = 0; c0 < d; c0 += kDc) {
+    __syncthreads();
+    ws_load(a_s, slab, d, c0, zero);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kDynB * kDc; i += kThreads) {
+      const int r = i / kDc, c = i % kDc;
+      if (row0 + r < n_rows && c0 + c < d) {
+        const float l = div == nullptr ? 1.f : (div[r] == 0.f ? 1.f : div[r]);
+        out[(size_t)(row0 + r) * d + c0 + c] = from_f<T>(a_s[r * kLda + c] / l);
+      }
+    }
+  }
+}
+
+// S[kDynB][kDynB] = A B^T over d, chunk by chunk: A rows [a0, ...) of an
+// [a_rows, d] matrix, B rows [b0, ...) of a [b_rows, d] one; with a second
+// pair (A2, B2), S2 = A2 B2^T in the same pass. a_s, b_s (and a2_s, b2_s)
+// are chunk tiles in shared memory.
+template <typename T>
+__device__ __forceinline__ void scores_dyn(float* s_s, T* a_s, T* b_s, const T* A, int a0,
+                                           int a_rows, const T* B, int b0, int b_rows, int d,
+                                           float* s2_s = nullptr, T* a2_s = nullptr,
+                                           T* b2_s = nullptr, const T* A2 = nullptr,
+                                           const T* B2 = nullptr) {
+  for (int c0 = 0; c0 < d; c0 += kDc) {
+    __syncthreads();  // the last chunk's products are done with the tiles
+    load_chunk<T, kDynB>(a_s, A, a0, a_rows, d, c0);
+    load_chunk<T, kDynB>(b_s, B, b0, b_rows, d, c0);
+    if (s2_s != nullptr) {
+      load_chunk<T, kDynB>(a2_s, A2, a0, a_rows, d, c0);
+      load_chunk<T, kDynB>(b2_s, B2, b0, b_rows, d, c0);
+    }
+    __syncthreads();
+    if (c0 == 0) {
+      gemm<kDynB, kDynB, kDc, false, true, false>(s_s, kLds, a_s, kLdc, b_s, kLdc);
+      if (s2_s != nullptr) {
+        gemm<kDynB, kDynB, kDc, false, true, false>(s2_s, kLds, a2_s, kLdc, b2_s, kLdc);
+      }
+    } else {
+      gemm<kDynB, kDynB, kDc, false, true, true>(s_s, kLds, a_s, kLdc, b_s, kLdc);
+      if (s2_s != nullptr) {
+        gemm<kDynB, kDynB, kDc, false, true, true>(s2_s, kLds, a2_s, kLdc, b2_s, kLdc);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// slab[:, chunk] (=, when `first`, else +=) op(P) . B[:, chunk] for every
+// chunk: P [kDynB][kDynB] in shared memory (P_T: use its transpose), B rows
+// [b0, b0 + kDynB) of a [b_rows, d] matrix; `corr` (may be null) scales each
+// accumulator row first
+template <typename T, bool P_T>
+__device__ __forceinline__ void accumulate_dyn(float* slab, float* a_s, T* b_s, const T* p_s,
+                                               const T* B, int b0, int b_rows, int d, bool first,
+                                               const float* corr) {
+  for (int c0 = 0; c0 < d; c0 += kDc) {
+    __syncthreads();  // the last chunk's product and store are done with b_s, a_s
+    load_chunk<T, kDynB>(b_s, B, b0, b_rows, d, c0);
+    ws_load(a_s, slab, d, c0, first);
+    __syncthreads();
+    if (corr != nullptr && !first) {
+      for (int i = threadIdx.x; i < kDynB * kDc; i += kThreads) {
+        a_s[(i / kDc) * kLda + i % kDc] *= corr[i / kDc];
+      }
+      __syncthreads();
+    }
+    gemm<kDynB, kDc, kDynB, P_T, false, true>(a_s, kLda, p_s, kLdp, b_s, kLdc);
+    __syncthreads();
+    ws_store(slab, a_s, d, c0);
+  }
+}
+
+template <typename T>
+constexpr size_t fwd_smem_dyn() {
+  return sizeof(T) * (2 * kDynB * kLdc + kDynB * kLdp) +
+         sizeof(float) * (kDynB * kLds + kDynB * kLda + 3 * kDynB);
+}
+
+// Forward at a run-time head_dim for the q tile nq - 1 - blockIdx.x of row
+// blockIdx.y = b * hq + h: o and lse, O accumulated in the CTA's slab.
+template <typename T, typename M>
+__device__ __forceinline__ void fwd_tile_dyn(unsigned char* smem, const T* __restrict__ q,
+                                             const T* __restrict__ k, const T* __restrict__ v,
+                                             T* __restrict__ o, float* __restrict__ lse,
+                                             const M mask, const Wide wide) {
+  constexpr int BQ = kDynB, BKV = kDynB;
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + BQ * kLdc;  // K chunks, then V chunks
+  T* p_s = k_s + BKV * kLdc;
+  float* s_s = reinterpret_cast<float*>(p_s + BQ * kLdp);
+  float* a_s = s_s + BQ * kLds;
+  float* m_s = a_s + BQ * kLda;
+  float* l_s = m_s + BQ;
+  float* corr_s = l_s + BQ;
+
+  const int d = wide.d;
+  const int sq = mask.sq, skv = mask.skv;
+  const int nq = (sq + BQ - 1) / BQ;
+  const int iq = nq - 1 - blockIdx.x;
+  const int q_lo = iq * BQ;
+  const size_t bh = blockIdx.y;
+  const size_t bkv = bh / mask.groups();
+  const T* qb = q + bh * sq * d;
+  const T* kb = k + bkv * skv * d;
+  const T* vb = v + bkv * skv * d;
+  float* slab = wide.ws + (bh * nq + iq) * BQ * d;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int i = threadIdx.x; i < BQ; i += kThreads) {
+    m_s[i] = kNegInf;
+    l_s[i] = 0.f;
+  }
+  const int ik_begin = mask.kv_begin(q_lo, BKV);
+  const int ik_end = mask.kv_end(q_lo, BQ, BKV);
+  for (int ik = ik_begin; ik < ik_end; ++ik) {
+    scores_dyn<T>(s_s, q_s, k_s, qb, q_lo, sq, kb, ik * BKV, skv, d);
+    // online softmax, one warp per row, one column per lane
+    for (int r = warp; r < BQ; r += kWarps) {
+      const int kj = ik * BKV + lane;
+      const bool keep = mask.keep(q_lo + r, kj);
+      const float sv = keep ? s_s[r * kLds + lane] : kNegInf;
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, warp_max(sv));
+      const float p = mask.windowed() && !keep ? 0.f : expf(sv - m_new);
+      p_s[r * kLdp + lane] = from_f<T>(p);
+      const float sum = warp_sum(p);
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        l_s[r] = corr * l_s[r] + sum;
+        m_s[r] = m_new;
+        corr_s[r] = corr;
+      }
+    }
+    accumulate_dyn<T, false>(slab, a_s, k_s, p_s, vb, ik * BKV, skv, d, ik == ik_begin, corr_s);
+  }
+  ws_write_out<T>(o + bh * sq * d, a_s, slab, q_lo, sq, d, ik_begin >= ik_end, l_s);
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const int qi = q_lo + r;
+    if (qi < sq) {
+      const float l = l_s[r];
+      lse[bh * sq + qi] = m_s[r] + logf(l == 0.f ? 1.f : l);
+    }
+  }
+}
+
+template <typename T>
+constexpr size_t dq_smem_dyn() {
+  return sizeof(T) * (4 * kDynB * kLdc + kDynB * kLdp) +
+         sizeof(float) * (2 * kDynB * kLds + kDynB * kLda + 2 * kDynB);
+}
+
+// dQ at a run-time head_dim for the q tile nq - 1 - blockIdx.x of row
+// blockIdx.y = b * hq + h, accumulated in the CTA's slab.
+template <typename T, typename M>
+__device__ __forceinline__ void dq_tile_dyn(unsigned char* smem, const T* __restrict__ q,
+                                            const T* __restrict__ k, const T* __restrict__ v,
+                                            const T* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta, T* __restrict__ dq,
+                                            const M mask, const Wide wide) {
+  constexpr int BQ = kDynB, BKV = kDynB;
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + BQ * kLdc;
+  T* k_s = do_s + BQ * kLdc;
+  T* v_s = k_s + BKV * kLdc;
+  T* ds_s = v_s + BKV * kLdc;
+  float* s_s = reinterpret_cast<float*>(ds_s + BQ * kLdp);
+  float* dp_s = s_s + BQ * kLds;
+  float* a_s = dp_s + BQ * kLds;
+  float* lse_s = a_s + BQ * kLda;
+  float* delta_s = lse_s + BQ;
+
+  const int d = wide.d;
+  const int sq = mask.sq, skv = mask.skv;
+  const int nq = (sq + BQ - 1) / BQ;
+  const int iq = nq - 1 - blockIdx.x;
+  const int q_lo = iq * BQ;
+  const size_t bh = blockIdx.y;
+  const size_t bkv = bh / mask.groups();
+  const T* qb = q + bh * sq * d;
+  const T* dob = dout + bh * sq * d;
+  const T* kb = k + bkv * skv * d;
+  const T* vb = v + bkv * skv * d;
+  float* slab = wide.ws + (bh * nq + iq) * BQ * d;
+
+  load_rows(lse_s, lse + bh * sq, q_lo, sq, BQ);
+  load_rows(delta_s, delta + bh * sq, q_lo, sq, BQ);
+  const int ik_begin = mask.kv_begin(q_lo, BKV);
+  const int ik_end = mask.kv_end(q_lo, BQ, BKV);
+  for (int ik = ik_begin; ik < ik_end; ++ik) {
+    scores_dyn<T>(s_s, q_s, k_s, qb, q_lo, sq, kb, ik * BKV, skv, d, dp_s, do_s, v_s, dob, vb);
+    for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
+      const int r = i / BKV, c = i % BKV;
+      const int qi = q_lo + r;
+      const bool keep = qi < sq && mask.keep(qi, ik * BKV + c);
+      const float p = expf((keep ? s_s[r * kLds + c] : kNegInf) - lse_s[r]);
+      ds_s[r * kLdp + c] = from_f<T>(p * (dp_s[r * kLds + c] - delta_s[r]));
+    }
+    accumulate_dyn<T, false>(slab, a_s, k_s, ds_s, kb, ik * BKV, skv, d, ik == ik_begin, nullptr);
+  }
+  ws_write_out<T>(dq + bh * sq * d, a_s, slab, q_lo, sq, d, ik_begin >= ik_end, nullptr);
+}
+
+template <typename T>
+constexpr size_t dkv_smem_dyn() {
+  return sizeof(T) * (4 * kDynB * kLdc + kDynB * kLdp) +
+         sizeof(float) * (2 * kDynB * kLds + kDynB * kLda + 2 * kDynB);
+}
+
+// dK and dV at a run-time head_dim for the kv tile blockIdx.x of kv row
+// blockIdx.y = b * hkv + h: every (query head of the group, q tile) pair
+// whose mask covers the tile, summed in fp32 in the CTA's two slabs (dK,
+// then dV).
+template <typename T, typename M>
+__device__ __forceinline__ void dkv_tile_dyn(unsigned char* smem, const T* __restrict__ q,
+                                             const T* __restrict__ k, const T* __restrict__ v,
+                                             const T* __restrict__ dout,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ delta, T* __restrict__ dk,
+                                             T* __restrict__ dv, const M mask, const Wide wide) {
+  constexpr int BQ = kDynB, BKV = kDynB;
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* k_s = q_s + BQ * kLdc;
+  T* do_s = k_s + BKV * kLdc;
+  T* v_s = do_s + BQ * kLdc;
+  T* pr_s = v_s + BKV * kLdc;  // rounded p, then rounded dS
+  float* p_s = reinterpret_cast<float*>(pr_s + BQ * kLdp);
+  float* dp_s = p_s + BQ * kLds;
+  float* a_s = dp_s + BQ * kLds;
+  float* lse_s = a_s + BKV * kLda;
+  float* delta_s = lse_s + BQ;
+
+  const int d = wide.d;
+  const int sq = mask.sq, skv = mask.skv;
+  const int nk = (skv + BKV - 1) / BKV;
+  const int ik = blockIdx.x;
+  const int k_lo = ik * BKV;
+  const size_t bkv = blockIdx.y;
+  const T* kb = k + bkv * skv * d;
+  const T* vb = v + bkv * skv * d;
+  float* dk_slab = wide.ws + (bkv * nk + ik) * 2 * BKV * d;
+  float* dv_slab = dk_slab + BKV * d;
+  const int iq_begin = mask.q_begin(k_lo, BQ);
+  const int iq_end = mask.q_end(k_lo, BQ, BKV);
+  bool first = true;
+
+  for (int g = 0; g < mask.groups(); ++g) {
+    const size_t bh = bkv * mask.groups() + g;
+    const T* qb = q + bh * sq * d;
+    const T* dob = dout + bh * sq * d;
+    for (int iq = iq_begin; iq < iq_end; ++iq) {
+      __syncthreads();  // the last pair's readers of lse_s, delta_s are done
+      load_rows(lse_s, lse + bh * sq, iq * BQ, sq, BQ);
+      load_rows(delta_s, delta + bh * sq, iq * BQ, sq, BQ);
+      scores_dyn<T>(p_s, q_s, k_s, qb, iq * BQ, sq, kb, k_lo, skv, d, dp_s, do_s, v_s, dob, vb);
+      for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
+        const int r = i / BKV, c = i % BKV;
+        const int qi = iq * BQ + r;
+        const bool keep = qi < sq && mask.keep(qi, k_lo + c);
+        const float p = expf((keep ? p_s[r * kLds + c] : kNegInf) - lse_s[r]);
+        p_s[r * kLds + c] = p;
+        pr_s[r * kLdp + c] = from_f<T>(p);
+      }
+      accumulate_dyn<T, true>(dv_slab, a_s, do_s, pr_s, dob, iq * BQ, sq, d, first, nullptr);
+      __syncthreads();
+      for (int i = threadIdx.x; i < BQ * BKV; i += kThreads) {
+        const int r = i / BKV, c = i % BKV;
+        pr_s[r * kLdp + c] = from_f<T>(p_s[r * kLds + c] * (dp_s[r * kLds + c] - delta_s[r]));
+      }
+      accumulate_dyn<T, true>(dk_slab, a_s, q_s, pr_s, qb, iq * BQ, sq, d, first, nullptr);
+      first = false;
+    }
+  }
+  ws_write_out<T>(dk + bkv * skv * d, a_s, dk_slab, k_lo, skv, d, first, nullptr);
+  ws_write_out<T>(dv + bkv * skv * d, a_s, dv_slab, k_lo, skv, d, first, nullptr);
+}
+
 // The bf16 dK/dV tiles: a CTA owns BKV kv rows of one kv head, 64 for each
 // of two consumer warpgroups (the wgmma M), and walks q tiles of BQ rows fed
 // by one producer warpgroup. A consumer thread holds dK and dV (D fp32) and
@@ -1431,10 +1780,11 @@ static_assert(dkv_smem<float, 256>() <= kMaxSmem && dkv_smem<float, 192>() <= kM
 // The kernels: one __global__ name per TPU kernel replaced, each a tile body
 // under its family's mask.
 // which body a (type, head_dim) runs: bf16 at D 64 and 128 the sm_90a
-// bodies (two consumer warpgroups and a producer warpgroup), everything else
-// (fp32, and bf16 at D 192 and 256) the scalar ones; and its threads
+// bodies (two consumer warpgroups and a producer warpgroup), D 0 (a run-time
+// head_dim above 256) the dyn bodies, everything else (fp32, and bf16 at D
+// 192 and 256) the scalar ones; and its threads
 template <typename T, int D>
-constexpr bool kSm90Body = std::is_same_v<T, __nv_bfloat16> && D <= 128;
+constexpr bool kSm90Body = std::is_same_v<T, __nv_bfloat16> && D > 0 && D <= 128;
 
 template <typename T, int D>
 struct BodyThreads {
@@ -1443,8 +1793,11 @@ struct BodyThreads {
 
 template <typename T, int D, typename M>
 __device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const T* k, const T* v, T* o,
-                                         float* lse, const M mask, const FwdMaps& maps) {
-  if constexpr (kSm90Body<T, D>) {
+                                         float* lse, const M mask, const FwdMaps& maps,
+                                         const Wide wide) {
+  if constexpr (D == 0) {
+    fwd_tile_dyn<T>(smem, q, k, v, o, lse, mask, wide);
+  } else if constexpr (kSm90Body<T, D>) {
     fwd_tile_sm90<D>(smem, maps, lse, mask);
   } else {
     fwd_tile<T, D>(smem, q, k, v, o, lse, mask);
@@ -1454,8 +1807,10 @@ __device__ __forceinline__ void fwd_body(unsigned char* smem, const T* q, const 
 template <typename T, int D, typename M>
 __device__ __forceinline__ void dq_body(unsigned char* smem, const T* q, const T* k, const T* v,
                                         const T* dout, const float* lse, const float* delta, T* dq,
-                                        const M mask, const DqMaps& maps) {
-  if constexpr (kSm90Body<T, D>) {
+                                        const M mask, const DqMaps& maps, const Wide wide) {
+  if constexpr (D == 0) {
+    dq_tile_dyn<T>(smem, q, k, v, dout, lse, delta, dq, mask, wide);
+  } else if constexpr (kSm90Body<T, D>) {
     dq_tile_sm90<D>(smem, maps, lse, delta, mask);
   } else {
     dq_tile<T, D>(smem, q, k, v, dout, lse, delta, dq, mask);
@@ -1465,8 +1820,11 @@ __device__ __forceinline__ void dq_body(unsigned char* smem, const T* q, const T
 template <typename T, int D, typename M>
 __device__ __forceinline__ void dkv_body(unsigned char* smem, const T* q, const T* k, const T* v,
                                          const T* dout, const float* lse, const float* delta, T* dk,
-                                         T* dv, const M mask, const DkvMaps& maps) {
-  if constexpr (kSm90Body<T, D>) {
+                                         T* dv, const M mask, const DkvMaps& maps,
+                                         const Wide wide) {
+  if constexpr (D == 0) {
+    dkv_tile_dyn<T>(smem, q, k, v, dout, lse, delta, dk, dv, mask, wide);
+  } else if constexpr (kSm90Body<T, D>) {
     dkv_tile_sm90<D>(smem, maps, lse, delta, mask);
   } else {
     dkv_tile<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask);
@@ -1476,18 +1834,20 @@ __device__ __forceinline__ void dkv_body(unsigned char* smem, const T* q, const 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, const Mask<CAUSAL, false> mask, const __grid_constant__ FwdMaps maps) {
+    float* __restrict__ lse, const Mask<CAUSAL, false> mask, const __grid_constant__ FwdMaps maps,
+    const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps);
+  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps, wide);
 }
 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, const Mask<CAUSAL, false> mask, const __grid_constant__ DqMaps maps) {
+    T* __restrict__ dq, const Mask<CAUSAL, false> mask, const __grid_constant__ DqMaps maps,
+    const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps);
+  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps, wide);
 }
 
 template <typename T, int D, bool CAUSAL>
@@ -1495,26 +1855,28 @@ __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, const Mask<CAUSAL, false> mask,
-    const __grid_constant__ DkvMaps maps) {
+    const __grid_constant__ DkvMaps maps, const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps);
+  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps, wide);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-    float* __restrict__ lse, const BandMask mask, const __grid_constant__ FwdMaps maps) {
+    float* __restrict__ lse, const BandMask mask, const __grid_constant__ FwdMaps maps,
+    const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps);
+  fwd_body<T, D>(smem, q, k, v, o, lse, mask, maps, wide);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, const BandMask mask, const __grid_constant__ DqMaps maps) {
+    T* __restrict__ dq, const BandMask mask, const __grid_constant__ DqMaps maps,
+    const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps);
+  dq_body<T, D>(smem, q, k, v, dout, lse, delta, dq, mask, maps, wide);
 }
 
 template <typename T, int D>
@@ -1522,9 +1884,9 @@ __global__ void __launch_bounds__(BodyThreads<T, D>::value, 1) flash_band_dkv_ke
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, const BandMask mask,
-    const __grid_constant__ DkvMaps maps) {
+    const __grid_constant__ DkvMaps maps, const Wide wide) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps);
+  dkv_body<T, D>(smem, q, k, v, dout, lse, delta, dk, dv, mask, maps, wide);
 }
 
 // Launch arguments of the C entry points.
@@ -1538,6 +1900,7 @@ struct Args {
   void* out0;  // o, dq or dk
   void* out1;  // dv
   float* lse_out;
+  float* ws;  // the dyn bodies' fp32 workspace (null unless head_dim > 256)
   int bh;  // b * hq
   cudaStream_t stream;
 };
@@ -1554,7 +1917,7 @@ cudaError_t run(K kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
 }
 
 template <typename T, int D, bool CAUSAL, bool BAND>
-int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
+int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m, const Wide wide) {
   using C = Tiles<T, D>;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -1567,7 +1930,7 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
   cudaError_t err;
   if (kind == Kind::kFwd) {
     FwdMaps maps{};
-    size_t smem = fwd_smem<T, D>();
+    size_t smem = D == 0 ? fwd_smem_dyn<T>() : fwd_smem<T, D>();
     dim3 grid = q_grid;
     if constexpr (kSm90Body<T, D>) {
       using F = Sm90Fwd<D>;
@@ -1588,14 +1951,14 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_fwd_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, out0,
-                a.lse_out, m, maps);
+                a.lse_out, m, maps, wide);
     } else {
       err = run(flash_fwd_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, out0,
-                a.lse_out, m, maps);
+                a.lse_out, m, maps, wide);
     }
   } else if (kind == Kind::kDq) {
     DqMaps maps{};
-    size_t smem = dq_smem<T, D>();
+    size_t smem = D == 0 ? dq_smem_dyn<T>() : dq_smem<T, D>();
     dim3 grid = q_grid;
     if constexpr (kSm90Body<T, D>) {
       using F = Sm90Dq<D>;
@@ -1612,14 +1975,14 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_dq_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, m, maps);
+                a.delta, out0, m, maps, wide);
     } else {
       err = run(flash_dq_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, dout,
-                a.lse_in, a.delta, out0, m, maps);
+                a.lse_in, a.delta, out0, m, maps, wide);
     }
   } else {
     DkvMaps maps{};
-    size_t smem = dkv_smem<T, D>();
+    size_t smem = D == 0 ? dkv_smem_dyn<T>() : dkv_smem<T, D>();
     dim3 grid = kv_grid;
     if constexpr (kSm90Body<T, D>) {
       using F = Sm90Dkv<D>;
@@ -1637,10 +2000,10 @@ int launch(Kind kind, const Args& a, const Mask<CAUSAL, BAND> m) {
     constexpr int threads = BodyThreads<T, D>::value;
     if constexpr (BAND) {
       err = run(flash_band_dkv_kernel<T, D>, smem, grid, threads, a.stream, q, k, v, dout, a.lse_in,
-                a.delta, out0, out1, m, maps);
+                a.delta, out0, out1, m, maps, wide);
     } else {
       err = run(flash_dkv_kernel<T, D, CAUSAL>, smem, grid, threads, a.stream, q, k, v, dout,
-                a.lse_in, a.delta, out0, out1, m, maps);
+                a.lse_in, a.delta, out0, out1, m, maps, wide);
     }
   }
   return static_cast<int>(err);
@@ -1655,14 +2018,21 @@ int dispatch(int device, int dtype, int head_dim, Kind kind, const Args& a,
   }
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(kind, a, m);
-  if (dtype == 0 && head_dim == 128) return launch<float, 128>(kind, a, m);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(kind, a, m);
-  if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(kind, a, m);
-  if (dtype == 0 && head_dim == 192) return launch<float, 192>(kind, a, m);
-  if (dtype == 0 && head_dim == 256) return launch<float, 256>(kind, a, m);
-  if (dtype == 1 && head_dim == 192) return launch<__nv_bfloat16, 192>(kind, a, m);
-  if (dtype == 1 && head_dim == 256) return launch<__nv_bfloat16, 256>(kind, a, m);
+  const Wide wide{head_dim, a.ws};
+  if (dtype == 0 && head_dim == 64) return launch<float, 64>(kind, a, m, wide);
+  if (dtype == 0 && head_dim == 128) return launch<float, 128>(kind, a, m, wide);
+  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(kind, a, m, wide);
+  if (dtype == 1 && head_dim == 128) return launch<__nv_bfloat16, 128>(kind, a, m, wide);
+  if (dtype == 0 && head_dim == 192) return launch<float, 192>(kind, a, m, wide);
+  if (dtype == 0 && head_dim == 256) return launch<float, 256>(kind, a, m, wide);
+  if (dtype == 1 && head_dim == 192) return launch<__nv_bfloat16, 192>(kind, a, m, wide);
+  if (dtype == 1 && head_dim == 256) return launch<__nv_bfloat16, 256>(kind, a, m, wide);
+  // every multiple of 64 above 256: the run-time head_dim bodies, over the
+  // workspace the caller passes
+  if (head_dim > 256 && head_dim % 64 == 0 && a.ws != nullptr) {
+    if (dtype == 0) return launch<float, 0>(kind, a, m, wide);
+    if (dtype == 1) return launch<__nv_bfloat16, 0>(kind, a, m, wide);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1679,30 +2049,35 @@ int dispatch_rect(int device, int dtype, int head_dim, int causal, Kind kind, co
 // its launch.
 //
 // The rectangular kernels: q, k, v, o, dO, dq, dk, dv are [bh, s, head_dim]
-// (K/V at q's head count), lse and delta fp32 [bh, sq].
+// (K/V at q's head count), lse and delta fp32 [bh, sq]. ws is the fp32
+// workspace of the run-time head_dim bodies (head_dim > 256): at least
+// bh * ceil(sq / 32) * 32 * head_dim floats for the forward and dQ, and
+// 2 * (bh / groups) * ceil(skv / 32) * 32 * head_dim for dK/dV; null
+// otherwise.
 extern "C" int flash_attention_fwd(int device, void* stream, int dtype, int head_dim, int causal,
                                    const void* q, const void* k, const void* v, void* o,
-                                   void* lse, int bh, int sq, int skv) {
+                                   void* lse, void* ws, int bh, int sq, int skv) {
   const Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, static_cast<float*>(lse),
-               bh, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(ws), bh, static_cast<cudaStream_t>(stream)};
   return dispatch_rect(device, dtype, head_dim, causal, Kind::kFwd, a, sq, skv);
 }
 
 extern "C" int flash_attention_dq(int device, void* stream, int dtype, int head_dim, int causal,
                                   const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse, const void* delta, void* dq, int bh, int sq,
-                                  int skv) {
+                                  const void* lse, const void* delta, void* dq, void* ws, int bh,
+                                  int sq, int skv) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, nullptr, bh, static_cast<cudaStream_t>(stream)};
+               dq, nullptr, nullptr, static_cast<float*>(ws), bh,
+               static_cast<cudaStream_t>(stream)};
   return dispatch_rect(device, dtype, head_dim, causal, Kind::kDq, a, sq, skv);
 }
 
 extern "C" int flash_attention_dkv(int device, void* stream, int dtype, int head_dim, int causal,
                                    const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, void* dk, void* dv,
-                                   int bh, int sq, int skv) {
+                                   void* ws, int bh, int sq, int skv) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dk, dv, nullptr, bh, static_cast<cudaStream_t>(stream)};
+               dk, dv, nullptr, static_cast<float*>(ws), bh, static_cast<cudaStream_t>(stream)};
   return dispatch_rect(device, dtype, head_dim, causal, Kind::kDkv, a, sq, skv);
 }
 
@@ -1710,27 +2085,29 @@ extern "C" int flash_attention_dkv(int device, void* stream, int dtype, int head
 // causal). q, o, dO, dq: [bh, s, head_dim]; k, v, dk, dv: [bh / groups, s,
 // head_dim]; lse, delta: fp32 [bh, s].
 extern "C" int flash_band_fwd(int device, void* stream, int dtype, int head_dim, const void* q,
-                              const void* k, const void* v, void* o, void* lse, int bh, int s,
-                              int groups, int window) {
+                              const void* k, const void* v, void* o, void* lse, void* ws, int bh,
+                              int s, int groups, int window) {
   const Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, static_cast<float*>(lse),
-               bh, static_cast<cudaStream_t>(stream)};
+               static_cast<float*>(ws), bh, static_cast<cudaStream_t>(stream)};
   return dispatch(device, dtype, head_dim, Kind::kFwd, a, BandMask{s, s, groups, window});
 }
 
 extern "C" int flash_band_dq(int device, void* stream, int dtype, int head_dim, const void* q,
                              const void* k, const void* v, const void* dout, const void* lse,
-                             const void* delta, void* dq, int bh, int s, int groups, int window) {
+                             const void* delta, void* dq, void* ws, int bh, int s, int groups,
+                             int window) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, nullptr, bh, static_cast<cudaStream_t>(stream)};
+               dq, nullptr, nullptr, static_cast<float*>(ws), bh,
+               static_cast<cudaStream_t>(stream)};
   return dispatch(device, dtype, head_dim, Kind::kDq, a, BandMask{s, s, groups, window});
 }
 
 extern "C" int flash_band_dkv(int device, void* stream, int dtype, int head_dim, const void* q,
                               const void* k, const void* v, const void* dout, const void* lse,
-                              const void* delta, void* dk, void* dv, int bh, int s, int groups,
-                              int window) {
+                              const void* delta, void* dk, void* dv, void* ws, int bh, int s,
+                              int groups, int window) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dk, dv, nullptr, bh, static_cast<cudaStream_t>(stream)};
+               dk, dv, nullptr, static_cast<float*>(ws), bh, static_cast<cudaStream_t>(stream)};
   return dispatch(device, dtype, head_dim, Kind::kDkv, a, BandMask{s, s, groups, window});
 }
 

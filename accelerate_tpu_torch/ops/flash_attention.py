@@ -37,9 +37,14 @@ from .attention import dot_product_attention
 
 # dtype codes of the C entry points (csrc/paged_decode.cu, csrc/flash_attention.cu)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3}
-# every head_dim `flash_attention`'s padding gives up to 256: a multiple of 64
-# stays, any other pads to a multiple of 128 (136 and 200 to 256)
+# the head_dims with kernel bodies of their own: every head_dim
+# `flash_attention`'s padding gives up to 256 (a multiple of 64 stays, any
+# other pads to a multiple of 128: 136 and 200 to 256). Every multiple of 64
+# above 256 (what the padding gives there: 300 -> 384) runs the kernels'
+# run-time head_dim body over an fp32 workspace (`_wide_workspace`)
 FLASH_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
+# the run-time head_dim body's tile rows (``kDynB`` in csrc/flash_attention.cu)
+_WIDE_TILE = 32
 FLASH_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 NEG_INF = -1e30  # the reference's mask value (not -inf)
 
@@ -139,7 +144,7 @@ def _flash_lib() -> ctypes.CDLL:
     if lib.flash_attention_error_string.restype is not ctypes.c_char_p:
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [i, p, i, i]  # device, stream, dtype, head_dim
-        for kind, n_ptrs in (("fwd", 5), ("dq", 7), ("dkv", 8)):
+        for kind, n_ptrs in (("fwd", 6), ("dq", 8), ("dkv", 9)):  # ..., workspace
             rect = getattr(lib, f"flash_attention_{kind}")  # causal, ..., b * h, sq, skv
             rect.argtypes, rect.restype = head + [i] + [p] * n_ptrs + [i] * 3, i
             band = getattr(lib, f"flash_band_{kind}")  # ..., b * hq, s, groups, window
@@ -172,7 +177,9 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
     ``grouped`` (the band kernels) K/V are ``[b, hkv, s, d]`` with ``hq`` a
     multiple of ``hkv`` and one s for all. Returns the operands, then the
     rows, contiguous and 16-byte aligned, as the kernels' vector loads and the
-    bf16 forward's TMA maps need."""
+    bf16 forward's TMA maps need. head_dim is one of
+    `FLASH_KERNEL_HEAD_DIMS` or any multiple of 64 above 256: every
+    head_dim `flash_attention`'s padding gives."""
     q, k, v = tensors[:3]
     dev = q.device
     if any(t.device != dev for t in tensors + rows):
@@ -194,9 +201,9 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
         raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k, v and dO must share one dtype")
-    if q.shape[-1] not in FLASH_KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name} kernel supports head_dim {FLASH_KERNEL_HEAD_DIMS} (at most "
-                         f"{FLASH_KERNEL_HEAD_DIMS[-1]}), got {q.shape[-1]}")
+    if not _kernel_head_dim(q.shape[-1]):
+        raise ValueError(f"{name} kernel supports head_dim {FLASH_KERNEL_HEAD_DIMS} or a multiple "
+                         f"of 64 above 256 (what flash_attention pads to), got {q.shape[-1]}")
     out = []
     for t in tensors + tuple(r.float() for r in rows):
         t = t.contiguous()
@@ -204,6 +211,26 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
             t = t.clone()
         out.append(t)
     return out
+
+
+def _kernel_head_dim(d: int) -> bool:
+    """A head_dim the kernels take: one with a body of its own, or a
+    multiple of 64 above 256 (the run-time head_dim body)."""
+    return d in FLASH_KERNEL_HEAD_DIMS or (d > 256 and d % 64 == 0)
+
+
+def _wide_workspace(t: torch.Tensor, rows: int, copies: int = 1) -> torch.Tensor | None:
+    """The fp32 workspace of the run-time head_dim body, for a head_dim
+    above 256: ``copies`` slabs of ``[32, d]`` for each 32-row tile of each
+    of the ``t.shape[0] * t.shape[1]`` heads of ``t`` (``[b, h, rows, d]``),
+    where each CTA keeps its accumulators (O, dQ, or dK and dV). None for a
+    head_dim with a body of its own."""
+    b, h, _, d = t.shape
+    if d in FLASH_KERNEL_HEAD_DIMS:
+        return None
+    tiles = -(-rows // _WIDE_TILE)
+    return torch.empty(copies * b * h * tiles * _WIDE_TILE * d, dtype=torch.float32,
+                       device=t.device)
 
 
 def _on_device(name: str, t: torch.Tensor) -> bool:
@@ -220,15 +247,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward over ``[b, h, s, d]`` (q pre-scaled, K/V at q's head count):
     ``(o, lse)``. CPU: `flash_attention_forward_reference`; CUDA: the
-    ``flash_fwd_kernel`` (fp32/bf16, head_dim 64, 128, 192 or 256, any
-    lengths)."""
+    ``flash_fwd_kernel`` (fp32/bf16, head_dim 64, 128, 192, 256 or any
+    multiple of 64 above, any lengths)."""
     if not _on_device("flash_attention_fwd", q):
         return flash_attention_forward_reference(q, k, v, causal)
     q, k, v = _kernel_operands("flash_attention_fwd", q, k, v)
     b, h, sq, _ = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _flash_launch("flash_attention_fwd", q, int(causal), q, k, v, o, lse, b * h, sq, k.shape[2])
+    _flash_launch("flash_attention_fwd", q, int(causal), q, k, v, o, lse,
+                  _wide_workspace(q, sq), b * h, sq, k.shape[2])
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -243,7 +271,7 @@ def flash_attention_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
     b, h, sq, _ = q.shape
     dq = torch.empty_like(q)
     _flash_launch("flash_attention_dq", q, int(causal), q, k, v, dout, lse, delta, dq,
-                  b * h, sq, k.shape[2])
+                  _wide_workspace(q, sq), b * h, sq, k.shape[2])
     flash_attention_dq.launches += 1
     return dq
 
@@ -258,7 +286,7 @@ def flash_attention_dkv(q, k, v, dout, lse, delta, causal: bool) -> tuple[torch.
     b, h, sq, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("flash_attention_dkv", q, int(causal), q, k, v, dout, lse, delta, dk, dv,
-                  b * h, sq, k.shape[2])
+                  _wide_workspace(k, k.shape[2], copies=2), b * h, sq, k.shape[2])
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -353,13 +381,15 @@ def flash_band_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Band forward: q ``[b, hq, s, d]`` pre-scaled, k and v ``[b, hkv, s,
     d]`` unrepeated: ``(o, lse)``, lse fp32 ``[b, hq, s]``. CPU:
     `flash_band_forward_reference`; CUDA: the ``flash_band_fwd_kernel``
-    (fp32/bf16, head_dim 64, 128, 192 or 256, any s)."""
+    (fp32/bf16, head_dim 64, 128, 192, 256 or any multiple of 64 above, any
+    s)."""
     if not _on_device("flash_band_fwd", q):
         return flash_band_forward_reference(q, k, v, window)
     q, k, v = _kernel_operands("flash_band_fwd", q, k, v, grouped=True)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _flash_launch("flash_band_fwd", q, q, k, v, o, lse, *_band_shape(q, k, window))
+    _flash_launch("flash_band_fwd", q, q, k, v, o, lse, _wide_workspace(q, q.shape[2]),
+                  *_band_shape(q, k, window))
     flash_band_fwd.launches += 1
     return o, lse
 
@@ -372,7 +402,8 @@ def flash_band_dq(q, k, v, dout, lse, delta, window: int | None) -> torch.Tensor
     q, k, v, dout, lse, delta = _kernel_operands("flash_band_dq", q, k, v, dout,
                                                   rows=(lse, delta), grouped=True)
     dq = torch.empty_like(q)
-    _flash_launch("flash_band_dq", q, q, k, v, dout, lse, delta, dq, *_band_shape(q, k, window))
+    _flash_launch("flash_band_dq", q, q, k, v, dout, lse, delta, dq,
+                  _wide_workspace(q, q.shape[2]), *_band_shape(q, k, window))
     flash_band_dq.launches += 1
     return dq
 
@@ -388,7 +419,7 @@ def flash_band_dkv(q, k, v, dout, lse, delta,
                                                   rows=(lse, delta), grouped=True)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _flash_launch("flash_band_dkv", q, q, k, v, dout, lse, delta, dk, dv,
-                  *_band_shape(q, k, window))
+                  _wide_workspace(k, k.shape[2], copies=2), *_band_shape(q, k, window))
     flash_band_dkv.launches += 1
     return dk, dv
 

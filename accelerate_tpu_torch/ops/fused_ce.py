@@ -319,12 +319,16 @@ class _FusedHeadCE(torch.autograd.Function):
 
 
 def fused_cross_entropy(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
-                        ignore_index: int = -100) -> torch.Tensor:
+                        ignore_index: int = -100, block_r: int = 512,
+                        block_v: int = 1024) -> torch.Tensor:
     """Mean cross-entropy over the rows of ``hidden [N, e]`` whose label is
     not ``ignore_index``, with the tied head ``wte [V, e]`` fused in: the
     ``[N, V]`` logits never reach memory. 0 (not NaN) when every row is
     ignored. Differentiable in ``hidden`` and ``wte``. Takes fp32 or bf16
-    (one dtype for both); other dtypes raise."""
+    (one dtype for both); other dtypes raise. ``block_r`` and ``block_v``
+    are the reference's TPU tiles (its defaults): accepted, so a call
+    written for the reference runs, and ignored, since the CUDA kernels
+    choose their own tiles (`fwd_plan`)."""
     if hidden.dtype not in KERNEL_DTYPES or wte.dtype != hidden.dtype:
         raise TypeError(
             f"fused_cross_entropy takes fp32 or bf16 hidden and wte of one dtype, got "

@@ -173,14 +173,16 @@ def _launch(x2: torch.Tensor, packed: torch.Tensor, scales2: torch.Tensor,
     return out
 
 
-def nf4_matmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
+def nf4_matmul(x: torch.Tensor, qt: QuantizedTensor, block_k: int = 256,
+               block_n: int = 128) -> torch.Tensor:
     """``x @ dequantize(qt)`` for x ``[..., K]`` and ``qt`` ``[K, N]``, in
     x's dtype, accumulated in fp32 on the kernel route. A tensor that
     `routes_to_kernel` rejects takes the dequantize route (any device). On
     the kernel route a CPU tensor runs `nf4_matmul_reference` and a CUDA
     tensor launches ``csrc/nf4_matmul.cu`` (fp32, bf16 or fp16 x) or raises.
-    The reference's ``block_k``/``block_n`` TPU tiles have no counterpart:
-    the kernel chooses its own."""
+    ``block_k`` and ``block_n`` are the reference's TPU tiles (its
+    defaults): accepted, so a call written for the reference runs, and
+    ignored, since the kernel chooses its own split (`split_k`)."""
     K, N = qt.shape
     if x.shape[-1] != K:
         raise ValueError(f"nf4_matmul: x has {x.shape[-1]} features, the weight {K}")

@@ -97,9 +97,38 @@ own greedy choices is accepted (sampled rows take one token, their position
 0 sample), cut at the first EOS and at the budget, and the write cursor is
 rewound to the accepted frontier (`kv_cache.rewind_frontier`). Paged, the
 verify forward takes the gathered view, as the reference's does: the paged
-kernel is single-query. On CUDA the verify step is the captured graph. The
-reference's watchdog (non-finite logits, poison injection, quarantine) is
-not ported: a live slot is taken as healthy.
+kernel is single-query. On CUDA the verify step is the captured graph.
+
+Health flag and quarantine, as the reference's: every device step (the plain
+decode step, the verify step and the admission) computes ``ok =
+isfinite(logits).all(-1)`` per row inside the step itself (on CUDA inside the
+captured graph), and a row that is not ok freezes as a finished row does
+(token, position and budget carried). The health rides out with the tokens.
+The host treats an unhealthy row, or a token outside ``[0, vocab)``, as
+poisoned and quarantines only that slot: the first offence releases the slot
+and requeues the request at the front, to re-prefill from its prompt with its
+generator reseeded (the replay is token for token an unpoisoned run); the
+second retires it with `FINISH_ERROR`, which donates nothing to the prefix
+cache. An active `reliability.FaultInjector` can poison slots: its
+``serving.decode`` point ticks once per decode dispatch, and the slots it
+names get NaN logits through a fixed ``[b]`` poison buffer that the step
+reads, filled through pinned memory (``non_blocking``) only while an
+injector is active and cleared on the stream after the poisoned dispatch;
+with no injector nothing is uploaded. The ``serving.dispatch`` point runs
+before every dispatch (decode steps and admissions).
+
+Deadlines, drain and recovery, as the reference's: a request queued past its
+``deadline_s`` is rejected at the next admission with ``rejected:deadline``;
+`begin_drain`/`drain`/`end_drain` reject new submits with `REJECT_DRAINING`.
+``journal=`` (a path or a `journal.RequestJournal`) writes the durable
+request journal: SUBMIT before an acceptance is returned, FIRST_TOKEN when
+the admission's token lands, PROGRESS every ``progress_every`` tokens, FINISH
+at every terminal edge. `snapshot` writes the queue and every live stream to
+one JSON file, atomically; `resume` rebuilds a fresh engine from the journal,
+another journal or a snapshot. A stream that was mid-decode is re-admitted
+with its emitted tokens (``Request.resume_tokens``): one continuation prefill
+of ``prompt + resume_tokens``, its generator fast-forwarded past the draws
+those tokens took, so the rest of the stream is the uninterrupted run's.
 
 Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
 ``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
@@ -124,14 +153,17 @@ or just ``outputs = engine.run(requests)``.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from collections import deque
+from pathlib import Path
 from typing import Any, Iterable
 
 import numpy as np
 import torch
 
-from ..models.generation import capture_graph, gumbel_noise, sample
+from ..models.generation import capture_graph, sample
 from ..models.kv_cache import (
     BlockAllocator,
     SlotKVCache,
@@ -145,6 +177,7 @@ from ..models.kv_cache import (
 )
 from ..ops.flash_attention import paged_decode_attention
 from ..ops.nf4_matmul import nf4_matmul, plane_pack, routes_to_kernel
+from ..reliability.faults import ALL_SLOTS, active_injector
 from ..utils.environment import resolve_device
 from ..utils.quantization import (
     QuantizationConfig,
@@ -152,12 +185,17 @@ from ..utils.quantization import (
     quantize_module,
     quantized_nbytes,
 )
+from .journal import MAGIC as JOURNAL_MAGIC
+from .journal import JournalScan, RequestJournal, request_record
 from .metrics import ServingMetrics
 from .prefix_cache import NO_MATCH, PrefixCache, PrefixCacheConfig, PrefixMatch
 from .request import (
     FINISH_ABORTED,
     FINISH_EOS,
+    FINISH_ERROR,
     FINISH_LENGTH,
+    REJECT_DEADLINE,
+    REJECT_DRAINING,
     REJECT_QUEUE_FULL,
     Request,
     RequestOutput,
@@ -166,6 +204,12 @@ from .request import (
 )
 from .scheduler import FIFOScheduler
 from .speculation import resolve_drafter
+
+
+# the engine snapshot's format tag, the reference's: a JSON document written
+# atomically (tmp + fsync + rename) by `ServingEngine.snapshot`, restorable by
+# `ServingEngine.resume`
+SNAPSHOT_FORMAT = "accelerate_tpu/serving-snapshot-v1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,14 +253,36 @@ class WeightQuantConfig:
 
 
 @dataclasses.dataclass
+class RecoveryReport:
+    """What `ServingEngine.resume` rebuilt from a journal or a snapshot (the
+    reference's). ``resumed`` requests were mid-decode and re-enter
+    admission first with their emitted tokens as a continuation prefill;
+    ``restored`` were still queued and re-enter the queue in submit order.
+    ``completed`` maps request id -> the terminal `RequestOutput` recovered
+    from the journal's FINISH records (or a stream already complete): dedupe
+    them against what the dead process delivered. ``expired`` are queued
+    requests whose ``deadline_s`` passed during the downtime, rejected with
+    ``rejected:deadline``."""
+
+    source: str
+    resumed: list[int] = dataclasses.field(default_factory=list)
+    restored: list[int] = dataclasses.field(default_factory=list)
+    completed: dict[int, RequestOutput] = dataclasses.field(default_factory=dict)
+    expired: list[RequestOutput] = dataclasses.field(default_factory=list)
+    downtime_s: float = 0.0
+    truncated_tail_bytes: int = 0
+
+
+@dataclasses.dataclass
 class _Inflight:
     """One dispatched, not yet fetched piece of device work: an admission's
-    ``[2, nb]`` first tokens and finished flags, a decode step's ``[k, 2,
-    b]`` plane, or a verify step's ``[k + 2, 2, b]`` (``[:k + 1]`` the
+    ``[3, nb]`` first tokens, finished and health flags, a decode step's
+    ``[k, 3, b]`` plane (each iteration's tokens, finished and health
+    flags), or a verify step's ``[k + 2, 3, b]`` (``[:k + 1, :2]`` the
     tokens and finished flags of each position, ``[k + 1, 0]`` how many
-    tokens each slot emitted). ``host`` is the pinned buffer its copy lands in, ``event``
-    the CUDA event recorded after that copy (None on the CPU, where the copy
-    is done at dispatch). ``slots``/``epochs`` pin each result to the slot
+    tokens each slot emitted, ``[k + 1, 1]`` its health). ``host`` is the
+    pinned buffer its copy lands in, ``event`` the CUDA event recorded after
+    that copy (None on the CPU, where the copy is done at dispatch). ``slots``/``epochs`` pin each result to the slot
     generation it was dispatched against, so a result that outlived a
     retirement or cancel is dropped instead of reaching the slot's next
     tenant. ``staging`` keeps an admission's pinned upload buffers alive
@@ -257,7 +323,11 @@ class ServingEngine:
     reuse; in paged mode its ``block_tokens`` must equal the pool's.
     ``speculation`` (a draft depth, a `SpeculationConfig` or a drafter)
     turns every decode dispatch into a verify step; it needs
-    ``tokens_per_sync == 1``."""
+    ``tokens_per_sync == 1``.
+
+    ``journal`` (a path or a `journal.RequestJournal`) writes the durable
+    request journal that `resume` replays; None (the default) writes
+    nothing."""
 
     def __init__(
         self,
@@ -276,6 +346,7 @@ class ServingEngine:
         tokens_per_sync: int = 1,
         prefix_cache: PrefixCacheConfig | bool = False,
         speculation: Any = None,
+        journal: Any = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -362,6 +433,16 @@ class ServingEngine:
             self.scheduler.capacity_fn = self._paged_capacity
         self.eos_token_id = eos_token_id
         self.metrics = ServingMetrics()
+        self._draining = False
+        # the durable request journal: every accepted submit is on disk
+        # before the caller sees the acceptance
+        self.journal: RequestJournal | None = None
+        if journal is not None:
+            self.journal = (journal if isinstance(journal, RequestJournal)
+                            else RequestJournal(journal, metrics=self.metrics))
+            if self.journal.metrics is None:
+                self.journal.metrics = self.metrics
+        self._vocab = int(cfg.vocab_size)
 
         b, dev, k = self.max_concurrency, self.device, self.tokens_per_sync
         if self.paged:
@@ -397,17 +478,21 @@ class ServingEngine:
         self._d_finished = torch.ones(b, dtype=torch.bool, device=dev)
         self._d_temps = torch.zeros(b, dtype=torch.float32, device=dev)
         self._d_topks = torch.zeros(b, dtype=torch.long, device=dev)
+        # rows the next dispatch gives NaN logits: all False unless an active
+        # FaultInjector poisons a step (`_stage_poison`)
+        self._d_poison = torch.zeros(b, dtype=torch.bool, device=dev)
         # paged: the block tables, the only indirection decode follows
         self._d_tables = (torch.full((b, self._blocks_per_slot), n_blocks, dtype=torch.int32,
                                      device=dev) if self.paged else None)
         # the step's inputs and outputs: uniform draws for the Gumbel noise
         # of sampled slots, one [vocab] row per iteration and slot, and the
-        # tokens and finished flags of each iteration
+        # tokens, finished and health flags of each iteration
         self._d_uniform = torch.zeros((k, b, cfg.vocab_size), dtype=torch.float32, device=dev)
-        # a verify step's plane is [k_draft + 2, 2, b]: the k_draft + 1
-        # positions' tokens and finished flags, then each slot's emitted count
+        # a verify step's plane is [k_draft + 2, 3, b]: the k_draft + 1
+        # positions' tokens and finished flags, then each slot's emitted
+        # count and health
         rows = self.draft_tokens + 2 if self.draft_tokens else k
-        self._d_out = torch.zeros((rows, 2, b), dtype=torch.long, device=dev)
+        self._d_out = torch.zeros((rows, 3, b), dtype=torch.long, device=dev)
         # speculation: the drafts of the next verify step, filled before each
         # dispatch from a ring of pinned host buffers (a buffer is rewritten
         # only after its copy ran: see _fetch_ring)
@@ -429,6 +514,9 @@ class ServingEngine:
         # so lagged results of an earlier tenant are recognised and dropped
         self._slot_epoch = np.zeros(b, np.int64)
         self._slot_last_token_t = [0.0] * b
+        # tokens of each slot's stream already in the journal (PROGRESS is
+        # written every journal.progress_every tokens)
+        self._slot_logged = np.zeros(b, np.int64)
         self._slot_priv: list[list[int]] = [[] for _ in range(b)]
         self._free: deque[int] = deque(range(b))
         self._next_id = 0
@@ -437,12 +525,19 @@ class ServingEngine:
         # pipeline_depth - 1 in flight, so pipeline_depth + 1 buffers never
         # hand out one whose entry is still unfetched
         pinned = dev.type == "cuda"
-        self._fetch_ring = [torch.empty(rows * 2 * b, dtype=torch.long, pin_memory=pinned)
+        self._fetch_ring = [torch.empty(rows * 3 * b, dtype=torch.long, pin_memory=pinned)
                             for _ in range(self.pipeline_depth + 1)]
         self._draft_ring = [torch.zeros(self._d_drafts.shape, dtype=torch.long, pin_memory=pinned)
                             for _ in range(self.pipeline_depth + 1)]
+        # poison masks go up through their own ring, only while an injector
+        # is active (a buffer is rewritten only after its copy ran, as above)
+        self._poison_ring = [torch.zeros(b, dtype=torch.bool, pin_memory=pinned)
+                             for _ in range(self.pipeline_depth + 1)]
         self._ring_next = 0
         self._draft_next = 0
+        self._poison_next = 0
+        # poison uploads made (only while a FaultInjector is active)
+        self.poison_uploads = 0
         self._graph: torch.cuda.CUDAGraph | None = None
         # kernel launches one decode replay makes, by wrapper name (empty on
         # the CPU): the wrappers count only while the graph is captured
@@ -454,8 +549,9 @@ class ServingEngine:
     def submit(self, request: Request | Iterable[int],
                params: SamplingParams | None = None) -> SubmitResult:
         """Queue a request (a `Request` or a bare token-id sequence). Never
-        blocks: a full queue or an oversized prompt returns a rejection with
-        a reason code instead."""
+        blocks: a full queue, an oversized prompt or a draining engine
+        returns a rejection with a reason code instead. With a journal the
+        acceptance is on disk before it is returned."""
         if not isinstance(request, Request):
             request = Request(prompt=list(request), params=params or SamplingParams())
         request.request_id = self._next_id
@@ -463,8 +559,14 @@ class ServingEngine:
         if request.arrival_time is None:
             request.arrival_time = time.perf_counter()
         self.metrics.mark_start()
+        if self._draining:
+            self.metrics.requests_rejected.inc()
+            return SubmitResult(False, request.request_id, REJECT_DRAINING,
+                                "engine is draining toward shutdown")
         result = self.scheduler.submit(request)
         if result.accepted:
+            if self.journal is not None:
+                self.journal.log_submit(request)  # write-ahead
             self.metrics.requests_submitted.inc()
         else:
             self.metrics.requests_rejected.inc()
@@ -525,11 +627,17 @@ class ServingEngine:
                 # (possibly pipeline-lagged) view of each stream
                 self._stage_drafts()
             self._fill_uniform()
+            poison = self._poison_mask()
+            self._dispatch_fault_point()
+            if poison is not None:
+                self._stage_poison(poison)
             if self._graph is not None:
                 self._graph.replay()
             else:
                 with torch.no_grad():
                     self._step_body()
+            if poison is not None:
+                self._d_poison.zero_()  # on the stream, after the step read it
             self.metrics.decode_dispatches.inc()
             self.metrics.decode_steps.inc(self.tokens_per_sync)
             if self.draft_tokens:
@@ -593,6 +701,8 @@ class ServingEngine:
         queued = self.scheduler.cancel(request_id)
         if queued is not None:
             self.metrics.requests_cancelled.inc()
+            if self.journal is not None:
+                self.journal.log_finish(request_id, FINISH_ABORTED, [])
             return RequestOutput(
                 request_id=request_id, prompt_len=len(queued.prompt), tokens=[],
                 finish_reason=FINISH_ABORTED, arrival_time=queued.arrival_time, finish_time=now)
@@ -604,34 +714,276 @@ class ServingEngine:
                 return finished[0]
         return None
 
-    def abort_all(self) -> list[RequestOutput]:
-        """Retire every active slot and drop every queued request with
-        `FINISH_ABORTED` (partial tokens kept). In-flight results are
-        dropped unfetched."""
+    @property
+    def draining(self) -> bool:
+        """True between `begin_drain` and `end_drain` (or while `drain`
+        runs): every new `submit` is rejected with `REJECT_DRAINING`."""
+        return self._draining
+
+    def begin_drain(self) -> None:
+        """Stop admitting new submits (rejected with `REJECT_DRAINING`)
+        while the caller serves out the backlog itself: the incremental half
+        of `drain` (the serving preemption handler's grace-window loop)."""
+        self._draining = True
+
+    def end_drain(self) -> None:
+        """Re-open admission after a `begin_drain` (a cancelled shutdown)."""
+        self._draining = False
+
+    def drain(self, max_steps: int | None = None) -> list[RequestOutput]:
+        """Graceful shutdown: reject new submits and serve everything queued
+        or active to completion; ``max_steps`` bounds the wait, and what is
+        left then is aborted. Outputs come in completion order, with any
+        abort tail after them (`abort_all`'s order). Admission re-opens on
+        return."""
+        self.begin_drain()
+        outputs: list[RequestOutput] = []
+        steps = 0
+        try:
+            while self.has_work:
+                outputs.extend(self.step())
+                steps += 1
+                if max_steps is not None and steps >= max_steps and self.has_work:
+                    outputs.extend(self.abort_all())
+                    break
+        finally:
+            self.end_drain()
+        return outputs
+
+    def abort_all(self, reason: str = FINISH_ABORTED) -> list[RequestOutput]:
+        """Hard shutdown: abort every queued request, then every active slot
+        in ascending slot order (the reference's order), with ``reason``
+        (default `FINISH_ABORTED`); active slots keep their partial tokens,
+        a queued request its recovered ``resume_tokens``. In-flight results
+        are dropped unfetched."""
         now = time.perf_counter()
         aborted: list[RequestOutput] = []
-        for slot in np.flatnonzero(self._active):
-            self.metrics.requests_cancelled.inc()
-            self._retire(int(slot), FINISH_ABORTED, now, aborted)
         for req in self.scheduler.drain_queue():
             self.metrics.requests_cancelled.inc()
+            if self.journal is not None:
+                self.journal.log_finish(req.request_id, reason, list(req.resume_tokens))
             aborted.append(RequestOutput(
-                request_id=req.request_id, prompt_len=len(req.prompt), tokens=[],
-                finish_reason=FINISH_ABORTED, arrival_time=req.arrival_time, finish_time=now))
+                request_id=req.request_id, prompt_len=len(req.prompt),
+                tokens=list(req.resume_tokens), finish_reason=reason,
+                arrival_time=req.arrival_time, finish_time=now))
+        for slot in np.flatnonzero(self._active):
+            self.metrics.requests_cancelled.inc()
+            self._retire(int(slot), reason, now, aborted)
         self._inflight.clear()  # every entry now predates a generation bump
         return aborted
+
+    # ------------------------------------------------------ snapshot / resume
+    @staticmethod
+    def _entry(request: Request, tokens: list[int], admitted: bool, now: float) -> dict[str, Any]:
+        """One snapshot entry: the request's journal identity plus its
+        stream state, enough for `resume` to rebuild it."""
+        rec = request_record(request)
+        rec.pop("rid", None)
+        return {
+            "rid": request.request_id,
+            **rec,
+            "toks": [int(t) for t in tokens],
+            "retries": int(request.retries),
+            "admitted": bool(admitted),
+            "waited_s": (max(0.0, now - request.arrival_time)
+                         if request.arrival_time is not None else 0.0),
+        }
+
+    def snapshot(self, path: str | os.PathLike) -> list[RequestOutput]:
+        """Write what a new process needs to continue this engine's work:
+        queue order, each live slot's emitted tokens, retry counts and the id
+        watermark (generators and budgets follow from seeds and token
+        counts). The dispatches in flight are fetched first (no new work is
+        dispatched), so the snapshot is a consistent frontier; finishes seen
+        meanwhile are returned, to be delivered like `step`'s. The file is
+        written atomically (tmp + fsync + rename): a crash mid-write leaves
+        the previous snapshot, never a torn one."""
+        finished: list[RequestOutput] = []
+        self._drain_to(0, finished)
+        now = time.perf_counter()
+        entries = [self._entry(self._slot_req[slot], self._slot_out[slot].tokens, True, now)
+                   for slot in range(self.max_concurrency) if self._active[slot]]
+        for request in self.scheduler.snapshot_queue():
+            entries.append(self._entry(request, request.resume_tokens,
+                                       bool(request.resume_tokens), now))
+        data = {"format": SNAPSHOT_FORMAT, "ts": time.time(), "next_id": self._next_id,
+                "draining": self._draining, "entries": entries}
+        path = Path(path)
+        tmp = path.with_suffix(path.suffix + ".tmp")
+        with open(tmp, "wb") as f:
+            f.write(json.dumps(data, separators=(",", ":")).encode())
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return finished
+
+    @staticmethod
+    def _load_recovery_source(path: Path) -> tuple[str, dict[int, RequestOutput], list[dict],
+                                                   float, int, int]:
+        """A journal or a snapshot as (kind, completed outputs, pending
+        entries, wall time of the crash frontier, next id floor, torn tail
+        bytes)."""
+        with open(path, "rb") as f:
+            head = f.read(len(JOURNAL_MAGIC))
+        if head == JOURNAL_MAGIC:
+            scan: JournalScan = RequestJournal.scan(path)
+            completed = {
+                rid: RequestOutput(request_id=rid, prompt_len=len(scan.submits[rid]["prompt"]),
+                                   tokens=list(toks), finish_reason=reason)
+                for rid, (reason, toks) in scan.finishes.items()
+            }
+            admitted = set(scan.admit_order)
+            entries = []
+            for rid in scan.incomplete():
+                rec = scan.submits[rid]
+                entries.append({
+                    "rid": rid, "prompt": rec["prompt"], "params": rec["params"],
+                    "deadline_s": rec.get("deadline_s"),
+                    "cache_prefix": rec.get("cache_prefix", True),
+                    "toks": scan.tokens.get(rid, []), "retries": 0,
+                    "admitted": rid in admitted,
+                    "waited_s": max(0.0, scan.last_ts - float(rec.get("ts", scan.last_ts))),
+                })
+            return ("journal", completed, entries, scan.last_ts,
+                    max(scan.submits, default=-1) + 1, scan.truncated_tail_bytes)
+        data = json.loads(path.read_bytes())
+        if data.get("format") != SNAPSHOT_FORMAT:
+            raise ValueError(f"{path} is neither a request journal nor a "
+                             f"{SNAPSHOT_FORMAT} snapshot")
+        return ("snapshot", {}, list(data.get("entries", ())), float(data.get("ts", 0.0)),
+                int(data.get("next_id", 0)), 0)
+
+    def resume(self, path: str | os.PathLike | None = None) -> RecoveryReport:
+        """Crash-exact recovery: rebuild this idle, freshly built engine's
+        work from a durable source: its own journal (the default), another
+        journal, or a `snapshot` file.
+
+        - requests with a FINISH record come back in ``report.completed``
+          and are not replayed;
+        - requests that were mid-decode are re-admitted first (in admission
+          order) with their emitted tokens as ``resume_tokens``: one
+          continuation prefill and a fast-forwarded generator continue the
+          stream as the uninterrupted run does (a stream already at its
+          budget or its EOS completes here instead). Their ``deadline_s`` is
+          cleared: the pre-crash admission consumed it;
+        - queued requests re-enter the queue in submit order; one whose
+          ``deadline_s`` passed during the downtime is expired with
+          ``rejected:deadline`` (in ``report.expired``, journaled, counted);
+          the others keep only their pre-crash wait.
+
+        A foreign source (a snapshot, another journal) is copied into this
+        engine's journal, so it covers the next crash."""
+        if path is None:
+            if self.journal is None:
+                raise ValueError("resume() needs a path when the engine has no journal")
+            path = self.journal.path
+        path = Path(path)
+        if self._active.any() or self.scheduler.queue_depth or self._inflight:
+            raise RuntimeError("resume() requires an idle engine: restore into a freshly "
+                               "built one")
+        kind, completed, entries, last_ts, next_id, tail = self._load_recovery_source(path)
+        perf_now = time.perf_counter()
+        downtime = max(0.0, time.time() - last_ts) if last_ts else 0.0
+        report = RecoveryReport(source=kind, downtime_s=downtime, truncated_tail_bytes=tail,
+                                completed=completed)
+        foreign = (self.journal is not None
+                   and Path(self.journal.path).resolve() != path.resolve())
+        eos = self.eos_token_id
+        for e in entries:
+            rid = int(e["rid"])
+            prompt = [int(t) for t in e["prompt"]]
+            plen = len(prompt)
+            toks = [int(t) for t in e.get("toks", ())]
+            ep = e["params"]
+            sp = SamplingParams(temperature=float(ep["temperature"]), top_k=ep["top_k"],
+                                seed=int(ep["seed"]), max_new_tokens=int(ep["max_new_tokens"]))
+            admitted = bool(e.get("admitted"))
+            deadline = e.get("deadline_s")
+            waited = float(e.get("waited_s", 0.0))
+            budget = min(sp.max_new_tokens, self.max_len - plen)
+            # a stream that finished but lost its FINISH record in the crash
+            # completes here: re-admitting it would overrun its budget
+            done_reason = None
+            if eos is not None and eos in toks:
+                toks = toks[:toks.index(eos) + 1]
+                done_reason = FINISH_EOS
+            elif len(toks) >= budget:
+                toks = toks[:budget]
+                done_reason = FINISH_LENGTH
+            if done_reason is not None:
+                report.completed[rid] = RequestOutput(request_id=rid, prompt_len=plen,
+                                                      tokens=toks, finish_reason=done_reason)
+                if self.journal is not None:
+                    if foreign:
+                        self.journal.log_submit(Request(prompt=prompt, params=sp, request_id=rid))
+                    self.journal.log_finish(rid, done_reason, toks)
+                continue
+            if not admitted and deadline is not None and waited + downtime >= float(deadline):
+                # the client's patience ran out while the process was down
+                self.metrics.requests_expired.inc()
+                report.expired.append(RequestOutput(
+                    request_id=rid, prompt_len=plen, tokens=[],
+                    finish_reason=f"rejected:{REJECT_DEADLINE}", finish_time=perf_now))
+                if self.journal is not None:
+                    if foreign:
+                        self.journal.log_submit(Request(prompt=prompt, params=sp, request_id=rid,
+                                                        deadline_s=deadline))
+                    self.journal.log_finish(rid, f"rejected:{REJECT_DEADLINE}", [])
+                continue
+            # the resume point must fit a prompt bucket: a longer stream
+            # rewinds to the largest prefix that fits and decodes the rest
+            # again (deterministically, so the stream is unchanged)
+            keep = max(0, min(len(toks), self.scheduler.max_prompt_len - plen))
+            request = Request(prompt=prompt, params=sp, request_id=rid,
+                              deadline_s=None if admitted else deadline,
+                              cache_prefix=bool(e.get("cache_prefix", True)),
+                              retries=int(e.get("retries", 0)), resume_tokens=toks[:keep],
+                              arrival_time=perf_now - waited)
+            result = self.scheduler.submit(request)
+            if not result.accepted:
+                raise RuntimeError(
+                    f"restored request {rid} rejected ({result.reason}): the resuming engine's "
+                    "scheduler is smaller than the crashed one's (queue and buckets must cover "
+                    "the recovered backlog)")
+            self.metrics.mark_start()
+            self.metrics.requests_submitted.inc()
+            if foreign and self.journal is not None:
+                self.journal.log_submit(request)
+                if request.resume_tokens:
+                    self.journal.log_progress(rid, request.resume_tokens,
+                                              len(request.resume_tokens))
+            if admitted:
+                self.metrics.requests_resumed.inc()
+                report.resumed.append(rid)
+            else:
+                self.metrics.requests_restored.inc()
+                report.restored.append(rid)
+        all_rids = [e["rid"] for e in entries] + list(report.completed) + [next_id - 1]
+        self._next_id = max(self._next_id, max(all_rids, default=-1) + 1)
+        return report
 
     # ------------------------------------------------------------- admission
     def _prefill_len(self, request: Request) -> int:
         """Scheduler probe: the prompt tokens admission would prefill for
         ``request`` now, its uncached suffix (the grouping key of
         suffix-bucketed admission). It pins nothing: admission re-walks and
-        pins."""
-        if not request.cache_prefix:
+        pins. A resumed stream prefills ``prompt + resume_tokens`` as one
+        plain continuation pass: it never reads the block pool."""
+        if not request.cache_prefix or request.resume_tokens:
             return request.prefill_len
         return len(request.prompt) - self.prefix_cache.match_len(request.prompt)
 
     def _admit_pending(self, finished: list[RequestOutput]) -> None:
+        now = time.perf_counter()
+        for request in self.scheduler.pop_expired(now):
+            # expired while queued: rejected, never admitted
+            self.metrics.requests_expired.inc()
+            if self.journal is not None:
+                self.journal.log_finish(request.request_id, f"rejected:{REJECT_DEADLINE}", [])
+            finished.append(RequestOutput(
+                request_id=request.request_id, prompt_len=len(request.prompt), tokens=[],
+                finish_reason=f"rejected:{REJECT_DEADLINE}", arrival_time=request.arrival_time,
+                finish_time=now))
         while self._free:
             run_len = self.scheduler.peek_run(min(len(self._free), self._admit_sizes[-1]))
             if run_len == 0:
@@ -643,11 +995,12 @@ class ServingEngine:
                 # pin now: nothing changes the trie between the peek_run
                 # probe and this acquire, so the match agrees with the
                 # suffix bucket the group was sized by
-                matches = [self.prefix_cache.acquire(r.prompt) if r.cache_prefix else NO_MATCH
+                matches = [self.prefix_cache.acquire(r.prompt)
+                           if r.cache_prefix and not r.resume_tokens else NO_MATCH
                            for r in group]
                 if not any(m.tokens for m in matches):
                     for r in group:
-                        if r.cache_prefix:
+                        if r.cache_prefix and not r.resume_tokens:
                             self.metrics.prefix_misses.inc()
                     matches = None  # all missed: the plain admission
             if not self._admit_group(group, finished, matches):
@@ -682,7 +1035,15 @@ class ServingEngine:
         pool and only the suffixes prefill over them, each row from its own
         cached length, through the slot cache's decode path; every row's
         budget is priced on its full prompt, so a hit emits what a cold
-        admission would."""
+        admission would.
+
+        A resumed request (``resume_tokens``, k of them) prefills ``prompt +
+        resume_tokens`` in one pass, keeps the budget it started with less
+        the k tokens it emitted, and has its generator fast-forwarded past
+        their k draws, so its next token is the uninterrupted run's.
+
+        The admission computes each row's health as the decode step does (a
+        poisoned row's logits are NaN) and freezes an unhealthy row."""
         nb = len(group)
         if matches is None:
             bucket = self.scheduler.bucket_for(max(r.prefill_len for r in group))
@@ -695,26 +1056,30 @@ class ServingEngine:
             reservation = self._reserve_blocks(group, matches)
             if reservation is None:
                 return False
+        self._dispatch_fault_point()
         slots = [self._free.popleft() for _ in group]
         padded = np.zeros((nb, bucket), np.int64)
         lens = np.zeros(nb, np.int64)  # the tokens each row prefills
         budgets = np.zeros(nb, np.int64)
         for i, request in enumerate(group):
-            plen = len(request.prompt)
-            padded[i, :plen - cached[i]] = request.prompt[cached[i]:]
-            lens[i] = plen - cached[i]
+            plen, k = len(request.prompt), len(request.resume_tokens)
+            src = request.prefill_source()
+            padded[i, :len(src) - cached[i]] = src[cached[i]:]
+            lens[i] = len(src) - cached[i]
             # the context is fixed-size: cap generation so cache writes stay
-            # inside [0, n_positions)
-            budgets[i] = min(int(request.params.max_new_tokens), self.max_len - plen)
+            # inside [0, n_positions); the cap is on the original prompt, so a
+            # resumed request keeps its budget less the k tokens it emitted
+            budgets[i] = min(int(request.params.max_new_tokens), self.max_len - plen) - k
+            if k:
+                self.metrics.replayed_tokens.inc(plen + k)
             if matches is not None:
                 if cached[i]:
                     self.metrics.prefix_hits.inc()
                     self.metrics.prefix_tokens_reused.inc(cached[i])
-                elif request.cache_prefix:
+                elif request.cache_prefix and not k:
                     self.metrics.prefix_misses.inc()
         dev = self.device
-        gens = [torch.Generator(device=dev).manual_seed(int(r.params.seed))
-                if r.params.temperature > 0 else None for r in group]
+        gens = [self._generator(r) for r in group]
         arrays = [padded, np.asarray(slots, np.int64), lens, np.asarray(cached, np.int64),
                   budgets, np.asarray([r.params.temperature for r in group], np.float32),
                   np.asarray([r.params.top_k or 0 for r in group], np.int64)]
@@ -746,6 +1111,9 @@ class ServingEngine:
                 hidden = self.model(ids, cached_t, cache=rows, return_hidden=True)
                 kv = [rows.storages(layer) for layer in range(len(rows.k))]
             last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
+            # health, as in the decode step: a poisoned row's logits are NaN
+            last = last.masked_fill(self._d_poison[slots_t][:, None], float("nan"))
+            ok = torch.isfinite(last).all(dim=-1)
             first = self._sample(last, temps, topks, gens)
             # decode resumes from the full prompt end: cached prefix + suffix
             prompt_lens = cached_t + lens_t
@@ -758,14 +1126,14 @@ class ServingEngine:
                 scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, prompt_lens), slots_t,
                                     prompt_lens)
             rem0 = budgets_t - 1
-            fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos))
+            fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos)) | ~ok
             self._d_tokens[slots_t] = first
             self._d_pos[slots_t] = prompt_lens
             self._d_remaining[slots_t] = rem0
             self._d_finished[slots_t] = fin0
             self._d_temps[slots_t] = temps
             self._d_topks[slots_t] = topks
-            out = torch.stack([first, fin0.long()])
+            out = torch.stack([first, fin0.long(), ok.long()])
         epochs = []
         for i, (slot, request) in enumerate(zip(slots, group)):
             self._slot_epoch[slot] += 1
@@ -773,9 +1141,13 @@ class ServingEngine:
             self._active[slot] = True
             self._slot_gen[slot] = gens[i]
             self._slot_req[slot] = request
+            # a resumed stream's recovered prefix is part of the output, and
+            # already in the journal
             self._slot_out[slot] = RequestOutput(
-                request_id=request.request_id, prompt_len=len(request.prompt), tokens=[],
-                finish_reason="", arrival_time=request.arrival_time)
+                request_id=request.request_id, prompt_len=len(request.prompt),
+                tokens=list(request.resume_tokens), finish_reason="",
+                arrival_time=request.arrival_time)
+            self._slot_logged[slot] = len(request.resume_tokens)
             if matches is not None:
                 # the pins travel with the slot, released at retirement
                 self._slot_match[slot] = matches[i] if matches[i].nodes else None
@@ -887,17 +1259,42 @@ class ServingEngine:
         return n
 
     # ---------------------------------------------------------------- decode
+    @staticmethod
+    def _draw(gen: torch.Generator, out: torch.Tensor) -> None:
+        """One sampled token's uniform draw: ``out`` (a contiguous
+        ``[vocab]`` fp32 tensor) filled from ``gen``. Every draw a stream
+        makes (its admission's, each decode iteration's, and a resumed
+        stream's fast-forward) goes through this one call on one shape, so
+        the generator's state after k draws does not depend on where they
+        were made. The values are `models.generation.gumbel_noise`'s
+        ``torch.rand`` draw, which is this call on a fresh tensor."""
+        out.uniform_(generator=gen)
+
+    def _generator(self, request: Request) -> torch.Generator | None:
+        """A sampled request's own generator, seeded from its params and, for
+        a resumed stream, fast-forwarded past the draws of its
+        ``resume_tokens`` (one ``[vocab]`` draw a token), so its next draw is
+        the one the uninterrupted run made; None for a greedy request."""
+        if request.params.temperature <= 0:
+            return None
+        gen = torch.Generator(device=self.device).manual_seed(int(request.params.seed))
+        if request.resume_tokens:
+            scratch = torch.empty(self._vocab, dtype=torch.float32, device=self.device)
+            for _ in request.resume_tokens:
+                self._draw(gen, scratch)
+        return gen
+
     def _sample(self, logits: torch.Tensor, temps: torch.Tensor, topks: torch.Tensor,
                 gens: list[torch.Generator | None]) -> torch.Tensor:
         """Next token per row; sampled rows draw their Gumbel noise from their
-        own request's generator, one ``[1, vocab]`` draw per token."""
+        own request's generator, one ``[vocab]`` draw per token."""
         if all(g is None for g in gens):
             return logits.argmax(dim=-1)
-        noise = torch.zeros_like(logits, dtype=torch.float32)
+        u = torch.full(logits.shape, 0.5, dtype=torch.float32, device=self.device)
         for i, g in enumerate(gens):
             if g is not None:
-                noise[i] = gumbel_noise((1, logits.shape[-1]), g, self.device)[0]
-        return sample(logits, temps, topks, noise)
+                self._draw(g, u[i])
+        return sample(logits, temps, topks, -torch.log(-torch.log(u)))
 
     def _fill_uniform(self) -> None:
         """Before each decode dispatch: one ``[vocab]`` uniform draw per
@@ -911,7 +1308,49 @@ class ServingEngine:
             gen = self._slot_gen[slot]
             if gen is not None:
                 for t in range(self.tokens_per_sync):
-                    self._d_uniform[t, slot].uniform_(generator=gen)
+                    self._draw(gen, self._d_uniform[t, slot])
+
+    def _poison_mask(self) -> np.ndarray | None:
+        """The ``[b]`` NaN-poison mask of the next decode dispatch: None
+        with no active `reliability.FaultInjector` (nothing is uploaded);
+        else the injector's ``serving.decode`` point ticks once (so its
+        ``at_steps`` index decode dispatches, as in the reference) and names
+        the active slots to poison, or None when it names none."""
+        injector = active_injector()
+        if injector is None:
+            return None
+        slots = injector.poison_slots()
+        if slots is None:
+            return None
+        mask = np.zeros(self.max_concurrency, bool)
+        if slots == ALL_SLOTS:
+            mask[self._active] = True
+        else:
+            for slot in slots:
+                if 0 <= slot < self.max_concurrency and self._active[slot]:
+                    mask[slot] = True
+        return mask if mask.any() else None
+
+    def _stage_poison(self, mask: np.ndarray) -> None:
+        """Upload a poison mask into the buffer the step reads, through the
+        next pinned ring buffer (``non_blocking``: the host never waits on
+        the stream); `step` zeroes the buffer on the stream after the
+        dispatch."""
+        host = self._poison_ring[self._poison_next]
+        self._poison_next = (self._poison_next + 1) % len(self._poison_ring)
+        host.numpy()[:] = mask
+        self._d_poison.copy_(host, non_blocking=True)
+        self.poison_uploads += 1
+
+    @staticmethod
+    def _dispatch_fault_point() -> None:
+        """The ``serving.dispatch`` fault point, before every dispatch
+        (decode steps and admissions): an active injector may stall this
+        call (``step_hang``) or raise `reliability.DeviceLostError`
+        (``device_error``); otherwise one global load."""
+        injector = active_injector()
+        if injector is not None:
+            injector.dispatch_faults()
 
     def _stage_drafts(self) -> None:
         """Before a verify dispatch: one ``[b, k]`` draft plane from the
@@ -969,8 +1408,13 @@ class ServingEngine:
           rewound to the accepted frontier: the rejected entries stay past
           it, dead, until the next write lands on them.
 
-        ``_d_out[:k + 1]`` gets each position's token and finished flag,
-        ``_d_out[k + 1, 0]`` each slot's emitted count (0 for a frozen
+        - health over the whole segment: a row with any non-finite logit
+          (or poisoned) emits nothing, freezes, and keeps its position (its
+          write cursor rewinds to it), for the host to quarantine.
+
+        ``_d_out[:k + 1, :2]`` gets each position's token and finished flag,
+        ``_d_out[k + 1, 0]`` each slot's emitted count (0 for a frozen or
+        unhealthy row) and ``_d_out[k + 1, 1]`` its health (1 for a frozen
         row)."""
         k = self.draft_tokens
         s = k + 1
@@ -981,6 +1425,9 @@ class ServingEngine:
         paged = {"block_tables": self._d_tables} if self.paged else {}
         logits = self.model(seq, pos, cache=self._cache, write_mask=live, write_len=write_len,
                             **paged)  # [b, s, vocab]
+        logits = logits.masked_fill(self._d_poison[:, None, None], float("nan"))
+        ok = torch.isfinite(logits).flatten(1).all(dim=1)
+        healthy = live & ok
         greedy = logits.argmax(dim=-1)
         noise = -torch.log(-torch.log(self._d_uniform[0]))
         first = sample(logits[:, 0], self._d_temps, self._d_topks, noise)
@@ -993,26 +1440,31 @@ class ServingEngine:
         n = torch.minimum(n_cand, torch.minimum(remaining.clamp(min=1), first_eos + 1))  # >= 1
         rows = torch.arange(tokens.shape[0], device=tokens.device)
         steps = torch.arange(s, device=tokens.device)[None, :]
-        emit = live[:, None] & (steps < n[:, None])  # [b, s]
+        emit = healthy[:, None] & (steps < n[:, None])  # [b, s]
         # a budget can run out only at position n - 1, and an EOS inside the
         # accepted prefix cut n there, so only the last emitted token finishes
         fins = emit & (hit | (remaining[:, None] - (steps + 1) <= 0))
         self._d_out[:s, 0].copy_(out_tokens.T)
         self._d_out[:s, 1].copy_(fins.T)
-        self._d_out[s, 0].copy_(torch.where(live, n, torch.zeros_like(n)))
-        new_pos = torch.where(live, pos + n, pos)
-        self._d_finished.logical_or_(live & (hit[rows, n - 1] | (remaining - n <= 0)))
-        tokens.copy_(torch.where(live, out_tokens[rows, n - 1], tokens))
-        remaining.sub_(torch.where(live, n, torch.zeros_like(n)))
+        self._d_out[s, 0].copy_(torch.where(healthy, n, torch.zeros_like(n)))
+        self._d_out[s, 1].copy_(ok | ~live)
+        new_pos = torch.where(healthy, pos + n, pos)
+        self._d_finished.logical_or_((live & ~ok)
+                                     | (healthy & (hit[rows, n - 1] | (remaining - n <= 0))))
+        tokens.copy_(torch.where(healthy, out_tokens[rows, n - 1], tokens))
+        remaining.sub_(torch.where(healthy, n, torch.zeros_like(n)))
         pos.copy_(new_pos)
         rewind_frontier(self._cache, new_pos)
 
     def _decode_step(self) -> None:
         """One decode dispatch, ``tokens_per_sync`` iterations over every
-        slot: forward, sample, freeze finished rows (token, position and
-        budget carried; their KV writes dropped), advance, and finish on EOS
-        or budget. Every piece of state is written in place into the fixed
-        buffers, and iteration ``t``'s tokens and finished flags into
+        slot: forward, poison (NaN logits for the rows the poison buffer
+        marks), health (``ok``: every logit of the row finite), sample,
+        freeze finished and unhealthy rows (token, position and budget
+        carried; their KV writes dropped from the next iteration on),
+        advance, and finish on EOS, budget or health. Every piece of state is
+        written in place into the fixed buffers, and iteration ``t``'s
+        tokens, finished flags and health (1 for a frozen row) into
         ``_d_out[t]``: on CUDA this is the body of the captured graph."""
         noise = -torch.log(-torch.log(self._d_uniform))
         paged = {"block_tables": self._d_tables} if self.paged else {}
@@ -1020,15 +1472,19 @@ class ServingEngine:
             live = ~self._d_finished
             logits = self.model(self._d_tokens[:, None], self._d_pos, cache=self._cache,
                                 write_mask=live, **paged)
-            nxt = sample(logits[:, -1], self._d_temps, self._d_topks, noise[t])
-            nxt = torch.where(live, nxt, self._d_tokens)
-            self._d_pos.add_(live.long())
-            self._d_remaining.sub_(live.long())
+            last = logits[:, -1].masked_fill(self._d_poison[:, None], float("nan"))
+            ok = torch.isfinite(last).all(dim=-1)
+            healthy = live & ok
+            nxt = sample(last, self._d_temps, self._d_topks, noise[t])
+            nxt = torch.where(healthy, nxt, self._d_tokens)
+            self._d_pos.add_(healthy.long())
+            self._d_remaining.sub_(healthy.long())
             hit_eos = (self._eos >= 0) & (nxt == self._eos)
-            self._d_finished.logical_or_(live & (hit_eos | (self._d_remaining <= 0)))
+            self._d_finished.logical_or_(live & (~ok | hit_eos | (self._d_remaining <= 0)))
             self._d_tokens.copy_(nxt)
             self._d_out[t, 0].copy_(nxt)
             self._d_out[t, 1].copy_(self._d_finished)
+            self._d_out[t, 2].copy_(ok | ~live)
 
     def _capture(self) -> None:
         """Capture `_step_body` (the decode or the verify step) as this
@@ -1108,11 +1564,22 @@ class ServingEngine:
         """The slot still holds the tenant a result was dispatched for."""
         return self._slot_epoch[slot] == epoch and self._slot_out[slot] is not None
 
+    def _poisoned(self, healthy: Any, token: int) -> bool:
+        """A result the host must not deliver: the step's health flag is
+        down, or the token lies outside ``[0, vocab)``."""
+        return not healthy or not 0 <= token < self._vocab
+
     def _process_admit(self, entry: _Inflight, fetched: np.ndarray, now: float,
                        finished: list[RequestOutput]) -> None:
+        poisoned_any = False
         for i, (slot, epoch) in enumerate(zip(entry.slots, entry.epochs)):
             if not self._live(slot, epoch):
                 continue  # cancelled while the prefill was in flight
+            token = int(fetched[0, i])
+            if self._poisoned(fetched[2, i], token):
+                poisoned_any = True
+                self._quarantine(slot, now, finished)
+                continue
             out = self._slot_out[slot]
             out.first_token_time = now
             ttft = max(0.0, now - out.arrival_time)
@@ -1120,71 +1587,133 @@ class ServingEngine:
             if self.prefix_cache is not None and self._slot_req[slot].cache_prefix:
                 (self.metrics.ttft_hit_s if self._slot_hit[slot]
                  else self.metrics.ttft_miss_s).observe(ttft)
-            self._deliver(slot, int(fetched[0, i]), bool(fetched[1, i]), now, finished)
+            self._deliver(slot, token, bool(fetched[1, i]), now, finished, first=True)
+        if poisoned_any:
+            self.metrics.steps_poisoned.inc()
 
     def _process_step(self, entry: _Inflight, fetched: np.ndarray, now: float,
                       finished: list[RequestOutput]) -> None:
-        tokens, fins = fetched[:, 0], fetched[:, 1]  # [k, b] each
+        tokens, fins, oks = fetched[:, 0], fetched[:, 1], fetched[:, 2]  # [k, b] each
         k = tokens.shape[0]
         # one fetch lands up to k tokens per slot at once: the gap since the
         # slot's last token is split evenly over the tokens this entry
-        # appends for it (up to its finish), so ITL stays per token
+        # appends for it (up to its finish or its first unhealthy iteration),
+        # so ITL stays per token
         gaps: dict[int, float] = {}
         for slot, epoch in zip(entry.slots, entry.epochs):
             if self._live(slot, epoch):
-                n = next((t + 1 for t in range(k) if fins[t, slot]), k)
-                gaps[slot] = (now - self._slot_last_token_t[slot]) / n
+                n = 0
+                for t in range(k):
+                    if self._poisoned(oks[t, slot], int(tokens[t, slot])):
+                        break
+                    n += 1
+                    if fins[t, slot]:
+                        break
+                gaps[slot] = (now - self._slot_last_token_t[slot]) / max(1, n)
         appended = 0
+        poisoned_any = False
         # iteration outer, slot inner: token t of every slot retires before
         # token t + 1 of any slot, the order of k single-token dispatches
         for t in range(k):
             for slot, epoch in zip(entry.slots, entry.epochs):
                 if not self._live(slot, epoch):
-                    continue  # retired, cancelled or reseated, mid-scan too
+                    continue  # retired, cancelled, quarantined or reseated, mid-scan too
+                token = int(tokens[t, slot])
+                if self._poisoned(oks[t, slot], token):
+                    poisoned_any = True
+                    self._quarantine(slot, now, finished)
+                    continue
                 self.metrics.inter_token_s.observe(gaps[slot])
-                self._deliver(slot, int(tokens[t, slot]), bool(fins[t, slot]), now, finished)
+                self._deliver(slot, token, bool(fins[t, slot]), now, finished)
                 appended += 1
         if appended:
             self.metrics.tokens_per_dispatch.observe(appended)
+        if poisoned_any:
+            self.metrics.steps_poisoned.inc()
 
     def _process_spec(self, entry: _Inflight, fetched: np.ndarray, now: float,
                       finished: list[RequestOutput]) -> None:
         """A verify step's fetch: slot ``i`` appends its ``ns[i]`` tokens
         (0 for a frozen row), position outer and slot inner as in
         `_process_step`, so retirement order is what ``ns`` single steps
-        would give. Each greedy slot's accepted draft length (``ns - 1``)
-        feeds ``spec_accepted`` and ``spec_accept_len``."""
+        would give; an unhealthy slot is quarantined once. Each greedy
+        slot's accepted draft length (``ns - 1``) feeds ``spec_accepted``
+        and ``spec_accept_len``."""
         s = self.draft_tokens + 1
-        tokens, fins, ns = fetched[:s, 0], fetched[:s, 1], fetched[s, 0]
+        tokens, fins = fetched[:s, 0], fetched[:s, 1]
+        ns, oks = fetched[s, 0], fetched[s, 1]
         gaps: dict[int, float] = {}
         for slot, epoch in zip(entry.slots, entry.epochs):
             if not self._live(slot, epoch):
                 continue
             n = int(ns[slot])
             gaps[slot] = (now - self._slot_last_token_t[slot]) / max(1, n)
-            if n and self._slot_req[slot].params.temperature <= 0:
+            if oks[slot] and n and self._slot_req[slot].params.temperature <= 0:
                 self.metrics.spec_accepted.inc(n - 1)
                 self.metrics.spec_accept_len.observe(n - 1)
         appended = 0
+        poisoned_any = False
         for t in range(s):
             for slot, epoch in zip(entry.slots, entry.epochs):
-                if not self._live(slot, epoch) or t >= int(ns[slot]):
-                    continue  # retired, cancelled or reseated mid-walk, or done
+                if not self._live(slot, epoch):
+                    continue  # retired, cancelled, quarantined or reseated mid-walk
+                if not oks[slot]:
+                    poisoned_any = True
+                    self._quarantine(slot, now, finished)
+                    continue
+                if t >= int(ns[slot]):
+                    continue
+                token = int(tokens[t, slot])
+                if self._poisoned(True, token):
+                    poisoned_any = True
+                    self._quarantine(slot, now, finished)
+                    continue
                 self.metrics.inter_token_s.observe(gaps[slot])
-                self._deliver(slot, int(tokens[t, slot]), bool(fins[t, slot]), now, finished)
+                self._deliver(slot, token, bool(fins[t, slot]), now, finished)
                 appended += 1
         if appended:
             self.metrics.tokens_per_dispatch.observe(appended)
             self.metrics.spec_tokens.inc(appended)
+        if poisoned_any:
+            self.metrics.steps_poisoned.inc()
 
     def _deliver(self, slot: int, token: int, done: bool, now: float,
-                 finished: list[RequestOutput]) -> None:
-        self._slot_out[slot].tokens.append(token)
+                 finished: list[RequestOutput], first: bool = False) -> None:
+        """Append one token to a slot's stream and journal it: FIRST_TOKEN
+        for an admission's token (``first``), PROGRESS every
+        ``progress_every`` tokens otherwise; retire the slot if ``done``."""
+        out = self._slot_out[slot]
+        out.tokens.append(token)
         self.metrics.tokens_generated.inc()
         self._slot_last_token_t[slot] = now
+        journal = self.journal
+        if journal is not None:
+            if first:
+                journal.log_first_token(out.request_id, token, len(out.tokens))
+                self._slot_logged[slot] = len(out.tokens)
+            elif len(out.tokens) - self._slot_logged[slot] >= journal.progress_every:
+                journal.log_progress(out.request_id, out.tokens[self._slot_logged[slot]:],
+                                     len(out.tokens))
+                self._slot_logged[slot] = len(out.tokens)
         if done:
             reason = FINISH_EOS if token == self._eos else FINISH_LENGTH
             self._retire(slot, reason, now, finished)
+
+    def _quarantine(self, slot: int, now: float, finished: list[RequestOutput]) -> None:
+        """The health flag's action on a poisoned slot, and on it alone (the
+        device already froze it, so no lagged dispatch writes through it
+        further). First offence: release the slot and requeue the request at
+        the front, to re-prefill from its prompt with its generator reseeded
+        (the replay is token for token an unpoisoned run). Second offence:
+        retire it with `FINISH_ERROR`, partial tokens kept."""
+        request = self._slot_req[slot]
+        if request.retries == 0:
+            request.retries += 1
+            self.metrics.requests_retried.inc()
+            self._release_slot(slot)
+            self.scheduler.requeue(request)
+        else:
+            self._retire(slot, FINISH_ERROR, now, finished)
 
     # ------------------------------------------------------------ retirement
     def _retire(self, slot: int, reason: str, now: float,
@@ -1193,8 +1722,15 @@ class ServingEngine:
         out.finish_reason = reason
         out.finish_time = now
         self.metrics.requests_finished.inc()
+        if self.journal is not None:
+            # the terminal record carries the whole stream
+            self.journal.log_finish(out.request_id, reason, out.tokens)
         request = self._slot_req[slot]
-        if self.prefix_cache is not None and request.cache_prefix:
+        # a poisoned stream donates nothing; nor does a resumed one, whose
+        # prompt rows came from a continuation prefill in a larger bucket
+        # than a cold prefill of the prompt would use
+        if (self.prefix_cache is not None and request.cache_prefix and reason != FINISH_ERROR
+                and not request.resume_tokens):
             self._donate(slot, request.prompt)
         self._release_slot(slot)
         finished.append(out)
@@ -1243,6 +1779,7 @@ class ServingEngine:
         self._slot_out[slot] = None
         self._slot_req[slot] = None
         self._slot_gen[slot] = None
+        self._slot_logged[slot] = 0
         self._active[slot] = False
         self._slot_epoch[slot] += 1
         self._free.append(slot)

@@ -2,8 +2,10 @@
 `accelerate_tpu.serving.metrics` the port's engine feeds (requests,
 generated and prefilled tokens, tokens/s, TTFT, inter-token latency, steps,
 the overlapped dispatch's host-blocked time, depth, admission batch sizes
-and tokens per fetch, the prefix cache's counters and the speculative verify
-step's), and the reference's flat `ServingMetrics.snapshot` for them.
+and tokens per fetch, the prefix cache's counters, the speculative verify
+step's, and the reliability and recovery counters: expiries, quarantines,
+resumes and the journal's appends), and the reference's flat
+`ServingMetrics.snapshot` for them.
 Host-side bookkeeping only; nothing here touches the device."""
 
 from __future__ import annotations
@@ -120,13 +122,33 @@ class ServingMetrics:
     ``spec_forwards`` the verify dispatches, ``spec_tokens`` the tokens they
     emitted, and ``spec_accept_len`` is each greedy slot's accepted draft
     length per verify (0..k). ``serving/accepted_tokens_per_forward`` in
-    `snapshot` is ``spec_tokens / spec_forwards`` over all slots."""
+    `snapshot` is ``spec_tokens / spec_forwards`` over all slots.
+
+    Reliability: ``requests_expired`` counts requests queued past their
+    deadline, ``requests_retried`` quarantined requests re-prefilled from
+    their prompt, ``steps_poisoned`` the fetched steps in which at least one
+    slot's health flag was down. Recovery (`serving.journal`, the engine's
+    snapshot and resume): ``journal_records``, ``journal_bytes`` and
+    ``journal_compactions`` count what the journal appended and how often it
+    compacted; ``requests_resumed`` the requests a `resume` re-admitted
+    mid-stream, ``requests_restored`` those it put back in the queue, and
+    ``replayed_tokens`` the prompt and stream tokens re-prefilled only
+    because of the restart."""
 
     def __init__(self):
         self.requests_submitted = Counter()
         self.requests_rejected = Counter()
         self.requests_finished = Counter()
         self.requests_cancelled = Counter()
+        self.requests_expired = Counter()
+        self.requests_retried = Counter()
+        self.steps_poisoned = Counter()
+        self.journal_records = Counter()
+        self.journal_bytes = Counter()
+        self.journal_compactions = Counter()
+        self.requests_resumed = Counter()
+        self.requests_restored = Counter()
+        self.replayed_tokens = Counter()
         self.tokens_generated = Counter()
         self.prefill_tokens = Counter()
         self.prefix_hits = Counter()
@@ -171,7 +193,9 @@ class ServingMetrics:
         out: dict[str, Any] = {
             f"serving/{name}": getattr(self, name).value for name in (
                 "requests_submitted", "requests_rejected", "requests_finished",
-                "requests_cancelled", "tokens_generated", "prefill_tokens", "prefix_hits",
+                "requests_expired", "requests_cancelled", "requests_retried", "steps_poisoned",
+                "journal_records", "journal_bytes", "journal_compactions", "requests_resumed",
+                "requests_restored", "replayed_tokens", "tokens_generated", "prefill_tokens", "prefix_hits",
                 "prefix_misses", "prefix_tokens_reused", "prefix_blocks_donated",
                 "prefix_evictions", "steps", "decode_dispatches", "decode_steps",
                 "spec_proposed", "spec_accepted", "spec_forwards", "spec_tokens")

@@ -5,8 +5,10 @@ Bucketing pads a prompt to the smallest configured bucket that holds it, so
 batched admission prefills same-shape groups. With a prefix cache the engine
 sets ``prefill_len_fn`` and a request is bucketed by the uncached suffix it
 will prefill, and a run never mixes requests that read the cache with ones
-that opted out. The queue is bounded; a full queue rejects with a reason
-instead of growing without limit.
+that opted out or resume a stream. The queue is bounded; a full queue rejects
+with a reason instead of growing without limit. A request's queue-wait
+deadline is enforced by `pop_expired`, and `snapshot_queue` lets the engine's
+snapshot read the queue without draining it.
 """
 
 from __future__ import annotations
@@ -69,11 +71,13 @@ class FIFOScheduler:
 
     def _run_key(self, request: Request) -> tuple[int, bool]:
         """The batched-admission grouping key: the prefill bucket and, with a
-        prefix cache probing, the request's ``cache_prefix`` flag: a cached
-        and an opted-out request take different admission paths and never
-        share a run."""
+        prefix cache probing, whether the request may read the cache (its
+        ``cache_prefix`` flag, and no ``resume_tokens``: a resumed stream's
+        continuation prefill never reads the block pool): a cached and a
+        plain admission take different paths and never share a run."""
         return (self.prefill_bucket_for(request),
-                bool(request.cache_prefix) if self.prefill_len_fn is not None else False)
+                (bool(request.cache_prefix) and not request.resume_tokens)
+                if self.prefill_len_fn is not None else False)
 
     @staticmethod
     def decode_extent(request: Request, max_len: int) -> int:
@@ -135,9 +139,21 @@ class FIFOScheduler:
         return [self._queue.popleft() for _ in range(min(n, len(self._queue)))]
 
     def requeue(self, request: Request) -> None:
-        """Put a request back at the FRONT of the queue (a group that found
-        the block pool short goes back in its original order)."""
+        """Put a request back at the FRONT of the queue: a group that found
+        the block pool short goes back in its original order, and a
+        quarantined request must not wait behind new arrivals."""
         self._queue.appendleft(request)
+
+    def pop_expired(self, now: float) -> list[Request]:
+        """Remove and return every queued request whose ``deadline_s`` queue
+        budget has elapsed (the engine rejects them with REJECT_DEADLINE)."""
+        expired = [r for r in self._queue
+                   if r.deadline_s is not None and r.arrival_time is not None
+                   and now - r.arrival_time >= r.deadline_s]
+        if expired:
+            dead = set(map(id, expired))
+            self._queue = deque(r for r in self._queue if id(r) not in dead)
+        return expired
 
     def cancel(self, request_id: int) -> Request | None:
         """Remove a queued request by id (None if not queued here)."""
@@ -146,6 +162,11 @@ class FIFOScheduler:
                 self._queue.remove(r)
                 return r
         return None
+
+    def snapshot_queue(self) -> list[Request]:
+        """The queued requests in order, without removing them (the engine's
+        `snapshot` serializes the queue through this)."""
+        return list(self._queue)
 
     def drain_queue(self) -> list[Request]:
         """Remove and return everything queued (abort path)."""

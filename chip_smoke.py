@@ -47,8 +47,10 @@ Phases run in order; any failure exits non-zero:
 6. flash kernels: the forward, dQ and dK/dV kernels
    (`flash_attention_fwd`/`_dq`/`_dkv`) against their plain versions on the
    card at GPT-2-small training shapes (b 8, h 12, s 1024, d 64, bf16,
-   causal), in fp32, non-causal, at d 128, at a ragged s 1000, and at d 192
-   and d 256 (4 and 3 heads, the scalar bodies); each
+   causal), in fp32, non-causal, at d 128, at a ragged s 1000, at d 192
+   and d 256 (4 and 3 heads, the scalar bodies) and at d 320 and d 384 (2
+   heads, the run-time head_dim body that takes every head_dim above 256);
+   each
    output held to FLASH_TOL and lse to LSE_ATOL; one JSON line per case and
    kernel with its error, its times, its bound, its achieved TFLOP/s and
    the share of the bound it reaches;
@@ -92,8 +94,9 @@ Phases run in order; any failure exits non-zero:
    (beside the rectangular kernels' times on the same function), at a
    ragged fp32 s 1000 with window 100 and 4 query heads per kv head, at
    window 1, at a window past the sequence (held to the rectangular
-   kernels' causal output too), and at d 192 and d 256 (16 query heads
-   over 4, s 8192, window 4096: the scalar bodies); each output held to FLASH_TOL, lse to
+   kernels' causal output too), and at d 192, d 256, d 320 and d 384 (16
+   query heads over 4, s 8192, window 4096: the scalar bodies, and the
+   run-time head_dim body above 256); each output held to FLASH_TOL, lse to
    LSE_ATOL, and at the Mistral shapes each output also to a bar
    scaled by its own size (BAND_MAIN_RMS_TOL); one JSON line per case and
    kernel with its error, its times (the library yardstick is SDPA over an
@@ -185,7 +188,27 @@ Phases run in order; any failure exits non-zero:
    `llama_loss_fn_fused` (`bf16_train_mistral_fused_ce` and its profile:
    the fused-CE forward, dH and dW at e 4096 against phase 14's fp32 head
    GEMMs) and `mistral_loss_comparison`;
-23. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+23. crash-exact serving, GPT-2 small at full width and depth, 16 slots,
+   depth 2, phase 5's 48 requests, in the paged fused engine (kernel #1)
+   and the slot engine, every decode step a graph replay; in fp32 (TF32
+   off): (a) a child process serving them with a journal in both engines
+   is killed with SIGKILL mid-run and fresh engines resume from the
+   journals (`fp32_reliability_sigkill`), (b) an in-process snapshot is
+   restored in a fresh engine (`fp32_reliability_snapshot`): completed plus
+   resumed streams equal an uninterrupted run's, token for token, sampled
+   ones too; (c) a `FaultInjector` poisons one request once (its stream is
+   equal) and another twice (``error``; the other 46 streams equal,
+   `fp32_reliability_poison`); (d) deadline expiry and drain
+   (`fp32_reliability_deadline_drain`). Then bf16, phase 5's fused engine
+   at (2, 1): tokens/s, TTFT and ITL with the journal off, fsync
+   ``never`` and fsync ``accept``, in turns (off, never, accept, accept,
+   never, off), and the journal's share of the wall
+   (`bf16_reliability_journal`, `bf16_reliability_journal_summary`); a
+   profiler window over the journaled
+   engine's decode steps beside phase 5's (2, 1) window, with the health
+   flag's kernels alone at the decode shape
+   (`bf16_reliability_decode_profile`);
+24. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -331,7 +354,9 @@ def kernel_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[di
     return out
 
 
-FLASH_FIELDS = ("d", "causal")  # the flash kernels' template arguments after the type
+# the flash kernels' template arguments after the type (d 0: the run-time
+# head_dim body, every head_dim above 256)
+FLASH_FIELDS = ("d", "causal")
 
 
 def forward_resources(log: str) -> list[dict]:
@@ -945,7 +970,7 @@ def band_pairs(s: int, window: int | None) -> int:
 
 
 def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card,
-              by_group=False, rect=False, rms_tol=None) -> dict:
+              by_group=False, rect=False, rms_tol=None, samples=30) -> dict:
     """The three band kernels against their plain versions on one input (q
     pre-scaled ``[b, hq, s, d]``, K/V ``[b, hkv, s, d]``), with their times,
     the times of SDPA over an explicit boolean band mask with
@@ -956,7 +981,8 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     rms(plain). ``by_group`` evaluates the plain versions one kv head's group at
     a time, to bound their memory. ``rect`` also times the rectangular
     kernels on the same (causal) function, with K/V repeated to the query
-    heads, and holds the band forward's output to theirs."""
+    heads, and holds the band forward's output to theirs. ``samples`` is the
+    kernels' timed runs (fewer for the slow wide-head bodies)."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -1078,7 +1104,7 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     for kname in BAND_REPLACES:
         n_bytes, products = io[kname]
         n_flops = products * 2 * d * pairs
-        kernel_ms = device_ms(torch, kernel[kname], flush)
+        kernel_ms = device_ms(torch, kernel[kname], flush, samples=samples)
         bound_ms = max(n_bytes / bw, n_flops / peak) * 1e3
         rec = dict(phase="flash_band_kernels", case=name, kernel=kname, b=b, hq=hq, hkv=hkv, s=s,
                    d=d, window=window, dtype=dtype_name, max_abs_err=errs[kname], atol=atol,
@@ -2288,6 +2314,369 @@ def llama_fused_parity(torch, np, seed: int, card: str) -> dict:
 
 
 
+# the reliability phase's serving child: builds phase 5's model in fp32 from
+# the seed, a slot engine and a paged fused engine at depth 2, each with its
+# own journal, submits the requests to both, steps both ``steps`` times,
+# says READY and waits to be killed
+RELIABILITY_CHILD = """
+import json, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+from accelerate_tpu_torch.serving import Request, SamplingParams, ServingEngine
+seed, steps, spec = int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3])
+model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+engines = [ServingEngine(model, max_concurrency=16, prompt_buckets=tuple(spec["buckets"]),
+                         pipeline_depth=2, journal=path, **kw)
+           for path, kw in zip(spec["journals"], spec["modes"])]
+for engine in engines:
+    for prompt, p in spec["requests"]:
+        assert engine.submit(Request(prompt, SamplingParams(**p))).accepted
+for _ in range(steps):
+    for engine in engines:
+        engine.step()
+torch.cuda.synchronize()
+print("READY", flush=True)
+time.sleep(600)
+"""
+
+# the two engine modes of the reliability phase: the paged fused engine
+# (kernel #1 in its decode graph) and the slot engine (the default)
+RELIABILITY_MODES = {"paged_fused": {"paged_kv": True, "paged_attention": "fused"},
+                     "slot": {}}
+
+
+def health_flag_cost(torch, b: int, vocab: int, iters: int = 50) -> dict:
+    """The health flag's device work in one decode iteration, alone: the ops
+    `ServingEngine._decode_step` adds for it (poison the marked rows' fp32
+    logits with NaN, ``ok = isfinite(logits).all(-1)``, the row masks and
+    the health row of the output plane) at ``[b, vocab]``, in a profiler
+    window of ``iters`` runs: device us per iteration by kernel name, and
+    the bytes bound of the pass (the logits read once)."""
+    logits = torch.randn(b, vocab, device="cuda")
+    poison = torch.zeros(b, dtype=torch.bool, device="cuda")
+    finished = torch.zeros(b, dtype=torch.bool, device="cuda")
+    out = torch.zeros(3, b, dtype=torch.long, device="cuda")
+
+    def flag():
+        live = ~finished
+        last = logits.masked_fill(poison[:, None], float("nan"))
+        ok = torch.isfinite(last).all(dim=-1)
+        healthy = live & ok
+        out[2].copy_(ok | ~live)
+        return last, healthy
+
+    for _ in range(3):
+        flag()
+    wall_us, by_name = profile_steps(torch, flag, iters)
+    bw = peak_rates(torch.cuda.get_device_name(0))[0]
+    kernels: dict[str, float] = {}
+    for n, us in by_name.items():  # names cut to 90 characters may meet: add them up
+        kernels[n[:90]] = kernels.get(n[:90], 0.0) + us / iters
+    return {"device_us_per_iteration": sum(by_name.values()) / iters,
+            "kernels": len(by_name), "kernels_us_per_iteration": kernels,
+            "bound_us": b * vocab * 4 / bw * 1e6, "shape": [b, vocab]}
+
+
+def reliability_serving(torch, np, seed: int, card: str, prompts: list[list[int]],
+                        phase5_profile: dict) -> list[dict]:
+    """Phase 23: crash-exact serving on the card. GPT-2 small at full width
+    and depth, 16 slots, depth 2, every decode step a graph replay, phase
+    5's 48 requests (every second sampled), in the paged fused and the slot
+    engine. fp32 (TF32 off): (a) a child process serving them with a
+    journal in both modes is killed with SIGKILL mid-run, and fresh engines
+    resume from the journals: completed plus resumed streams equal an
+    uninterrupted run's, token for token; (b) the same for an in-process
+    snapshot and restore; (c) one request poisoned once (its stream is
+    equal) and another twice (``error``), the other 46 streams equal, each
+    poisoning a real `FaultInjector` spec aimed at the request's slot; (d)
+    deadline expiry and drain. Then bf16, phase 5's fused engine at (2, 1):
+    tokens/s, TTFT and ITL with the journal off, with fsync ``never`` and
+    ``accept``, the journal's share of the wall; a profiler window over the
+    journaled engine's decode steps against phase 5's; and the health
+    flag's kernels alone at the decode shape."""
+    import shutil
+    import signal
+    import tempfile
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.reliability import FaultInjector, FaultSpec, inject
+    from accelerate_tpu_torch.serving import (
+        FINISH_ERROR,
+        FINISH_LENGTH,
+        REJECT_DEADLINE,
+        REJECT_DRAINING,
+        PagedKVConfig,
+        Request,
+        RequestJournal,
+        SamplingParams,
+        ServingEngine,
+    )
+
+    t_phase = time.perf_counter()
+    params = [dict(max_new_tokens=64, temperature=0.8 if i % 2 else 0.0,
+                   top_k=50 if i % 2 else None, seed=i) for i in range(len(prompts))]
+
+    def requests():
+        return [Request(prompt=list(p), params=SamplingParams(**kw))
+                for p, kw in zip(prompts, params)]
+
+    def build(model, mode, **kw):
+        engine = ServingEngine(model, max_concurrency=16, prompt_buckets=BUCKETS,
+                               pipeline_depth=2, **RELIABILITY_MODES[mode], **kw)
+        if engine._graph is None:
+            raise AssertionError(f"reliability {mode}: the engine captured no decode graph")
+        return engine
+
+    def drive(engine, outputs):
+        while engine.has_work:
+            for out in engine.step():
+                outputs[out.request_id] = out
+        return outputs
+
+    def streams(outputs):
+        return [outputs[i].tokens for i in range(len(prompts))]
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_reliability_"))
+    lines = []
+    try:
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+        want = {}
+        for mode in RELIABILITY_MODES:
+            engine = build(model, mode)
+            want[mode] = streams({o.request_id: o for o in engine.run(requests())})
+            if engine.metrics.decode_dispatches.value == 0:
+                raise AssertionError(f"reliability {mode}: no decode replay ran")
+            del engine
+
+        # (a) SIGKILL of a serving child, then resume from its journals
+        journals = {mode: tmp / f"{mode}.journal" for mode in RELIABILITY_MODES}
+        spec = {"buckets": list(BUCKETS), "journals": [str(p) for p in journals.values()],
+                "modes": list(RELIABILITY_MODES.values()),
+                "requests": [[p, kw] for p, kw in zip(prompts, params)]}
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", RELIABILITY_CHILD, str(seed), "90",
+                                  json.dumps(spec)], cwd=ROOT, stdout=subprocess.PIPE, text=True)
+        try:
+            ready = child.stdout.readline().strip()
+            child.send_signal(signal.SIGKILL)
+            code = child.wait(timeout=60)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        child_s = time.perf_counter() - t0
+        if ready != "READY" or code != -signal.SIGKILL:
+            raise AssertionError(f"reliability: the serving child said {ready!r} and exited "
+                                 f"{code}, not READY and -SIGKILL")
+        for mode, path in journals.items():
+            scan = RequestJournal.scan(path)
+            engine = build(model, mode, journal=path)
+            t0 = time.perf_counter()
+            report = engine.resume()
+            resume_s = time.perf_counter() - t0
+            final = drive(engine, dict(report.completed))
+            got = streams(final)
+            line = {"phase": "fp32_reliability_sigkill", "mode": mode, "child_s": child_s,
+                    "child_exit": code, "journal_bytes": path.stat().st_size,
+                    "journal_records": scan.records, "torn_tail_bytes": scan.truncated_tail_bytes,
+                    "completed": len(report.completed), "resumed": len(report.resumed),
+                    "restored": len(report.restored), "resume_s": resume_s,
+                    "replayed_tokens": engine.metrics.replayed_tokens.value,
+                    "decode_replays": engine.metrics.decode_dispatches.value,
+                    "streams_equal": sum(a == b for a, b in zip(got, want[mode])),
+                    "requests": len(prompts), "card": card}
+            if got != want[mode]:
+                line["divergences"] = first_divergences(
+                    torch, model, prompts, got, want[mode], [p["temperature"] > 0 for p in params])
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if got != want[mode] or not report.resumed or not report.completed:
+                raise AssertionError(f"reliability {mode}: resume after SIGKILL gave other streams "
+                                     f"than the uninterrupted run, or resumed nothing: {line}")
+            del engine
+
+        # (b) in-process snapshot, then restore in a fresh engine
+        for mode in RELIABILITY_MODES:
+            engine = build(model, mode)
+            for r in requests():
+                engine.submit(r)
+            outputs = {}
+            for _ in range(30):
+                for out in engine.step():
+                    outputs[out.request_id] = out
+            snap = tmp / f"{mode}.snap"
+            for out in engine.snapshot(snap):
+                outputs[out.request_id] = out
+            del engine
+            fresh = build(model, mode)
+            report = fresh.resume(snap)
+            got = streams(drive(fresh, outputs))
+            line = {"phase": "fp32_reliability_snapshot", "mode": mode,
+                    "snapshot_bytes": snap.stat().st_size, "resumed": len(report.resumed),
+                    "restored": len(report.restored),
+                    "streams_equal": sum(a == b for a, b in zip(got, want[mode])),
+                    "requests": len(prompts), "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if got != want[mode] or not report.resumed:
+                raise AssertionError(f"reliability {mode}: snapshot and restore gave other "
+                                     f"streams than the uninterrupted run: {line}")
+            del fresh
+
+        # (c) one request poisoned once, another twice, by FaultInjector
+        # specs aimed at the slot each holds at that step
+        once_rid, twice_rid = 5, 9
+        for mode in RELIABILITY_MODES:
+            engine = build(model, mode)
+            for r in requests():
+                engine.submit(r)
+            outputs, hits, step = {}, {once_rid: 0, twice_rid: 0}, 0
+            targets = {once_rid: 1, twice_rid: 2}
+            injectors = []
+            while engine.has_work:
+                specs = []
+                for rid, n in targets.items():
+                    slot = next((s for s, o in enumerate(engine._slot_out)
+                                 if o is not None and o.request_id == rid
+                                 and 4 <= len(o.tokens) <= 48), None)
+                    retries = engine._slot_req[slot].retries if slot is not None else None
+                    if slot is not None and hits[rid] < n and retries == hits[rid]:
+                        specs.append(FaultSpec.poison(at_steps=(0,), slots=(slot,)))
+                        hits[rid] += 1
+                inj = FaultInjector(seed=seed, specs=specs)
+                injectors.append(inj)
+                with inject(inj):
+                    for out in engine.step():
+                        outputs[out.request_id] = out
+                step += 1
+            got = streams(outputs)
+            others = [i for i in range(len(prompts)) if i != twice_rid]
+            fired = sum(len(i.fired) for i in injectors)
+            line = {"phase": "fp32_reliability_poison", "mode": mode, "poisonings": fired,
+                    "steps_poisoned": engine.metrics.steps_poisoned.value,
+                    "requests_retried": engine.metrics.requests_retried.value,
+                    "poison_uploads": engine.poison_uploads,
+                    "twice_reason": outputs[twice_rid].finish_reason,
+                    "twice_tokens": len(outputs[twice_rid].tokens),
+                    "once_stream_equal": got[once_rid] == want[mode][once_rid],
+                    "others_equal": sum(got[i] == want[mode][i] for i in others),
+                    "others": len(others), "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if (fired != 3 or outputs[twice_rid].finish_reason != FINISH_ERROR
+                    or any(got[i] != want[mode][i] for i in others)
+                    or engine.metrics.requests_retried.value != 2
+                    or got[twice_rid] != want[mode][twice_rid][:len(got[twice_rid])]):
+                raise AssertionError(f"reliability {mode}: the poisoned run is not the "
+                                     f"reference's quarantine: {line}")
+            del engine
+
+        # (d) deadline expiry and drain
+        for mode in RELIABILITY_MODES:
+            engine = build(model, mode)
+            short = [Request(prompt=list(p), params=SamplingParams(max_new_tokens=8))
+                     for p in prompts[:20]]
+            for i, r in enumerate(short):
+                if i >= 16:
+                    r.deadline_s = 0.0  # queued behind 16 busy slots: expires
+                engine.submit(r)
+            engine.begin_drain()
+            refused = engine.submit(Request(prompt=list(prompts[0]),
+                                            params=SamplingParams(max_new_tokens=8)))
+            outs = {}
+            while engine.has_work:
+                for out in engine.step():
+                    outs[out.request_id] = out
+            engine.end_drain()
+            reasons = [outs[i].finish_reason for i in range(20)]
+            line = {"phase": "fp32_reliability_deadline_drain", "mode": mode,
+                    "finished": reasons.count(FINISH_LENGTH),
+                    "expired": reasons.count(f"rejected:{REJECT_DEADLINE}"),
+                    "requests_expired": engine.metrics.requests_expired.value,
+                    "draining_reject": refused.reason, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if (line["finished"] != 16 or line["expired"] != 4
+                    or line["requests_expired"] != 4 or refused.reason != REJECT_DRAINING):
+                raise AssertionError(f"reliability {mode}: deadlines or drain: {line}")
+            del engine
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # bf16: the journal's cost, and the decode replay with the health flag
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                           device="cuda", seed=seed)
+
+        def fused(**kw):
+            return ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
+                                 paged_attention="fused", max_concurrency=16,
+                                 prompt_buckets=BUCKETS, pipeline_depth=2, **kw)
+
+        fused().run(requests()[:4])  # warm-up
+        runs, rates = {}, {}
+        # in turns, so drift in the host's pace falls on each policy alike
+        for turn, fsync in enumerate((None, "never", "accept", "accept", "never", None)):
+            gc.collect()
+            torch.cuda.synchronize()
+            journal = (RequestJournal(tmp / f"bf16_{fsync}.journal", fsync=fsync)
+                       if fsync else None)
+            engine = fused(journal=journal)
+            t0 = time.perf_counter()
+            outs = engine.run(requests())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = engine.metrics
+            runs.setdefault(fsync, []).append([o.tokens for o in outs])
+            rates.setdefault(fsync or "off", []).append(m.tokens_generated.value / wall)
+            line = {"phase": "bf16_reliability_journal", "turn": turn, "fsync": fsync or "off",
+                    "pipeline_depth": 2, "tokens_per_sync": 1, "requests": len(outs),
+                    "generated_tokens": m.tokens_generated.value, "wall_s": wall,
+                    "tokens_per_s": m.tokens_generated.value / wall,
+                    "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
+                    "itl_p50_s": m.inter_token_s.quantile(0.5),
+                    "itl_p99_s": m.inter_token_s.quantile(0.99),
+                    "journal_records": m.journal_records.value,
+                    "journal_bytes": m.journal_bytes.value,
+                    "journal_s": journal.append_s if journal else 0.0,
+                    "journal_share_of_wall": (journal.append_s / wall) if journal else 0.0,
+                    "decode_replays": m.decode_dispatches.value, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if journal is not None:
+                journal.close()
+            del engine
+        if any(r != runs[None][0] for rs in runs.values() for r in rs):
+            raise AssertionError("bf16 reliability: the journal changed the token streams")
+        off = statistics.mean(rates["off"])
+        line = {"phase": "bf16_reliability_journal_summary",
+                "tokens_per_s_mean": {k: statistics.mean(v) for k, v in rates.items()},
+                "tokens_per_s_vs_off": {k: statistics.mean(v) / off - 1 for k, v in rates.items()},
+                "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        long_requests = [Request(prompt=list(p), params=SamplingParams(max_new_tokens=64))
+                         for p in prompts[:16]]
+        rec = profile_decode(torch, fused(journal=RequestJournal(tmp / "bf16_profile.journal")),
+                             long_requests, phase="bf16_reliability_decode_profile")
+        rec["phase5_device_ms_per_iteration"] = phase5_profile["device_ms_per_iteration"]
+        rec["phase5_host_ms_per_iteration"] = phase5_profile["host_ms_per_iteration"]
+        rec["health_flag"] = health_flag_cost(torch, 16, model.config.vocab_size)
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+        lines.append(rec)
+        del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "reliability_phase_s", "seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return lines
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2565,9 +2954,11 @@ def main() -> int:
     del slot
     long_requests = [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
                      for p in serve_prompts[:16]]
+    decode_profiles = {}
     for depth, sync, steps in ((1, 1, 16), (2, 1, 16), (2, 4, 8)):
-        print(json.dumps(profile_decode(torch, engine(depth, sync), long_requests, steps=steps)),
-              flush=True)
+        decode_profiles[(depth, sync)] = profile_decode(torch, engine(depth, sync), long_requests,
+                                                        steps=steps)
+        print(json.dumps(decode_profiles[(depth, sync)]), flush=True)
     print(json.dumps(profile_decode(
         torch, ServingEngine(model, max_concurrency=16, prompt_buckets=BUCKETS, pipeline_depth=2),
         long_requests, phase="bf16_decode_profile_slot")), flush=True)
@@ -2595,6 +2986,11 @@ def main() -> int:
                    seed=args.seed + 5, **{**small, "h": 4, "d": 192}),
         flash_case(torch, "d256_bf16_causal", dtype=torch.bfloat16, causal=True,
                    seed=args.seed + 6, **{**small, "h": 3, "d": 256}),
+        # above 256: the run-time head_dim body at d 384 (what 300 pads to)
+        flash_case(torch, "d320_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 8, **{**small, "h": 2, "d": 320}),
+        flash_case(torch, "d384_bf16_causal", dtype=torch.bfloat16, causal=True,
+                   seed=args.seed + 7, **{**small, "h": 2, "d": 384}),
     ]
     del flush
     torch.cuda.empty_cache()
@@ -2655,6 +3051,14 @@ def main() -> int:
                   dtype=torch.bfloat16, seed=args.seed + 5, by_group=True, **band_common),
         band_case(torch, "d256_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=256, window=4096,
                   dtype=torch.bfloat16, seed=args.seed + 6, by_group=True, **band_common),
+        # above 256: the run-time head_dim body at d 320 and 384, fewer timed
+        # samples
+        band_case(torch, "d320_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=320, window=4096,
+                  dtype=torch.bfloat16, seed=args.seed + 8, by_group=True, samples=10,
+                  **band_common),
+        band_case(torch, "d384_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=384, window=4096,
+                  dtype=torch.bfloat16, seed=args.seed + 7, by_group=True, samples=10,
+                  **band_common),
     ]
     del flush
     torch.cuda.empty_cache()
@@ -2717,7 +3121,10 @@ def main() -> int:
                       "peak_mem_bytes_fused_ce": mistral_fused["peak_mem_bytes"],
                       "card": card}), flush=True)
 
-    # 23. summary lines
+    # 23. reliability: crash-exact serving, the health flag, deadlines, drain
+    reliability_serving(torch, np, args.seed, card, serve_prompts, decode_profiles[(2, 1)])
+
+    # 24. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",

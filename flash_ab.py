@@ -29,6 +29,11 @@ warm-up: one line per engine setting the tree takes (``pipeline_depth`` and
 engine at depth 1) with tokens/s, the host wall per decode forward, TTFT
 and ITL p50/p99, peak memory, and a hash of every token stream, which must
 agree across trees and settings.
+``--probe decode`` admits 16 of that traffic's requests into the tree's
+fused engine at (2, 1) and profiles 32 replays of its captured decode graph
+alone (no host bookkeeping between them): device us per replay, by kernel
+name too, and the kernels a replay runs; run in turns with the parent, it
+shows what a change adds to the decode step's device work (the health flag).
 ``--probe fwd`` times the fused-CE forward alone at ``chip_smoke.py``'s
 bf16 cases: GPT-2 small's head (N 8192, V 50257, e 768), a ragged N 1000,
 e 1024, and Mistral-7B's untied head (N 8192, V 32000, e 4096); where the
@@ -64,11 +69,12 @@ from pathlib import Path
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
-    parser.add_argument("--probe", choices=("serving", "engine", "fwd", "widths", "precision"),
+    parser.add_argument("--probe", choices=("serving", "engine", "decode", "fwd", "widths",
+                                            "precision"),
                         default=None,
-                        help="the serving kernels alone, the serving engine, the fused-CE "
-                             "forward alone, or the fused-CE dH and dW alone (default: the A/B "
-                             "timing of every kernel)")
+                        help="the serving kernels alone, the serving engine, its decode "
+                             "graph alone, the fused-CE forward alone, or the fused-CE dH and "
+                             "dW alone (default: the A/B timing of every kernel)")
     args = parser.parse_args()
     import torch
 
@@ -117,6 +123,8 @@ def main() -> int:
     elif args.probe == "engine":
         for rec in probe_engine(torch):
             print(json.dumps({**res, **rec}), flush=True)
+    elif args.probe == "decode":
+        print(json.dumps({**res, **probe_decode(torch)}), flush=True)
     elif args.probe == "fwd":
         print(json.dumps({**res, **probe_fwd(torch, ms)}), flush=True)
     elif args.probe == "widths":
@@ -288,6 +296,47 @@ def probe_engine(torch) -> list[dict]:
             "streams_sha1": hashlib.sha1(streams).hexdigest()})
         del eng
     return records
+
+
+def probe_decode(torch, replays: int = 32) -> dict:
+    """The fused engine's captured decode step at (2, 1) with 16 slots live
+    (``probe_engine``'s model and prompts, 64 new tokens each): ``replays``
+    replays of the graph alone in a profiler window, device us per replay
+    in all and by kernel name, and kernels per replay."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import PagedKVConfig, Request, SamplingParams, ServingEngine
+
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                       device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 50257, int(k)).tolist() for k in rng.integers(16, 701, 48)]
+    engine = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16), paged_attention="fused",
+                           max_concurrency=16, prompt_buckets=(64, 128, 256, 512, 768),
+                           pipeline_depth=2)
+    for p in prompts[:16]:
+        engine.submit(Request(prompt=p, params=SamplingParams(max_new_tokens=64)))
+    engine.step()  # admits all 16 and dispatches the first decode step
+    for _ in range(3):
+        engine._graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            engine._graph.replay()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    count = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            by_name[ev.name[:90]] = by_name.get(ev.name[:90], 0.0) + ev.time_range.elapsed_us()
+            count += 1
+    return {"probe": "decode", "replays": replays, "slots": engine.active_slots,
+            "device_us_per_replay": sum(by_name.values()) / replays,
+            "kernels_per_replay": count / replays,
+            "kernels_us_per_replay": {n: us / replays for n, us in
+                                      sorted(by_name.items(), key=lambda kv: -kv[1])}}
 
 
 FWD_SHAPES = {"gpt2_small": (8192, 50257, 768), "ragged_n1000": (1000, 50257, 768),

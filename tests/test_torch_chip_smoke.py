@@ -5,8 +5,10 @@ zero spills; its split of profiled kernel names into the fused-CE forward,
 dH and dW; and its serving bookkeeping: kernel launches counted through
 decode graph replays, the fields of a serving line, the admission counter
 through prefix-cached admissions, phase 21's prompts and its verify
-counts; and the head_dim 192 and 256 kernels' ptxas entries. Runs on the
-CPU against a log in ptxas's format and a CPU engine."""
+counts; the head_dim 192 and 256 kernels' ptxas entries and the run-time
+head_dim body's (d 0); and the reliability phase's serving child (what it
+imports, the engine modes it serves). Runs on the CPU against a log in
+ptxas's format and a CPU engine."""
 
 import importlib.util
 from pathlib import Path
@@ -335,3 +337,48 @@ def test_serving_line_carries_the_verify_counts():
                                       spec_tokens=m.spec_tokens.value)
     assert line["phase"] == "bfloat16_spec_serving" and line["generated_tokens"] == 27
     assert line["spec_tokens"] == 27 - 3 and line["decode_replays"] == m.spec_forwards.value
+
+
+RUNTIME_D_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI13__nv_bfloat16Li0ELb1EEEvPKT_S4_S4_PS2_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsENS_4WideE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI13__nv_bfloat16Li0ELb1EEEvPKT_S4_S4_PS2_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsENS_4WideE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 104 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi0EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsENS_4WideE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelIfLi0EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsENS_4WideE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+
+
+def test_resources_read_the_run_time_head_dim_kernels():
+    """The run-time head_dim body's instances (template D 0, every head_dim
+    above 256) parse with d 0, so the build phase holds them to zero spills
+    too."""
+    cs = _chip_smoke()
+    assert cs.forward_resources(RUNTIME_D_LOG) == [
+        {"kernel": "flash_fwd_kernel", "dtype": "bfloat16", "d": 0, "causal": True,
+         "registers": 104, "spill_store_bytes": 0, "spill_load_bytes": 0,
+         "static_smem_bytes": 0},
+    ]
+    assert [(k["kernel"], k["dtype"], k["d"]) for k in cs.kernel_resources(
+        RUNTIME_D_LOG, r"flash_(?:band_)?dkv_kernel", cs.FLASH_FIELDS)] == [
+        ("flash_band_dkv_kernel", "float32", 0)]
+
+
+def test_reliability_child_imports_only_the_port_and_serves_both_modes():
+    """Phase 23's serving child is a script of its own: it imports torch
+    and the port (never JAX or the JAX package), and builds one engine per
+    mode: the paged fused engine and the slot engine."""
+    import ast
+
+    cs = _chip_smoke()
+    roots = set()
+    for node in ast.walk(ast.parse(cs.RELIABILITY_CHILD)):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert roots == {"json", "sys", "time", "torch", "accelerate_tpu_torch"}
+    assert cs.RELIABILITY_MODES == {"paged_fused": {"paged_kv": True, "paged_attention": "fused"},
+                                    "slot": {}}

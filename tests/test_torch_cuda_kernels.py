@@ -216,6 +216,17 @@ FLASH_CASES = {
     "bf16_causal_d256": dict(dtype=torch.bfloat16, causal=True, d=256, sq=257, skv=257),
     "bf16_full_d256_cross": dict(dtype=torch.bfloat16, causal=False, d=256, sq=129, skv=45),
     "fp32_causal_d256_ragged": dict(dtype=torch.float32, causal=True, d=256, sq=77, skv=77),
+    # every head_dim above 256 (the run-time head_dim body: 32 x 32 tiles,
+    # d in chunks of 64, accumulators in the workspace): 320, 384 (what 300
+    # pads to), 512 and 640, both types, ragged ends, cross lengths
+    "bf16_causal_d320": dict(dtype=torch.bfloat16, causal=True, d=320, sq=200, skv=200),
+    "fp32_full_d320_cross": dict(dtype=torch.float32, causal=False, d=320, sq=70, skv=129),
+    "bf16_full_d384_cross": dict(dtype=torch.bfloat16, causal=False, d=384, sq=129, skv=45),
+    "fp32_causal_d384_ragged": dict(dtype=torch.float32, causal=True, d=384, sq=77, skv=77),
+    "bf16_causal_d512": dict(dtype=torch.bfloat16, causal=True, d=512, sq=257, skv=257),
+    "fp32_causal_d512_cross": dict(dtype=torch.float32, causal=True, d=512, sq=33, skv=100),
+    "bf16_full_d640": dict(dtype=torch.bfloat16, causal=False, d=640, sq=96, skv=96),
+    "fp32_causal_d640_ragged": dict(dtype=torch.float32, causal=True, d=640, sq=130, skv=130),
 }
 
 
@@ -256,7 +267,8 @@ def test_flash_kernels_match_plain(hopper, name):
     _assert_near(dv, dv_ref, dtype)
 
 
-@pytest.mark.parametrize("d,hq,hk", [(64, 4, 4), (40, 4, 2), (136, 4, 2), (192, 2, 2)])
+@pytest.mark.parametrize("d,hq,hk", [(64, 4, 4), (40, 4, 2), (136, 4, 2), (192, 2, 2),
+                                    (300, 2, 1)])
 def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
     """The public BSHD wrapper on the card (pre-scale, head-dim padding, GQA
     repeat, the autograd.Function) against autograd through the plain path,
@@ -283,7 +295,7 @@ def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
 
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
-    (dict(d=320), ValueError),  # past the largest, 256
+    (dict(d=300), ValueError),  # above 256 but off a multiple of 64 (the wrapper pads it)
     (dict(dtype=torch.float16), TypeError),
 ])
 def test_flash_kernel_rejects_what_it_does_not_take(hopper, change, exc):
@@ -339,6 +351,17 @@ BAND_CASES = {
     "bf16_w65_gqa2_d256": dict(dtype=torch.bfloat16, window=65, hq=4, hk=2, d=256, s=333),
     "fp32_w37_d256": dict(dtype=torch.float32, window=37, hq=2, hk=2, d=256, s=130),
     "bf16_triangle_d256_s129": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=256, s=129),
+    # above 256 (the run-time head_dim body): windows that cut tiles, GQA,
+    # ragged ends, both types
+    "bf16_w100_gqa4_d320": dict(dtype=torch.bfloat16, window=100, hq=8, hk=2, d=320, s=300),
+    "fp32_triangle_gqa2_d320_ragged": dict(dtype=torch.float32, window=None, hq=4, hk=2, d=320,
+                                           s=77),
+    "bf16_w65_gqa2_d384": dict(dtype=torch.bfloat16, window=65, hq=4, hk=2, d=384, s=200),
+    "fp32_w37_d384": dict(dtype=torch.float32, window=37, hq=2, hk=2, d=384, s=130),
+    "bf16_triangle_d512_s129": dict(dtype=torch.bfloat16, window=None, hq=4, hk=4, d=512, s=129),
+    "fp32_w50_gqa4_d512": dict(dtype=torch.float32, window=50, hq=4, hk=1, d=512, s=100),
+    "bf16_w33_gqa2_d640": dict(dtype=torch.bfloat16, window=33, hq=4, hk=2, d=640, s=97),
+    "fp32_triangle_d640": dict(dtype=torch.float32, window=None, hq=2, hk=2, d=640, s=64),
 }
 
 
@@ -441,7 +464,7 @@ def test_band_flash_attention_grads_match_plain_attention(hopper, window, hq, hk
 
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
-    (dict(d=384), ValueError),  # past the largest, 256
+    (dict(d=300), ValueError),  # above 256 but off a multiple of 64 (the wrapper pads it)
     (dict(dtype=torch.float16), TypeError),
     (dict(hq=6, hk=4), ValueError),  # query heads not a multiple of kv heads
 ])
@@ -1038,3 +1061,83 @@ def test_captured_generate_recaptures_after_an_in_place_swap(hopper):
     assert generation._CAPTURED[model].graph is not first
     assert torch.equal(got, generation._generate(model, ids, 8, 0.0, None, None, model.device,
                                                  capture=False))
+
+
+@pytest.mark.parametrize("mode", ["paged_fused", "slot"])
+def test_health_flag_freezes_a_poisoned_row_inside_the_captured_graph(hopper, mode):
+    """The health flag is part of the captured decode graph: a row the
+    poison buffer marks gets NaN logits and a down health flag from the
+    replay itself (no eager decode runs), freezes (position and token
+    carried), and is quarantined; every other row advances. The quarantined
+    request re-prefills, and every stream equals a clean engine's."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.reliability import FaultInjector, FaultSpec, inject
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    kw = dict(max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=1,
+              **(PAGED if mode == "paged_fused" else {}))
+    requests = _graph_engine_requests(sampled=True)[:4]
+    clean = [o.tokens for o in ServingEngine(model, **kw).run(requests)]
+    engine = ServingEngine(model, **kw)
+    assert engine._graph is not None
+    eager = []
+    body = engine._step_body
+    engine._step_body = lambda: (eager.append(1), body())
+    planes = []
+    process = engine._process_step
+    engine._process_step = lambda entry, fetched, now, fin: (planes.append(fetched.copy()),
+                                                             process(entry, fetched, now, fin))
+    for r in _graph_engine_requests(sampled=True)[:4]:
+        engine.submit(r)
+    engine.step()  # admission and the first replay
+    pos = engine._d_pos.clone()
+    with inject(FaultInjector(specs=[FaultSpec.poison(at_steps=(0,), slots=(2,))])):
+        engine.step()
+    torch.cuda.synchronize()
+    health, finished = planes[-1][0, 2], planes[-1][0, 1]
+    assert health.tolist() == [1, 1, 0, 1] and finished[2] == 1
+    moved = (engine._d_pos - pos).tolist()
+    assert moved[2] == 0 and all(moved[i] == 1 for i in (0, 1, 3))
+    assert engine.metrics.steps_poisoned.value == 1 and engine.poison_uploads == 1
+    assert not engine._d_poison.any()  # cleared on the stream after the replay
+    outs = {}
+    while engine.has_work:
+        for o in engine.step():
+            outs[o.request_id] = o.tokens
+    assert [outs[i] for i in range(4)] == clean
+    assert not eager and engine.metrics.decode_dispatches.value > 0
+
+
+@pytest.mark.parametrize("sync", [1, 4])
+def test_resumed_sampled_streams_equal_the_uninterrupted_ones_on_the_card(hopper, tmp_path, sync):
+    """A run dropped mid-decode and resumed from its journal continues
+    every sampled stream as the uninterrupted run does: the resumed
+    request's CUDA generator is fast-forwarded past one [vocab] draw per
+    emitted token, through the same call the admission and the decode
+    draws take."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    kw = dict(max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2, tokens_per_sync=sync,
+              **PAGED)
+    want = {o.request_id: o.tokens for o in ServingEngine(model, **kw).run(
+        _graph_engine_requests(sampled=True))}
+    path = tmp_path / "requests.journal"
+    engine = ServingEngine(model, journal=path, **kw)
+    for r in _graph_engine_requests(sampled=True):
+        engine.submit(r)
+    for _ in range(4 if sync == 1 else 2):
+        engine.step()
+    del engine
+    fresh = ServingEngine(model, journal=path, **kw)
+    report = fresh.resume()
+    assert report.resumed
+    outs = {rid: o.tokens for rid, o in report.completed.items()}
+    while fresh.has_work:
+        for o in fresh.step():
+            outs[o.request_id] = o.tokens
+    assert outs == want
+    assert any(r.params.temperature > 0 for r in _graph_engine_requests(sampled=True)
+               if r.params.seed in report.resumed)

@@ -9,7 +9,9 @@ CPU tensor runs the kernels' plain versions through its autograd functions.
 Outputs and the gradients of ``sum(out * cotangent)`` are compared at the
 tolerances of tests/test_torch_flash_attention.py. Then the kernels' head
 dims: every padded head_dim the reference produces up to 256 is one the CUDA
-kernels are built for, and a larger one is refused with the limit named.
+kernels are built for, every multiple of 64 above runs their run-time
+head_dim body, and d 320 and d 300 (padded to 384) are held to the reference
+too.
 """
 
 import numpy as np
@@ -43,6 +45,12 @@ CASES = {
                                     dtype="float32"),
     "band_w40_d136_padded_bf16": dict(window=40, band=True, causal=True, s=96, d=136, hq=2, hk=1,
                                       dtype="bfloat16"),
+    # above 256 (named to sort after the cases above, whose seeds are
+    # their sorted positions)
+    "wide_rect_causal_d320_fp32": dict(window=None, band=False, causal=True, s=64, d=320, hq=2,
+                                       hk=2, dtype="float32"),
+    "wide_band_w40_d300_padded_gqa_fp32": dict(window=40, band=True, causal=True, s=64, d=300,
+                                               hq=2, hk=1, dtype="float32"),
 }
 
 
@@ -119,6 +127,12 @@ def test_kernel_operands_take_every_built_head_dim(d):
 
 @pytest.mark.parametrize("d", [320, 384, 96])
 def test_kernel_operands_refuse_other_head_dims_naming_the_limit(d):
+    """No upper limit is left: every multiple of 64 above 256 (what the
+    padding gives there) runs the run-time head_dim body. A head_dim the
+    padding never gives (96) is still refused, naming the rule."""
     q = torch.zeros(1, 2, 8, d)
-    with pytest.raises(ValueError, match="at most 256"):
-        port._kernel_operands("flash_attention_fwd", q, q, q)
+    if d % 64:
+        with pytest.raises(ValueError, match="multiple of 64 above 256"):
+            port._kernel_operands("flash_attention_fwd", q, q, q)
+    else:
+        assert len(port._kernel_operands("flash_attention_fwd", q, q, q)) == 3

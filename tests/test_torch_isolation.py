@@ -39,7 +39,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.optimizer", "accelerate_tpu_torch.utils.precision",
                 "accelerate_tpu_torch.utils.quantization", "accelerate_tpu_torch.ops.nf4_matmul",
                 "accelerate_tpu_torch.utils.safetensors_io", "accelerate_tpu_torch.checkpointing",
-                "accelerate_tpu_torch.models.generation", "accelerate_tpu_torch.models.kv_cache"):
+                "accelerate_tpu_torch.models.generation", "accelerate_tpu_torch.models.kv_cache",
+                "accelerate_tpu_torch.serving.journal", "accelerate_tpu_torch.reliability",
+                "accelerate_tpu_torch.reliability.faults",
+                "accelerate_tpu_torch.reliability.preemption",
+                "accelerate_tpu_torch.reliability.retry"):
         assert mod in got["modules"]
 
 
