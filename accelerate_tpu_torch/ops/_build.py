@@ -10,7 +10,10 @@ CUDA error code of its launch for the wrapper to check.
 The library lands in ``ops/build/`` (listed in ``.gitignore``) under a name
 that carries a hash of the source, the shared headers ``csrc/*.cuh`` and the
 flags, so an edited source or header is never served by a stale build. A
-failed build raises with nvcc's output.
+failed build raises with nvcc's output. `LOAD_LOG` records every library the
+process loads, with the seconds its build and load took: the serving engine
+counts a dispatch during which it grew as a compile
+(`serving.metrics.ServingMetrics.record_compile`).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -31,6 +35,9 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# (name, seconds, built) of every library load in this process, in order;
+# ``built`` is True when the load ran nvcc first
+LOAD_LOG: list[tuple[str, float, bool]] = []
 
 
 def nvcc_path() -> str:
@@ -90,5 +97,8 @@ def load(name: str) -> ctypes.CDLL:
     library stays loaded for the life of the process."""
     lib = _LOADED.get(name)
     if lib is None:
+        t0 = time.perf_counter()
+        built = not _artifact(name)[1].is_file()
         lib = _LOADED[name] = ctypes.CDLL(str(build(name)))
+        LOAD_LOG.append((name, time.perf_counter() - t0, built))
     return lib

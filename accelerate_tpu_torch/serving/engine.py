@@ -139,6 +139,23 @@ is not changed) whose nf4 projections run through the CUDA kernel
 with fp32 scale planes, which the paged fused path hands to the
 paged-decode kernel. `ServingEngine.quant_stats` reports both.
 
+Observability, as the reference's: ``tracer=`` (a `trace.Tracer`) records
+every request lifecycle edge and every dispatch/fetch pair, stamped on the
+host clock only (an emission never waits on the stream), exportable to
+Perfetto; with ``annotate=True`` each dispatch (a graph replay, an eager
+admission) runs inside ``torch.profiler.record_function(key)``. Requests
+carrying a `request.SLOSpec` feed `ServingMetrics.goodput` at retirement.
+Every `step` records a `StepTimings` phase breakdown (`last_step_timings`);
+`memory_stats` and `capacity_headroom` are the telemetry gauges;
+``telemetry=`` (`telemetry.TelemetryExporter`) is polled and ``anomaly=``
+(`anomaly.AnomalyMonitor`) observes once a step; ``tracker=`` with
+``metrics_log_every=N`` logs the metrics snapshot every N steps. Each of
+them defaults to a null singleton and costs one attribute check when off.
+A compile (`ServingMetrics.record_compile`) is each CUDA graph capture and
+each dispatch during which a kernel library was built or loaded (nvcc at
+first use), so a supervisor (`serving.supervisor`) never takes a start-up
+step for a stall.
+
 Typical loop::
 
     engine = ServingEngine(model, max_concurrency=8)
@@ -174,7 +191,10 @@ from ..models.kv_cache import (
     rewind_frontier,
     scatter_cache_slots,
     scatter_rows_to_blocks,
+    tree_bytes_by_dtype,
+    tree_nbytes,
 )
+from ..ops import _build
 from ..ops.flash_attention import paged_decode_attention
 from ..ops.nf4_matmul import nf4_matmul, plane_pack, routes_to_kernel
 from ..reliability.faults import ALL_SLOTS, active_injector
@@ -185,6 +205,7 @@ from ..utils.quantization import (
     quantize_module,
     quantized_nbytes,
 )
+from .anomaly import NULL_ANOMALY
 from .journal import MAGIC as JOURNAL_MAGIC
 from .journal import JournalScan, RequestJournal, request_record
 from .metrics import ServingMetrics
@@ -204,12 +225,66 @@ from .request import (
 )
 from .scheduler import FIFOScheduler
 from .speculation import resolve_drafter
+from .telemetry import NULL_TELEMETRY
+from .trace import (
+    EV_ADMIT,
+    EV_DISPATCH,
+    EV_FETCH,
+    EV_FINISH,
+    EV_QUARANTINE,
+    EV_REJECT,
+    EV_SUBMIT,
+    NULL_TRACER,
+    nearest_rank,
+)
 
+
+# the warm-up stream of every decode-graph capture on a device, one reused:
+# cuBLAS keeps a workspace for each stream it has run on for the life of the
+# process, so a new stream per capture would leave one behind per rebuilt
+# engine (the supervisor rebuilds on every restart)
+_WARMUP_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
 
 # the engine snapshot's format tag, the reference's: a JSON document written
 # atomically (tmp + fsync + rename) by `ServingEngine.snapshot`, restorable by
 # `ServingEngine.resume`
 SNAPSHOT_FORMAT = "accelerate_tpu/serving-snapshot-v1"
+
+
+_STEP_PHASES = ("schedule_s", "draft_s", "dispatch_s", "fetch_blocked_s",
+                "deliver_s", "journal_s", "telemetry_s", "total_s")
+
+
+@dataclasses.dataclass
+class StepTimings:
+    """Host wall-time breakdown of ONE `ServingEngine.step` call (the
+    reference's).
+
+    ``schedule_s`` is reap and admission bookkeeping net of everything
+    measured elsewhere; ``draft_s`` the drafter's proposals; ``dispatch_s``
+    every dispatch (a decode graph replay or eager step with its uniform
+    draws and fetch copy, an eager admission), compile or replay;
+    ``fetch_blocked_s`` the host blocked on a fetch's event; ``deliver_s``
+    token delivery, retirement and SLO accounting net of journal writes;
+    ``journal_s`` the journal's appends (with their fsyncs); ``telemetry_s``
+    the telemetry poll. The phases partition ``total_s`` up to clock jitter
+    (an injected ``step_hang`` lies outside every phase)."""
+
+    schedule_s: float = 0.0
+    draft_s: float = 0.0
+    dispatch_s: float = 0.0
+    fetch_blocked_s: float = 0.0
+    deliver_s: float = 0.0
+    journal_s: float = 0.0
+    telemetry_s: float = 0.0
+    total_s: float = 0.0
+
+    def reset(self) -> None:
+        for name in _STEP_PHASES:
+            setattr(self, name, 0.0)
+
+    def as_dict(self) -> dict[str, float]:
+        return {name: round(getattr(self, name), 6) for name in _STEP_PHASES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,7 +361,9 @@ class _Inflight:
     generation it was dispatched against, so a result that outlived a
     retirement or cancel is dropped instead of reaching the slot's next
     tenant. ``staging`` keeps an admission's pinned upload buffers alive
-    until the entry is fetched, which is after their copies ran."""
+    until the entry is fetched, which is after their copies ran. ``seq`` is
+    the EV_DISPATCH sequence number its EV_FETCH echoes (-1 untraced);
+    ``tokens`` the decode iterations it ran (a verify step's positions)."""
 
     kind: str  # "step" | "spec" | "admit"
     host: torch.Tensor
@@ -294,6 +371,8 @@ class _Inflight:
     epochs: tuple[int, ...]
     event: Any = None
     staging: Any = None
+    seq: int = -1
+    tokens: int = 1
 
 
 class ServingEngine:
@@ -327,7 +406,14 @@ class ServingEngine:
 
     ``journal`` (a path or a `journal.RequestJournal`) writes the durable
     request journal that `resume` replays; None (the default) writes
-    nothing."""
+    nothing.
+
+    ``metrics`` shares a `ServingMetrics` (a supervisor passes its own, so
+    counters span restarts). ``tracer`` (`trace.Tracer`), ``telemetry``
+    (`telemetry.TelemetryExporter`) and ``anomaly``
+    (`anomaly.AnomalyMonitor`) attach the observability hooks, and
+    ``tracker`` with ``metrics_log_every=N`` logs `ServingMetrics.snapshot`
+    every N steps; all are off by default, as in the reference."""
 
     def __init__(
         self,
@@ -347,6 +433,12 @@ class ServingEngine:
         prefix_cache: PrefixCacheConfig | bool = False,
         speculation: Any = None,
         journal: Any = None,
+        tracker: Any = None,
+        metrics_log_every: int = 0,
+        metrics: ServingMetrics | None = None,
+        tracer: Any = None,
+        telemetry: Any = None,
+        anomaly: Any = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -432,7 +524,26 @@ class ServingEngine:
         if self.paged:
             self.scheduler.capacity_fn = self._paged_capacity
         self.eos_token_id = eos_token_id
-        self.metrics = ServingMetrics()
+        self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.tracker = tracker
+        self.metrics_log_every = int(metrics_log_every)
+        # the observability hooks: each defaults to a null singleton, so an
+        # emission site costs one attribute check when it is off. The
+        # scheduler shares the tracer, so QUEUED edges are stamped where the
+        # queue changes
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.scheduler.tracer = self.tracer
+        self.telemetry = telemetry if telemetry is not None else NULL_TELEMETRY
+        self.anomaly = anomaly if anomaly is not None else NULL_ANOMALY
+        # (key, compiled, wall_s) of the most recent dispatch: what
+        # EV_DISPATCH reports
+        self._last_dispatch: tuple[str, bool, float] = ("", False, 0.0)
+        self._timings = StepTimings()
+        self._last_step_timings: dict[str, float] = {}
+        self._step_count = 0
+        # the decode dispatch's key (the reference's program names)
+        self._step_key = (f"spec_k{self.draft_tokens}" if self.draft_tokens else "step"
+                          if self.tokens_per_sync == 1 else f"step_x{self.tokens_per_sync}")
         self._draining = False
         # the durable request journal: every accepted submit is on disk
         # before the caller sees the acceptance
@@ -514,6 +625,9 @@ class ServingEngine:
         # so lagged results of an earlier tenant are recognised and dropped
         self._slot_epoch = np.zeros(b, np.int64)
         self._slot_last_token_t = [0.0] * b
+        # each slot's inter-token gaps, kept only while its tenant carries an
+        # SLO with an ITL bound (None otherwise): judged at retirement
+        self._slot_itl: list[list[float] | None] = [None] * b
         # tokens of each slot's stream already in the journal (PROGRESS is
         # written every journal.progress_every tokens)
         self._slot_logged = np.zeros(b, np.int64)
@@ -559,11 +673,19 @@ class ServingEngine:
         if request.arrival_time is None:
             request.arrival_time = time.perf_counter()
         self.metrics.mark_start()
+        tr = self.tracer
+        if tr.enabled:
+            tr.emit(EV_SUBMIT, request.request_id, prompt_len=len(request.prompt),
+                    slo=request.slo.name if request.slo is not None else None)
         if self._draining:
             self.metrics.requests_rejected.inc()
+            if tr.enabled:
+                tr.emit(EV_REJECT, request.request_id, reason=REJECT_DRAINING)
             return SubmitResult(False, request.request_id, REJECT_DRAINING,
                                 "engine is draining toward shutdown")
         result = self.scheduler.submit(request)
+        if not result.accepted and tr.enabled:
+            tr.emit(EV_REJECT, request.request_id, reason=result.reason)
         if result.accepted:
             if self.journal is not None:
                 self.journal.log_submit(request)  # write-ahead
@@ -609,6 +731,133 @@ class ServingEngine:
             stats["kv_scale_bytes"] = sum(t.numel() * t.element_size() for t in scales)
         return stats
 
+    def memory_stats(self) -> dict[str, Any]:
+        """Live memory and occupancy gauges (the reference's keys, unprefixed:
+        the telemetry exporter namespaces them under ``serving/mem/``, and
+        lifts the ``quant/`` group, present only in a quantized mode, to
+        ``serving/quant/``). Host-side only: pool bytes are exact ``nbytes``
+        sums of the port's cache tensors (a paged pool's sink block and the
+        one write cursor included; the reference keeps no sink and a cursor
+        per layer), occupancy comes from the host slot mirrors, the
+        ``block_pool/`` gauges from the allocator and the prefix cache, and
+        on CUDA ``device{i}/bytes_in_use``, ``bytes_limit`` and
+        ``peak_bytes_in_use`` from `torch.cuda`'s allocator counters (none
+        of which waits on the stream); the CPU omits them, as the reference
+        does."""
+        pool_bytes = tree_nbytes(self._cache)
+        stats: dict[str, Any] = {
+            "slot_pool_bytes": pool_bytes,
+            "slots_total": self.max_concurrency,
+            "slots_active": self.active_slots,
+            "slots_free": len(self._free),
+            "queue_depth": self.scheduler.queue_depth,
+            "inflight_dispatches": len(self._inflight),
+        }
+        for dtype, n in tree_bytes_by_dtype(self._cache).items():
+            stats[f"slot_pool_bytes/{dtype}"] = n
+        for k, v in self.quant_stats().items():
+            stats[f"quant/{k}"] = v
+        if self.paged:
+            # free + resident (trie) + private (slot-held) == total
+            alloc = self._allocator
+            base = self.prefix_cache.memory_stats() if self.prefix_cache is not None else {}
+            resident = int(base.get("blocks_resident", 0))
+            for k, v in {
+                "pool_bytes": pool_bytes,
+                "block_tokens": self._block_tokens,
+                "blocks_total": alloc.num_blocks,
+                "blocks_free": alloc.free_count,
+                "blocks_resident": resident,
+                "blocks_private": alloc.owned_count - resident,
+                "blocks_pinned": int(base.get("blocks_pinned", 0)),
+                "blocks_evictable": int(base.get("blocks_evictable", 0)),
+                "blocks_stranded": int(base.get("blocks_stranded", 0)),
+                "fragmentation": base.get("fragmentation", 0.0),
+            }.items():
+                stats[f"block_pool/{k}"] = v
+        elif self.prefix_cache is not None:
+            for k, v in self.prefix_cache.memory_stats().items():
+                stats[f"block_pool/{k}"] = v
+        if self.device.type == "cuda":
+            i = self.device.index if self.device.index is not None else torch.cuda.current_device()
+            stats[f"device{i}/bytes_in_use"] = int(torch.cuda.memory_allocated(i))
+            stats[f"device{i}/bytes_limit"] = int(torch.cuda.get_device_properties(i).total_memory)
+            stats[f"device{i}/peak_bytes_in_use"] = int(torch.cuda.max_memory_allocated(i))
+        return stats
+
+    def capacity_headroom(self) -> dict[str, Any]:
+        """Admission-capacity estimate (the reference's), host arithmetic over
+        the slot mirrors: ``slots_free``, ``queue_depth``,
+        ``admissible_requests`` (free slots less the queue already waiting
+        for them, floored at 0), ``decode_tokens_remaining`` (tokens still
+        owed across active slots at their budgets),
+        ``token_capacity_remaining`` (that plus ``max_len - 1`` per free
+        slot; paged, the free-slot term is capped by the free blocks' tokens),
+        ``decode_tokens_per_sec`` (`ServingMetrics.tokens_per_sec`),
+        ``seconds_to_exhaustion`` (capacity over that rate; None while idle)
+        and ``est_slot_free_s`` (0 with a free slot, else the smallest
+        remaining budget over the per-slot rate; None without a rate).
+        Paged adds ``blocks_free`` and ``blocks_per_request_est`` (private
+        blocks per active request). The KV tier's ``host_blocks`` is absent:
+        the port has no KV tier yet."""
+        free = len(self._free)
+        remaining: list[int] = []
+        for slot in range(self.max_concurrency):
+            request, out = self._slot_req[slot], self._slot_out[slot]
+            if not self._active[slot] or request is None or out is None:
+                continue
+            budget = min(int(request.params.max_new_tokens), self.max_len - len(request.prompt))
+            remaining.append(max(0, budget - len(out.tokens)))
+        decode_remaining = sum(remaining)
+        if self.paged:
+            blocks_free = self._allocator.free_count
+            capacity = decode_remaining + min(free * (self.max_len - 1),
+                                              blocks_free * self._block_tokens)
+        else:
+            capacity = decode_remaining + free * (self.max_len - 1)
+        rate = self.metrics.tokens_per_sec()
+        if free > 0:
+            slot_free_s: float | None = 0.0
+        elif rate > 0 and remaining:
+            slot_free_s = min(remaining) * len(remaining) / rate
+        else:
+            slot_free_s = None
+        head = {
+            "slots_free": free,
+            "queue_depth": self.scheduler.queue_depth,
+            "admissible_requests": max(0, free - self.scheduler.queue_depth),
+            "decode_tokens_remaining": decode_remaining,
+            "token_capacity_remaining": capacity,
+            "decode_tokens_per_sec": rate,
+            "seconds_to_exhaustion": capacity / rate if rate > 0 else None,
+            "est_slot_free_s": slot_free_s,
+        }
+        if self.paged:
+            active = self.active_slots
+            priv = sum(len(p) for p in self._slot_priv)
+            head["blocks_free"] = blocks_free
+            head["blocks_per_request_est"] = (priv / active if active
+                                              else float(self._blocks_per_slot))
+        return head
+
+    def _release_device(self) -> None:
+        """Free this engine's device memory now: the captured graph (its
+        private memory pool), the KV pools, the per-slot buffers and the
+        pinned host rings. For an engine that will not step again (the
+        supervisor's restart drops the old engine before the new one
+        captures); an engine sits in a reference cycle, so without this its
+        memory would wait for the garbage collector."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._graph = None
+        self._inflight.clear()
+        for name in ("_cache", "_d_tokens", "_d_pos", "_d_remaining", "_d_finished", "_d_temps",
+                     "_d_topks", "_d_poison", "_d_tables", "_d_uniform", "_d_out", "_d_drafts"):
+            setattr(self, name, None)
+        self._fetch_ring = self._draft_ring = self._poison_ring = []
+        if self.prefix_cache is not None:
+            self.prefix_cache.pool = None
+
     # ------------------------------------------------------------ engine loop
     def step(self) -> list[RequestOutput]:
         """Fetch the results the device has finished, admit into free slots,
@@ -616,42 +865,137 @@ class ServingEngine:
         slot, fetch results lagging by up to ``pipeline_depth`` dispatches,
         and return the requests whose completion was observed during this
         call (at depth > 1 a finish surfaces when its fetch lands, up to
-        ``pipeline_depth - 1`` calls after the device produced it)."""
+        ``pipeline_depth - 1`` calls after the device produced it). The
+        call's phase breakdown is `last_step_timings` after it."""
+        tm = self._timings
+        tm.reset()
+        t_start = time.perf_counter()
+        journal = self.journal
+        j_start = journal.append_s if journal is not None else 0.0
         finished: list[RequestOutput] = []
         self._reap_ready(finished)
         self._admit_pending(finished)
-        self.metrics.steps.inc()
-        if self._active.any():
+        # schedule: the reap and admission wall net of the dispatches,
+        # fetches, deliveries and journal appends they made
+        j_sched = (journal.append_s - j_start) if journal is not None else 0.0
+        tm.schedule_s = max(0.0, (time.perf_counter() - t_start) - tm.dispatch_s
+                            - tm.fetch_blocked_s - tm.deliver_s - j_sched)
+        n_active = self.active_slots
+        self.metrics.observe_step(n_active, self.max_concurrency, self.scheduler.queue_depth)
+        self._step_count += 1
+        if n_active:
             if self.draft_tokens:
                 # drafting happens at dispatch time, from the host's
                 # (possibly pipeline-lagged) view of each stream
+                t_draft = time.perf_counter()
                 self._stage_drafts()
-            self._fill_uniform()
+                tm.draft_s = time.perf_counter() - t_draft
             poison = self._poison_mask()
             self._dispatch_fault_point()
-            if poison is not None:
-                self._stage_poison(poison)
-            if self._graph is not None:
-                self._graph.replay()
-            else:
-                with torch.no_grad():
-                    self._step_body()
-            if poison is not None:
-                self._d_poison.zero_()  # on the stream, after the step read it
+            self.metrics.dispatch_depth.observe(len(self._inflight) + 1)
+            entry = self._dispatch(self._step_key, self._dispatch_step, poison)
             self.metrics.decode_dispatches.inc()
             self.metrics.decode_steps.inc(self.tokens_per_sync)
             if self.draft_tokens:
                 self.metrics.spec_forwards.inc()
-            self.metrics.dispatch_depth.observe(len(self._inflight) + 1)
-            self._inflight.append(self._fetch(
-                "spec" if self.draft_tokens else "step", self._d_out,
-                tuple(range(self.max_concurrency)), tuple(int(e) for e in self._slot_epoch)))
+            self._inflight.append(entry)
+            if self.tracer.enabled:
+                # the step's phases so far ride the dispatch event
+                phases = {"phases": {"schedule_s": round(tm.schedule_s, 6),
+                                     "draft_s": round(tm.draft_s, 6),
+                                     "dispatch_s": round(tm.dispatch_s, 6)}}
+                if self.draft_tokens:
+                    self._trace_dispatch(entry, "spec", drafted=self.draft_tokens, **phases)
+                else:
+                    self._trace_dispatch(entry, "step", **phases)
             self._drain_to(self.pipeline_depth - 1, finished)
         if not self._active.any():
             # nothing left to overlap with: flush the lagged tail so every
             # finish is returned before the caller sees has_work False
             self._drain_to(0, finished)
+        if (self.tracker is not None and self.metrics_log_every
+                and self._step_count % self.metrics_log_every == 0):
+            self.metrics.log_to(self.tracker, step=self._step_count)
+        if self.telemetry.enabled:
+            t_tel = time.perf_counter()
+            self.telemetry.poll(self)
+            tm.telemetry_s = time.perf_counter() - t_tel
+        tm.journal_s = (journal.append_s - j_start) if journal is not None else 0.0
+        tm.total_s = time.perf_counter() - t_start
+        self.metrics.observe_step_phases(tm)
+        self._last_step_timings = tm.as_dict()
+        if self.anomaly.enabled:
+            self.anomaly.observe(self)
         return finished
+
+    @property
+    def last_step_timings(self) -> dict[str, float]:
+        """Phase breakdown (`StepTimings.as_dict`) of the most recent `step`
+        call, {} before the first. Supervisor heartbeats and flight-recorder
+        bundles embed it."""
+        return self._last_step_timings
+
+    def _dispatch_step(self, poison: np.ndarray | None) -> _Inflight:
+        """Enqueue one decode dispatch and its fetch: the sampled slots'
+        uniform draws, the poison mask (only while an injector poisons), the
+        graph replay (the eager step on the CPU) and the copy of its output
+        plane behind it."""
+        self._fill_uniform()
+        if poison is not None:
+            self._stage_poison(poison)
+        if self._graph is not None:
+            self._graph.replay()
+        else:
+            with torch.no_grad():
+                self._step_body()
+        if poison is not None:
+            self._d_poison.zero_()  # on the stream, after the step read it
+        entry = self._fetch("spec" if self.draft_tokens else "step", self._d_out,
+                            tuple(range(self.max_concurrency)),
+                            tuple(int(e) for e in self._slot_epoch))
+        entry.tokens = self.draft_tokens + 1 if self.draft_tokens else self.tokens_per_sync
+        return entry
+
+    def _dispatch(self, key: str, fn: Any, *args: Any) -> Any:
+        """Run one dispatch ``fn(*args)`` under its key, timed into
+        ``dispatch_s``. A dispatch during which a kernel library was built
+        or loaded (`ops._build.LOAD_LOG` grew: nvcc at first use) counts as
+        one compile of ``key``. With a tracer the call runs inside its
+        ``annotation(key)`` (``torch.profiler.record_function`` with
+        ``annotate=True``) and its key, compile flag and seconds are kept
+        for the EV_DISPATCH event. Nothing here synchronises the stream."""
+        loads = len(_build.LOAD_LOG)
+        t0 = time.perf_counter()
+        if self.tracer.enabled:
+            with self.tracer.annotation(key):
+                out = fn(*args)
+        else:
+            out = fn(*args)
+        dt = time.perf_counter() - t0
+        self._timings.dispatch_s += dt
+        compiled = len(_build.LOAD_LOG) != loads
+        if compiled:
+            self.metrics.record_compile(key, dt)
+        self._last_dispatch = (key, compiled, dt)
+        return out
+
+    def _trace_dispatch(self, entry: _Inflight, what: str, **extra: Any) -> None:
+        """Stamp a just-enqueued `_Inflight` with a dispatch sequence number
+        and emit its EV_DISPATCH: which dispatch ran (compile or replay), the
+        pipeline depth it joined at, and every (slot, rid, gen) riding it,
+        the handle `trace.validate` balances against EV_FETCH."""
+        tr = self.tracer
+        if not tr.enabled:
+            return
+        entry.seq = tr.next_seq()
+        key, compiled, dt = self._last_dispatch
+        reqs = tuple((int(slot), self._slot_req[slot].request_id, int(gen))
+                     for slot, gen in zip(entry.slots, entry.epochs)
+                     if self._active[slot] and self._slot_req[slot] is not None
+                     and self._slot_epoch[slot] == gen)
+        tr.emit(EV_DISPATCH, None, seq=entry.seq, what=what, key=key, compiled=compiled,
+                dispatch_s=round(dt, 6), depth=len(self._inflight), step=self._step_count,
+                reqs=reqs, tokens=entry.tokens, **extra)
 
     def run(self, requests: Iterable[Request], max_steps: int | None = None
             ) -> list[RequestOutput]:
@@ -701,6 +1045,11 @@ class ServingEngine:
         queued = self.scheduler.cancel(request_id)
         if queued is not None:
             self.metrics.requests_cancelled.inc()
+            self._slo_never_served(queued)
+            if self.tracer.enabled:
+                self.tracer.emit(EV_FINISH, request_id, reason=FINISH_ABORTED, tokens=0,
+                                 depth=len(self._inflight),
+                                 **self._slo_trace_attrs(queued.slo))
             if self.journal is not None:
                 self.journal.log_finish(request_id, FINISH_ABORTED, [])
             return RequestOutput(
@@ -760,6 +1109,11 @@ class ServingEngine:
         aborted: list[RequestOutput] = []
         for req in self.scheduler.drain_queue():
             self.metrics.requests_cancelled.inc()
+            self._slo_never_served(req)
+            if self.tracer.enabled:
+                self.tracer.emit(EV_FINISH, req.request_id, reason=reason,
+                                 tokens=len(req.resume_tokens), depth=0,
+                                 **self._slo_trace_attrs(req.slo))
             if self.journal is not None:
                 self.journal.log_finish(req.request_id, reason, list(req.resume_tokens))
             aborted.append(RequestOutput(
@@ -769,6 +1123,12 @@ class ServingEngine:
         for slot in np.flatnonzero(self._active):
             self.metrics.requests_cancelled.inc()
             self._retire(int(slot), reason, now, aborted)
+        if self.tracer.enabled:
+            # the cleared entries are never fetched: their EV_FETCH is
+            # emitted as discarded, so dispatch/fetch stays balanced
+            for i, entry in enumerate(self._inflight):
+                self.tracer.emit(EV_FETCH, None, seq=entry.seq, what=entry.kind, discarded=True,
+                                 depth=len(self._inflight) - i - 1, tokens=entry.tokens)
         self._inflight.clear()  # every entry now predates a generation bump
         return aborted
 
@@ -840,6 +1200,7 @@ class ServingEngine:
                     "rid": rid, "prompt": rec["prompt"], "params": rec["params"],
                     "deadline_s": rec.get("deadline_s"),
                     "cache_prefix": rec.get("cache_prefix", True),
+                    "priority": rec.get("priority", 0),
                     "toks": scan.tokens.get(rid, []), "retries": 0,
                     "admitted": rid in admitted,
                     "waited_s": max(0.0, scan.last_ts - float(rec.get("ts", scan.last_ts))),
@@ -913,6 +1274,10 @@ class ServingEngine:
             if done_reason is not None:
                 report.completed[rid] = RequestOutput(request_id=rid, prompt_len=plen,
                                                       tokens=toks, finish_reason=done_reason)
+                if self.tracer.enabled:
+                    self.tracer.emit(EV_SUBMIT, rid, prompt_len=plen, recovered=True)
+                    self.tracer.emit(EV_FINISH, rid, reason=done_reason, tokens=len(toks),
+                                     depth=0)
                 if self.journal is not None:
                     if foreign:
                         self.journal.log_submit(Request(prompt=prompt, params=sp, request_id=rid))
@@ -924,6 +1289,9 @@ class ServingEngine:
                 report.expired.append(RequestOutput(
                     request_id=rid, prompt_len=plen, tokens=[],
                     finish_reason=f"rejected:{REJECT_DEADLINE}", finish_time=perf_now))
+                if self.tracer.enabled:
+                    self.tracer.emit(EV_SUBMIT, rid, prompt_len=plen, recovered=True)
+                    self.tracer.emit(EV_REJECT, rid, reason=REJECT_DEADLINE, expired=True)
                 if self.journal is not None:
                     if foreign:
                         self.journal.log_submit(Request(prompt=prompt, params=sp, request_id=rid,
@@ -938,7 +1306,10 @@ class ServingEngine:
                               deadline_s=None if admitted else deadline,
                               cache_prefix=bool(e.get("cache_prefix", True)),
                               retries=int(e.get("retries", 0)), resume_tokens=toks[:keep],
-                              arrival_time=perf_now - waited)
+                              arrival_time=perf_now - waited, priority=int(e.get("priority", 0)))
+            if self.tracer.enabled:
+                self.tracer.emit(EV_SUBMIT, rid, prompt_len=plen, recovered=True,
+                                 resumed=len(request.resume_tokens))
             result = self.scheduler.submit(request)
             if not result.accepted:
                 raise RuntimeError(
@@ -978,6 +1349,10 @@ class ServingEngine:
         for request in self.scheduler.pop_expired(now):
             # expired while queued: rejected, never admitted
             self.metrics.requests_expired.inc()
+            self._slo_never_served(request)
+            if self.tracer.enabled:
+                self.tracer.emit(EV_REJECT, request.request_id, reason=REJECT_DEADLINE,
+                                 expired=True, **self._slo_trace_attrs(request.slo))
             if self.journal is not None:
                 self.journal.log_finish(request.request_id, f"rejected:{REJECT_DEADLINE}", [])
             finished.append(RequestOutput(
@@ -1056,7 +1431,20 @@ class ServingEngine:
             reservation = self._reserve_blocks(group, matches)
             if reservation is None:
                 return False
-        self._dispatch_fault_point()
+        try:
+            self._dispatch_fault_point()
+        except BaseException:
+            # the group has left the queue: put it back (its blocks and pins
+            # released), so a supervisor that fails the engine accounts for
+            # every request of it. The reference loses such a group here.
+            for _, priv in reservation or ():
+                self._allocator.free(priv)
+            for m in matches or ():
+                if m.nodes:
+                    self.prefix_cache.release(m)
+            for request in reversed(group):
+                self.scheduler.requeue(request)
+            raise
         slots = [self._free.popleft() for _ in group]
         padded = np.zeros((nb, bucket), np.int64)
         lens = np.zeros(nb, np.int64)  # the tokens each row prefills
@@ -1099,41 +1487,47 @@ class ServingEngine:
             for i, m in enumerate(matches):
                 tables[i, :len(m.block_ids)] = m.block_ids
             arrays.append(tables)
-        staging, views = self._upload(*arrays)
-        ids, slots_t, lens_t, cached_t, budgets_t, temps, topks = views[:7]
-        with torch.no_grad():
-            if matches is None:
-                kv: list = []
-                hidden = self.model(ids, kv_out=kv, return_hidden=True)
-            else:
-                pool = self._cache if self.paged else self.prefix_cache.pool
-                rows = gather_block_rows(pool, views[7][:, :span], cached_t)
-                hidden = self.model(ids, cached_t, cache=rows, return_hidden=True)
-                kv = [rows.storages(layer) for layer in range(len(rows.k))]
-            last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
-            # health, as in the decode step: a poisoned row's logits are NaN
-            last = last.masked_fill(self._d_poison[slots_t][:, None], float("nan"))
-            ok = torch.isfinite(last).all(dim=-1)
-            first = self._sample(last, temps, topks, gens)
-            # decode resumes from the full prompt end: cached prefix + suffix
-            prompt_lens = cached_t + lens_t
-            if self.paged:
-                tables_t, dest_t = views[7:]
-                scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t,
-                                       prompt_lens.to(torch.int32))
-                self._d_tables[slots_t] = tables_t.to(torch.int32)
-            else:
-                scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, prompt_lens), slots_t,
-                                    prompt_lens)
-            rem0 = budgets_t - 1
-            fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos)) | ~ok
-            self._d_tokens[slots_t] = first
-            self._d_pos[slots_t] = prompt_lens
-            self._d_remaining[slots_t] = rem0
-            self._d_finished[slots_t] = fin0
-            self._d_temps[slots_t] = temps
-            self._d_topks[slots_t] = topks
-            out = torch.stack([first, fin0.long(), ok.long()])
+
+        def run() -> tuple[torch.Tensor, torch.Tensor]:
+            staging, views = self._upload(*arrays)
+            ids, slots_t, lens_t, cached_t, budgets_t, temps, topks = views[:7]
+            with torch.no_grad():
+                if matches is None:
+                    kv: list = []
+                    hidden = self.model(ids, kv_out=kv, return_hidden=True)
+                else:
+                    pool = self._cache if self.paged else self.prefix_cache.pool
+                    rows = gather_block_rows(pool, views[7][:, :span], cached_t)
+                    hidden = self.model(ids, cached_t, cache=rows, return_hidden=True)
+                    kv = [rows.storages(layer) for layer in range(len(rows.k))]
+                last = self.model.logits(hidden[torch.arange(nb, device=dev), lens_t - 1])
+                # health, as in the decode step: a poisoned row's logits are NaN
+                last = last.masked_fill(self._d_poison[slots_t][:, None], float("nan"))
+                ok = torch.isfinite(last).all(dim=-1)
+                first = self._sample(last, temps, topks, gens)
+                # decode resumes from the full prompt end: cached prefix + suffix
+                prompt_lens = cached_t + lens_t
+                if self.paged:
+                    tables_t, dest_t = views[7:]
+                    scatter_rows_to_blocks(self._cache, kv, slots_t, dest_t,
+                                           prompt_lens.to(torch.int32))
+                    self._d_tables[slots_t] = tables_t.to(torch.int32)
+                else:
+                    scatter_cache_slots(self._cache, SlotKVCache.from_rows(kv, prompt_lens), slots_t,
+                                        prompt_lens)
+                rem0 = budgets_t - 1
+                fin0 = (rem0 <= 0) | ((self._eos >= 0) & (first == self._eos)) | ~ok
+                self._d_tokens[slots_t] = first
+                self._d_pos[slots_t] = prompt_lens
+                self._d_remaining[slots_t] = rem0
+                self._d_finished[slots_t] = fin0
+                self._d_temps[slots_t] = temps
+                self._d_topks[slots_t] = topks
+                out = torch.stack([first, fin0.long(), ok.long()])
+            return staging, out
+
+        key = f"{'admit' if matches is None else 'cached_admit'}[pb{bucket}b{nb}]"
+        staging, out = self._dispatch(key, run)
         epochs = []
         for i, (slot, request) in enumerate(zip(slots, group)):
             self._slot_epoch[slot] += 1
@@ -1148,14 +1542,23 @@ class ServingEngine:
                 tokens=list(request.resume_tokens), finish_reason="",
                 arrival_time=request.arrival_time)
             self._slot_logged[slot] = len(request.resume_tokens)
+            slo = request.slo
+            self._slot_itl[slot] = [] if slo is not None and slo.itl_p99_s is not None else None
             if matches is not None:
                 # the pins travel with the slot, released at retirement
                 self._slot_match[slot] = matches[i] if matches[i].nodes else None
                 self._slot_hit[slot] = bool(matches[i].tokens)
         self.metrics.prefill_tokens.inc(int(lens.sum()))
         self.metrics.admit_batch_size.observe(nb)
-        self._inflight.append(self._fetch("admit", out, tuple(slots), tuple(epochs),
-                                          staging=staging))
+        entry = self._fetch("admit", out, tuple(slots), tuple(epochs), staging=staging)
+        self._inflight.append(entry)
+        if self.tracer.enabled:
+            self._trace_dispatch(entry, "admit" if matches is None else "cached_admit")
+            for i, (slot, request) in enumerate(zip(slots, group)):
+                self.tracer.emit(EV_ADMIT, request.request_id, slot=slot, gen=epochs[i],
+                                 bucket=bucket, seq=entry.seq, cache_hit=bool(cached[i]),
+                                 cached_tokens=cached[i], resumed=len(request.resume_tokens),
+                                 depth=len(self._inflight))
         # at depth 1 this fetches the first tokens now: an EOS or a 1-token
         # budget frees its slot before the next group is sized
         self._drain_to(self.pipeline_depth - 1, finished)
@@ -1498,8 +1901,11 @@ class ServingEngine:
         wrappers' launch counts advance while the graph is recorded: the
         difference is what each replay launches."""
         dev = self.device
+        t0 = time.perf_counter()
         counters = (paged_decode_attention, nf4_matmul)
-        side = torch.cuda.Stream(dev)
+        side = _WARMUP_STREAMS.get(dev)
+        if side is None:
+            side = _WARMUP_STREAMS[dev] = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.no_grad(), torch.cuda.stream(side):
             for _ in range(2):
@@ -1512,6 +1918,9 @@ class ServingEngine:
             raise RuntimeError(f"capturing the decode step as a CUDA graph failed: {exc}") from exc
         self.graph_launches = {fn.__name__: fn.launches - n for fn, n in zip(counters, before)}
         self._graph = graph
+        # the warm-up (with any kernel build it triggers) and the capture
+        # count as one compile of the decode step
+        self.metrics.record_compile(self._step_key, time.perf_counter() - t0)
 
     # ---------------------------------------------------------------- fetches
     def _fetch(self, kind: str, out: torch.Tensor, slots: tuple[int, ...],
@@ -1547,11 +1956,16 @@ class ServingEngine:
 
     def _process_oldest(self, finished: list[RequestOutput]) -> None:
         entry = self._inflight.popleft()
+        tm = self._timings
+        journal = self.journal
         t0 = time.perf_counter()
         if entry.event is not None:
             entry.event.synchronize()
         fetched = entry.host.numpy().copy()
-        self.metrics.host_blocked_s.observe(time.perf_counter() - t0)
+        blocked = time.perf_counter() - t0
+        tm.fetch_blocked_s += blocked
+        self.metrics.host_blocked_s.observe(blocked)
+        j0 = journal.append_s if journal is not None else 0.0
         now = time.perf_counter()
         if entry.kind == "admit":
             self._process_admit(entry, fetched, now, finished)
@@ -1559,6 +1973,19 @@ class ServingEngine:
             self._process_spec(entry, fetched, now, finished)
         else:
             self._process_step(entry, fetched, now, finished)
+        j1 = journal.append_s if journal is not None else 0.0
+        deliver = max(0.0, (time.perf_counter() - now) - (j1 - j0))
+        tm.deliver_s += deliver
+        if self.tracer.enabled:
+            # emitted after delivery, so the fetch carries its own host cost
+            extra = ({"accepted": int(np.max(fetched[self.draft_tokens + 1, 0]))}
+                     if entry.kind == "spec" else {})
+            self.tracer.emit(EV_FETCH, None, seq=entry.seq, what=entry.kind,
+                             blocked_s=round(blocked, 6), depth=len(self._inflight),
+                             tokens=entry.tokens,
+                             phases={"blocked_s": round(blocked, 6),
+                                     "deliver_s": round(deliver, 6),
+                                     "journal_s": round(j1 - j0, 6)}, **extra)
 
     def _live(self, slot: int, epoch: int) -> bool:
         """The slot still holds the tenant a result was dispatched for."""
@@ -1623,7 +2050,7 @@ class ServingEngine:
                     poisoned_any = True
                     self._quarantine(slot, now, finished)
                     continue
-                self.metrics.inter_token_s.observe(gaps[slot])
+                self._observe_gap(slot, gaps[slot])
                 self._deliver(slot, token, bool(fins[t, slot]), now, finished)
                 appended += 1
         if appended:
@@ -1668,7 +2095,7 @@ class ServingEngine:
                     poisoned_any = True
                     self._quarantine(slot, now, finished)
                     continue
-                self.metrics.inter_token_s.observe(gaps[slot])
+                self._observe_gap(slot, gaps[slot])
                 self._deliver(slot, token, bool(fins[t, slot]), now, finished)
                 appended += 1
         if appended:
@@ -1676,6 +2103,13 @@ class ServingEngine:
             self.metrics.spec_tokens.inc(appended)
         if poisoned_any:
             self.metrics.steps_poisoned.inc()
+
+    def _observe_gap(self, slot: int, gap: float) -> None:
+        """One decode token's inter-token gap: into the ITL histogram, and
+        into the slot's own gaps while its SLO bounds ITL."""
+        self.metrics.inter_token_s.observe(gap)
+        if self._slot_itl[slot] is not None:
+            self._slot_itl[slot].append(gap)
 
     def _deliver(self, slot: int, token: int, done: bool, now: float,
                  finished: list[RequestOutput], first: bool = False) -> None:
@@ -1707,6 +2141,10 @@ class ServingEngine:
         (the replay is token for token an unpoisoned run). Second offence:
         retire it with `FINISH_ERROR`, partial tokens kept."""
         request = self._slot_req[slot]
+        if self.tracer.enabled:
+            self.tracer.emit(EV_QUARANTINE, request.request_id, slot=slot,
+                             gen=int(self._slot_epoch[slot]), retry=request.retries,
+                             depth=len(self._inflight))
         if request.retries == 0:
             request.retries += 1
             self.metrics.requests_retried.inc()
@@ -1716,16 +2154,54 @@ class ServingEngine:
             self._retire(slot, FINISH_ERROR, now, finished)
 
     # ------------------------------------------------------------ retirement
+    def _slo_never_served(self, request: Request) -> None:
+        """SLO bookkeeping for an accepted request that ends without being
+        admitted (deadline expiry, a queued cancel or abort): a miss for its
+        class, its TTFT bound (if any) certainly blown."""
+        if request.slo is not None:
+            self.metrics.observe_slo(request.slo, clean=False,
+                                     ttft_ok=request.slo.ttft_s is None, itl_ok=True, tokens=0)
+
+    @staticmethod
+    def _slo_trace_attrs(slo: Any, attained: bool = False) -> dict[str, Any]:
+        """SLO class and verdict for a terminal trace event; empty for a
+        request without an SLO, whose terminal keeps the plain schema."""
+        if slo is None:
+            return {}
+        return {"slo": slo.name, "attained": bool(attained)}
+
     def _retire(self, slot: int, reason: str, now: float,
                 finished: list[RequestOutput]) -> None:
         out = self._slot_out[slot]
+        request = self._slot_req[slot]
         out.finish_reason = reason
         out.finish_time = now
+        if out.arrival_time is not None:
+            self.metrics.request_latency_s.observe(max(0.0, now - out.arrival_time))
         self.metrics.requests_finished.inc()
+        # SLO attainment on clean finishes only: the TTFT bound is judged on
+        # the host-observed first-token latency, the ITL bound on this
+        # request's own p99 decode gap (nearest rank, as the histograms)
+        slo = request.slo
+        ttft_ok = itl_ok = True
+        if slo is not None:
+            if slo.ttft_s is not None:
+                ttft_ok = (out.first_token_time is not None and out.arrival_time is not None
+                           and out.first_token_time - out.arrival_time <= slo.ttft_s)
+            gaps = self._slot_itl[slot]
+            if slo.itl_p99_s is not None and gaps:
+                itl_ok = nearest_rank(sorted(gaps), 0.99) <= slo.itl_p99_s
+        attained = self.metrics.observe_slo(
+            slo, clean=reason in (FINISH_EOS, FINISH_LENGTH), ttft_ok=ttft_ok, itl_ok=itl_ok,
+            tokens=len(out.tokens) - len(request.resume_tokens))
+        if self.tracer.enabled:
+            self.tracer.emit(EV_FINISH, out.request_id, slot=slot,
+                             gen=int(self._slot_epoch[slot]), reason=reason,
+                             tokens=len(out.tokens), depth=len(self._inflight),
+                             **self._slo_trace_attrs(slo, attained))
         if self.journal is not None:
             # the terminal record carries the whole stream
             self.journal.log_finish(out.request_id, reason, out.tokens)
-        request = self._slot_req[slot]
         # a poisoned stream donates nothing; nor does a resumed one, whose
         # prompt rows came from a continuation prefill in a larger bucket
         # than a cold prefill of the prompt would use
@@ -1769,6 +2245,7 @@ class ServingEngine:
             self.prefix_cache.release(self._slot_match[slot])
         self._slot_match[slot] = None
         self._slot_hit[slot] = False
+        self._slot_itl[slot] = None
         if self.paged:
             self._allocator.free(self._slot_priv[slot])
             self._slot_priv[slot] = []

@@ -2,9 +2,10 @@
 `accelerate_tpu.serving.request`, for the fields the port's engine reads:
 ``cache_prefix`` (the prefix cache), and the crash-recovery and reliability
 fields ``deadline_s``, ``retries`` and ``resume_tokens`` (the journal,
-snapshot and resume, the health flag's quarantine). The reference's SLO,
-tenant and priority fields come with the modules that read them (the trace,
-the cluster's scheduler)."""
+snapshot and resume, the health flag's quarantine), the latency objective
+``slo`` (`SLOSpec`, the goodput accounting) and ``priority`` (the
+supervisor's brownout). The reference's ``tenant``, `SubmitOptions` and
+``REJECT_PREDICTED_TTFT`` come with the front door and its fair scheduler."""
 
 from __future__ import annotations
 
@@ -22,6 +23,30 @@ REJECT_PROMPT_TOO_LONG = "prompt_too_long"
 REJECT_EMPTY_PROMPT = "empty_prompt"
 REJECT_DEADLINE = "deadline"  # queued past its deadline, never admitted
 REJECT_DRAINING = "draining"  # engine is draining toward shutdown
+# supervisor rejections (`serving.supervisor`): the restart budget is
+# exhausted and the engine is being failed loudly, or the overload brownout is
+# shedding low-priority admissions
+REJECT_UNHEALTHY = "unhealthy"
+REJECT_OVERLOAD = "overload"
+
+
+@dataclass(frozen=True)
+class SLOSpec:
+    """A latency service-level objective one request is served under.
+
+    ``ttft_s`` bounds time-to-first-token (arrival -> first generated token on
+    the host); ``itl_p99_s`` bounds the request's own p99 inter-token gap
+    (nearest-rank over its observed decode gaps). Either bound may be None
+    (unconstrained). ``name`` is the SLO *class*: per-class attainment
+    counters aggregate under it in `ServingMetrics.goodput`.
+
+    A request **attains** its SLO iff it finishes cleanly (EOS or length:
+    aborted, errored and expired requests are misses by definition) and every
+    set bound holds. Tokens from attaining requests are *goodput*."""
+
+    ttft_s: float | None = None
+    itl_p99_s: float | None = None
+    name: str = "default"
 
 
 @dataclass(frozen=True)
@@ -53,6 +78,16 @@ class Request:
     with ``prefix_cache=``): it neither reads cached blocks nor donates its
     prompt's.
 
+    ``slo`` optionally attaches an `SLOSpec`: the engine judges its TTFT and
+    per-request ITL-p99 bounds at retirement and feeds the per-class
+    attainment and goodput counters of `metrics.ServingMetrics` (a request
+    without one is unconstrained and counts as goodput on a clean finish).
+    It is host-side accounting only, never scheduling, and not journaled.
+
+    ``priority`` is the admission priority class (higher is more important,
+    0 the lowest): the supervisor's overload brownout sheds new admissions
+    with ``priority < level`` (`REJECT_OVERLOAD`). FIFO order is unaffected.
+
     ``resume_tokens`` is the crash-recovery handle: the tokens this request
     had already emitted before an engine restart. Admission then prefills
     ``prompt + resume_tokens`` in one pass and fast-forwards the request's
@@ -67,7 +102,9 @@ class Request:
     deadline_s: float | None = None
     retries: int = 0
     cache_prefix: bool = True
+    slo: SLOSpec | None = None
     resume_tokens: list[int] = field(default_factory=list)
+    priority: int = 0
 
     @property
     def prefill_len(self) -> int:

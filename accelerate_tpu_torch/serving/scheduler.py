@@ -8,7 +8,9 @@ will prefill, and a run never mixes requests that read the cache with ones
 that opted out or resume a stream. The queue is bounded; a full queue rejects
 with a reason instead of growing without limit. A request's queue-wait
 deadline is enforced by `pop_expired`, and `snapshot_queue` lets the engine's
-snapshot read the queue without draining it.
+snapshot read the queue without draining it. The engine shares its tracer
+(``scheduler.tracer``), so every QUEUED edge, a fresh acceptance or a
+requeue, is stamped where the queue changes.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .request import (
     Request,
     SubmitResult,
 )
+from .trace import EV_QUEUED, NULL_TRACER
 
 
 class FIFOScheduler:
@@ -49,6 +52,8 @@ class FIFOScheduler:
         # requests to how many of them the block pool can seat right now, so
         # admission is gated on blocks, not just free slots
         self.capacity_fn = None
+        # the engine replaces this with its own tracer (serving.trace)
+        self.tracer = NULL_TRACER
         self._queue: deque[Request] = deque()
 
     def bucket_for(self, prompt_len: int) -> int:
@@ -112,6 +117,9 @@ class FIFOScheduler:
         if rejected is not None:
             return rejected
         self._queue.append(request)
+        if self.tracer.enabled:
+            self.tracer.emit(EV_QUEUED, request.request_id, queue_depth=len(self._queue),
+                             bucket=self.prefill_bucket_for(request))
         return SubmitResult(True, request.request_id)
 
     def peek_run(self, max_n: int) -> int:
@@ -143,6 +151,9 @@ class FIFOScheduler:
         the block pool short goes back in its original order, and a
         quarantined request must not wait behind new arrivals."""
         self._queue.appendleft(request)
+        if self.tracer.enabled:
+            self.tracer.emit(EV_QUEUED, request.request_id, queue_depth=len(self._queue),
+                             bucket=self.prefill_bucket_for(request), requeued=True)
 
     def pop_expired(self, now: float) -> list[Request]:
         """Remove and return every queued request whose ``deadline_s`` queue

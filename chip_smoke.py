@@ -208,7 +208,27 @@ Phases run in order; any failure exits non-zero:
    engine's decode steps beside phase 5's (2, 1) window, with the health
    flag's kernels alone at the decode shape
    (`bf16_reliability_decode_profile`);
-24. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+24. observable, self-healing serving, GPT-2 small at full width and depth,
+   16 slots, depth 2, phase 5's 48 requests, in the paged fused engine
+   (kernel #1) and the slot engine; in fp32 (TF32 off): (a) a traced
+   engine's streams equal an untraced one's, its trace validates with
+   nothing dropped, every request runs from submit to one terminal event,
+   dispatches and fetches pair by seq, and the exported file reloads
+   (`fp32_observability_trace`); (b) `EngineSupervisor` with a journal
+   under one `FaultInjector` (a hang past the stall timeout, a device
+   error, a poison storm) restarts with ``stall``, ``device_error`` and
+   ``nan_storm``, the streams equal the uninterrupted run's, the first
+   step is no stall, with each restart's seconds and the allocated memory
+   after the restarts (`fp32_observability_supervisor`); a spent budget
+   rejects every request with ``unhealthy`` and `step` raises
+   (`fp32_observability_unhealthy`). Then bf16, the fused engine at
+   (2, 1): (c) a brownout over three waves of priorities 0-3, level,
+   sheds and clamps a step (`bf16_observability_brownout`); (d) the hooks'
+   costs in turns, off, traced, traced + telemetry + anomaly
+   (`bf16_observability_cost` and its summary), and a profiler window with
+   ``annotate=True`` whose ``step`` ranges enclose the decode graph's
+   launches (`bf16_observability_profile`);
+25. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -2677,6 +2697,420 @@ def reliability_serving(torch, np, seed: int, card: str, prompts: list[list[int]
     return lines
 
 
+def observability_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> dict:
+    """Phase 24: observable, self-healing serving on the card. GPT-2 small at
+    full width and depth, 16 slots, depth 2, phase 5's 48 requests (every
+    second sampled), in the paged fused engine (kernel #1 in its decode
+    graph) and the slot engine. fp32 (TF32 off): (a) a traced engine's
+    streams equal an untraced one's, its trace validates with nothing
+    dropped, every request runs from submit to one terminal event, every
+    dispatch pairs with a fetch by seq, and the exported file reloads; (b)
+    `EngineSupervisor` with a journal under one `FaultInjector`: a hang past
+    the stall timeout, a device error and a poison storm give the restarts
+    ``stall``, ``device_error`` and ``nan_storm``, the 48 streams equal the
+    uninterrupted run's, the first step is no stall, each restart's seconds
+    and the allocated memory after the restarts are reported; an exhausted
+    budget rejects with ``unhealthy`` and raises. Then bf16, the fused
+    engine at (2, 1): (c) a brownout over a burst of priorities 0-3, level,
+    sheds, clamped budgets and exit per step; (d) off, traced and
+    traced+telemetry+anomaly in turns (off, traced, full, full, traced,
+    off): tokens/s, TTFT, ITL, events a second and host us an event, the
+    step phases against the step wall, the device gauges against the
+    allocator's peak; and a profiler window with ``annotate=True``, whose
+    ``step`` ranges enclose the decode graph's launches. Returns the traced
+    fused run's kernel #1 launches and the phase's lines."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.reliability import FaultInjector, FaultSpec, inject
+    from accelerate_tpu_torch.serving import (
+        FINISH_LENGTH,
+        REJECT_OVERLOAD,
+        REJECT_UNHEALTHY,
+        AnomalyMonitor,
+        EngineSupervisor,
+        EngineUnhealthyError,
+        PagedKVConfig,
+        Request,
+        SamplingParams,
+        ServingEngine,
+        SupervisorConfig,
+        TelemetryConfig,
+        TelemetryExporter,
+        Tracer,
+    )
+    from accelerate_tpu_torch.serving.trace import (
+        EV_DISPATCH,
+        EV_FETCH,
+        EV_QUEUED,
+        EV_RESTART,
+        EV_SUBMIT,
+        TERMINAL_KINDS,
+        load_exported,
+        request_streams,
+        validate,
+    )
+
+    t_phase = time.perf_counter()
+    params = [dict(max_new_tokens=64, temperature=0.8 if i % 2 else 0.0,
+                   top_k=50 if i % 2 else None, seed=i) for i in range(len(prompts))]
+
+    def requests(priorities=None):
+        return [Request(prompt=list(p), params=SamplingParams(**kw),
+                        priority=0 if priorities is None else priorities[i])
+                for i, (p, kw) in enumerate(zip(prompts, params))]
+
+    def build(model, mode, **kw):
+        engine = ServingEngine(model, max_concurrency=16, prompt_buckets=BUCKETS,
+                               pipeline_depth=2, **RELIABILITY_MODES[mode], **kw)
+        if engine._graph is None:
+            raise AssertionError(f"observability {mode}: the engine captured no decode graph")
+        return engine
+
+    def streams(outputs):
+        return [outputs[i].tokens for i in range(len(prompts))]
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_observability_"))
+    lines, launches = [], 0
+    try:
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+        for mode in RELIABILITY_MODES:
+            # (a) the trace gates
+            want = streams({o.request_id: o for o in build(model, mode).run(requests())})
+            settle()
+            tracer = Tracer()
+            engine = build(model, mode, tracer=tracer)
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            outs = {o.request_id: o for o in engine.run(requests())}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run_launches = replay_launches(engine, "paged_decode_attention",
+                                           fa.paged_decode_attention.launches)
+            if mode == "paged_fused":
+                launches = run_launches
+            events = tracer.events()
+            report = tracer.validate()
+            per_request = request_streams(events)
+            complete = sum(s[0].kind == EV_SUBMIT and s[-1].kind in TERMINAL_KINDS
+                           for s in per_request.values())
+            dispatched = {e.data["seq"] for e in events if e.kind == EV_DISPATCH}
+            fetched = [e.data["seq"] for e in events if e.kind == EV_FETCH]
+            summary = tracer.export(tmp / f"{mode}.trace.json")
+            back, dropped = load_exported(json.loads((tmp / f"{mode}.trace.json").read_text()))
+            reloaded = validate(back, dropped=dropped)
+            line = {"phase": "fp32_observability_trace", "mode": mode, "requests": len(outs),
+                    "streams_equal_untraced": sum(a == b for a, b in zip(streams(outs), want)),
+                    "events": len(events), "dropped": tracer.dropped, "clean": report["clean"],
+                    "anomalies": report["anomalies"][:4], "requests_traced": len(per_request),
+                    "submit_to_terminal": complete, "dispatches": len(dispatched),
+                    "fetches": len(fetched), "fetch_seqs_equal_dispatch_seqs":
+                        sorted(fetched) == sorted(dispatched),
+                    "export_trace_events": summary["trace_events"],
+                    "export_bytes": (tmp / f"{mode}.trace.json").stat().st_size,
+                    "reloaded_events": len(back), "reloaded_clean": reloaded["clean"],
+                    "wall_s": wall, "kernel_launches": run_launches,
+                    "compile_count": engine.metrics.compile_count.value, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if (line["streams_equal_untraced"] != len(prompts) or not report["clean"]
+                    or tracer.dropped or complete != len(prompts)
+                    or not line["fetch_seqs_equal_dispatch_seqs"] or len(back) != len(events)
+                    or not reloaded["clean"]
+                    or (mode == "paged_fused") != (run_launches > 0)):
+                raise AssertionError(f"observability {mode}: a trace gate failed: {line}")
+            del engine, tracer, events, back
+            settle()
+
+            # (b) supervision: stall, device error and storm restarts, then
+            # an exhausted budget
+            builds: list[float] = []
+
+            def factory(**kw):
+                t_build = time.perf_counter()
+                engine = build(model, mode, **kw)
+                builds.append(time.perf_counter() - t_build)
+                return engine
+
+            settle()
+            mem_before = torch.cuda.memory_allocated()
+            tracer = Tracer()
+            config = SupervisorConfig(stall_timeout_s=1.0, storm_quarantines=2,
+                                      storm_window_steps=8, max_restarts=3)
+            t0 = time.perf_counter()
+            sup = EngineSupervisor(factory, tmp / f"{mode}.journal", config=config, tracer=tracer)
+            construct_s = time.perf_counter() - t0
+            compiles_built = sup.metrics.compile_count.value
+            mem_one = torch.cuda.memory_allocated() - mem_before
+            # dispatches 0-20 or so are the first step's admissions (runs
+            # of one bucket) and decode: the faults come after it
+            inj = FaultInjector(seed=seed, specs=[
+                FaultSpec.step_hang(at_calls=(30,), hang_s=1.5),
+                FaultSpec.device_error(at_calls=(100,)),
+                FaultSpec.poison(at_steps=(150,))])  # every active slot: a storm
+            got, restart_steps, first_step = {}, [], None
+            with inject(inj):
+                for r in requests():
+                    if not sup.submit(r).accepted:
+                        raise AssertionError(f"observability {mode}: a submit was rejected")
+                while sup.has_work:
+                    before = sup.restarts
+                    t_step = time.perf_counter()
+                    for o in sup.step():
+                        if o.request_id in got:
+                            raise AssertionError(f"observability {mode}: request "
+                                                 f"{o.request_id} delivered twice")
+                        got[o.request_id] = o
+                    step_s = time.perf_counter() - t_step
+                    if first_step is None:
+                        first_step = {"step_s": step_s,
+                                      "stalled": sup.heartbeat()["stalled"],
+                                      "stalls": sup.metrics.supervisor_stalls.value}
+                    if sup.restarts != before:
+                        restart_steps.append(step_s)
+            reasons = [e.data["reason"] for e in tracer.events() if e.kind == EV_RESTART]
+            report = tracer.validate()
+            rebuilds = builds[1:]
+            sup.close()
+            del sup
+            settle()
+            mem_after = torch.cuda.memory_allocated() - mem_before
+            line = {"phase": "fp32_observability_supervisor", "mode": mode,
+                    "restart_reasons": reasons, "restarts": len(reasons),
+                    "streams_equal_uninterrupted": sum(
+                        got[i].tokens == want[i] for i in range(len(prompts)) if i in got),
+                    "finished": sum(o.finish_reason == FINISH_LENGTH for o in got.values()),
+                    "faults_fired": [(e.scope, e.call_index, e.kind) for e in inj.fired],
+                    "first_step": first_step, "construct_s": construct_s,
+                    "compile_count_after_construction": compiles_built,
+                    "restart_step_s": restart_steps, "rebuild_s": rebuilds,
+                    "resume_and_rest_s": [s - b for s, b in zip(restart_steps, rebuilds)],
+                    "memory_allocated_one_engine": mem_one,
+                    "memory_allocated_after_restarts_and_close": mem_after,
+                    "trace_clean": report["clean"], "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if (reasons != ["stall", "device_error", "nan_storm"]
+                    or line["streams_equal_uninterrupted"] != len(prompts)
+                    or first_step["stalled"] or first_step["stalls"]
+                    or not report["clean"] or mem_after > mem_one // 2):
+                raise AssertionError(f"observability {mode}: a supervision gate failed: {line}")
+
+            inj = FaultInjector(seed=seed, specs=[FaultSpec.device_error(at_calls=(8,))])
+            sup = EngineSupervisor(factory, tmp / f"{mode}.dead.journal",
+                                   config=SupervisorConfig(max_restarts=0))
+            dead = {}
+            with inject(inj):
+                for r in requests():
+                    sup.submit(r)
+                while sup.has_work:
+                    for o in sup.step():
+                        dead[o.request_id] = o.finish_reason
+            probe = sup.submit(Request(prompt=list(prompts[0]),
+                                       params=SamplingParams(max_new_tokens=4)))
+            try:
+                sup.step()
+                raised = False
+            except EngineUnhealthyError:
+                raised = True
+            line = {"phase": "fp32_observability_unhealthy", "mode": mode,
+                    "accounted": len(dead), "rejected_unhealthy": sum(
+                        r == f"rejected:{REJECT_UNHEALTHY}" for r in dead.values()),
+                    "finished": sum(r == FINISH_LENGTH for r in dead.values()),
+                    "submit_after": probe.reason, "step_raises": raised,
+                    "shed": sup.metrics.supervisor_shed.value, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if (len(dead) != len(prompts) or not line["rejected_unhealthy"]
+                    or probe.reason != REJECT_UNHEALTHY or not raised):
+                raise AssertionError(f"observability {mode}: the unhealthy end failed: {line}")
+            del sup
+            settle()
+        del model
+        settle()
+        torch.cuda.empty_cache()
+
+        # bf16, the fused engine at (2, 1)
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                           device="cuda", seed=seed)
+
+        def fused(**kw):
+            return ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
+                                 paged_attention="fused", max_concurrency=16,
+                                 prompt_buckets=BUCKETS, pipeline_depth=2, **kw)
+
+        fused().run(requests()[:4])  # warm-up
+
+        # (c) brownout over a burst of priorities 0..3, three waves of 48
+        config = SupervisorConfig(stall_timeout_s=30.0, brownout_ttft_s=0.05,
+                                  brownout_exit_fraction=0.5, brownout_exit_steps=3,
+                                  brownout_max_level=3, brownout_clamp_tokens=16)
+        sup = EngineSupervisor(lambda **kw: fused(**kw), tmp / "brownout.journal", config=config,
+                               tracer=Tracer())
+        prios = [i % 4 for i in range(len(prompts))]
+        waves = {0: requests(prios), 8: requests(prios), 16: requests(prios)}
+        per_step, served = [], {}
+        step = 0
+        while sup.has_work or step <= max(waves):
+            sheds = clamped = accepted = 0
+            for r in waves.get(step, ()):
+                res = sup.submit(r)
+                accepted += res.accepted
+                sheds += res.reason == REJECT_OVERLOAD
+                clamped += res.accepted and r.params.max_new_tokens == 16
+            for o in sup.step():
+                served[o.request_id] = o
+            head = sup.engine.capacity_headroom()
+            per_step.append([step, sup.brownout_level, accepted, sheds, clamped,
+                             round(head["est_slot_free_s"] or 0.0, 4), head["queue_depth"]])
+            step += 1
+        levels = [s[1] for s in per_step]
+        runs_of_level = []  # [level, first step, last step]
+        for s in per_step:
+            if runs_of_level and runs_of_level[-1][0] == s[1]:
+                runs_of_level[-1][2] = s[0]
+            else:
+                runs_of_level.append([s[1], s[0], s[0]])
+        phases = [(e.data["phase"], e.data["level"]) for e in sup.engine.tracer.events()
+                  if e.kind == "brownout"]
+        line = {"phase": "bf16_observability_brownout", "steps": len(per_step),
+                "level_runs_level_first_last_step": runs_of_level,
+                "waves_step_level_accepted_shed_clamped_est_slot_free_s_queue": [
+                    s for s in per_step if s[0] in waves],
+                "est_slot_free_s_every_8th_step": [s[5] for s in per_step[::8]],
+                "max_level": max(levels), "sheds": sum(s[3] for s in per_step),
+                "clamped": sum(s[4] for s in per_step), "served": len(served),
+                "exit_step": next((s[0] for s in per_step[::-1] if s[1] > 0), None),
+                "markers": phases, "brownouts": sup.metrics.supervisor_brownouts.value,
+                "time_in_brownout_s": sup.metrics.supervisor_time_in_brownout_s,
+                "trace_clean": sup.engine.tracer.validate()["clean"], "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        sup.close()
+        del sup
+        settle()
+
+        # (d) the hooks' costs, in turns
+        emit_tracer = Tracer(capacity=1 << 17)
+        t0 = time.perf_counter()
+        for i in range(100_000):
+            emit_tracer.emit(EV_QUEUED, i, queue_depth=3, bucket=64)
+        emit_us = (time.perf_counter() - t0) * 1e6 / 100_000
+        del emit_tracer
+        runs, rates = {}, {}
+        for turn, kind in enumerate(("off", "traced", "full", "full", "traced", "off")):
+            settle()
+            torch.cuda.reset_peak_memory_stats()
+            kw = {}
+            if kind != "off":
+                kw["tracer"] = Tracer(capacity=1 << 20)
+            if kind == "full":
+                kw["telemetry"] = TelemetryExporter(TelemetryConfig(
+                    interval_s=0.0, jsonl_path=str(tmp / f"telemetry{turn}.jsonl")))
+                kw["anomaly"] = AnomalyMonitor()
+            engine = fused(**kw)
+            t0 = time.perf_counter()
+            outs = engine.run(requests())
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            m = engine.metrics
+            mem = engine.memory_stats()
+            n_events = len(kw["tracer"].events()) if "tracer" in kw else 0
+            phase_sums = {name: getattr(m, f"step_phase_{name}").sum for name in (
+                "schedule_s", "draft_s", "dispatch_s", "fetch_blocked_s", "deliver_s",
+                "journal_s", "telemetry_s")}
+            device = {k.split("/", 1)[1]: v for k, v in mem.items() if k.startswith("device")}
+            runs.setdefault(kind, []).append([o.tokens for o in outs])
+            rates.setdefault(kind, []).append((m.tokens_generated.value / wall, wall, n_events))
+            line = {"phase": "bf16_observability_cost", "turn": turn, "hooks": kind,
+                    "requests": len(outs), "generated_tokens": m.tokens_generated.value,
+                    "wall_s": wall, "tokens_per_s": m.tokens_generated.value / wall,
+                    "ttft_p50_s": m.ttft_s.quantile(0.5), "ttft_p99_s": m.ttft_s.quantile(0.99),
+                    "itl_p50_s": m.inter_token_s.quantile(0.5),
+                    "itl_p99_s": m.inter_token_s.quantile(0.99),
+                    "events": n_events, "events_per_s": n_events / wall,
+                    "telemetry_points": len(kw["telemetry"].points()) if kind == "full" else 0,
+                    "steps": m.steps.value, "step_total_s": m.step_total_s.sum,
+                    "step_phase_s": phase_sums,
+                    "step_phases_share_of_total": sum(phase_sums.values()) / m.step_total_s.sum,
+                    "device_gauges": device,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "decode_replays": m.decode_dispatches.value, "card": card}
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            if kind == "full":
+                kw["telemetry"].close()
+            del engine, kw
+        off_wall = statistics.mean(w for _, w, _ in rates["off"])
+        summary = {"phase": "bf16_observability_cost_summary",
+                   "tokens_per_s_mean": {k: statistics.mean(r for r, _, _ in v)
+                                         for k, v in rates.items()},
+                   "wall_s_vs_off": {k: statistics.mean(w for _, w, _ in v) / off_wall - 1
+                                     for k, v in rates.items()},
+                   "host_us_per_event_from_wall": {
+                       k: (statistics.mean(w for _, w, _ in v) - off_wall) * 1e6
+                       / statistics.mean(e for _, _, e in v)
+                       for k, v in rates.items() if k != "off"},
+                   "emit_us_alone": emit_us,
+                   "streams_equal_across_turns": all(r == runs["off"][0]
+                                                     for rs in runs.values() for r in rs),
+                   "card": card}
+        print(json.dumps(summary), flush=True)
+        lines.append(summary)
+
+        # a profiler window with annotate=True around 16 decode replays
+        from torch.profiler import ProfilerActivity, profile
+
+        tracer = Tracer(annotate=True)
+        engine = fused(tracer=tracer)
+        for r in requests()[:16]:
+            engine.submit(r)
+        engine.step()
+        engine.step()  # admitted; decode under way
+        replays0 = engine.metrics.decode_dispatches.value
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                engine.step()
+            torch.cuda.synchronize()
+        replays = engine.metrics.decode_dispatches.value - replays0
+        evs = list(prof.events())
+        ranges = [e for e in evs if e.name == "step" and e.device_type
+                  == torch.autograd.DeviceType.CPU]
+        graph_launches = [e for e in evs if "GraphLaunch" in e.name]
+        enclosed = sum(any(r.time_range.start <= g.time_range.start
+                           and g.time_range.end <= r.time_range.end for r in ranges)
+                       for g in graph_launches)
+        paged = sum(1 for e in evs if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "paged_decode" in e.name)
+        line = {"phase": "bf16_observability_profile", "replays": replays,
+                "step_ranges": len(ranges), "graph_launches": len(graph_launches),
+                "graph_launches_inside_step_ranges": enclosed,
+                "paged_decode_kernels": paged, "card": card}
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        if (replays == 0 or len(ranges) != replays or enclosed != len(graph_launches)
+                or not graph_launches):
+            raise AssertionError(f"observability profile: the step ranges do not enclose the "
+                                 f"graph replays: {line}")
+        while engine.has_work:
+            engine.step()
+        del engine, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "observability_phase_s", "seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return {"launches": launches, "lines": lines}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3124,13 +3558,17 @@ def main() -> int:
     # 23. reliability: crash-exact serving, the health flag, deadlines, drain
     reliability_serving(torch, np, args.seed, card, serve_prompts, decode_profiles[(2, 1)])
 
-    # 24. summary lines
+    # 24. observability: the tracer, the supervisor, brownout, the hooks' costs
+    observability = observability_serving(torch, np, args.seed, card, serve_prompts)
+
+    # 25. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
-        "launches": serving["kernel_launches"], "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "launches": serving["kernel_launches"] + observability["launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],

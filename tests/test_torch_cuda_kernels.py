@@ -1141,3 +1141,79 @@ def test_resumed_sampled_streams_equal_the_uninterrupted_ones_on_the_card(hopper
     assert outs == want
     assert any(r.params.temperature > 0 for r in _graph_engine_requests(sampled=True)
                if r.params.seed in report.resumed)
+
+
+def test_supervised_fused_engine_restarts_on_the_card(hopper, tmp_path):
+    """`EngineSupervisor` over the paged fused engine: an injected
+    ``device_error`` and a ``step_hang`` past the stall timeout each rebuild
+    the engine (its graph captured again) and resume the journal; the fp32
+    streams equal an uninterrupted engine's, the first steps (kernel loads,
+    graph captures) are never stalls, and the restarts leave the allocated
+    device memory where one engine's is."""
+    import gc
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.reliability import FaultInjector, FaultSpec, inject
+    from accelerate_tpu_torch.serving import (
+        EngineSupervisor,
+        ServingEngine,
+        SupervisorConfig,
+        Tracer,
+    )
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+
+    def factory(**kw):
+        return ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED, **kw)
+
+    want = {o.request_id: o.tokens for o in factory().run(_graph_engine_requests(sampled=True))}
+    gc.collect()
+    torch.cuda.synchronize()
+    tracer = Tracer()
+    sup = EngineSupervisor(factory, tmp_path / "j.journal", tracer=tracer,
+                           config=SupervisorConfig(stall_timeout_s=0.5, max_restarts=4))
+    torch.cuda.synchronize()
+    one_engine = torch.cuda.memory_allocated()
+    inj = FaultInjector(seed=0, specs=[FaultSpec.device_error(at_calls=(9,)),
+                                       FaultSpec.step_hang(at_calls=(20,), hang_s=1.0)])
+    got = {}
+    with inject(inj):
+        for r in _graph_engine_requests(sampled=True):
+            assert sup.submit(r).accepted
+        while sup.has_work:
+            for o in sup.step():
+                got[o.request_id] = o.tokens
+    assert [e.data["reason"] for e in tracer.events() if e.kind == "restart"] == [
+        "device_error", "stall"]
+    assert got == want
+    assert sup.metrics.supervisor_stalls.value == 1  # the hang only
+    assert sup.metrics.compile_count.value >= 3  # a capture per engine
+    assert tracer.validate()["clean"]
+    sup.close()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= one_engine + (1 << 20)
+
+
+def test_annotated_dispatches_wrap_the_graph_replays(hopper):
+    """``Tracer(annotate=True)``: in a profiler window each decode replay
+    runs inside its ``record_function("step")`` range, and the window
+    holds the paged-decode kernel launched by the replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine, Tracer
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    tracer = Tracer(annotate=True)
+    engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), tracer=tracer,
+                           **PAGED)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.run(_graph_engine_requests(sampled=False))
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()]
+    replays = sum(1 for e in tracer.events() if e.kind == "dispatch" and e.data["what"] == "step")
+    assert names.count("step") >= replays > 0
+    assert any(n.startswith("admit[pb") for n in names)
+    assert any("paged_decode" in n for n in names)
+    assert tracer.validate()["clean"]

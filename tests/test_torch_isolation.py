@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.serving.journal", "accelerate_tpu_torch.reliability",
                 "accelerate_tpu_torch.reliability.faults",
                 "accelerate_tpu_torch.reliability.preemption",
-                "accelerate_tpu_torch.reliability.retry"):
+                "accelerate_tpu_torch.reliability.retry", "accelerate_tpu_torch.serving.trace",
+                "accelerate_tpu_torch.serving.supervisor", "accelerate_tpu_torch.serving.telemetry",
+                "accelerate_tpu_torch.serving.anomaly"):
         assert mod in got["modules"]
 
 

@@ -194,16 +194,20 @@ def test_engine_validation(models, kw, exc, match):
 
 def test_engine_defaults_pinned_beside_the_reference():
     """The port's engine defaults are the reference's (the slot pool, the
-    gather oracle, depth 2): pinned on both sides, so a change to either
-    shows here."""
+    gather oracle, depth 2, and every observability hook off: no tracer,
+    telemetry, anomaly monitor, tracker or shared metrics): pinned on both
+    sides, so a change to either shows here."""
     import inspect
 
     def defaults(cls):
         sig = inspect.signature(cls.__init__).parameters
-        return {k: sig[k].default for k in ("pipeline_depth", "paged_kv", "paged_attention")}
+        return {k: sig[k].default for k in (
+            "pipeline_depth", "paged_kv", "paged_attention", "tracer", "telemetry", "anomaly",
+            "tracker", "metrics_log_every", "metrics")}
 
     assert defaults(ServingEngine) == defaults(JaxServingEngine) == dict(
-        pipeline_depth=2, paged_kv=False, paged_attention="gather")
+        pipeline_depth=2, paged_kv=False, paged_attention="gather", tracer=None, telemetry=None,
+        anomaly=None, tracker=None, metrics_log_every=0, metrics=None)
 
 
 def test_paged_kv_false_serves_from_the_slot_pool(models, reference):
