@@ -34,7 +34,14 @@ head_dim 64, 128, 192 and 256 and at every multiple of 64 above (the
 padding's head_dims). And crash-exact serving: the durable request journal
 (`serving.journal`), the engine's snapshot and resume, its in-step health
 flag with quarantine, queue deadlines and drain, and `reliability` (fault
-injection, retry, SIGTERM preemption).
+injection, retry, SIGTERM preemption). And the reference's training loop at
+one process: the `accelerator.Accelerator` facade (``prepare`` of models,
+optimizers, loaders and schedulers in any order; ``accumulate``,
+``backward``, ``clip_grad_norm_``, ``gather_for_metrics``; fp16 with
+`utils.precision.DynamicGradScaler`; ``save_state``/``load_state`` in
+`checkpointing`; trackers in `tracking`), `data_loader.DataLoaderShard`,
+`scheduler.AcceleratedScheduler`, `models.bert`, and the reference's
+headline example, ``python -m accelerate_tpu_torch.examples.nlp_example``.
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first

@@ -1,37 +1,61 @@
-"""The port of `accelerate_tpu.accelerator` ``Accelerator``, for the training
-path ``bench.py`` drives: ``prepare`` a model and its optimizer, then
-``make_train_step(loss_fn)`` and call ``step(batch)``.
+"""The port of `accelerate_tpu.accelerator` ``Accelerator``: the facade a
+training loop calls, at one process on one device.
 
-One process on one device. The train step keeps the reference's semantics
-(`accelerate_tpu/accelerator.py` ``make_train_step``):
+``prepare(*args)`` takes models (``nn.Module``, their parameters the fp32
+masters), optimizers, data loaders and schedulers in any order and returns
+them in that order: a `PreparedModel`, an `AcceleratedOptimizer`, a
+`DataLoaderShard` and an `AcceleratedScheduler`, each bound to this
+accelerator's `GradientState`. A loop then runs either
 
-  - every call is one microbatch; ``_do_sync`` decides whether it closes an
-    accumulation boundary;
-  - the loss is computed on compute-dtype copies of the fp32 master
-    parameters (`utils.precision.PrecisionPolicy.cast_to_compute`), cast to
-    fp32, and its gradients are summed into the masters' ``.grad`` over the
-    microbatches;
-  - at a boundary the sum is scaled by ``1/k``, optionally clipped by the
-    global norm with factor ``min(1, max_norm / (norm + 1e-6))``, and the
-    optimizer steps and clears the gradients;
-  - the returned loss is the microbatch's fp32 loss.
+  - the fused step: ``step = make_train_step(loss_fn)``, ``step(batch)``
+    per microbatch; or
+  - the reference's imperative loop: ``with accumulate(): loss =
+    backward(loss_fn, batch)``, ``clip_grad_norm_``, ``optimizer.step()``,
+    ``scheduler.step()``, ``optimizer.zero_grad()``.
+
+Both keep the reference's semantics (`accelerate_tpu/accelerator.py`):
+
+  - every microbatch is one `_do_sync`: a boundary every
+    ``gradient_accumulation_steps`` microbatches, and at the last batch of a
+    prepared loader's epoch (the step count then restarts);
+  - the loss runs on compute-dtype copies of the fp32 masters
+    (`utils.precision.PrecisionPolicy.cast_to_compute`), through a
+    `BoundModel`, and its gradients reach the masters' ``.grad`` in fp32,
+    summed over the microbatches and scaled by ``1/k``;
+  - under fp16 the loss is scaled inside the backward by the scaler's inner
+    factor, the gradients are unscaled at the boundary, and an update whose
+    gradients are not finite is skipped (and the scheduler with it);
+  - clipping uses one global norm over every gradient, with factor
+    ``min(1, max_norm / (norm + 1e-6))``.
 
 PyTorch runs eagerly, so there is no compiled step and nothing is donated;
-the optimizer updates the masters in place. Comm hooks, meshes, fp16 loss
-scaling and fp8 wait for later slices (ROADMAP Queue 1).
+the optimizer updates the masters in place. The multi-process surface
+(collectives, ``no_sync`` over DDP, meshes) waits for ROADMAP Queue 1, item
+21: at one process the collectives return what this process holds.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+import gc
+import itertools
+from collections.abc import Mapping
+from dataclasses import dataclass
+from typing import Any, Callable, Iterator
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from . import checkpointing
+from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
 from .optimizer import AcceleratedOptimizer
-from .state import AcceleratorState, GradientState
-from .utils.precision import PrecisionPolicy
+from .scheduler import AcceleratedScheduler
+from .state import AcceleratorState, GradientState, PartialState
+from .tracking import filter_trackers
+from .utils import operations
+from .utils.precision import DynamicGradScaler, PrecisionPolicy
 
 
 class BoundModel:
@@ -53,60 +77,409 @@ class BoundModel:
         return functional_call(self.module, self.params, args, kwargs)
 
 
+class PreparedModel:
+    """What `Accelerator.prepare` returns for a model (the reference's
+    ``PreparedModel``). Calling it is the eval forward: the module runs on
+    compute-dtype copies of its masters and floating outputs come back in
+    fp32 (reference `accelerator.py:169-205`). Every other attribute is the
+    module's own (``parameters()``, ``to()``, ``config``, ...), so code
+    written for the module keeps working; ``module`` is the module itself."""
+
+    def __init__(self, module: nn.Module, policy: PrecisionPolicy):
+        self.module = module
+        self.policy = policy
+
+    def compute_params(self) -> dict[str, torch.Tensor]:
+        """The module's parameters in the compute dtype, and its buffers."""
+        return {**self.policy.cast_to_compute(dict(self.module.named_parameters())),
+                **dict(self.module.named_buffers())}
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        if self.policy.mode == "no":
+            return self.module(*args, **kwargs)
+        out = functional_call(self.module, self.compute_params(), args, kwargs)
+        return operations.convert_to_fp32(out)
+
+    def eval(self) -> "PreparedModel":
+        self.module.eval()
+        return self
+
+    def train(self, mode: bool = True) -> "PreparedModel":
+        self.module.train(mode)
+        return self
+
+    def state_dict(self, *args: Any, **kwargs: Any) -> dict[str, torch.Tensor]:
+        return self.module.state_dict(*args, **kwargs)
+
+    def load_state_dict(self, state_dict: dict[str, Any], strict: bool = True) -> Any:
+        return self.module.load_state_dict(state_dict, strict=strict)
+
+    def __getattr__(self, name: str) -> Any:
+        module = self.__dict__.get("module")
+        if module is None:
+            raise AttributeError(name)
+        return getattr(module, name)
+
+    def __repr__(self) -> str:
+        return f"PreparedModel({self.module.__class__.__name__}, mixed_precision={self.policy.mode!r})"
+
+
+@dataclass
+class ProjectConfiguration:
+    """Where checkpoints and logs go (reference `accelerator.py:223`).
+    ``automatic_checkpoint_naming`` makes each ``save_state()`` write
+    ``checkpoints/checkpoint_<iteration>``, keeping at most ``total_limit``;
+    ``async_save`` is ``save_state``'s default."""
+
+    project_dir: str | None = None
+    logging_dir: str | None = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: int | None = None
+    iteration: int = 0
+    async_save: bool = False
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+
+@dataclass
+class GradientAccumulationPlugin:
+    """Reference `accelerator.py:243`."""
+
+    num_steps: int = 1
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
+
+
+class _RemovableHandle:
+    """Removes a registered save or load pre-hook."""
+
+    _ids = itertools.count()
+
+    def __init__(self, registry: dict):
+        self._registry = registry
+        self.id = next(self._ids)
+
+    def remove(self) -> None:
+        self._registry.pop(self.id, None)
+
+
 class Accelerator:
     """``device=None`` means CUDA (RuntimeError when it is absent; pass
-    ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"`` or
-    ``"bf16"``; ``"fp16"`` and ``"fp8"`` raise until they are ported."""
+    ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"``,
+    ``"bf16"`` or ``"fp16"`` (with a `DynamicGradScaler` at torch
+    GradScaler's defaults); ``"fp8"`` raises until it is ported."""
 
     def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
+                 log_with: Any = None, project_dir: str | None = None,
+                 project_config: ProjectConfiguration | None = None):
         self.policy = PrecisionPolicy.from_mode(mixed_precision)
         self.state = AcceleratorState(self.policy.mode, device)
-        self.gradient_state = GradientState(gradient_accumulation_steps)
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        plugin = gradient_accumulation_plugin or GradientAccumulationPlugin(gradient_accumulation_steps)
+        self.gradient_state = GradientState(plugin.num_steps, plugin.adjust_scheduler,
+                                            plugin.sync_with_dataloader)
+        self.scaler = DynamicGradScaler() if self.policy.requires_loss_scaling else None
         self.step = 0
-        self._models: list[nn.Module] = []
+        self.trackers: list = []
+        self._log_with = log_with
+        self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
+        self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[DataLoaderShard] = []
+        self._custom_objects: list[Any] = []
+        self._save_state_pre_hooks: dict[int, Callable] = {}
+        self._load_state_pre_hooks: dict[int, Callable] = {}
+        self._pending_saves: list = []
 
+    # ------------------------------------------------------------ topology
     @property
     def device(self) -> torch.device:
         return self.state.device
 
-    def prepare(self, model: nn.Module,
-                optimizer: torch.optim.Optimizer) -> tuple[nn.Module, AcceleratedOptimizer]:
-        """Register ``model`` (its parameters are the fp32 masters, already on
-        this accelerator's device) and ``optimizer``, built over those
-        parameters as PyTorch's idiom has it. Returns the model and the
-        `AcceleratedOptimizer`."""
-        if not isinstance(model, nn.Module):
-            raise TypeError(f"prepare takes an nn.Module, got {type(model).__name__}")
-        if not isinstance(optimizer, torch.optim.Optimizer):
-            raise TypeError(f"prepare takes a torch.optim.Optimizer, got {type(optimizer).__name__}")
-        params = list(model.parameters())
-        for p in params:
+    @property
+    def partial_state(self) -> PartialState:
+        return self.state.partial
+
+    @property
+    def mixed_precision(self) -> str:
+        return self.policy.mode
+
+    @property
+    def project_dir(self) -> str | None:
+        return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> str | None:
+        return self.project_configuration.logging_dir
+
+    @property
+    def num_processes(self) -> int:
+        return self.partial_state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.partial_state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.partial_state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.partial_state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.partial_state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.partial_state.is_last_process
+
+    @property
+    def sync_gradients(self) -> bool:
+        return self.gradient_state.sync_gradients
+
+    @property
+    def gradient_accumulation_steps(self) -> int:
+        return self.gradient_state.num_steps
+
+    @property
+    def optimizer_step_was_skipped(self) -> bool:
+        return any(opt.step_was_skipped for opt in self._optimizers)
+
+    def on_main_process(self, function: Callable) -> Callable:
+        return self.partial_state.on_main_process(function)
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        return self.partial_state.on_local_main_process(function)
+
+    def on_last_process(self, function: Callable) -> Callable:
+        return self.partial_state.on_last_process(function)
+
+    def on_process(self, function: Callable | None = None, process_index: int = 0) -> Callable:
+        return self.partial_state.on_process(function, process_index)
+
+    def on_local_process(self, function: Callable | None = None,
+                         local_process_index: int = 0) -> Callable:
+        return self.partial_state.on_local_process(function, local_process_index)
+
+    def print(self, *args: Any, **kwargs: Any) -> None:
+        self.partial_state.print(*args, **kwargs)
+
+    def wait_for_everyone(self) -> None:
+        self.partial_state.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def main_process_first(self) -> Iterator[None]:
+        with self.partial_state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self) -> Iterator[None]:
+        with self.partial_state.local_main_process_first():
+            yield
+
+    # ------------------------------------------------------------- prepare
+    def prepare(self, *args: Any) -> Any:
+        """Prepare models, optimizers, data loaders and schedulers, in any
+        order, returning them in that order (reference
+        `accelerator.py:598`). Models first, then optimizers (each over the
+        parameters of a prepared model), then schedulers (over the prepared
+        optimizers); anything else passes through."""
+        result: list[Any] = list(args)
+        for i, obj in enumerate(args):
+            if isinstance(obj, (nn.Module, PreparedModel)):
+                result[i] = self.prepare_model(obj)
+            elif isinstance(obj, (DataLoaderShard, torch.utils.data.DataLoader)) or (
+                    hasattr(obj, "__iter__") and not isinstance(obj, (str, bytes, dict))):
+                result[i] = self.prepare_data_loader(obj)
+        for i, obj in enumerate(args):
+            if isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
+                result[i] = self.prepare_optimizer(obj)
+        for i, obj in enumerate(args):
+            if isinstance(obj, AcceleratedScheduler) or (
+                    hasattr(obj, "step") and hasattr(obj, "state_dict") and result[i] is obj
+                    and not isinstance(obj, (torch.optim.Optimizer, nn.Module))):
+                result[i] = self.prepare_scheduler(obj)
+        return result[0] if len(result) == 1 else tuple(result)
+
+    def prepare_model(self, model: nn.Module | PreparedModel) -> PreparedModel:
+        """Register ``model``, whose parameters are the fp32 masters, already
+        on this accelerator's device."""
+        if isinstance(model, PreparedModel):
+            model = model.module
+        for p in model.parameters():
             if p.device != self.device:
                 raise ValueError(
                     f"model parameters live on {p.device}, the accelerator on {self.device}: "
                     "build the model on the accelerator's device"
                 )
-        owned = {id(p) for p in params}
+        prepared = PreparedModel(model, self.policy)
+        self._models.append(prepared)
+        return prepared
+
+    def prepare_optimizer(self, optimizer: torch.optim.Optimizer | AcceleratedOptimizer
+                          ) -> AcceleratedOptimizer:
+        """Wrap ``optimizer``, built over the parameters of a prepared model
+        as PyTorch's idiom has it."""
+        if isinstance(optimizer, AcceleratedOptimizer):
+            optimizer = optimizer.optimizer
+        owned = {id(p) for m in self._models for p in m.module.parameters()}
         for group in optimizer.param_groups:
             if any(id(p) not in owned for p in group["params"]):
                 raise ValueError("the optimizer holds tensors that are not parameters of the model")
-        wrapped = AcceleratedOptimizer(optimizer, self.gradient_state)
-        self._models.append(model)
+        wrapped = AcceleratedOptimizer(optimizer, self.gradient_state, scaler=self.scaler)
         self._optimizers.append(wrapped)
-        return model, wrapped
+        return wrapped
 
+    def prepare_data_loader(self, data_loader: Any) -> DataLoaderShard:
+        """A `DataLoaderShard` over ``data_loader`` (a loader of its own, a
+        torch DataLoader or any iterable of batches), yielding on this
+        accelerator's device and bound to its `GradientState`."""
+        if not isinstance(data_loader, DataLoaderShard):
+            data_loader = prepare_data_loader(data_loader, device=self.device)
+        elif data_loader.device is None:
+            data_loader.device = self.device
+        data_loader.gradient_state = self.gradient_state
+        self._dataloaders.append(data_loader)
+        return data_loader
+
+    def prepare_scheduler(self, scheduler: Any) -> AcceleratedScheduler:
+        """An `AcceleratedScheduler` over ``scheduler`` that steps with this
+        accelerator's optimizers."""
+        if isinstance(scheduler, AcceleratedScheduler):
+            scheduler = scheduler.scheduler
+        wrapped = AcceleratedScheduler(scheduler, optimizers=self._optimizers,
+                                       gradient_state=self.gradient_state)
+        self._schedulers.append(wrapped)
+        return wrapped
+
+    def _prepared(self, model: Any) -> PreparedModel:
+        if model is None:
+            if len(self._models) != 1:
+                raise ValueError("pass `model=` when zero or several models are prepared")
+            return self._models[0]
+        for m in self._models:
+            if m is model or m.module is model:
+                return m
+        raise ValueError("the model was not prepared by this accelerator")
+
+    def _optimizer_for(self, model: PreparedModel) -> AcceleratedOptimizer | None:
+        owned = {id(p) for p in model.module.parameters()}
+        for opt in self._optimizers:
+            if any(id(p) in owned for group in opt.param_groups for p in group["params"]):
+                return opt
+        return None
+
+    # ------------------------------------------------- gradient machinery
     def _do_sync(self) -> None:
         gs = self.gradient_state
         if gs.sync_with_dataloader and gs.end_of_dataloader:
             self.step = 0
-            gs.sync_gradients = True
+            gs._set_sync_gradients(True)
         else:
             self.step += 1
-            gs.sync_gradients = self.step % gs.num_steps == 0
+            gs._set_sync_gradients(self.step % gs.num_steps == 0)
 
-    def make_train_step(self, loss_fn: Callable[[Callable, Any], Any], model: nn.Module | None = None,
+    @contextlib.contextmanager
+    def accumulate(self, *models: Any) -> Iterator[None]:
+        """One microbatch (reference `accelerator.py:820`): decides whether it
+        closes an accumulation boundary; off one, ``optimizer.step()`` and
+        ``zero_grad()`` do nothing."""
+        self._do_sync()
+        yield
+
+    @contextlib.contextmanager
+    def no_sync(self, model: Any = None) -> Iterator[None]:
+        """No optimizer update inside the block (there is no replica
+        all-reduce to hold back at one process)."""
+        prev = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(prev)
+
+    def trigger_sync_in_backward(self, model: Any = None) -> None:
+        """Make the next ``optimizer.step()`` apply though the step count says
+        the window is still accumulating."""
+        self.gradient_state._set_sync_gradients(True)
+
+    def _scales(self, optimizer: AcceleratedOptimizer | None) -> tuple[Any, Any]:
+        """(inner, outer): the factor on the loss inside the backward and the
+        one on its fp32 gradients after it (reference
+        `accelerator.py:940-975`)."""
+        inv_k = 1.0 / self.gradient_state.num_steps
+        if optimizer is None or optimizer.scaler is None:
+            return 1.0, inv_k
+        inner, rest = optimizer.scaler.split_scale(optimizer.scaler_state.scale)
+        return inner, rest * inv_k
+
+    def backward(self, loss_fn: Callable[[Callable, Any], Any], batch: Any = None,
+                 model: Any = None, **kwargs: Any) -> Any:
+        """Compute the gradients of ``loss_fn(model, batch)`` (``model`` a
+        `BoundModel` over the compute-dtype copies) and add them, times
+        ``1/gradient_accumulation_steps`` and the fp16 scale, into the fp32
+        masters' ``.grad``. Returns the loss (fp32), or ``(loss, *aux)``
+        when ``loss_fn`` returns a tuple: the reference's signature, which
+        takes the loss function because JAX has no tape."""
+        prepared = self._prepared(model)
+        inner, outer = self._scales(self._optimizer_for(prepared))
+        named = [(n, p) for n, p in prepared.module.named_parameters() if p.requires_grad]
+        out = loss_fn(BoundModel(prepared.module, prepared.compute_params()), batch)
+        loss, aux = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
+        loss = loss.float()
+        grads = torch.autograd.grad(loss * inner, [p for _, p in named], allow_unused=True)
+        with torch.no_grad():
+            pairs = [(p, g) for (_, p), g in zip(named, grads) if g is not None]
+            if not (isinstance(outer, float) and outer == 1.0):
+                torch._foreach_mul_([g for _, g in pairs], outer)
+            fresh = [(p, g) for p, g in pairs if p.grad is None]
+            for p, g in fresh:
+                p.grad = g
+            held = [(p, g) for p, g in pairs if p.grad is not g]
+            if held:
+                torch._foreach_add_([p.grad for p, _ in held], [g for _, g in held])
+        loss = loss.detach()
+        return (loss, *aux) if aux else loss
+
+    def unscale_gradients(self, optimizer: AcceleratedOptimizer | None = None) -> None:
+        """Unscale the fp16 gradients now (``optimizer.step()`` does it
+        otherwise); once per boundary."""
+        for opt in [optimizer] if optimizer is not None else self._optimizers:
+            if opt.grads():
+                opt.unscale_()
+
+    def clip_grad_norm_(self, parameters: Any = None, max_norm: float = 1.0,
+                        norm_type: float = 2.0) -> torch.Tensor | None:
+        """Scale every prepared optimizer's gradients by one factor,
+        ``min(1, max_norm / (norm + 1e-6))`` of their global norm, after
+        unscaling fp16 ones (reference `accelerator.py:997`); returns the
+        norm before clipping (a device scalar), None when there are no
+        gradients. ``parameters`` is accepted for the reference's signature:
+        the norm is always over every prepared optimizer's gradients."""
+        if norm_type != 2.0:
+            raise NotImplementedError("Only L2 global-norm clipping is supported.")
+        self.unscale_gradients()
+        grads = [g for opt in self._optimizers for g in opt.grads()]
+        if not grads:
+            return None
+        with torch.no_grad():
+            return _clip_by_global_norm_(grads, max_norm)
+
+    def clip_grad_value_(self, parameters: Any = None, clip_value: float = 1.0) -> None:
+        self.unscale_gradients()
+        with torch.no_grad():
+            for opt in self._optimizers:
+                for g in opt.grads():
+                    g.clamp_(-clip_value, clip_value)
+
+    def make_train_step(self, loss_fn: Callable[[Callable, Any], Any], model: Any = None,
                         optimizer: AcceleratedOptimizer | None = None,
                         max_grad_norm: float | None = None) -> Callable[[Any], torch.Tensor]:
         """``step(batch) -> loss``. ``loss_fn(model, batch)`` gets a
@@ -114,35 +487,211 @@ class Accelerator:
         (``model(input_ids)``), and the call runs the module on the
         compute-dtype copies of its parameters, ``model.params``. With
         ``max_grad_norm``, ``step.grad_norm`` holds the last boundary's
-        global norm before clipping (a device scalar)."""
-        if model is None:
-            model = self._models[0]
+        global norm before clipping (a device scalar). Under fp16 the loss
+        is scaled by the scaler's inner factor and the boundary divides the
+        gradients by it, checks them, and skips a non-finite update (one
+        host sync per boundary)."""
+        prepared = self._prepared(model if model is not None
+                                  else (self._models[0] if self._models else None))
         if optimizer is None:
-            optimizer = self._optimizers[self._models.index(model)]
-        named = dict(model.named_parameters())
-        buffers = dict(model.named_buffers())
-        policy = self.policy
+            optimizer = self._optimizer_for(prepared)
+        if optimizer is None:
+            raise ValueError("make_train_step needs an optimizer prepared over the model's parameters")
+        module = prepared.module
+        named = dict(module.named_parameters())
         gs = self.gradient_state
+        scaler = optimizer.scaler
 
         def step(batch: Any) -> torch.Tensor:
             self._do_sync()
-            compute = {**policy.cast_to_compute(named), **buffers}
-            out = loss_fn(BoundModel(model, compute), batch)
+            inner = scaler.split_scale(optimizer.scaler_state.scale)[0] if scaler else None
+            out = loss_fn(BoundModel(module, prepared.compute_params()), batch)
             loss = (out[0] if isinstance(out, tuple) else out).float()
-            loss.backward()
+            (loss if inner is None else loss * inner).backward()
             if gs.sync_gradients:
                 grads = [p.grad for p in named.values() if p.grad is not None]
                 with torch.no_grad():
-                    if gs.num_steps != 1:
-                        torch._foreach_mul_(grads, 1.0 / gs.num_steps)
+                    factor = 1.0 / gs.num_steps
+                    if inner is not None:
+                        torch._foreach_mul_(grads, factor / inner)
+                        finite = scaler.all_finite(grads)
+                    elif gs.num_steps != 1:
+                        torch._foreach_mul_(grads, factor)
                     if max_grad_norm is not None:
                         step.grad_norm = _clip_by_global_norm_(grads, max_grad_norm)
-                optimizer.step()
-                optimizer.zero_grad(set_to_none=True)
+                if scaler is not None:
+                    optimizer.scaler_state = scaler.update_state(optimizer.scaler_state, finite)
+                    optimizer.step_was_skipped = not bool(finite)
+                optimizer._apply()
+                optimizer.optimizer.zero_grad(set_to_none=True)
             return loss.detach()
 
         step.grad_norm = None
         return step
+
+    # --------------------------------------------------------- collectives
+    def gather(self, tensor: Any) -> Any:
+        return operations.gather(tensor)
+
+    def gather_for_metrics(self, input_data: Any, use_gather_object: bool = False) -> Any:
+        """Gathered eval outputs, the last batch of a ragged epoch cut to
+        its real samples (``remainder``; reference `accelerator.py:1398`)."""
+        if use_gather_object or not _all_tensors(input_data):
+            data = operations.gather_object(input_data if isinstance(input_data, list)
+                                            else [input_data])
+        else:
+            data = operations.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            data = operations.recursively_apply(lambda t: t[:remainder], data, test_type=_is_array)
+        return data
+
+    def reduce(self, tensor: Any, reduction: str = "sum", scale: float = 1.0) -> Any:
+        return operations.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor: Any, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False) -> Any:
+        return operations.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                               pad_first=pad_first)
+
+    def broadcast(self, tensor: Any, from_process: int = 0) -> Any:
+        return operations.broadcast(tensor, from_process=from_process)
+
+    # ------------------------------------------------------- checkpointing
+    def register_for_checkpointing(self, *objects: Any) -> None:
+        """Save and load these objects (each with ``state_dict`` and
+        ``load_state_dict``) with the accelerator's state."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(f"Objects lack state_dict/load_state_dict: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable) -> _RemovableHandle:
+        """``hook(models, weights, output_dir)`` runs first in `save_state`;
+        ``weights`` is the list of each model's state dict, which it may
+        change in place to change what is written."""
+        handle = _RemovableHandle(self._save_state_pre_hooks)
+        self._save_state_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_load_state_pre_hook(self, hook: Callable) -> _RemovableHandle:
+        """``hook(models, input_dir)`` runs first in `load_state`."""
+        handle = _RemovableHandle(self._load_state_pre_hooks)
+        self._load_state_pre_hooks[handle.id] = hook
+        return handle
+
+    def save_state(self, output_dir: str | None = None, async_save: bool | None = None,
+                   **save_model_kwargs: Any) -> str:
+        """Write every prepared object's state (`checkpointing`); returns the
+        directory. ``async_save`` (default ``ProjectConfiguration.async_save``)
+        returns once the tensors are in host memory."""
+        checkpointing.wait_for_checkpoint_saves(self)
+        resolved = str(checkpointing.get_checkpoint_dir(self, output_dir))
+        weights = [m.module.state_dict() for m in self._models]
+        for hook in self._save_state_pre_hooks.values():
+            hook(self._models, weights, resolved)
+        if async_save is None:
+            async_save = self.project_configuration.async_save
+        return checkpointing.save_accelerator_state(self, resolved, weights=weights,
+                                                    async_save=async_save)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until every async `save_state` has landed on disk."""
+        checkpointing.wait_for_checkpoint_saves(self)
+
+    def load_state(self, input_dir: str | None = None, **load_model_kwargs: Any) -> str:
+        """Load every prepared object from ``input_dir``, or from the newest
+        complete automatic checkpoint that loads; returns the directory."""
+        if self._load_state_pre_hooks:
+            resolved = (str(checkpointing.latest_checkpoint_dir(self)) if input_dir is None
+                        else str(input_dir))
+            for hook in self._load_state_pre_hooks.values():
+                hook(self._models, resolved)
+        return checkpointing.load_accelerator_state(self, input_dir)
+
+    def unwrap_model(self, model: Any, keep_fp32_wrapper: bool = True) -> nn.Module:
+        """The module handed to `prepare`."""
+        return model.module if isinstance(model, PreparedModel) else model
+
+    def get_state_dict(self, model: Any, unwrap: bool = True) -> dict[str, torch.Tensor]:
+        """The model's state dict on the host (fp32 masters)."""
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in self.unwrap_model(model).state_dict().items()}
+
+    def save_model(self, model: Any, save_directory: str, max_shard_size: str | int = "10GB",
+                   safe_serialization: bool = True) -> list[str]:
+        """A consolidated safetensors export, under the reference's parameter
+        names when the module has ``reference_state_dict`` (BERT, GPT-2), so
+        the reference's ``load_model_weights`` reads it; under the module's
+        own names otherwise."""
+        module = self.unwrap_model(model)
+        if hasattr(module, "reference_state_dict"):
+            state = module.reference_state_dict()
+        else:
+            state = self.get_state_dict(module)
+        return checkpointing.save_model_weights(state, save_directory,
+                                                max_shard_size=max_shard_size,
+                                                safe_serialization=safe_serialization)
+
+    def free_memory(self, *objects: Any) -> tuple:
+        """Drop the prepared objects and release cached device memory."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self.step = 0
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    # ------------------------------------------------------------ tracking
+    def init_trackers(self, project_name: str, config: dict | None = None,
+                      init_kwargs: dict | None = None) -> None:
+        """Start the trackers ``log_with`` named, logging into
+        ``logging_dir``."""
+        self.trackers = filter_trackers(self._log_with, self.logging_dir, project_name, config,
+                                        init_kwargs or {})
+
+    def log(self, values: dict, step: int | None = None, log_kwargs: dict | None = None) -> None:
+        if not self.is_main_process:
+            return
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **(log_kwargs or {}).get(tracker.name, {}))
+
+    def get_tracker(self, name: str, unwrap: bool = False) -> Any:
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"Tracker {name} not initialized (have: {[t.name for t in self.trackers]})")
+
+    def end_training(self) -> None:
+        """Finish every tracker and land every async checkpoint."""
+        for tracker in self.trackers:
+            tracker.finish()
+        self.wait_for_checkpoint()
+        self.wait_for_everyone()
+
+    def skip_first_batches(self, dataloader: Any, num_batches: int = 0) -> Any:
+        return skip_first_batches(dataloader, num_batches)
+
+    def __repr__(self) -> str:
+        return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "
+                f"grad_accum={self.gradient_state.num_steps})")
+
+
+def _is_array(x: Any) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray))
+
+
+def _all_tensors(data: Any) -> bool:
+    """Every leaf of ``data`` is a tensor or a numpy array."""
+    if isinstance(data, Mapping):
+        return all(_all_tensors(v) for v in data.values())
+    if isinstance(data, (list, tuple)):
+        return all(_all_tensors(v) for v in data)
+    return _is_array(data)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -30,11 +30,14 @@ attention projection and after the MLP, when ``deterministic=False``) draws
 from an explicit `torch.Generator`.
 
 The training losses follow the reference: `cross_entropy_loss`,
-`_next_token_labels`, `lm_loss_fn` and `lm_loss_fn_pallas` (the tied head
-fused with the cross-entropy in the port's CUDA kernels).
+`_next_token_labels`, `lm_loss_fn`, `lm_loss_fn_fused` (the tied head and
+the cross-entropy over row chunks under `torch.utils.checkpoint`, no kernel)
+and `lm_loss_fn_pallas` (the tied head fused with the cross-entropy in the
+port's CUDA kernels).
 
 `params_from_jax` turns the reference's param tree into this module's state
-dict, so both packages can run the same weights.
+dict, and `params_to_jax` turns it back, so both packages can run and export
+the same weights.
 
 Quantized weights (`utils.quantization.quantize_module`, the serving
 engine's ``weight_quant=``): a `QuantizedLinear` projection runs through
@@ -59,6 +62,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import attention
@@ -354,6 +358,11 @@ class GPT2LMHead(nn.Module):
         x = _layer_norm(x, self.ln_f).to(cfg.dtype)
         return x if return_hidden else self.logits(x)
 
+    def reference_state_dict(self) -> dict[str, Any]:
+        """The weights under the reference's names and layout
+        (`params_to_jax`)."""
+        return params_to_jax(self.state_dict())
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied LM head over compute-dtype hidden states: fp32 logits. The
         product runs on fp32 copies of the compute-dtype operands, so with
@@ -392,6 +401,41 @@ def lm_loss_fn(model, batch: dict) -> torch.Tensor:
     return cross_entropy_loss(logits, _next_token_labels(batch))
 
 
+def chunked_cross_entropy(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int = -100, chunk: int = 1024) -> torch.Tensor:
+    """The tied head fused with the cross-entropy over row chunks, with no
+    kernel (the reference's ``chunked_cross_entropy``): each ``[chunk, V]``
+    tile of fp32 logits is made, reduced to its rows' logsumexp and label
+    logit, and dropped; `torch.utils.checkpoint` makes it again in the
+    backward, so the ``[N, V]`` logits never exist whole. The mean over the
+    rows whose label is not ``ignore_index``, 0 when every row is."""
+    def one_chunk(x: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+        mask = lab != ignore_index
+        safe = torch.where(mask, lab, torch.zeros_like(lab)).long()
+        logits = F.linear(x.float(), wte.float())  # [chunk, V], exact products, fp32 sums
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe[:, None])[:, 0]
+        return ((lse - ll) * mask).sum()
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for lo in range(0, hidden.shape[0], chunk):
+        total = total + torch.utils.checkpoint.checkpoint(
+            one_chunk, hidden[lo:lo + chunk], labels[lo:lo + chunk], use_reentrant=False)
+    return total / (labels != ignore_index).sum().clamp(min=1)
+
+
+def lm_loss_fn_fused(model, batch: dict, chunk: int = 1024) -> torch.Tensor:
+    """Next-token LM loss with the head fused into `chunked_cross_entropy`
+    (``bench.py``'s ``BENCH_FUSED_CE=1``); drop-in for `lm_loss_fn` with
+    `Accelerator.make_train_step`, whose `BoundModel` carries the
+    compute-dtype ``wte.weight`` in ``model.params``."""
+    hidden = model(batch["input_ids"], return_hidden=True)
+    labels = _next_token_labels(batch)
+    b, s, e = hidden.shape
+    wte = model.params["wte.weight"].to(hidden.dtype)
+    return chunked_cross_entropy(hidden.reshape(b * s, e), wte, labels.reshape(b * s), chunk=chunk)
+
+
 def lm_loss_fn_pallas(model, batch: dict, block_r: int | None = None,
                       block_v: int | None = None) -> torch.Tensor:
     """Next-token LM loss with the tied head fused into the cross-entropy
@@ -409,6 +453,27 @@ def lm_loss_fn_pallas(model, batch: dict, block_r: int | None = None,
     b, s, e = hidden.shape
     wte = model.params["wte.weight"].to(hidden.dtype)
     return fused_cross_entropy(hidden.reshape(b * s, e), wte, labels.reshape(b * s))
+
+
+def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of `params_from_jax`: this module's state dict as the
+    reference's param tree (nested dicts of CPU tensors, ``[in, out]``
+    kernels), what `Accelerator.save_model` exports."""
+    def get(name: str) -> torch.Tensor:
+        return state_dict[name].detach().to("cpu", copy=True)
+
+    tree: dict[str, Any] = {"wte": get("wte.weight"), "wpe": get("wpe.weight"),
+                            "ln_f": {"scale": get("ln_f.weight"), "bias": get("ln_f.bias")}}
+    n_layer = len({k.split(".")[1] for k in state_dict if k.startswith("blocks.")})
+    for i in range(n_layer):
+        pre = f"blocks.{i}."
+        blk: dict[str, Any] = {ln: {"scale": get(pre + f"{ln}.weight"), "bias": get(pre + f"{ln}.bias")}
+                               for ln in ("ln_1", "ln_2")}
+        for group, names in (("attn", ("qkv", "proj")), ("mlp", ("up", "down"))):
+            blk[group] = {name: {"kernel": get(pre + f"{group}.{name}.weight").T.contiguous(),
+                                 "bias": get(pre + f"{group}.{name}.bias")} for name in names}
+        tree[f"block_{i}"] = blk
+    return tree
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

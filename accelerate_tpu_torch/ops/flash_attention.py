@@ -198,7 +198,8 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
     if any(r.shape != q.shape[:3] for r in rows):
         raise ValueError(f"{name}: lse and delta must be [b, h, sq] = {tuple(q.shape[:3])}")
     if q.dtype not in FLASH_KERNEL_DTYPES:
-        raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}")
+        raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}; the fp16 "
+                        "kernels wait for ROADMAP Queue 1, item 32")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k, v and dO must share one dtype")
     if not _kernel_head_dim(q.shape[-1]):

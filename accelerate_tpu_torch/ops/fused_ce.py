@@ -332,7 +332,7 @@ def fused_cross_entropy(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.T
     if hidden.dtype not in KERNEL_DTYPES or wte.dtype != hidden.dtype:
         raise TypeError(
             f"fused_cross_entropy takes fp32 or bf16 hidden and wte of one dtype, got "
-            f"{hidden.dtype} and {wte.dtype}; fp16 waits for the fp16 policy (ROADMAP Queue 1, item 3)"
+            f"{hidden.dtype} and {wte.dtype}; the fp16 kernels wait for ROADMAP Queue 1, item 32"
         )
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).to(torch.int32)

@@ -381,17 +381,25 @@ def quantize_module(module: nn.Module, config: QuantizationConfig) -> nn.Module:
     eligible bare table a module lists in ``quantizable_tables``. Every other
     module is copied shallowly, so dense parameters are shared and ``module``
     itself is left as it was. Raises TypeError for any other eligible
-    parameter."""
-    return _swap(module, config, "")
+    parameter. A `PreparedModel` stands for its module."""
+    return _swap(_unwrap(module), config, "")
+
+
+def _unwrap(model: Any) -> Any:
+    """The module behind what `Accelerator.prepare` returned."""
+    from ..accelerator import PreparedModel
+
+    return model.module if isinstance(model, PreparedModel) else model
 
 
 def quantize_model(model: nn.Module, config: QuantizationConfig) -> nn.Module:
     """Quantize a prepared model's weights in place (the reference's
     ``quantize_model``, whose layer-swap role this takes literally): the
     swap of `quantize_module`, written into ``model`` itself, which is
-    returned. ``Accelerator.prepare`` returns the model, so this takes what
-    it returns. The dense weights that were swapped out are freed once
-    nothing else holds them."""
+    returned. ``Accelerator.prepare`` returns a `PreparedModel` over the
+    model, so this takes what it returns and quantizes its module. The dense
+    weights that were swapped out are freed once nothing else holds them."""
+    model = _unwrap(model)
     if not isinstance(model, nn.Module):
         raise TypeError(f"Cannot quantize object of type {type(model)}")
     swapped = quantize_module(model, config)

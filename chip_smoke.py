@@ -228,7 +228,25 @@ Phases run in order; any failure exits non-zero:
    (`bf16_observability_cost` and its summary), and a profiler window with
    ``annotate=True`` whose ``step`` ranges enclose the decode graph's
    launches (`bf16_observability_profile`);
-25. the kernels line, the card line, and the final ``{"ok": true, ...}`` line.
+25. the training loop through the `Accelerator` facade: (a) the port's
+   `examples/nlp_example.py` at BERT-base width (hidden 768, 12 layers,
+   vocab 30522, length 64, batch 16), 3 epochs in bf16 and in fp16, each
+   with ``--gradient_accumulation_steps 2 --with_tracking --checkpointing``:
+   each epoch's loss and accuracy, samples/s, the device ms of one step,
+   peak memory, the tracker's lines, the checkpoint's bytes and its save
+   and load seconds; ``load_state`` must restore the saved eval logits bit
+   for bit (`bf16_nlp_example`, `fp16_nlp_example` and their profiles);
+   (b) GPT-2 small, flash attention, 8 x 1024, bf16, accumulation 4,
+   clipping at 1.0, `lm_loss_fn_pallas`, through a `DataLoaderShard`
+   (``prefetch="auto"``) and an `AcceleratedScheduler`: the imperative loop
+   and ``make_train_step`` give equal losses over 8 microbatches, the loop
+   launches each flash kernel 12 times and each fused-CE kernel once a
+   microbatch, and a run saved after 4 microbatches and loaded into a fresh
+   `Accelerator` gives the last 4 losses of the run that never stopped
+   (`bf16_facade_gpt2`: both forms' tokens/s);
+26. the kernels line (its flash and fused-CE launches add phase 25 (b)'s
+   loop to phases 8 and 11), the card line, and the final
+   ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -3111,6 +3129,212 @@ def observability_serving(torch, np, seed: int, card: str, prompts: list[list[in
     return {"launches": launches, "lines": lines}
 
 
+def nlp_example_phase(torch, card: str, mixed_precision: str) -> dict:
+    """Phase 25 (a): the port's `examples/nlp_example.py` at BERT-base width
+    (hidden 768, 12 layers, 12 heads, vocab 30522, length 64, batch 16, 8
+    train and 2 eval batches of the reference's seeded synthetic task) for 3
+    epochs with ``--gradient_accumulation_steps 2 --with_tracking
+    --checkpointing`` in ``mixed_precision``: each epoch's loss and accuracy,
+    samples/s over epochs 1-2 (epoch 0 holds the first calls), peak memory,
+    the JSONL tracker's lines, the checkpoint's bytes and ``save_state``
+    seconds; then a profiler window over 3 train steps (device ms of one
+    step), and ``load_state`` of the checkpoint, timed, which must give the
+    eval logits of the moment it was saved, bit for bit."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.examples import nlp_example
+
+    tmp = Path(tempfile.mkdtemp(prefix=f"nlp_example_{mixed_precision}_"))
+    try:
+        args = nlp_example.parser().parse_args(
+            ["--mixed_precision", mixed_precision, "--gradient_accumulation_steps", "2",
+             "--with_tracking", "--checkpointing", "--project_dir", str(tmp)])
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = nlp_example.training_function(args)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        acc, model, step = run["accelerator"], run["model"], run["step"]
+        train, evals = nlp_example.get_dataloaders(args.batch_size, model.config.vocab_size,
+                                                   args.seed)
+        on_card = [{k: torch.from_numpy(v).to("cuda") for k, v in b.items()} for b in (train[0],
+                                                                                      evals[0])]
+
+        def eval_logits():
+            with torch.no_grad():
+                return model(on_card[1]["input_ids"], on_card[1]["attention_mask"])
+
+        saved = eval_logits()
+        wall_us, by_name = profile_steps(torch, lambda: step(on_card[0]), 3)
+        prof = profile_record(f"{mixed_precision}_nlp_example_profile", 3, wall_us, by_name)
+        moved = not torch.equal(eval_logits(), saved)
+        t0 = time.perf_counter()
+        acc.load_state(run["checkpoint_dir"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restored = torch.equal(eval_logits(), saved)
+        ckpt = Path(run["checkpoint_dir"])
+        lines = (tmp / "nlp_example.metrics.jsonl").read_text().splitlines()
+        timed = run["epochs"][1:]
+        samples = args.batch_size * 8 * len(timed)
+        scale = acc._optimizers[0].scaler_state
+        rec = {"phase": f"{mixed_precision}_nlp_example", "model": "bert-base",
+               "batch": args.batch_size, "seq": nlp_example.MAX_LEN, "epochs": run["epochs"],
+               "gradient_accumulation_steps": 2, "microbatch_losses": run["losses"],
+               "updates": run["optimizer"].num_updates,
+               "skipped_updates": run["optimizer"].skipped_updates,
+               "fp16_scale": None if scale is None else scale.scale.item(),
+               "samples_per_s": samples / sum(e["train_s"] for e in timed),
+               "device_ms_per_step": prof["device_ms_per_step"],
+               "host_ms_per_step": prof["host_ms_per_step"],
+               "device_idle_share": prof["device_idle_share"], "peak_mem_bytes": peak,
+               "tracker_lines": len(lines), "checkpoint_bytes": sum(f.stat().st_size
+                                                                    for f in ckpt.iterdir()),
+               "checkpoint_files": len(list(ckpt.iterdir())), "save_s": run["save_s"],
+               "load_s": load_s, "steps_moved_logits": moved, "load_restored_logits": restored,
+               "wall_s": wall, "card": card}
+        print(json.dumps(rec), flush=True)
+        print(json.dumps(prof), flush=True)
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"{rec['phase']}: a loss is not finite: {run['losses']}")
+        if len(lines) != 1 + args.num_epochs:
+            raise AssertionError(f"{rec['phase']}: the tracker wrote {len(lines)} lines")
+        if not (ckpt / "_COMPLETE").exists() or not moved or not restored:
+            raise AssertionError(f"{rec['phase']}: the checkpoint did not restore the saved "
+                                 f"weights (moved {moved}, restored {restored})")
+        del run, acc, model, step
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def facade_training(torch, np, seed: int, card: str) -> dict:
+    """Phase 25 (b): GPT-2 small at the reference's bench shape (flash
+    attention, batch 8 x 1024, bf16, ``gradient_accumulation_steps=4``,
+    ``max_grad_norm=1.0``, `lm_loss_fn_pallas`) through the facade: a
+    `DataLoaderShard` of 8 seeded batches (``prefetch="auto"``: pinned host
+    copies, the next batch's copy issued before the step on this one),
+    AdamW and an `AcceleratedScheduler` over the optax schedule. The
+    imperative loop (``accumulate``: ``backward``, ``clip_grad_norm_`` on
+    the boundary, ``optimizer.step()``, ``scheduler.step()``,
+    ``zero_grad()``) and ``make_train_step`` give equal losses over the 8
+    microbatches; the loop launches each flash kernel n_layer times and each
+    fused-CE kernel once per microbatch; ``save_state`` after 4 microbatches,
+    then a fresh `Accelerator`, model (another seed), optimizer, scheduler
+    and loader, ``load_state`` and ``skip_first_batches`` reproduce the last
+    4 losses. Tokens/s of both forms (the host clock over the 8 microbatches,
+    ending in a sync), each form run twice from a fresh build, in turns
+    (loop, fused, fused, loop)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoaderShard
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn_pallas
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.scheduler import schedule_lambda, warmup_cosine_decay_schedule
+
+    batch, seq, k, n = 8, 1024, 4, 8
+    cfg = GPT2Config.small(dtype=torch.bfloat16, attention_impl="flash")
+    rng = np.random.default_rng(seed)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (batch, seq))} for _ in range(n)]
+    tmp = Path(tempfile.mkdtemp(prefix="facade_gpt2_"))
+
+    def build(model_seed):
+        acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=k,
+                          project_dir=str(tmp))
+        module = GPT2LMHead(cfg, device="cuda", seed=model_seed)
+        opt = torch.optim.AdamW(module.parameters(), weight_decay=1e-4)
+        sched = schedule_lambda(opt, warmup_cosine_decay_schedule(1e-5, 1e-4, warmup_steps=1,
+                                                                  decay_steps=4))
+        return (acc, *acc.prepare(module, opt, DataLoaderShard(batches, prefetch="auto"), sched))
+
+    def explicit(acc, model, opt, dl, sched, stop=None):
+        losses = []
+        for i, b in enumerate(dl):
+            with acc.accumulate(model):
+                losses.append(acc.backward(lm_loss_fn_pallas, b))
+                if acc.sync_gradients:
+                    acc.clip_grad_norm_(max_norm=1.0)
+                opt.step()
+                sched.step()
+                opt.zero_grad()
+            if stop is not None and i + 1 == stop:
+                break
+        return losses
+
+    def fused(acc, model, opt, dl, sched):
+        step = acc.make_train_step(lm_loss_fn_pallas, max_grad_norm=1.0)
+        losses = []
+        for b in dl:
+            losses.append(step(b))
+            sched.step()
+        return losses
+
+    def timed(form, parts):
+        gc.collect()
+        torch.cuda.synchronize()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        losses = [x.item() for x in form(*parts)]
+        wall = time.perf_counter() - t0
+        return losses, wall, {**flash_counts(fa), **fused_ce_counts()}
+
+    try:
+        # in turns, each from a fresh build: loop, fused, fused, loop
+        loop_losses, loop_wall, launches = timed(explicit, build(seed))
+        fused_losses, fused_wall, fused_launches = timed(fused, build(seed))
+        fused_again, fused_wall_2, _ = timed(fused, build(seed))
+        loop_again, loop_wall_2, _ = timed(explicit, build(seed))
+        first = build(seed)
+        head = [x.item() for x in explicit(*first, stop=n // 2)]
+        saved = first[0].save_state()
+        del first
+        gc.collect()
+        resumed = build(seed + 1)
+        acc, model, opt, dl, sched = resumed
+        acc.load_state(saved)
+        acc.skip_first_batches(dl, n // 2)
+        tail = [x.item() for x in explicit(acc, model, opt, dl, sched)]
+        rec = {"phase": "bf16_facade_gpt2", "model": "gpt2-small", "batch": batch, "seq": seq,
+               "gradient_accumulation_steps": k, "microbatches": n, "max_grad_norm": 1.0,
+               "loss": "lm_loss_fn_pallas", "prefetch": "auto", "losses_loop": loop_losses,
+               "losses_make_train_step": fused_losses,
+               "forms_max_abs_diff": max(abs(a - b) for a, b in zip(loop_losses, fused_losses)),
+               "losses_resumed_head": head, "losses_resumed_tail": tail,
+               "resume_max_abs_diff": max(abs(a - b) for a, b in zip(tail, loop_losses[n // 2:])),
+               "updates": opt.num_updates, "lr_last": sched.get_last_lr()[0],
+               "launches_loop": launches, "launches_make_train_step": fused_launches,
+               "tokens_per_s_loop": [batch * seq * n / w for w in (loop_wall, loop_wall_2)],
+               "tokens_per_s_make_train_step": [batch * seq * n / w
+                                                for w in (fused_wall, fused_wall_2)],
+               "card": card}
+        print(json.dumps(rec), flush=True)
+        expected = {**{name: cfg.n_layer * n for name in FLASH_REPLACES},
+                    **{name: n for name in FUSED_CE_REPLACES}}
+        if launches != expected or fused_launches != expected:
+            raise AssertionError(f"facade launches {launches} / {fused_launches}, expected "
+                                 f"{expected}")
+        if (not all(math.isfinite(x) for x in loop_losses)
+                or not loop_losses == fused_losses == fused_again == loop_again):
+            raise AssertionError("the imperative loop's losses differ from make_train_step's: "
+                                 f"{loop_losses}, {loop_again} vs {fused_losses}, {fused_again}")
+        if head != loop_losses[:n // 2] or tail != loop_losses[n // 2:]:
+            raise AssertionError(f"the resumed run's losses {head} + {tail} differ from the "
+                                 f"uninterrupted run's {loop_losses}")
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3561,7 +3785,15 @@ def main() -> int:
     # 24. observability: the tracer, the supervisor, brownout, the hooks' costs
     observability = observability_serving(torch, np, args.seed, card, serve_prompts)
 
-    # 25. summary lines
+    # 25. the training loop through the facade: the nlp example, GPT-2's loop
+    t0 = time.perf_counter()
+    nlp = {mp: nlp_example_phase(torch, card, mp) for mp in ("bf16", "fp16")}
+    facade = facade_training(torch, np, args.seed, card)
+    print(json.dumps({"phase": "training_loop_phase_s", "seconds": time.perf_counter() - t0,
+                      "bf16_samples_per_s": nlp["bf16"]["samples_per_s"],
+                      "fp16_samples_per_s": nlp["fp16"]["samples_per_s"]}), flush=True)
+
+    # 26. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -3578,7 +3810,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
-            "launches": train["launches"][kname],
+            "launches": train["launches"][kname] + facade["launches_loop"][kname],
             "max_abs_err": max(c[kname]["max_abs_err"] for c in flash_cases),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
@@ -3589,7 +3821,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
-            "launches": fused_train["launches"][kname],
+            "launches": fused_train["launches"][kname] + facade["launches_loop"][kname],
             "max_abs_err": max(c[kname]["max_abs_err"] for c in fused_cases),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],

@@ -39,6 +39,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
 )
 from accelerate_tpu_torch.serving.anomaly import BUNDLE_FORMAT, _atomic_write_json  # noqa: E402
 from accelerate_tpu_torch.serving.trace import EV_ANOMALY, validate  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 class FakeClock:

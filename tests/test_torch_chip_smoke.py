@@ -15,6 +15,7 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import torch
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

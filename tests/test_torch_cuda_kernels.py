@@ -1217,3 +1217,98 @@ def test_annotated_dispatches_wrap_the_graph_replays(hopper):
     assert any(n.startswith("admit[pb") for n in names)
     assert any("paged_decode" in n for n in names)
     assert tracer.validate()["clean"]
+
+
+def _facade_gpt2(dev):
+    """A narrow GPT-2 on flash attention (head_dim 64) with the fused-CE loss,
+    prepared in bf16 with accumulation over 2 microbatches."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_positions=256, attention_impl="flash")
+    module = GPT2LMHead(cfg, device=dev, seed=0)
+    acc = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=2, device=dev)
+    opt = torch.optim.AdamW(module.parameters(), lr=1e-3, weight_decay=1e-4)
+    return acc, module, *acc.prepare(module, opt)
+
+
+def test_facade_explicit_loop_equals_make_train_step_on_the_card(hopper):
+    """The imperative loop (``accumulate``, ``backward``, ``clip_grad_norm_``,
+    ``step``, ``zero_grad``) and ``make_train_step`` over the same 4
+    microbatches: equal losses and parameters, bit for bit, with the flash
+    and fused-CE kernels launched by both."""
+    from accelerate_tpu_torch.models.gpt2 import lm_loss_fn_pallas
+    from accelerate_tpu_torch.ops import fused_ce
+
+    g = torch.Generator(device=hopper).manual_seed(0)
+    batches = [{"input_ids": torch.randint(0, 256, (2, 256), generator=g, device=hopper)}
+               for _ in range(4)]
+    runs = {}
+    for form in ("explicit", "fused"):
+        acc, module, model, opt = _facade_gpt2(hopper)
+        before = (flash_attention_fwd.launches, fused_ce.fused_ce_dw.launches)
+        if form == "explicit":
+            losses = []
+            for b in batches:
+                with acc.accumulate(model):
+                    losses.append(acc.backward(lm_loss_fn_pallas, b))
+                    if acc.sync_gradients:
+                        acc.clip_grad_norm_(max_norm=1.0)
+                    opt.step()
+                    opt.zero_grad()
+        else:
+            step = acc.make_train_step(lm_loss_fn_pallas, max_grad_norm=1.0)
+            losses = [step(b) for b in batches]
+        assert flash_attention_fwd.launches - before[0] == 4 * 2
+        assert fused_ce.fused_ce_dw.launches - before[1] == 4
+        runs[form] = ([x.item() for x in losses], {n: p.detach().clone()
+                                                   for n, p in module.named_parameters()})
+    assert runs["explicit"][0] == runs["fused"][0]
+    for name, p in runs["explicit"][1].items():
+        assert torch.equal(p, runs["fused"][1][name]), name
+
+
+def test_fp16_bert_overflow_skips_the_update_and_the_scheduler_on_the_card(hopper):
+    """BERT tiny in fp16 on the card: a step whose loss is made infinite
+    leaves the parameters and the lr as they were and halves the scale; the
+    next step applies."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.bert import (
+        BertConfig,
+        BertForSequenceClassification,
+        classification_loss_fn,
+    )
+    from accelerate_tpu_torch.scheduler import schedule_lambda
+
+    acc = Accelerator(mixed_precision="fp16", device=hopper)
+    module = BertForSequenceClassification(BertConfig.tiny(), device=hopper, seed=0)
+    opt = torch.optim.AdamW(module.parameters())
+    model, opt, sched = acc.prepare(module, opt, schedule_lambda(opt, lambda n: 1e-3 * (n + 1)))
+    g = torch.Generator(device=hopper).manual_seed(0)
+    batch = {"input_ids": torch.randint(0, 1024, (4, 64), generator=g, device=hopper),
+             "labels": torch.randint(0, 2, (4,), generator=g, device=hopper)}
+    poison = {"on": False}
+
+    def loss_fn(bound, b):
+        loss = classification_loss_fn(bound, b)
+        return loss * float("inf") if poison["on"] else loss
+
+    def run():
+        with acc.accumulate(model):
+            acc.backward(loss_fn, batch)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+
+    run()
+    scale, lr = opt.scaler_state.scale.item(), sched.get_last_lr()
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    poison["on"] = True
+    run()
+    assert opt.step_was_skipped and opt.skipped_updates == 1 and opt.num_updates == 1
+    assert sched.get_last_lr() == lr and opt.scaler_state.scale.item() == scale / 2
+    for name, p in module.named_parameters():
+        assert torch.equal(p, before[name]), name
+    poison["on"] = False
+    run()
+    assert not opt.step_was_skipped and opt.num_updates == 2

@@ -20,6 +20,7 @@ from accelerate_tpu.ops.flash_attention import _fwd as jax_fwd  # noqa: E402
 from accelerate_tpu.ops.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
 from accelerate_tpu_torch.ops import flash_attention as port  # noqa: E402
 from accelerate_tpu_torch.ops.attention import attention  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, S, BLOCK = 2, 128, 32
 # fp32: the same arithmetic in another summation order (the reference's

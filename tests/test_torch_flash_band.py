@@ -26,6 +26,7 @@ from accelerate_tpu.ops.flash_attention import band_block_default as jax_band_bl
 from accelerate_tpu.ops.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
 from accelerate_tpu_torch.ops import flash_attention as port  # noqa: E402
 from accelerate_tpu_torch.ops.attention import attention  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, BLOCK = 2, 32
 # the tolerances of tests/test_torch_flash_attention.py: fp32 is the same

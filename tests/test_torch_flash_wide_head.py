@@ -23,6 +23,7 @@ jnp = jax.numpy
 
 from accelerate_tpu.ops.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
 from accelerate_tpu_torch.ops import flash_attention as port  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, BLOCK = 1, 32
 # fp32: the same arithmetic in another summation order; bf16: p and dS are

@@ -33,6 +33,7 @@ from accelerate_tpu_torch.models.gpt2 import (  # noqa: E402
 )
 from accelerate_tpu_torch.ops import fused_ce  # noqa: E402
 from accelerate_tpu_torch.ops.fused_ce import fused_cross_entropy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 E = 64
 # fp32 on both sides, the same logits summed in another order
@@ -163,7 +164,7 @@ def test_plain_versions_follow_the_reference_rounding():
 
 def test_refusals():
     h, w, labels = (torch.from_numpy(x) for x in _inputs(8, 10))
-    with pytest.raises(TypeError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ROADMAP Queue 1, item 32"):
         fused_cross_entropy(h.half(), w.half(), labels)
     with pytest.raises(TypeError, match="one dtype"):
         fused_cross_entropy(h, w.bfloat16(), labels)

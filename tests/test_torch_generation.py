@@ -22,6 +22,7 @@ from accelerate_tpu.models.gpt2 import GPT2LMHead as JaxGPT2LMHead  # noqa: E402
 from accelerate_tpu_torch.models.generation import generate  # noqa: E402
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, params_from_jax  # noqa: E402
 from accelerate_tpu_torch.models.kv_cache import make_cache  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # fp32 on both sides, the same arithmetic in other summation orders
 LOGIT_ATOL = 1e-4

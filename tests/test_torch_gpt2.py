@@ -20,6 +20,7 @@ from accelerate_tpu_torch.models.generation import generate  # noqa: E402
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, params_from_jax  # noqa: E402
 from accelerate_tpu_torch.models.kv_cache import make_block_pool, scatter_rows_to_blocks  # noqa: E402
 from accelerate_tpu_torch.ops.attention import attention  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # fp32 on both sides: matmuls and LayerNorm reduce in another order (and flax
 # computes the variance as E[x^2] - E[x]^2), so logits agree to ~1e-6 at the

@@ -45,7 +45,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.reliability.preemption",
                 "accelerate_tpu_torch.reliability.retry", "accelerate_tpu_torch.serving.trace",
                 "accelerate_tpu_torch.serving.supervisor", "accelerate_tpu_torch.serving.telemetry",
-                "accelerate_tpu_torch.serving.anomaly"):
+                "accelerate_tpu_torch.serving.anomaly", "accelerate_tpu_torch.data_loader",
+                "accelerate_tpu_torch.scheduler", "accelerate_tpu_torch.tracking",
+                "accelerate_tpu_torch.utils.random", "accelerate_tpu_torch.utils.operations",
+                "accelerate_tpu_torch.models.bert", "accelerate_tpu_torch.examples.nlp_example"):
         assert mod in got["modules"]
 
 

@@ -41,6 +41,7 @@ from accelerate_tpu_torch.serving.journal import (  # noqa: E402
     REC_PROGRESS,
     REC_SUBMIT,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SCAN_FIELDS = [f.name for f in dataclasses.fields(port_journal.JournalScan)]
 

@@ -33,6 +33,7 @@ from accelerate_tpu_torch.models.llama import (  # noqa: E402
     params_from_jax,
 )
 from accelerate_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, S, WINDOW = 1, 64, 24
 # fp32 on both sides; matmuls, RMSNorm and softmax reduce in other orders
@@ -200,7 +201,7 @@ def test_decode_is_refused(params):
 
 
 def test_ring_attention_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 21"):
         LlamaForCausalLM(LlamaConfig.tiny(attention_impl="ring"), device="cpu")
 
 

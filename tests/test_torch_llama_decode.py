@@ -33,6 +33,7 @@ from accelerate_tpu_torch.models.llama import (  # noqa: E402
     params_from_jax,
 )
 from accelerate_tpu_torch.utils import quantization as tq  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WINDOW = 5
 # fp32 on both sides: the same matmuls, RMSNorm and softmax in other

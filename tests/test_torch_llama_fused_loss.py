@@ -32,6 +32,7 @@ from accelerate_tpu_torch.models.llama import (  # noqa: E402
     params_from_jax,
 )
 from accelerate_tpu_torch.ops import fused_ce  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, S = 2, 32
 # fp32 on both sides: the same logits summed in another order (the

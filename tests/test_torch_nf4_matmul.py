@@ -20,6 +20,7 @@ from accelerate_tpu.ops import nf4_matmul as jops  # noqa: E402
 from accelerate_tpu.utils import quantization as jq  # noqa: E402
 from accelerate_tpu_torch.ops import nf4_matmul as tops  # noqa: E402
 from accelerate_tpu_torch.utils import quantization as tq  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _pair(K, N, seed=0, **cfg):

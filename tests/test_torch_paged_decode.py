@@ -25,6 +25,7 @@ from accelerate_tpu_torch.ops.flash_attention import (  # noqa: E402
     paged_decode_attention,
     paged_decode_attention_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # fp32 throughout: the two sides sum the same products in a different order
 # (the interpreter's batched dot_general vs torch's einsum), a few ulp apart;

@@ -42,6 +42,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SamplingParams,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BT = 16  # the tiny config's 128 positions are 8 blocks of 16
 N_NEW = 8

@@ -31,6 +31,7 @@ from accelerate_tpu_torch.models.llama import (  # noqa: E402
     params_from_jax,
 )
 from accelerate_tpu_torch.utils import quantization as tq  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 MIN_SIZE = 2048  # every projection, embed_tokens and lm_head of the tiny Llama
 

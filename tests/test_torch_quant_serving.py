@@ -38,6 +38,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     ServingEngine,
     WeightQuantConfig,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TINY = dict(n_embd=128, n_head=2)
 PROMPT_LENS = (5, 23, 40, 9, 16)  # 5 requests over 4 slots: a backfill

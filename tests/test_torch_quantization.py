@@ -18,6 +18,7 @@ from accelerate_tpu.models.gpt2 import GPT2LMHead as JaxGPT2LMHead  # noqa: E402
 from accelerate_tpu.utils import quantization as jq  # noqa: E402
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, params_from_jax  # noqa: E402
 from accelerate_tpu_torch.utils import quantization as tq  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 KINDS = {
     "int8": dict(load_in_8bit=True),

@@ -47,6 +47,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SamplingParams,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _specs(pkg):

@@ -30,6 +30,7 @@ from accelerate_tpu.utils import safetensors_io as ref  # noqa: E402
 from accelerate_tpu_torch import checkpointing  # noqa: E402
 from accelerate_tpu_torch.models import gpt2, llama  # noqa: E402
 from accelerate_tpu_torch.utils import safetensors_io as port  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _tree(seed=0):

@@ -41,6 +41,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SamplingParams,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 PROMPT_LENS = (5, 23, 40, 9, 16, 33, 61)  # 7 requests over 4 slots; buckets 16 and 64
 N_NEW = 12

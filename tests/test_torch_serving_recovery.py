@@ -44,6 +44,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SamplingParams,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 # a reference step whose top-2 gap is below this could flip on fp32

@@ -70,6 +70,7 @@ from accelerate_tpu_torch.serving.trace import (  # noqa: E402
     EV_SUBMIT,
     request_streams,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BUCKETS = (16, 32)
 RATE = 250.0  # the decode rate both engines report to capacity_headroom

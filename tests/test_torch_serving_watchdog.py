@@ -52,6 +52,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     ServingEngine,
 )
 from accelerate_tpu_torch.utils.quantization import QuantizationConfig, quantize  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BUCKETS = (8, 16)
 

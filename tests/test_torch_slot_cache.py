@@ -31,6 +31,7 @@ from accelerate_tpu.models.llama import LlamaForCausalLM as JaxLlamaForCausalLM 
 from accelerate_tpu_torch.models import kv_cache as tkv  # noqa: E402
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead  # noqa: E402
 from accelerate_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 MAX_LEN, KVH, D = 16, 2, 8
 

@@ -36,6 +36,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SamplingParams,
     ServingEngine,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_NEW = 12
 ENGINE_KW = dict(max_concurrency=4, prompt_buckets=(16, 64))

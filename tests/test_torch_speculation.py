@@ -40,6 +40,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     SpeculationConfig,
 )
 from accelerate_tpu_torch.serving.speculation import resolve_drafter  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 K = 4
 N_NEW = 12

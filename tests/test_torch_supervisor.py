@@ -68,6 +68,7 @@ from accelerate_tpu_torch.serving import (  # noqa: E402
     Tracer,
 )
 from accelerate_tpu_torch.serving.trace import EV_BROWNOUT, EV_RESTART, EV_STALL  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BUCKETS = (16, 32)
 

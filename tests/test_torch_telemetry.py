@@ -52,6 +52,7 @@ from accelerate_tpu_torch.serving.telemetry import (  # noqa: E402
     sanitize_scalars,
     to_prometheus_text,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from accelerate_tpu_torch.models.gpt2 import (  # noqa: E402
     lm_loss_fn,
     params_from_jax,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 B, S = 8, 32
 # fp32 on both sides; matmuls, LayerNorm and softmax reduce in other orders
@@ -193,8 +194,8 @@ def test_cross_entropy_of_an_all_ignored_batch_is_zero():
 
 
 def test_accelerator_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Accelerator(mixed_precision="fp16", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 21"):
+        Accelerator(mixed_precision="fp8", device="cpu")
     model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu")
     other = torch.nn.Linear(2, 2)
     with pytest.raises(ValueError, match="not parameters of the model"):
