@@ -390,7 +390,10 @@ class ServingEngine:
     (1 = synchronous). ``tokens_per_sync`` is the decode iterations one
     dispatch runs between host fetches (one graph replay on CUDA).
     ``admit_batch`` caps how many same-bucket queued requests one prefill
-    admits (batch buckets are the powers of two up to it).
+    admits (batch buckets are the powers of two up to it). ``scheduler``
+    replaces the default `FIFOScheduler` with another ordering policy (a
+    `scheduler.FairScheduler`); the engine sets its buckets, queue bound and
+    prompt cap.
 
     ``paged_kv`` picks the mode: False (the default) is the slot pool, True
     or a `PagedKVConfig` the paged pool. ``paged_attention`` is the paged
@@ -439,6 +442,7 @@ class ServingEngine:
         tracer: Any = None,
         telemetry: Any = None,
         anomaly: Any = None,
+        scheduler: Any = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -518,9 +522,18 @@ class ServingEngine:
         if not buckets:
             raise ValueError(f"no prompt bucket fits n_positions={self.max_len}: {prompt_buckets}")
         # prompts are capped one short of the context so every request can
-        # emit at least one token
-        self.scheduler = FIFOScheduler(prompt_buckets=buckets, max_queue=max_queue,
-                                       max_prompt_len=min(buckets[-1], self.max_len - 1))
+        # emit at least one token. ``scheduler=`` swaps the ordering policy
+        # (a `FairScheduler` for the front door's classes); the engine stamps
+        # its bucket and length limits on it, so any policy sees the default
+        # FIFO's admission geometry: order is all a scheduler may change
+        if scheduler is not None:
+            self.scheduler = scheduler
+            self.scheduler.buckets = buckets
+            self.scheduler.max_queue = int(max_queue)
+            self.scheduler.max_prompt_len = min(buckets[-1], self.max_len - 1)
+        else:
+            self.scheduler = FIFOScheduler(prompt_buckets=buckets, max_queue=max_queue,
+                                           max_prompt_len=min(buckets[-1], self.max_len - 1))
         if self.paged:
             self.scheduler.capacity_fn = self._paged_capacity
         self.eos_token_id = eos_token_id
@@ -1200,7 +1213,7 @@ class ServingEngine:
                     "rid": rid, "prompt": rec["prompt"], "params": rec["params"],
                     "deadline_s": rec.get("deadline_s"),
                     "cache_prefix": rec.get("cache_prefix", True),
-                    "priority": rec.get("priority", 0),
+                    "priority": rec.get("priority", 0), "tenant": rec.get("tenant", ""),
                     "toks": scan.tokens.get(rid, []), "retries": 0,
                     "admitted": rid in admitted,
                     "waited_s": max(0.0, scan.last_ts - float(rec.get("ts", scan.last_ts))),
@@ -1306,7 +1319,8 @@ class ServingEngine:
                               deadline_s=None if admitted else deadline,
                               cache_prefix=bool(e.get("cache_prefix", True)),
                               retries=int(e.get("retries", 0)), resume_tokens=toks[:keep],
-                              arrival_time=perf_now - waited, priority=int(e.get("priority", 0)))
+                              arrival_time=perf_now - waited, priority=int(e.get("priority", 0)),
+                              tenant=str(e.get("tenant", "")))
             if self.tracer.enabled:
                 self.tracer.emit(EV_SUBMIT, rid, prompt_len=plen, recovered=True,
                                  resumed=len(request.resume_tokens))

@@ -72,9 +72,8 @@ class JournalError(RuntimeError):
 def request_record(request: Any) -> dict[str, Any]:
     """The JSON-serializable identity of a request: everything `resume` needs
     to reconstruct it (prompt, sampling params incl. the seed that makes the
-    stream replayable, deadline, cache opt-out, priority). ``tenant`` is the
-    reference's fair-share field, which the port's requests do not carry
-    yet: it is written as ``""``, so the record is the reference's."""
+    stream replayable, deadline, cache opt-out, priority and the
+    `FairScheduler`'s fair-share ``tenant``)."""
     sp = request.params
     return {
         "rid": request.request_id,

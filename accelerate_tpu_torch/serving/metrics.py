@@ -5,9 +5,11 @@ the overlapped dispatch's host-blocked time, depth, admission batch sizes
 and tokens per fetch, the prefix cache's counters, the speculative verify
 step's, the reliability and recovery counters: expiries, quarantines,
 resumes and the journal's appends, the SLO goodput accounting, the per-step
-phase timings, the compile count and the supervisor's counters), the
-reference's flat `ServingMetrics.snapshot` for them, and `log_to`, which
-hands that snapshot to any tracker with a ``log(values, step=)`` method.
+phase timings, the compile count, the supervisor's counters and the front
+door's stream and predictive-admission counters), the reference's flat
+`ServingMetrics.snapshot` for them, `log_to`, which hands that snapshot to
+any tracker with a ``log(values, step=)`` method, and `aggregate_snapshots`,
+which combines a cluster's replica snapshots.
 Histograms also keep exact counts over a fixed log-spaced bucket ladder, so
 the Prometheus export (`serving.telemetry`) renders them as real histograms.
 Host-side bookkeeping only; nothing here touches the device."""
@@ -166,7 +168,18 @@ class ServingMetrics:
     and the SLO accounting (`observe_slo`, `goodput`). The supervisor
     (`serving.supervisor`) counts ``supervisor_restarts``, ``_stalls``,
     ``_storms``, ``_shed`` and ``_brownouts``, and keeps the
-    ``supervisor_brownout_active`` gauge and ``supervisor_time_in_brownout_s``."""
+    ``supervisor_brownout_active`` gauge and ``supervisor_time_in_brownout_s``.
+
+    Front door (`serving.frontend`): ``streams_opened`` and
+    ``streams_finished`` count token streams, ``stream_events`` the events
+    delivered; ``streamed_ttft_s`` is TTFT as a streaming caller sees it
+    (submit -> first event read off the journal) and ``stream_lag_s`` that
+    delivery's lag alone (journal append -> event); ``predicted_ttft_s``
+    records every predictive-admission estimate and
+    ``requests_shed_predicted`` the submissions rejected with
+    ``REJECT_PREDICTED_TTFT``, per priority class in ``class_shed``
+    (``serving/class/<p>/shed``). ``replica_occupancy`` is one slot-occupancy
+    observation per replica a step (`observe_replicas`)."""
 
     def __init__(self):
         self.requests_submitted = Counter()
@@ -235,6 +248,16 @@ class ServingMetrics:
         self.step_phase_journal_s = Histogram()
         self.step_phase_telemetry_s = Histogram()
         self.step_total_s = Histogram()
+        # the front door (serving.frontend)
+        self.streams_opened = Counter()
+        self.streams_finished = Counter()
+        self.stream_events = Counter()
+        self.streamed_ttft_s = Histogram()
+        self.stream_lag_s = Histogram()
+        self.predicted_ttft_s = Histogram()
+        self.requests_shed_predicted = Counter()
+        self.class_shed: dict[int, int] = {}
+        self.replica_occupancy = Histogram()
         self._start: float | None = None
         # rate window: tokens_per_sec() and goodput() measure from the later
         # of mark_start() and the last reset_rate_window()
@@ -298,6 +321,19 @@ class ServingMetrics:
             },
         }
 
+    def observe_shed(self, priority: int) -> None:
+        """One predictive-admission rejection (`REJECT_PREDICTED_TTFT`),
+        counted under its priority class."""
+        self.requests_shed_predicted.inc()
+        p = int(priority)
+        self.class_shed[p] = self.class_shed.get(p, 0) + 1
+
+    def observe_replicas(self, active_per_replica: list[int], capacity: int) -> None:
+        """One step's slot occupancy of each replica (``capacity`` slots
+        each)."""
+        for active in active_per_replica:
+            self.replica_occupancy.observe(active / capacity if capacity else 0.0)
+
     def observe_step(self, active: int, capacity: int, queue_depth: int) -> None:
         """One engine step: the step count, slot occupancy and queue depth."""
         self.steps.inc()
@@ -349,7 +385,8 @@ class ServingMetrics:
                 "prefix_hits", "prefix_misses", "prefix_tokens_reused", "prefix_blocks_donated",
                 "prefix_evictions", "steps", "decode_dispatches", "decode_steps",
                 "compile_count", "spec_proposed", "spec_accepted", "spec_forwards",
-                "spec_tokens")
+                "spec_tokens", "streams_opened", "streams_finished", "stream_events",
+                "requests_shed_predicted")
         }
         out["serving/tokens_per_sec"] = self.tokens_per_sec()
         out["serving/accepted_tokens_per_forward"] = (
@@ -373,10 +410,13 @@ class ServingMetrics:
                 out[f"serving/slo/{name}/{stat}"] = stats[stat]
         for key, seconds in self.compiles.items():
             out[f"serving/compile/{key}"] = seconds
-        for name in ("compile_s", "ttft_s", "ttft_hit_s", "ttft_miss_s", "inter_token_s",
+        for p, n in sorted(self.class_shed.items()):
+            out[f"serving/class/{p}/shed"] = n
+        for name in ("replica_occupancy", "compile_s", "ttft_s", "ttft_hit_s", "ttft_miss_s", "inter_token_s",
                      "request_latency_s", "host_blocked_s", "queue_depth", "slot_occupancy",
                      "dispatch_depth", "admit_batch_size", "tokens_per_dispatch",
-                     "spec_accept_len", "step_phase_schedule_s", "step_phase_draft_s",
+                     "spec_accept_len", "streamed_ttft_s", "stream_lag_s", "predicted_ttft_s",
+                     "step_phase_schedule_s", "step_phase_draft_s",
                      "step_phase_dispatch_s", "step_phase_fetch_blocked_s",
                      "step_phase_deliver_s", "step_phase_journal_s", "step_phase_telemetry_s",
                      "step_total_s"):
@@ -394,3 +434,63 @@ class ServingMetrics:
         """Emit the snapshot through a tracker (anything with
         ``log(values, step=)``)."""
         tracker.log(self.snapshot(), step=step)
+
+
+# Histogram-summary stat suffixes (`Histogram.summary`): summing any of these
+# is wrong, so `aggregate_snapshots` treats them apart
+_HIST_WEIGHTED = ("mean", "p50", "p90", "p99")
+_HIST_MIN = ("min",)
+_HIST_MAX = ("max",)
+
+
+def aggregate_snapshots(snapshots: list[dict[str, Any]]) -> dict[str, Any]:
+    """Combine per-replica `ServingMetrics.snapshot` dicts into one cluster
+    total (the `serving.cluster` metrics view), as the reference does.
+
+    Counters and rates sum: a cluster's tokens/s is the sum of its
+    replicas'. For each histogram ``<base>/<stat>``: ``count`` sums,
+    ``min``/``max`` take the extremes, and ``mean``/``p50``/``p90``/``p99``
+    the count-weighted average (exact for the mean, an approximation for the
+    quantiles: the reservoirs are not merged). Ratio keys are recomputed
+    from their summed parts (``slo_attainment``, each class's
+    ``attainment``, ``accepted_tokens_per_forward``). A non-numeric value
+    keeps the first replica's."""
+    present: dict[str, list[tuple[dict[str, Any], Any]]] = {}
+    for snap in snapshots:
+        for key, value in snap.items():
+            present.setdefault(key, []).append((snap, value))
+    out: dict[str, Any] = {}
+    for key, entries in present.items():
+        values = [v for _, v in entries]
+        if not all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in values):
+            out[key] = values[0]
+            continue
+        base, _, stat = key.rpartition("/")
+        if stat in _HIST_WEIGHTED and base:
+            weights = [snap.get(f"{base}/count", 0) for snap, _ in entries]
+            total = sum(weights)
+            out[key] = (sum(w * v for w, v in zip(weights, values)) / total
+                        if total else 0.0)
+        elif stat in _HIST_MIN and base:
+            out[key] = min(values)
+        elif stat in _HIST_MAX and base:
+            out[key] = max(values)
+        else:
+            out[key] = sum(values)
+    forwards = out.get("serving/spec_forwards", 0)
+    if "serving/accepted_tokens_per_forward" in out:
+        out["serving/accepted_tokens_per_forward"] = (
+            out.get("serving/spec_tokens", 0) / forwards if forwards else 0.0)
+    cls_requests = 0
+    cls_attained = 0
+    for key in list(out):
+        if key.startswith("serving/slo/") and key.endswith("/attainment"):
+            base = key[: -len("/attainment")]
+            requests = out.get(f"{base}/requests", 0)
+            attained = out.get(f"{base}/attained", 0)
+            out[key] = attained / requests if requests else 1.0
+            cls_requests += requests
+            cls_attained += attained
+    if "serving/slo_attainment" in out:
+        out["serving/slo_attainment"] = cls_attained / cls_requests if cls_requests else 1.0
+    return out

@@ -1,11 +1,12 @@
 """Request/response surface of the serving engine: the port of
-`accelerate_tpu.serving.request`, for the fields the port's engine reads:
-``cache_prefix`` (the prefix cache), and the crash-recovery and reliability
-fields ``deadline_s``, ``retries`` and ``resume_tokens`` (the journal,
-snapshot and resume, the health flag's quarantine), the latency objective
-``slo`` (`SLOSpec`, the goodput accounting) and ``priority`` (the
-supervisor's brownout). The reference's ``tenant``, `SubmitOptions` and
-``REJECT_PREDICTED_TTFT`` come with the front door and its fair scheduler."""
+`accelerate_tpu.serving.request`, every field of it: ``cache_prefix`` (the
+prefix cache), the crash-recovery and reliability fields ``deadline_s``,
+``retries`` and ``resume_tokens`` (the journal, snapshot and resume, the
+health flag's quarantine), the latency objective ``slo`` (`SLOSpec`, the
+goodput accounting and the front door's predictive admission), and
+``priority`` and ``tenant`` (the supervisor's brownout and the
+`FairScheduler`'s classes and fair shares), with the front door's
+`SubmitOptions` and its ``REJECT_PREDICTED_TTFT``."""
 
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ REJECT_DRAINING = "draining"  # engine is draining toward shutdown
 # shedding low-priority admissions
 REJECT_UNHEALTHY = "unhealthy"
 REJECT_OVERLOAD = "overload"
+# front-door predictive admission (`serving.frontend`): the TTFT this request
+# would see, estimated from capacity headroom, queue depth and the step-phase
+# timings, already exceeds its SLOSpec.ttft_s bound, so it is shed before a
+# slot and a prefill are spent on a reply the client counts as a miss.
+# Distinct from REJECT_OVERLOAD, the supervisor's reactive brownout
+REJECT_PREDICTED_TTFT = "predicted_ttft"
 
 
 @dataclass(frozen=True)
@@ -86,7 +93,13 @@ class Request:
 
     ``priority`` is the admission priority class (higher is more important,
     0 the lowest): the supervisor's overload brownout sheds new admissions
-    with ``priority < level`` (`REJECT_OVERLOAD`). FIFO order is unaffected.
+    with ``priority < level`` (`REJECT_OVERLOAD`), and the `FairScheduler`
+    serves higher classes first within its starvation bound. Under the
+    default `FIFOScheduler` the order stays FIFO. ``tenant`` is the
+    `FairScheduler`'s fair-share account: requests of one tenant share one
+    deficit budget, so one chatty client cannot monopolize its class. It is
+    journaled and restored across resume and replica migration; ``""`` is
+    the anonymous shared tenant.
 
     ``resume_tokens`` is the crash-recovery handle: the tokens this request
     had already emitted before an engine restart. Admission then prefills
@@ -105,6 +118,7 @@ class Request:
     slo: SLOSpec | None = None
     resume_tokens: list[int] = field(default_factory=list)
     priority: int = 0
+    tenant: str = ""
 
     @property
     def prefill_len(self) -> int:
@@ -128,6 +142,40 @@ class RequestOutput:
     arrival_time: float | None = None
     first_token_time: float | None = None
     finish_time: float | None = None
+
+
+@dataclass(frozen=True)
+class SubmitOptions:
+    """Per-request front-door knobs (`serving.frontend`): what a caller
+    chooses about a submission rather than in it.
+
+    ``priority`` picks the scheduling class (higher served first, within the
+    `FairScheduler`'s starvation bound); ``tenant`` names the fair-share
+    account the request bills; ``slo`` attaches the latency objective that
+    predictive admission (`REJECT_PREDICTED_TTFT` when the estimated TTFT
+    already exceeds ``slo.ttft_s``) and the goodput accounting read;
+    ``deadline_s`` is the queue-wait budget (`REJECT_DEADLINE`);
+    ``cache_prefix=False`` opts out of prefix-KV reuse.
+    ``admit_despite_slo`` submits even when predictive admission would
+    reject (the caller prefers a late answer to none)."""
+
+    priority: int = 0
+    tenant: str = ""
+    slo: SLOSpec | None = None
+    deadline_s: float | None = None
+    cache_prefix: bool = True
+    admit_despite_slo: bool = False
+
+    def apply(self, request: Request) -> Request:
+        """Stamp these options onto ``request`` (mutates and returns it)."""
+        request.priority = int(self.priority)
+        request.tenant = str(self.tenant)
+        if self.slo is not None:
+            request.slo = self.slo
+        if self.deadline_s is not None:
+            request.deadline_s = float(self.deadline_s)
+        request.cache_prefix = bool(self.cache_prefix)
+        return request
 
 
 @dataclass(frozen=True)

@@ -102,9 +102,9 @@ def prometheus_name(key: str) -> str:
     return f"{PROM_NAMESPACE}_{name}"
 
 
-# per-replica gauge namespace (the reference's serving/cluster.py, which the
-# port has not yet): a cluster point carries
-# each replica's gauges under this prefix; the Prometheus render turns the
+# per-replica gauge namespace (`serving.cluster`, a telemetry source through
+# `ServingCluster.replica_samples`): a cluster point carries each replica's
+# gauges under this prefix; the Prometheus render turns the
 # prefix into a {replica="i"} label so per-replica and cluster-total series
 # share a metric name without colliding
 _REPLICA_PREFIX = re.compile(r"^replica(\d+)/(.+)$")
@@ -321,7 +321,7 @@ class TelemetryExporter:
         anomaly = getattr(engine, "anomaly", None)
         if anomaly is not None and getattr(anomaly, "enabled", False):
             gauges.update(anomaly.gauges())
-        # multi-replica source (the reference's `ServingCluster.replica_samples`): each
+        # multi-replica source (`ServingCluster.replica_samples`): each
         # replica's gauges ride the same point under `replica<i>/...`, so
         # per-replica and cluster-total series never collide — in JSONL by
         # key, in Prometheus by the {replica="i"} label the render adds.

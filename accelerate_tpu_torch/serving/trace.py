@@ -82,8 +82,8 @@ EV_ANOMALY = "anomaly"        # detector fired/cleared [detector, phase, zscore]
 #                               (serving/anomaly.py — enter may carry ``bundle``,
 #                               the flight-recorder debug-bundle path)
 
-# Cluster edges (the reference's serving/cluster.py, not ported yet; kept
-# so traces of either package validate alike): ``rid`` is the ENGINE-level id on the replica whose tracer
+# Cluster edges (`serving.cluster` and `serving.autoscaler` emit them):
+# ``rid`` is the ENGINE-level id on the replica whose tracer
 # carries the event. Deliberately outside REQUEST_KINDS: a routed request's
 # lifecycle on its replica stays a valid single-engine stream, and the
 # cluster edges annotate placement without perturbing `validate`'s
@@ -91,7 +91,7 @@ EV_ANOMALY = "anomaly"        # detector fired/cleared [detector, phase, zscore]
 EV_ROUTE = "route"            # router placed a submit [replica, policy, resumed]
 EV_MIGRATE = "migrate"        # journal-backed move [from_replica, to_replica, resumed]
 EV_SCALE = "scale"            # fleet size change [action, replica, target, actual]
-#                               (serving/autoscaler.py — action = "up" |
+#                               (serving.autoscaler: action = "up" |
 #                               "retire" | "replace"; drain freezes ride
 #                               EV_ANOMALY detector="autoscale_thrash")
 

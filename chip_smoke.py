@@ -244,9 +244,32 @@ Phases run in order; any failure exits non-zero:
    microbatch, and a run saved after 4 microbatches and loaded into a fresh
    `Accelerator` gives the last 4 losses of the run that never stopped
    (`bf16_facade_gpt2`: both forms' tokens/s);
-26. the kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop to phases 8 and 11), the card line, and the final
-   ``{"ok": true, ...}`` line.
+26. the serving fleet and its front door, GPT-2 small at full width and
+   depth, every replica a supervised paged fused engine (kernel #1) at
+   depth 2 with 16 slots and the prefix cache, all over one model; fp32
+   (TF32 off), phase 5's 48 requests: (a) a 2-replica `ServingCluster`
+   under ``prefix`` and ``round_robin`` gives a lone engine's streams
+   (`fp32_cluster_parity`: placements, router stats, kernel #1's launches
+   per replica); (b) a `FaultInjector` device error kills replica 0 with
+   its restart budget spent, its backlog migrates off the journal,
+   `replace_replica` spawns a successor, and the replica the streams moved
+   to is killed too: no request lost, no emitted token decoded twice,
+   streams equal (`fp32_cluster_migration`); (c) a `ServingFrontend` over
+   a journaled 2-replica cluster of `FairScheduler` engines, two tenants,
+   two classes, every request streamed and replica 0 killed mid-stream:
+   each stream's events concatenate to its output
+   (`fp32_frontend_streams`, stream lag p50/p99). bf16: (d) the reference
+   benchmark's 5-tenant shared-prefix trace (256-token prefix), 1 and 2
+   replicas, ``prefix`` against ``round_robin``: tokens/s, TTFT, trie hit
+   rate, the device's idle share and peak memory, reported only
+   (`bf16_cluster_routing`); (e) a surge then idle under
+   `FleetAutoscaler(min_replicas=1, max_replicas=3)`, a spawn while
+   replica 0 has dispatches in flight, the scale events in order, then three
+   spawn-and-retire cycles that must leave ``memory_allocated()`` within
+   1 MiB (`bf16_autoscale`);
+27. the kernels line (its flash and fused-CE launches add phase 25 (b)'s
+   loop to phases 8 and 11; kernel #1's add phase 26's replicas to phases
+   5 and 24), the card line, and the final ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -3129,6 +3152,428 @@ def observability_serving(torch, np, seed: int, card: str, prompts: list[list[in
     return {"launches": launches, "lines": lines}
 
 
+def tenant_trace(np, seed: int, n: int, prefix_len: int, tenants: int, vocab: int) -> list:
+    """The reference serving benchmark's multi-tenant trace
+    (benchmarks/bench_serving.py `_tenant_trace`): ``tenants`` shared
+    prefixes of ``prefix_len`` tokens, requests round-robin over them, each
+    with a 4-12 token tail and 8-16 new tokens, greedy. Returns (prompt,
+    max_new_tokens) pairs; arrivals are paced by the caller."""
+    r = np.random.default_rng(seed)
+    prefixes = [r.integers(0, vocab, prefix_len).tolist() for _ in range(tenants)]
+    out = []
+    for i in range(n):
+        tail = r.integers(0, vocab, int(r.integers(4, 13))).tolist()
+        out.append((prefixes[i % tenants] + tail, int(r.integers(8, 17))))
+    return out
+
+
+def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> dict:
+    """Phase 26: the serving fleet and its front door on the card. GPT-2
+    small at full width and depth, every replica a supervised paged fused
+    engine (kernel #1 in its decode graph) at depth 2 with 16 slots and the
+    prefix cache, all over one model. fp32 (TF32 off), phase 5's 48 requests
+    (every second sampled), 64 tokens each: (a) a 2-replica `ServingCluster`
+    under ``prefix`` and ``round_robin`` gives a lone engine's streams, token
+    for token (`fp32_cluster_parity`: placements, `router_stats`, kernel #1's
+    launches per replica); (b) a `FaultInjector` device error spends replica
+    0's restart budget mid-traffic, the cluster migrates its backlog off the
+    journal, `replace_replica` spawns a successor, and the replica the
+    streams moved to is killed the same way: no request lost, no emitted
+    token decoded twice (the replicas' generated tokens sum to the outputs'),
+    streams equal (`fp32_cluster_migration`); (c) a `ServingFrontend` over a
+    journaled 2-replica cluster of `FairScheduler` engines, two tenants and
+    two priority classes, every request streamed, replica 0 killed
+    mid-stream: every stream's events concatenate to its lone-engine output
+    (`fp32_frontend_streams`, `stream_lag_s` p50/p99). bf16: (d) the
+    reference benchmark's 5-tenant shared-prefix trace with a 256-token
+    prefix, 1 and 2 replicas, ``prefix`` against ``round_robin``: tokens/s,
+    TTFT p50/p99, trie hit rate, peak memory and the device's idle share
+    over the run, profiled (`bf16_cluster_routing`, reported, not gated);
+    (e) a surge then idle under `FleetAutoscaler(min_replicas=1,
+    max_replicas=3)` with a spawn under traffic, the scale events in order,
+    then three spawn-and-retire cycles after which ``memory_allocated()`` is
+    back within 1 MiB (`bf16_autoscale`). Returns kernel #1's launches over
+    the phase."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.reliability import FaultInjector, FaultSpec, inject
+    from accelerate_tpu_torch.serving import (
+        FINISH_LENGTH,
+        AutoscalerConfig,
+        ClusterConfig,
+        FairScheduler,
+        FleetAutoscaler,
+        PagedKVConfig,
+        PrefixCacheConfig,
+        Request,
+        SamplingParams,
+        ServingCluster,
+        ServingEngine,
+        ServingFrontend,
+        SubmitOptions,
+        SupervisorConfig,
+    )
+
+    t_phase = time.perf_counter()
+    params = [dict(max_new_tokens=64, temperature=0.8 if i % 2 else 0.0,
+                   top_k=50 if i % 2 else None, seed=i) for i in range(len(prompts))]
+
+    def requests():
+        return [Request(prompt=list(p), params=SamplingParams(**kw))
+                for p, kw in zip(prompts, params)]
+
+    def factory(model, fair=False):
+        """A replica's engine; ``fair`` gives each engine a `FairScheduler`
+        of its own."""
+        def build(**kw):
+            engine = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=16),
+                                   paged_attention="fused", max_concurrency=16,
+                                   prompt_buckets=BUCKETS, pipeline_depth=2, max_queue=256,
+                                   prefix_cache=PrefixCacheConfig(block_tokens=16),
+                                   scheduler=FairScheduler() if fair else None, **kw)
+            if engine._graph is None or not engine.graph_launches.get("paged_decode_attention"):
+                raise AssertionError("fleet: a replica captured no decode graph with kernel #1")
+            return engine
+        return build
+
+    def replica_launches(cluster) -> list[int]:
+        """Kernel #1's launches of each replica: what one replay launches
+        (counted at capture) times the replica's decode replays."""
+        return [rep.engine.graph_launches.get("paged_decode_attention", 0)
+                * rep.metrics.decode_dispatches.value for rep in cluster.replicas]
+
+    def drive(cluster, outs):
+        while cluster.has_work:
+            for o in cluster.step():
+                if o.request_id in outs:
+                    raise AssertionError(f"fleet: request {o.request_id} delivered twice")
+                outs[o.request_id] = o
+        return outs
+
+    def kill_first_stepped(cluster):
+        """One cluster step under a FaultInjector whose device error fires
+        at the step's first dispatch: the first live replica with work (the
+        lowest index) fails it and, with no restart budget, dies."""
+        with inject(FaultInjector(seed=seed, specs=[FaultSpec.device_error(at_calls=(0,))])):
+            return cluster.step()
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+
+    def shut(cluster):
+        """Close the replicas' journals and free their device memory now
+        (engines sit in reference cycles)."""
+        cluster.close()
+        for rep in cluster.replicas:
+            rep.engine._release_device()
+
+    def paced(cluster, trace, interval):
+        """Submit ``trace`` at fixed intervals while stepping the cluster,
+        until every request finished (the reference benchmark's
+        `_run_cluster` pacing)."""
+        for rep in cluster.replicas:
+            rep.metrics.reset_rate_window()
+        t0 = time.perf_counter()
+        pending = list(enumerate(trace))
+        done = 0
+        while pending or cluster.has_work:
+            now = time.perf_counter() - t0
+            while pending and pending[0][0] * interval <= now:
+                _, (prompt, n_new) = pending.pop(0)
+                res = cluster.submit(Request(prompt=prompt,
+                                             params=SamplingParams(max_new_tokens=n_new)))
+                if not res.accepted:
+                    raise AssertionError(f"fleet routing: a request was rejected: {res}")
+            done += len(cluster.step())
+            if not cluster.has_work and pending:
+                time.sleep(max(0.0, pending[0][0] * interval - (time.perf_counter() - t0)))
+        if done != len(trace):
+            raise AssertionError(f"fleet routing: {done} of {len(trace)} requests finished")
+
+    def device_busy(fn) -> tuple[float, float]:
+        """(host wall us, device busy us) of ``fn`` under a CUDA-only
+        torch.profiler window (the kernels run on one stream)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.is_user_annotation)
+        return wall_us, busy
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_"))
+    launches = 0
+    try:
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+        # (a) parity: a lone engine, then 2-replica clusters under both policies
+        lone = factory(model)()
+        want = [o.tokens for o in lone.run(requests())]
+        del lone
+        for policy in ("prefix", "round_robin"):
+            t_part = time.perf_counter()
+            settle()
+            cluster = ServingCluster(factory(model), tmp / f"parity_{policy}", replicas=2,
+                                     config=ClusterConfig(policy=policy))
+            t0 = time.perf_counter()
+            rids = [cluster.submit(r).request_id for r in requests()]
+            placed = [cluster.placement(rid)[0] for rid in rids]
+            outs = drive(cluster, {})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = [outs[rid].tokens for rid in rids]
+            per_replica = replica_launches(cluster)
+            launches += sum(per_replica)
+            line = {"phase": "fp32_cluster_parity", "policy": policy, "requests": len(rids),
+                    "streams_equal_lone_engine": sum(a == b for a, b in zip(got, want)),
+                    "placements_per_replica": [placed.count(i) for i in range(2)],
+                    "router_stats": cluster.router_stats(), "wall_s": wall,
+                    "kernel1_launches_per_replica": per_replica,
+                    "decode_replays_per_replica": [rep.metrics.decode_dispatches.value
+                                                   for rep in cluster.replicas],
+                    "seconds": time.perf_counter() - t_part, "card": card}
+            print(json.dumps(line), flush=True)
+            if got != want:
+                raise AssertionError(f"fp32 cluster ({policy}): streams differ from a lone "
+                                     f"engine's: {line}")
+            if min(per_replica) <= 0 or min(line["placements_per_replica"]) <= 0:
+                raise AssertionError(f"fp32 cluster ({policy}): a replica served nothing: {line}")
+            shut(cluster)
+            del cluster
+
+        # (b) migration: kill, replace, kill the replica the streams moved to
+        t_part = time.perf_counter()
+        settle()
+        cluster = ServingCluster(factory(model), tmp / "migration", replicas=2,
+                                 config=ClusterConfig(policy="round_robin"),
+                                 supervisor_config=SupervisorConfig(max_restarts=0))
+        rids = [cluster.submit(r).request_id for r in requests()]
+        outs: dict = {}
+        for _ in range(8):
+            for o in cluster.step():
+                outs[o.request_id] = o
+        for o in kill_first_stepped(cluster):
+            outs[o.request_id] = o
+        first = dict(states=[rep.state for rep in cluster.replicas],
+                     migrated_requests=cluster.migrated_requests)
+        if cluster.replicas[0].state != "dead" or cluster.migrations != 1:
+            raise AssertionError(f"fleet migration: replica 0 did not die and migrate: {first}")
+        successor = cluster.replace_replica(0)
+        for _ in range(4):
+            for o in cluster.step():
+                outs[o.request_id] = o
+        moved_to = {cluster.placement(rid)[0] for rid in rids if rid not in outs}
+        for o in kill_first_stepped(cluster):
+            outs[o.request_id] = o
+        if cluster.replicas[1].state != "dead" or cluster.migrations != 2:
+            raise AssertionError("fleet migration: the second kill did not land on replica 1")
+        cluster.replace_replica(1)
+        drive(cluster, outs)
+        torch.cuda.synchronize()
+        got = [outs[rid].tokens for rid in rids if rid in outs]
+        generated = sum(rep.metrics.tokens_generated.value for rep in cluster.replicas)
+        per_replica = replica_launches(cluster)
+        launches += sum(per_replica)
+        line = {"phase": "fp32_cluster_migration", "requests": len(rids),
+                "delivered": len(outs), "lost": len(rids) - len(outs),
+                "finished_length": sum(o.finish_reason == FINISH_LENGTH for o in outs.values()),
+                "streams_equal_uninterrupted": sum(a == b for a, b in zip(got, want)),
+                "tokens_delivered": sum(len(t) for t in got),
+                "tokens_generated_by_replicas": generated,
+                "tokens_decoded_twice": generated - sum(len(t) for t in got),
+                "after_first_kill": first, "successor": successor.index,
+                "second_kill_hit": sorted(moved_to),
+                "states": [rep.state for rep in cluster.replicas],
+                "router_stats": cluster.router_stats(),
+                "kernel1_launches_per_replica": per_replica,
+                "seconds": time.perf_counter() - t_part, "card": card}
+        print(json.dumps(line), flush=True)
+        if (len(outs) != len(rids) or got != want or generated != sum(len(t) for t in got)
+                or line["finished_length"] != len(rids)):
+            raise AssertionError(f"fleet migration: lost, re-decoded or changed streams: {line}")
+        shut(cluster)
+        del cluster
+
+        # (c) the front door: streams over a journaled 2-replica fair cluster
+        t_part = time.perf_counter()
+        settle()
+        cluster = ServingCluster(factory(model, fair=True), tmp / "frontend", replicas=2,
+                                 config=ClusterConfig(policy="round_robin"),
+                                 supervisor_config=SupervisorConfig(max_restarts=0))
+        fe = ServingFrontend(cluster)
+        streams = [fe.submit_stream(r, options=SubmitOptions(priority=i % 2,
+                                                             tenant="ab"[i * 2 // len(prompts)]))
+                   for i, r in enumerate(requests())]
+        if not all(s.result.accepted for s in streams):
+            raise AssertionError("fleet frontend: a stream was rejected")
+        events = {s.request_id: [] for s in streams}
+        steps = 0
+        killed_mid = None
+        while fe.open_streams():
+            if steps == 10:
+                mid = [s.request_id for s in streams
+                       if cluster.placement(s.request_id)[0] == 0 and s.delivered
+                       and not s.finished]
+                killed_mid = len(mid)
+                kill_first_stepped(cluster)
+            else:
+                cluster.step()
+            steps += 1
+            for ev in fe.pump():
+                events[ev.request_id].append(ev)
+        torch.cuda.synchronize()
+        lag = cluster.replicas[0].metrics.stream_lag_s
+        concat_equal = sum([t for ev in events[s.request_id] for t in ev.tokens] == s.delivered
+                           == want[i] for i, s in enumerate(streams))
+        per_replica = replica_launches(cluster)
+        launches += sum(per_replica)
+        line = {"phase": "fp32_frontend_streams", "streams": len(streams),
+                "streams_equal_completed": concat_equal, "killed_mid_stream": killed_mid,
+                "migrations": cluster.migrations, "events": sum(map(len, events.values())),
+                "stream_lag_p50_s": lag.quantile(0.5), "stream_lag_p99_s": lag.quantile(0.99),
+                "streamed_ttft_p50_s": cluster.replicas[0].metrics.streamed_ttft_s.quantile(0.5),
+                "kernel1_launches_per_replica": per_replica,
+                "seconds": time.perf_counter() - t_part, "card": card}
+        print(json.dumps(line), flush=True)
+        if concat_equal != len(streams) or not killed_mid or cluster.migrations != 1:
+            raise AssertionError(f"fleet frontend: streams differ from the completed outputs, "
+                                 f"or no stream was cut by the kill: {line}")
+        shut(cluster)
+        del cluster, fe, streams, model
+        settle()
+        torch.cuda.empty_cache()
+
+        # (d) bf16 routing: the 5-tenant shared-prefix trace
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                           device="cuda", seed=seed)
+        trace = tenant_trace(np, seed, 60, 256, 5, 50257)
+        interval = 0.03  # a tenant returns every 150 ms: after its last request donated
+
+        def routed(n_reps, policy):
+            """One paced run of the trace in a fresh cluster, inside a
+            CUDA-only profiler window (no host-side events recorded)."""
+            settle()
+            torch.cuda.reset_peak_memory_stats()
+            # a fresh workdir each run: a used one would be resumed
+            workdir = Path(tempfile.mkdtemp(prefix="route_", dir=tmp))
+            cluster = ServingCluster(factory(model), workdir, replicas=n_reps,
+                                     config=ClusterConfig(policy=policy))
+            wall_us, busy_us = device_busy(lambda: paced(cluster, trace, interval))
+            snap = cluster.metrics.snapshot()
+            hits, misses = snap["serving/prefix_hits"], snap["serving/prefix_misses"]
+            out = {"tokens_per_s": snap["serving/tokens_generated"] / (wall_us / 1e6),
+                   "wall_s": wall_us / 1e6, "ttft_p50_s": snap["serving/ttft_s/p50"],
+                   "ttft_p99_s": snap["serving/ttft_s/p99"],
+                   "trie_hit_rate": hits / max(hits + misses, 1),
+                   "route_match_tokens": snap["cluster/route_match_tokens"],
+                   "placements_per_replica": [rep.metrics.requests_submitted.value
+                                              for rep in cluster.replicas],
+                   "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                   "kernel1_launches_per_replica": replica_launches(cluster)}
+            shut(cluster)
+            return out
+
+        for n_reps in (1, 2):
+            for policy in ("prefix", "round_robin"):
+                t0 = time.perf_counter()
+                row = routed(n_reps, policy)
+                launches += sum(row["kernel1_launches_per_replica"])
+                print(json.dumps({"phase": "bf16_cluster_routing", "replicas": n_reps,
+                                  "policy": policy, "requests": len(trace), "tenants": 5,
+                                  "prefix_len": 256, "arrival_interval_s": interval, **row,
+                                  "seconds": time.perf_counter() - t0, "card": card}),
+                      flush=True)
+
+        # (e) the autoscaler: a surge, then idle, then spawn-and-retire cycles
+        t_part = time.perf_counter()
+        settle()
+        cluster = ServingCluster(factory(model), tmp / "autoscale", replicas=1)
+        scaler = FleetAutoscaler(cluster, AutoscalerConfig(
+            min_replicas=1, max_replicas=3, target_ttft_s=0.05, scale_up_windows=2,
+            scale_down_idle_windows=3, drain_grace_evals=1000, thrash_enter_events=99))
+        surge = requests() + requests()
+        rids, outs, events, at_spawn = [], {}, [], []
+        seen = {0: "ok"}
+        for _ in range(20000):
+            # the surge arrives 4 requests a step, so spawned replicas get work
+            rids += [cluster.submit(r).request_id for r in surge[len(rids):len(rids) + 4]]
+            for o in cluster.step():
+                outs[o.request_id] = o
+            for rep in cluster.replicas:
+                if seen.get(rep.index) != rep.state:
+                    if rep.index not in seen:
+                        # the spawn ran at the end of this step: what replica
+                        # 0 had in flight while the new replica captured
+                        at_spawn.append({"replica": rep.index,
+                                         "replica0_active_slots": cluster.replicas[0]
+                                         .engine.active_slots,
+                                         "replica0_dispatches_in_flight":
+                                             len(cluster.replicas[0].engine._inflight)})
+                    events.append(("spawn" if rep.index not in seen else rep.state, rep.index))
+                    seen[rep.index] = rep.state
+            if len(rids) == len(surge) and not cluster.has_work and cluster.live_replicas == 1:
+                break
+        cluster.autoscaler = None  # the cycles below spawn and retire by hand
+        torch.cuda.synchronize()
+        per_replica = replica_launches(cluster)
+        launches += sum(per_replica)
+        # three spawn-and-retire cycles, each serving 8 requests on the spawn
+        settle()
+        mem0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        cycles = []
+        for c in range(3):
+            rep = cluster.add_replica()
+            for r in requests()[:8]:
+                if not rep.supervisor.submit(r).accepted:
+                    raise AssertionError("fleet: the spawned replica rejected a request")
+            drive(cluster, {})
+            launches += replica_launches(cluster)[rep.index]
+            cluster.retire_replica(rep.index)
+            cluster.step()
+            settle()
+            cycles.append({"replica": rep.index, "state": rep.state,
+                           "allocated": torch.cuda.memory_allocated(),
+                           "reserved": torch.cuda.memory_reserved()})
+        mem1 = torch.cuda.memory_allocated()
+        line = {"phase": "bf16_autoscale", "requests": len(rids), "delivered": len(outs),
+                "lost": len(rids) - len(outs),
+                "finished_length": sum(o.finish_reason == FINISH_LENGTH for o in outs.values()),
+                "scale_events": events, "scale_ups": scaler.scale_ups, "retires": scaler.retires,
+                "at_spawns": at_spawn,
+                "gauges": scaler.gauges(), "kernel1_launches_per_replica": per_replica,
+                "allocated_before_cycles": mem0, "reserved_before_cycles": res0,
+                "cycles": cycles, "allocated_after_cycles": mem1,
+                "allocated_delta_bytes": mem1 - mem0,
+                "seconds": time.perf_counter() - t_part, "card": card}
+        print(json.dumps(line), flush=True)
+        if len(outs) != len(rids) or line["finished_length"] != len(rids):
+            raise AssertionError(f"fleet autoscale: requests lost: {line}")
+        if (scaler.scale_ups < 1 or cluster.live_replicas != 1
+                or not any(s["replica0_dispatches_in_flight"] for s in at_spawn)):
+            raise AssertionError(f"fleet autoscale: no spawn under traffic, or the fleet did "
+                                 f"not drain back to one replica: {line}")
+        if abs(mem1 - mem0) > 1 << 20:
+            raise AssertionError(f"fleet autoscale: memory_allocated moved {mem1 - mem0} B over "
+                                 "three spawn-and-retire cycles")
+        shut(cluster)
+        del cluster, scaler, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "fleet_phase_s", "seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return {"launches": launches}
+
+
 def nlp_example_phase(torch, card: str, mixed_precision: str) -> dict:
     """Phase 25 (a): the port's `examples/nlp_example.py` at BERT-base width
     (hidden 768, 12 layers, 12 heads, vocab 30522, length 64, batch 16, 8
@@ -3793,13 +4238,16 @@ def main() -> int:
                       "bf16_samples_per_s": nlp["bf16"]["samples_per_s"],
                       "fp16_samples_per_s": nlp["fp16"]["samples_per_s"]}), flush=True)
 
-    # 26. summary lines
+    # 26. the serving fleet and its front door
+    fleet = fleet_serving(torch, np, args.seed, card, serve_prompts)
+
+    # 27. summary lines
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
-        "launches": serving["kernel_launches"] + observability["launches"],
+        "launches": serving["kernel_launches"] + observability["launches"] + fleet["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

@@ -1195,6 +1195,80 @@ def test_supervised_fused_engine_restarts_on_the_card(hopper, tmp_path):
     assert torch.cuda.memory_allocated() <= one_engine + (1 << 20)
 
 
+def test_two_replica_cluster_streams_equal_a_lone_engine_on_the_card(hopper, tmp_path):
+    """`ServingCluster` of two supervised paged fused engines over one
+    model, under both placements: fp32 greedy and sampled streams equal a
+    lone engine's token for token, and both replicas replay their decode
+    graphs (kernel #1 in each)."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ClusterConfig, ServingCluster, ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+
+    def factory(**kw):
+        return ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED, **kw)
+
+    want = [o.tokens for o in factory().run(_graph_engine_requests(sampled=True))]
+    for policy in ("prefix", "round_robin"):
+        cluster = ServingCluster(factory, tmp_path / policy, replicas=2,
+                                 config=ClusterConfig(policy=policy))
+        rids = [cluster.submit(r).request_id for r in _graph_engine_requests(sampled=True)]
+        outs = {}
+        while cluster.has_work:
+            for o in cluster.step():
+                outs[o.request_id] = o.tokens
+        assert [outs[rid] for rid in rids] == want
+        for rep in cluster.replicas:
+            assert rep.engine.graph_launches["paged_decode_attention"] == model.config.n_layer
+            assert rep.metrics.decode_dispatches.value > 0
+        cluster.close()
+
+
+def test_spawn_and_retire_gives_the_memory_back_on_the_card(hopper, tmp_path):
+    """A replica spawned while another has dispatches in flight captures its
+    graph, serves, and retires: after three such cycles the allocated device
+    memory is back within 1 MiB of where it was before the first spawn, and
+    the spawned replicas' streams equal a lone engine's."""
+    import gc
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingCluster, ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+
+    def factory(**kw):
+        return ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), **PAGED, **kw)
+
+    want = [o.tokens for o in factory().run(_graph_engine_requests(sampled=True))]
+    cluster = ServingCluster(factory, tmp_path, replicas=1)
+    for r in _graph_engine_requests(sampled=False):
+        assert cluster.submit(r).accepted
+    cluster.step()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    in_flight = []
+    for _ in range(3):
+        in_flight.append(len(cluster.replicas[0].engine._inflight))
+        rep = cluster.add_replica()  # captures while replica 0 may have work in flight
+        erids = [rep.supervisor.submit(r).request_id for r in _graph_engine_requests(sampled=True)]
+        got = {}
+        while cluster.has_work:
+            for o in cluster.step():
+                index, erid = cluster.placement(o.request_id)
+                if index == rep.index:
+                    got[erid] = o.tokens
+        assert [got[e] for e in erids] == want
+        cluster.retire_replica(rep.index)
+        cluster.step()
+        assert rep.retired and rep.engine._graph is None
+    assert in_flight[0] >= 1
+    gc.collect()
+    torch.cuda.synchronize()
+    assert abs(torch.cuda.memory_allocated() - before) <= 1 << 20
+    cluster.close()
+
+
 def test_annotated_dispatches_wrap_the_graph_replays(hopper):
     """``Tracer(annotate=True)``: in a profiler window each decode replay
     runs inside its ``record_function("step")`` range, and the window
