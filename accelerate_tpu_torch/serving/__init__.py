@@ -7,8 +7,9 @@ headroom, the engine supervisor, telemetry and the anomaly monitor), and the
 fleet above one engine: the `FairScheduler`, the front door
 (`ServingFrontend`: token streams off the journal, `SubmitOptions`,
 predictive admission), the prefix-aware `ServingCluster` with
-journal-backed migration, and the `FleetAutoscaler`. The reference's
-`KVTier` is not ported yet; its `ThrashGuard` is (`serving.kv_tier`)."""
+journal-backed migration, and the `FleetAutoscaler`; and the host-RAM KV
+tier behind the paged pool (`KVTier`, ``kv_tier=``: trie blocks spilled and
+paged back in, whole streams hibernated and woken, the `ThrashGuard`)."""
 
 from .anomaly import NULL_ANOMALY, AnomalyConfig, AnomalyMonitor, Detector, NullAnomalyMonitor
 from .autoscaler import DETECTOR_THRASH, AutoscalerConfig, FleetAutoscaler
@@ -46,7 +47,7 @@ from .frontend import (
     predict_ttft,
 )
 from .journal import JournalError, JournalScan, RequestJournal
-from .kv_tier import ThrashGuard
+from .kv_tier import KVTier, KVTierConfig, ThrashGuard, choose_wake
 from .metrics import Counter, Histogram, ServingMetrics, aggregate_snapshots
 from .prefix_cache import PrefixCache, PrefixCacheConfig
 from .request import (
@@ -98,6 +99,8 @@ __all__ = [
     "FleetAutoscaler",
     "Histogram",
     "JournalError",
+    "KVTier",
+    "KVTierConfig",
     "JournalScan",
     "ModelDrafter",
     "NGramDrafter",
@@ -155,5 +158,6 @@ __all__ = [
     "Tracer",
     "WeightQuantConfig",
     "aggregate_snapshots",
+    "choose_wake",
     "predict_ttft",
 ]

@@ -130,6 +130,21 @@ with its emitted tokens (``Request.resume_tokens``): one continuation prefill
 of ``prompt + resume_tokens``, its generator fast-forwarded past the draws
 those tokens took, so the rest of the stream is the uninterrupted run's.
 
+Host-RAM KV tier and request hibernation, as the reference's (``kv_tier=``,
+True or a `kv_tier.KVTierConfig`; paged mode only): a pinned host-memory
+block tier behind the paged pool, so admitted concurrency outgrows the card's
+memory. When a reservation falls short, evictable prefix-cache blocks are
+copied to host (the trie keeps them hit-able and pages them back in on a
+match), then the coldest streams are hibernated: their written blocks are
+copied out, the slot is released (`_release_slot`'s table-row parking drops
+their in-flight writes) and a host record holds the stream. The per-step
+`KVTier.poll` wakes one, by uploading its blocks into freshly reserved pool
+blocks and restamping its slot's decode state in place in the buffers the
+captured graph reads (`_tier_upload`, `_wake_hibernated_upload`), or by a
+continuation prefill from the scheduler's front lane. Every copy runs on the
+engine's stream behind the dispatches in flight; a spill waits on its event
+before hashing, an upload keeps its pinned buffer until its event has passed.
+
 Quantized serving, as the reference's: ``weight_quant=`` (`WeightQuantConfig`,
 ``"int8"`` or ``"nf4"``) quantizes the model's weights once at load into a
 copy of the model (`utils.quantization.quantize_module`; the caller's model
@@ -208,6 +223,7 @@ from ..utils.quantization import (
 from .anomaly import NULL_ANOMALY
 from .journal import MAGIC as JOURNAL_MAGIC
 from .journal import JournalScan, RequestJournal, request_record
+from .kv_tier import KVTier, KVTierConfig
 from .metrics import ServingMetrics
 from .prefix_cache import NO_MATCH, PrefixCache, PrefixCacheConfig, PrefixMatch
 from .request import (
@@ -403,6 +419,8 @@ class ServingEngine:
 
     ``prefix_cache`` (True or a `PrefixCacheConfig`) turns on prefix KV
     reuse; in paged mode its ``block_tokens`` must equal the pool's.
+    ``kv_tier`` (True or a `KVTierConfig`; needs ``paged_kv``) puts the
+    host-RAM block tier and request hibernation behind the pool.
     ``speculation`` (a draft depth, a `SpeculationConfig` or a drafter)
     turns every decode dispatch into a verify step; it needs
     ``tokens_per_sync == 1``.
@@ -443,6 +461,7 @@ class ServingEngine:
         telemetry: Any = None,
         anomaly: Any = None,
         scheduler: Any = None,
+        kv_tier: KVTierConfig | bool | None = None,
     ):
         self.device = resolve_device(device)
         cfg = getattr(model, "config", None)
@@ -593,6 +612,16 @@ class ServingEngine:
                                                 block_tokens=pc.block_tokens,
                                                 num_blocks=pc.num_blocks, metrics=self.metrics)
             self.scheduler.prefill_len_fn = self._prefill_len
+        # the host-RAM KV tier: off by default, and then no tier path runs
+        self.kv_tier: KVTier | None = None
+        if kv_tier:
+            if not self.paged:
+                raise ValueError("kv_tier requires paged_kv — the host tier spills and "
+                                 "restores pool blocks through the block tables")
+            self.kv_tier = KVTier(self, kv_tier if isinstance(kv_tier, KVTierConfig)
+                                  else KVTierConfig())
+            if self.prefix_cache is not None:
+                self.prefix_cache.tier = self.kv_tier
         # device-resident per-slot state; empty slots stay finished (frozen).
         # The decode step updates these buffers in place, and on CUDA its
         # graph holds their addresses: they are never rebound
@@ -709,7 +738,11 @@ class ServingEngine:
 
     @property
     def has_work(self) -> bool:
-        """Active slots, queued requests or unfetched dispatches remain."""
+        """Active slots, queued requests, unfetched dispatches or hibernated
+        streams (admitted work parked on the host tier, which the step loop
+        must keep waking) remain."""
+        if self.kv_tier is not None and self.kv_tier.hibernated_count:
+            return True
         return bool(self._active.any()) or self.scheduler.queue_depth > 0 or bool(self._inflight)
 
     @property
@@ -788,6 +821,11 @@ class ServingEngine:
                 "fragmentation": base.get("fragmentation", 0.0),
             }.items():
                 stats[f"block_pool/{k}"] = v
+            if self.kv_tier is not None:
+                # host occupancy and the tier's lifetime counters: spilled
+                # blocks leave the device ledger above entirely
+                for k, v in self.kv_tier.memory_stats().items():
+                    stats[f"host_tier/{k}"] = v
         elif self.prefix_cache is not None:
             for k, v in self.prefix_cache.memory_stats().items():
                 stats[f"block_pool/{k}"] = v
@@ -811,8 +849,10 @@ class ServingEngine:
         and ``est_slot_free_s`` (0 with a free slot, else the smallest
         remaining budget over the per-slot rate; None without a rate).
         Paged adds ``blocks_free`` and ``blocks_per_request_est`` (private
-        blocks per active request). The KV tier's ``host_blocks`` is absent:
-        the port has no KV tier yet."""
+        blocks per active request); with the KV tier, host-backed blocks
+        add to the capacity at ``headroom_discount`` of their tokens (a
+        page-in is slower than decode from the pool) and ``host_blocks``
+        reports them."""
         free = len(self._free)
         remaining: list[int] = []
         for slot in range(self.max_concurrency):
@@ -826,6 +866,9 @@ class ServingEngine:
             blocks_free = self._allocator.free_count
             capacity = decode_remaining + min(free * (self.max_len - 1),
                                               blocks_free * self._block_tokens)
+            if self.kv_tier is not None:
+                capacity += int(self.kv_tier.cfg.headroom_discount * self.kv_tier.host_blocks
+                                * self._block_tokens)
         else:
             capacity = decode_remaining + free * (self.max_len - 1)
         rate = self.metrics.tokens_per_sec()
@@ -851,15 +894,18 @@ class ServingEngine:
             head["blocks_free"] = blocks_free
             head["blocks_per_request_est"] = (priv / active if active
                                               else float(self._blocks_per_slot))
+            if self.kv_tier is not None:
+                head["host_blocks"] = self.kv_tier.host_blocks
         return head
 
     def _release_device(self) -> None:
         """Free this engine's device memory now: the captured graph (its
-        private memory pool), the KV pools, the per-slot buffers and the
-        pinned host rings. For an engine that will not step again (the
-        supervisor's restart drops the old engine before the new one
-        captures); an engine sits in a reference cycle, so without this its
-        memory would wait for the garbage collector."""
+        private memory pool), the KV pools, the per-slot buffers, the
+        pinned host rings and the KV tier's pinned host buffers (the journal
+        keeps every hibernated stream). For an engine that will not step
+        again (the supervisor's restart drops the old engine before the new
+        one captures); an engine sits in a reference cycle, so without this
+        its memory would wait for the garbage collector."""
         if self._graph is not None:
             self._graph.reset()
             self._graph = None
@@ -870,6 +916,8 @@ class ServingEngine:
         self._fetch_ring = self._draft_ring = self._poison_ring = []
         if self.prefix_cache is not None:
             self.prefix_cache.pool = None
+        if self.kv_tier is not None:
+            self.kv_tier.release()
 
     # ------------------------------------------------------------ engine loop
     def step(self) -> list[RequestOutput]:
@@ -1050,7 +1098,8 @@ class ServingEngine:
         return [outputs[k] for k in sorted(outputs)]
 
     def cancel(self, request_id: int) -> RequestOutput | None:
-        """Abort one request wherever it is: queued (removed) or seated
+        """Abort one request wherever it is: queued (removed), hibernated
+        (its host record dropped, its parked tokens returned) or seated
         (slot retired with `FINISH_ABORTED`, the tokens fetched so far
         returned; in-flight results for it are dropped by the slot's
         generation bump). None if the id is unknown or already finished."""
@@ -1068,6 +1117,21 @@ class ServingEngine:
             return RequestOutput(
                 request_id=request_id, prompt_len=len(queued.prompt), tokens=[],
                 finish_reason=FINISH_ABORTED, arrival_time=queued.arrival_time, finish_time=now)
+        rec = self.kv_tier.pop_record(request_id) if self.kv_tier is not None else None
+        if rec is not None:
+            # hibernated: no slot and no device state; the terminal carries
+            # the tokens parked at hibernation
+            self.metrics.requests_cancelled.inc()
+            if self.tracer.enabled:
+                self.tracer.emit(EV_FINISH, request_id, reason=FINISH_ABORTED,
+                                 tokens=len(rec.tokens), depth=len(self._inflight),
+                                 **self._slo_trace_attrs(rec.request.slo))
+            if self.journal is not None:
+                self.journal.log_finish(request_id, FINISH_ABORTED, list(rec.tokens))
+            return RequestOutput(
+                request_id=request_id, prompt_len=len(rec.request.prompt),
+                tokens=list(rec.tokens), finish_reason=FINISH_ABORTED,
+                arrival_time=rec.request.arrival_time, finish_time=now)
         for slot, out in enumerate(self._slot_out):
             if out is not None and out.request_id == request_id:
                 finished: list[RequestOutput] = []
@@ -1113,10 +1177,11 @@ class ServingEngine:
         return outputs
 
     def abort_all(self, reason: str = FINISH_ABORTED) -> list[RequestOutput]:
-        """Hard shutdown: abort every queued request, then every active slot
-        in ascending slot order (the reference's order), with ``reason``
-        (default `FINISH_ABORTED`); active slots keep their partial tokens,
-        a queued request its recovered ``resume_tokens``. In-flight results
+        """Hard shutdown: abort every queued request, then every hibernated
+        stream in park order, then every active slot in ascending slot order
+        (the reference's order), with ``reason`` (default `FINISH_ABORTED`);
+        active slots and hibernated streams keep their partial tokens, a
+        queued request its recovered ``resume_tokens``. In-flight results
         are dropped unfetched."""
         now = time.perf_counter()
         aborted: list[RequestOutput] = []
@@ -1133,6 +1198,20 @@ class ServingEngine:
                 request_id=req.request_id, prompt_len=len(req.prompt),
                 tokens=list(req.resume_tokens), finish_reason=reason,
                 arrival_time=req.arrival_time, finish_time=now))
+        for rec in self.kv_tier.records() if self.kv_tier is not None else ():
+            # admitted work without device state: it carries its parked
+            # tokens as an active slot carries its partial output
+            rid = rec.request.request_id
+            self.kv_tier.pop_record(rid)
+            self.metrics.requests_cancelled.inc()
+            if self.tracer.enabled:
+                self.tracer.emit(EV_FINISH, rid, reason=reason, tokens=len(rec.tokens), depth=0,
+                                 **self._slo_trace_attrs(rec.request.slo))
+            if self.journal is not None:
+                self.journal.log_finish(rid, reason, list(rec.tokens))
+            aborted.append(RequestOutput(
+                request_id=rid, prompt_len=len(rec.request.prompt), tokens=list(rec.tokens),
+                finish_reason=reason, arrival_time=rec.request.arrival_time, finish_time=now))
         for slot in np.flatnonzero(self._active):
             self.metrics.requests_cancelled.inc()
             self._retire(int(slot), reason, now, aborted)
@@ -1176,6 +1255,10 @@ class ServingEngine:
         now = time.perf_counter()
         entries = [self._entry(self._slot_req[slot], self._slot_out[slot].tokens, True, now)
                    for slot in range(self.max_concurrency) if self._active[slot]]
+        # hibernated streams snapshot as active slots do (admitted, with
+        # their parked tokens): resume re-admits them mid-stream
+        for rec in self.kv_tier.records() if self.kv_tier is not None else ():
+            entries.append(self._entry(rec.request, rec.tokens, True, now))
         for request in self.scheduler.snapshot_queue():
             entries.append(self._entry(request, request.resume_tokens,
                                        bool(request.resume_tokens), now))
@@ -1373,6 +1456,11 @@ class ServingEngine:
                 request_id=request.request_id, prompt_len=len(request.prompt), tokens=[],
                 finish_reason=f"rejected:{REJECT_DEADLINE}", arrival_time=request.arrival_time,
                 finish_time=now))
+        if self.kv_tier is not None:
+            # the tier's tick: thrash hysteresis, low-water spill, idle
+            # hibernation and at most one wake, before the admission loop,
+            # so a prefill wake lands at the queue front this very step
+            self.kv_tier.poll()
         while self._free:
             run_len = self.scheduler.peek_run(min(len(self._free), self._admit_sizes[-1]))
             if run_len == 0:
@@ -1614,6 +1702,11 @@ class ServingEngine:
             n_res = -(-FIFOScheduler.decode_extent(request, self.max_len) // bt)
             needs.append((aliased, max(0, n_res - aliased)))
         total = sum(n for _, n in needs)
+        if alloc.free_count < total and self.kv_tier is not None:
+            # spill-then-admit: cold trie blocks, then under pressure whole
+            # cold streams, go to host before discard eviction; a frozen
+            # tier does nothing and the tier-off path below takes over
+            self.kv_tier.release_for(total)
         if alloc.free_count < total and self.prefix_cache is not None:
             self.prefix_cache.reclaim(total - alloc.free_count)
         if alloc.free_count < total:
@@ -1650,6 +1743,107 @@ class ServingEngine:
             self._slot_aliased[slot] = aliased
         return tables, dest
 
+    def _tier_upload(self, dest: Any, hb: Any, *, slot: int | None = None, index: int = 0,
+                     table_row: np.ndarray | None = None, token: int = 0, pos: int = 0,
+                     temp: float = 0.0, topk: int = 0, remaining: int = 0) -> None:
+        """One host-to-device restore of the KV tier (the reference's
+        ``tier_wake`` program): scatter the host blocks ``hb`` into the pool
+        at ``dest`` (one id a block; ids at or past ``num_blocks`` land in
+        the sink, dropped) and, with ``slot``, restamp that slot's decode
+        state in place in the fixed buffers the decode graph reads: its
+        table row, write cursor (``index``), last token, position,
+        temperature, top-k, budget and finished=False. Without ``slot`` (a
+        trie page-in) no slot is touched. The host buffers go up
+        ``non_blocking`` on the engine's stream, behind every dispatch in
+        flight, and are held until the copy's event has passed
+        (`KVTier.settle`)."""
+        tier = self.kv_tier
+        arrays = [np.minimum(np.asarray(dest, np.int64), self._allocator.num_blocks)]
+        if slot is not None:
+            arrays.append(np.asarray(table_row, np.int32))
+
+        def run() -> None:
+            start, end, t0 = tier._start_upload()
+            staging, views = self._upload(*arrays)
+            src = hb.buf.to(self.device, non_blocking=True)
+            with torch.no_grad():
+                for leaf, rows in zip(tier.leaves(), hb.leaves(src)):
+                    leaf.index_copy_(0, views[0], rows)
+                if slot is not None:
+                    self._d_tables[slot].copy_(views[1])
+                    self._cache.index[slot] = index
+                    self._d_tokens[slot] = token
+                    self._d_pos[slot] = pos
+                    self._d_temps[slot] = temp
+                    self._d_topks[slot] = topk
+                    self._d_remaining[slot] = remaining
+                    self._d_finished[slot] = False
+            tier._finish_upload((hb, staging), start, end, t0, hb.nbytes)
+
+        self._dispatch("tier_wake", run)
+
+    def _wake_hibernated_upload(self, rec: Any) -> bool:
+        """Wake one hibernated stream by uploading its host blocks into
+        freshly reserved pool blocks (`KVTier.try_wakes`' cheap path). All
+        or nothing: it needs a free slot and the stream's whole decode-extent
+        reservation up front, as `_reserve_blocks` does, else False and
+        nothing changed; a content-hash mismatch raises. Decode resumes at
+        position ``prompt + emitted - 1`` with the last emitted token, and a
+        sampled stream's generator is fast-forwarded past one draw a token
+        emitted (`_generator`), so the continuation is the uninterrupted
+        run's."""
+        tier = self.kv_tier
+        request = rec.request
+        if not self._free:
+            return False
+        need = -(-FIFOScheduler.decode_extent(request, self.max_len) // self._block_tokens)
+        ids = self._allocator.alloc(need)
+        if ids is None:
+            return False
+        if KVTier._crcs(rec.blocks) != rec.blocks.crcs:
+            self._allocator.free(ids)
+            raise RuntimeError("host-tier content hash mismatch on hibernation wake "
+                               "(host buffer corrupted)")
+        slot = self._free.popleft()
+        table = np.full(self._blocks_per_slot, self._allocator.num_blocks, np.int32)
+        table[:need] = ids
+        plen, m = len(request.prompt), len(rec.tokens)
+        pos = plen + m - 1  # the host copy holds KV for [0, pos - 1]; decode re-feeds
+        sp = request.params
+        self._tier_upload(table[:rec.n_content], rec.blocks, slot=slot, index=pos,
+                          table_row=table, token=int(rec.tokens[-1]), pos=pos,
+                          temp=float(sp.temperature), topk=int(sp.top_k or 0),
+                          remaining=min(int(sp.max_new_tokens), self.max_len - plen) - m)
+        now = time.perf_counter()
+        # the host mirrors, as an admission sets them, but the output resumes
+        # with the stream's whole history and its first-token time (a wake is
+        # not a new admission: its TTFT was paid)
+        self._slot_epoch[slot] += 1
+        self._slot_gen[slot] = self._generator(request, draws=m)
+        self._slot_req[slot] = request
+        out = RequestOutput(request_id=request.request_id, prompt_len=plen,
+                            tokens=list(rec.tokens), finish_reason="",
+                            arrival_time=request.arrival_time)
+        out.first_token_time = rec.first_token_time
+        self._slot_out[slot] = out
+        self._slot_logged[slot] = m  # the journal was flushed at hibernation
+        self._active[slot] = True
+        slo = request.slo
+        self._slot_itl[slot] = [] if slo is not None and slo.itl_p99_s is not None else None
+        self._slot_match[slot] = None
+        self._slot_hit[slot] = bool(rec.hit)
+        self._slot_priv[slot] = list(ids)
+        self._slot_table_host[slot] = table.astype(np.int64)
+        self._slot_aliased[slot] = 0
+        self._slot_last_token_t[slot] = now
+        self.metrics.host_page_ins.inc(rec.n_content)
+        tier._record_page_events(rec.n_content)
+        if self.tracer.enabled:
+            self.tracer.emit(EV_ADMIT, request.request_id, slot=slot,
+                             gen=int(self._slot_epoch[slot]), wake="upload", resumed=m,
+                             depth=len(self._inflight))
+        return True
+
     def _blocks_needed(self, request: Request) -> int:
         """Blocks admitting ``request`` now would reserve (the capacity
         probe's price: unpinned, so the reservation checks again)."""
@@ -1667,6 +1861,10 @@ class ServingEngine:
         avail, n = self._allocator.free_count, 0
         if self.prefix_cache is not None:
             avail += int(self.prefix_cache.memory_stats()["blocks_evictable"])
+        if self.kv_tier is not None:
+            # what spill-then-admit could free (hibernatable cold slots above
+            # the residency floor); 0 while the tier is frozen
+            avail += self.kv_tier.pressure_headroom()
         for request in requests:
             need = self._blocks_needed(request)
             if need > avail:
@@ -1687,17 +1885,18 @@ class ServingEngine:
         ``torch.rand`` draw, which is this call on a fresh tensor."""
         out.uniform_(generator=gen)
 
-    def _generator(self, request: Request) -> torch.Generator | None:
-        """A sampled request's own generator, seeded from its params and, for
-        a resumed stream, fast-forwarded past the draws of its
-        ``resume_tokens`` (one ``[vocab]`` draw a token), so its next draw is
+    def _generator(self, request: Request, draws: int | None = None) -> torch.Generator | None:
+        """A sampled request's own generator, seeded from its params and
+        fast-forwarded past ``draws`` draws (default: those of its
+        ``resume_tokens``; one ``[vocab]`` draw a token), so its next draw is
         the one the uninterrupted run made; None for a greedy request."""
         if request.params.temperature <= 0:
             return None
         gen = torch.Generator(device=self.device).manual_seed(int(request.params.seed))
-        if request.resume_tokens:
+        n = len(request.resume_tokens) if draws is None else int(draws)
+        if n:
             scratch = torch.empty(self._vocab, dtype=torch.float32, device=self.device)
-            for _ in request.resume_tokens:
+            for _ in range(n):
                 self._draw(gen, scratch)
         return gen
 

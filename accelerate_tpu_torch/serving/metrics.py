@@ -141,6 +141,14 @@ class ServingMetrics:
     ``prefix_evictions`` the blocks LRU eviction took back; ``ttft_hit_s`` and
     ``ttft_miss_s`` split TTFT by outcome.
 
+    Host-RAM KV tier (`serving.kv_tier`): ``host_page_ins`` and
+    ``host_page_outs`` count KV blocks moved device <- host and device ->
+    host, ``host_hibernated`` and ``host_wakeups`` whole requests parked and
+    woken, ``host_thrash_events`` the thrash guard's freeze edges;
+    ``host_page_in_s`` and ``host_page_out_s`` are each transfer's seconds
+    (device time between CUDA events on the card, read once the copy is
+    done), exported as ``serving/host_tier/page_in_s`` and ``page_out_s``.
+
     Speculation (`serving.speculation`): ``spec_proposed`` and
     ``spec_accepted`` count draft tokens proposed and accepted (greedy slots),
     ``spec_forwards`` the verify dispatches, ``spec_tokens`` the tokens they
@@ -202,6 +210,14 @@ class ServingMetrics:
         self.prefix_tokens_reused = Counter()
         self.prefix_blocks_donated = Counter()
         self.prefix_evictions = Counter()
+        # the host-RAM KV tier (serving.kv_tier)
+        self.host_page_ins = Counter()
+        self.host_page_outs = Counter()
+        self.host_hibernated = Counter()
+        self.host_wakeups = Counter()
+        self.host_thrash_events = Counter()
+        self.host_page_in_s = Histogram()
+        self.host_page_out_s = Histogram()
         self.spec_proposed = Counter()
         self.spec_accepted = Counter()
         self.spec_forwards = Counter()
@@ -371,7 +387,9 @@ class ServingMetrics:
 
     def snapshot(self) -> dict[str, Any]:
         """Flat scalar dict under the reference's ``serving/...`` and
-        ``supervisor/...`` keys: every counter, ``tokens_per_sec``,
+        ``supervisor/...`` keys: every counter the reference exports (the
+        port's own ``decode_dispatches`` and ``decode_steps`` are read as
+        attributes, not exported), ``tokens_per_sec``,
         ``accepted_tokens_per_forward``, the goodput and per-class SLO keys,
         each compile's seconds, and each histogram's `Histogram.summary` as
         ``serving/<name>/<stat>`` (with ``/sum`` and the cumulative
@@ -383,11 +401,12 @@ class ServingMetrics:
                 "journal_records", "journal_bytes", "journal_compactions", "requests_resumed",
                 "requests_restored", "replayed_tokens", "tokens_generated", "prefill_tokens",
                 "prefix_hits", "prefix_misses", "prefix_tokens_reused", "prefix_blocks_donated",
-                "prefix_evictions", "steps", "decode_dispatches", "decode_steps",
-                "compile_count", "spec_proposed", "spec_accepted", "spec_forwards",
-                "spec_tokens", "streams_opened", "streams_finished", "stream_events",
-                "requests_shed_predicted")
+                "prefix_evictions", "steps", "compile_count", "spec_proposed", "spec_accepted",
+                "spec_forwards", "spec_tokens", "streams_opened", "streams_finished",
+                "stream_events", "requests_shed_predicted")
         }
+        for name in ("page_ins", "page_outs", "hibernated", "wakeups", "thrash_events"):
+            out[f"serving/host_tier/{name}"] = getattr(self, f"host_{name}").value
         out["serving/tokens_per_sec"] = self.tokens_per_sec()
         out["serving/accepted_tokens_per_forward"] = (
             self.spec_tokens.value / self.spec_forwards.value if self.spec_forwards.value else 0.0)
@@ -419,8 +438,8 @@ class ServingMetrics:
                      "step_phase_schedule_s", "step_phase_draft_s",
                      "step_phase_dispatch_s", "step_phase_fetch_blocked_s",
                      "step_phase_deliver_s", "step_phase_journal_s", "step_phase_telemetry_s",
-                     "step_total_s"):
-            hist = getattr(self, name)
+                     "step_total_s", "host_tier/page_in_s", "host_tier/page_out_s"):
+            hist = getattr(self, name.replace("host_tier/", "host_"))
             for stat, value in hist.summary().items():
                 out[f"serving/{name}/{stat}"] = value
             if hist.count:

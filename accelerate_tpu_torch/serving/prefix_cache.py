@@ -36,8 +36,14 @@ Two modes, as in the reference:
 
 A prefix starts at token 0, so a cached block always sits at the same
 absolute positions, with its position embeddings baked in: it is valid for
-every request that shares those tokens. The reference's host-RAM tier hook
-(``tier``) stays None here: the KV tier is not ported yet.
+every request that shares those tokens.
+
+Paged mode with the engine's host-RAM tier (``kv_tier=``, `serving.kv_tier`)
+sets the ``tier`` hook: a spilled node stays in the trie with ``block_id =
+None``, a match pages its spilled nodes back in before pinning them
+(`KVTier.ensure_resident`), donation onto a spilled node takes the slot's
+fresh block instead (`KVTier.revive`), eviction passes spilled nodes by, and
+`memory_stats` counts them under ``host_tier``.
 """
 
 from __future__ import annotations
@@ -79,7 +85,7 @@ class _TrieNode:
 
     __slots__ = ("key", "parent", "children", "block_id", "ref", "last_used")
 
-    def __init__(self, key: tuple[int, ...], parent: "_TrieNode | None", block_id: int):
+    def __init__(self, key: tuple[int, ...], parent: "_TrieNode | None", block_id: int | None):
         self.key = key
         self.parent = parent
         self.children: dict[tuple[int, ...], _TrieNode] = {}
@@ -129,8 +135,9 @@ class PrefixCache:
         self.metrics = metrics
         self._root = _TrieNode((), None, -1)
         self._tick = 0
-        # the reference's host-RAM tier hook; the KV tier is not ported, so
-        # it stays None and every node is device-backed
+        # the host-RAM tier hook (`serving.kv_tier`, paged mode only): set
+        # by the engine's ``kv_tier=``. With it, spilled nodes (``block_id
+        # None``) stay in the trie and `acquire` pages them back in
         self.tier = None
         self.allocator = allocator
         self.pool: PagedKVCache | None = None
@@ -173,6 +180,11 @@ class PrefixCache:
         so eviction cannot take blocks an admitted request depends on. Pair
         with `release`."""
         path = self._walk(prompt)
+        if self.tier is not None:
+            # page spilled blocks back in; a failed page-in (pool exhausted,
+            # thrash guard frozen) truncates the match to what is on the
+            # device, and only that is pinned
+            path = self.tier.ensure_resident(path)
         for node in path:
             node.ref += 1
             self._touch(node)
@@ -260,7 +272,13 @@ class PrefixCache:
                 node.children[key] = child
                 new += 1
             elif j >= owned_from:
-                self.allocator.free([int(block_ids[j])])
+                if child.block_id is None and self.tier is not None:
+                    # the retiring slot just wrote this spilled block's bytes
+                    # on the device: the trie takes the fresh block and the
+                    # host copy goes, a page-in for free
+                    self.tier.revive(child, int(block_ids[j]))
+                else:
+                    self.allocator.free([int(block_ids[j])])
             self._touch(child)
             node = child
         if new and self.metrics is not None:
@@ -297,7 +315,9 @@ class PrefixCache:
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
-            if node.children or node.ref > 0:
+            if node.children or node.ref > 0 or node.block_id is None:
+                # a spilled node holds no device block: its host copy is the
+                # tier's to drop, not this eviction's
                 continue
             if victim is None or node.last_used < victim.last_used:
                 victim = node
@@ -347,19 +367,25 @@ class PrefixCache:
         """Host-side occupancy gauges, one trie walk, no device work: resident
         blocks split into ``blocks_pinned`` (in use), ``blocks_evictable``
         (unpinned leaves: what eviction may take now) and ``blocks_stranded``
-        (unpinned interior nodes); ``fragmentation`` is stranded / resident."""
-        pinned = evictable = resident = 0
+        (unpinned interior nodes); ``fragmentation`` is stranded / resident.
+        With a host tier, spilled nodes (``block_id`` None) count in the
+        ``host_tier`` sub-dict and in no device bucket, so ``free + resident
+        + private == total`` keeps holding through every spill and page-in."""
+        pinned = evictable = resident = spilled = 0
         stack = list(self._root.children.values())
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
+            if node.block_id is None:
+                spilled += 1
+                continue
             resident += 1
             if node.ref > 0:
                 pinned += 1
             elif not node.children:
                 evictable += 1
         stranded = resident - pinned - evictable
-        return {
+        out: dict[str, Any] = {
             "pool_bytes": self.pool_nbytes,
             "blocks_total": self.num_blocks,
             "blocks_free": self.blocks_free,
@@ -369,3 +395,6 @@ class PrefixCache:
             "blocks_stranded": stranded,
             "fragmentation": stranded / resident if resident else 0.0,
         }
+        if self.tier is not None:
+            out["host_tier"] = {"blocks": spilled, "bytes": spilled * self.tier.block_bytes}
+        return out

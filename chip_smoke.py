@@ -267,9 +267,25 @@ Phases run in order; any failure exits non-zero:
    replica 0 has dispatches in flight, the scale events in order, then three
    spawn-and-retire cycles that must leave ``memory_allocated()`` within
    1 MiB (`bf16_autoscale`);
-27. the kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop to phases 8 and 11; kernel #1's add phase 26's replicas to phases
-   5 and 24), the card line, and the final ``{"ok": true, ...}`` line.
+27. the host-RAM KV tier behind the paged pool, GPT-2 small at full width
+   and depth, paged fused engines at depth 2 with the prefix cache over a
+   pool of about half the admitted requests' decode extents: fp32 (TF32
+   off), 16 requests sharing a 64-token prefix, 16 slots, ``wake_policy``
+   ``"upload"`` and ``"prefill"``, then the trie spilled and 4 prompts
+   served again: streams equal tier-off's and a lone `generate`'s, page
+   outs, page ins, hibernations and wakes all above 0, allocated memory
+   back to the byte after the drain and after `_release_device`
+   (`fp32_kv_tier_parity`); bf16 weights over an int8 pool, phase 5's 48
+   requests, 16 slots, tier off and each wake policy: page-out and page-in
+   bytes/s beside the PCIe peak, wake latency by path, what ``"auto"``
+   chose, peak admitted streams against the pool alone's, tokens/s
+   (`bf16_kv_tier`, reported); the five port tools exit 0 on the upload
+   run's trace, telemetry and journal (`kv_tier_tools`);
+28. the script's seconds (`chip_smoke_s`, the build included), the
+   kernels line (its flash and fused-CE launches add phase 25 (b)'s
+   loop to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
+   engines to phases 5 and 24), the card line, and the final
+   ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -3780,7 +3796,296 @@ def facade_training(torch, np, seed: int, card: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# nominal host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s per direction
+PCIE_PEAK_BYTES_PER_S = 64e9
+
+
+def kv_tier_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> dict:
+    """Phase 27: the host-RAM KV tier behind the paged pool on the card.
+    GPT-2 small at full width and depth, paged fused engines (kernel #1 in
+    the decode graph) at depth 2, over a pool of about half the decode
+    extents of the requests a full set of slots admits, so that
+    reservations fall short and the tier spills and hibernates. fp32 (TF32
+    off), with the prefix cache, 16 requests of a 64-token shared prefix and
+    a tail under one block (every second sampled), 48 tokens each, 16
+    slots: the tier-off engine
+    (over a full-context pool), then ``wake_policy`` ``"upload"`` and
+    ``"prefill"``; then the whole trie spilled and the first 4 prompts
+    served again, whose hits page in. Tier-on streams must equal tier-off's and a lone `generate`'s, with
+    ``page_outs``, ``page_ins``, ``hibernated`` and ``wakeups`` above 0,
+    ``memory_allocated()`` back to the byte after the drain and, after
+    `_release_device`, to where it was before the engine
+    (`fp32_kv_tier_parity`). bf16 weights over an int8 pool, phase 5's 48
+    requests, 64 tokens, 16 slots, no prefix cache, tier off and
+    ``"upload"``, ``"prefill"`` and ``"auto"``: page-out and page-in bytes/s beside the PCIe peak, wake
+    latency by policy (wake to the stream's next token), what ``"auto"``
+    chose, peak admitted concurrency (active + hibernated) against what the
+    pool alone holds (the tier-off engine's peak), tokens/s
+    (`bf16_kv_tier`, reported, not gated); the upload run writes a trace, a
+    telemetry JSONL and a journal, and the five port tools must exit 0 on
+    them (`kv_tier_tools`). Returns kernel #1's launches over the phase."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.models.generation import generate
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import (
+        KVTierConfig,
+        PagedKVConfig,
+        PrefixCacheConfig,
+        Request,
+        SamplingParams,
+        ServingEngine,
+        TelemetryConfig,
+        TelemetryExporter,
+        Tracer,
+    )
+
+    t_phase = time.perf_counter()
+    launches = 0
+    bt = 16
+
+    def requests(ps, n_new):
+        return [Request(prompt=list(p), params=SamplingParams(
+                    max_new_tokens=n_new, temperature=0.8 if i % 2 else 0.0,
+                    top_k=50 if i % 2 else None, seed=i)) for i, p in enumerate(ps)]
+
+    def half_pool(ps, n_new, slots):
+        """About half the blocks the first ``slots`` requests reserve, and
+        never less than one full context."""
+        need = sum(-(-min(len(p) + n_new, 1024) // bt) for p in ps[:slots])
+        return max(1024 // bt, need // 2)
+
+    def build(model, num_blocks, slots, policy=None, prefix=True, tier_kw=None, **kw):
+        tier = KVTierConfig(wake_policy=policy, **(tier_kw or {})) if policy else None
+        engine = ServingEngine(model, paged_kv=PagedKVConfig(block_tokens=bt, num_blocks=num_blocks),
+                               paged_attention="fused", max_concurrency=slots,
+                               prompt_buckets=BUCKETS, pipeline_depth=2, max_queue=256,
+                               prefix_cache=PrefixCacheConfig(block_tokens=bt) if prefix else False,
+                               kv_tier=tier, **kw)
+        if engine._graph is None or not engine.graph_launches.get("paged_decode_attention"):
+            raise AssertionError("kv tier: an engine captured no decode graph with kernel #1")
+        return engine
+
+    def drive(engine, reqs):
+        """Serve ``reqs`` to the end; per step, the admitted streams (active
+        and hibernated) and each woken stream's latency from its wake to
+        its next token, by the path it took."""
+        tier = engine.kv_tier
+        woke: dict[int, tuple[float, int, str]] = {}
+        lat: dict[str, list[float]] = {"upload": [], "prefill": []}
+        if tier is not None:
+            upload, prefill = engine._wake_hibernated_upload, tier._wake_prefill
+
+            def on_upload(rec):
+                done = upload(rec)
+                if done:
+                    woke[rec.request.request_id] = (time.perf_counter(), len(rec.tokens), "upload")
+                return done
+
+            def on_prefill(rec):
+                prefill(rec)
+                woke[rec.request.request_id] = (time.perf_counter(), len(rec.tokens), "prefill")
+
+            engine._wake_hibernated_upload, tier._wake_prefill = on_upload, on_prefill
+        for r in reqs:
+            if not engine.submit(r).accepted:
+                raise AssertionError("kv tier: a request was rejected")
+        outs, peak = {}, 0
+        t0 = time.perf_counter()
+        while engine.has_work:
+            for o in engine.step():
+                outs[o.request_id] = o.tokens
+            now = time.perf_counter()
+            peak = max(peak, engine.active_slots + (tier.hibernated_count if tier else 0))
+            if woke:
+                seen = {o.request_id: len(o.tokens) for o in engine._slot_out if o is not None}
+                seen.update((rid, len(t)) for rid, t in outs.items())
+                for rid, (t_wake, n, how) in list(woke.items()):
+                    if seen.get(rid, 0) > n:
+                        lat[how].append(now - t_wake)
+                        del woke[rid]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if tier is not None:
+            tier.settle(block=True)
+        return [outs[r.request_id] for r in reqs], wall, peak, lat
+
+    def tier_counts(engine):
+        m = engine.metrics
+        return {k: int(getattr(m, f"host_{k}").value)
+                for k in ("page_ins", "page_outs", "hibernated", "wakeups", "thrash_events")}
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+
+    # --- fp32: parity, memory
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+    rng = np.random.default_rng(seed + 27)
+    system = rng.integers(0, 50257, 64).tolist()
+    # tails of under one block: a retired prompt donates the shared prefix
+    # and at most one block of its own, so the trie strands few interior
+    # blocks (a pool held by stranded chains stalls admission, ROADMAP
+    # Queue 3)
+    fp32_prompts = [system + p[:int(rng.integers(3, 16))] for p in prompts[:16]]
+    n_new, slots = 48, 16
+    pool = half_pool(fp32_prompts, n_new, slots)
+    replay = fp32_prompts[:4]
+    # the oracle runs over a full-context pool: a stream does not depend on
+    # the pool's size
+    off = build(model, None, slots)
+    want, _, _, _ = drive(off, requests(fp32_prompts, n_new))
+    want_b, _, _, _ = drive(off, requests(replay, n_new))
+    launches += replay_launches(off, "paged_decode_attention", 0)
+    off._release_device()
+    del off
+    solos = []
+    for i, p in enumerate(fp32_prompts):
+        gen = torch.Generator(device="cuda").manual_seed(i) if i % 2 else None
+        solos.append(generate(model, torch.tensor([p], device="cuda"), n_new,
+                              temperature=0.8 if i % 2 else 0.0, top_k=50 if i % 2 else None,
+                              generator=gen)[0].tolist())
+    fp32_line = {"phase": "fp32_kv_tier_parity", "requests": len(fp32_prompts), "slots": slots,
+                 "pool_blocks": pool, "tier_off_equal_generate": want == solos}
+    if want != solos:
+        raise AssertionError(f"kv tier fp32: tier-off streams differ from generate's: {fp32_line}")
+    for policy in ("upload", "prefill"):
+        settle()
+        base = torch.cuda.memory_allocated()
+        # the guard would freeze spill within the first seconds of this
+        # burst; parity wants every cycle the pool forces
+        engine = build(model, pool, slots, policy, tier_kw=dict(thrash_enter_events=10_000))
+        settle()
+        built = torch.cuda.memory_allocated()
+        got, wall, peak, lat = drive(engine, requests(fp32_prompts, n_new))
+        spilled = engine.kv_tier.page_out_trie(10 ** 6)
+        got_b, _, _, _ = drive(engine, requests(replay, n_new))
+        counts = tier_counts(engine)
+        settle()
+        drained = torch.cuda.memory_allocated()
+        mem = engine.memory_stats()
+        host_after = (engine.kv_tier.host_bytes - engine.kv_tier.trie_host_bytes,
+                      engine.kv_tier.uploads_in_flight)
+        launches += replay_launches(engine, "paged_decode_attention", 0)
+        engine._release_device()
+        tier = engine.kv_tier
+        del engine
+        settle()
+        released = torch.cuda.memory_allocated()
+        fp32_line[policy] = {
+            "streams_equal_tier_off": got == want, "streams_equal_generate": got == solos,
+            "replay_equal_tier_off": got_b == want_b, "counters": counts,
+            "trie_blocks_spilled": spilled, "peak_admitted": peak,
+            "wake_latency_s": {k: statistics.median(v) if v else None for k, v in lat.items()},
+            "allocated_after_drain_minus_built": drained - built,
+            "allocated_after_release_minus_before": released - base,
+            "hibernated_host_bytes_after_drain": host_after[0],
+            "uploads_held_after_drain": host_after[1],
+            "host_bytes_after_release": tier.host_bytes, "wall_s": wall,
+            "block_pool_free_after_drain": mem["block_pool/blocks_free"]}
+        if (got != want or got != solos or got_b != want_b
+                or min(counts[k] for k in ("page_ins", "page_outs", "hibernated", "wakeups")) <= 0
+                or counts["wakeups"] < 3 or drained != built or released != base
+                or host_after != (0, 0) or tier.host_bytes):
+            raise AssertionError(f"kv tier fp32 ({policy}): {fp32_line}")
+    print(json.dumps({**fp32_line, "card": card}), flush=True)
+    del model
+    settle()
+    torch.cuda.empty_cache()
+
+    # --- bf16 weights over an int8 pool: rates, wake latency, capacity
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                        kv_cache_dtype=torch.int8), device="cuda", seed=seed)
+    pool = half_pool(prompts, 64, 16)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kv_tier_"))
+    pcie = subprocess.run(["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+                           "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    bf16_line = {"phase": "bf16_kv_tier", "requests": len(prompts), "slots": 16,
+                 "pool_blocks": pool, "kv_cache_dtype": "int8", "pcie_link": pcie,
+                 "pcie_peak_bytes_per_s": PCIE_PEAK_BYTES_PER_S}
+    try:
+        build(model, pool, 16, prefix=False).run(requests(prompts, 64)[:4])  # warm-up
+        streams = {}
+        for policy in (None, "upload", "prefill", "auto"):
+            settle()
+            kw = {}
+            if policy == "upload":
+                kw = dict(tracer=Tracer(), journal=str(tmp / "requests.journal"),
+                          telemetry=TelemetryExporter(TelemetryConfig(
+                              interval_s=0.05, jsonl_path=str(tmp / "telemetry.jsonl"))))
+            engine = build(model, pool, 16, policy, prefix=False, **kw)
+            engine.metrics.reset_rate_window()
+            got, wall, peak, lat = drive(engine, requests(prompts, 64))
+            streams[policy] = got
+            tokens = engine.metrics.tokens_generated.value
+            rec = {"tokens_per_s": tokens / wall, "wall_s": wall, "peak_admitted": peak,
+                   "decode_replays": engine.metrics.decode_dispatches.value}
+            launches += replay_launches(engine, "paged_decode_attention", 0)
+            if policy is not None:
+                m, tier = engine.metrics, engine.kv_tier
+                counts = tier_counts(engine)
+                rec.update(counters=counts, block_bytes=tier.block_bytes,
+                           streams_equal_tier_off=sum(a == b for a, b in zip(got, streams[None])),
+                           wake_latency_p50_s={k: statistics.median(v) if v else None
+                                               for k, v in lat.items()},
+                           wakes_by_path={k: len(v) for k, v in lat.items()})
+                if m.host_page_out_s.count:
+                    rate = counts["page_outs"] * tier.block_bytes / m.host_page_out_s.sum
+                    rec.update(page_out_bytes_per_s=rate,
+                               page_out_share_of_pcie=rate / PCIE_PEAK_BYTES_PER_S)
+                if m.host_page_in_s.count:
+                    rate = counts["page_ins"] * tier.block_bytes / m.host_page_in_s.sum
+                    rec.update(page_in_bytes_per_s=rate,
+                               page_in_share_of_pcie=rate / PCIE_PEAK_BYTES_PER_S)
+                if policy == "upload":
+                    engine.tracer.export(tmp / "trace.json")
+                    engine.telemetry.close()
+                    engine.journal.close()
+            bf16_line[policy or "tier_off"] = rec
+            engine._release_device()
+            del engine
+        bf16_line["tier_off_peak_active"] = bf16_line["tier_off"]["peak_admitted"]
+        print(json.dumps({**bf16_line, "card": card}), flush=True)
+
+        # the five port tools on the upload run's own files
+        tools = {
+            "journal_fsck": [tmp / "requests.journal"],
+            "trace_report": [tmp / "trace.json", "--json"],
+            "explain_request": ["0", tmp / "trace.json", "--journal", tmp / "requests.journal",
+                                "--telemetry", tmp / "telemetry.jsonl", "--json"],
+            "serve_top": [tmp / "telemetry.jsonl"],
+            "check_metrics_docs": ["--json"],
+        }
+        procs = {name: subprocess.Popen(
+                     [sys.executable, "-m", f"accelerate_tpu_torch.tools.{name}", *map(str, args)],
+                     cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for name, args in tools.items()}
+        rcs, outs = {}, {}
+        for name, proc in procs.items():
+            outs[name], err = proc.communicate(timeout=300)
+            rcs[name] = proc.returncode
+            if proc.returncode != 0:
+                raise AssertionError(f"kv tier tools: {name} exited {proc.returncode}: "
+                                     f"{outs[name][-2000:]} {err[-2000:]}")
+        host = [ln for ln in outs["serve_top"].splitlines() if ln.startswith("host   [")]
+        print(json.dumps({"phase": "kv_tier_tools", "exit_codes": rcs, "serve_top_host_line": host}),
+              flush=True)
+        if not host:
+            raise AssertionError("kv tier tools: serve_top rendered no host-tier line")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model
+        settle()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "kv_tier_phase_s", "seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
@@ -4241,13 +4546,19 @@ def main() -> int:
     # 26. the serving fleet and its front door
     fleet = fleet_serving(torch, np, args.seed, card, serve_prompts)
 
-    # 27. summary lines
+    # 27. the host-RAM KV tier and request hibernation
+    kv_tier = kv_tier_serving(torch, np, args.seed, card, serve_prompts)
+
+    # 28. summary lines
+    print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
+          flush=True)
     main_case = cases[0]
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
-        "launches": serving["kernel_launches"] + observability["launches"] + fleet["launches"],
+        "launches": (serving["kernel_launches"] + observability["launches"] + fleet["launches"]
+                     + kv_tier["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],

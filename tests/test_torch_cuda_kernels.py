@@ -1386,3 +1386,93 @@ def test_fp16_bert_overflow_skips_the_update_and_the_scheduler_on_the_card(hoppe
     poison["on"] = False
     run()
     assert not opt.step_was_skipped and opt.num_updates == 2
+
+
+def _tier_buffers(engine) -> list[int]:
+    """Addresses of every buffer the decode graph reads or writes that a
+    tier wake restamps: rebinding one would leave the graph on stale
+    memory."""
+    bufs = [engine._d_tables, engine._d_tokens, engine._d_pos, engine._d_temps, engine._d_topks,
+            engine._d_remaining, engine._d_finished, engine._cache.index]
+    bufs += [t for layer in range(len(engine._cache.k)) for t in engine._cache.storages(layer)]
+    return [t.data_ptr() for t in bufs]
+
+
+@pytest.mark.parametrize("policy", ["upload", "prefill"])
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32_pool", "int8_pool"])
+def test_tier_wake_between_depth2_replays_on_the_card(hopper, policy, quant):
+    """A wake lands between two depth-2 replays of the captured decode
+    graph: every active slot is hibernated while a replay is in flight and
+    woken (an upload restamps the slot in place) before the next; fp32
+    greedy and sampled streams equal the tier-off engine's, the graph's
+    buffers keep their addresses, the uploads' host buffers are released
+    once their copies ran, and the allocated memory after the drain is
+    what it was after the build."""
+    import gc
+
+    import numpy as np
+
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import KVTierConfig, ServingEngine
+
+    cfg = GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2,
+                          kv_cache_dtype=torch.int8 if quant else None)
+    model = GPT2LMHead(cfg, device=hopper)
+    kw = dict(max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2, **PAGED)
+    want = [o.tokens for o in ServingEngine(model, **kw).run(_graph_engine_requests(sampled=True))]
+    gc.collect()
+    torch.cuda.synchronize()
+    engine = ServingEngine(model, kv_tier=KVTierConfig(wake_policy=policy), **kw)
+    built, addresses = torch.cuda.memory_allocated(), _tier_buffers(engine)
+    requests = _graph_engine_requests(sampled=True)
+    for r in requests:
+        assert engine.submit(r).accepted
+    outs, forced = {}, 0
+    while engine.has_work:
+        for o in engine.step():
+            outs[o.request_id] = o.tokens
+        if forced < 3 and engine._inflight:
+            ready = [int(s) for s in np.flatnonzero(engine._active)
+                     if len(engine._slot_out[int(s)].tokens) >= 2]
+            for s in ready:
+                engine.kv_tier.hibernate_slot(s)
+            forced += bool(ready)
+    assert forced == 3
+    assert [outs[r.request_id] for r in requests] == want
+    assert _tier_buffers(engine) == addresses
+    tier = engine.kv_tier
+    tier.settle(block=True)
+    assert tier.uploads_in_flight == 0 and tier.host_bytes == 0
+    assert engine.metrics.host_wakeups.value >= 3
+    assert (engine.metrics.host_page_ins.value > 0) == (policy == "upload")
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == built
+
+
+def test_tier_spill_waits_for_inflight_writes_on_the_card(hopper):
+    """A hibernation's gather is ordered behind the replays in flight: the
+    host copy of a slot's blocks equals the pool's bytes read after a full
+    synchronise, for every block the copy covers."""
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.serving import ServingEngine
+
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_embd=128, n_head=2), device=hopper)
+    engine = ServingEngine(model, max_concurrency=4, prompt_buckets=(16, 64), pipeline_depth=2,
+                           kv_tier=True, **PAGED)
+    for r in _graph_engine_requests(sampled=False)[:4]:
+        assert engine.submit(r).accepted
+    while not any(o is not None and len(o.tokens) >= 3 for o in engine._slot_out):
+        engine.step()
+    assert engine._inflight
+    slot = next(s for s, o in enumerate(engine._slot_out) if o is not None and len(o.tokens) >= 3)
+    out = engine._slot_out[slot]
+    n = -(-(out.prompt_len + len(out.tokens) - 1) // 16)
+    ids = [int(x) for x in engine._slot_table_host[slot][:n]]
+    hb, seconds = engine.kv_tier._gather(ids)
+    torch.cuda.synchronize()
+    for host, leaf in zip(hb.leaves(), engine.kv_tier.leaves()):
+        assert torch.equal(host, leaf[ids].cpu())
+    assert seconds > 0 and hb.buf.is_pinned() and hb.crcs == engine.kv_tier._crcs(hb)
+    while engine.has_work:
+        engine.step()
