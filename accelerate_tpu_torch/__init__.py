@@ -42,6 +42,11 @@ optimizers, loaders and schedulers in any order; ``accumulate``,
 `checkpointing`; trackers in `tracking`), `data_loader.DataLoaderShard`,
 `scheduler.AcceleratedScheduler`, `models.bert`, and the reference's
 headline example, ``python -m accelerate_tpu_torch.examples.nlp_example``.
+And image classification (`models.resnet`, ``examples.cv_example``,
+``examples.complete_cv_example``), the rest of the one-process facade
+(``autocast``, ``profile``, ``save``, the triggers, the kwargs handlers of
+`utils.dataclasses`, `memory`, `logging`, `utils.other`) and the
+reference's by_feature examples (``examples.by_feature``).
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first

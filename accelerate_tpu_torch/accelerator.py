@@ -28,6 +28,13 @@ Both keep the reference's semantics (`accelerate_tpu/accelerator.py`):
   - clipping uses one global norm over every gradient, with factor
     ``min(1, max_norm / (norm + 1e-6))``.
 
+The rest of the reference's one-process facade: ``autocast`` (a block
+where prepared-model calls skip the compute-dtype cast), ``profile`` (a
+``torch.profiler`` trace), ``save``, the ``set_trigger``/``check_trigger``
+breakpoint, ``split_between_processes``, ``verify_device_map`` (``prepare``
+refuses a model dispatched over several devices) and the kwargs handlers of
+`utils.dataclasses`.
+
 PyTorch runs eagerly, so there is no compiled step and nothing is donated;
 the optimizer updates the masters in place. The multi-process surface
 (collectives, ``no_sync`` over DDP, meshes) waits for ROADMAP Queue 1, item
@@ -55,7 +62,13 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import filter_trackers
 from .utils import operations
-from .utils.precision import DynamicGradScaler, PrecisionPolicy
+from .utils.precision import (
+    DynamicGradScaler,
+    PrecisionPolicy,
+    autocast_enabled,
+    reset_autocast_enabled,
+    set_autocast_enabled,
+)
 
 
 class BoundModel:
@@ -95,7 +108,8 @@ class PreparedModel:
                 **dict(self.module.named_buffers())}
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
-        if self.policy.mode == "no":
+        # inside autocast(AutocastKwargs(enabled=False)) the masters run as they are
+        if self.policy.mode == "no" or not autocast_enabled():
             return self.module(*args, **kwargs)
         out = functional_call(self.module, self.compute_params(), args, kwargs)
         return operations.convert_to_fp32(out)
@@ -169,20 +183,33 @@ class Accelerator:
     """``device=None`` means CUDA (RuntimeError when it is absent; pass
     ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"``,
     ``"bf16"`` or ``"fp16"`` (with a `DynamicGradScaler` at torch
-    GradScaler's defaults); ``"fp8"`` raises until it is ported."""
+    GradScaler's defaults, or at a `GradScalerKwargs`' settings); ``"fp8"``
+    raises until it is ported. ``kwargs_handlers`` takes at most one of each of
+    `GradScalerKwargs`, `AutocastKwargs`, `ProfileKwargs` and
+    `FP8RecipeKwargs` (`utils.dataclasses`); ``dataloader_config`` a
+    `DataLoaderConfiguration`."""
 
     def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
                  device: str | torch.device | None = None,
                  gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
                  log_with: Any = None, project_dir: str | None = None,
-                 project_config: ProjectConfiguration | None = None):
+                 project_config: ProjectConfiguration | None = None,
+                 dataloader_config: Any = None, kwargs_handlers: list[Any] | None = None):
         self.policy = PrecisionPolicy.from_mode(mixed_precision)
         self.state = AcceleratorState(self.policy.mode, device)
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         plugin = gradient_accumulation_plugin or GradientAccumulationPlugin(gradient_accumulation_steps)
         self.gradient_state = GradientState(plugin.num_steps, plugin.adjust_scheduler,
                                             plugin.sync_with_dataloader)
-        self.scaler = DynamicGradScaler() if self.policy.requires_loss_scaling else None
+        scaler_config = self._resolve_handlers(kwargs_handlers)
+        self.scaler = None
+        if self.policy.requires_loss_scaling and scaler_config.pop("enabled", True):
+            self.scaler = DynamicGradScaler(**scaler_config)
+        self._use_seedable_sampler = self._use_stateful_dataloader = True
+        if dataloader_config is not None:
+            self._use_seedable_sampler = dataloader_config.use_seedable_sampler
+            self._use_stateful_dataloader = dataloader_config.use_stateful_dataloader
+        self.flag_tensor: torch.Tensor | None = None
         self.step = 0
         self.trackers: list = []
         self._log_with = log_with
@@ -195,10 +222,72 @@ class Accelerator:
         self._load_state_pre_hooks: dict[int, Callable] = {}
         self._pending_saves: list = []
 
+    def _resolve_handlers(self, kwargs_handlers: list[Any] | None) -> dict[str, Any]:
+        """Sort the kwargs handlers onto the accelerator (reference
+        `accelerator.py:378-470`); returns the scaler's settings."""
+        from .utils.dataclasses import (
+            AutocastKwargs,
+            DataLoaderConfiguration,
+            FP8RecipeKwargs,
+            GradScalerKwargs,
+            ProfileKwargs,
+        )
+
+        self.profile_handler = self.autocast_handler = self.fp8_recipe_handler = None
+        scaler_config: dict[str, Any] = {}
+        seen: set[type] = set()
+        for handler in kwargs_handlers or []:
+            if type(handler) in seen:
+                raise ValueError(f"Duplicate kwargs handler of type {type(handler).__name__}.")
+            seen.add(type(handler))
+            if isinstance(handler, GradScalerKwargs):
+                scaler_config = handler.to_dict()
+            elif isinstance(handler, ProfileKwargs):
+                self.profile_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                self.autocast_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
+            elif isinstance(handler, DataLoaderConfiguration):
+                raise ValueError("Pass DataLoaderConfiguration as dataloader_config=, not a handler.")
+            else:
+                raise ValueError(f"Unsupported kwargs handler: {handler!r}")
+        return scaler_config
+
     # ------------------------------------------------------------ topology
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def distributed_type(self) -> str:
+        """``"NO"``: one process on one device (the reference's
+        ``DistributedType.NO``)."""
+        return "NO"
+
+    @property
+    def num_devices(self) -> int:
+        return 1
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self._use_seedable_sampler
+
+    @property
+    def non_blocking(self) -> bool:
+        """Prepared loaders copy batches to the device asynchronously."""
+        return True
+
+    @property
+    def use_stateful_dataloader(self) -> bool:
+        """``DataLoaderConfiguration.use_stateful_dataloader``; prepared
+        loaders save and resume their position either way."""
+        return self._use_stateful_dataloader
+
+    @property
+    def save_iteration(self) -> int:
+        """The index the next automatic checkpoint takes."""
+        return self.project_configuration.iteration
 
     @property
     def partial_state(self) -> PartialState:
@@ -248,6 +337,10 @@ class Accelerator:
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
 
+    @gradient_accumulation_steps.setter
+    def gradient_accumulation_steps(self, value: int) -> None:
+        self.gradient_state.num_steps = value
+
     @property
     def optimizer_step_was_skipped(self) -> bool:
         return any(opt.step_was_skipped for opt in self._optimizers)
@@ -284,13 +377,25 @@ class Accelerator:
         with self.partial_state.local_main_process_first():
             yield
 
+    def split_between_processes(self, inputs: Any, apply_padding: bool = False
+                                ) -> contextlib.AbstractContextManager:
+        """This process's share of ``inputs``, as a context: at one
+        process, all of it."""
+        return self.partial_state.split_between_processes(inputs, apply_padding=apply_padding)
+
     # ------------------------------------------------------------- prepare
     def prepare(self, *args: Any) -> Any:
         """Prepare models, optimizers, data loaders and schedulers, in any
         order, returning them in that order (reference
         `accelerator.py:598`). Models first, then optimizers (each over the
         parameters of a prepared model), then schedulers (over the prepared
-        optimizers); anything else passes through."""
+        optimizers); anything else passes through. A model dispatched over
+        several devices (`verify_device_map`) is refused."""
+        for obj in args:
+            if self.verify_device_map(obj):
+                raise ValueError(
+                    "You can't train a model that has been loaded with a multi-entry device map "
+                    "(big-model inference dispatch); prepare the model on one device instead.")
         result: list[Any] = list(args)
         for i, obj in enumerate(args):
             if isinstance(obj, (nn.Module, PreparedModel)):
@@ -549,6 +654,22 @@ class Accelerator:
     def reduce(self, tensor: Any, reduction: str = "sum", scale: float = 1.0) -> Any:
         return operations.reduce(tensor, reduction=reduction, scale=scale)
 
+    # ------------------------------------------------------------ triggers
+    def set_trigger(self) -> None:
+        """Raise the breakpoint flag (reference `accelerator.py:1426`): any
+        process may, and `check_trigger` on every process sees it."""
+        self.flag_tensor = torch.ones(1, dtype=torch.int64, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """True once after any process called `set_trigger` (the flag is
+        summed over processes, then lowered). One host sync."""
+        flag = self.flag_tensor if self.flag_tensor is not None else \
+            torch.zeros(1, dtype=torch.int64, device=self.device)
+        if int(operations.reduce(flag, reduction="sum")[0]) > 0:
+            self.flag_tensor = None
+            return True
+        return False
+
     def pad_across_processes(self, tensor: Any, dim: int = 0, pad_index: int = 0,
                              pad_first: bool = False) -> Any:
         return operations.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
@@ -612,7 +733,54 @@ class Accelerator:
 
     def unwrap_model(self, model: Any, keep_fp32_wrapper: bool = True) -> nn.Module:
         """The module handed to `prepare`."""
-        return model.module if isinstance(model, PreparedModel) else model
+        from .utils.other import extract_model_from_parallel
+
+        return extract_model_from_parallel(model, keep_fp32_wrapper=keep_fp32_wrapper)
+
+    def save(self, obj: Any, f: str, safe_serialization: bool = False) -> None:
+        """Write ``obj`` from the main process (`utils.other.save`): a
+        tensor tree to safetensors with ``safe_serialization``, anything to
+        ``torch.save`` otherwise."""
+        from .utils.other import save as _save
+
+        _save(obj, f, safe_serialization=safe_serialization)
+
+    def verify_device_map(self, model: Any) -> bool:
+        """True when ``model`` carries a ``device_map`` with more than one
+        entry (a big-model dispatch); `prepare` refuses such a model."""
+        device_map = getattr(model, "device_map", None)
+        return isinstance(device_map, dict) and len(device_map) > 1
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: Any = None) -> Iterator[None]:
+        """A block under ``autocast_handler`` (default: the `AutocastKwargs`
+        of ``kwargs_handlers``). Mixed precision is a cast of the parameters
+        around each prepared forward, so enabling is the standing state;
+        ``AutocastKwargs(enabled=False)`` makes prepared-model calls inside
+        the block run on the fp32 masters (reference
+        `accelerator.py:1509-1524`). Train steps keep their policy."""
+        handler = autocast_handler or self.autocast_handler
+        token = set_autocast_enabled(handler.enabled if handler is not None else True)
+        try:
+            yield
+        finally:
+            reset_autocast_enabled(token)
+
+    @contextlib.contextmanager
+    def profile(self, profile_handler: Any = None, log_dir: str | None = None) -> Iterator[Any]:
+        """A ``torch.profiler`` window (reference `accelerator.py:1527-1545`)
+        under ``profile_handler`` (default: the `ProfileKwargs` of
+        ``kwargs_handlers``), CUDA kernels included on the card; the Chrome
+        trace lands under ``log_dir``, else the handler's
+        ``output_trace_dir``, else ``logging_dir``, else
+        ``profile_traces``. Yields the torch profiler."""
+        from .utils.dataclasses import ProfileKwargs
+
+        handler = profile_handler or self.profile_handler or ProfileKwargs()
+        target = (log_dir or handler.output_trace_dir or self.project_configuration.logging_dir
+                  or "profile_traces")
+        with handler.build(target, self.device) as profiler:
+            yield profiler
 
     def get_state_dict(self, model: Any, unwrap: bool = True) -> dict[str, torch.Tensor]:
         """The model's state dict on the host (fp32 masters)."""

@@ -5,10 +5,16 @@
 `checkpointing.py:249-509`): each model's fp32 master weights as
 ``model_<i>.safetensors``, each optimizer (its torch state, its update
 counts and the fp16 scaler's state), scheduler and data loader as
-``optimizer_<i>.bin``, ``scheduler_<i>.bin`` and ``dataloader_<i>.bin``
+``optimizer_<i>.bin`` (the torch state) with ``optimizer_<i>.meta.pkl`` (the
+counts and the scaler), ``scheduler_<i>.bin`` and ``dataloader_<i>.bin``
 (`torch.save`), each registered custom object as
 ``custom_checkpoint_<i>.pkl``, the RNG state as ``rng_state.pkl`` and the
 accelerator's step as ``step.pkl``; then, last, the ``_COMPLETE`` marker.
+Every file is written and read in the reference's order, each under
+`CHECKPOINT_RETRY_POLICY` (3 attempts on ``OSError``) with a fault point
+(`reliability.faults.SCOPE_CHECKPOINT_SAVE` / ``_RESTORE``) inside each
+attempt, so a transient I/O error costs a retry and a seeded
+`FaultInjector` fires at the same files in both packages.
 A directory without it is a torn save, and ``load_state(None)`` walks the
 complete ``checkpoints/checkpoint_<n>`` directories newest first until one
 loads. With ``ProjectConfiguration(automatic_checkpoint_naming=True)`` each
@@ -39,6 +45,8 @@ from typing import Any
 
 import torch
 
+from .reliability.faults import SCOPE_CHECKPOINT_RESTORE, SCOPE_CHECKPOINT_SAVE, fault_point
+from .reliability.retry import RetryPolicy
 from .utils.operations import recursively_apply
 from .utils.random import capture_rng_state, restore_rng_state
 from .utils.safetensors_io import (
@@ -57,6 +65,11 @@ CUSTOM_STATE_NAME = "custom_checkpoint"
 STEP_STATE_NAME = "step"
 CHECKPOINT_DIR_PREFIX = "checkpoint"
 CHECKPOINT_COMPLETE_MARKER = "_COMPLETE"
+
+# the reference's policy for every checkpoint write and read; module-level,
+# so a deployment may swap in its own
+CHECKPOINT_RETRY_POLICY = RetryPolicy(max_attempts=3, base_delay_s=0.05, max_delay_s=1.0,
+                                      retryable=(OSError,))
 
 
 class CheckpointSaveError(Exception):
@@ -97,25 +110,39 @@ class _PendingSave:
 
 
 def _write(path: Path, obj: Any) -> None:
-    if path.suffix == ".safetensors":
-        save_file(obj, path)
-    elif path.suffix == ".bin":
-        torch.save(obj, path)
-    else:
-        with open(path, "wb") as f:
-            pickle.dump(obj, f)
+    """One file, retried on a transient ``OSError``."""
+
+    def attempt() -> None:
+        fault_point(SCOPE_CHECKPOINT_SAVE)
+        if path.suffix == ".safetensors":
+            save_file(obj, path)
+        elif path.suffix == ".bin":
+            torch.save(obj, path)
+        else:
+            with open(path, "wb") as f:
+                pickle.dump(obj, f)
+
+    CHECKPOINT_RETRY_POLICY.call(attempt)
 
 
 def _read(path: Path) -> Any:
-    if path.suffix == ".safetensors":
-        return load_file(path)
-    if path.suffix == ".bin":
-        return torch.load(path, map_location="cpu", weights_only=False)
-    with open(path, "rb") as f:
-        return pickle.load(f)
+    """One file, retried on a transient ``OSError`` (a missing file is not
+    retried)."""
+
+    def attempt() -> Any:
+        fault_point(SCOPE_CHECKPOINT_RESTORE)
+        if path.suffix == ".safetensors":
+            return load_file(path)
+        if path.suffix == ".bin":
+            return torch.load(path, map_location="cpu", weights_only=False)
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    return CHECKPOINT_RETRY_POLICY.call(attempt)
 
 
 def _write_all(directory: Path, files: dict[str, Any]) -> None:
+    """Every file in order, then the marker."""
     for name, obj in files.items():
         _write(directory / name, obj)
     (directory / CHECKPOINT_COMPLETE_MARKER).write_text("complete\n")
@@ -207,7 +234,9 @@ def save_accelerator_state(accelerator, output_dir: str | os.PathLike,
         sd = weights[i] if weights is not None else model.module.state_dict()
         files[f"{MODEL_NAME}_{i}.safetensors"] = sd
     for i, opt in enumerate(accelerator._optimizers):
-        files[f"{OPTIMIZER_NAME}_{i}.bin"] = opt.state_dict()
+        sd = opt.state_dict()
+        files[f"{OPTIMIZER_NAME}_{i}.bin"] = sd.pop("optimizer")
+        files[f"{OPTIMIZER_NAME}_{i}.meta.pkl"] = sd
     for i, sched in enumerate(accelerator._schedulers):
         files[f"{SCHEDULER_NAME}_{i}.bin"] = sched.state_dict()
     for i, dl in enumerate(accelerator._dataloaders):
@@ -247,30 +276,41 @@ def load_accelerator_state(accelerator, input_dir: str | os.PathLike | None = No
 
 
 def _load_from(accelerator, src: Path) -> str:
-    # read everything before changing anything: a corrupt file leaves the run as it was
-    files = {p.name: _read(p) for p in sorted(src.iterdir())
-             if p.is_file() and p.name != CHECKPOINT_COMPLETE_MARKER}
-
-    def take(name: str) -> Any:
-        if name not in files:
-            raise FileNotFoundError(f"{src / name} is missing")
-        return files[name]
+    # read everything, in the reference's order, before changing anything: a
+    # corrupt file leaves the run as it was
+    def take(name: str, required: bool = True) -> Any:
+        path = src / name
+        if not path.is_file():
+            if required:
+                raise FileNotFoundError(f"{path} is missing")
+            return None
+        return _read(path)
 
     models = [take(f"{MODEL_NAME}_{i}.safetensors") for i in range(len(accelerator._models))]
+    optimizers = [{"optimizer": take(f"{OPTIMIZER_NAME}_{i}.bin"),
+                   **(take(f"{OPTIMIZER_NAME}_{i}.meta.pkl", required=False) or {})}
+                  for i in range(len(accelerator._optimizers))]
+    schedulers = [take(f"{SCHEDULER_NAME}_{i}.bin") for i in range(len(accelerator._schedulers))]
+    loaders = [take(f"{DATALOADER_STATE_NAME}_{i}.bin")
+               for i in range(len(accelerator._dataloaders))]
+    customs = [take(f"{CUSTOM_STATE_NAME}_{i}.pkl")
+               for i in range(len(accelerator._custom_objects))]
+    rng = take(f"{RNG_STATE_NAME}.pkl", required=False)
+    step = take(f"{STEP_STATE_NAME}.pkl", required=False)
     for model, sd in zip(accelerator._models, models):
         model.module.load_state_dict(sd)
-    for i, opt in enumerate(accelerator._optimizers):
-        opt.load_state_dict(take(f"{OPTIMIZER_NAME}_{i}.bin"))
-    for i, sched in enumerate(accelerator._schedulers):
-        sched.load_state_dict(take(f"{SCHEDULER_NAME}_{i}.bin"))
-    for i, dl in enumerate(accelerator._dataloaders):
-        dl.load_state_dict(take(f"{DATALOADER_STATE_NAME}_{i}.bin"))
-    for i, obj in enumerate(accelerator._custom_objects):
-        obj.load_state_dict(take(f"{CUSTOM_STATE_NAME}_{i}.pkl"))
-    if f"{RNG_STATE_NAME}.pkl" in files:
-        restore_rng_state(files[f"{RNG_STATE_NAME}.pkl"])
-    if f"{STEP_STATE_NAME}.pkl" in files:
-        accelerator.step = files[f"{STEP_STATE_NAME}.pkl"]["step"]
+    for opt, sd in zip(accelerator._optimizers, optimizers):
+        opt.load_state_dict(sd)
+    for sched, sd in zip(accelerator._schedulers, schedulers):
+        sched.load_state_dict(sd)
+    for dl, sd in zip(accelerator._dataloaders, loaders):
+        dl.load_state_dict(sd)
+    for obj, sd in zip(accelerator._custom_objects, customs):
+        obj.load_state_dict(sd)
+    if rng is not None:
+        restore_rng_state(rng)
+    if step is not None:
+        accelerator.step = step["step"]
     return str(src)
 
 

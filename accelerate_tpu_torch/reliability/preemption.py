@@ -7,9 +7,9 @@ preemption must not lose inside that window and then exits, or chains to
 whatever handler was installed before it. `ServingPreemptionHandler` drains a
 serving engine within ``grace_s`` and snapshots what is left
 (`serving.engine.ServingEngine.snapshot`), for `ServingEngine.resume` in the
-next process. The training variant writes ``accelerator.save_state``, which
-the port's `Accelerator` does not have yet: given an accelerator, the
-handler raises NotImplementedError (ROADMAP Queue 1, item 27).
+next process. The training handler (`PreemptionHandler` on an
+accelerator) writes a synchronous ``accelerator.save_state`` (async would
+race the kill) and waits for it to land.
 
 Opt-in by construction: nothing installs it implicitly; a library must never
 steal a host application's signal disposition::
@@ -17,6 +17,9 @@ steal a host application's signal disposition::
     handler = install_serving_preemption_handler(engine, "engine.snap")
     ...serving loop...             # SIGTERM now drains, then snapshots
     handler.uninstall()            # restore the previous disposition
+
+    handler = install_preemption_handler(accelerator)
+    ...training loop...            # SIGTERM now checkpoints before exit
 """
 
 from __future__ import annotations
@@ -30,14 +33,13 @@ SIGTERM_EXIT_CODE = 143
 
 
 class PreemptionHandler:
-    """SIGTERM -> the subclass's `_on_preempt` -> exit (or chain).
+    """SIGTERM -> synchronous ``save_state`` -> exit (or chain).
 
-    ``exit_on_preempt=False`` turns the handler into a land-and-continue hook
-    (useful under test, or when an outer supervisor owns process death);
-    ``preempted``/``checkpoint_dir`` record what happened either way. Built
-    on an ``accelerator`` (the reference's training checkpoint), it raises
-    NotImplementedError: the port's `Accelerator` has no ``save_state`` until
-    ROADMAP Queue 1, item 27.
+    ``exit_on_preempt=False`` turns the handler into a checkpoint-and-continue
+    hook (useful under test, or when an outer supervisor owns process death);
+    ``preempted``/``checkpoint_dir`` record what happened either way.
+    ``output_dir`` None takes the accelerator's own choice (the next
+    automatic ``checkpoint_<n>`` with ``automatic_checkpoint_naming``).
     """
 
     def __init__(
@@ -48,11 +50,6 @@ class PreemptionHandler:
         exit_on_preempt: bool = True,
         exit_code: int = SIGTERM_EXIT_CODE,
     ):
-        if accelerator is not None:
-            raise NotImplementedError(
-                "a training preemption checkpoint needs Accelerator.save_state, which the "
-                "port lacks (ROADMAP Queue 1, item 27); ServingPreemptionHandler serves engines"
-            )
         self.accelerator = accelerator
         self.output_dir = output_dir
         self.exit_on_preempt = exit_on_preempt
@@ -104,8 +101,15 @@ class PreemptionHandler:
 
     def _on_preempt(self) -> None:
         """The work a preemption must land before the process dies (subclass
-        hook). The reference's base writes a training checkpoint; the port's
-        has none to write (see the class docstring)."""
+        hook; the base writes a training checkpoint)."""
+        # imported here: checkpointing imports this package (retry and
+        # fault points), so a module-level import would be circular
+        from ..checkpointing import wait_for_checkpoint_saves
+
+        # synchronous on purpose: the grace window ends in seconds and an
+        # async save's writer thread would die with the process
+        self.checkpoint_dir = self.accelerator.save_state(self.output_dir, async_save=False)
+        wait_for_checkpoint_saves(self.accelerator)
 
 
 class ServingPreemptionHandler(PreemptionHandler):
@@ -177,8 +181,7 @@ class ServingPreemptionHandler(PreemptionHandler):
 def install_preemption_handler(
     accelerator: Any, output_dir: str | None = None, **kwargs: Any
 ) -> PreemptionHandler:
-    """Install and return a `PreemptionHandler` (see class docs for knobs);
-    raises NotImplementedError for an accelerator, as the class does."""
+    """Install and return a `PreemptionHandler` (see class docs for knobs)."""
     return PreemptionHandler(accelerator, output_dir, **kwargs).install()
 
 

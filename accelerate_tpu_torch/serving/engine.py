@@ -1855,12 +1855,17 @@ class ServingEngine:
 
     def _paged_capacity(self, requests: list[Request]) -> int:
         """Scheduler hook: how many of the front-run requests the pool can
-        seat: its free blocks, plus what trie eviction could reclaim
-        (optimistic by one race, an evictable block the group's own acquire
-        then pins: the reservation checks again and requeues)."""
+        seat: its free blocks, plus every block trie eviction could reclaim
+        by cascading, stranded interior nodes included
+        (`PrefixCache.reclaimable_blocks`; optimistic by one race, a
+        reclaimable block the group's own acquire then pins: the
+        reservation checks again and requeues). The reference counts only
+        the evictable leaves, and stalls with no slot active when a request
+        needs more than that (ROADMAP Queue 3)."""
         avail, n = self._allocator.free_count, 0
         if self.prefix_cache is not None:
-            avail += int(self.prefix_cache.memory_stats()["blocks_evictable"])
+            avail += self.prefix_cache.reclaimable_blocks(
+                [r.prompt for r in requests if r.cache_prefix])
         if self.kv_tier is not None:
             # what spill-then-admit could free (hibernatable cold slots above
             # the residency floor); 0 while the tier is frozen

@@ -300,6 +300,31 @@ class PrefixCache:
             freed += 1
         return freed
 
+    def reclaimable_blocks(self, prompts: list[list[int]] = ()) -> int:
+        """Paged mode: how many blocks ``reclaim`` could free by cascading,
+        every resident unpinned node whose whole subtree is resident and
+        unpinned. Evicting a leaf makes its parent the next leaf, so
+        unpinned interior nodes (``blocks_stranded``) count too; a node
+        above a pinned or spilled one never becomes a leaf, so it does not.
+        The cached prefixes of ``prompts`` count as pinned: admitting them
+        pins those nodes. Admission prices the pool with this: free +
+        evictable leaves alone misses the stranded blocks, and a request
+        needing more than that would wait forever with no slot active."""
+        kept = {id(node) for prompt in prompts for node in self._walk(prompt)}
+        order, stack = [], list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            order.append(node)
+            stack.extend(node.children.values())
+        clear: dict[int, bool] = {}
+        count = 0
+        for node in reversed(order):  # every node after all of its subtree
+            ok = (node.block_id is not None and node.ref == 0 and id(node) not in kept
+                  and all(clear[id(c)] for c in node.children.values()))
+            clear[id(node)] = ok
+            count += ok
+        return count
+
     def _alloc(self) -> int | None:
         if self._free:
             return self._free.popleft()

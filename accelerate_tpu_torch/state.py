@@ -62,6 +62,12 @@ class PartialState:
         with self.main_process_first():
             yield
 
+    @contextmanager
+    def split_between_processes(self, inputs: Any, apply_padding: bool = False) -> Iterator[Any]:
+        """This process's share of ``inputs`` (reference `state.py:251`):
+        at one process, all of it; ``apply_padding`` has nothing to pad."""
+        yield inputs
+
     def _on(self, predicate: Callable[[], bool], function: Callable) -> Callable:
         @functools.wraps(function)
         def wrapper(*args: Any, **kwargs: Any) -> Any:

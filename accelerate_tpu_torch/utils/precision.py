@@ -18,10 +18,28 @@ asking for it raises.
 
 from __future__ import annotations
 
+import contextvars
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+
+_AUTOCAST_ENABLED = contextvars.ContextVar("accelerate_tpu_torch_autocast_enabled", default=True)
+
+
+def autocast_enabled() -> bool:
+    """Whether prepared-model calls apply the compute-dtype cast (False
+    inside ``Accelerator.autocast(AutocastKwargs(enabled=False))``)."""
+    return _AUTOCAST_ENABLED.get()
+
+
+def set_autocast_enabled(enabled: bool) -> contextvars.Token:
+    """Returns the token that `reset_autocast_enabled` takes."""
+    return _AUTOCAST_ENABLED.set(bool(enabled))
+
+
+def reset_autocast_enabled(token: contextvars.Token) -> None:
+    _AUTOCAST_ENABLED.reset(token)
 
 
 @dataclass(frozen=True)

@@ -281,10 +281,36 @@ Phases run in order; any failure exits non-zero:
    chose, peak admitted streams against the pool alone's, tokens/s
    (`bf16_kv_tier`, reported); the five port tools exit 0 on the upload
    run's trace, telemetry and journal (`kv_tier_tools`);
-28. the script's seconds (`chip_smoke_s`, the build included), the
+28. ResNet-50 image classification and the rest of the one-process
+   facade (TF32 off throughout, as in every phase): (a) the port's
+   `examples/cv_example.py` at the reference's defaults (224 x 224, 1000
+   classes, batch 16, 3 epochs of 8 batches, SGD momentum 0.9 at lr 0.02)
+   in bf16 and in ``"no"`` with fp32 convolutions: each epoch's loss and
+   accuracy, images/s, peak memory, and a profiler window over 3 steps
+   with host against device ms, the idle share and device ms by kind
+   (convolutions, GroupNorm, layout copies, casts, elementwise, SGD), then
+   10 timed bf16 steps at batch 128 (images/s, MFU) and a probe of
+   `F.group_norm` on a channels_last input (`bf16_cv_example`,
+   `no_cv_example`, `bf16_resnet50_b128`, `group_norm_layout_probe`); (b)
+   one fp32 ResNet-50 step on the card equals the CPU's from the same
+   weights and batch (`fp32_resnet50_card_vs_cpu`); (c)
+   `examples/complete_cv_example.py` with ``--checkpointing
+   --with_tracking``, resumed from ``epoch_0``, retraces the unbroken run's
+   later losses bit for bit, cuDNN held deterministic
+   (`complete_cv_example_resume`: checkpoint bytes, save and load
+   seconds); (d) `find_executable_batch_size` from 4096 images recovers
+   from the card's real out-of-memory errors and leaves allocated memory
+   within 1 MiB (`bf16_resnet50_find_executable_batch_size`); (e) the
+   by_feature examples on the card at their own defaults, the
+   sliding-window Llama's band launches counted and the profiler's trace
+   naming CUDA kernels, and a ResNet-50 child stopped by SIGTERM through
+   `install_preemption_handler`, whose checkpoint loads to its weights
+   (`by_feature_examples`, `vision_facade_phase_s`);
+29. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
    loop to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
-   engines to phases 5 and 24), the card line, and the final
+   engines to phases 5 and 24; the band kernels' add phase 28 (e)'s
+   sliding-window example to phase 14), the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -1047,7 +1073,7 @@ def band_pairs(s: int, window: int | None) -> int:
 
 
 def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card,
-              by_group=False, rect=False, rms_tol=None, samples=30) -> dict:
+              by_group=False, rect=False, rms_tol=None, samples=30, pad_to=None) -> dict:
     """The three band kernels against their plain versions on one input (q
     pre-scaled ``[b, hq, s, d]``, K/V ``[b, hkv, s, d]``), with their times,
     the times of SDPA over an explicit boolean band mask with
@@ -1059,7 +1085,11 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     a time, to bound their memory. ``rect`` also times the rectangular
     kernels on the same (causal) function, with K/V repeated to the query
     heads, and holds the band forward's output to theirs. ``samples`` is the
-    kernels' timed runs (fewer for the slow wide-head bodies)."""
+    kernels' timed runs (fewer for the slow wide-head bodies). ``pad_to``
+    zero-pads q, K, V and the output's gradient from head_dim ``d`` to
+    ``pad_to``, as `flash_attention` pads a head_dim that is not a multiple
+    of 64: the kernels, the plain versions and the bounds see the padded
+    width."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -1069,6 +1099,9 @@ def band_case(torch, name, *, b, hq, hkv, s, d, window, dtype, seed, flush, card
     q = (torch.randn(b, hq, s, d, generator=g, device=dev) / math.sqrt(d)).to(dtype)
     k, v = (torch.randn(b, hkv, s, d, generator=g, device=dev).to(dtype) for _ in range(2))
     dout = torch.randn(b, hq, s, d, generator=g, device=dev).to(dtype)
+    if pad_to is not None:
+        q, k, v, dout = (F.pad(t, (0, pad_to - d)) for t in (q, k, v, dout))
+        d = pad_to
     groups = hq // hkv
     spans = [(j, j + 1) for j in range(hkv)] if by_group else [(0, hkv)]
 
@@ -4084,6 +4117,447 @@ def kv_tier_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -
     return {"launches": launches}
 
 
+# the CPU op whose kernels a ResNet step's device time is charged to: the
+# innermost match among the launching op and its parents, by name prefix
+RESNET_OP_CATEGORIES = (
+    ("layout copies", ("aten::contiguous",)),
+    ("casts", ("aten::_to_copy",)),
+    ("padding", ("aten::constant_pad_nd",)),
+    ("GroupNorm", ("aten::group_norm", "aten::native_group_norm")),
+    ("convolutions", ("aten::cudnn_convolution", "aten::convolution_backward",
+                      "aten::_convolution")),
+    ("max pool", ("aten::max_pool2d",)),
+    ("classifier and loss", ("aten::addmm", "aten::mm", "aten::_log_softmax", "aten::gather",
+                             "aten::nll_loss")),
+    ("SGD", ("aten::_foreach_", "Optimizer.step")),
+)
+# the card-vs-CPU fp32 ResNet-50 step: both sides fp32 with TF32 off, 53
+# convolutions summed in other orders on each side
+RESNET_LOSS_ATOL = 1e-4
+RESNET_GRAD_NORM_RTOL = 1e-3
+
+PREEMPTION_CHILD = """
+import os, sys, time, torch
+from accelerate_tpu_torch.accelerator import Accelerator, ProjectConfiguration
+from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig, image_classification_loss_fn
+from accelerate_tpu_torch.reliability import install_preemption_handler
+acc = Accelerator(mixed_precision="bf16", project_config=ProjectConfiguration(
+    project_dir=sys.argv[1], automatic_checkpoint_naming=True))
+model = acc.prepare(ResNet(ResNetConfig.resnet50(), seed=0))
+opt = acc.prepare(torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9))
+step = acc.make_train_step(image_classification_loss_fn)
+install_preemption_handler(acc)
+g = torch.Generator(device="cuda").manual_seed(1)
+batch = {"image": torch.randn(16, 224, 224, 3, device="cuda", generator=g),
+         "label": torch.randint(0, 1000, (16,), device="cuda", generator=g)}
+for _ in range(3):
+    step(batch)
+torch.save({"model": model.state_dict(), "updates": opt.num_updates},
+           os.path.join(sys.argv[1], "trained.pt"))
+print("ready", flush=True)
+while True:  # the loop between steps; SIGTERM lands a checkpoint and exits 143
+    time.sleep(0.01)
+"""
+
+
+def profile_by_op(torch, run_step, steps: int) -> dict:
+    """A profiler window over ``steps`` calls of ``run_step``: host and device
+    ms per step, the idle share, device ms per step by RESNET_OP_CATEGORIES
+    (each kernel charged to the innermost matching op over the one that
+    launched it), the layout copies by the op that asked for them (the
+    first op above ``aten::contiguous``), and the top kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    by_name: dict[str, float] = {}
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    by_kind: dict[str, float] = {}
+    copies_by_caller: dict[str, float] = {}
+    attributed = 0.0
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        chain, node = [], ev
+        while node is not None:
+            chain.append(node.name)
+            node = node.cpu_parent
+        kind = next((k for name in chain for k, prefixes in RESNET_OP_CATEGORIES
+                     if name.startswith(prefixes)), "elementwise and other")
+        us = sum(k.duration for k in ev.kernels)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+        attributed += us
+        if kind == "layout copies":
+            above = chain[chain.index("aten::contiguous") + 1:] if "aten::contiguous" in chain \
+                else []
+            caller = next((n for n in above if n.startswith("aten::")), "the caller's own")
+            copies_by_caller[caller] = copies_by_caller.get(caller, 0.0) + us
+    busy_us = sum(by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "host_ms_per_step": wall_us / steps / 1e3,
+            "device_ms_per_step": busy_us / steps / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+            "device_ms_per_step_by_kind": {k: us / steps / 1e3 for k, us in
+                                           sorted(by_kind.items(), key=lambda kv: -kv[1])},
+            "attributed_share": attributed / busy_us if busy_us else 0.0,
+            "layout_copies_ms_per_step_by_caller": {k: us / steps / 1e3 for k, us in
+                                                    sorted(copies_by_caller.items(),
+                                                           key=lambda kv: -kv[1])},
+            "top_kernels_ms_per_step": {n[:80]: us / steps / 1e3 for n, us in ranked}}
+
+
+def group_norm_layout_probe(torch) -> dict:
+    """One fp32 `F.group_norm` forward and backward at ResNet-50's stage-0
+    width (16 x 256 x 56 x 56, 32 groups) on a channels_last input and on a
+    contiguous one: the kernels each launches, its device ms, and whether
+    the output keeps the input's layout."""
+    import torch.nn.functional as F
+
+    out = {}
+    for layout in ("channels_last", "contiguous"):
+        x = torch.randn(16, 256, 56, 56, device="cuda")
+        if layout == "channels_last":
+            x = x.to(memory_format=torch.channels_last)
+        x.requires_grad_(True)
+        w = torch.ones(256, device="cuda", requires_grad=True)
+        b = torch.zeros(256, device="cuda", requires_grad=True)
+
+        def run():
+            y = F.group_norm(x, 32, w, b, 1e-6)
+            y.backward(torch.ones_like(y))
+            return y
+
+        y = run()
+        rec = profile_by_op(torch, run, 3)
+        out[layout] = {"output_channels_last": y.is_contiguous(memory_format=torch.channels_last),
+                       "device_ms": rec["device_ms_per_step"],
+                       "kernels": sorted(rec["top_kernels_ms_per_step"]),
+                       "layout_copies_ms": rec["device_ms_per_step_by_kind"].get("layout copies",
+                                                                                  0.0)}
+    return out
+
+
+def resnet_step_pair(torch, card: str) -> dict:
+    """Phase 28 (b): one fp32 ResNet-50 step (TF32 off) on the card and on
+    the CPU, from the same seeded weights and batch (4 x 224 x 224): loss
+    within RESNET_LOSS_ATOL, the gradient's global norm within
+    RESNET_GRAD_NORM_RTOL relative."""
+    from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig, image_classification_loss_fn
+
+    cfg = ResNetConfig.resnet50(dtype=torch.float32)
+    weights = ResNet(cfg, device="cpu", seed=0).state_dict()
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randn(4, 224, 224, 3, generator=g),
+             "label": torch.randint(0, 1000, (4,), generator=g)}
+
+    def step(device):
+        model = ResNet(cfg, device=device)
+        model.load_state_dict(weights)
+        t0 = time.perf_counter()
+        loss = image_classification_loss_fn(model, {k: v.to(device) for k, v in batch.items()})
+        loss.backward()
+        norm = torch.linalg.vector_norm(torch.stack([p.grad.double().norm()
+                                                     for p in model.parameters()]))
+        return loss.item(), norm.item(), time.perf_counter() - t0
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    card_loss, card_norm, card_s = step("cuda")
+    cpu_loss, cpu_norm, cpu_s = step("cpu")
+    rec = {"phase": "fp32_resnet50_card_vs_cpu", "batch": 4, "image_size": 224,
+           "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_abs_diff": abs(card_loss - cpu_loss),
+           "grad_norm_card": card_norm, "grad_norm_cpu": cpu_norm,
+           "grad_norm_rel_diff": abs(card_norm - cpu_norm) / cpu_norm, "tf32": False,
+           "card_step_s": card_s, "cpu_step_s": cpu_s, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not (rec["loss_abs_diff"] <= RESNET_LOSS_ATOL
+            and rec["grad_norm_rel_diff"] <= RESNET_GRAD_NORM_RTOL):
+        raise AssertionError(f"fp32 ResNet-50 step: the card and the CPU disagree: {rec}")
+    return rec
+
+
+def cv_example_run(torch, card: str, mixed_precision: str) -> dict:
+    """Phase 28 (a): the port's `examples/cv_example.py` at the reference's
+    defaults (ResNet-50, 224 x 224, 1000 classes, batch 16, 3 epochs of 8
+    batches, SGD momentum 0.9 at lr 0.02) in ``mixed_precision``; under
+    ``"no"`` the model's convolutions compute in fp32 too (the reference's
+    config computes them in bf16 under every policy). Each epoch's loss and
+    accuracy, images/s over epochs 1-2, peak memory, and a profiler window
+    over 3 steps."""
+    from accelerate_tpu_torch.examples import cv_example
+    from accelerate_tpu_torch.models.resnet import ResNetConfig
+
+    args = cv_example.parser().parse_args(["--mixed_precision", mixed_precision])
+    config = None if mixed_precision == "bf16" else ResNetConfig.resnet50(dtype=torch.float32)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = cv_example.training_function(args, config=config)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    images, labels = cv_example.synthetic_images(16, 224, 1000, args.seed)
+    batch = {"image": torch.from_numpy(images).cuda(), "label": torch.from_numpy(labels).cuda()}
+    prof = profile_by_op(torch, lambda: run["step"](batch), 3)
+    timed = run["epochs"][1:]
+    rec = {"phase": f"{mixed_precision}_cv_example", "model": "resnet50", "batch": 16,
+           "image_size": 224, "conv_dtype": "bf16" if config is None else "fp32", "tf32": False,
+           "epochs": run["epochs"], "microbatch_losses": run["losses"],
+           "images_per_s": 16 * 8 * len(timed) / sum(e["train_s"] for e in timed),
+           "peak_mem_bytes": peak, "wall_s": wall, **prof, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in run["losses"]) or len(run["losses"]) != 24:
+        raise AssertionError(f"{rec['phase']}: {len(run['losses'])} losses, or one not finite")
+    del run
+    return rec
+
+
+def resnet_bf16_throughput(torch, card: str, batch_size: int = 128, steps: int = 10) -> dict:
+    """Phase 28 (a): ``steps`` timed bf16 ResNet-50 steps at ``batch_size``
+    after 2 warm-up steps: images/s, MFU (3 x the forward FLOPs counted from
+    the convolution and classifier shapes, over the card's dense bf16 peak),
+    peak memory, and a profiler window over 3 steps."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig, image_classification_loss_fn
+
+    acc = Accelerator(mixed_precision="bf16")
+    model = acc.prepare(ResNet(ResNetConfig.resnet50(), seed=0))
+    acc.prepare(torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9))
+    step = acc.make_train_step(image_classification_loss_fn)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"image": torch.randn(batch_size, 224, 224, 3, device="cuda", generator=g),
+             "label": torch.randint(0, 1000, (batch_size,), device="cuda", generator=g)}
+    losses, wall = timed_steps(torch, step, batch, warmup=2, steps=steps)
+    peak = torch.cuda.max_memory_allocated()
+    flops = 3 * model.module.forward_flops(224)
+    images_per_s = batch_size * steps / wall
+    prof = profile_by_op(torch, lambda: step(batch), 3)
+    rec = {"phase": f"bf16_resnet50_b{batch_size}", "batch": batch_size, "steps": steps,
+           "step_ms": wall / steps * 1e3, "images_per_s": images_per_s,
+           "train_flops_per_image": flops,
+           "mfu": images_per_s * flops / bf16_peak(torch.cuda.get_device_name(0)),
+           "peak_mem_bytes": peak, "losses": losses, "tf32": False, **prof, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{rec['phase']}: a loss is not finite: {losses}")
+    del acc, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def complete_cv_resume(torch, card: str) -> dict:
+    """Phase 28 (c): `examples/complete_cv_example.py` at ResNet-50 with
+    ``--checkpointing --with_tracking`` (2 epochs, cosine schedule), then
+    resumed from ``epoch_0``: the resumed run retraces the unbroken run's
+    epoch 1, every loss bit for bit. cuDNN is held deterministic for the
+    pair (its weight-gradient algorithms may otherwise sum in another order
+    from run to run)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.examples import complete_cv_example as ccv
+
+    tmp = Path(tempfile.mkdtemp(prefix="complete_cv_"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = ccv.training_function(ccv.parser().parse_args(
+            ["--checkpointing", "--with_tracking", "--project_dir", str(tmp / "a")]))
+        resumed = ccv.training_function(ccv.parser().parse_args(
+            ["--project_dir", str(tmp / "b"), "--resume_from_checkpoint",
+             full["checkpoints"][0]["dir"]]))
+        lines = (tmp / "a" / "complete_cv_example.metrics.jsonl").read_text().splitlines()
+        equal = resumed["losses"][:8] == full["losses"][8:16]
+        rec = {"phase": "complete_cv_example_resume", "model": "resnet50", "epochs": full["epochs"],
+               "resumed_epochs": resumed["epochs"], "resumed_equals_unbroken": equal,
+               "checkpoint_bytes": full["checkpoints"][0]["bytes"],
+               "save_s": [c["save_s"] for c in full["checkpoints"]], "load_s": resumed["load_s"],
+               "tracker_lines": len(lines), "cudnn_deterministic": True, "card": card}
+        print(json.dumps(rec), flush=True)
+        if not equal:
+            raise AssertionError(f"complete_cv_example resumed from epoch_0 does not retrace the "
+                                 f"unbroken run: {resumed['losses'][:8]} != {full['losses'][8:16]}")
+        if len(lines) != 3:
+            raise AssertionError(f"complete_cv_example: the tracker wrote {len(lines)} lines")
+        del full, resumed
+        return rec
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def oom_batch_search(torch, card: str, start: int = 4096) -> dict:
+    """Phase 28 (d): `find_executable_batch_size` over one bf16 ResNet-50
+    step from ``start`` images, each attempt building its accelerator, model,
+    optimizer and batch on the card: the card's allocator raises
+    ``torch.cuda.OutOfMemoryError`` until the batch fits. After the search
+    and `release_memory`, ``memory_allocated()`` is back within 1 MiB."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.memory import find_executable_batch_size, release_memory
+    from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig, image_classification_loss_fn
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    tried, errors = [], []
+
+    @find_executable_batch_size(starting_batch_size=start)
+    def attempt(batch_size: int) -> float:
+        tried.append(batch_size)
+        try:
+            acc = Accelerator(mixed_precision="bf16")
+            model = acc.prepare(ResNet(ResNetConfig.resnet50(), seed=0))
+            acc.prepare(torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9))
+            step = acc.make_train_step(image_classification_loss_fn)
+            batch = {"image": torch.randn(batch_size, 224, 224, 3, device="cuda"),
+                     "label": torch.randint(0, 1000, (batch_size,), device="cuda")}
+            loss = float(step(batch))
+            torch.cuda.synchronize()
+            return loss
+        except torch.cuda.OutOfMemoryError as e:
+            errors.append(type(e).__name__)
+            raise
+
+    t0 = time.perf_counter()
+    loss = attempt()
+    search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    release_memory()
+    after = torch.cuda.memory_allocated()
+    rec = {"phase": "bf16_resnet50_find_executable_batch_size", "starting_batch_size": start,
+           "tried": tried, "found": attempt.batch_size, "oom_errors": errors, "loss": loss,
+           "search_s": search_s, "allocated_before": before, "allocated_after": after,
+           "peak_mem_bytes": peak, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not errors or attempt.batch_size >= start or not math.isfinite(loss):
+        raise AssertionError(f"find_executable_batch_size: no real OOM was recovered from: {rec}")
+    if abs(after - before) > 2**20:
+        raise AssertionError(f"find_executable_batch_size left {after - before} bytes allocated")
+    return rec
+
+
+def by_feature_on_card(torch, np, card: str) -> dict:
+    """Phase 28 (e): the by_feature examples on the card at their own
+    defaults: gradient accumulation and checkpointing (``configs[2]``),
+    early stopping, tracking, the sliding-window Llama (band kernels #5-#7,
+    counted) and the profiler, whose Chrome trace must name a CUDA kernel.
+    Then a child process training ResNet-50 on the card under
+    `install_preemption_handler` is sent SIGTERM: it exits 143 with a
+    complete checkpoint, which loads here to its weights."""
+    import importlib
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    tmp = Path(tempfile.mkdtemp(prefix="by_feature_"))
+    out: dict = {"phase": "by_feature_examples", "examples": {}, "card": card}
+    try:
+        for name in ("gradient_accumulation", "checkpointing", "early_stopping", "tracking",
+                     "sliding_window_long_context", "profiler"):
+            main = importlib.import_module(f"accelerate_tpu_torch.examples.by_feature.{name}").main
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            res = main(["--project_dir", str(tmp / name)])
+            torch.cuda.synchronize()
+            summary = {"seconds": time.perf_counter() - t0}
+            for key in ("accuracy", "stopped_at", "updates", "loss"):
+                if key in res:
+                    summary[key] = res[key]
+            if "losses" in res:
+                summary.update(first_loss=res["losses"][0], last_loss=res["losses"][-1],
+                               steps=len(res["losses"]))
+            if name == "sliding_window_long_context":
+                out["band_launches"] = band_counts(fa)
+                summary["band_launches"] = out["band_launches"]
+            if name == "profiler":
+                events = json.loads(Path(res["traces"][0]).read_text())["traceEvents"]
+                kernels = sorted({ev["name"] for ev in events if ev.get("cat") == "kernel"})
+                summary.update(trace_files=len(res["traces"]), cuda_kernels=len(kernels),
+                               some_kernels=[k[:60] for k in kernels[:3]])
+                if not kernels:
+                    raise AssertionError("by_feature profiler: the trace names no CUDA kernel")
+            out["examples"][name] = summary
+        if any(v == 0 for v in out["band_launches"].values()):
+            raise AssertionError(f"sliding_window_long_context launched no band kernel: "
+                                 f"{out['band_launches']}")
+
+        # the training preemption handler on the card
+        from accelerate_tpu_torch.accelerator import Accelerator, ProjectConfiguration
+        from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig
+
+        pdir = tmp / "preempt"
+        pdir.mkdir()
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", PREEMPTION_CHILD, str(pdir)], cwd=ROOT,
+                                 stdout=subprocess.PIPE, text=True, env={**os.environ})
+        try:
+            ready = child.stdout.readline().strip()
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=120)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        acc = Accelerator(mixed_precision="bf16", project_config=ProjectConfiguration(
+            project_dir=str(pdir), automatic_checkpoint_naming=True))
+        model = acc.prepare(ResNet(ResNetConfig.resnet50(), seed=1))
+        opt = acc.prepare(torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9))
+        loaded = acc.load_state()
+        want = torch.load(pdir / "trained.pt")
+        matches = all(torch.equal(v, want["model"][k].to(v.device))
+                      for k, v in model.state_dict().items())
+        out["preemption"] = {"ready": ready, "exit_code": rc, "checkpoint": Path(loaded).name,
+                             "complete": (Path(loaded) / "_COMPLETE").exists(),
+                             "updates": opt.num_updates, "weights_equal": matches,
+                             "seconds": time.perf_counter() - t0}
+        print(json.dumps(out), flush=True)
+        if ready != "ready" or rc != 143 or not out["preemption"]["complete"] or not matches \
+                or opt.num_updates != want["updates"]:
+            raise AssertionError(f"preemption on the card: {out['preemption']}")
+        del acc, model, opt
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vision_and_facade(torch, np, card: str) -> dict:
+    """Phase 28: ResNet-50 image classification and the rest of the
+    one-process facade; returns the by_feature record (band launches)."""
+    t0 = time.perf_counter()
+    runs = {mp: cv_example_run(torch, card, mp) for mp in ("bf16", "no")}
+    big = resnet_bf16_throughput(torch, card)
+    probe = group_norm_layout_probe(torch)
+    print(json.dumps({"phase": "group_norm_layout_probe", **probe, "card": card}), flush=True)
+    resnet_step_pair(torch, card)
+    resume = complete_cv_resume(torch, card)
+    oom = oom_batch_search(torch, card)
+    features = by_feature_on_card(torch, np, card)
+    print(json.dumps({"phase": "vision_facade_phase_s", "seconds": time.perf_counter() - t0,
+                      "bf16_images_per_s_b16": runs["bf16"]["images_per_s"],
+                      "fp32_images_per_s_b16": runs["no"]["images_per_s"],
+                      "bf16_images_per_s_b128": big["images_per_s"], "mfu_b128": big["mfu"],
+                      "checkpoint_bytes": resume["checkpoint_bytes"], "oom_found": oom["found"],
+                      "card": card}), flush=True)
+    return features
+
+
 def main() -> int:
     t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4453,6 +4927,10 @@ def main() -> int:
                   dtype=torch.bfloat16, seed=args.seed + 3, **band_common),
         band_case(torch, "window_ge_seq_fp32_g2", b=1, hq=4, hkv=2, s=1024, d=128, window=2048,
                   dtype=torch.float32, seed=args.seed + 4, rect=True, **band_common),
+        # what by_feature/sliding_window_long_context.py gives the kernels
+        # (phase 28): its tiny Llama's head_dim 16 zero-padded to 128, fp32
+        band_case(torch, "sliding_example_fp32_w32", b=2, hq=4, hkv=2, s=128, d=16, window=32,
+                  dtype=torch.float32, seed=args.seed + 9, pad_to=128, **band_common),
         # head_dim 192 and 256 (the scalar bodies) at the Mistral sequence,
         # window and GQA ratio, 16 query heads over 4
         band_case(torch, "d192_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=192, window=4096,
@@ -4549,7 +5027,10 @@ def main() -> int:
     # 27. the host-RAM KV tier and request hibernation
     kv_tier = kv_tier_serving(torch, np, args.seed, card, serve_prompts)
 
-    # 28. summary lines
+    # 28. ResNet-50 image classification and the rest of the one-process facade
+    features = vision_and_facade(torch, np, card)
+
+    # 29. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -4602,7 +5083,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
-            "launches": mistral["launches"][kname],
+            "launches": mistral["launches"][kname] + features["band_launches"][kname],
             "max_abs_err": max(c[kname]["max_abs_err"] for c in band_cases),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],

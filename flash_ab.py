@@ -39,6 +39,11 @@ bf16 cases: GPT-2 small's head (N 8192, V 50257, e 768), a ragged N 1000,
 e 1024, and Mistral-7B's untied head (N 8192, V 32000, e 4096); where the
 tree has the vocab-split plan, also at every split count the case can take
 (``fwd_s<splits>``), beside the clusters of each size the card holds.
+``--probe resnet`` times 10 bf16 ResNet-50 training steps at batch 128
+(224 x 224, SGD with momentum, after 2 warm-up steps) four times in turns,
+with the model's convolution weights as it builds them (channels_last) and
+moved to NCHW memory: channels_last, NCHW, NCHW, channels_last, one line
+each with the step's ms and images/s.
 ``--probe widths`` and ``--probe precision`` look at the fused-CE dH and dW
 alone, on inputs drawn as
 ``tests/test_torch_cuda_kernels.py`` draws them: ``--probe widths`` prints
@@ -70,11 +75,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
     parser.add_argument("--probe", choices=("serving", "engine", "decode", "fwd", "widths",
-                                            "precision"),
+                                            "precision", "resnet"),
                         default=None,
                         help="the serving kernels alone, the serving engine, its decode "
                              "graph alone, the fused-CE forward alone, or the fused-CE dH and "
-                             "dW alone (default: the A/B timing of every kernel)")
+                             "dW alone, or a ResNet-50 step by weight layout (default: the A/B "
+                             "timing of every kernel)")
     args = parser.parse_args()
     import torch
 
@@ -132,6 +138,9 @@ def main() -> int:
     elif args.probe == "precision":
         for rec in probe_precision(torch):
             print(json.dumps({**res, **rec}), flush=True)
+    elif args.probe == "resnet":
+        for layout in ("channels_last", "nchw", "nchw", "channels_last"):
+            print(json.dumps({**res, **probe_resnet(torch, layout)}), flush=True)
     else:
         flash(res, g, ms, inputs)
         fused_ce(res, g, ms)
@@ -337,6 +346,43 @@ def probe_decode(torch, replays: int = 32) -> dict:
             "kernels_per_replay": count / replays,
             "kernels_us_per_replay": {n: us / replays for n, us in
                                       sorted(by_name.items(), key=lambda kv: -kv[1])}}
+
+
+def probe_resnet(torch, weights: str, batch: int = 128, steps: int = 10) -> dict:
+    """``steps`` bf16 ResNet-50 training steps at ``batch`` after 2 warm-up
+    steps, the convolution weights channels_last as the model builds them
+    or moved to NCHW memory: the step's host wall in ms (ending in a
+    synchronize) and images/s."""
+    import gc
+    import time
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig, image_classification_loss_fn
+
+    acc = Accelerator(mixed_precision="bf16")
+    module = ResNet(ResNetConfig.resnet50(), seed=0)
+    if weights == "nchw":
+        module.to(memory_format=torch.contiguous_format)
+    model = acc.prepare(module)
+    acc.prepare(torch.optim.SGD(model.parameters(), lr=0.02, momentum=0.9))
+    step = acc.make_train_step(image_classification_loss_fn)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    data = {"image": torch.randn(batch, 224, 224, 3, device="cuda", generator=g),
+            "label": torch.randint(0, 1000, (batch,), device="cuda", generator=g)}
+    for _ in range(2):
+        step(data)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(data) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = {"probe": "resnet", "weights": weights, "batch": batch, "steps": steps,
+           "step_ms": wall / steps * 1e3, "images_per_s": batch * steps / wall,
+           "last_loss": losses[-1].item()}
+    del acc, model, step, data, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 FWD_SHAPES = {"gpt2_small": (8192, 50257, 768), "ragged_n1000": (1000, 50257, 768),

@@ -326,6 +326,9 @@ BAND_CASES = {
                                            s=77),
     "bf16_w1_d128": dict(dtype=torch.bfloat16, window=1, hq=8, hk=8, d=128, s=512),
     "fp32_w_ge_seq_gqa2_d128": dict(dtype=torch.float32, window=2048, hq=4, hk=2, d=128, s=200),
+    # the sliding-window example's kernel shape: fp32 at d 128 (its head_dim
+    # 16 padded), a window well inside the sequence
+    "fp32_w32_gqa2_d128_s128": dict(dtype=torch.float32, window=32, hq=4, hk=2, d=128, s=128),
     "bf16_w37_gqa8": dict(dtype=torch.bfloat16, window=37, hq=8, hk=1, d=64, s=300),
     # the bf16 forward's edges: windows that cut a 128-row tile, ragged ends,
     # s = 1, GQA groups 4 and 8 under a window at both head dims
@@ -1476,3 +1479,64 @@ def test_tier_spill_waits_for_inflight_writes_on_the_card(hopper):
     assert seconds > 0 and hb.buf.is_pinned() and hb.crcs == engine.kv_tier._crcs(hb)
     while engine.has_work:
         engine.step()
+
+
+def _resnet_step_on(device, weights, batch, cfg):
+    """One fp32 forward and backward of ResNet on ``device``: (loss, global
+    gradient norm)."""
+    from accelerate_tpu_torch.models.resnet import ResNet, image_classification_loss_fn
+
+    model = ResNet(cfg, device=device)
+    model.load_state_dict(weights)
+    loss = image_classification_loss_fn(model, {k: v.to(device) for k, v in batch.items()})
+    loss.backward()
+    norm = torch.linalg.vector_norm(torch.stack([p.grad.double().norm() for p in model.parameters()]))
+    return loss.item(), norm.item()
+
+
+def test_resnet50_fp32_step_on_the_card_equals_the_cpu_step(hopper):
+    """ResNet-50 (cuDNN convolutions, TF32 off) against the same step on the
+    CPU from the same weights and batch: loss within 1e-4, the gradient's
+    global norm within 1e-3 relative."""
+    from accelerate_tpu_torch.models.resnet import ResNet, ResNetConfig
+
+    cfg = ResNetConfig.resnet50(dtype=torch.float32)
+    weights = ResNet(cfg, device="cpu", seed=0).state_dict()
+    g = torch.Generator().manual_seed(0)
+    batch = {"image": torch.randn(4, 64, 64, 3, generator=g),
+             "label": torch.randint(0, 1000, (4,), generator=g)}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = _resnet_step_on(hopper, weights, batch, cfg)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = _resnet_step_on("cpu", weights, batch, cfg)
+    assert abs(card[0] - cpu[0]) < 1e-4
+    assert abs(card[1] - cpu[1]) < 1e-3 * cpu[1]
+
+
+def test_find_executable_batch_size_recovers_from_a_real_oom_on_the_card(hopper):
+    """1 GiB a batch unit: 256 and 128 cannot fit in 80 GB, so the card's
+    allocator raises ``torch.cuda.OutOfMemoryError`` and the search halves;
+    after `release_memory` the allocated bytes are back within 1 MiB."""
+    import gc
+
+    from accelerate_tpu_torch.memory import find_executable_batch_size, release_memory
+
+    gc.collect()  # earlier tests' garbage would be freed by release_memory below
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tried = []
+
+    @find_executable_batch_size(starting_batch_size=256)
+    def attempt(batch_size):
+        tried.append(batch_size)
+        x = torch.empty(batch_size, 2**28, device=hopper)  # fp32: 1 GiB a row
+        x.fill_(1.0)
+        return float(x[-1, -1])
+
+    assert attempt() == 1.0
+    assert tried[:2] == [256, 128] and attempt.batch_size == tried[-1] <= 64
+    release_memory()
+    assert abs(torch.cuda.memory_allocated() - before) <= 2**20

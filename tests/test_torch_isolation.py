@@ -48,7 +48,17 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.serving.anomaly", "accelerate_tpu_torch.data_loader",
                 "accelerate_tpu_torch.scheduler", "accelerate_tpu_torch.tracking",
                 "accelerate_tpu_torch.utils.random", "accelerate_tpu_torch.utils.operations",
-                "accelerate_tpu_torch.models.bert", "accelerate_tpu_torch.examples.nlp_example"):
+                "accelerate_tpu_torch.models.bert", "accelerate_tpu_torch.examples.nlp_example",
+                "accelerate_tpu_torch.models.resnet", "accelerate_tpu_torch.examples.cv_example",
+                "accelerate_tpu_torch.examples.complete_cv_example",
+                "accelerate_tpu_torch.examples.complete_nlp_example",
+                "accelerate_tpu_torch.memory", "accelerate_tpu_torch.logging",
+                "accelerate_tpu_torch.utils.dataclasses", "accelerate_tpu_torch.utils.other",
+                "accelerate_tpu_torch.utils.environment",
+                *(f"accelerate_tpu_torch.examples.by_feature.{name}" for name in (
+                    "_common", "gradient_accumulation", "checkpointing",
+                    "automatic_gradient_accumulation", "early_stopping", "memory", "profiler",
+                    "tracking", "cross_validation", "sliding_window_long_context"))):
         assert mod in got["modules"]
 
 

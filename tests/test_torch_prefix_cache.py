@@ -29,6 +29,7 @@ from accelerate_tpu.serving import SamplingParams as JaxSamplingParams  # noqa: 
 from accelerate_tpu.serving import ServingEngine as JaxServingEngine  # noqa: E402
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, params_from_jax  # noqa: E402
 from accelerate_tpu_torch.models.kv_cache import (  # noqa: E402
+    BlockAllocator,
     SlotKVCache,
     gather_block_rows,
     make_prefix_block_pool,
@@ -132,6 +133,20 @@ def test_match_capped_below_full_prompt():
     pc.insert(a, cache, 0)
     assert pc.match_len(a) == 4  # the last block is held back
     assert pc.match_len(a + [99]) == 8
+
+
+def test_reclaimable_blocks_walks_a_trie_deeper_than_the_recursion_limit():
+    """Llama-3-8B's 8192 positions at block_tokens 8: one cached prompt is a
+    1024-level chain, past Python's default recursion limit. The probe
+    counts every block of it, less a pinned prefix, and ``reclaim`` frees
+    as many by cascading evictions."""
+    allocator = BlockAllocator(1100)
+    pc = PrefixCache(None, max_len=8192, block_tokens=8, allocator=allocator)
+    prompt = np.random.default_rng(5).integers(0, 256, (8192,)).tolist()
+    assert pc.adopt(prompt, allocator.alloc(1024), owned_from=0) == 1024
+    assert pc.reclaimable_blocks() == 1024
+    assert pc.reclaimable_blocks([prompt[:8 * 500] + [1]]) == 1024 - 500
+    assert pc.reclaim(2000) == 1024 and allocator.free_count == 1100
 
 
 def test_engine_refusals():
@@ -302,3 +317,42 @@ def test_two_inflight_sharers_pin_the_same_blocks(models, paged):
         engine.step()
     assert all(m is None for m in engine._slot_match)
     assert all(n.ref == 0 for n in pinned[0].nodes)
+
+
+def test_stranded_trie_blocks_count_as_capacity_and_the_engine_drains():
+    """A paged engine whose pool is held by an unpinned trie chain: 5 free
+    blocks, 2 evictable leaves, 9 stranded interior nodes. A fresh request
+    needing 10 blocks exceeds free + evictable, and the reference's probe
+    (which counts only those) never tries it with no slot active, so
+    ``has_work`` stays true forever; the port counts every block a cascade
+    of evictions frees, admits it, and drains."""
+    torch.manual_seed(0)
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32, n_positions=256), device="cpu")
+    engine = ServingEngine(model, device="cpu", max_concurrency=1, prompt_buckets=(16, 64, 256),
+                           paged_kv=PagedKVConfig(block_tokens=BT, num_blocks=16),
+                           prefix_cache=PrefixCacheConfig(block_tokens=BT))
+    r = np.random.default_rng(11)
+    stem = r.integers(0, 256, (10 * BT,)).tolist()
+    branch = stem[:9 * BT] + r.integers(0, 256, (BT,)).tolist()
+    one = SamplingParams(max_new_tokens=1)
+    engine.run([Request(prompt=stem + [1], params=one)])  # a 10-block chain
+    engine.run([Request(prompt=branch + [2], params=one)])  # a leaf beside its tail
+    stats = engine.prefix_cache.memory_stats()
+    assert (engine._allocator.free_count, stats["blocks_evictable"], stats["blocks_stranded"]) \
+        == (5, 2, 9)
+    assert engine.prefix_cache.reclaimable_blocks() == 11
+    fresh = r.integers(0, 256, (150,)).tolist()
+    assert engine._blocks_needed(Request(prompt=fresh, params=SamplingParams(max_new_tokens=10))) \
+        == 10
+    assert engine.submit(Request(prompt=fresh, params=SamplingParams(max_new_tokens=10))).accepted
+    outs = []
+    for _ in range(40):
+        outs += engine.step()
+        if not engine.has_work:
+            break
+    assert not engine.has_work and len(outs) == 1 and len(outs[0].tokens) == 10
+    assert engine.metrics.prefix_evictions.value >= 5
+    # its own cached prefix counts as pinned: a request over the stem sees
+    # only the branch leaf reclaimable
+    assert engine.prefix_cache.reclaimable_blocks([stem + [3]]) < \
+        engine.prefix_cache.reclaimable_blocks()

@@ -6,13 +6,15 @@ both packages (scheduled and probabilistic specs, every fault point),
 `RetryPolicy` gives the same delays and the reference's retry semantics, and
 SIGTERM sent to this test's own process through a `ServingPreemptionHandler`
 drains a port engine and then snapshots what is left, which a fresh engine
-resumes. The training handler, which needs ``Accelerator.save_state``, is
-refused.
+resumes. SIGTERM sent to a training child through the training handler
+lands a complete checkpoint this process loads, and checkpoint writes and
+reads meet the same seeded faults as the reference's and retry past them.
 """
 
 import os
 import signal
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,7 +24,13 @@ jax = pytest.importorskip("jax")
 
 from accelerate_tpu.reliability import faults as jax_faults  # noqa: E402
 from accelerate_tpu.reliability import retry as jax_retry  # noqa: E402
+from accelerate_tpu_torch.accelerator import Accelerator as PortAccelerator  # noqa: E402
+from accelerate_tpu_torch.accelerator import (  # noqa: E402
+    ProjectConfiguration as PortProjectConfiguration,
+)
 from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead  # noqa: E402
+from accelerate_tpu_torch.reliability import faults as _port_faults  # noqa: E402
+from accelerate_tpu_torch.reliability.preemption import SIGTERM_EXIT_CODE  # noqa: E402
 from accelerate_tpu_torch.reliability import (  # noqa: E402
     ALL_SLOTS,
     SCOPE_SERVING_DECODE,
@@ -38,7 +46,6 @@ from accelerate_tpu_torch.reliability import (  # noqa: E402
     active_injector,
     fault_point,
     inject,
-    install_preemption_handler,
     install_serving_preemption_handler,
 )
 from accelerate_tpu_torch.serving import (  # noqa: E402
@@ -183,9 +190,119 @@ def test_retry_semantics():
         RetryPolicy(max_attempts=0)
 
 
-def test_training_preemption_handler_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 27"):
-        install_preemption_handler(object())
+TRAINING_CHILD = """
+import os, sys, time, torch
+from accelerate_tpu_torch.accelerator import Accelerator, ProjectConfiguration
+from accelerate_tpu_torch.reliability import install_preemption_handler
+torch.set_num_threads(1)
+torch.manual_seed(0)
+acc = Accelerator(device="cpu", project_config=ProjectConfiguration(
+    project_dir=sys.argv[1], automatic_checkpoint_naming=True))
+model = acc.prepare(torch.nn.Linear(4, 2))
+opt = acc.prepare(torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+step = acc.make_train_step(lambda m, b: (m(b["x"]) - b["y"]).pow(2).mean())
+install_preemption_handler(acc)
+g = torch.Generator().manual_seed(1)
+for i in range(3):
+    step({"x": torch.randn(8, 4, generator=g), "y": torch.randn(8, 2, generator=g)})
+torch.save({"model": model.state_dict(), "updates": opt.num_updates},
+           os.path.join(sys.argv[1], "trained.pt"))
+print("ready", flush=True)
+while True:  # training would go on here; SIGTERM lands the checkpoint and exits
+    time.sleep(0.01)
+"""
+
+
+def test_sigterm_checkpoints_a_training_child_and_the_checkpoint_loads(tmp_path):
+    """A child process trains through `make_train_step` with
+    `install_preemption_handler(accelerator)`; SIGTERM makes it write a
+    synchronous, complete ``save_state`` and exit 143, and a fresh
+    accelerator here loads that checkpoint to the child's weights and
+    update count."""
+    import subprocess
+    import sys
+
+    root = Path(__file__).resolve().parents[1]
+    child = subprocess.Popen([sys.executable, "-c", TRAINING_CHILD, str(tmp_path)], cwd=root,
+                             stdout=subprocess.PIPE, text=True,
+                             env={**os.environ, "OMP_NUM_THREADS": "1"})
+    try:
+        assert child.stdout.readline().strip() == "ready"
+        child.send_signal(signal.SIGTERM)
+        assert child.wait(timeout=60) == SIGTERM_EXIT_CODE
+    finally:
+        if child.poll() is None:
+            child.kill()
+    ckpt = tmp_path / "checkpoints" / "checkpoint_0"
+    assert (ckpt / "_COMPLETE").exists()
+    want = torch.load(tmp_path / "trained.pt")
+    acc = PortAccelerator(device="cpu", project_config=PortProjectConfiguration(
+        project_dir=str(tmp_path), automatic_checkpoint_naming=True))
+    torch.manual_seed(1)
+    model = acc.prepare(torch.nn.Linear(4, 2))
+    opt = acc.prepare(torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+    assert acc.load_state() == str(ckpt)
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, want["model"][name]), name
+    assert opt.num_updates == want["updates"] == 3
+    assert all("momentum_buffer" in s for s in opt.optimizer.state.values())
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_checkpoint_retries_meet_the_same_faults_as_the_reference(tmp_path, seed):
+    """One seeded `FaultInjector` spec set, probabilistic at both
+    checkpoint scopes, run through a save and a load of each package: the
+    same calls fire (each file is one retried write or read with a fault
+    point inside each attempt, in the reference's file order), every retry
+    lands, and both checkpoints load back to the trained weights."""
+    import optax
+
+    from accelerate_tpu.accelerator import Accelerator as JaxAccelerator
+    from accelerate_tpu.data_loader import DataLoaderShard as JaxDataLoaderShard
+    from accelerate_tpu.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.data_loader import DataLoaderShard
+
+    def specs(pkg):
+        return [pkg.FaultSpec.io_error("checkpoint.save", probability=0.4, max_faults=3),
+                pkg.FaultSpec.io_error("checkpoint.restore", probability=0.4, max_faults=3)]
+
+    batches = [{"x": np.full((4, 1), i, np.float32), "y": np.full((4, 1), 2.0 * i + 1, np.float32)}
+               for i in range(3)]
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    jacc = JaxAccelerator()
+    jmodel, _, _ = jacc.prepare(
+        (lambda p, x: p["a"] * x + p["b"], {"a": np.zeros(1, np.float32), "b": np.zeros(1, np.float32)}),
+        optax.sgd(0.1), JaxDataLoaderShard(batches))
+    jinj = jax_faults.FaultInjector(seed=seed, specs=specs(jax_faults))
+    with jax_faults.inject(jinj):
+        jdir = jacc.save_state(str(tmp_path / "ref"))
+        jacc.load_state(jdir)
+
+    pacc = PortAccelerator(device="cpu")
+    pmodel = pacc.prepare(torch.nn.Linear(1, 1))
+    pacc.prepare(torch.optim.SGD(pmodel.parameters(), lr=0.1), DataLoaderShard(batches))
+    step = pacc.make_train_step(lambda m, b: (m(b["x"]) - b["y"]).pow(2).mean())
+    step({k: torch.as_tensor(v) for k, v in batches[0].items()})
+    trained = {k: v.clone() for k, v in pmodel.state_dict().items()}
+    pinj = FaultInjector(seed=seed, specs=specs(_port_faults))
+    with inject(pinj):
+        pdir = pacc.save_state(str(tmp_path / "port"))
+        with torch.no_grad():
+            for p in pmodel.parameters():
+                p.zero_()
+        pacc.load_state(pdir)
+
+    fired = [(e.scope, e.call_index) for e in pinj.fired]
+    assert fired == [(e.scope, e.call_index) for e in jinj.fired]
+    assert pinj._calls == jinj._calls
+    # both scopes fired and were retried past: more attempts than the 6 files
+    assert {s for s, _ in fired} == {"checkpoint.save", "checkpoint.restore"}
+    assert pinj._calls["checkpoint.save"] > 6 and pinj._calls["checkpoint.restore"] > 6
+    assert (Path(pdir) / "_COMPLETE").exists() and (Path(jdir) / "_COMPLETE").exists()
+    for k, v in pmodel.state_dict().items():
+        assert torch.equal(v, trained[k])
+    np.testing.assert_array_equal(np.asarray(jmodel.params["a"]), np.zeros(1, np.float32))
 
 
 def test_second_sigterm_does_not_reenter_the_handler():
