@@ -46,7 +46,13 @@ And image classification (`models.resnet`, ``examples.cv_example``,
 ``examples.complete_cv_example``), the rest of the one-process facade
 (``autocast``, ``profile``, ``save``, the triggers, the kwargs handlers of
 `utils.dataclasses`, `memory`, `logging`, `utils.other`) and the
-reference's by_feature examples (``examples.by_feature``).
+reference's by_feature examples (``examples.by_feature``). And precision on
+one card: fp8 projections with delayed scaling (`ops.fp8`, the fp8 GEMM
+through ``torch._scaled_mm``) and their O2 AdamW, rematerialization
+(`utils.remat`), fp16 instances of the flash and fused-CE kernels,
+schedule-free AdamW (`optimizer.AdamWScheduleFree`) and the Hugging Face
+name maps (`models.gpt2.params_from_hf_gpt2`,
+`models.llama.params_from_hf_llama`).
 Import submodules directly;
 this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
 cheap. The quantization names below are also exported here, loaded at first

@@ -46,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import itertools
+import warnings
 from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Any, Callable, Iterator
@@ -184,7 +185,8 @@ class Accelerator:
     ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"``,
     ``"bf16"`` or ``"fp16"`` (with a `DynamicGradScaler` at torch
     GradScaler's defaults, or at a `GradScalerKwargs`' settings); ``"fp8"``
-    raises until it is ported. ``kwargs_handlers`` takes at most one of each of
+    computes in bf16 around the fp8 projections of a model built with an
+    fp8 recipe (`ops.fp8`). ``kwargs_handlers`` takes at most one of each of
     `GradScalerKwargs`, `AutocastKwargs`, `ProfileKwargs` and
     `FP8RecipeKwargs` (`utils.dataclasses`); ``dataloader_config`` a
     `DataLoaderConfiguration`."""
@@ -438,6 +440,17 @@ class Accelerator:
         for group in optimizer.param_groups:
             if any(id(p) not in owned for p in group["params"]):
                 raise ValueError("the optimizer holds tensors that are not parameters of the model")
+        if getattr(self.fp8_recipe_handler, "opt_level", "O1") == "O2":
+            from .ops.fp8 import AdamWFp8
+
+            if not isinstance(optimizer, AdamWFp8):
+                # another optimizer cannot be rewritten into the fp8-state
+                # form: say so instead of silently ignoring the recipe
+                warnings.warn(
+                    "FP8RecipeKwargs(opt_level='O2') is configured, but the "
+                    "optimizer passed to prepare() does not carry fp8 state. "
+                    "Construct it with accelerate_tpu_torch.ops.fp8.adamw_fp8(..., "
+                    "opt_level='O2') to get the low-precision moments.")
         wrapped = AcceleratedOptimizer(optimizer, self.gradient_state, scaler=self.scaler)
         self._optimizers.append(wrapped)
         return wrapped
@@ -744,6 +757,14 @@ class Accelerator:
         from .utils.other import save as _save
 
         _save(obj, f, safe_serialization=safe_serialization)
+
+    @property
+    def fp8_backend(self) -> str | None:
+        """``"NATIVE"`` when fp8 training is configured (the port's
+        delayed-scaling path, `ops.fp8`), else None."""
+        if self.mixed_precision == "fp8" or self.fp8_recipe_handler is not None:
+            return "NATIVE"
+        return None
 
     def verify_device_map(self, model: Any) -> bool:
         """True when ``model`` carries a ``device_map`` with more than one

@@ -37,7 +37,17 @@ port's CUDA kernels).
 
 `params_from_jax` turns the reference's param tree into this module's state
 dict, and `params_to_jax` turns it back, so both packages can run and export
-the same weights.
+the same weights; with an fp8 model both also carry the reference's
+``fp8_meta`` collection. `params_from_hf_gpt2` maps a Hugging Face GPT-2
+state dict onto this module's.
+
+fp8 and remat (the reference's ``fp8_recipe``, ``remat`` and
+``remat_policy``): with a `ops.fp8.DelayedScalingRecipe` the block
+projections (``qkv``, ``proj``, ``up``, ``down``) are `ops.fp8.Fp8Linear`,
+whose delayed-scaling state rides the state dict as buffers; decode over an
+fp8 model raises, as the reference's does. ``remat=True`` runs each block of
+the full-sequence forward under `utils.remat.remat_block` with
+``remat_policy``.
 
 Quantized weights (`utils.quantization.quantize_module`, the serving
 engine's ``weight_quant=``): a `QuantizedLinear` projection runs through
@@ -67,10 +77,12 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.flash_attention import paged_decode_attention
+from ..ops.fp8 import Fp8Linear, convert_dense_to_fp8, is_meta_key, meta_from_jax, meta_to_jax
 from ..ops.fused_ce import fused_cross_entropy
 from ..ops.nf4_matmul import nf4_matmul
 from ..utils.environment import resolve_device
 from ..utils.quantization import QuantizedEmbedding, QuantizedLinear, dequantize, dequantize_rows
+from ..utils.remat import remat_block
 from ..utils.safetensors_io import unflatten_state_dict
 from .kv_cache import (
     PagedKVCache,
@@ -99,6 +111,11 @@ class GPT2Config:
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"  # 'xla' | 'flash' | 'auto' (ops.attention.attention)
     kv_cache_dtype: torch.dtype | None = None  # None (compute dtype) | torch.int8 (kv_cache.py)
+    remat: bool = False
+    remat_policy: Any = None  # utils/remat.py: full|dots|dots_no_batch, or a callable
+    # fp8 projections: an ops.fp8.DelayedScalingRecipe makes every block
+    # projection an ops.fp8.Fp8Linear (same param names, so checkpoints load)
+    fp8_recipe: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -122,11 +139,32 @@ class GPT2Config:
         return cls(**{**dict(vocab_size=256, n_positions=128, n_embd=64, n_layer=2, n_head=2), **kw})
 
 
+def _linear(config: Any, in_features: int, out_features: int, device: torch.device,
+            bias: bool = True) -> nn.Linear:
+    """A block projection in ``param_dtype``: ``nn.Linear``, or `Fp8Linear`
+    when the config carries an fp8 recipe (the reference's ``_dense``
+    factory, `ops.fp8.convert_dense_to_fp8`)."""
+    return convert_dense_to_fp8(config.fp8_recipe)(
+        in_features, out_features, bias=bias, device=device, dtype=config.param_dtype)
+
+
+def _refuse_fp8_decode(config: Any) -> None:
+    """The reference's `Fp8Dense` refuses a call that does not thread its
+    scaling state, which no decode path does."""
+    if config.fp8_recipe is not None:
+        raise ValueError(
+            "an fp8 model (fp8_recipe set) cannot decode: its delayed-scaling state "
+            "is training state; use the dense or weight-quantized model there")
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear | QuantizedLinear,
            dtype: torch.dtype) -> torch.Tensor:
     """``layer(x)`` computed in ``dtype``: input, weight and bias cast to it,
     as flax ``Dense(dtype=...)`` does. A quantized layer multiplies through
-    `nf4_matmul` and adds the bias after."""
+    `nf4_matmul` and adds the bias after; an `Fp8Linear` runs its fp8
+    product in ``dtype``."""
+    if isinstance(layer, Fp8Linear):
+        return layer(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     if isinstance(layer, QuantizedLinear):
         y = nf4_matmul(x.to(dtype), layer.qweight)
@@ -166,8 +204,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.config = config
         e = config.n_embd
-        self.qkv = nn.Linear(e, 3 * e, device=device, dtype=config.param_dtype)
-        self.proj = nn.Linear(e, e, device=device, dtype=config.param_dtype)
+        self.qkv = _linear(config, e, 3 * e, device)
+        self.proj = _linear(config, e, e, device)
 
     def forward(self, x: torch.Tensor, layer: int,
                 cache: SlotKVCache | PagedKVCache | None = None,
@@ -222,8 +260,8 @@ class MLP(nn.Module):
         super().__init__()
         self.config = config
         hidden = config.mlp_ratio * config.n_embd
-        self.up = nn.Linear(config.n_embd, hidden, device=device, dtype=config.param_dtype)
-        self.down = nn.Linear(hidden, config.n_embd, device=device, dtype=config.param_dtype)
+        self.up = _linear(config, config.n_embd, hidden, device)
+        self.down = _linear(config, hidden, config.n_embd, device)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.config
@@ -320,6 +358,8 @@ class GPT2LMHead(nn.Module):
         ``generator``."""
         cfg = self.config
         b, s = input_ids.shape
+        if cache is not None or kv_out is not None:
+            _refuse_fp8_decode(cfg)
         decode: dict[str, Any] = {}
         if isinstance(cache, SlotKVCache):
             decode = dict(cache=cache, write_mask=write_mask, write_len=write_len)
@@ -347,7 +387,10 @@ class GPT2LMHead(nn.Module):
         elif generator is None:
             raise ValueError("dropout with deterministic=False needs an explicit torch.Generator")
         for i, block in enumerate(self.blocks):
-            x = block(x, i, generator, **decode)
+            if cfg.remat and not decode:
+                x = remat_block(block, cfg.remat_policy)(x, i, generator=generator)
+            else:
+                x = block(x, i, generator, **decode)
         if isinstance(cache, SlotKVCache):
             advance_index(cache, s, write_mask, write_len)
         elif cache is not None:
@@ -360,8 +403,8 @@ class GPT2LMHead(nn.Module):
 
     def reference_state_dict(self) -> dict[str, Any]:
         """The weights under the reference's names and layout
-        (`params_to_jax`)."""
-        return params_to_jax(self.state_dict())
+        (`params_to_jax`), without an fp8 model's scaling state."""
+        return params_to_jax({k: v for k, v in self.state_dict().items() if not is_meta_key(k)})
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied LM head over compute-dtype hidden states: fp32 logits. The
@@ -458,7 +501,13 @@ def lm_loss_fn_pallas(model, batch: dict, block_r: int | None = None,
 def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
     """The inverse of `params_from_jax`: this module's state dict as the
     reference's param tree (nested dicts of CPU tensors, ``[in, out]``
-    kernels), what `Accelerator.save_model` exports."""
+    kernels), what `Accelerator.save_model` exports. The state dict of an
+    fp8 model gives the reference's variables, ``{"params": tree,
+    "fp8_meta": collection}``, as its ``init_params`` returns them."""
+    if any(is_meta_key(k) for k in state_dict):
+        params = {k: v for k, v in state_dict.items() if not is_meta_key(k)}
+        return {"params": params_to_jax(params),
+                "fp8_meta": meta_to_jax(state_dict, "blocks", "block")}
     def get(name: str) -> torch.Tensor:
         return state_dict[name].detach().to("cpu", copy=True)
 
@@ -484,9 +533,14 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     may also be flat, dotted as a safetensors checkpoint of the reference
     stores it (``block_0.attn.qkv.kernel``), with torch tensors for leaves,
     which keep their dtype (pass this function as
-    `utils.safetensors_io.load_checkpoint_in_model`'s ``mapper``)."""
+    `utils.safetensors_io.load_checkpoint_in_model`'s ``mapper``). The
+    reference's variables of an fp8 model, ``{"params": ..., "fp8_meta":
+    ...}``, give the scaling buffers too."""
     if any("." in key for key in tree):
         tree = unflatten_state_dict(tree)
+    if "params" in tree:
+        return {**params_from_jax(tree["params"]),
+                **meta_from_jax(tree.get("fp8_meta", {}), "blocks", "block")}
 
     def t(x):
         if isinstance(x, torch.Tensor):
@@ -515,4 +569,31 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             for name in names:
                 sd[pre + f"{group}.{name}.weight"] = _transposed(blk[group][name]["kernel"])
                 sd[pre + f"{group}.{name}.bias"] = t(blk[group][name]["bias"])
+    return sd
+
+
+def params_from_hf_gpt2(hf_state_dict: dict, config: GPT2Config) -> dict[str, torch.Tensor]:
+    """A Hugging Face transformers GPT-2 state dict (``wte.weight``,
+    ``h.{i}.attn.c_attn.weight``, ..., no ``transformer.`` prefix) as this
+    module's state dict. HF's ``Conv1D`` weights are already ``[in, out]``,
+    the reference's kernel layout, so they are transposed into ``nn.Linear``'s
+    ``[out, in]``; ``c_attn``, ``c_proj``, ``c_fc`` and ``mlp.c_proj`` become
+    ``qkv``, ``proj``, ``up`` and ``down``. Values keep their dtype."""
+    def t(x):
+        return x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+    sd = {"wte.weight": t(hf_state_dict["wte.weight"]),
+          "wpe.weight": t(hf_state_dict["wpe.weight"]),
+          "ln_f.weight": t(hf_state_dict["ln_f.weight"]),
+          "ln_f.bias": t(hf_state_dict["ln_f.bias"])}
+    names = (("attn.qkv", "attn.c_attn"), ("attn.proj", "attn.c_proj"),
+             ("mlp.up", "mlp.c_fc"), ("mlp.down", "mlp.c_proj"))
+    for i in range(config.n_layer):
+        hf, pre = f"h.{i}.", f"blocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[pre + f"{ln}.weight"] = t(hf_state_dict[hf + f"{ln}.weight"])
+            sd[pre + f"{ln}.bias"] = t(hf_state_dict[hf + f"{ln}.bias"])
+        for ours, theirs in names:
+            sd[pre + f"{ours}.weight"] = t(hf_state_dict[hf + f"{theirs}.weight"]).T.contiguous()
+            sd[pre + f"{ours}.bias"] = t(hf_state_dict[hf + f"{theirs}.bias"])
     return sd

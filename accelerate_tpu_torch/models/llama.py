@@ -29,16 +29,25 @@ nf4 weights it routes there, ``x @ dequantize(W)`` for the rest), and the
 quantized ``embed_tokens`` and ``lm_head`` (`QuantizedEmbedding`)
 dequantize the rows they read and the whole head.
 
+fp8 and remat follow GPT-2's (`models.gpt2`): with ``fp8_recipe`` the block
+projections (``q/k/v/o_proj``, ``gate_proj``, ``up_proj``, ``down_proj``)
+are `ops.fp8.Fp8Linear`, and decode over such a model raises; ``remat=True``
+runs each layer of the full-sequence forward under
+`utils.remat.remat_block` with ``remat_policy``.
+
 Ported: the full-sequence forward (training), decode, `llama_loss_fn`,
-`llama_loss_fn_fused` (the untied head through the fused-CE kernels) and
-`params_from_jax`. Not yet: ``attention_impl="ring"`` (it raises
-NotImplementedError naming its ROADMAP item), ``remat`` and ``fp8_recipe``.
+`llama_loss_fn_fused` (the untied head through the fused-CE kernels),
+``fp8_recipe``, ``remat``, `params_from_jax` (with an fp8 model's
+``fp8_meta`` collection) and `params_from_hf_llama`. Not yet:
+``attention_impl="ring"`` (it raises NotImplementedError naming its ROADMAP
+item).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -46,11 +55,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.fp8 import meta_from_jax
 from ..ops.fused_ce import fused_cross_entropy
 from ..utils.environment import resolve_device
 from ..utils.quantization import QuantizedEmbedding, dequantize
+from ..utils.remat import remat_block
 from ..utils.safetensors_io import unflatten_state_dict
-from .gpt2 import _dense, _embed, _next_token_labels, cross_entropy_loss
+from .gpt2 import _dense, _embed, _linear, _next_token_labels, _refuse_fp8_decode, cross_entropy_loss
 from .kv_cache import (
     SlotKVCache,
     advance_index,
@@ -75,6 +86,11 @@ class LlamaConfig:
     attention_impl: str = "auto"  # 'xla' | 'flash' | 'auto' | 'ring' (not ported)
     sliding_window: int | None = None  # Mistral-class: query i sees keys in (i-W, i]
     kv_cache_dtype: torch.dtype | None = None  # None (compute dtype) | torch.int8 (kv_cache.py)
+    remat: bool = False
+    remat_policy: Any = None  # utils/remat.py
+    # fp8 projections: an ops.fp8.DelayedScalingRecipe makes every block
+    # projection an ops.fp8.Fp8Linear (see models/gpt2._linear)
+    fp8_recipe: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -130,11 +146,11 @@ class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device: torch.device):
         super().__init__()
         self.config = config
-        e, hd, pd = config.hidden_size, config.head_dim, config.param_dtype
-        self.q_proj = nn.Linear(e, config.num_heads * hd, bias=False, device=device, dtype=pd)
-        self.k_proj = nn.Linear(e, config.num_kv_heads * hd, bias=False, device=device, dtype=pd)
-        self.v_proj = nn.Linear(e, config.num_kv_heads * hd, bias=False, device=device, dtype=pd)
-        self.o_proj = nn.Linear(config.num_heads * hd, e, bias=False, device=device, dtype=pd)
+        e, hd = config.hidden_size, config.head_dim
+        self.q_proj = _linear(config, e, config.num_heads * hd, device, bias=False)
+        self.k_proj = _linear(config, e, config.num_kv_heads * hd, device, bias=False)
+        self.v_proj = _linear(config, e, config.num_kv_heads * hd, device, bias=False)
+        self.o_proj = _linear(config, config.num_heads * hd, e, device, bias=False)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, layer: int = 0,
                 cache: SlotKVCache | None = None, write_mask: torch.Tensor | None = None,
@@ -163,10 +179,10 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device: torch.device):
         super().__init__()
         self.config = config
-        e, f, pd = config.hidden_size, config.intermediate_size, config.param_dtype
-        self.gate_proj = nn.Linear(e, f, bias=False, device=device, dtype=pd)
-        self.up_proj = nn.Linear(e, f, bias=False, device=device, dtype=pd)
-        self.down_proj = nn.Linear(f, e, bias=False, device=device, dtype=pd)
+        e, f = config.hidden_size, config.intermediate_size
+        self.gate_proj = _linear(config, e, f, device, bias=False)
+        self.up_proj = _linear(config, e, f, device, bias=False)
+        self.down_proj = _linear(config, f, e, device, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.config.dtype
@@ -258,6 +274,8 @@ class LlamaForCausalLM(nn.Module):
             raise ValueError("decode=True needs the slot cache: pass "
                              "cache=kv_cache.make_cache(model, batch)")
         cfg = self.config
+        if cache is not None:
+            _refuse_fp8_decode(cfg)
         s = input_ids.shape[1]
         positions = torch.arange(s, device=input_ids.device) + position_offset
         cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
@@ -265,7 +283,10 @@ class LlamaForCausalLM(nn.Module):
         step = {} if cache is None else dict(cache=cache, write_mask=write_mask,
                                              write_len=write_len)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, i, **step)
+            if cfg.remat and cache is None:
+                x = remat_block(layer, cfg.remat_policy)(x, cos, sin, i)
+            else:
+                x = layer(x, cos, sin, i, **step)
         if cache is not None:
             advance_index(cache, s, write_mask, write_len)
         x = self.final_norm(x)
@@ -317,9 +338,14 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     may also be flat, dotted as a safetensors checkpoint of the reference
     stores it (``layer_0.attn.q_proj.kernel``), with torch tensors for
     leaves, which keep their dtype (`utils.safetensors_io` reads such a
-    checkpoint; pass this function as its ``mapper``)."""
+    checkpoint; pass this function as its ``mapper``). The reference's
+    variables of an fp8 model, ``{"params": ..., "fp8_meta": ...}``, give
+    the scaling buffers too."""
     if any("." in key for key in tree):
         tree = unflatten_state_dict(tree)
+    if "params" in tree:
+        return {**params_from_jax(tree["params"]),
+                **meta_from_jax(tree.get("fp8_meta", {}), "layers", "layer")}
 
     def t(x):
         if isinstance(x, torch.Tensor):
@@ -348,3 +374,26 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
                 sd[pre + f"{group}.{name}.weight"] = _transposed(blk[group][name]["kernel"])
     return sd
 
+
+
+def params_from_hf_llama(hf_state_dict: dict, config: LlamaConfig) -> dict[str, torch.Tensor]:
+    """A Hugging Face transformers ``LlamaForCausalLM`` state dict
+    (``model.embed_tokens.weight``, ``model.layers.{i}.self_attn.q_proj.weight``,
+    ``model.norm.weight``, ``lm_head.weight``) as this module's state dict.
+    HF's ``Linear`` weights are ``[out, in]``, as ``nn.Linear``'s, so they
+    keep their layout; values keep their dtype."""
+    def t(x):
+        return x.detach() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+
+    sd = {"embed_tokens": t(hf_state_dict["model.embed_tokens.weight"]),
+          "final_norm.scale": t(hf_state_dict["model.norm.weight"]),
+          "lm_head": t(hf_state_dict["lm_head.weight"])}
+    for i in range(config.num_layers):
+        hf, pre = f"model.layers.{i}.", f"layers.{i}."
+        sd[pre + "input_norm.scale"] = t(hf_state_dict[hf + "input_layernorm.weight"])
+        sd[pre + "post_attn_norm.scale"] = t(hf_state_dict[hf + "post_attention_layernorm.weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[pre + f"attn.{name}.weight"] = t(hf_state_dict[hf + f"self_attn.{name}.weight"])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            sd[pre + f"mlp.{name}.weight"] = t(hf_state_dict[hf + f"mlp.{name}.weight"])
+    return sd

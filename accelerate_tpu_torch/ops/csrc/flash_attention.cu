@@ -127,6 +127,12 @@
 // D 256); in bf16 it loads bf16 tiles and computes in fp32, rounding p and
 // dS to bf16 where the sm_90a bodies do. The sm_90a bodies are built for D 64
 // and 128 only (`kSm90Body`): a Hopper design at D 256 is later work.
+// fp16 (dtype code 2, the fp16 mixed-precision step's attention) runs these
+// scalar bodies at every head_dim, tiles of 64 x 64 at D 64 and 128 (the
+// 2-byte tiles fit: 178 KB for dK/dV at D 128), rounding p and dS to fp16:
+// right first, and far from its bound (the products are scalar FMAs at the
+// card's 67 TFLOP/s fp32 rate, not the tensor cores); fp16 wgmma/TMA bodies
+// are later speed work.
 // Every head_dim above 256 (a multiple of 64) runs one more scalar design,
 // whose head_dim is a run-time value (fwd_tile_dyn, dq_tile_dyn,
 // dkv_tile_dyn; the template's D is 0): tiles of 32 x 32, and the head
@@ -202,6 +208,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -271,15 +278,18 @@ struct Mask {
 
 using BandMask = Mask<true, true>;
 
-// element <-> fp32 for the scalar bodies: bf16 tiles compute in fp32, and
-// their results (p, dS, outputs) round to nearest on the way back
+// element <-> fp32 for the scalar bodies: bf16 and fp16 tiles compute in
+// fp32, and their results (p, dS, outputs) round to nearest on the way back
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x) {
   if constexpr (std::is_same_v<T, float>) {
     return x;
+  } else if constexpr (std::is_same_v<T, __half>) {
+    return __float2half_rn(x);
   } else {
     return __float2bfloat16(x);
   }
@@ -1766,6 +1776,10 @@ static_assert(Sm90Dkv<64>::kSmem <= kMaxSmem && Sm90Dkv<128>::kSmem <= kMaxSmem,
               "bf16 dK/dV tile exceeds shared memory");
 static_assert(Sm90Dq<64>::kSmem <= kMaxSmem && Sm90Dq<128>::kSmem <= kMaxSmem,
               "bf16 dQ tile exceeds shared memory");
+// fp16 at D 64 and 128: the scalar bodies on 2-byte tiles of 64 x 64
+static_assert(fwd_smem<__half, 128>() <= kMaxSmem && dq_smem<__half, 128>() <= kMaxSmem &&
+                  dkv_smem<__half, 128>() <= kMaxSmem,
+              "fp16 D 128 tile exceeds shared memory");
 // D 192 and 256: the scalar bodies in fp32 and in bf16 (fp32 is the larger)
 static_assert(fwd_smem<float, 256>() <= kMaxSmem && fwd_smem<float, 192>() <= kMaxSmem &&
                   fwd_smem<__nv_bfloat16, 256>() <= kMaxSmem,
@@ -2027,11 +2041,17 @@ int dispatch(int device, int dtype, int head_dim, Kind kind, const Args& a,
   if (dtype == 0 && head_dim == 256) return launch<float, 256>(kind, a, m, wide);
   if (dtype == 1 && head_dim == 192) return launch<__nv_bfloat16, 192>(kind, a, m, wide);
   if (dtype == 1 && head_dim == 256) return launch<__nv_bfloat16, 256>(kind, a, m, wide);
+  // fp16: the scalar bodies at every head_dim (the sm_90a bodies are bf16)
+  if (dtype == 2 && head_dim == 64) return launch<__half, 64>(kind, a, m, wide);
+  if (dtype == 2 && head_dim == 128) return launch<__half, 128>(kind, a, m, wide);
+  if (dtype == 2 && head_dim == 192) return launch<__half, 192>(kind, a, m, wide);
+  if (dtype == 2 && head_dim == 256) return launch<__half, 256>(kind, a, m, wide);
   // every multiple of 64 above 256: the run-time head_dim bodies, over the
   // workspace the caller passes
   if (head_dim > 256 && head_dim % 64 == 0 && a.ws != nullptr) {
     if (dtype == 0) return launch<float, 0>(kind, a, m, wide);
     if (dtype == 1) return launch<__nv_bfloat16, 0>(kind, a, m, wide);
+    if (dtype == 2) return launch<__half, 0>(kind, a, m, wide);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2045,8 +2065,8 @@ int dispatch_rect(int device, int dtype, int head_dim, int causal, Kind kind, co
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16. Each returns cudaGetLastError() after
-// its launch.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. Each returns
+// cudaGetLastError() after its launch.
 //
 // The rectangular kernels: q, k, v, o, dO, dq, dk, dv are [bh, s, head_dim]
 // (K/V at q's head count), lse and delta fp32 [bh, sq]. ws is the fp32

@@ -6,7 +6,7 @@
 //   - fused_ce_bwd_kernel<T, false, ...>  <- `_dh_kernel`  (launched by `_fused_bwd`)
 //   - fused_ce_bwd_kernel<T, true, ...>   <- `_dw_kernel`  (launched by `_fused_bwd`)
 //
-// Layout: h [N, e] and w [V, e] contiguous, one dtype (fp32 or bf16); labels
+// Layout: h [N, e] and w [V, e] contiguous, one dtype (fp32, bf16 or fp16); labels
 // int32 [N] (already safe: an ignored row carries 0 and a zero gradient);
 // lse, ll, g_lse, g_ll fp32 [N]. dh [N, e] in h's dtype, dw [V, e] in w's.
 // e is a multiple of 64; N and V are any positive counts.
@@ -106,7 +106,11 @@
 // The fp32 kernels keep the first design: the logits tile is a k-loop over
 // e in 64-wide chunks, double-buffered with cp.async, of scalar FMAs (TF32
 // would break the fp32 tolerance); the fp32 backward keeps its accumulator
-// [32 own rows, <= 1024 columns of e] in shared memory.
+// [32 own rows, <= 1024 columns of e] in shared memory. fp16 (dtype code 2,
+// the fp16 mixed-precision step's loss) runs the same scalar kernels on
+// 2-byte tiles, computing in fp32 and rounding dlogits and outputs to fp16:
+// right first and far from the bound below (scalar FMAs, not the tensor
+// cores); fp16 wgmma/TMA bodies are later speed work.
 //
 // Bounds on an H100 SXM (NVIDIA data sheet: 3.35 TB/s HBM3, 989 TFLOP/s bf16
 // dense) at GPT-2 small, N 8192, V 50257, e 768, bf16:
@@ -132,6 +136,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -149,15 +154,25 @@ constexpr int kBK = 64;          // e chunk of every product
 constexpr int kMaxSlice = 1024;  // columns of e one fp32 backward CTA accumulates
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// element <-> fp32 for the scalar kernels (fp32, and fp16 tiles computed in
+// fp32, dlogits and outputs rounded to nearest on the way back)
 template <typename T>
 struct Cvt;
 
 template <>
 struct Cvt<float> {
+  static __device__ __forceinline__ float to_f(float x) { return x; }
   static __device__ __forceinline__ float from_f(float x) { return x; }
 };
 
-// The fp32 kernels' tiles: BO own rows per CTA, BW other rows per step.
+template <>
+struct Cvt<__half> {
+  static __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half from_f(float x) { return __float2half_rn(x); }
+};
+
+// The scalar kernels' tiles (fp32 and fp16): BO own rows per CTA, BW other
+// rows per step.
 template <typename T, bool BWD>
 struct Tiles {
   static constexpr int BO = BWD ? 32 : 64;
@@ -188,6 +203,8 @@ struct Smem {
 static_assert(Smem<float, true>::total(kMaxSlice) <= kMaxSmem,
               "fp32 backward exceeds shared memory");
 static_assert(Smem<float, false>::total(0) <= kMaxSmem, "fp32 forward exceeds shared memory");
+static_assert(Smem<__half, true>::total(kMaxSlice) <= kMaxSmem,
+              "fp16 backward exceeds shared memory");
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -216,14 +233,11 @@ __device__ __forceinline__ void load_chunk(T* dst, const T* src, int row0, int n
   }
 }
 
-// Accumulator of a [BO][BW] logits tile across the e chunks, for the fp32
+// Accumulator of a [BO][BW] logits tile across the e chunks, for the scalar
 // kernels: each thread owns a (BO/16) x (BW/16) block (columns strided by
-// 16) and sums scalar FMAs (TF32 would break the fp32 tolerance).
+// 16) and sums scalar fp32 FMAs (TF32 would break the fp32 tolerance).
 template <typename T, int BO, int BW, int LDK>
-struct TileAcc;
-
-template <int BO, int BW, int LDK>
-struct TileAcc<float, BO, BW, LDK> {
+struct TileAcc {
   static constexpr int TM = BO / 16, TN = BW / 16;
   float c[TM][TN];
 
@@ -234,15 +248,15 @@ struct TileAcc<float, BO, BW, LDK> {
       for (int j = 0; j < TN; ++j) c[i][j] = 0.f;
   }
 
-  __device__ __forceinline__ void mma(const float* a_s, const float* b_s) {
+  __device__ __forceinline__ void mma(const T* a_s, const T* b_s) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll 4
     for (int k = 0; k < kBK; ++k) {
       float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = a_s[(ty * TM + i) * LDK + k];
+      for (int i = 0; i < TM; ++i) a[i] = Cvt<T>::to_f(a_s[(ty * TM + i) * LDK + k]);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = b_s[(tx + 16 * j) * LDK + k];
+      for (int j = 0; j < TN; ++j) b[j] = Cvt<T>::to_f(b_s[(tx + 16 * j) * LDK + k]);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -290,11 +304,12 @@ __device__ __forceinline__ void logits_tile(float* s, T* own_st, T* oth_st, cons
   acc.store(s, C::LDS);
 }
 
-// C[M][N] += A[M][K] . B[K][N], all in shared memory, A and B row-major.
-// fp32: scalar FMAs, each thread owns a (M/16) x (N/16) block of C.
-template <int M, int N, int K>
-__device__ __forceinline__ void gemm_acc(float* c_s, int ldc, const float* a_s, int lda,
-                                         const float* b_s, int ldb) {
+// C[M][N] += A[M][K] . B[K][N], all in shared memory, A and B row-major in
+// T (fp32 or fp16): scalar fp32 FMAs, each thread owns a (M/16) x (N/16)
+// block of C.
+template <int M, int N, int K, typename T>
+__device__ __forceinline__ void gemm_acc(float* c_s, int ldc, const T* a_s, int lda,
+                                         const T* b_s, int ldb) {
   constexpr int TM = M / 16, TN = N / 16;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[TM][TN];
@@ -306,9 +321,9 @@ __device__ __forceinline__ void gemm_acc(float* c_s, int ldc, const float* a_s, 
   for (int k = 0; k < K; ++k) {
     float a[TM], b[TN];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = a_s[(ty * TM + i) * lda + k];
+    for (int i = 0; i < TM; ++i) a[i] = Cvt<T>::to_f(a_s[(ty * TM + i) * lda + k]);
 #pragma unroll
-    for (int j = 0; j < TN; ++j) b[j] = b_s[k * ldb + tx + j * 16];
+    for (int j = 0; j < TN; ++j) b[j] = Cvt<T>::to_f(b_s[k * ldb + tx + j * 16]);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -1136,6 +1151,9 @@ cudaError_t attributes_once() {
         allow_max_smem(fused_ce_fwd_kernel<__nv_bfloat16, kFwdBN>),
         allow_max_smem(fused_ce_bwd_kernel<float, false>),
         allow_max_smem(fused_ce_bwd_kernel<float, true>),
+        allow_max_smem(fused_ce_fwd_kernel<__half>),
+        allow_max_smem(fused_ce_bwd_kernel<__half, false>),
+        allow_max_smem(fused_ce_bwd_kernel<__half, true>),
         allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 1>),
         allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 2>),
         allow_max_smem(fused_ce_bwd_kernel<__nv_bfloat16, false, 3>),
@@ -1289,14 +1307,21 @@ int launch_fwd_sm90(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0 float32, 1 bfloat16
+// dtype 0 float32, 1 bfloat16, 2 float16 (the scalar kernels, as fp32's)
 int dispatch(int device, int dtype, Kind kind, const Args& a) {
-  if (a.n <= 0 || a.v <= 0 || a.e <= 0 || a.e % kBK || (dtype != 0 && dtype != 1)) {
+  if (a.n <= 0 || a.v <= 0 || a.e <= 0 || a.e % kBK || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) err = attributes_once();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype == 2) {
+    switch (kind) {
+      case Kind::kFwd: return launch_fwd<__half>(a);
+      case Kind::kDh: return launch_bwd<__half, false>(a);
+      default: return launch_bwd<__half, true>(a);
+    }
+  }
   const bool bf16 = dtype == 1;
   switch (kind) {
     case Kind::kFwd: return bf16 ? launch_fwd_sm90(a) : launch_fwd<float>(a);
@@ -1307,7 +1332,7 @@ int dispatch(int device, int dtype, Kind kind, const Args& a) {
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16. h [n, e], w [v, e] contiguous, labels
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. h [n, e], w [v, e] contiguous, labels
 // int32 [n], row vectors fp32 [n]. Each returns cudaGetLastError() after its
 // launch; none allocates, synchronises or reads device memory on the host,
 // so each may be captured in a CUDA graph. The forward's bf16 kernel splits

@@ -45,7 +45,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int
 FLASH_KERNEL_HEAD_DIMS = (64, 128, 192, 256)
 # the run-time head_dim body's tile rows (``kDynB`` in csrc/flash_attention.cu)
 _WIDE_TILE = 32
-FLASH_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+FLASH_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 NEG_INF = -1e30  # the reference's mask value (not -inf)
 
 
@@ -198,8 +198,7 @@ def _kernel_operands(name: str, *tensors: torch.Tensor, rows: tuple[torch.Tensor
     if any(r.shape != q.shape[:3] for r in rows):
         raise ValueError(f"{name}: lse and delta must be [b, h, sq] = {tuple(q.shape[:3])}")
     if q.dtype not in FLASH_KERNEL_DTYPES:
-        raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}; the fp16 "
-                        "kernels wait for ROADMAP Queue 1, item 32")
+        raise TypeError(f"{name} kernel takes {FLASH_KERNEL_DTYPES} inputs, got {q.dtype}")
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"{name}: q, k, v and dO must share one dtype")
     if not _kernel_head_dim(q.shape[-1]):

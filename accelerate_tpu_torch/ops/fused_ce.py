@@ -35,8 +35,8 @@ import torch.nn.functional as F
 from . import _build
 from .flash_attention import _on_device
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/fused_ce.cu
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc/fused_ce.cu
 E_MULTIPLE = 64  # the kernels' e chunk: the wrappers zero-pad e to a multiple
 # the bf16 forward kernel's tiles (csrc/fused_ce.cu, Sm90Fwd and kFwdBN) and
 # the vocab splits it takes: 128 h rows a CTA, vocab tiles of 128 w rows, a
@@ -119,7 +119,7 @@ def _check(name: str, h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 def _operands(name: str, h, w, labels, rows=()) -> list[torch.Tensor]:
     """What the kernel takes, contiguous and 16-byte aligned: h and w in
-    fp32 or bf16, zero-padded along e to a multiple of 64 (the kernels' e
+    fp32, bf16 or fp16, zero-padded along e to a multiple of 64 (the kernels' e
     chunk; zero columns add nothing to the logits, so the loss is exact, and
     dH and dW drop them), int32 labels, fp32 row vectors. No copy of h or w
     when e is already a multiple of 64."""
@@ -212,7 +212,7 @@ def card_limits(index: int) -> dict[int, int]:
 def fused_ce_fwd(h: torch.Tensor, w: torch.Tensor,
                  labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(lse, ll)``, fp32 ``[N]``. CPU: `fused_ce_forward_reference`; CUDA:
-    ``fused_ce_fwd_kernel`` (fp32/bf16, any N, V and e; bf16 in clusters
+    ``fused_ce_fwd_kernel`` (fp32/bf16/fp16, any N, V and e; bf16 in clusters
     laid out by `fwd_plan`)."""
     _check("fused_ce_fwd", h, w, labels)
     if not _on_device("fused_ce_fwd", h):
@@ -324,15 +324,15 @@ def fused_cross_entropy(hidden: torch.Tensor, wte: torch.Tensor, labels: torch.T
     """Mean cross-entropy over the rows of ``hidden [N, e]`` whose label is
     not ``ignore_index``, with the tied head ``wte [V, e]`` fused in: the
     ``[N, V]`` logits never reach memory. 0 (not NaN) when every row is
-    ignored. Differentiable in ``hidden`` and ``wte``. Takes fp32 or bf16
-    (one dtype for both); other dtypes raise. ``block_r`` and ``block_v``
+    ignored. Differentiable in ``hidden`` and ``wte``. Takes fp32, bf16 or
+    fp16 (one dtype for both); other dtypes raise. ``block_r`` and ``block_v``
     are the reference's TPU tiles (its defaults): accepted, so a call
     written for the reference runs, and ignored, since the CUDA kernels
     choose their own tiles (`fwd_plan`)."""
     if hidden.dtype not in KERNEL_DTYPES or wte.dtype != hidden.dtype:
         raise TypeError(
-            f"fused_cross_entropy takes fp32 or bf16 hidden and wte of one dtype, got "
-            f"{hidden.dtype} and {wte.dtype}; the fp16 kernels wait for ROADMAP Queue 1, item 32"
+            f"fused_cross_entropy takes fp32, bf16 or fp16 hidden and wte of one dtype, got "
+            f"{hidden.dtype} and {wte.dtype}"
         )
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).to(torch.int32)

@@ -4,10 +4,10 @@
 `Accelerator(kwargs_handlers=[...])` takes `GradScalerKwargs` (the fp16
 scaler's settings), `AutocastKwargs` (what ``Accelerator.autocast`` does by
 default), `ProfileKwargs` (what ``Accelerator.profile`` records, mapped onto
-``torch.profiler``) and the data-only `FP8RecipeKwargs`;
+``torch.profiler``) and `FP8RecipeKwargs` (the fp8 recipe, ``to_recipe()``
+for a model's ``fp8_recipe``, and the optimizer's opt level);
 `DataLoaderConfiguration` goes to ``dataloader_config=``. `CompilationConfig`
-and `FP8RecipeKwargs` are data only: the port has no compiled step and no
-fp8 yet (ROADMAP Queue 1, items 25 and 21.1).
+is data only: the port has no compiled step (ROADMAP Queue 1, item 25).
 
 The multi-process plugins and handlers (`FullyShardedDataParallelPlugin`,
 `DeepSpeedPlugin`, `MegatronLMPlugin`, `InitProcessGroupKwargs`,
@@ -122,8 +122,11 @@ class CompilationConfig(KwargsHandler):
 
 @dataclass
 class FP8RecipeKwargs(KwargsHandler):
-    """The reference's delayed-scaling fp8 recipe, kept as data until the
-    Hopper fp8 matmuls are ported (ROADMAP Queue 1, item 21.1)."""
+    """The reference's delayed-scaling fp8 recipe: `to_recipe` gives the
+    `ops.fp8.DelayedScalingRecipe` a model's ``fp8_recipe`` takes;
+    ``opt_level="O2"`` asks for `ops.fp8.AdamWFp8` (``prepare`` warns when
+    the optimizer is another). ``interval`` and ``amax_compute_algo`` are
+    the reference's fields and change nothing, as there."""
 
     margin: int = 0
     interval: int = 16
@@ -132,6 +135,12 @@ class FP8RecipeKwargs(KwargsHandler):
     amax_compute_algo: str = "max"
     backend: str = "native"
     opt_level: str = "O1"
+
+    def to_recipe(self):
+        from ..ops.fp8 import DelayedScalingRecipe
+
+        return DelayedScalingRecipe(margin=self.margin, amax_history_len=self.amax_history_len,
+                                    fp8_format=self.fp8_format, backend=self.backend)
 
 
 @dataclass

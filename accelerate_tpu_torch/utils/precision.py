@@ -12,8 +12,9 @@ carries their gradients back to the fp32 masters in fp32.
 ``"fp16"`` scales the loss by a `DynamicGradScaler`, whose state (the scale
 and the count of finite steps since the last change) lives in device
 tensors, as the reference threads it through its jitted step. ``"fp8"``
-(the Hopper fp8 matmuls) is not ported yet (ROADMAP Queue 1, item 21):
-asking for it raises.
+computes in bf16, as the reference's does: the fp8 products are the
+model's (`ops.fp8.Fp8Linear`, built when its config carries an fp8 recipe),
+which scale their own operands.
 """
 
 from __future__ import annotations
@@ -60,9 +61,9 @@ class PrecisionPolicy:
         if mode == "fp16":
             return cls(mode="fp16", compute_dtype=torch.float16)
         if mode == "fp8":
-            raise NotImplementedError(
-                "mixed_precision='fp8' is not ported yet: it needs the Hopper fp8 matmuls "
-                "(ROADMAP Queue 1, item 21)")
+            # the fp8 projections scale their own operands (ops/fp8.py); the
+            # rest of the step computes in bf16
+            return cls(mode="fp8", compute_dtype=torch.bfloat16)
         raise ValueError(f"Unknown mixed_precision mode {mode!r}")
 
     @property

@@ -159,7 +159,11 @@ Phases run in order; any failure exits non-zero:
    and ``s_per_token_eager``, the bytes bound of a token, ``packed_gb``,
    peak memory, the host and device ms of a replayed decode step (and the
    nf4 kernels in one replay: 7 a layer for nf4, none otherwise) and of an
-   eager one;
+   eager one; then an HF-named checkpoint (seeded non-zero fp16 weights at
+   Llama-2-7B width, 2 layers, under Hugging Face's names and ``[out, in]``
+   layout) loaded through `params_from_hf_llama` gives the weights and
+   logits of the same values saved under the reference's names, bit for
+   bit (`big_model_hf_checkpoint`);
 20. prefix-cached serving: GPT-2 small, 16 slots, depth 2, buckets (32,
    128, 512), 48 requests of a shared seeded 384-token system prompt and a
    unique 16-96-token suffix, 64 new tokens, every second sampled, through
@@ -306,9 +310,29 @@ Phases run in order; any failure exits non-zero:
    naming CUDA kernels, and a ResNet-50 child stopped by SIGTERM through
    `install_preemption_handler`, whose checkpoint loads to its weights
    (`by_feature_examples`, `vision_facade_phase_s`);
-29. the script's seconds (`chip_smoke_s`, the build included), the
+29. precision on one card, at GPT-2 small and bench.py's shape (batch 8 x
+   1024, flash attention, the fused loss): (a) five training variants, each
+   12 steps (2 untimed) from one seed over two fixed batches in turn, with
+   step ms, tokens/s, MFU against the bf16 dense rate (the fp8 runs also
+   against the fp8 rate), peak memory, optimizer state bytes and launches:
+   bf16; ``BENCH_FP8=model`` (`DelayedScalingRecipe(backend="native")`
+   under ``mixed_precision="fp8"``); ``BENCH_FP8=all`` (also
+   ``adamw_fp8(1e-4, opt_level="O2")``); the same with ``remat_policy=
+   "dots"``; fp16 with loss scaling on the fp16 instances of kernels #2-#4
+   and #8-#10 (`precision_train`); (b) the fp8 curves within
+   ``FP8_LOSS_TOL`` of bf16's at every step and falling, O2 with remat
+   against without within ``REMAT_LOSS_ATOL``, beside a repeat of the O2
+   run (`fp8_loss_parity`); (c) the
+   fp8 GEMM (``torch._scaled_mm``) at the four projection shapes, M 8192:
+   error against the fp32 product of the dequantized operands, ms, bf16
+   ``F.linear``'s ms, bound (`fp8_gemm`); a profiler window over 3 steps of
+   the bf16, fp8 model, remat and fp16 variants (`precision_train_*_profile`:
+   host against device ms, device ms by kind); (d) the fp16 instances against
+   their plain versions at phase 6's and phase 9's main shapes, with SDPA
+   and the unfused head as the library yardsticks (`precision_phase_s`);
+30. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
+   loop and phase 29's variants to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
    engines to phases 5 and 24; the band kernels' add phase 28 (e)'s
    sliding-window example to phase 14), the card line, and the final
    ``{"ok": true, ...}`` line.
@@ -342,8 +366,9 @@ BF16_LOGIT_ATOL = 0.1
 # flash kernels against their plain versions, |err| <= atol + rtol * |ref|:
 # fp32 differs in summation order over up to 1024 terms; bf16 rounds p and dS
 # to bf16 before products (a value near a rounding boundary may round the
-# other way) and rounds each output once more
-FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# other way) and rounds each output once more; fp16 (the scalar bodies) the
+# same at fp16's 11 bits, so bf16's bar over 4
+FLASH_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2), "float16": (5e-3, 5e-3)}
 # the forward kernels' lse, rect and band, every dtype: |err| <= LSE_ATOL
 # (both sides sum the same fp32 scores in another order, the bf16 kernel in
 # base 2 with the hardware's ex2; the backward kernels recompute p from this
@@ -366,9 +391,10 @@ TRAIN_GRAD_NORM_RTOL = 1e-3
 # rows): |err| <= 1e-4 + 1e-5 |plain|. dH and dW: |err| <= rtol |plain| +
 # atol max|plain|; fp32 differs in order only; bf16 rounds dlogits to bf16
 # before the products (a value near a rounding boundary may round the other
-# way) and each output once more (2^-8 relative)
+# way) and each output once more (2^-8 relative); fp16 the same at 2^-11,
+# bf16's bar over 4
 FUSED_CE_ROW_TOL = (1e-4, 1e-5)
-FUSED_CE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
+FUSED_CE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3), "float16": (2.5e-3, 2.5e-4)}
 # device kernels of the bf16 train steps by kind, first match wins, case
 # ignored. The only fp32 products of those steps are the heads' (logits,
 # d hidden, d head weight); casts run as copy kernels, so they match before
@@ -378,6 +404,7 @@ FUSED_CE_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-3)}
 # category holds both norms.
 TRAIN_KERNEL_CATEGORIES = (
     ("band flash kernels", r"flash_band_(fwd|dq|dkv)_kernel"),
+    ("fp8 GEMMs", r"e4m3|e5m2|f8f8|fp8"),
     ("fused-CE kernels", r"fused_ce_(fwd|bwd)_kernel"),
     ("fp32 head GEMMs", r"f32f32|sgemm"),
     ("flash kernels", r"flash_(fwd|dq|dkv)_kernel"),
@@ -405,6 +432,32 @@ FUSED_CE_REPLACES = {
     "fused_ce_dw": "accelerate_tpu/ops/fused_ce.py:103",
 }
 NF4_REPLACES = "accelerate_tpu/ops/nf4_matmul.py:43"
+# phase 29's training variants at bench.py's shape (BENCH_FP8, BENCH_REMAT):
+# (name, mixed_precision, config keywords, O2 optimizer); "fp8" computes in
+# bf16 around the fp8 projections, as BENCH_FP8's bf16 accelerator does
+PRECISION_RUNS = (
+    ("bf16", "bf16", {}, False),
+    ("fp8_model", "fp8", {"fp8": True}, False),
+    ("fp8_all", "fp8", {"fp8": True}, True),
+    ("fp8_all_remat_dots", "fp8", {"fp8": True, "remat": True, "remat_policy": "dots"}, True),
+    ("fp16", "fp16", {}, False),
+)
+# the variants whose steps a profiler window splits into host and device
+# time by kind of kernel (after the timed steps)
+PRECISION_PROFILED = ("bf16", "fp8_model", "fp8_all_remat_dots", "fp16")
+# fp8 against bf16, every step of 12 from one seed: the reference's
+# loss-parity bar (benchmarks/fp8/loss_parity.py, loss units)
+FP8_LOSS_TOL = 0.15
+# fp8 O2 with and without remat "dots", 12 steps: the recompute runs on the
+# forward's compute-dtype weights and replays its fp8 scales, so the two
+# runs do the same arithmetic and are expected equal; the bar allows a
+# last-bit difference that fp8 rounding flips would amplify. The phase also
+# repeats the O2 run without remat, to show the run-to-run noise beside it
+REMAT_LOSS_ATOL = 1e-3
+# the fp8 GEMM against the fp32 product of its dequantized operands: the
+# tensor cores' fp8 products accumulate at reduced precision between
+# promotions to fp32, and the bf16 output rounds once (2^-8 relative)
+FP8_GEMM_RTOL = 2 ** -7 + 1e-3
 # nf4 kernel against its plain version, |err| <= atol + rtol |plain|: both sum
 # the same fp32 products of the same dequantized weights, in another order
 # (split-K and warp partials against one fp32 GEMM); a bf16 output is then
@@ -448,13 +501,27 @@ def kernel_resources(log: str, pattern: str, fields: tuple[str, ...]) -> list[di
     (``dtype``) and each further template argument, an int or a bool, under
     the next name of ``fields`` (fewer arguments, fewer keys)."""
     out = []
-    mangled = rf"({pattern})I(13__nv_bfloat16|f)((?:L[bi]\d+E)*?(?:L[bi]\d+)?)EEEv"
+    mangled = rf"({pattern})I(13__nv_bfloat16|6__half|f)((?:L[bi]\d+E)*?(?:L[bi]\d+)?)EEEv"
     for m, res in ptxas_entries(log, mangled):
         values = [bool(int(x)) if kind == "b" else int(x)
                   for kind, x in re.findall(r"L([bi])(\d+)", m.group(3))]
-        out.append({"kernel": m.group(1), "dtype": "float32" if m.group(2) == "f" else "bfloat16",
+        out.append({"kernel": m.group(1), "dtype": _MANGLED_DTYPES[m.group(2)],
                     **dict(zip(fields, values)), **res})
     return out
+
+
+_MANGLED_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16", "6__half": "float16"}
+# any kernel of the four libraries, and its first template type
+_KERNEL_NAME = (r"((?:flash_(?:band_)?(?:fwd|dq|dkv)|fused_ce_(?:fwd|bwd)|paged_decode|nf4_matmul)"
+                r"_kernel)I(f|13__nv_bfloat16|6__half)")
+
+
+def fp16_resources(log: str) -> list[dict]:
+    """`kernel_resources` of every fp16 instance of the flash and fused-CE
+    kernels (the scalar bodies), which the build phase holds to zero
+    spills."""
+    pattern = r"(flash_(?:band_)?(?:fwd|dq|dkv)_kernel|fused_ce_(?:fwd|bwd)_kernel)I6__half"
+    return entry_resources(log, pattern, ("kernel",))
 
 
 # the flash kernels' template arguments after the type (d 0: the run-time
@@ -566,6 +633,16 @@ def bf16_peak(name: str) -> float:
     if "NVL" in name:
         return 835e12
     return 989e12
+
+
+def fp8_peak(name: str) -> float:
+    """Dense fp8 tensor-core flop/s of the SKU in the device name (NVIDIA
+    data sheets, full power)."""
+    if "PCIe" in name:
+        return 1513e12
+    if "NVL" in name:
+        return 1671e12
+    return 1979e12
 
 
 def timed_steps(torch, step, data, warmup: int, steps: int) -> tuple[list[float], float]:
@@ -899,7 +976,8 @@ def flash_case(torch, name, *, b, h, s, d, dtype, causal, seed, flush) -> dict:
           "flash_attention_dkv": (6 * tensor_bytes + 2 * row_bytes, 4)}
     dev_name = torch.cuda.get_device_name(0)
     bw, fp32_peak, _ = peak_rates(dev_name)
-    peak = bf16_peak(dev_name) if dtype == torch.bfloat16 else fp32_peak
+    # fp16 work's least time is on the tensor cores, at bf16's rate
+    peak = bf16_peak(dev_name) if dtype in (torch.bfloat16, torch.float16) else fp32_peak
     atol, rtol = FLASH_TOL[str(dtype).removeprefix("torch.")]
     recs = {}
     for kname in FLASH_REPLACES:
@@ -981,7 +1059,7 @@ def fused_ce_case(torch, name, *, n, v, e, dtype, ignore_every, seed, flush) -> 
           "fused_ce_dw": (inputs + 3 * n * 4 + v * e * elt, 2)}
     dev_name = torch.cuda.get_device_name(0)
     bw, fp32_peak, _ = peak_rates(dev_name)
-    peak = bf16_peak(dev_name) if dtype == torch.bfloat16 else fp32_peak
+    peak = bf16_peak(dev_name) if dtype in (torch.bfloat16, torch.float16) else fp32_peak
     dtype_name = str(dtype).removeprefix("torch.")
     rtol, atol = FUSED_CE_TOL[dtype_name]
     samples = 30 if dtype == torch.bfloat16 else 5
@@ -1948,6 +2026,104 @@ def synthetic_checkpoint(torch, cfg, path) -> int:
                     "down_proj": {"kernel": z(f, e)}}}
     save_safetensors_checkpoint(tree, path, max_shard_size="5GB")
     return sum(t.numel() for t in _tensors(tree))
+
+
+def synthetic_hf_checkpoints(torch, cfg, hf_path, ref_path, seed: int) -> int:
+    """One set of seeded non-zero fp16 weights (normal(0.02), norm scales
+    around 1) written twice: under Hugging Face's ``LlamaForCausalLM`` names
+    and layout (``[out, in]`` weights) into ``hf_path``, and under the
+    reference's (``layer_i`` blocks, ``[in, out]`` kernels) into
+    ``ref_path``. Non-zero values make a transposed square projection (q_proj
+    and o_proj are ``e x e``) change the logits instead of loading unseen.
+    Returns the parameter count."""
+    from accelerate_tpu_torch.utils.safetensors_io import save_safetensors_checkpoint
+
+    g = torch.Generator().manual_seed(seed)
+    e, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kvd = cfg.num_kv_heads * cfg.head_dim
+
+    def w(*shape, norm=False):
+        t = torch.randn(shape, generator=g) * 0.02
+        return (t + 1.0 if norm else t).to(torch.float16)
+
+    hf = {"model.embed_tokens.weight": w(v, e), "model.norm.weight": w(e, norm=True),
+          "lm_head.weight": w(v, e)}
+    ref = {"embed_tokens": hf["model.embed_tokens.weight"],
+           "final_norm": {"scale": hf["model.norm.weight"]}, "lm_head": hf["lm_head.weight"]}
+    shapes = {"self_attn.q_proj": (e, e), "self_attn.k_proj": (kvd, e),
+              "self_attn.v_proj": (kvd, e), "self_attn.o_proj": (e, e),
+              "mlp.gate_proj": (f, e), "mlp.up_proj": (f, e), "mlp.down_proj": (e, f)}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        hf[pre + "input_layernorm.weight"] = w(e, norm=True)
+        hf[pre + "post_attention_layernorm.weight"] = w(e, norm=True)
+        blk = {"input_norm": {"scale": hf[pre + "input_layernorm.weight"]},
+               "post_attn_norm": {"scale": hf[pre + "post_attention_layernorm.weight"]},
+               "attn": {}, "mlp": {}}
+        for name, shape in shapes.items():
+            hf[pre + name + ".weight"] = w(*shape)
+            group, proj = name.split(".")
+            blk["attn" if group == "self_attn" else "mlp"][proj] = {
+                "kernel": hf[pre + name + ".weight"].T.contiguous()}
+        ref[f"layer_{i}"] = blk
+    save_safetensors_checkpoint(hf, hf_path, max_shard_size="5GB")
+    save_safetensors_checkpoint(ref, ref_path, max_shard_size="5GB")
+    return sum(t.numel() for t in hf.values())
+
+
+def hf_checkpoint_parity(torch, card: str, seed: int) -> dict:
+    """Phase 19's Hugging Face variant: Llama-2-7B width at 2 layers, one set
+    of seeded non-zero fp16 weights saved under HF's names
+    (`synthetic_hf_checkpoints`) and under the reference's; the first loaded
+    into a bf16 model on the card through `params_from_hf_llama`, the second
+    through `params_from_jax`: every weight and the logits of a 64-token
+    prompt are equal, bit for bit."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        params_from_hf_llama,
+        params_from_jax,
+    )
+    from accelerate_tpu_torch.utils.safetensors_io import load_checkpoint_in_model
+
+    cfg = LlamaConfig.llama2_7b(num_layers=2, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                                max_position_embeddings=LLAMA_7B_POSITIONS)
+    tmp = Path(tempfile.mkdtemp(prefix="hf_llama2_7b_"))
+    try:
+        t0 = time.perf_counter()
+        n_params = synthetic_hf_checkpoints(torch, cfg, tmp / "hf", tmp / "ref", seed)
+        write_s = time.perf_counter() - t0
+        models, load_s = {}, {}
+        for name, mapper in (("hf", lambda flat: params_from_hf_llama(flat, cfg)),
+                             ("ref", params_from_jax)):
+            t0 = time.perf_counter()
+            model = LlamaForCausalLM(cfg, device="meta").to_empty(device="cuda")
+            load_checkpoint_in_model(model, tmp / name, mapper=mapper)
+            torch.cuda.synchronize()
+            load_s[name], models[name] = time.perf_counter() - t0, model
+        ids = torch.randint(0, cfg.vocab_size, (1, 64), generator=torch.Generator().manual_seed(seed))
+        with torch.no_grad():
+            logits = {k: m(ids.to("cuda")) for k, m in models.items()}
+        weights_equal = all(torch.equal(a, b) for a, b in zip(models["hf"].state_dict().values(),
+                                                              models["ref"].state_dict().values()))
+        rec = {"phase": "big_model_hf_checkpoint", "preset": "llama2_7b", "layers": cfg.num_layers,
+               "params_b": n_params / 1e9, "checkpoint_write_s": write_s,
+               "load_s_hf": load_s["hf"], "load_s_reference": load_s["ref"],
+               "weights_equal": weights_equal,
+               "logits_equal": torch.equal(logits["hf"], logits["ref"]),
+               "logits_finite": bool(torch.isfinite(logits["hf"]).all()),
+               "logits_std": logits["hf"].float().std().item(), "card": card}
+        print(json.dumps(rec), flush=True)
+        if not (rec["weights_equal"] and rec["logits_equal"] and rec["logits_finite"]):
+            raise AssertionError(f"HF-named Llama checkpoint: {rec}")
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def _tensors(tree):
@@ -4452,7 +4628,8 @@ def by_feature_on_card(torch, np, card: str) -> dict:
     """Phase 28 (e): the by_feature examples on the card at their own
     defaults: gradient accumulation and checkpointing (``configs[2]``),
     early stopping, tracking, the sliding-window Llama (band kernels #5-#7,
-    counted) and the profiler, whose Chrome trace must name a CUDA kernel.
+    counted), the profiler, whose Chrome trace must name a CUDA kernel, and
+    schedule-free AdamW.
     Then a child process training ResNet-50 on the card under
     `install_preemption_handler` is sent SIGTERM: it exits 143 with a
     complete checkpoint, which loads here to its weights."""
@@ -4468,7 +4645,7 @@ def by_feature_on_card(torch, np, card: str) -> dict:
     out: dict = {"phase": "by_feature_examples", "examples": {}, "card": card}
     try:
         for name in ("gradient_accumulation", "checkpointing", "early_stopping", "tracking",
-                     "sliding_window_long_context", "profiler"):
+                     "sliding_window_long_context", "profiler", "schedule_free"):
             main = importlib.import_module(f"accelerate_tpu_torch.examples.by_feature.{name}").main
             reset_counts(fa)
             t0 = time.perf_counter()
@@ -4558,6 +4735,184 @@ def vision_and_facade(torch, np, card: str) -> dict:
     return features
 
 
+def precision_run(torch, card: str, seed: int, name: str, mixed: str, cfg_kw: dict, o2: bool,
+                  batches: list, warmup: int = 2, steps: int = 10) -> dict:
+    """One of phase 29's training variants: GPT-2 small at bench.py's shape,
+    flash attention, the fused loss (`lm_loss_fn_pallas`), AdamW (lr 1e-4,
+    weight decay 1e-4, optax's default) or ``adamw_fp8(1e-4,
+    opt_level="O2")``; ``warmup`` steps, then ``steps`` timed ones with the
+    launch counts set to 0 and the peak memory reset just before them, over
+    two fixed batches in turn. Prints and returns the line."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn_pallas
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8
+
+    kw = dict(cfg_kw)
+    if kw.pop("fp8", False):
+        kw["fp8_recipe"] = fp8.DelayedScalingRecipe(backend="native")
+    dtype = torch.float16 if mixed == "fp16" else torch.bfloat16
+    cfg = GPT2Config.small(dtype=dtype, attention_impl="flash", **kw)
+    model = GPT2LMHead(cfg, device="cuda", seed=seed)
+    acc = Accelerator(mixed_precision=mixed)
+    opt = (fp8.adamw_fp8(model.parameters(), 1e-4, opt_level="O2") if o2 else
+           torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    model, opt = acc.prepare(model, opt)
+    step = acc.make_train_step(lm_loss_fn_pallas)
+    losses = [step(batches[i % 2]).item() for i in range(warmup)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    fp8.fp8_gemm.calls = 0
+    t0 = time.perf_counter()
+    timed = [step(batches[(warmup + i) % 2]) for i in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses += [t.item() for t in timed]
+    batch, seq = batches[0]["input_ids"].shape
+    tokens_per_s = batch * seq * steps / wall
+    flops_per_token = train_flops_per_token(model, seq)
+    dev = torch.cuda.get_device_name(0)
+    opt_bytes = sum(t.numel() * t.element_size() for st in opt.optimizer.state.values()
+                    for t in st.values() if isinstance(t, torch.Tensor))
+    counts = {**flash_counts(fa), **fused_ce_counts()}
+    rec = {"phase": "precision_train", "run": name, "mixed_precision": mixed,
+           "model": "gpt2-small", "batch": batch, "seq": seq, "fp8": "fp8_recipe" in kw,
+           "optimizer": "adamw_fp8 O2" if o2 else "AdamW", "remat_policy": kw.get("remat_policy"),
+           "warmup_steps": warmup, "steps": steps, "step_ms": wall / steps * 1e3,
+           "tokens_per_s": tokens_per_s,
+           "mfu": tokens_per_s * flops_per_token / bf16_peak(dev),
+           **({"mfu_vs_fp8_peak": tokens_per_s * flops_per_token / fp8_peak(dev)}
+              if "fp8_recipe" in kw else {}),
+           "flops_per_token": flops_per_token, "losses": losses,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "optimizer_state_bytes": opt_bytes,
+           "launches": counts, "fp8_gemm_calls": fp8.fp8_gemm.calls,
+           "loss_scale": (opt.scaler_state.scale.item() if opt.scaler_state is not None else None),
+           "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"precision run {name}: the loss did not fall: {losses}")
+    fwd = 2 if kw.get("remat") else 1  # the recompute runs the forward again
+    expected = {"flash_attention_fwd": fwd * cfg.n_layer * steps,
+                "flash_attention_dq": cfg.n_layer * steps,
+                "flash_attention_dkv": cfg.n_layer * steps,
+                **{n: steps for n in FUSED_CE_REPLACES}}
+    if counts != expected:
+        raise AssertionError(f"precision run {name}: launches {counts}, expected {expected}")
+    # forward, dX and dK of 4 projections a layer; under remat "dots" the
+    # recompute calls the forward's again and is handed the saved product
+    gemm = (3 + (fwd - 1)) * 4 * cfg.n_layer * steps if "fp8_recipe" in kw else 0
+    if fp8.fp8_gemm.calls != gemm:
+        raise AssertionError(f"precision run {name}: {fp8.fp8_gemm.calls} fp8 GEMM calls, "
+                             f"expected {gemm}")
+    if name in PRECISION_PROFILED:
+        profile_train(torch, lambda: step(batches[0]), f"precision_train_{name}_profile", card=card)
+    del model, acc, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fp8_gemm_line(torch, card: str, seed: int, flush) -> dict:
+    """Phase 29 (c): the fp8 GEMM (`ops.fp8.fp8_gemm`, ``torch._scaled_mm``)
+    at GPT-2 small's four projection shapes, M 8192, e4m3 operands at
+    delayed-style scales: its error against the fp32 product of the
+    dequantized operands, its ms, bf16 ``F.linear``'s ms on the same shape,
+    and its bound (2 M K N at the fp8 dense rate, or its bytes)."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import fp8
+
+    dev = torch.cuda.get_device_name(0)
+    bw = peak_rates(dev)[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = []
+    for K, N in GPT2_NF4_SHAPES:
+        M = 8192
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(N, K, generator=g, device="cuda") / math.sqrt(K)).to(torch.bfloat16)
+        xs = torch.tensor(fp8.E4M3_MAX, device="cuda") / x.float().abs().max()
+        ws = torch.tensor(fp8.E4M3_MAX, device="cuda") / w.float().abs().max()
+        xq, wq = fp8.quantize(x, xs, fp8.E4M3, fp8.E4M3_MAX), fp8.quantize(w.T, ws, fp8.E4M3,
+                                                                           fp8.E4M3_MAX)
+        got = fp8.fp8_gemm(xq, wq, xs, ws, torch.bfloat16)
+        want = fp8.fp8_gemm_reference(xq, wq, xs, ws, torch.float32)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        scale = want.abs().max().item()
+        flops, n_bytes = 2 * M * K * N, M * K + K * N + 2 * M * N
+        bound_ms = max(flops / fp8_peak(dev), n_bytes / bw) * 1e3
+        ms = device_ms(torch, lambda: fp8.fp8_gemm(xq, wq, xs, ws, torch.bfloat16), flush)
+        shapes.append({"M": M, "K": K, "N": N, "max_abs_err": err, "err_over_max": err / scale,
+                       "rtol_of_max": FP8_GEMM_RTOL, "ms": ms,
+                       "bf16_linear_ms": device_ms(torch, lambda: F.linear(x, w), flush),
+                       "bound_ms": bound_ms,
+                       "bound_by": "operations" if flops / fp8_peak(dev) >= n_bytes / bw else "bytes",
+                       "bound_share": bound_ms / ms, "tflops": flops / ms * 1e-9})
+        if not (math.isfinite(err) and err <= FP8_GEMM_RTOL * scale):
+            raise AssertionError(f"fp8 GEMM {M}x{K}x{N}: max_abs_err {err} > "
+                                 f"{FP8_GEMM_RTOL} x {scale}")
+    rec = {"phase": "fp8_gemm", "route": "torch._scaled_mm (cuBLASLt)", "dtype": "e4m3 x e4m3 -> bf16",
+           "shapes": shapes, "card": card}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def precision_phase(torch, np, seed: int, card: str) -> dict:
+    """Phase 29: precision on one card. (a) GPT-2 small's five training
+    variants (`PRECISION_RUNS`), each 12 steps from one seed over the same
+    two batches; (b) the fp8 curves against bf16's and fp8 O2 with remat
+    against without; (c) the fp8 GEMM at the projection shapes; (d) the fp16
+    instances of the flash (#2-#4) and fused-CE (#8-#10) kernels against
+    their plain versions at phase 6's and phase 9's main shapes. Returns the
+    variants' flash and fused-CE launches and the fp16 cases."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(0, 50257, (8, 1024))).to("cuda")}
+               for _ in range(2)]
+    runs = {name: precision_run(torch, card, seed, name, mixed, kw, o2, batches)
+            for name, mixed, kw, o2 in PRECISION_RUNS}
+    runs["fp8_all_repeat"] = precision_run(torch, card, seed, "fp8_all_repeat",
+                                           *PRECISION_RUNS[2][1:], batches)
+
+    base = runs["bf16"]["losses"]
+    parity = {"phase": "fp8_loss_parity", "steps": len(base), "tolerance": FP8_LOSS_TOL,
+              "bf16": base, "remat_atol": REMAT_LOSS_ATOL, "card": card}
+    for name in ("fp8_model", "fp8_all"):
+        curve = runs[name]["losses"]
+        parity[name] = curve
+        parity[f"{name}_max_divergence"] = max(abs(a - b) for a, b in zip(curve, base))
+    parity["remat_max_abs_diff"] = max(abs(a - b) for a, b in zip(
+        runs["fp8_all"]["losses"], runs["fp8_all_remat_dots"]["losses"]))
+    parity["repeat_max_abs_diff"] = max(abs(a - b) for a, b in zip(
+        runs["fp8_all"]["losses"], runs["fp8_all_repeat"]["losses"]))
+    parity["fp16_max_divergence"] = max(abs(a - b) for a, b in zip(runs["fp16"]["losses"], base))
+    print(json.dumps(parity), flush=True)
+    for name in ("fp8_model", "fp8_all"):
+        if not (parity[f"{name}_max_divergence"] <= FP8_LOSS_TOL
+                and runs[name]["losses"][-1] < runs[name]["losses"][0]):
+            raise AssertionError(f"fp8 loss parity ({name}): {parity}")
+    if not parity["remat_max_abs_diff"] <= REMAT_LOSS_ATOL:
+        raise AssertionError(f"fp8 O2 under remat 'dots' differs from without: {parity}")
+
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fp8_gemm_line(torch, card, seed, flush)
+    flash = flash_case(torch, "gpt2_small_fp16_causal", dtype=torch.float16, causal=True,
+                       seed=seed, b=8, h=12, s=1024, d=64, flush=flush)
+    fused = fused_ce_case(torch, "gpt2_small_fp16", dtype=torch.float16, ignore_every=16,
+                          seed=seed, n=8192, v=50257, e=768, flush=flush)
+    del flush
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in (*FLASH_REPLACES, *FUSED_CE_REPLACES)}
+    print(json.dumps({"phase": "precision_phase_s", "seconds": time.perf_counter() - t0,
+                      "launches": launches, "fp16_run_launches": runs["fp16"]["launches"],
+                      "card": card}), flush=True)
+    return {"launches": launches, "flash_case": flash, "fused_case": fused}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4601,10 +4956,12 @@ def main() -> int:
     for lib_name in libraries:
         log = _build.build_log(lib_name)
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spills = len(re.findall(r"[1-9]\d* bytes spill stores", log))
+        spilling = [f"{m.group(1)}<{_MANGLED_DTYPES[m.group(2)]}>"
+                    for m, res in ptxas_entries(log, _KERNEL_NAME)
+                    if res["spill_store_bytes"] or res["spill_load_bytes"]]
         print(json.dumps({"phase": "build", "library": lib_name, "build_s": build_s,
                           "kernels": len(regs), "max_registers": max(regs, default=0),
-                          "kernels_spilling": spills}), flush=True)
+                          "kernels_spilling": len(spilling), "spilling": spilling}), flush=True)
     flash_log = _build.build_log("flash_attention")
     for phase, found in (("build_flash_forward", forward_resources(flash_log)),
                          ("build_flash_dq", dq_resources(flash_log)),
@@ -4624,6 +4981,18 @@ def main() -> int:
             k["spill_store_bytes"] or k["spill_load_bytes"] for k in found + found_fwd):
         raise AssertionError(f"build_fused_ce: a bf16 forward, dH or dW kernel is missing or spills: "
                              f"{found_fwd} {found}")
+    # the fp16 instances (scalar bodies): 5 head_dim bodies x 6 flash kernels
+    # (the rectangular ones causal and not), 3 fused-CE kernels
+    fp16 = {lib: fp16_resources(_build.build_log(lib)) for lib in ("flash_attention", "fused_ce")}
+    print(json.dumps({"phase": "build_fp16_instances",
+                      **{lib: {"kernels": len(found), "max_registers": max(
+                          (k["registers"] for k in found), default=0),
+                          "spilling": [k for k in found if k["spill_store_bytes"]
+                                       or k["spill_load_bytes"]]} for lib, found in fp16.items()}}),
+          flush=True)
+    if len(fp16["flash_attention"]) != 45 or len(fp16["fused_ce"]) != 3 or any(
+            k["spill_store_bytes"] or k["spill_load_bytes"] for found in fp16.values() for k in found):
+        raise AssertionError(f"build_fp16_instances: an fp16 instance is missing or spills: {fp16}")
     for phase, found in (("build_paged_decode", paged_decode_resources(_build.build_log("paged_decode"))),
                          ("build_nf4", nf4_resources(_build.build_log("nf4_matmul")))):
         spilling = [k for k in found if k["spill_store_bytes"] or k["spill_load_bytes"]]
@@ -4986,8 +5355,10 @@ def main() -> int:
     # 18. Llama decode parity at Llama-2-7B's width, 2 layers, fp32
     llama_decode_parity(torch, np, args.seed, card)
 
-    # 19. big-model inference: the reference tool's flow at Llama-2-7B
+    # 19. big-model inference: the reference tool's flow at Llama-2-7B; and
+    # an HF-named checkpoint against the reference-named one
     big_model_inference(torch, card)
+    hf_checkpoint_parity(torch, card, args.seed)
 
     # 20. prefix-cached serving
     prefix_serving(torch, np, args.seed, card)
@@ -5030,7 +5401,10 @@ def main() -> int:
     # 28. ResNet-50 image classification and the rest of the one-process facade
     features = vision_and_facade(torch, np, card)
 
-    # 29. summary lines
+    # 29. precision on one card: fp8 training, remat, the fp16 kernel instances
+    precision = precision_phase(torch, np, args.seed, card)
+
+    # 30. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -5050,8 +5424,10 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
-            "launches": train["launches"][kname] + facade["launches_loop"][kname],
-            "max_abs_err": max(c[kname]["max_abs_err"] for c in flash_cases),
+            "launches": (train["launches"][kname] + facade["launches_loop"][kname]
+                         + precision["launches"][kname]),
+            "max_abs_err": max(c[kname]["max_abs_err"]
+                               for c in flash_cases + [precision["flash_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
@@ -5061,8 +5437,10 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
-            "launches": fused_train["launches"][kname] + facade["launches_loop"][kname],
-            "max_abs_err": max(c[kname]["max_abs_err"] for c in fused_cases),
+            "launches": (fused_train["launches"][kname] + facade["launches_loop"][kname]
+                         + precision["launches"][kname]),
+            "max_abs_err": max(c[kname]["max_abs_err"]
+                               for c in fused_cases + [precision["fused_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],

@@ -2,9 +2,9 @@
 against the reference's, on the CPU.
 
 Every ported example runs from the command line, ``--tiny --num_epochs 1
---device cpu``, and exits 0 (all at once, one process each). Four of them,
-`gradient_accumulation`, `checkpointing`, `early_stopping` and
-`cross_validation`, run beside the reference's script of the same name, in
+--device cpu``, and exits 0 (all at once, one process each). Five of them,
+`gradient_accumulation`, `checkpointing`, `early_stopping`,
+`cross_validation` and `schedule_free`, run beside the reference's script of the same name, in
 this process, from the same weights (both draw the MLP's weights from
 numpy's ``default_rng``, and `_common.params_from_jax` carries the
 reference's tree): every train step's loss agrees, and the early stop lands
@@ -34,10 +34,9 @@ REFERENCE = ROOT / "examples" / "by_feature"
 PORT = ROOT / "accelerate_tpu_torch" / "examples" / "by_feature"
 PORTED = ("gradient_accumulation", "checkpointing", "automatic_gradient_accumulation",
           "early_stopping", "memory", "profiler", "tracking", "cross_validation",
-          "sliding_window_long_context")
+          "sliding_window_long_context", "schedule_free")
 # the reference's examples the port has not taken, each with its reason
 DEFERRED = {
-    "schedule_free": "needs a port of optax.contrib.schedule_free_adamw (ROADMAP item 34.1)",
     **{name: "multi-process: waits for the torch.distributed runtime (ROADMAP item 21.3)"
        for name in ("ddp_comm_hook", "local_sgd", "multi_process_metrics",
                     "fsdp_with_peak_mem_tracking", "deepspeed_dummy_optim_scheduler",
@@ -135,6 +134,7 @@ CASES = {
     "checkpointing": ["--tiny", "--num_epochs", "2"],
     "early_stopping": ["--tiny", "--lr", "0.05"],
     "cross_validation": ["--tiny", "--num_epochs", "2"],
+    "schedule_free": ["--tiny", "--num_epochs", "2"],
 }
 
 

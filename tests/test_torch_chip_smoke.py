@@ -11,6 +11,7 @@ imports, the engine modes it serves). Runs on the CPU against a log in
 ptxas's format and a CPU engine."""
 
 import importlib.util
+import re
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -383,3 +384,87 @@ def test_reliability_child_imports_only_the_port_and_serves_both_modes():
     assert roots == {"json", "sys", "time", "torch", "accelerate_tpu_torch"}
     assert cs.RELIABILITY_MODES == {"paged_fused": {"paged_kv": True, "paged_attention": "fused"},
                                     "slot": {}}
+
+
+FP16_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI6__halfLi64ELb1EEEvPKT_S3_S3_PS1_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897916flash_fwd_kernelI6__halfLi64ELb1EEEvPKT_S3_S3_PS1_PfNS_4MaskIXT1_ELb0EEENS_7FwdMapsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelI6__halfLi0EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN51_GLOBAL__N__a0289467_18_flash_attention_cu_2c13897921flash_band_dkv_kernelI6__halfLi0EEEvPKT_S3_S3_S3_PKfS5_PS1_S6_NS_4MaskILb1ELb1EEENS_7DkvMapsE
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI6__halfEEvPKT_S3_PKiPfS6_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN44_GLOBAL__N__d61153fb_11_fused_ce_cu_935e5b8619fused_ce_fwd_kernelI6__halfEEvPKT_S3_PKiPfS6_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+""" + LOG
+
+
+def test_fp16_instances_are_read_and_held_to_zero_spills():
+    """The fp16 instances (scalar bodies) of the flash and fused-CE kernels:
+    every one by name, the scalar fused-CE forward (one template argument)
+    too, and none of the bf16 or fp32 ones; `kernel_resources` names their
+    type."""
+    cs = _chip_smoke()
+    found = cs.fp16_resources(FP16_LOG)
+    assert [k["kernel"] for k in found] == ["flash_fwd_kernel", "flash_band_dkv_kernel",
+                                            "fused_ce_fwd_kernel"]
+    assert [k["spill_store_bytes"] for k in found] == [0, 4, 0]
+    assert cs.forward_resources(FP16_LOG)[0] == {
+        "kernel": "flash_fwd_kernel", "dtype": "float16", "d": 64, "causal": True,
+        "registers": 122, "spill_store_bytes": 0, "spill_load_bytes": 0, "static_smem_bytes": 0}
+    assert all(k["dtype"] == "bfloat16" for k in cs.dkv_resources(FP16_LOG))
+
+
+def test_fp8_peak_and_the_precision_runs():
+    cs = _chip_smoke()
+    # the data sheets' dense rates: fp8 twice bf16's (1979 and 989 TFLOP/s)
+    assert cs.fp8_peak("NVIDIA H100 80GB HBM3") == 1979e12
+    assert cs.fp8_peak("NVIDIA H100 PCIe") > 1.99 * cs.bf16_peak("NVIDIA H100 PCIe")
+    assert [r[0] for r in cs.PRECISION_RUNS] == ["bf16", "fp8_model", "fp8_all",
+                                                 "fp8_all_remat_dots", "fp16"]
+
+
+def test_synthetic_hf_checkpoints_hold_one_set_of_weights(tmp_path):
+    """Phase 19's HF variant: seeded non-zero fp16 values, once under
+    Hugging Face's names and layout and once under the reference's; each
+    loads into the port's Llama through its map to the same state, and the
+    parameter count is the model's."""
+    from accelerate_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        params_from_hf_llama,
+        params_from_jax,
+    )
+    from accelerate_tpu_torch.utils.safetensors_io import (
+        load_checkpoint_in_model,
+        load_safetensors_checkpoint,
+    )
+
+    cfg = LlamaConfig.tiny(num_kv_heads=2)
+    n = _chip_smoke().synthetic_hf_checkpoints(torch, cfg, tmp_path / "hf", tmp_path / "ref", 0)
+    flat = load_safetensors_checkpoint(tmp_path / "hf")
+    assert all(t.dtype == torch.float16 and t.any() for t in flat.values())
+    assert tuple(flat["model.layers.1.self_attn.k_proj.weight"].shape) == (32, 64)
+    models = []
+    for sub, mapper in (("hf", lambda f: params_from_hf_llama(f, cfg)), ("ref", params_from_jax)):
+        model = LlamaForCausalLM(cfg, device="cpu")
+        load_checkpoint_in_model(model, tmp_path / sub, mapper=mapper)
+        models.append(model.state_dict())
+    assert n == sum(p.numel() for p in LlamaForCausalLM(cfg, device="cpu").parameters())
+    assert all(torch.equal(models[0][k], models[1][k]) for k in models[0])
+
+
+def test_build_line_names_a_spilling_kernel_and_its_type():
+    cs = _chip_smoke()
+    spilling = [f"{m.group(1)}<{cs._MANGLED_DTYPES[m.group(2)]}>"
+                for m, res in cs.ptxas_entries(FP16_LOG, cs._KERNEL_NAME)
+                if res["spill_store_bytes"]]
+    assert spilling == ["flash_band_dkv_kernel<float16>", "flash_dkv_kernel<bfloat16>",
+                        "flash_fwd_kernel<bfloat16>", "flash_band_dq_kernel<bfloat16>",
+                        "fused_ce_bwd_kernel<float32>", "fused_ce_bwd_kernel<bfloat16>"]
+    # an fp8 GEMM's kernel counts as one in the training profiles
+    assert next(c for c, pattern in cs.TRAIN_KERNEL_CATEGORIES
+                if re.search(pattern, "sm90_xmma_gemm_e4m3e4m3_bf16", re.IGNORECASE)) == "fp8 GEMMs"

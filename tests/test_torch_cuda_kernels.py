@@ -296,7 +296,7 @@ def test_flash_attention_grads_match_plain_attention(hopper, d, hq, hk):
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
     (dict(d=300), ValueError),  # above 256 but off a multiple of 64 (the wrapper pads it)
-    (dict(dtype=torch.float16), TypeError),
+    (dict(dtype=torch.float64), TypeError),  # a dtype with no instance (fp16 has one)
 ])
 def test_flash_kernel_rejects_what_it_does_not_take(hopper, change, exc):
     spec = {**FLASH_CASES["bf16_causal_d64"], **change}
@@ -468,7 +468,7 @@ def test_band_flash_attention_grads_match_plain_attention(hopper, window, hq, hk
 @pytest.mark.parametrize("change,exc", [
     (dict(d=32), ValueError),  # head_dim the kernel is not built for
     (dict(d=300), ValueError),  # above 256 but off a multiple of 64 (the wrapper pads it)
-    (dict(dtype=torch.float16), TypeError),
+    (dict(dtype=torch.float64), TypeError),  # a dtype with no instance (fp16 has one)
     (dict(hq=6, hk=4), ValueError),  # query heads not a multiple of kv heads
 ])
 def test_band_kernel_rejects_what_it_does_not_take(hopper, change, exc):
@@ -624,7 +624,7 @@ def test_fused_cross_entropy_all_ignored_on_the_card(hopper):
 
 
 @pytest.mark.parametrize("change,exc", [
-    (dict(dtype=torch.float16), TypeError),
+    (dict(dtype=torch.float64), TypeError),  # a dtype with no instance (fp16 has one)
 ])
 def test_fused_ce_kernel_rejects_what_it_does_not_take(hopper, change, exc):
     from accelerate_tpu_torch.ops import fused_ce as fc

@@ -164,8 +164,11 @@ def test_plain_versions_follow_the_reference_rounding():
 
 def test_refusals():
     h, w, labels = (torch.from_numpy(x) for x in _inputs(8, 10))
-    with pytest.raises(TypeError, match="ROADMAP Queue 1, item 32"):
-        fused_cross_entropy(h.half(), w.half(), labels)
+    # fp16 is taken (its kernels are the scalar ones); fp64 is not
+    loss = fused_cross_entropy(h.half(), w.half(), labels)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    with pytest.raises(TypeError, match="fp32, bf16 or fp16"):
+        fused_cross_entropy(h.double(), w.double(), labels)
     with pytest.raises(TypeError, match="one dtype"):
         fused_cross_entropy(h, w.bfloat16(), labels)
     with pytest.raises(ValueError, match="one e"):

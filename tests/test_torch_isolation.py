@@ -54,11 +54,13 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.examples.complete_nlp_example",
                 "accelerate_tpu_torch.memory", "accelerate_tpu_torch.logging",
                 "accelerate_tpu_torch.utils.dataclasses", "accelerate_tpu_torch.utils.other",
-                "accelerate_tpu_torch.utils.environment",
+                "accelerate_tpu_torch.utils.environment", "accelerate_tpu_torch.ops.fp8",
+                "accelerate_tpu_torch.utils.remat",
                 *(f"accelerate_tpu_torch.examples.by_feature.{name}" for name in (
                     "_common", "gradient_accumulation", "checkpointing",
                     "automatic_gradient_accumulation", "early_stopping", "memory", "profiler",
-                    "tracking", "cross_validation", "sliding_window_long_context"))):
+                    "tracking", "cross_validation", "sliding_window_long_context",
+                    "schedule_free"))):
         assert mod in got["modules"]
 
 

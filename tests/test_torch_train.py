@@ -194,8 +194,11 @@ def test_cross_entropy_of_an_all_ignored_batch_is_zero():
 
 
 def test_accelerator_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 21"):
-        Accelerator(mixed_precision="fp8", device="cpu")
+    # fp8 is taken (bf16 compute around a model's fp8 projections); an
+    # unknown mode is refused, as by the reference
+    assert Accelerator(mixed_precision="fp8", device="cpu").policy.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="Unknown mixed_precision"):
+        Accelerator(mixed_precision="fp4", device="cpu")
     model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu")
     other = torch.nn.Linear(2, 2)
     with pytest.raises(ValueError, match="not parameters of the model"):
