@@ -63,6 +63,7 @@ from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import filter_trackers
 from .utils import operations
+from .utils.intermediates import collecting_intermediates
 from .utils.precision import (
     DynamicGradScaler,
     PrecisionPolicy,
@@ -79,16 +80,28 @@ class BoundModel:
     them. ``params`` is the dict of compute-dtype tensors the call receives
     (buffers included), so a loss that needs a weight itself, as the fused
     cross-entropy needs the tied ``wte.weight``, reads the same copy the
-    forward uses, and autograd sums both uses into the fp32 master."""
+    forward uses, and autograd sums both uses into the fp32 master.
 
-    __slots__ = ("module", "params")
+    ``extra_state`` is the reference's mutable collection as the last call
+    left it: ``{"intermediates": {name: [values]}}``, what that forward
+    sowed (`utils.intermediates`; the MoE router's ``aux_loss`` terms),
+    emptied at the start of every call. The values are tensors of the
+    step's autograd graph, so a loss that adds
+    ``ops.moe.collect_aux_losses(model.extra_state)`` sends gradient to the
+    routers."""
+
+    __slots__ = ("module", "params", "extra_state")
 
     def __init__(self, module: nn.Module, params: dict[str, torch.Tensor]):
         self.module = module
         self.params = params
+        self.extra_state: dict[str, Any] = {"intermediates": {}}
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
-        return functional_call(self.module, self.params, args, kwargs)
+        with collecting_intermediates() as sown:
+            out = functional_call(self.module, self.params, args, kwargs)
+        self.extra_state = {"intermediates": sown}
+        return out
 
 
 class PreparedModel:
@@ -97,11 +110,22 @@ class PreparedModel:
     compute-dtype copies of its masters and floating outputs come back in
     fp32 (reference `accelerator.py:169-205`). Every other attribute is the
     module's own (``parameters()``, ``to()``, ``config``, ...), so code
-    written for the module keeps working; ``module`` is the module itself."""
+    written for the module keeps working; ``module`` is the module itself.
+
+    A hook attached with `hooks.add_hook_to_module` wraps the call: its
+    ``pre_forward`` sees the parameter dict the call would run on (the
+    compute-dtype copies, or the masters when no cast applies) and may hand
+    back another, and ``post_forward`` sees the output.
+
+    ``extra_state`` holds what the last call sowed, as `BoundModel`'s does,
+    so a loss function such as ``mixtral_loss_fn`` adds the same aux terms
+    on an eval forward as in the train step."""
 
     def __init__(self, module: nn.Module, policy: PrecisionPolicy):
         self.module = module
         self.policy = policy
+        self._hook = None
+        self.extra_state: dict[str, Any] = {"intermediates": {}}
 
     def compute_params(self) -> dict[str, torch.Tensor]:
         """The module's parameters in the compute dtype, and its buffers."""
@@ -109,11 +133,26 @@ class PreparedModel:
                 **dict(self.module.named_buffers())}
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        with collecting_intermediates() as sown:
+            out = self._forward(args, kwargs)
+        self.extra_state = {"intermediates": sown}
+        return out
+
+    def _forward(self, args: tuple, kwargs: dict) -> Any:
         # inside autocast(AutocastKwargs(enabled=False)) the masters run as they are
-        if self.policy.mode == "no" or not autocast_enabled():
-            return self.module(*args, **kwargs)
-        out = functional_call(self.module, self.compute_params(), args, kwargs)
-        return operations.convert_to_fp32(out)
+        cast = self.policy.mode != "no" and autocast_enabled()
+        if self._hook is None:
+            if not cast:
+                return self.module(*args, **kwargs)
+            return operations.convert_to_fp32(
+                functional_call(self.module, self.compute_params(), args, kwargs))
+        params = self.compute_params() if cast else {**dict(self.module.named_parameters()),
+                                                      **dict(self.module.named_buffers())}
+        params, args, kwargs = self._hook.pre_forward(self, params, args, kwargs)
+        out = functional_call(self.module, params, args, kwargs)
+        if cast:
+            out = operations.convert_to_fp32(out)
+        return self._hook.post_forward(self, out)
 
     def eval(self) -> "PreparedModel":
         self.module.eval()

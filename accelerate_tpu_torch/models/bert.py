@@ -31,6 +31,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention
 from ..utils.environment import resolve_device
+from ..utils.modeling import state_dict_subtree
 from ..utils.safetensors_io import unflatten_state_dict
 from .gpt2 import _dense, _layer_norm
 
@@ -121,6 +122,15 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
                 token_type_ids: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        x = self.embed(input_ids, token_type_ids)
+        for layer in self.layers:
+            x = layer(x, attention_mask)
+        return x, self.pool(x)
+
+    def embed(self, input_ids: torch.Tensor,
+              token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
+        """Word, position and token-type embeddings and their LayerNorm, in
+        the compute dtype."""
         dtype = self.config.dtype
         input_ids = input_ids.long()
         s = input_ids.shape[1]
@@ -128,10 +138,11 @@ class BertEncoder(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         x = (self.word_embeddings(input_ids) + self.position_embeddings.weight[None, :s]
              + self.token_type_embeddings(token_type_ids.long())).to(dtype)
-        x = _layer_norm(x, self.ln_embed).to(dtype)
-        for layer in self.layers:
-            x = layer(x, attention_mask)
-        return x, torch.tanh(_dense(x[:, 0], self.pooler, dtype))
+        return _layer_norm(x, self.ln_embed).to(dtype)
+
+    def pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The pooler over the first token."""
+        return torch.tanh(_dense(x[:, 0], self.pooler, self.config.dtype))
 
 
 class BertForSequenceClassification(nn.Module):
@@ -152,7 +163,8 @@ class BertForSequenceClassification(nn.Module):
         self.bert = BertEncoder(config, device)
         self.classifier = nn.Linear(config.hidden_size, config.num_labels, device=device,
                                     dtype=config.param_dtype)
-        self.init_weights(seed)
+        if device.type != "meta":
+            self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:
@@ -176,8 +188,16 @@ class BertForSequenceClassification(nn.Module):
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor | None = None,
                 token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
         _, pooled = self.bert(input_ids, attention_mask, token_type_ids)
+        return self.classify(pooled)
+
+    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The classifier over the pooled output: fp32 logits."""
         return F.linear(pooled.float(), self.classifier.weight.float(),
                         self.classifier.bias.float())
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """Pooler and classifier over the encoder's output."""
+        return self.classify(self.bert.pool(x))
 
     def reference_state_dict(self) -> dict[str, Any]:
         """The weights under the reference's names and layout (nested dicts
@@ -196,6 +216,43 @@ def classification_loss_fn(model, batch: dict) -> torch.Tensor:
 
 _LAYER_LINEARS = ("attention.qkv", "attention.out", "mlp_up", "mlp_down")
 _LAYER_NORMS = ("ln_attn", "ln_mlp")
+
+
+def bert_blockwise(config: BertConfig):
+    """`BertForSequenceClassification` as a `big_modeling.BlockwiseModel`:
+    ``embed -> layer_i... -> head`` (pooler and classifier), each running
+    the model's own code on a weightless ``meta`` model, without a padding
+    mask (the reference's blockwise path threads one activation). Pair with
+    `bert_blockwise_state_dict`."""
+    from ..big_modeling import BlockwiseModel, call_block
+
+    template = BertForSequenceClassification(config, device="meta")
+
+    def head_fn(p: dict, x: torch.Tensor) -> torch.Tensor:
+        p = {"bert": {"pooler": p["pooler"]}, "classifier": p["classifier"]}
+        return call_block(template, p, x, method="head")
+
+    fns = [("embed", lambda p, ids: call_block(template.bert, p, ids, method="embed"))]
+    fns += [(f"layer_{i}", lambda p, x: call_block(template.bert.layers[0], p, x))
+            for i in range(config.num_layers)]
+    fns += [("head", head_fn)]
+    return BlockwiseModel(block_fns=fns)
+
+
+def bert_blockwise_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """`BertForSequenceClassification`'s state dict regrouped by block:
+    ``embed`` (the three tables and ``ln_embed``), ``layer_i``, ``head``
+    (``pooler`` and ``classifier``)."""
+    out: dict[str, Any] = {"embed": {
+        name: state_dict_subtree(state_dict, f"bert.{name}.")
+        for name in ("word_embeddings", "position_embeddings", "token_type_embeddings",
+                     "ln_embed")}}
+    n_layers = len({k.split(".")[2] for k in state_dict if k.startswith("bert.layers.")})
+    for i in range(n_layers):
+        out[f"layer_{i}"] = state_dict_subtree(state_dict, f"bert.layers.{i}.")
+    out["head"] = {"pooler": state_dict_subtree(state_dict, "bert.pooler."),
+                   "classifier": state_dict_subtree(state_dict, "classifier.")}
+    return out
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

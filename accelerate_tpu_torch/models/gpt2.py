@@ -81,6 +81,7 @@ from ..ops.fp8 import Fp8Linear, convert_dense_to_fp8, is_meta_key, meta_from_ja
 from ..ops.fused_ce import fused_cross_entropy
 from ..ops.nf4_matmul import nf4_matmul
 from ..utils.environment import resolve_device
+from ..utils.modeling import state_dict_subtree
 from ..utils.quantization import QuantizedEmbedding, QuantizedLinear, dequantize, dequantize_rows
 from ..utils.remat import remat_block
 from ..utils.safetensors_io import unflatten_state_dict
@@ -151,7 +152,7 @@ def _linear(config: Any, in_features: int, out_features: int, device: torch.devi
 def _refuse_fp8_decode(config: Any) -> None:
     """The reference's `Fp8Dense` refuses a call that does not thread its
     scaling state, which no decode path does."""
-    if config.fp8_recipe is not None:
+    if getattr(config, "fp8_recipe", None) is not None:
         raise ValueError(
             "an fp8 model (fp8_recipe set) cannot decode: its delayed-scaling state "
             "is training state; use the dense or weight-quantized model there")
@@ -308,7 +309,8 @@ class GPT2LMHead(nn.Module):
         self.blocks = nn.ModuleList(Block(config, device) for _ in range(config.n_layer))
         self.ln_f = nn.LayerNorm(config.n_embd, eps=config.layer_norm_epsilon,
                                  device=device, dtype=pd)
-        self.init_weights(seed)
+        if device.type != "meta":
+            self.init_weights(seed)
 
     @property
     def device(self) -> torch.device:
@@ -372,16 +374,7 @@ class GPT2LMHead(nn.Module):
                           write_len=write_len)
         elif kv_out is not None:
             decode = dict(kv_out=kv_out)
-        steps = torch.arange(s, device=input_ids.device)
-        if isinstance(position_offset, torch.Tensor) and position_offset.ndim == 1:
-            positions = position_offset.long()[:, None] + steps  # [b, s]: per-row positions
-        else:
-            # [1, s], shared by the batch; a 0-d device tensor (a slot cache's
-            # index) is read on the device, so a CUDA graph can capture the step
-            positions = (steps + position_offset)[None]
-        # out-of-range positions clamp, as the reference's gather does
-        positions = positions.clamp(max=cfg.n_positions - 1)
-        x = _embed(self.wte, input_ids).to(cfg.dtype) + _embed(self.wpe, positions).to(cfg.dtype)
+        x = self.embed(input_ids, position_offset)
         if deterministic or cfg.dropout == 0.0:
             generator = None
         elif generator is None:
@@ -398,7 +391,28 @@ class GPT2LMHead(nn.Module):
             if write_len is not None:
                 step = step * write_len.to(cache.index.dtype).clamp(0, s)
             cache.index += step
-        x = _layer_norm(x, self.ln_f).to(cfg.dtype)
+        return self.head(x, return_hidden)
+
+    def embed(self, input_ids: torch.Tensor,
+              position_offset: int | torch.Tensor = 0) -> torch.Tensor:
+        """Token and position embeddings in the compute dtype, at positions
+        ``position_offset + arange(s)`` (an offset per row when it is
+        ``[b]``), clamped to the table as the reference's gather clamps."""
+        cfg = self.config
+        steps = torch.arange(input_ids.shape[1], device=input_ids.device)
+        if isinstance(position_offset, torch.Tensor) and position_offset.ndim == 1:
+            positions = position_offset.long()[:, None] + steps  # [b, s]: per-row positions
+        else:
+            # [1, s], shared by the batch; a 0-d device tensor (a slot cache's
+            # index) is read on the device, so a CUDA graph can capture the step
+            positions = (steps + position_offset)[None]
+        positions = positions.clamp(max=cfg.n_positions - 1)
+        return _embed(self.wte, input_ids).to(cfg.dtype) + _embed(self.wpe, positions).to(cfg.dtype)
+
+    def head(self, x: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+        """The final LayerNorm and the tied LM head: fp32 logits, or with
+        ``return_hidden`` the normed states in the compute dtype."""
+        x = _layer_norm(x, self.ln_f).to(self.config.dtype)
         return x if return_hidden else self.logits(x)
 
     def reference_state_dict(self) -> dict[str, Any]:
@@ -496,6 +510,38 @@ def lm_loss_fn_pallas(model, batch: dict, block_r: int | None = None,
     b, s, e = hidden.shape
     wte = model.params["wte.weight"].to(hidden.dtype)
     return fused_cross_entropy(hidden.reshape(b * s, e), wte, labels.reshape(b * s))
+
+
+def gpt2_blockwise(config: GPT2Config):
+    """GPT-2 as a `big_modeling.BlockwiseModel` for offload streaming:
+    ``embed -> block_i... -> head``, each running `GPT2LMHead`'s own code
+    (``embed``, a `Block`, ``head``) on a weightless ``meta`` model. Pair
+    with `gpt2_blockwise_state_dict`."""
+    from ..big_modeling import BlockwiseModel, call_block
+
+    template = GPT2LMHead(config, device="meta")
+
+    def make_block_fn(i: int):
+        return lambda p, x: call_block(template.blocks[0], p, x, i)
+
+    fns = [("embed", lambda p, ids: call_block(template, p, ids, method="embed"))]
+    fns += [(f"block_{i}", make_block_fn(i)) for i in range(config.n_layer)]
+    fns += [("head", lambda p, x: call_block(template, p, x, method="head"))]
+    return BlockwiseModel(block_fns=fns)
+
+
+def gpt2_blockwise_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """`GPT2LMHead`'s state dict regrouped by block: ``embed`` (``wte``,
+    ``wpe``), ``block_i``, ``head`` (``ln_f`` and the tied ``wte``, the same
+    tensor as embed's, so the solver places the two as one unit)."""
+    out: dict[str, Any] = {"embed": {"wte": {"weight": state_dict["wte.weight"]},
+                                     "wpe": {"weight": state_dict["wpe.weight"]}}}
+    n_layer = len({k.split(".")[1] for k in state_dict if k.startswith("blocks.")})
+    for i in range(n_layer):
+        out[f"block_{i}"] = state_dict_subtree(state_dict, f"blocks.{i}.")
+    out["head"] = {"ln_f": state_dict_subtree(state_dict, "ln_f."),
+                   "wte": {"weight": state_dict["wte.weight"]}}
+    return out
 
 
 def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:

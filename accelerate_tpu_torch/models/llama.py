@@ -58,6 +58,7 @@ from ..ops.attention import attention
 from ..ops.fp8 import meta_from_jax
 from ..ops.fused_ce import fused_cross_entropy
 from ..utils.environment import resolve_device
+from ..utils.modeling import state_dict_subtree
 from ..utils.quantization import QuantizedEmbedding, dequantize
 from ..utils.remat import remat_block
 from ..utils.safetensors_io import unflatten_state_dict
@@ -277,9 +278,8 @@ class LlamaForCausalLM(nn.Module):
         if cache is not None:
             _refuse_fp8_decode(cfg)
         s = input_ids.shape[1]
-        positions = torch.arange(s, device=input_ids.device) + position_offset
-        cos, sin = rope_frequencies(cfg.head_dim, positions, cfg.rope_theta)
-        x = _embed(self.embed_tokens, input_ids).to(cfg.dtype)
+        cos, sin = self.rope(s, input_ids.device, position_offset)
+        x = self.embed(input_ids)
         step = {} if cache is None else dict(cache=cache, write_mask=write_mask,
                                              write_len=write_len)
         for i, layer in enumerate(self.layers):
@@ -289,6 +289,21 @@ class LlamaForCausalLM(nn.Module):
                 x = layer(x, cos, sin, i, **step)
         if cache is not None:
             advance_index(cache, s, write_mask, write_len)
+        return self.head(x, return_hidden)
+
+    def rope(self, s: int, device: torch.device,
+             position_offset: int | torch.Tensor = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """The RoPE tables at positions ``position_offset + arange(s)``."""
+        positions = torch.arange(s, device=device) + position_offset
+        return rope_frequencies(self.config.head_dim, positions, self.config.rope_theta)
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in the compute dtype."""
+        return _embed(self.embed_tokens, input_ids).to(self.config.dtype)
+
+    def head(self, x: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+        """The final RMSNorm and the LM head: fp32 logits, or with
+        ``return_hidden`` the normed states."""
         x = self.final_norm(x)
         return x if return_hidden else self.logits(x)
 
@@ -327,6 +342,49 @@ def llama_loss_fn_fused(model, batch: dict, block_r: int | None = None,
     b, s, e = hidden.shape
     head = model.params["lm_head"].to(hidden.dtype)
     return fused_cross_entropy(hidden.reshape(b * s, e), head, labels.reshape(b * s))
+
+
+def decoder_blockwise(template: LlamaForCausalLM):
+    """A RMSNorm decoder (Llama, Mixtral) as a `big_modeling.BlockwiseModel`:
+    ``embed -> layer_i... -> head``, each running the model's own code
+    (``embed``, a layer over ``rope``'s tables, ``head``) on ``template``, a
+    weightless ``meta`` instance."""
+    from ..big_modeling import BlockwiseModel, call_block
+
+    def make_block_fn(i: int):
+        def block_fn(p: dict, x: torch.Tensor) -> torch.Tensor:
+            cos, sin = template.rope(x.shape[1], x.device)
+            return call_block(template.layers[0], p, x, cos, sin, i)
+
+        return block_fn
+
+    fns = [("embed", lambda p, ids: call_block(template, p, ids, method="embed"))]
+    fns += [(f"layer_{i}", make_block_fn(i)) for i in range(template.config.num_layers)]
+    fns += [("head", lambda p, x: call_block(template, p, x, method="head"))]
+    return BlockwiseModel(block_fns=fns)
+
+
+def decoder_blockwise_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """A Llama or Mixtral state dict regrouped by block: ``embed``
+    (``embed_tokens``), ``layer_i``, ``head`` (``final_norm``, ``lm_head``)."""
+    out: dict[str, Any] = {"embed": {"embed_tokens": state_dict["embed_tokens"]}}
+    n_layers = len({k.split(".")[1] for k in state_dict if k.startswith("layers.")})
+    for i in range(n_layers):
+        out[f"layer_{i}"] = state_dict_subtree(state_dict, f"layers.{i}.")
+    out["head"] = {"final_norm": state_dict_subtree(state_dict, "final_norm."),
+                   "lm_head": state_dict["lm_head"]}
+    return out
+
+
+def llama_blockwise(config: LlamaConfig):
+    """Llama as a `big_modeling.BlockwiseModel` (`decoder_blockwise`); pair
+    with `llama_blockwise_state_dict`."""
+    return decoder_blockwise(LlamaForCausalLM(config, device="meta"))
+
+
+def llama_blockwise_state_dict(state_dict: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """`LlamaForCausalLM`'s state dict regrouped by block."""
+    return decoder_blockwise_state_dict(state_dict)
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:

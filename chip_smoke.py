@@ -330,9 +330,37 @@ Phases run in order; any failure exits non-zero:
    host against device ms, device ms by kind); (d) the fp16 instances against
    their plain versions at phase 6's and phase 9's main shapes, with SDPA
    and the unfused head as the library yardsticks (`precision_phase_s`);
-30. the script's seconds (`chip_smoke_s`, the build included), the
+30. big models on one card: first the flash kernels #2-#4 (bf16, b 1,
+   32 heads, s 4096, d 128, causal) and the fused-CE kernels #8-#10 (bf16,
+   N 4096, e 4096, V 32000) against their plain versions at the Mixtral
+   train step's shapes; (a) fp32 (TF32 off) Llama-2-7B width and
+   Mixtral-8x7B width at 2 layers through their blockwise decompositions,
+   embed on the device, layer_0 in pinned host memory, layer_1 on disk,
+   the head on the device, give the resident model's logits on a 1 x 512
+   prompt in two calls (`fp32_blockwise_parity_*`, max |err| <=
+   BIG_MODEL_ATOL, expected 0); (b) bf16 Mixtral-8x7B at full width and 4
+   layers, a seeded 12.1 GB checkpoint in a temporary directory, loaded by
+   ``load_checkpoint_and_dispatch(device_map="auto", max_memory={"device":
+   4 GiB, "cpu": 6 GiB})``: the map uses all three tiers, the logits equal
+   the resident model's bit for bit, the peak memory stays within its
+   bound; bytes, seconds and GB/s per tier beside PCIe 5.0 x16, the copy
+   time hidden under compute, peak memory (`bf16_big_mixtral_streaming`);
+   `cpu_offload_with_hook` over two such models
+   (`bf16_big_mixtral_offload_with_hook`); the 32-layer model's bytes and
+   predicted seconds per forward (`big_mixtral_full_model_prediction`:
+   exposed copy time plus compute);
+   (c) one fp32 step of Mixtral-8x7B width at 1 layer, flash against plain
+   attention and the fused loss against the plain one, aux included
+   (`fp32_mixtral_train_parity`), then 12 bf16 steps at 2 layers,
+   batch 1 x 4096, `mixtral_loss_fn_fused`: the loss falls, 2 launches of
+   each flash kernel and 1 of each fused-CE kernel a step, step ms,
+   tokens/s, MFU on active and on executed FLOPs, peak memory
+   (`bf16_train_mixtral`), and its device ms by kind
+   (`bf16_train_mixtral_profile`: expert GEMMs, dispatch/combine einsums,
+   flash, fused CE, the rest); `big_models_phase_s`;
+31. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop and phase 29's variants to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
+   loop, phase 29's variants and phase 30's runs to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
    engines to phases 5 and 24; the band kernels' add phase 28 (e)'s
    sliding-window example to phase 14), the card line, and the final
    ``{"ok": true, ...}`` line.
@@ -4913,6 +4941,641 @@ def precision_phase(torch, np, seed: int, card: str) -> dict:
     return {"launches": launches, "flash_case": flash, "fused_case": fused}
 
 
+# phase 30: big models on one card (placement and streaming, Mixtral-8x7B).
+# The card's host link: PCIe 5.0 x16, 32 GT/s a lane, 128b/130b, one way
+PCIE5_X16_BYTES_PER_S = 32e9 * 16 * 128 / 130 / 8
+GIB, MIB = 1 << 30, 1 << 20
+# fp32 (TF32 off) streamed against resident logits: the same kernels in the
+# same order on the same weights, so 0 is expected; this is the bar
+BIG_MODEL_ATOL = 1e-5
+BIG_MIXTRAL_LAYERS = 4
+BIG_MIXTRAL_BUDGET = {"device": 4 * GIB, "cpu": 6 * GIB}
+BIG_MIXTRAL_FORWARDS = 3
+RESIDENT_TIMED_FORWARDS = 7
+MIXTRAL_TRAIN_SEQ = 4096
+# device kernels of the Mixtral train step: flash and fused CE by kernel
+# name; the bf16 products by their aten op's shapes (`moe_gemm_kind`)
+MOE_KINDS = ("expert GEMMs", "dispatch/combine einsums", "flash kernels", "fused-CE kernels",
+             "other GEMMs", "rest")
+# cuBLAS's product kernels by name, which the rest's split leaves to the ops
+MOE_GEMM_KERNELS = r"nvjet|gemm|cutlass|xmma"
+
+
+def mixtral_config(torch, **kw):
+    """Mixtral-8x7B's published width (mistralai/Mixtral-8x7B-v0.1
+    config.json; arXiv 2401.04088, Table 1): hidden 4096, 32 heads over 8 kv
+    heads, 8 experts of intermediate 14336, top-2, vocab 32000, rope base
+    1e6; the reference's 4096 positions and capacity factor 2.0."""
+    from accelerate_tpu_torch.models.mixtral import MixtralConfig
+
+    return MixtralConfig.mixtral_8x7b(**kw)
+
+
+def mixtral_param_counts(cfg) -> dict:
+    """Parameters of a Mixtral config: per layer (attention, experts,
+    router, norms), the embedding and head, the whole."""
+    e, f, E, kvd = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, \
+        cfg.num_kv_heads * cfg.head_dim
+    attn = 2 * e * e + 2 * e * kvd
+    experts = 3 * E * e * f
+    layer = attn + experts + E * e + 2 * e
+    table = cfg.vocab_size * e
+    return {"attention": attn, "experts": experts, "router": E * e, "layer": layer,
+            "embed_and_head": 2 * table + e, "total": cfg.num_layers * layer + 2 * table + e}
+
+
+def mixtral_train_flops_per_token(cfg, seq: int) -> dict:
+    """Training FLOPs per token (forward and backward, 6 per matmul
+    parameter): ``active`` counts the top-k experts a token uses,
+    ``executed`` what the static-capacity einsums compute: every expert's
+    ``capacity`` slots, and the dispatch and combine products, 2 T E C e
+    each, forward, then backward the dispatch's once (the activations'
+    gradient; the one-hot takes none) and the combine's twice (the gates'
+    and the expert outputs'). Attention adds 12 e w per layer, w the mean
+    keys a causal query sees."""
+    from accelerate_tpu_torch.ops.moe import expert_capacity
+
+    e, f, E, k, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts, cfg.top_k, \
+        cfg.num_layers
+    counts = mixtral_param_counts(cfg)
+    capacity = expert_capacity(cfg.capacity_factor, seq, k, E)
+    attention = 12 * L * e * (seq + 1) / 2
+    dense = 6 * (L * (counts["attention"] + counts["router"]) + cfg.vocab_size * e)
+    active = dense + 6 * L * k * 3 * e * f + attention
+    executed = (dense + 6 * L * (E * capacity / seq) * 3 * e * f + attention
+                + L * 5 * 2 * E * capacity * e)
+    return {"active": active, "executed": executed, "capacity": capacity}
+
+
+def interval_union(intervals) -> list[tuple[float, float]]:
+    """Sorted disjoint union of (start, end) intervals."""
+    out: list[list[float]] = []
+    for start, end in sorted(intervals):
+        if out and start <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], end)
+        else:
+            out.append([start, end])
+    return [(a, b) for a, b in out]
+
+
+def overlap_us(a, b) -> float:
+    """Length of the intersection of two disjoint unions."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def copy_compute_overlap(copies, kernels) -> dict:
+    """Device time of the host-to-device copies, of the kernels, and the
+    share of copy time that runs under a kernel (intervals in us)."""
+    cu, ku = interval_union(copies), interval_union(kernels)
+    copy_us = sum(b - a for a, b in cu)
+    both = overlap_us(cu, ku)
+    return {"copy_ms": copy_us / 1e3, "compute_ms": sum(b - a for a, b in ku) / 1e3,
+            "overlap_ms": both / 1e3, "hidden_share": both / copy_us if copy_us else None}
+
+
+def stream_overlap(torch, fn) -> dict:
+    """A profiler window around ``fn``: its host-to-device copies (the copy
+    stream) against its kernels (the compute stream), by device intervals."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies, kernels = [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        span = (ev.time_range.start, ev.time_range.end)
+        if "HtoD" in ev.name:
+            copies.append(span)
+        elif not ev.name.startswith(("Memcpy", "Memset")):
+            kernels.append(span)
+    if not copies or not kernels:
+        return {"copy_ms": None, "compute_ms": None, "overlap_ms": None, "hidden_share": None,
+                "note": "the profiler showed no device copies or kernels: not measured"}
+    return copy_compute_overlap(copies, kernels)
+
+
+def moe_gemm_kind(shapes, experts: int, slots: int) -> str:
+    """Which kind of bf16 product an aten mm/bmm call is, by its operands'
+    shapes: one with a dimension of ``slots`` (experts x capacity, the
+    flattened dispatch and combine axes) is a dispatch or combine einsum;
+    a batched one over the experts is an expert GEMM; the rest (attention
+    projections, the router) other GEMMs."""
+    dims = [d for s in shapes if s for d in s]
+    if slots in dims:
+        return "dispatch/combine einsums"
+    if any(s and len(s) == 3 and s[0] == experts for s in shapes):
+        return "expert GEMMs"
+    return "other GEMMs"
+
+
+def profile_mixtral_step(torch, run_step, cfg, seq: int, steps: int = 2) -> dict:
+    """Device ms per step of the Mixtral train step by kind (`MOE_KINDS`),
+    from a profiler window with operand shapes: the flash and fused-CE
+    kernels by name, the aten mm/bmm calls by `moe_gemm_kind`, the rest as
+    the difference, itself split by `TRAIN_KERNEL_CATEGORIES` over the
+    kernels that are not products; host ms per step and the idle share
+    beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.ops.moe import expert_capacity
+
+    slots = cfg.num_experts * expert_capacity(cfg.capacity_factor, seq, cfg.top_k,
+                                              cfg.num_experts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = dict.fromkeys(MOE_KINDS, 0.0)
+    rest: dict[str, float] = {}
+    total = 0.0
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.is_user_annotation:
+            continue
+        us = ev.time_range.elapsed_us()
+        total += us
+        if re.search(r"flash_(fwd|dq|dkv)_kernel", ev.name):
+            kinds["flash kernels"] += us
+        elif fused_ce_part(ev.name):
+            kinds["fused-CE kernels"] += us
+        elif not re.search(MOE_GEMM_KERNELS, ev.name, re.IGNORECASE):
+            # the products are counted by their aten op below
+            cat = next((c for c, pattern in TRAIN_KERNEL_CATEGORIES
+                        if re.search(pattern, ev.name, re.IGNORECASE)), "other")
+            rest[cat] = rest.get(cat, 0.0) + us
+    for avg in prof.key_averages(group_by_input_shape=True):
+        if avg.key in ("aten::mm", "aten::bmm", "aten::addmm"):
+            dev = getattr(avg, "self_device_time_total", None)
+            if dev is None:
+                dev = avg.self_cuda_time_total
+            kinds[moe_gemm_kind(avg.input_shapes, cfg.num_experts, slots)] += dev
+    kinds["rest"] = total - sum(v for k, v in kinds.items() if k != "rest")
+    return {"steps": steps, "host_ms_per_step": wall_us / steps / 1e3,
+            "device_ms_per_step": total / steps / 1e3,
+            "device_idle_share": max(0.0, 1.0 - total / wall_us),
+            "device_ms_per_step_by_kind": {k: v / steps / 1e3 for k, v in kinds.items()},
+            "rest_ms_per_step_by_kind": {k: v / steps / 1e3 for k, v in
+                                         sorted(rest.items(), key=lambda kv: -kv[1])}}
+
+
+def blockwise_parity(torch, np, seed: int, card: str) -> dict:
+    """Phase 30 (a): fp32 (TF32 off) Llama-2-7B width (phase 18's) and
+    Mixtral-8x7B width, each at 2 layers with ``attention_impl="flash"``,
+    through their blockwise decompositions dispatched as embed -> device,
+    layer_0 -> cpu, layer_1 -> disk, head -> device: two calls on one 1 x 512
+    prompt give the resident model's logits (max |err| <= BIG_MODEL_ATOL,
+    expected 0). Returns the flash forward launches."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.big_modeling import dispatch_model
+    from accelerate_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, llama_blockwise,
+                                                   llama_blockwise_state_dict)
+    from accelerate_tpu_torch.models.mixtral import (MixtralForCausalLM, mixtral_blockwise,
+                                                     mixtral_blockwise_state_dict)
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 32000, (1, 512))).to("cuda")
+    dmap = {"embed": "device", "layer_0": "cpu", "layer_1": "disk", "head": "device"}
+    launches = 0
+    for name, cfg, cls, bw_fn, sd_fn in (
+            ("llama2_7b_width", LlamaConfig.llama2_7b(
+                num_layers=2, dtype=torch.float32, param_dtype=torch.float32,
+                max_position_embeddings=LLAMA_7B_POSITIONS, attention_impl="flash"),
+             LlamaForCausalLM, llama_blockwise, llama_blockwise_state_dict),
+            ("mixtral_8x7b_width", mixtral_config(
+                torch, num_layers=2, dtype=torch.float32, param_dtype=torch.float32,
+                attention_impl="flash"),
+             MixtralForCausalLM, mixtral_blockwise, mixtral_blockwise_state_dict)):
+        model = cls(cfg, seed=seed)
+        reset_counts(fa)
+        with torch.no_grad():
+            want = model(ids)
+        torch.cuda.synchronize()
+        resident_launches = fa.flash_attention_fwd.launches
+        sd = sd_fn({k: v.to("cpu") for k, v in model.state_dict().items()})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        off = tempfile.mkdtemp(prefix="offload_")
+        try:
+            bw = dispatch_model(bw_fn(cfg), dmap, sd, offload_dir=off)
+            del sd
+            reset_counts(fa)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                got = [bw(ids) for _ in range(2)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counted = fa.flash_attention_fwd.launches
+        finally:
+            shutil.rmtree(off, ignore_errors=True)
+        errs = [float((g - want).abs().max()) for g in got]
+        rec = {"phase": f"fp32_blockwise_parity_{name}", "layers": cfg.num_layers,
+               "device_map": dmap, "prompt": list(ids.shape), "max_abs_err": max(errs),
+               "max_abs_err_by_call": errs, "atol": BIG_MODEL_ATOL,
+               "streamed_bytes": dict(bw.streamed_bytes), "s_per_forward": wall / 2,
+               "flash_fwd_launches": counted, "flash_fwd_launches_resident": resident_launches,
+               "card": card}
+        print(json.dumps(rec), flush=True)
+        if not all(math.isfinite(e) and e <= BIG_MODEL_ATOL for e in errs):
+            raise AssertionError(f"{name}: streamed logits differ from the resident model's: {rec}")
+        if counted != 2 * cfg.num_layers or resident_launches != cfg.num_layers:
+            raise AssertionError(f"{name}: flash forward launches {counted} (resident "
+                                 f"{resident_launches}), expected {2 * cfg.num_layers}")
+        launches += counted + resident_launches
+        del bw, got, want
+        torch.cuda.empty_cache()
+    return {"flash_attention_fwd": launches}
+
+
+def copy_rates(log, forwards: int) -> dict:
+    """Per tier from a `BlockwiseModel.copy_log`: bytes per forward, the copy
+    stream's ms per forward (disk: file reads into the staging buffer
+    included, as the copies wait for them), GB/s, and the disk tier's host
+    read seconds per forward."""
+    out = {}
+    for tier in ("cpu", "disk"):
+        rows = [r for r in log if r["tier"] == tier]
+        nbytes = sum(r["bytes"] for r in rows)
+        ms = sum(r["start"].elapsed_time(r["end"]) for r in rows)
+        out[tier] = {"bytes_per_forward": nbytes / forwards, "copy_ms_per_forward": ms / forwards,
+                     "gb_per_s": nbytes / (ms / 1e3) / 1e9 if ms else None,
+                     "host_read_s_per_forward": sum(r["read_s"] for r in rows) / forwards}
+    return out
+
+
+def big_mixtral_streaming(torch, np, seed: int, card: str) -> dict:
+    """Phase 30 (b): bf16 Mixtral-8x7B at full width, BIG_MIXTRAL_LAYERS
+    layers. The seeded model's blockwise state dict is exported as a
+    safetensors checkpoint (a temporary directory, removed after) and loaded
+    with ``load_checkpoint_and_dispatch(device_map="auto",
+    max_memory=BIG_MIXTRAL_BUDGET)``: the solved map uses device, cpu and
+    disk; the logits of a 1 x 512 prompt equal the resident model's bit for
+    bit in each of BIG_MIXTRAL_FORWARDS timed forwards; the peak allocated
+    memory stays within what was allocated before, the two consecutive
+    blocks that stream the most and the resident forward's activations
+    (plus 1 MiB a streamed tensor of allocator rounding). One line with the
+    bytes streamed per tier, seconds per forward, GB/s per tier beside PCIe
+    5.0 x16, the copy time hidden under compute (a profiler window over one
+    forward) and peak memory; then `cpu_offload_with_hook` over two such
+    models; then the full 32-layer model's bytes and the seconds per
+    forward these rates predict for it (`full_model_prediction`, not
+    run)."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.big_modeling import (load_checkpoint_and_dispatch, tree_bytes)
+    from accelerate_tpu_torch.checkpointing import save_model_weights
+    from accelerate_tpu_torch.models.mixtral import (MixtralForCausalLM, mixtral_blockwise,
+                                                     mixtral_blockwise_state_dict)
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    cfg = mixtral_config(torch, num_layers=BIG_MIXTRAL_LAYERS, dtype=torch.bfloat16,
+                         param_dtype=torch.bfloat16, attention_impl="flash")
+    ids = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 32000, (1, 512))).to("cuda")
+    model = MixtralForCausalLM(cfg, seed=seed)
+    model_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    with torch.no_grad():
+        model(ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        want = model(ids)
+        torch.cuda.synchronize()
+        activations = torch.cuda.max_memory_allocated() - before
+        # a resident forward takes some 20 ms, host-paced, so one timing
+        # swings by 2x: the median of RESIDENT_TIMED_FORWARDS
+        resident_times = []
+        for _ in range(RESIDENT_TIMED_FORWARDS):
+            t0 = time.perf_counter()
+            model(ids)
+            torch.cuda.synchronize()
+            resident_times.append(time.perf_counter() - t0)
+        resident_s = statistics.median(resident_times)
+    ckpt = tempfile.mkdtemp(prefix="mixtral_ckpt_")
+    off = tempfile.mkdtemp(prefix="mixtral_offload_")
+    try:
+        t0 = time.perf_counter()
+        save_model_weights(mixtral_blockwise_state_dict(model.state_dict()), ckpt)
+        write_s = time.perf_counter() - t0
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bw = load_checkpoint_and_dispatch(mixtral_blockwise(cfg), ckpt, device_map="auto",
+                                          max_memory=BIG_MIXTRAL_BUDGET, offload_folder=off)
+        load_s = time.perf_counter() - t0
+        tiers = sorted(set(bw.device_map.values()))
+        resident_bytes = sum(tree_bytes(bw.params[k]) for k, t in bw.device_map.items()
+                             if t.startswith("device"))
+        with torch.no_grad():
+            first = bw(ids)  # makes the staging buffer and the copy stream
+        bw.copy_log, bw.streamed_bytes = [], {"cpu": 0, "disk": 0}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs = [bw(ids) for _ in range(BIG_MIXTRAL_FORWARDS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = fa.flash_attention_fwd.launches
+        rates = copy_rates(bw.copy_log, BIG_MIXTRAL_FORWARDS)
+        bw.copy_log = None
+        pair_bytes, pair_tensors = bw.streamed_pair()
+        bound = pair_bytes + activations + pair_tensors * MIB
+        with torch.no_grad():
+            overlap = stream_overlap(torch, lambda: bw(ids))
+        equal = [bool(torch.equal(o, want)) for o in [first, *outs]]
+        rec = {"phase": "bf16_big_mixtral_streaming", "model": "mixtral-8x7b-width",
+               "layers": cfg.num_layers, "model_bytes": model_bytes, "max_memory":
+               BIG_MIXTRAL_BUDGET, "device_map": bw.device_map, "tiers": tiers,
+               "resident_bytes": resident_bytes, "checkpoint_write_s": write_s,
+               "load_and_dispatch_s": load_s, "prompt": list(ids.shape),
+               "forwards": BIG_MIXTRAL_FORWARDS, "s_per_forward": wall / BIG_MIXTRAL_FORWARDS,
+               "s_per_forward_resident": resident_s,
+               "s_per_forward_resident_runs": resident_times, "streamed": rates,
+               "pcie5_x16_gb_per_s": PCIE5_X16_BYTES_PER_S / 1e9,
+               "overlap": overlap, "peak_mem_bytes": peak, "peak_bound_bytes": bound,
+               "streamed_pair_bytes": pair_bytes, "activation_bytes": activations,
+               "logits_equal_resident": equal, "flash_fwd_launches": launches, "card": card}
+        print(json.dumps(rec), flush=True)
+        if tiers != ["cpu", "device", "disk"]:
+            raise AssertionError(f"the solved map does not use device, cpu and disk: {bw.device_map}")
+        if not all(equal):
+            raise AssertionError(f"streamed bf16 logits differ from the resident model's: {equal}")
+        if not peak <= bound:
+            raise AssertionError(f"streamed forward's peak {peak} B above its bound {bound} B")
+        if launches != cfg.num_layers * BIG_MIXTRAL_FORWARDS:
+            raise AssertionError(f"flash forward launches {launches}, expected "
+                                 f"{cfg.num_layers * BIG_MIXTRAL_FORWARDS}")
+        del bw, outs, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        hook = offload_with_hook_pair(torch, cfg, ckpt, ids, want, model_bytes, activations, card)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(off, ignore_errors=True)
+    predicted = {"phase": "big_mixtral_full_model_prediction",
+                 **full_model_prediction(torch, rates, overlap, resident_s / cfg.num_layers,
+                                         activations), "card": card}
+    print(json.dumps(predicted), flush=True)
+    return {"flash_attention_fwd": launches + hook["launches"],
+            "line": rec, "hook": hook, "prediction": predicted}
+
+
+def full_model_prediction(torch, rates: dict, overlap: dict, layer_compute_s: float,
+                          activations: int, free_bytes: int | None = None) -> dict:
+    """Seconds per forward that this run's rates predict for the full
+    32-layer bf16 Mixtral-8x7B over the cpu tier: the device holds 0.9 of
+    its free memory less the activations and the two streamed layers in
+    flight (current and prefetched); the rest streams at the cpu tier's
+    measured GB/s, of which only the measured share hides under compute;
+    compute is the resident forward's seconds a layer (the median of
+    RESIDENT_TIMED_FORWARDS) times 32."""
+    full = mixtral_config(torch, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    counts = mixtral_param_counts(full)
+    full_bytes, layer_bytes = 2 * counts["total"], 2 * counts["layer"]
+    if free_bytes is None:
+        free_bytes = torch.cuda.mem_get_info()[0]
+    budget = 0.9 * free_bytes - activations - 2 * layer_bytes
+    streamed = max(0.0, full_bytes - budget)
+    copy_s = streamed / (rates["cpu"]["gb_per_s"] * 1e9)
+    hidden = overlap["hidden_share"] or 0.0
+    compute_s = layer_compute_s * full.num_layers
+    return {"layers": full.num_layers, "model_bytes": full_bytes, "layer_bytes": layer_bytes,
+            "device_budget_bytes": budget, "streamed_bytes_per_forward": streamed,
+            "copy_s": copy_s, "hidden_share": hidden, "compute_s": compute_s,
+            "predicted_s_per_forward": copy_s * (1.0 - hidden) + compute_s,
+            "basis": "0.9 of the card's free memory less activations and two streamed layers "
+                     "holds layers; the rest at the cpu tier's measured GB/s; exposed copy "
+                     "time (1 - measured hidden share) plus the resident forward's s a layer "
+                     "x 32"}
+
+
+def offload_with_hook_pair(torch, cfg, ckpt: str, ids, want, model_bytes: int,
+                           activations: int, card: str) -> dict:
+    """`cpu_offload_with_hook` over two Mixtral models of one pinned state
+    dict, the second given the first's hook: each call keeps its model on
+    the card; entering the second frees the first's copies (the second's
+    peak stays within what the first held, the activations and 1 MiB of
+    allocator rounding a tensor), and its ``offload()``
+    brings the allocated memory back within 1 MiB. Both give the resident
+    logits bit for bit."""
+    from accelerate_tpu_torch.big_modeling import _leaves, _tree_map, cpu_offload_with_hook
+    from accelerate_tpu_torch.checkpointing import load_model_weights
+    from accelerate_tpu_torch.models.mixtral import mixtral_blockwise
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    sd = _tree_map(lambda t: t.pin_memory(), load_model_weights(ckpt))
+    pin_s = time.perf_counter() - t0
+    n_tensors = len(_leaves(sd))
+    m1, hook1 = cpu_offload_with_hook(mixtral_blockwise(cfg), sd)
+    m2, hook2 = cpu_offload_with_hook(mixtral_blockwise(cfg), sd, prev_module_hook=hook1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_counts(fa)
+    with torch.no_grad():
+        a = m1(ids)
+        torch.cuda.synchronize()
+        held_first = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        b = m2(ids)
+        torch.cuda.synchronize()
+        peak_second = torch.cuda.max_memory_allocated() - base
+    first_evicted = not m1._cache
+    equal = [bool(torch.equal(a, want)), bool(torch.equal(b, want))]
+    hook2.offload()
+    del a, b
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    back = torch.cuda.memory_allocated() - base
+    launches = fa.flash_attention_fwd.launches
+    rec = {"phase": "bf16_big_mixtral_offload_with_hook", "pin_s": pin_s,
+           "held_after_first_bytes": held_first, "peak_during_second_bytes": peak_second,
+           "model_bytes": model_bytes, "first_evicted": first_evicted,
+           "allocated_after_offload_delta_bytes": back, "logits_equal_resident": equal,
+           "card": card}
+    print(json.dumps(rec), flush=True)
+    if not (held_first >= model_bytes and first_evicted and all(equal)):
+        raise AssertionError(f"cpu_offload_with_hook: {rec}")
+    # had the first model's copies stayed, the peak would hold both models
+    if not peak_second <= held_first + activations + n_tensors * MIB:
+        raise AssertionError(f"entering the second model did not free the first's copies: {rec}")
+    if abs(back) > MIB:
+        raise AssertionError(f"offload() left {back} B allocated: {rec}")
+    del m1, m2, hook1, hook2, sd
+    gc.collect()
+    return {"launches": launches, **rec}
+
+
+def mixtral_train_parity(torch, np, seed: int, card: str) -> dict:
+    """Phase 30 (c), first: one fp32 step (TF32 off) of Mixtral-8x7B width
+    at 1 layer, batch 1 x 1024, router aux loss included, from the same
+    weights and batch three ways: `mixtral_loss_fn` with
+    ``attention_impl="xla"``, the same with ``"flash"``, and
+    `mixtral_loss_fn_fused` with ``"flash"``. Flash against plain attention
+    (phase 7's bars) and the fused loss against the plain one (phase 10's):
+    loss and global gradient norm agree; each flash kernel ran once in each
+    flash step, each fused-CE kernel once in the fused step and never in
+    the others. Returns the launches by kernel."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.mixtral import (MixtralForCausalLM, mixtral_loss_fn,
+                                                     mixtral_loss_fn_fused)
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 32000, (1, 1024))).to("cuda")
+    out = {}
+    for key, impl, loss_fn in (("xla", "xla", mixtral_loss_fn),
+                               ("flash", "flash", mixtral_loss_fn),
+                               ("flash_fused", "flash", mixtral_loss_fn_fused)):
+        model = MixtralForCausalLM(mixtral_config(torch, num_layers=1, dtype=torch.float32,
+                                                  attention_impl=impl), seed=seed)
+        acc = Accelerator(mixed_precision="no")
+        model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                        weight_decay=1e-4))
+        step = acc.make_train_step(loss_fn, max_grad_norm=1e30)
+        reset_counts(fa)
+        loss = step({"input_ids": ids}).item()
+        out[key] = (loss, step.grad_norm.item(), {**flash_counts(fa), **fused_ce_counts()})
+        del model, acc, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (loss_x, norm_x, counts_x), (loss_f, norm_f, counts_f), (loss_c, norm_c, counts_c) = (
+        out["xla"], out["flash"], out["flash_fused"])
+    rec = {"phase": "fp32_mixtral_train_parity", "layers": 1, "batch": 1, "seq": 1024,
+           "loss_plain": loss_x, "loss_flash": loss_f, "loss_abs_diff": abs(loss_f - loss_x),
+           "loss_flash_fused_ce": loss_c, "loss_fused_ce_abs_diff": abs(loss_c - loss_f),
+           "loss_atol": TRAIN_LOSS_ATOL, "grad_norm_plain": norm_x, "grad_norm_flash": norm_f,
+           "grad_norm_rel_diff": abs(norm_f - norm_x) / norm_x,
+           "grad_norm_flash_fused_ce": norm_c,
+           "grad_norm_fused_ce_rel_diff": abs(norm_c - norm_f) / norm_f,
+           "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL, "launches_plain": counts_x,
+           "launches": counts_f, "launches_fused_ce": counts_c, "card": card}
+    print(json.dumps(rec), flush=True)
+    for what, (loss_a, norm_a), (loss_b, norm_b) in (
+            ("flash against plain attention", (loss_f, norm_f), (loss_x, norm_x)),
+            ("fused CE against the plain loss", (loss_c, norm_c), (loss_f, norm_f))):
+        if not (abs(loss_a - loss_b) <= TRAIN_LOSS_ATOL and math.isfinite(loss_a)):
+            raise AssertionError(f"fp32 Mixtral step, {what}: loss {loss_a} vs {loss_b}")
+        if not abs(norm_a - norm_b) <= TRAIN_GRAD_NORM_RTOL * norm_b:
+            raise AssertionError(f"fp32 Mixtral step, {what}: grad norm {norm_a} vs {norm_b}")
+    once, never = dict.fromkeys(FLASH_REPLACES, 1), dict.fromkeys(FUSED_CE_REPLACES, 0)
+    if (counts_x != {**dict.fromkeys(FLASH_REPLACES, 0), **never}
+            or counts_f != {**once, **never}
+            or counts_c != {**once, **dict.fromkeys(FUSED_CE_REPLACES, 1)}):
+        raise AssertionError(f"fp32 Mixtral step launches: plain {counts_x}, flash {counts_f}, "
+                             f"flash with fused CE {counts_c}")
+    return {n: counts_f[n] + counts_c[n] for n in counts_c}
+
+
+def train_mixtral(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> dict:
+    """Phase 30 (c): Mixtral-8x7B width at 2 layers, fp32 masters,
+    ``Accelerator(mixed_precision="bf16")``, AdamW (lr 1e-4, weight decay
+    1e-4), ``make_train_step(mixtral_loss_fn_fused)`` with
+    ``attention_impl="flash"`` on one seeded 1 x MIXTRAL_TRAIN_SEQ batch,
+    repeated: ``warmup`` then ``steps`` timed steps. The loss is finite and
+    falls; each step launches each flash kernel once a layer and each
+    fused-CE kernel once. Step ms, tokens/s, MFU on active FLOPs (top-2 of 8
+    experts) and on executed FLOPs (every expert's capacity slots and the
+    dispatch and combine products), peak memory; then a profiler window
+    split by `MOE_KINDS`."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM, mixtral_loss_fn_fused
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    batch, seq = 1, MIXTRAL_TRAIN_SEQ
+    cfg = mixtral_config(torch, num_layers=2, attention_impl="flash")
+    model = MixtralForCausalLM(cfg, seed=seed)
+    acc = Accelerator(mixed_precision="bf16")
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = acc.make_train_step(mixtral_loss_fn_fused)
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, seq))
+    data = {"input_ids": torch.from_numpy(ids).to("cuda")}
+    losses, wall = timed_steps(torch, step, data, warmup, steps)
+    counts = {**flash_counts(fa), **fused_ce_counts()}
+    flops = mixtral_train_flops_per_token(cfg, seq)
+    tokens_per_s = batch * seq * steps / wall
+    peak_rate = bf16_peak(torch.cuda.get_device_name(0))
+    rec = {"phase": "bf16_train_mixtral", "model": "mixtral-8x7b-width, 2 layers",
+           "batch": batch, "seq": seq, "params": sum(p.numel() for p in model.parameters()),
+           "capacity": flops["capacity"], "capacity_factor": cfg.capacity_factor,
+           "warmup_steps": warmup, "steps": steps, "step_ms": wall / steps * 1e3,
+           "tokens_per_s": tokens_per_s,
+           "mfu_active": tokens_per_s * flops["active"] / peak_rate,
+           "mfu_executed": tokens_per_s * flops["executed"] / peak_rate,
+           "flops_per_token_active": flops["active"],
+           "flops_per_token_executed": flops["executed"],
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "launches": counts, "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mixtral training: the loss did not fall: {losses}")
+    expected = {**{n: cfg.num_layers * steps for n in FLASH_REPLACES},
+                **{n: steps for n in FUSED_CE_REPLACES}}
+    if counts != expected:
+        raise AssertionError(f"bf16_train_mixtral launches {counts}, expected {expected}")
+    prof = {"phase": "bf16_train_mixtral_profile", **profile_mixtral_step(
+        torch, lambda: step(data), cfg, seq), "card": card}
+    print(json.dumps(prof), flush=True)
+    del model, acc, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counts, "line": rec, "profile": prof}
+
+
+def big_models_phase(torch, np, seed: int, card: str) -> dict:
+    """Phase 30: big models on one card: first the flash and fused-CE
+    kernels against their plain versions at the Mixtral train step's
+    shapes, then (a) `blockwise_parity`, (b) `big_mixtral_streaming`, (c)
+    `mixtral_train_parity` and `train_mixtral`. Returns the phase's
+    launches of #2-#4 and #8-#10 and the two kernel cases."""
+    t0 = time.perf_counter()
+    # the Mixtral train step's kernel shapes against the plain versions:
+    # attention b 1, 32 heads (the 8 kv heads repeated), s 4096, d 128,
+    # causal; the head N 4096 x e 4096 by V 32000, each row's last label
+    # ignored as next-token labels ignore it
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    flash = flash_case(torch, "mixtral_train_bf16_causal", b=1, h=32, s=MIXTRAL_TRAIN_SEQ,
+                       d=128, dtype=torch.bfloat16, causal=True, seed=seed + 30, flush=flush)
+    fused = fused_ce_case(torch, "mixtral_head_n4096_bf16", n=MIXTRAL_TRAIN_SEQ, v=32000,
+                          e=4096, dtype=torch.bfloat16, ignore_every=MIXTRAL_TRAIN_SEQ,
+                          seed=seed + 31, flush=flush)
+    del flush
+    torch.cuda.empty_cache()
+    parity = blockwise_parity(torch, np, seed, card)
+    streaming = big_mixtral_streaming(torch, np, seed, card)
+    fp32_step = mixtral_train_parity(torch, np, seed, card)
+    train = train_mixtral(torch, np, seed, card)
+    launches = {n: fp32_step[n] + train["launches"][n] for n in (*FLASH_REPLACES,
+                                                                 *FUSED_CE_REPLACES)}
+    launches["flash_attention_fwd"] += (parity["flash_attention_fwd"]
+                                        + streaming["flash_attention_fwd"])
+    print(json.dumps({"phase": "big_models_phase_s", "seconds": time.perf_counter() - t0,
+                      "launches": launches, "card": card}), flush=True)
+    return {"launches": launches, "flash_case": flash, "fused_case": fused}
+
+
 def main() -> int:
     t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5404,7 +6067,10 @@ def main() -> int:
     # 29. precision on one card: fp8 training, remat, the fp16 kernel instances
     precision = precision_phase(torch, np, args.seed, card)
 
-    # 30. summary lines
+    # 30. big models on one card: placement, streaming, Mixtral-8x7B
+    big = big_models_phase(torch, np, args.seed, card)
+
+    # 31. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -5425,9 +6091,9 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
             "launches": (train["launches"][kname] + facade["launches_loop"][kname]
-                         + precision["launches"][kname]),
-            "max_abs_err": max(c[kname]["max_abs_err"]
-                               for c in flash_cases + [precision["flash_case"]]),
+                         + precision["launches"][kname] + big["launches"][kname]),
+            "max_abs_err": max(c[kname]["max_abs_err"] for c in
+                               flash_cases + [precision["flash_case"], big["flash_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],
@@ -5438,9 +6104,9 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
             "launches": (fused_train["launches"][kname] + facade["launches_loop"][kname]
-                         + precision["launches"][kname]),
-            "max_abs_err": max(c[kname]["max_abs_err"]
-                               for c in fused_cases + [precision["fused_case"]]),
+                         + precision["launches"][kname] + big["launches"][kname]),
+            "max_abs_err": max(c[kname]["max_abs_err"] for c in
+                               fused_cases + [precision["fused_case"], big["fused_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],

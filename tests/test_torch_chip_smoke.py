@@ -468,3 +468,92 @@ def test_build_line_names_a_spilling_kernel_and_its_type():
     # an fp8 GEMM's kernel counts as one in the training profiles
     assert next(c for c, pattern in cs.TRAIN_KERNEL_CATEGORIES
                 if re.search(pattern, "sm90_xmma_gemm_e4m3e4m3_bf16", re.IGNORECASE)) == "fp8 GEMMs"
+
+
+def test_big_model_phase_accounting():
+    """Phase 30's arithmetic: Mixtral-8x7B's parameters (46.7 B, 1.451 B a
+    layer), its train FLOPs per token, active (top-2) and executed (every
+    expert's capacity slots and the dispatch and combine products), and the
+    PCIe 5.0 x16 rate."""
+    cs = _chip_smoke()
+    from accelerate_tpu_torch.models.mixtral import MixtralConfig
+
+    counts = cs.mixtral_param_counts(MixtralConfig())
+    assert counts["layer"] == 1_451_270_144 and counts["experts"] == 8 * 3 * 4096 * 14336
+    assert counts["total"] == 46_702_792_704  # 93.4 GB in bf16
+    flops = cs.mixtral_train_flops_per_token(MixtralConfig(num_layers=2), 4096)
+    assert flops["capacity"] == 2048
+    e, f = 4096, 14336
+    # capacity 2.0 runs 4 experts' worth of slots a token where 2 are used,
+    # plus the two one-hot products, 2 T E C e each: forward, then the
+    # dispatch's once and the combine's twice in the backward
+    assert flops["executed"] - flops["active"] == 2 * (6 * 2 * 3 * e * f + 5 * 2 * 8 * 2048 * e)
+    assert abs(cs.PCIE5_X16_BYTES_PER_S / 1e9 - 63.015) < 1e-3
+
+
+def test_copy_compute_overlap_reads_interval_unions():
+    cs = _chip_smoke()
+    assert cs.interval_union([(5, 7), (0, 2), (1, 3), (6, 9)]) == [(0, 3), (5, 9)]
+    got = cs.copy_compute_overlap(copies=[(0, 10), (20, 30)], kernels=[(5, 25), (24, 26)])
+    assert got["copy_ms"] == 20 / 1e3 and got["compute_ms"] == 21 / 1e3
+    # [5, 10] and [20, 26] of the 20 us of copies run under a kernel
+    assert got["overlap_ms"] == 11 / 1e3 and got["hidden_share"] == 11 / 20
+    assert cs.copy_compute_overlap([], [(0, 1)])["hidden_share"] is None
+
+
+def test_moe_gemm_kind_by_operand_shapes():
+    """The Mixtral step's bf16 products: dispatch and combine carry the
+    flattened experts x capacity axis, expert GEMMs are batched over the
+    experts, the rest (attention, router) are other GEMMs."""
+    cs = _chip_smoke()
+    slots = 8 * 2048
+    assert cs.moe_gemm_kind([[1, slots, 4096], [1, 4096, 4096]], 8, slots) == \
+        "dispatch/combine einsums"
+    assert cs.moe_gemm_kind([[4096, slots], [slots, 4096]], 8, slots) == \
+        "dispatch/combine einsums"
+    assert cs.moe_gemm_kind([[8, 2048, 4096], [8, 4096, 14336]], 8, slots) == "expert GEMMs"
+    assert cs.moe_gemm_kind([[4096, 4096], [4096, 1024]], 8, slots) == "other GEMMs"
+    assert cs.moe_gemm_kind([[4096, 4096], [], [4096, 4096]], 8, slots) == "other GEMMs"
+
+
+def test_copy_rates_per_tier():
+    cs = _chip_smoke()
+
+    class Ev:
+        def __init__(self, t):
+            self.t = t
+
+        def elapsed_time(self, end):
+            return end.t - self.t
+
+    log = [{"tier": "cpu", "bytes": 2e9, "start": Ev(0), "end": Ev(100), "read_s": 0.0},
+           {"tier": "disk", "bytes": 1e9, "start": Ev(0), "end": Ev(200), "read_s": 0.15},
+           {"tier": "cpu", "bytes": 2e9, "start": Ev(0), "end": Ev(100), "read_s": 0.0}]
+    got = cs.copy_rates(log, forwards=2)
+    assert got["cpu"] == {"bytes_per_forward": 2e9, "copy_ms_per_forward": 100.0,
+                          "gb_per_s": 20.0, "host_read_s_per_forward": 0.0}
+    assert got["disk"]["gb_per_s"] == 5.0 and got["disk"]["host_read_s_per_forward"] == 0.075
+
+
+def test_full_model_prediction_adds_exposed_copy_time_to_compute():
+    """The 32-layer forward's prediction: the device budget leaves room for
+    the two streamed layers in flight, and the copy time that the measured
+    overlap does not hide adds to the compute time."""
+    import torch
+
+    cs = _chip_smoke()
+    free = 80 * 10**9
+    rates = {"cpu": {"gb_per_s": 50.0}}
+    got = cs.full_model_prediction(torch, rates, {"hidden_share": 0.25}, 0.005, 10**9,
+                                   free_bytes=free)
+    layer = 2 * 1_451_270_144
+    assert got["layer_bytes"] == layer and got["model_bytes"] == 2 * 46_702_792_704
+    assert got["device_budget_bytes"] == 0.9 * free - 10**9 - 2 * layer
+    streamed = got["model_bytes"] - got["device_budget_bytes"]
+    assert got["streamed_bytes_per_forward"] == streamed
+    assert got["copy_s"] == streamed / 50e9 and got["compute_s"] == 0.005 * 32
+    assert got["predicted_s_per_forward"] == got["copy_s"] * 0.75 + 0.16
+    # no overlap measured: every copy second is exposed
+    none = cs.full_model_prediction(torch, rates, {"hidden_share": None}, 0.005, 10**9,
+                                    free_bytes=free)
+    assert none["predicted_s_per_forward"] == none["copy_s"] + 0.16

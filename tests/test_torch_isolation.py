@@ -55,7 +55,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.memory", "accelerate_tpu_torch.logging",
                 "accelerate_tpu_torch.utils.dataclasses", "accelerate_tpu_torch.utils.other",
                 "accelerate_tpu_torch.utils.environment", "accelerate_tpu_torch.ops.fp8",
-                "accelerate_tpu_torch.utils.remat",
+                "accelerate_tpu_torch.utils.remat", "accelerate_tpu_torch.utils.modeling",
+                "accelerate_tpu_torch.utils.intermediates",
+                "accelerate_tpu_torch.utils.offload", "accelerate_tpu_torch.hooks",
+                "accelerate_tpu_torch.big_modeling", "accelerate_tpu_torch.ops.moe",
+                "accelerate_tpu_torch.models.mixtral",
                 *(f"accelerate_tpu_torch.examples.by_feature.{name}" for name in (
                     "_common", "gradient_accumulation", "checkpointing",
                     "automatic_gradient_accumulation", "early_stopping", "memory", "profiler",
