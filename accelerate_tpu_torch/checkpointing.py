@@ -47,6 +47,17 @@ import torch
 
 from .reliability.faults import SCOPE_CHECKPOINT_RESTORE, SCOPE_CHECKPOINT_SAVE, fault_point
 from .reliability.retry import RetryPolicy
+from .utils.constants import (
+    CHECKPOINT_COMPLETE_MARKER,
+    CHECKPOINT_DIR_PREFIX,
+    CUSTOM_STATE_NAME,
+    DATALOADER_STATE_NAME,
+    MODEL_NAME,
+    OPTIMIZER_NAME,
+    RNG_STATE_NAME,
+    SCHEDULER_NAME,
+    STEP_STATE_NAME,
+)
 from .utils.operations import recursively_apply
 from .utils.random import capture_rng_state, restore_rng_state
 from .utils.safetensors_io import (
@@ -55,16 +66,6 @@ from .utils.safetensors_io import (
     save_file,
     save_safetensors_checkpoint,
 )
-
-MODEL_NAME = "model"
-OPTIMIZER_NAME = "optimizer"
-SCHEDULER_NAME = "scheduler"
-DATALOADER_STATE_NAME = "dataloader"
-RNG_STATE_NAME = "rng_state"
-CUSTOM_STATE_NAME = "custom_checkpoint"
-STEP_STATE_NAME = "step"
-CHECKPOINT_DIR_PREFIX = "checkpoint"
-CHECKPOINT_COMPLETE_MARKER = "_COMPLETE"
 
 # the reference's policy for every checkpoint write and read; module-level,
 # so a deployment may swap in its own

@@ -37,6 +37,7 @@ def dot_product_attention(
     q: torch.Tensor,  # [B, Sq, H, D]
     k: torch.Tensor,  # [B, Sk, H, D]
     v: torch.Tensor,  # [B, Sk, H, D]
+    bias: torch.Tensor | None = None,  # additive, broadcast to [B, H, Sq, Sk]
     mask: torch.Tensor | None = None,  # boolean [B, 1|H, Sq, Sk] or [Sq, Sk], True = keep
     causal: bool = False,
     window: int | None = None,  # sliding window: query i sees keys in (i - window, i]
@@ -45,11 +46,16 @@ def dot_product_attention(
     """Plain attention. The products run on fp32 copies of bf16/fp16 inputs,
     which is exact for the products and accumulates in fp32, as the
     reference's ``preferred_element_type=float32`` does; the output returns to
-    the input dtype. ``window`` requires ``causal``, as in the reference."""
+    the input dtype. ``bias`` (T5's relative-position bias) is added in fp32
+    after the scale and before the causal, window and boolean masks, where
+    the reference adds it. ``window`` requires ``causal``, as in the
+    reference."""
     orig_dtype = q.dtype
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
     if causal:
         logits = logits + causal_mask(q.shape[1], k.shape[1], device=q.device)
     if window is not None:
@@ -94,8 +100,9 @@ def attention(
     the flash path it runs on the band kernels. GQA K/V pass to the flash
     path unrepeated (the band kernels read kv head ``h // groups``, the
     rectangular path repeats them) and are repeated up to the query heads on
-    the plain path. (The reference's additive ``bias`` comes with the models
-    that use it.) ``block_q`` and ``block_kv`` are the reference's TPU
+    the plain path. The reference's ``attention()`` takes no additive bias
+    either: a model that needs one (T5) calls `dot_product_attention` with
+    ``bias=`` directly. ``block_q`` and ``block_kv`` are the reference's TPU
     tiles: accepted and, as in the reference, handed to `flash_attention` on
     the flash path, which checks them as the reference does and ignores them
     (the CUDA kernels choose their own tiles); the plain path ignores

@@ -148,8 +148,8 @@ Phases run in order; any failure exits non-zero:
    replay) gives the tokens of the dense model over its dequantized
    weights;
 19. big-model inference, the reference tool's flow
-   (``tools/bench_inference.py`` at its defaults): Llama-2-7B at full depth
-   (``BIG_MODEL_LAYERS``), 512 positions, a synthetic fp16 safetensors
+   (``tools/bench_inference.py`` at its defaults): Llama-2-7B's width cut
+   to ``BIG_MODEL_LAYERS`` (8) of its 32 layers, 512 positions, a synthetic fp16 safetensors
    checkpoint written to a temporary directory (removed after), a 64-token
    prompt and 20 new tokens through `generate` (a second call, its decode
    step replayed from the CUDA graph the first captured, its nf4 launches
@@ -263,8 +263,8 @@ Phases run in order; any failure exits non-zero:
    two classes, every request streamed and replica 0 killed mid-stream:
    each stream's events concatenate to its output
    (`fp32_frontend_streams`, stream lag p50/p99). bf16: (d) the reference
-   benchmark's 5-tenant shared-prefix trace (256-token prefix), 1 and 2
-   replicas, ``prefix`` against ``round_robin``: tokens/s, TTFT, trie hit
+   benchmark's 5-tenant shared-prefix trace (256-token prefix), 1 replica,
+   then 2 under ``prefix`` and ``round_robin``: tokens/s, TTFT, trie hit
    rate, the device's idle share and peak memory, reported only
    (`bf16_cluster_routing`); (e) a surge then idle under
    `FleetAutoscaler(min_replicas=1, max_replicas=3)`, a spawn while
@@ -358,12 +358,37 @@ Phases run in order; any failure exits non-zero:
    (`bf16_train_mixtral`), and its device ms by kind
    (`bf16_train_mixtral_profile`: expert GEMMs, dispatch/combine einsums,
    flash, fused CE, the rest); `big_models_phase_s`;
-31. the script's seconds (`chip_smoke_s`, the build included), the
+31. T5-v1.1-base and ViT-B/16: (a) the fused-CE kernels #8-#10 against
+   their plain versions at T5-v1.1-base's head (bf16, N 2048 = 16 x 128
+   target rows, e 768, V 32128, every sixteenth label ignored), with the
+   unfused head as the library yardstick; (b) one fp32 step (TF32 off) of
+   T5-v1.1-base's width at 2 + 2 layers, batch 2, source 512, target 128,
+   padded labels, `seq2seq_loss_fn_fused` against `seq2seq_loss_fn`, untied
+   and tied: loss and gradient norm within phase 10's bars, each fused-CE
+   kernel once (`fp32_t5_fused_ce_parity_*`); (c) T5-v1.1-base uncut (12 +
+   12 layers), batch 16 x (512 + 128), bf16, AdamW,
+   ``make_train_step(seq2seq_loss_fn_fused)``: 2 warm-up and 10 timed
+   steps, the loss falls, one launch of each fused-CE kernel a step; step
+   ms, source and target tokens/s, MFU by `t5_train_flops`, peak memory
+   (`bf16_train_t5_base`) and a profiler window by kind: GEMMs, plain
+   attention, norms, fused CE, AdamW, copies and casts
+   (`bf16_train_t5_base_profile`); (d) ViT-B/16 at 224 and 1000 labels:
+   one fp32 forward of 4 images on the card against the CPU's from the same
+   weights (`fp32_vit_b16_card_vs_cpu`), then 10 timed bf16 AdamW steps at
+   batch 128 (`bf16_vit_b16_b128`: images/s, MFU, peak memory); (e) the
+   port's `examples/inference/distributed/image_classification.py` and
+   `batch_text_generation.py` at their defaults, exit 0 with 10
+   predictions and 5 generated rows (`inference_examples`); `t5_vit_phase_s`;
+32. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop, phase 29's variants and phase 30's runs to phases 8 and 11; kernel #1's add phases 26's replicas and 27's
+   loop, phase 29's variants, phase 30's runs and phase 31's T5 steps to
+   phases 8 and 11; kernel #1's add phases 26's replicas and 27's
    engines to phases 5 and 24; the band kernels' add phase 28 (e)'s
    sliding-window example to phase 14), the card line, and the final
    ``{"ok": true, ...}`` line.
+
+Every phase ends with a ``*_phase_s`` line of its seconds (phases 1-22
+through `phase_done`).
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -1903,8 +1928,9 @@ def kv_capacity(torch, np, seed: int, card: str) -> dict:
 
 
 LLAMA_7B_PROMPT, LLAMA_7B_NEW_TOKENS, LLAMA_7B_POSITIONS = 64, 20, 512
-# the big-model phase's depth: Llama-2-7B's own 32 layers
-BIG_MODEL_LAYERS = 32
+# the big-model phase's depth: 8 of Llama-2-7B's 32 layers (a 3.8 GB fp16
+# checkpoint for the whole model's 13.5 GB), cut to keep the script's time
+BIG_MODEL_LAYERS = 8
 
 
 def top2_margin(torch, logits) -> float:
@@ -3439,7 +3465,7 @@ def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> 
     mid-stream: every stream's events concatenate to its lone-engine output
     (`fp32_frontend_streams`, `stream_lag_s` p50/p99). bf16: (d) the
     reference benchmark's 5-tenant shared-prefix trace with a 256-token
-    prefix, 1 and 2 replicas, ``prefix`` against ``round_robin``: tokens/s,
+    prefix, 1 replica, then 2 under ``prefix`` and ``round_robin``: tokens/s,
     TTFT p50/p99, trie hit rate, peak memory and the device's idle share
     over the run, profiled (`bf16_cluster_routing`, reported, not gated);
     (e) a surge then idle under `FleetAutoscaler(min_replicas=1,
@@ -3734,16 +3760,16 @@ def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> 
             shut(cluster)
             return out
 
-        for n_reps in (1, 2):
-            for policy in ("prefix", "round_robin"):
-                t0 = time.perf_counter()
-                row = routed(n_reps, policy)
-                launches += sum(row["kernel1_launches_per_replica"])
-                print(json.dumps({"phase": "bf16_cluster_routing", "replicas": n_reps,
-                                  "policy": policy, "requests": len(trace), "tenants": 5,
-                                  "prefix_len": 256, "arrival_interval_s": interval, **row,
-                                  "seconds": time.perf_counter() - t0, "card": card}),
-                      flush=True)
+        # one replica routes every request to itself whatever the policy:
+        # its run is the baseline, once
+        for n_reps, policy in ((1, "prefix"), (2, "prefix"), (2, "round_robin")):
+            t0 = time.perf_counter()
+            row = routed(n_reps, policy)
+            launches += sum(row["kernel1_launches_per_replica"])
+            print(json.dumps({"phase": "bf16_cluster_routing", "replicas": n_reps,
+                              "policy": policy, "requests": len(trace), "tenants": 5,
+                              "prefix_len": 256, "arrival_interval_s": interval, **row,
+                              "seconds": time.perf_counter() - t0, "card": card}), flush=True)
 
         # (e) the autoscaler: a surge, then idle, then spawn-and-retire cycles
         t_part = time.perf_counter()
@@ -4364,12 +4390,15 @@ while True:  # the loop between steps; SIGTERM lands a checkpoint and exits 143
 """
 
 
-def profile_by_op(torch, run_step, steps: int) -> dict:
+def profile_by_op(torch, run_step, steps: int, categories=None, kernel_kinds=()) -> dict:
     """A profiler window over ``steps`` calls of ``run_step``: host and device
-    ms per step, the idle share, device ms per step by RESNET_OP_CATEGORIES
-    (each kernel charged to the innermost matching op over the one that
-    launched it), the layout copies by the op that asked for them (the
-    first op above ``aten::contiguous``), and the top kernels by name."""
+    ms per step, the idle share, device ms per step by kind, the layout
+    copies by the op that asked for them (the first op above
+    ``aten::contiguous``), and the top kernels by name. A kernel whose name
+    matches a pattern of ``kernel_kinds`` ((kind, regex) pairs; the port's
+    own kernels, launched outside any aten op) is that kind; every other
+    kernel is charged to the innermost op over the one that launched it
+    that matches ``categories`` (default RESNET_OP_CATEGORIES)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4384,9 +4413,19 @@ def profile_by_op(torch, run_step, steps: int) -> dict:
     for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    categories = RESNET_OP_CATEGORIES if categories is None else categories
     by_kind: dict[str, float] = {}
     copies_by_caller: dict[str, float] = {}
     attributed = 0.0
+
+    def named_kind(kname: str) -> str | None:
+        return next((k for k, pattern in kernel_kinds if re.search(pattern, kname)), None)
+
+    for kname, us in by_name.items():
+        kind = named_kind(kname)
+        if kind:
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+            attributed += us
     for ev in events:
         if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
             continue
@@ -4394,9 +4433,9 @@ def profile_by_op(torch, run_step, steps: int) -> dict:
         while node is not None:
             chain.append(node.name)
             node = node.cpu_parent
-        kind = next((k for name in chain for k, prefixes in RESNET_OP_CATEGORIES
+        kind = next((k for name in chain for k, prefixes in categories
                      if name.startswith(prefixes)), "elementwise and other")
-        us = sum(k.duration for k in ev.kernels)
+        us = sum(k.duration for k in ev.kernels if not named_kind(k.name))
         by_kind[kind] = by_kind.get(kind, 0.0) + us
         attributed += us
         if kind == "layout copies":
@@ -5576,6 +5615,304 @@ def big_models_phase(torch, np, seed: int, card: str) -> dict:
     return {"launches": launches, "flash_case": flash, "fused_case": fused}
 
 
+# phase 31: T5-v1.1-base training on the fused-CE kernels, ViT-B/16, and the
+# one-process inference examples. T5-v1.1-base's head: batch 16 x target 128
+# rows of e 768 against its untied 32128-entry vocabulary
+T5_TRAIN_BATCH, T5_SRC, T5_TGT = 16, 512, 128
+# the fp32 parity step (phase 31 (b)): full width, 2 + 2 layers, batch 2
+T5_PARITY_BATCH, T5_PARITY_LAYERS = 2, 2
+# device kernels of the T5 step by kind: the port's fused-CE kernels and
+# AdamW's multi-tensor kernels by name, every other kernel by the innermost
+# op over its launch (T5LayerNorm is plain tensor code: its rsqrt and mean,
+# forward and backward, stand for it; its products fall to the rest)
+T5_KERNEL_KINDS = (("fused-CE kernels", r"fused_ce_(fwd|bwd)_kernel"),
+                   ("AdamW", r"multi_tensor_apply"))
+T5_OP_CATEGORIES = (
+    ("GEMMs", ("aten::mm", "aten::addmm", "MmBackward", "AddmmBackward")),
+    ("plain attention", ("aten::bmm", "aten::_softmax", "aten::_softmax_backward_data",
+                         "BmmBackward", "SoftmaxBackward")),
+    ("norms", ("aten::rsqrt", "aten::mean", "aten::native_layer_norm", "RsqrtBackward",
+               "MeanBackward", "NativeLayerNormBackward")),
+    ("copies and casts", ("aten::_to_copy", "aten::copy_", "aten::contiguous", "ToCopyBackward")),
+    ("AdamW", ("aten::_foreach_", "Optimizer.step")),
+)
+# ViT-B/16 fp32 logits (TF32 off), the card against the CPU from the same
+# weights: 12 blocks of products summed in other orders; logits of size ~1
+VIT_CARD_ATOL = 1e-4
+VIT_TRAIN_BATCH = 128
+
+
+def t5_train_flops(cfg, batch: int, src: int, tgt: int) -> dict[str, float]:
+    """FLOPs of one T5 training step (forward and backward, 3 x the forward's
+    2 x multiply-adds): 6 per matmul parameter a token for the encoder's
+    projections over the source tokens, the decoder's (self, cross and
+    feed-forward) and the head's over the target tokens, and 12 x ``heads x
+    d_kv`` a query-key pair for attention (QK^T and PV) over the encoder's
+    src x src, the decoder's tgt x tgt and its cross tgt x src pairs, all
+    counted in full (masked pairs too, as the plain path computes them).
+    The parts and their ``total``."""
+    e, inner, f = cfg.d_model, cfg.num_heads * cfg.d_kv, cfg.d_ff
+    ff = (3 if cfg.gated_ffn else 2) * e * f
+    attn = 4 * e * inner
+    parts = {
+        "encoder_projections": 6.0 * cfg.num_layers * (attn + ff) * batch * src,
+        "decoder_projections": 6.0 * cfg.num_decoder_layers * (2 * attn + ff) * batch * tgt,
+        "head": 6.0 * cfg.vocab_size * e * batch * tgt,
+        "attention": 12.0 * inner * batch * (cfg.num_layers * src * src
+                                             + cfg.num_decoder_layers * (tgt * tgt + tgt * src)),
+    }
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def t5_batch(torch, cfg, seed: int, batch: int, src: int, tgt: int) -> dict:
+    """A seeded T5 batch on the card: source ids with a padded tail on every
+    second row (``attention_mask``), labels with a padded tail (-100) on
+    every second row, the decoder inputs shifted from them and their mask."""
+    from accelerate_tpu_torch.models.t5 import shift_tokens_right
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (batch, src), generator=g, device="cuda")
+    labels = torch.randint(1, cfg.vocab_size, (batch, tgt), generator=g, device="cuda")
+    src_mask = torch.ones(batch, src, dtype=torch.long, device="cuda")
+    src_mask[1::2, src * 3 // 4:] = 0
+    labels[1::2, tgt * 5 // 8:] = -100
+    return {"input_ids": ids, "attention_mask": src_mask,
+            "decoder_input_ids": shift_tokens_right(labels),
+            "decoder_attention_mask": (labels != -100).long(), "labels": labels}
+
+
+def t5_fp32_parity(torch, np, seed: int, card: str) -> list[dict]:
+    """Phase 31 (b): one fp32 step (TF32 off) of T5-v1.1-base's width at
+    2 + 2 layers, batch 2, source 512, target 128, padded labels, with
+    `seq2seq_loss_fn_fused` and one with `seq2seq_loss_fn`, untied and tied:
+    loss and global gradient norm agree within phase 10's bars and each
+    fused-CE kernel ran once in the fused step, never in the dense one."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.t5 import (
+        T5Config,
+        T5ForConditionalGeneration,
+        seq2seq_loss_fn,
+        seq2seq_loss_fn_fused,
+    )
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    recs = []
+    for tied in (False, True):
+        cfg = T5Config.base(num_layers=T5_PARITY_LAYERS, num_decoder_layers=T5_PARITY_LAYERS,
+                            dtype=torch.float32, tie_word_embeddings=tied)
+        data = t5_batch(torch, cfg, seed, T5_PARITY_BATCH, T5_SRC, T5_TGT)
+        out = {}
+        for fn in (seq2seq_loss_fn, seq2seq_loss_fn_fused):
+            model = T5ForConditionalGeneration(cfg, seed=seed)
+            acc = Accelerator(mixed_precision="no")
+            model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                            weight_decay=1e-4))
+            step = acc.make_train_step(fn, max_grad_norm=1e30)
+            reset_counts(fa)
+            loss = step(data).item()
+            out[fn.__name__] = (loss, step.grad_norm.item(), fused_ce_counts())
+            del model, acc, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        (loss_p, norm_p, counts_p), (loss_f, norm_f, counts) = (out["seq2seq_loss_fn"],
+                                                                out["seq2seq_loss_fn_fused"])
+        rec = {"phase": f"fp32_t5_fused_ce_parity_{'tied' if tied else 'untied'}",
+               "model": f"t5-v1_1-base width, {T5_PARITY_LAYERS} + {T5_PARITY_LAYERS} layers",
+               "batch": T5_PARITY_BATCH, "src": T5_SRC, "tgt": T5_TGT,
+               "ignored_labels": int((data["labels"] == -100).sum().item()),
+               "loss_plain": loss_p, "loss_fused": loss_f, "loss_abs_diff": abs(loss_f - loss_p),
+               "loss_atol": TRAIN_LOSS_ATOL, "grad_norm_plain": norm_p, "grad_norm_fused": norm_f,
+               "grad_norm_rel_diff": abs(norm_f - norm_p) / norm_p,
+               "grad_norm_rtol": TRAIN_GRAD_NORM_RTOL, "launches": counts,
+               "launches_plain": counts_p, "card": card}
+        print(json.dumps(rec), flush=True)
+        if not (abs(loss_f - loss_p) <= TRAIN_LOSS_ATOL and math.isfinite(loss_f)):
+            raise AssertionError(f"{rec['phase']}: fused loss {loss_f} vs dense {loss_p}")
+        if not abs(norm_f - norm_p) <= TRAIN_GRAD_NORM_RTOL * norm_p:
+            raise AssertionError(f"{rec['phase']}: fused grad norm {norm_f} vs dense {norm_p}")
+        if counts != {n: 1 for n in FUSED_CE_REPLACES} or any(counts_p.values()):
+            raise AssertionError(f"{rec['phase']}: launches {counts} (dense {counts_p}), "
+                                 "expected 1 each (0 each)")
+        recs.append(rec)
+    return recs
+
+
+def train_t5(torch, np, seed: int, card: str, warmup: int = 2, steps: int = 10) -> dict:
+    """Phase 31 (c): T5-v1.1-base uncut (`T5Config.base()`: 12 + 12 layers,
+    untied head), fp32 masters, ``Accelerator(mixed_precision="bf16")``,
+    AdamW (lr 1e-4, weight decay 1e-4), ``make_train_step(
+    seq2seq_loss_fn_fused)`` on one seeded batch of 16 x (512 source, 128
+    target) tokens with padded tails, repeated: ``warmup`` then ``steps``
+    timed steps with the launch counts set to 0 just before them. The loss
+    falls and each fused-CE kernel ran once a timed step; step ms, source
+    and target tokens/s, MFU by `t5_train_flops`, peak memory; then a
+    profiler window over 3 steps by kind (`T5_OP_CATEGORIES`)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.t5 import (
+        T5Config,
+        T5ForConditionalGeneration,
+        seq2seq_loss_fn_fused,
+    )
+
+    cfg = T5Config.base()
+    model = T5ForConditionalGeneration(cfg, seed=seed)
+    acc = Accelerator(mixed_precision="bf16")
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = acc.make_train_step(seq2seq_loss_fn_fused)
+    data = t5_batch(torch, cfg, seed, T5_TRAIN_BATCH, T5_SRC, T5_TGT)
+    losses, wall = timed_steps(torch, step, data, warmup, steps)
+    counts = fused_ce_counts()
+    peak = torch.cuda.max_memory_allocated()
+    flops = t5_train_flops(cfg, T5_TRAIN_BATCH, T5_SRC, T5_TGT)
+    step_s = wall / steps
+    rec = {"phase": "bf16_train_t5_base", "model": "t5-v1_1-base, 12 + 12 layers",
+           "batch": T5_TRAIN_BATCH, "src": T5_SRC, "tgt": T5_TGT,
+           "params": sum(p.numel() for p in model.parameters()),
+           "warmup_steps": warmup, "steps": steps, "step_ms": step_s * 1e3,
+           "src_tokens_per_s": T5_TRAIN_BATCH * T5_SRC / step_s,
+           "tgt_tokens_per_s": T5_TRAIN_BATCH * T5_TGT / step_s,
+           "train_flops_per_step": flops,
+           "mfu": flops["total"] / step_s / bf16_peak(torch.cuda.get_device_name(0)),
+           "peak_mem_bytes": peak, "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "launches": counts, "tf32": False, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"T5 training: the loss did not fall: {losses}")
+    if counts != {n: steps for n in FUSED_CE_REPLACES}:
+        raise AssertionError(f"T5 training launches {counts}, expected {steps} of each")
+    prof = profile_by_op(torch, lambda: step(data), 3, categories=T5_OP_CATEGORIES,
+                         kernel_kinds=T5_KERNEL_KINDS)
+    del prof["layout_copies_ms_per_step_by_caller"]
+    rec["profile"] = {"phase": "bf16_train_t5_base_profile", **prof, "card": card}
+    print(json.dumps(rec["profile"]), flush=True)
+    del model, acc, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vit_card_and_training(torch, seed: int, card: str, steps: int = 10) -> dict:
+    """Phase 31 (d): ViT-B/16 at 224 x 224 and 1000 labels, uncut. One fp32
+    forward (TF32 off) of 4 images on the card against the CPU's from the
+    same weights, within VIT_CARD_ATOL; then ``steps`` timed bf16 steps at
+    batch 128 with AdamW and `vit_loss_fn` after 2 warm-up steps: images/s,
+    MFU (3 x `ViTForImageClassification.forward_flops` an image), peak
+    memory."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.vit import ViTConfig, ViTForImageClassification, vit_loss_fn
+
+    cpu = ViTForImageClassification(ViTConfig.base(dtype=torch.float32), device="cpu", seed=seed)
+    gpu = ViTForImageClassification(ViTConfig.base(dtype=torch.float32), device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    images = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        want, got = cpu(images), gpu(images.cuda()).cpu()
+    err = (got - want).abs().max().item()
+    parity = {"phase": "fp32_vit_b16_card_vs_cpu", "images": 4, "max_abs_err": err,
+              "atol": VIT_CARD_ATOL, "logit_max_abs": want.abs().max().item(), "tf32": False,
+              "card": card}
+    print(json.dumps(parity), flush=True)
+    if not (math.isfinite(err) and err <= VIT_CARD_ATOL):
+        raise AssertionError(f"ViT-B/16 card against CPU: {err} > {VIT_CARD_ATOL}")
+    del cpu, gpu
+
+    acc = Accelerator(mixed_precision="bf16")
+    model = ViTForImageClassification(ViTConfig.base(), seed=seed)
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4))
+    step = acc.make_train_step(vit_loss_fn)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"pixel_values": torch.randn(VIT_TRAIN_BATCH, 3, 224, 224, device="cuda", generator=g),
+             "labels": torch.randint(0, 1000, (VIT_TRAIN_BATCH,), device="cuda", generator=g)}
+    losses, wall = timed_steps(torch, step, batch, warmup=2, steps=steps)
+    flops = 3 * model.module.forward_flops()
+    images_per_s = VIT_TRAIN_BATCH * steps / wall
+    rec = {"phase": "bf16_vit_b16_b128", "batch": VIT_TRAIN_BATCH, "steps": steps,
+           "step_ms": wall / steps * 1e3, "images_per_s": images_per_s,
+           "train_flops_per_image": flops,
+           "mfu": images_per_s * flops / bf16_peak(torch.cuda.get_device_name(0)),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "losses": losses, "tf32": False,
+           "card_vs_cpu": parity, "card": card}
+    print(json.dumps(rec), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"ViT-B/16 training: a loss is not finite: {losses}")
+    del acc, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def inference_examples_on_card(card: str) -> dict:
+    """Phase 31 (e): the port's `examples/inference/distributed/`
+    `image_classification.py` and `batch_text_generation.py` at their
+    defaults (CUDA), as ``python -m`` children started together: each exits
+    0, the first prints 10 predictions, the second 5 generated rows."""
+    names = ("image_classification", "batch_text_generation")
+    t0 = time.perf_counter()
+    procs = {n: subprocess.Popen([sys.executable, "-m",
+                                  f"accelerate_tpu_torch.examples.inference.distributed.{n}"],
+                                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for n in names}
+    outs = {}
+    for n, p in procs.items():
+        try:
+            outs[n] = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    lines = {n: outs[n][0].splitlines() for n in names}
+    preds = json.loads(lines["image_classification"][1]) if len(
+        lines["image_classification"]) > 1 else []
+    rows = [line for line in lines["batch_text_generation"] if line.startswith("prompt ")]
+    rec = {"phase": "inference_examples", "returncodes": {n: p.returncode for n, p in procs.items()},
+           "predictions": preds, "generated_rows": rows, "wall_s": wall, "card": card}
+    print(json.dumps(rec), flush=True)
+    if any(p.returncode for p in procs.values()):
+        raise AssertionError("an inference example failed: " + json.dumps(
+            {n: outs[n][1][-2000:] for n, p in procs.items() if p.returncode}))
+    if len(preds) != 10 or len(rows) != 5:
+        raise AssertionError(f"inference examples: {len(preds)} predictions (10 expected), "
+                             f"{len(rows)} generated rows (5 expected)")
+    return rec
+
+
+def t5_vit_phase(torch, np, seed: int, card: str) -> dict:
+    """Phase 31: (a) the fused-CE kernels #8-#10 against their plain versions
+    at T5-v1.1-base's head (bf16, N 2048, e 768, V 32128, every sixteenth
+    label ignored); (b) `t5_fp32_parity`; (c) `train_t5`; (d)
+    `vit_card_and_training`; (e) `inference_examples_on_card`. Returns the
+    phase's #8-#10 launches (the parity steps' and the timed steps') and
+    the kernel case."""
+    t0 = time.perf_counter()
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fused = fused_ce_case(torch, "t5_base_head_n2048_bf16", n=T5_TRAIN_BATCH * T5_TGT, v=32128,
+                          e=768, dtype=torch.bfloat16, ignore_every=16, seed=seed + 40,
+                          flush=flush)
+    del flush
+    torch.cuda.empty_cache()
+    parity = t5_fp32_parity(torch, np, seed, card)
+    train = train_t5(torch, np, seed, card)
+    vit = vit_card_and_training(torch, seed, card)
+    examples = inference_examples_on_card(card)
+    launches = {n: train["launches"][n] + sum(r["launches"][n] for r in parity)
+                for n in FUSED_CE_REPLACES}
+    print(json.dumps({"phase": "t5_vit_phase_s", "seconds": time.perf_counter() - t0,
+                      "launches": launches, "t5_step_ms": train["step_ms"], "t5_mfu": train["mfu"],
+                      "vit_images_per_s": vit["images_per_s"],
+                      "examples_wall_s": examples["wall_s"], "card": card}), flush=True)
+    return {"launches": launches, "fused_case": fused}
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Prints ``{name}_phase_s``, the seconds since ``t0``; returns the time
+    now, where the next phase starts."""
+    now = time.perf_counter()
+    print(json.dumps({"phase": f"{name}_phase_s", "seconds": now - t0}), flush=True)
+    return now
+
+
 def main() -> int:
     t_script = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5605,6 +5942,7 @@ def main() -> int:
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: needs compute capability (9, 0), got {cap}")
     print(f"peak rates used for bounds: {peak_rates(name)[2]}", flush=True)
+    t_phase = phase_done("device", t_script)
 
     # 2. build
     from accelerate_tpu_torch.ops import _build
@@ -5670,6 +6008,7 @@ def main() -> int:
         print(json.dumps({"phase": phase, **summary, "spilling": spilling}), flush=True)
         if not found or spilling:
             raise AssertionError(f"{phase}: a kernel is missing or spills: {spilling}")
+    t_phase = phase_done("build", t_phase)
 
     # 3. kernel against its plain version
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -5703,6 +6042,7 @@ def main() -> int:
     ]
     del flush
     torch.cuda.empty_cache()
+    t_phase = phase_done("paged_decode_kernel", t_phase)
 
     from accelerate_tpu_torch.models.generation import generate
     from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
@@ -5779,6 +6119,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = phase_done("fp32_slice", t_phase)
 
     # 5. bf16 slice: serving through the fused engine
     model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
@@ -5879,6 +6220,7 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = phase_done("bf16_slice", t_phase)
 
     # 6. flash kernels against their plain versions
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -5908,12 +6250,15 @@ def main() -> int:
     ]
     del flush
     torch.cuda.empty_cache()
+    t_phase = phase_done("flash_kernels", t_phase)
 
     # 7. fp32 train-step parity, flash against plain attention
     train_parity(torch, np, args.seed)
+    t_phase = phase_done("fp32_train_parity", t_phase)
 
     # 8. bf16 training: bench.py's path
     train, _ = train_bf16(torch, np, args.seed, card)
+    t_phase = phase_done("bf16_train", t_phase)
 
     # 9. fused-CE kernels against their plain versions
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -5934,15 +6279,18 @@ def main() -> int:
     ]
     del flush
     torch.cuda.empty_cache()
+    t_phase = phase_done("fused_ce_kernels", t_phase)
 
     # 10. fp32 train-step parity, fused CE against the plain loss
     fused_ce_parity(torch, np, args.seed)
+    t_phase = phase_done("fp32_fused_ce_parity", t_phase)
 
     # 11. bf16 training with the fused loss: bench.py's BENCH_FUSED_CE=2 path
     fused_train, _ = train_bf16(torch, np, args.seed, card, fused_ce=True)
     if not fused_train["peak_mem_bytes"] < train["peak_mem_bytes"]:
         raise AssertionError(f"fused-CE training peak {fused_train['peak_mem_bytes']} B is not below "
                              f"the default loss's {train['peak_mem_bytes']} B")
+    t_phase = phase_done("bf16_train_fused_ce", t_phase)
 
     # 12. band flash kernels against their plain versions
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -5980,12 +6328,15 @@ def main() -> int:
     ]
     del flush
     torch.cuda.empty_cache()
+    t_phase = phase_done("flash_band_kernels", t_phase)
 
     # 13. fp32 Llama train-step parity, band kernels against plain attention
     llama_band_parity(torch, np, args.seed, card)
+    t_phase = phase_done("fp32_llama_band_parity", t_phase)
 
     # 14. bf16 training of the Mistral-7B-width model: this slice's path
     mistral = train_mistral(torch, np, args.seed, card)
+    t_phase = phase_done("bf16_train_mistral", t_phase)
 
     # 15. nf4 kernel against its plain version
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -6005,29 +6356,36 @@ def main() -> int:
     ]
     del flush
     torch.cuda.empty_cache()
+    t_phase = phase_done("nf4_kernels", t_phase)
 
     # 16. fp32 quantized-serving parity
     quant_parity(torch, args.seed, fp32_prompts)
+    t_phase = phase_done("fp32_quant_parity", t_phase)
 
     # 17. bf16 quantized serving: this slice's path; then KV capacity
     quant = quant_serving(torch, args.seed, bf16_requests,
                           lambda: [Request(prompt=p, params=SamplingParams(max_new_tokens=64))
                                    for p in serve_prompts[:16]], card)
     kv_capacity(torch, np, args.seed, card)
+    t_phase = phase_done("bf16_quant_serving", t_phase)
 
     # 18. Llama decode parity at Llama-2-7B's width, 2 layers, fp32
     llama_decode_parity(torch, np, args.seed, card)
+    t_phase = phase_done("fp32_llama_decode_parity", t_phase)
 
     # 19. big-model inference: the reference tool's flow at Llama-2-7B; and
     # an HF-named checkpoint against the reference-named one
     big_model_inference(torch, card)
     hf_checkpoint_parity(torch, card, args.seed)
+    t_phase = phase_done("big_model_inference", t_phase)
 
     # 20. prefix-cached serving
     prefix_serving(torch, np, args.seed, card)
+    t_phase = phase_done("prefix_serving", t_phase)
 
     # 21. speculative serving
     spec_serving(torch, np, args.seed, card)
+    t_phase = phase_done("spec_serving", t_phase)
 
     # 22. the Llama loss with the untied head on the fused-CE kernels
     llama_fused_parity(torch, np, args.seed, card)
@@ -6040,6 +6398,7 @@ def main() -> int:
                       "peak_mem_bytes": mistral["peak_mem_bytes"],
                       "peak_mem_bytes_fused_ce": mistral_fused["peak_mem_bytes"],
                       "card": card}), flush=True)
+    phase_done("llama_fused_ce", t_phase)
 
     # 23. reliability: crash-exact serving, the health flag, deadlines, drain
     reliability_serving(torch, np, args.seed, card, serve_prompts, decode_profiles[(2, 1)])
@@ -6070,7 +6429,10 @@ def main() -> int:
     # 30. big models on one card: placement, streaming, Mixtral-8x7B
     big = big_models_phase(torch, np, args.seed, card)
 
-    # 31. summary lines
+    # 31. T5-v1.1-base on the fused-CE kernels, ViT-B/16, the inference examples
+    t5_vit = t5_vit_phase(torch, np, args.seed, card)
+
+    # 32. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -6104,9 +6466,11 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
             "launches": (fused_train["launches"][kname] + facade["launches_loop"][kname]
-                         + precision["launches"][kname] + big["launches"][kname]),
+                         + precision["launches"][kname] + big["launches"][kname]
+                         + t5_vit["launches"][kname]),
             "max_abs_err": max(c[kname]["max_abs_err"] for c in
-                               fused_cases + [precision["fused_case"], big["fused_case"]]),
+                               fused_cases + [precision["fused_case"], big["fused_case"],
+                                              t5_vit["fused_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
             "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
             "library_ms": main_rec["library_ms"],

@@ -557,3 +557,27 @@ def test_full_model_prediction_adds_exposed_copy_time_to_compute():
     none = cs.full_model_prediction(torch, rates, {"hidden_share": None}, 0.005, 10**9,
                                     free_bytes=free)
     assert none["predicted_s_per_forward"] == none["copy_s"] + 0.16
+
+
+def test_t5_train_flops_counts_every_projection_and_attention_pair():
+    """`t5_train_flops` against T5-v1.1-base's own parameters: 6 FLOPs per
+    projection parameter a token (the encoder's over the source, the
+    decoder's and the head's over the target) and 12 x heads x d_kv per
+    attention pair."""
+    from accelerate_tpu_torch.models.t5 import T5Config, T5ForConditionalGeneration
+
+    smoke = _chip_smoke()
+    cfg = T5Config.base()
+    model = T5ForConditionalGeneration(cfg, device="meta")
+
+    def linears(stack):
+        return sum(m.weight.numel() for m in stack.modules() if isinstance(m, torch.nn.Linear))
+
+    b, src, tgt = 16, 512, 128
+    got = smoke.t5_train_flops(cfg, b, src, tgt)
+    assert got["encoder_projections"] == 6 * linears(model.encoder) * b * src
+    assert got["decoder_projections"] == 6 * linears(model.decoder) * b * tgt
+    assert got["head"] == 6 * model.lm_head.numel() * b * tgt
+    assert got["attention"] == 12 * 768 * b * (12 * src * src + 12 * (tgt * tgt + tgt * src))
+    assert got["total"] == sum(v for k, v in got.items() if k != "total")
+    assert 6.4e12 < got["total"] < 6.5e12

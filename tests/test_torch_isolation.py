@@ -59,7 +59,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.utils.intermediates",
                 "accelerate_tpu_torch.utils.offload", "accelerate_tpu_torch.hooks",
                 "accelerate_tpu_torch.big_modeling", "accelerate_tpu_torch.ops.moe",
-                "accelerate_tpu_torch.models.mixtral",
+                "accelerate_tpu_torch.models.mixtral", "accelerate_tpu_torch.models.t5",
+                "accelerate_tpu_torch.models.vit", "accelerate_tpu_torch.utils.constants",
+                "accelerate_tpu_torch.utils.imports", "accelerate_tpu_torch.utils.versions",
+                "accelerate_tpu_torch.utils.tqdm",
+                "accelerate_tpu_torch.examples.inference.distributed.image_classification",
+                "accelerate_tpu_torch.examples.inference.distributed.batch_text_generation",
                 *(f"accelerate_tpu_torch.examples.by_feature.{name}" for name in (
                     "_common", "gradient_accumulation", "checkpointing",
                     "automatic_gradient_accumulation", "early_stopping", "memory", "profiler",
