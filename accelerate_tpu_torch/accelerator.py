@@ -1,5 +1,5 @@
 """The port of `accelerate_tpu.accelerator` ``Accelerator``: the facade a
-training loop calls, at one process on one device.
+training loop calls, one process on each device.
 
 ``prepare(*args)`` takes models (``nn.Module``, their parameters the fp32
 masters), optimizers, data loaders and schedulers in any order and returns
@@ -35,10 +35,24 @@ breakpoint, ``split_between_processes``, ``verify_device_map`` (``prepare``
 refuses a model dispatched over several devices) and the kwargs handlers of
 `utils.dataclasses`.
 
+Data parallelism over ranks (one process a device, launched by
+`commands.launch` or a launcher of `launchers`) keeps the reference's
+contract for a step on a ``data = N`` mesh: each rank takes its slice of the
+same global batch (`data_loader`), the gradients are averaged over the N
+ranks, and the parameters stay identical on every rank. ``prepare``
+broadcasts rank 0's parameters; at each boundary the accumulated gradients
+are averaged in flat buckets on ``all_reduce``, or through a comm hook
+(`parallel.compression`; ``make_train_step(comm_hook=)`` or a
+`DistributedDataParallelKwargs`), which reduces every microbatch, as the
+reference's does. The module is never wrapped in
+``DistributedDataParallel``: the step runs it under ``functional_call`` on
+compute-dtype copies, and the reduction is the reference's. A step's loss is
+the mean over the ranks. Under fp16 the ranks agree on "finite" before an
+update is skipped. With no launcher environment there is no process group
+and nothing of this runs.
+
 PyTorch runs eagerly, so there is no compiled step and nothing is donated;
-the optimizer updates the masters in place. The multi-process surface
-(collectives, ``no_sync`` over DDP, meshes) waits for ROADMAP Queue 1, item
-21: at one process the collectives return what this process holds.
+the optimizer updates the masters in place.
 """
 
 from __future__ import annotations
@@ -57,8 +71,21 @@ from torch import nn
 from torch.func import functional_call
 
 from . import checkpointing
-from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
+from .data_loader import (
+    BatchSamplerShard,
+    DataLoaderShard,
+    IterableDatasetShard,
+    prepare_data_loader,
+    skip_first_batches,
+)
 from .optimizer import AcceleratedOptimizer
+from .parallel.compression import (
+    CommHookConfig,
+    init_comm_state,
+    matrix_views,
+    reduce_gradients,
+)
+from .parallel.mesh import ParallelismConfig, build_mesh
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, PartialState
 from .tracking import filter_trackers
@@ -227,29 +254,56 @@ class Accelerator:
     computes in bf16 around the fp8 projections of a model built with an
     fp8 recipe (`ops.fp8`). ``kwargs_handlers`` takes at most one of each of
     `GradScalerKwargs`, `AutocastKwargs`, `ProfileKwargs` and
-    `FP8RecipeKwargs` (`utils.dataclasses`); ``dataloader_config`` a
-    `DataLoaderConfiguration`."""
+    `FP8RecipeKwargs`, `InitProcessGroupKwargs` and
+    `DistributedDataParallelKwargs` (`utils.dataclasses`);
+    ``dataloader_config`` a `DataLoaderConfiguration`. Under a launcher the
+    device defaults to ``cuda:LOCAL_RANK`` and the process group is made
+    here (`state.init_distributed`); ``parallelism_config`` names the mesh
+    (only its ``data`` axis may exceed 1). Unset, ``mixed_precision``,
+    ``gradient_accumulation_steps`` and the mesh come from the launcher's
+    ``ACCELERATE_TPU_MIXED_PRECISION``, ``ACCELERATE_TPU_GRAD_ACCUM_STEPS``
+    and ``ACCELERATE_TPU_PARALLELISM`` when set, as in the reference."""
 
     def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
                  device: str | torch.device | None = None,
                  gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
                  log_with: Any = None, project_dir: str | None = None,
                  project_config: ProjectConfiguration | None = None,
-                 dataloader_config: Any = None, kwargs_handlers: list[Any] | None = None):
+                 dataloader_config: Any = None, kwargs_handlers: list[Any] | None = None,
+                 parallelism_config: ParallelismConfig | None = None):
+        import os
+
+        if mixed_precision is None:
+            mixed_precision = os.environ.get("ACCELERATE_TPU_MIXED_PRECISION")
+        if gradient_accumulation_steps == 1:
+            gradient_accumulation_steps = int(os.environ.get("ACCELERATE_TPU_GRAD_ACCUM_STEPS", 1))
+        if parallelism_config is None and os.environ.get("ACCELERATE_TPU_PARALLELISM"):
+            dp, fsdp, stage, seq, tp = (int(x) for x in
+                                        os.environ["ACCELERATE_TPU_PARALLELISM"].split(","))
+            parallelism_config = ParallelismConfig(dp, fsdp, stage, seq, tp)
         self.policy = PrecisionPolicy.from_mode(mixed_precision)
-        self.state = AcceleratorState(self.policy.mode, device)
+        scaler_config = self._resolve_handlers(kwargs_handlers)
+        init = self.init_handler
+        self.state = AcceleratorState(self.policy.mode, device,
+                                      backend=init.backend if init else None,
+                                      timeout=init.timeout_seconds if init else None)
+        self.parallelism_config = parallelism_config or ParallelismConfig()
+        self.mesh = build_mesh(self.parallelism_config)
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         plugin = gradient_accumulation_plugin or GradientAccumulationPlugin(gradient_accumulation_steps)
         self.gradient_state = GradientState(plugin.num_steps, plugin.adjust_scheduler,
                                             plugin.sync_with_dataloader)
-        scaler_config = self._resolve_handlers(kwargs_handlers)
         self.scaler = None
         if self.policy.requires_loss_scaling and scaler_config.pop("enabled", True):
             self.scaler = DynamicGradScaler(**scaler_config)
         self._use_seedable_sampler = self._use_stateful_dataloader = True
+        self.split_batches, self.even_batches, self.dispatch_batches = False, True, None
         if dataloader_config is not None:
             self._use_seedable_sampler = dataloader_config.use_seedable_sampler
             self._use_stateful_dataloader = dataloader_config.use_stateful_dataloader
+            self.split_batches = dataloader_config.split_batches
+            self.even_batches = dataloader_config.even_batches
+            self.dispatch_batches = dataloader_config.dispatch_batches
         self.flag_tensor: torch.Tensor | None = None
         self.step = 0
         self.trackers: list = []
@@ -262,6 +316,8 @@ class Accelerator:
         self._save_state_pre_hooks: dict[int, Callable] = {}
         self._load_state_pre_hooks: dict[int, Callable] = {}
         self._pending_saves: list = []
+        self._reducers: dict[int, _GradReducer] = {}
+        self._join: dict[str, Any] | None = None  # inside join_uneven_inputs
 
     def _resolve_handlers(self, kwargs_handlers: list[Any] | None) -> dict[str, Any]:
         """Sort the kwargs handlers onto the accelerator (reference
@@ -269,12 +325,15 @@ class Accelerator:
         from .utils.dataclasses import (
             AutocastKwargs,
             DataLoaderConfiguration,
+            DistributedDataParallelKwargs,
             FP8RecipeKwargs,
             GradScalerKwargs,
+            InitProcessGroupKwargs,
             ProfileKwargs,
         )
 
         self.profile_handler = self.autocast_handler = self.fp8_recipe_handler = None
+        self.ddp_handler = self.init_handler = None
         scaler_config: dict[str, Any] = {}
         seen: set[type] = set()
         for handler in kwargs_handlers or []:
@@ -289,6 +348,10 @@ class Accelerator:
                 self.autocast_handler = handler
             elif isinstance(handler, FP8RecipeKwargs):
                 self.fp8_recipe_handler = handler
+            elif isinstance(handler, DistributedDataParallelKwargs):
+                self.ddp_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
             elif isinstance(handler, DataLoaderConfiguration):
                 raise ValueError("Pass DataLoaderConfiguration as dataloader_config=, not a handler.")
             else:
@@ -302,13 +365,18 @@ class Accelerator:
 
     @property
     def distributed_type(self) -> str:
-        """``"NO"``: one process on one device (the reference's
-        ``DistributedType.NO``)."""
-        return "NO"
+        """The reference's ``DistributedType``: ``"NO"`` at one process,
+        ``"SPMD"`` for processes on one host, ``"MULTI_HOST"`` across hosts."""
+        return self.partial_state.distributed_type
 
     @property
     def num_devices(self) -> int:
-        return 1
+        """Devices in the job: one a process."""
+        return self.num_processes
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.partial_state.use_distributed
 
     @property
     def use_seedable_sampler(self) -> bool:
@@ -420,8 +488,8 @@ class Accelerator:
 
     def split_between_processes(self, inputs: Any, apply_padding: bool = False
                                 ) -> contextlib.AbstractContextManager:
-        """This process's share of ``inputs``, as a context: at one
-        process, all of it."""
+        """This process's share of ``inputs``, as a context
+        (`state.PartialState.split_between_processes`)."""
         return self.partial_state.split_between_processes(inputs, apply_padding=apply_padding)
 
     # ------------------------------------------------------------- prepare
@@ -455,16 +523,19 @@ class Accelerator:
         return result[0] if len(result) == 1 else tuple(result)
 
     def prepare_model(self, model: nn.Module | PreparedModel) -> PreparedModel:
-        """Register ``model``, whose parameters are the fp32 masters, already
-        on this accelerator's device."""
+        """Register ``model``, whose parameters are the fp32 masters, moved
+        to this accelerator's device if they lie elsewhere (the parameters
+        stay the same objects, so an optimizer built over them still holds
+        them). At several processes every rank then takes rank 0's
+        parameters and buffers, so all start equal."""
         if isinstance(model, PreparedModel):
             model = model.module
-        for p in model.parameters():
-            if p.device != self.device:
-                raise ValueError(
-                    f"model parameters live on {p.device}, the accelerator on {self.device}: "
-                    "build the model on the accelerator's device"
-                )
+        if any(t.device != self.device for t in itertools.chain(model.parameters(),
+                                                                 model.buffers())):
+            model.to(self.device)
+        if self.num_processes > 1:
+            with torch.no_grad():
+                operations.broadcast_(_state_tensors(model), from_process=0)
         prepared = PreparedModel(model, self.policy)
         self._models.append(prepared)
         return prepared
@@ -491,17 +562,32 @@ class Accelerator:
                     "Construct it with accelerate_tpu_torch.ops.fp8.adamw_fp8(..., "
                     "opt_level='O2') to get the low-precision moments.")
         wrapped = AcceleratedOptimizer(optimizer, self.gradient_state, scaler=self.scaler)
+        if self.num_processes > 1:
+            wrapped.agree_finite = _finite_on_every_rank
         self._optimizers.append(wrapped)
         return wrapped
 
     def prepare_data_loader(self, data_loader: Any) -> DataLoaderShard:
         """A `DataLoaderShard` over ``data_loader`` (a loader of its own, a
-        torch DataLoader or any iterable of batches), yielding on this
-        accelerator's device and bound to its `GradientState`."""
+        torch DataLoader or any iterable of batches), yielding this
+        process's share on this accelerator's device and bound to its
+        `GradientState` (`data_loader.prepare_data_loader`, with the
+        `DataLoaderConfiguration`'s ``split_batches``, ``even_batches`` and
+        ``dispatch_batches``). A `DataLoaderShard` built by the caller over
+        global batches is told this process's rank and the world."""
         if not isinstance(data_loader, DataLoaderShard):
-            data_loader = prepare_data_loader(data_loader, device=self.device)
-        elif data_loader.device is None:
-            data_loader.device = self.device
+            data_loader = prepare_data_loader(
+                data_loader, device=self.device, use_seedable_sampler=self.use_seedable_sampler,
+                split_batches=self.split_batches, even_batches=self.even_batches,
+                dispatch_batches=self.dispatch_batches)
+        else:
+            if data_loader.device is None:
+                data_loader.device = self.device
+            sharded = isinstance(data_loader.batch_sampler, BatchSamplerShard) or isinstance(
+                data_loader.dataset, IterableDatasetShard)
+            if data_loader.num_processes == 1 and not sharded:
+                data_loader.num_processes = self.num_processes
+                data_loader.process_index = self.process_index
         data_loader.gradient_state = self.gradient_state
         self._dataloaders.append(data_loader)
         return data_loader
@@ -553,8 +639,10 @@ class Accelerator:
 
     @contextlib.contextmanager
     def no_sync(self, model: Any = None) -> Iterator[None]:
-        """No optimizer update inside the block (there is no replica
-        all-reduce to hold back at one process)."""
+        """No gradient all-reduce and no optimizer update inside the block:
+        backward passes add to this rank's gradients only, and the first
+        boundary after it averages what they summed (reference
+        `accelerator.py:828`)."""
         prev = self.gradient_state.sync_gradients
         self.gradient_state._set_sync_gradients(False)
         try:
@@ -563,9 +651,105 @@ class Accelerator:
             self.gradient_state._set_sync_gradients(prev)
 
     def trigger_sync_in_backward(self, model: Any = None) -> None:
-        """Make the next ``optimizer.step()`` apply though the step count says
-        the window is still accumulating."""
+        """Make the next backward average the gradients over the ranks and the
+        next ``optimizer.step()`` apply, though the step count says the window
+        is still accumulating (reference `accelerator.py:839`)."""
         self.gradient_state._set_sync_gradients(True)
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables: list | None = None,
+                           even_batches: bool | None = None) -> Iterator[None]:
+        """Train on ranks whose loaders hold different numbers of batches
+        (reference `accelerator.py:848`, torch's ``Join``). ``even_batches``
+        overrides the prepared loaders' for the block. Inside it every step
+        first sums a flag of the ranks still stepping; a rank whose data ran
+        out waits at the end of the block and shadows the others'
+        collectives with zeros (the gradients are still divided by the whole
+        world, as ``DistributedDataParallel``'s join does, and the loss by the
+        ranks that stepped), until no rank steps. Then every rank takes the
+        parameters of the rank that stepped most, so all leave equal."""
+        overridden: list[tuple[Any, bool]] = []
+        if even_batches is not None:
+            for dl in self._dataloaders:
+                if isinstance(dl.batch_sampler, BatchSamplerShard):
+                    overridden.append((dl.batch_sampler, dl.batch_sampler.even_batches))
+                    dl.batch_sampler.even_batches = even_batches
+            if not overridden:
+                warnings.warn("join_uneven_inputs(even_batches=...) found no prepared data loader "
+                              "sharded by a BatchSamplerShard; the argument has no effect.",
+                              stacklevel=3)
+        if self.num_processes == 1:
+            try:
+                yield
+            finally:
+                for target, prev in overridden:
+                    target.even_batches = prev
+            return
+        self._join = {"steps": 0, "reducers": {}}
+        try:
+            yield
+            while True:  # out of data: shadow the ranks still stepping
+                active, reduces, hooked, votes = self._join_flag(0, 0, 0, 0)
+                if active == 0:
+                    break
+                operations.reduce(torch.zeros(1, device=self.device), reduction="sum")
+                if reduces:
+                    if bool(hooked) not in self._join["reducers"]:
+                        raise RuntimeError(
+                            "join_uneven_inputs: this rank ran out of data before taking a step "
+                            "of the kind the others take, so it cannot shadow their reduction")
+                    self._join["reducers"][bool(hooked)].shadow()
+                if votes:
+                    _finite_on_every_rank(torch.ones((), dtype=torch.bool, device=self.device))
+            steps = operations.gather_object([self._join["steps"]])
+            source = max(range(len(steps)), key=lambda i: (steps[i], -i))
+            with torch.no_grad():
+                for model in self._models:
+                    operations.broadcast_(_state_tensors(model.module), from_process=source)
+        finally:
+            self._join = None
+            for target, prev in overridden:
+                target.even_batches = prev
+
+    def _join_flag(self, *flags: int) -> tuple[int, ...]:
+        """The sums over ranks of (stepping, reducing gradients, through a
+        hook, voting on fp16 finiteness) for this step, inside
+        `join_uneven_inputs`."""
+        flag = torch.tensor(flags, dtype=torch.int64, device=self.device)
+        total = operations.reduce(flag, reduction="sum")
+        return tuple(int(x) for x in total.tolist())
+
+    def _step_collectives(self, reducer: "_GradReducer | None", reduces: bool, hooked: bool,
+                          votes: bool) -> int:
+        """Open one step's collectives (the loss, the gradients when
+        ``reduces``, the fp16 vote when ``votes``, in that order): inside
+        `join_uneven_inputs` the flag exchange first. Returns how many ranks
+        the loss is averaged over."""
+        if self._join is None or reducer is None:
+            return self.num_processes
+        self._join["steps"] += 1
+        self._join["reducers"][hooked] = reducer
+        return self._join_flag(1, int(reduces), int(hooked), int(votes))[0]
+
+    def _mean_loss(self, loss: torch.Tensor, ranks: int) -> torch.Tensor:
+        """The step's loss averaged over the ``ranks`` that stepped."""
+        if self.num_processes == 1:
+            return loss
+        return operations.reduce(loss, reduction="sum") / ranks
+
+    def _reducer(self, prepared: PreparedModel, hook: CommHookConfig | None = None,
+                 q: dict[str, Any] | None = None) -> "_GradReducer | None":
+        """The gradient reduction of ``prepared`` over the ranks (None at one
+        process); a step with a hook gets its own, with its own state."""
+        if self.num_processes == 1:
+            return None
+        bucket = (self.ddp_handler.bucket_cap_mb if self.ddp_handler is not None else 25) << 20
+        if hook is not None:
+            return _GradReducer(prepared.module, hook, bucket, q=q)
+        key = id(prepared)
+        if key not in self._reducers:
+            self._reducers[key] = _GradReducer(prepared.module, None, bucket)
+        return self._reducers[key]
 
     def _scales(self, optimizer: AcceleratedOptimizer | None) -> tuple[Any, Any]:
         """(inner, outer): the factor on the loss inside the backward and the
@@ -586,7 +770,12 @@ class Accelerator:
         when ``loss_fn`` returns a tuple: the reference's signature, which
         takes the loss function because JAX has no tape."""
         prepared = self._prepared(model)
-        inner, outer = self._scales(self._optimizer_for(prepared))
+        reducer = self._reducer(prepared)
+        sync = self.gradient_state.sync_gradients
+        opt = self._optimizer_for(prepared)
+        ranks = self._step_collectives(reducer, sync, False,
+                                       votes=sync and opt is not None and opt.scaler is not None)
+        inner, outer = self._scales(opt)
         named = [(n, p) for n, p in prepared.module.named_parameters() if p.requires_grad]
         out = loss_fn(BoundModel(prepared.module, prepared.compute_params()), batch)
         loss, aux = (out[0], out[1:]) if isinstance(out, tuple) else (out, ())
@@ -602,7 +791,9 @@ class Accelerator:
             held = [(p, g) for p, g in pairs if p.grad is not g]
             if held:
                 torch._foreach_add_([p.grad for p, _ in held], [g for _, g in held])
-        loss = loss.detach()
+        loss = self._mean_loss(loss.detach(), ranks)
+        if reducer is not None and sync:
+            reducer.reduce_into_grads()
         return (loss, *aux) if aux else loss
 
     def unscale_gradients(self, optimizer: AcceleratedOptimizer | None = None) -> None:
@@ -638,7 +829,8 @@ class Accelerator:
 
     def make_train_step(self, loss_fn: Callable[[Callable, Any], Any], model: Any = None,
                         optimizer: AcceleratedOptimizer | None = None,
-                        max_grad_norm: float | None = None) -> Callable[[Any], torch.Tensor]:
+                        max_grad_norm: float | None = None, comm_hook: Any = None,
+                        comm_q: dict[str, Any] | None = None) -> Callable[[Any], torch.Tensor]:
         """``step(batch) -> loss``. ``loss_fn(model, batch)`` gets a
         `BoundModel`: it calls ``model`` like the module
         (``model(input_ids)``), and the call runs the module on the
@@ -647,7 +839,18 @@ class Accelerator:
         global norm before clipping (a device scalar). Under fp16 the loss
         is scaled by the scaler's inner factor and the boundary divides the
         gradients by it, checks them, and skips a non-finite update (one
-        host sync per boundary)."""
+        host sync per boundary).
+
+        At several processes the returned loss is the mean over the ranks,
+        and the gradients are averaged over them before unscaling, clipping
+        and the update: at each boundary in flat buckets, or with
+        ``comm_hook`` (a hook name, a `CommHookConfig` or a
+        `DistributedDataParallelKwargs`; default the accelerator's
+        `DistributedDataParallelKwargs`) through the hook on every microbatch
+        (reference `accelerator.py:1025-1150`). PowerSGD runs its first
+        ``start_powerSGD_iter`` updates plainly; ``comm_q`` gives its initial
+        Q by parameter name (`parallel.compression.init_comm_state`).
+        ``step.comm_state`` holds the hook's ``(rep, err)``."""
         prepared = self._prepared(model if model is not None
                                   else (self._models[0] if self._models else None))
         if optimizer is None:
@@ -658,20 +861,43 @@ class Accelerator:
         named = dict(module.named_parameters())
         gs = self.gradient_state
         scaler = optimizer.scaler
+        hook = _comm_hook_config(comm_hook if comm_hook is not None else self.ddp_handler)
+        reducer = self._reducer(prepared)
+        hooked_reducer = self._reducer(prepared, hook, q=comm_q) if hook is not None else None
+        warmup = hook.warmup_updates if hook is not None else 0
+        boundaries = 0
 
         def step(batch: Any) -> torch.Tensor:
+            nonlocal boundaries
             self._do_sync()
+            hooked = hooked_reducer is not None and boundaries >= warmup
+            ranks = self._step_collectives(hooked_reducer if hooked else reducer,
+                                           hooked or gs.sync_gradients, hooked,
+                                           votes=gs.sync_gradients and scaler is not None)
             inner = scaler.split_scale(optimizer.scaler_state.scale)[0] if scaler else None
             out = loss_fn(BoundModel(module, prepared.compute_params()), batch)
             loss = (out[0] if isinstance(out, tuple) else out).float()
-            (loss if inner is None else loss * inner).backward()
+            scaled = loss if inner is None else loss * inner
+            if hooked:  # this microbatch's own gradients, reduced through the hook
+                local = torch.autograd.grad(scaled, list(hooked_reducer.named.values()),
+                                            allow_unused=True)
+            else:
+                scaled.backward()
+            loss = self._mean_loss(loss.detach(), ranks)
+            if hooked:
+                hooked_reducer.add_reduced(local)
             if gs.sync_gradients:
+                boundaries += 1
+                if reducer is not None and not hooked:
+                    reducer.reduce_into_grads()
                 grads = [p.grad for p in named.values() if p.grad is not None]
                 with torch.no_grad():
                     factor = 1.0 / gs.num_steps
                     if inner is not None:
                         torch._foreach_mul_(grads, factor / inner)
                         finite = scaler.all_finite(grads)
+                        if reducer is not None:
+                            finite = _finite_on_every_rank(finite)
                     elif gs.num_steps != 1:
                         torch._foreach_mul_(grads, factor)
                     if max_grad_norm is not None:
@@ -681,9 +907,13 @@ class Accelerator:
                     optimizer.step_was_skipped = not bool(finite)
                 optimizer._apply()
                 optimizer.optimizer.zero_grad(set_to_none=True)
-            return loss.detach()
+            if hooked_reducer is not None:
+                step.comm_state = (hooked_reducer.rep, hooked_reducer.err)
+            return loss
 
         step.grad_norm = None
+        step.comm_state = ((hooked_reducer.rep, hooked_reducer.err)
+                           if hooked_reducer is not None else (None, None))
         return step
 
     # --------------------------------------------------------- collectives
@@ -693,13 +923,16 @@ class Accelerator:
     def gather_for_metrics(self, input_data: Any, use_gather_object: bool = False) -> Any:
         """Gathered eval outputs, the last batch of a ragged epoch cut to
         its real samples (``remainder``; reference `accelerator.py:1398`)."""
-        if use_gather_object or not _all_tensors(input_data):
+        objects = use_gather_object or not _all_tensors(input_data)
+        if objects:
             data = operations.gather_object(input_data if isinstance(input_data, list)
                                             else [input_data])
         else:
             data = operations.gather(input_data)
         remainder = self.gradient_state.remainder
         if self.gradient_state.end_of_dataloader and remainder > 0:
+            if objects:
+                return data[:remainder]
             data = operations.recursively_apply(lambda t: t[:remainder], data, test_type=_is_array)
         return data
 
@@ -868,6 +1101,7 @@ class Accelerator:
         self._optimizers.clear()
         self._schedulers.clear()
         self._dataloaders.clear()
+        self._reducers.clear()
         self.step = 0
         gc.collect()
         if self.device.type == "cuda":
@@ -878,7 +1112,11 @@ class Accelerator:
     def init_trackers(self, project_name: str, config: dict | None = None,
                       init_kwargs: dict | None = None) -> None:
         """Start the trackers ``log_with`` named, logging into
-        ``logging_dir``."""
+        ``logging_dir``: on the main process only, as every tracker writes
+        one run."""
+        if not self.is_main_process:
+            self.trackers = []
+            return
         self.trackers = filter_trackers(self._log_with, self.logging_dir, project_name, config,
                                         init_kwargs or {})
 
@@ -906,7 +1144,89 @@ class Accelerator:
 
     def __repr__(self) -> str:
         return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "
-                f"grad_accum={self.gradient_state.num_steps})")
+                f"grad_accum={self.gradient_state.num_steps}, num_processes={self.num_processes})")
+
+
+def _comm_hook_config(hook: Any) -> CommHookConfig | None:
+    """A hook name, a `CommHookConfig` or a `DistributedDataParallelKwargs`
+    as the config it asks for; None for no hook."""
+    if hook is None:
+        return None
+    if hasattr(hook, "to_comm_hook_config"):
+        hook = hook.to_comm_hook_config()
+    elif isinstance(hook, str):
+        hook = CommHookConfig(hook)
+    return None if hook is None or hook.comm_hook == "no" else hook
+
+
+def _finite_on_every_rank(finite: torch.Tensor) -> torch.Tensor:
+    """True on every rank iff the gradients are finite on every rank: a
+    skipped fp16 update is skipped everywhere."""
+    votes = operations.reduce(finite.to(torch.int64).reshape(1), reduction="sum")
+    return (votes == _world_size()).reshape(())
+
+
+def _world_size() -> int:
+    from .state import topology
+
+    return topology().num_processes
+
+
+class _GradReducer:
+    """Averages one module's gradients over the ranks
+    (`parallel.compression.reduce_gradients`), plainly or through a hook,
+    whose state it keeps: ``rep`` and this rank's ``err``."""
+
+    def __init__(self, module: nn.Module, hook: CommHookConfig | None, bucket_bytes: int,
+                 q: dict[str, Any] | None = None):
+        self.named = {n: p for n, p in module.named_parameters() if p.requires_grad}
+        self.cfg = hook or CommHookConfig()
+        self.views = matrix_views(module)
+        self.bucket_bytes = bucket_bytes
+        self.rep, self.err = init_comm_state(self.named, self.cfg, q=q, views=self.views)
+
+    def _reduce(self, grads: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        out, self.rep, self.err = reduce_gradients(grads, self.rep, self.err, self.cfg,
+                                                   views=self.views, bucket_bytes=self.bucket_bytes)
+        return out
+
+    def reduce_into_grads(self) -> None:
+        """Every parameter's ``.grad`` replaced by its mean over the ranks (a
+        parameter without one counts zeros, and gets the mean)."""
+        with torch.no_grad():
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in self.named.items()}
+            for n, g in self._reduce(grads).items():
+                self.named[n].grad = g
+
+    def add_reduced(self, local: tuple) -> None:
+        """Reduce one microbatch's gradients (``local``, in parameter order)
+        through the hook and add them into ``.grad``."""
+        with torch.no_grad():
+            grads = {n: g if g is not None else torch.zeros_like(p)
+                     for (n, p), g in zip(self.named.items(), local)}
+            for n, g in self._reduce(grads).items():
+                p = self.named[n]
+                if p.grad is None:
+                    p.grad = g
+                else:
+                    p.grad.add_(g)
+
+    def shadow(self) -> None:
+        """The collectives of one reduction, carrying zeros: a rank whose
+        data ran out takes part in the others' (`Accelerator.join_uneven_inputs`)."""
+        with torch.no_grad():
+            zeros = {n: torch.zeros_like(p) for n, p in self.named.items()}
+            err = None if self.err is None else {
+                n: None if e is None else torch.zeros_like(e) for n, e in self.err.items()}
+            reduce_gradients(zeros, self.rep, err, self.cfg, views=self.views,
+                             bucket_bytes=self.bucket_bytes)
+
+
+def _state_tensors(module: nn.Module) -> list[torch.Tensor]:
+    """What every rank must hold alike: the parameters and the floating
+    buffers (running statistics; masks and tables are built alike)."""
+    return [*module.parameters(), *(b for b in module.buffers() if b.is_floating_point())]
 
 
 def _is_array(x: Any) -> bool:

@@ -1,5 +1,5 @@
 """Checkpoints of a training run and model exports: the port of
-`accelerate_tpu.checkpointing` at one process.
+`accelerate_tpu.checkpointing`.
 
 ``save_state`` writes every prepared object into one directory (reference
 `checkpointing.py:249-509`): each model's fp32 master weights as
@@ -23,6 +23,13 @@ save takes the next ``checkpoint_<n>`` and ``total_limit`` prunes the oldest.
 writes the files on a thread; the marker lands when the thread has written
 everything, and ``wait_for_checkpoint`` (called before every later save and
 load) joins it and raises what it raised.
+
+Across processes (reference `checkpointing.py:100, 229, 272, 475`) the main
+process writes every file but the RNG state, which each rank writes for
+itself as ``random_states_<rank>.pkl`` (at one process it stays
+``rng_state.pkl``); barriers around the writes make every rank's file land
+before the marker and the marker before any rank returns. `load_state` on
+every rank reads the same files and its own RNG state.
 
 The reference writes its arrays with orbax, which needs JAX: the port
 neither reads nor writes orbax directories, so a checkpoint of one package
@@ -66,6 +73,9 @@ from .utils.safetensors_io import (
     save_file,
     save_safetensors_checkpoint,
 )
+
+# each rank's RNG file at several processes: random_states_<rank>.pkl
+RANK_RNG_STATE_NAME = "random_states"
 
 # the reference's policy for every checkpoint write and read; module-level,
 # so a deployment may swap in its own
@@ -196,7 +206,8 @@ def get_checkpoint_dir(accelerator, output_dir: str | os.PathLike | None) -> Pat
     if not pc.automatic_checkpoint_naming:
         return base
     existing = _checkpoint_dirs(base)
-    if pc.total_limit is not None and len(existing) + 1 > pc.total_limit:
+    if pc.total_limit is not None and len(existing) + 1 > pc.total_limit \
+            and accelerator.is_main_process:
         for stale in existing[:len(existing) + 1 - pc.total_limit]:
             shutil.rmtree(stale, ignore_errors=True)
     target = base / f"{CHECKPOINT_DIR_PREFIX}_{pc.iteration}"
@@ -229,7 +240,16 @@ def save_accelerator_state(accelerator, output_dir: str | os.PathLike,
     wait_for_checkpoint_saves(accelerator)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / CHECKPOINT_COMPLETE_MARKER).unlink(missing_ok=True)
+    if accelerator.is_main_process:
+        (out / CHECKPOINT_COMPLETE_MARKER).unlink(missing_ok=True)
+    if accelerator.num_processes > 1:
+        # every rank's RNG state, each in its own file, before the marker
+        accelerator.wait_for_everyone()
+        _write(out / _rng_file(accelerator), _to_host(capture_rng_state()))
+        accelerator.wait_for_everyone()
+        if not accelerator.is_main_process:
+            accelerator.wait_for_everyone()  # the main process's files and marker
+            return str(out)
     files: dict[str, Any] = {}
     for i, model in enumerate(accelerator._models):
         sd = weights[i] if weights is not None else model.module.state_dict()
@@ -244,14 +264,25 @@ def save_accelerator_state(accelerator, output_dir: str | os.PathLike,
         files[f"{DATALOADER_STATE_NAME}_{i}.bin"] = dl.state_dict()
     for i, obj in enumerate(accelerator._custom_objects):
         files[f"{CUSTOM_STATE_NAME}_{i}.pkl"] = obj.state_dict()
-    files[f"{RNG_STATE_NAME}.pkl"] = capture_rng_state()
+    if accelerator.num_processes == 1:
+        files[_rng_file(accelerator)] = capture_rng_state()
     files[f"{STEP_STATE_NAME}.pkl"] = {"step": accelerator.step}
     files = _to_host(files)
     if async_save:
         accelerator._pending_saves.append(_PendingSave(out, files))
     else:
         _write_all(out, files)
+    if accelerator.num_processes > 1:
+        accelerator.wait_for_everyone()
     return str(out)
+
+
+def _rng_file(accelerator) -> str:
+    """This rank's RNG file: ``rng_state.pkl`` at one process,
+    ``random_states_<rank>.pkl`` at several."""
+    if accelerator.num_processes == 1:
+        return f"{RNG_STATE_NAME}.pkl"
+    return f"{RANK_RNG_STATE_NAME}_{accelerator.process_index}.pkl"
 
 
 def load_accelerator_state(accelerator, input_dir: str | os.PathLike | None = None) -> str:
@@ -296,7 +327,7 @@ def _load_from(accelerator, src: Path) -> str:
                for i in range(len(accelerator._dataloaders))]
     customs = [take(f"{CUSTOM_STATE_NAME}_{i}.pkl")
                for i in range(len(accelerator._custom_objects))]
-    rng = take(f"{RNG_STATE_NAME}.pkl", required=False)
+    rng = take(_rng_file(accelerator), required=False)
     step = take(f"{STEP_STATE_NAME}.pkl", required=False)
     for model, sd in zip(accelerator._models, models):
         model.module.load_state_dict(sd)

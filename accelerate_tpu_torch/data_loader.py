@@ -1,5 +1,5 @@
 """The data pipeline of the training loop: the port of
-`accelerate_tpu.data_loader` at one process.
+`accelerate_tpu.data_loader`.
 
 `DataLoaderShard` wraps what yields batches (a list of batches, any
 iterable, or a `torch.utils.data.DataLoader`) and hands each batch to the
@@ -15,12 +15,24 @@ i+1 runs while the step computes on batch i. ``"none"`` (the default)
 copies each batch when it is yielded. ``"native"`` asks for the reference's
 C++ staging ring, which the port does not have (ROADMAP Queue 1, item 31).
 
-At one process the reference's sharding reduces to the identity: a loader
-is never padded, so ``remainder`` is set only for a sized dataset whose
-length the batch size does not divide (the real samples of the last
-batch). `BatchSamplerShard` keeps the reference's index arithmetic over
-``num_processes`` and ``process_index``, for the multi-process runtime
-(ROADMAP Queue 1, item 21).
+Across processes (one a device) each rank takes its share of the same data,
+the reference's data-parallel contract:
+
+- a torch ``DataLoader`` is rebuilt by `prepare_data_loader` around a
+  `BatchSamplerShard` (map-style datasets: whole batches round robin, or
+  each batch cut in ``num_processes`` slices with ``split_batches``) or an
+  `IterableDatasetShard`, so each rank reads only its indices;
+- any other iterable of batches yields global batches, which a
+  `DataLoaderShard` with ``num_processes > 1`` cuts into equal slices, one a
+  rank, as the reference's mesh shards a global batch over its ``data``
+  axis; a batch that does not divide is completed by wrapping its own
+  samples;
+- `DataLoaderDispatcher`: rank 0 reads every batch and broadcasts it, and
+  each rank keeps its slice.
+
+Where the last global batch was completed with repeated samples,
+``remainder`` holds its real ones, so ``gather_for_metrics`` drops the
+repeats.
 """
 
 from __future__ import annotations
@@ -33,7 +45,7 @@ import torch
 
 from .state import GradientState
 from .utils.environment import resolve_device
-from .utils.operations import recursively_apply
+from .utils.operations import find_batch_size, recursively_apply
 
 
 class SeedableRandomSampler(torch.utils.data.Sampler):
@@ -203,6 +215,53 @@ def _is_array(x: Any) -> bool:
     return isinstance(x, (torch.Tensor, np.ndarray))
 
 
+class IterableDatasetShard(torch.utils.data.IterableDataset):
+    """This process's share of an iterable dataset (reference
+    `data_loader.py:259`): items are buffered one chunk at a time
+    (``batch_size`` items a process, or ``batch_size`` in all with
+    ``split_batches``) and each process yields its contiguous slice of the
+    chunk; a short final chunk is completed from the first one unless
+    ``drop_last``."""
+
+    def __init__(self, dataset: Iterable, batch_size: int, num_processes: int = 1,
+                 process_index: int = 0, drop_last: bool = False, split_batches: bool = False,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_processes = num_processes
+        self.process_index = process_index
+        self.drop_last = drop_last
+        self.split_batches = split_batches
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[Any]:
+        per_proc = self.batch_size // self.num_processes if self.split_batches else self.batch_size
+        chunk = per_proc * self.num_processes
+        start = per_proc * self.process_index
+        first: list | None = None
+        buffer: list = []
+        for item in self.dataset:
+            buffer.append(item)
+            if len(buffer) == chunk:
+                if first is None:
+                    first = list(buffer)
+                yield from buffer[start:start + per_proc]
+                buffer = []
+        if not buffer or self.drop_last:
+            return
+        if first is None:
+            first = list(buffer)
+        while len(buffer) < chunk:
+            buffer.append(first[len(buffer) % len(first)])
+        yield from buffer[start:start + per_proc]
+
+
 class DataLoaderShard:
     """A loader that yields ``base_loader``'s batches on ``device`` (None:
     the preparing accelerator's device, or CUDA when it is iterated
@@ -211,12 +270,17 @@ class DataLoaderShard:
     yielded), ``remainder``, ``batches_seen_in_epoch``, and
     ``state_dict``/``load_state_dict`` to resume mid-epoch (reference
     `data_loader.py:412-617`). `Accelerator.prepare` binds it to the
-    accelerator's `GradientState`; unprepared, it keeps one of its own."""
+    accelerator's `GradientState`; unprepared, it keeps one of its own.
+
+    With ``num_processes > 1`` every batch of ``base_loader`` is a global
+    batch and process ``process_index`` yields its slice (see the module
+    docstring); `Accelerator.prepare` sets both from the process group."""
 
     def __init__(self, base_loader: Iterable, device: str | torch.device | None = None,
                  synchronized_generator: SeedableRandomSampler | None = None,
                  total_dataset_length: int | None = None, total_batch_size: int | None = None,
-                 _drop_last: bool = False, prefetch: str = "none"):
+                 _drop_last: bool = False, prefetch: str = "none", num_processes: int = 1,
+                 process_index: int = 0):
         if prefetch not in ("none", "auto", "native"):
             raise ValueError(f"prefetch must be none|auto|native, got {prefetch!r}")
         self.base_loader = base_loader
@@ -226,6 +290,8 @@ class DataLoaderShard:
         self.total_dataset_length = total_dataset_length
         self.total_batch_size = total_batch_size
         self.prefetch = prefetch
+        self.num_processes = num_processes
+        self.process_index = process_index
         self.end_of_dataloader = False
         self.remainder = -1
         self.iteration = 0
@@ -264,6 +330,45 @@ class DataLoaderShard:
 
         return recursively_apply(place, batch, test_type=_is_array)
 
+    def _slice(self, batch: Any, last: bool) -> Any:
+        """This process's slice of a global batch: every leaf whose first
+        dimension is the batch's size, completed to a multiple of the
+        process count by wrapping (the real count kept in ``remainder`` when
+        it is the epoch's last batch), then cut in equal parts."""
+        n, rank = self.num_processes, self.process_index
+        size = find_batch_size(batch)
+        if size is None or n == 1:
+            return batch
+        per = -(-size // n)
+        if per * n != size and last and self.remainder < 0:
+            self.remainder = size
+
+        def take(t: Any) -> Any:
+            if t.ndim == 0 or t.shape[0] != size:
+                return t
+            if per * n != size:
+                wrap = np.arange(per * n) % size
+                t = t[torch.from_numpy(wrap)] if isinstance(t, torch.Tensor) else t[wrap]
+            return t[rank * per:(rank + 1) * per]
+
+        return recursively_apply(take, batch, test_type=_is_array)
+
+    def _global_batches(self) -> Iterator[Any]:
+        """``base_loader``'s batches, each cut to this process's slice when
+        there are several processes (one batch of lookahead tells the last)."""
+        source = iter(self.base_loader)
+        if self.num_processes == 1:
+            yield from source
+            return
+        try:
+            current = next(source)
+        except StopIteration:
+            return
+        for following in source:
+            yield self._slice(current, last=False)
+            current = following
+        yield self._slice(current, last=True)
+
     def __iter__(self) -> Iterator[Any]:
         device = resolve_device(self.device)
         if self.prefetch == "native":
@@ -280,7 +385,7 @@ class DataLoaderShard:
 
         ahead = self.prefetch == "auto" and device.type == "cuda"
         try:
-            source: Iterator = iter(self.base_loader)
+            source: Iterator = self._global_batches()
             if ahead:  # placed as the lookahead pulls it: one batch ahead of the step
                 source = (self._place(b, device, pinned=True) for b in source)
             for idx, batch in enumerate(_PrefetchIterator(source, mark_last)):
@@ -310,19 +415,69 @@ class DataLoaderShard:
             self.skip_batches = state.get("batches_seen_in_epoch", 0)
 
 
+def _to_host(batch: Any) -> Any:
+    """Tensor leaves on the host, for pickling to the other processes."""
+    return recursively_apply(lambda t: t.detach().cpu(), batch)
+
+
+class DataLoaderDispatcher(DataLoaderShard):
+    """Rank 0 reads every batch of ``base_loader`` and broadcasts it (with
+    whether it is the last); each process yields its slice, as a
+    `DataLoaderShard` over global batches does (reference
+    `data_loader.py:619-737`). For data only rank 0 can read, such as a
+    stream; at one process it is a `DataLoaderShard`."""
+
+    def _global_batches(self) -> Iterator[Any]:
+        from .utils.operations import broadcast_object_list
+
+        if self.num_processes == 1:
+            yield from super()._global_batches()
+            return
+        source = iter(self.base_loader) if self.process_index == 0 else None
+        pending = next(source, None) if source is not None else None
+        while True:
+            payload: list[Any] = [None]
+            if self.process_index == 0:
+                following = next(source, None) if pending is not None else None
+                payload = [{"stop": pending is None,
+                            "batch": None if pending is None else _to_host(pending),
+                            "last": following is None}]
+                pending = following
+            broadcast_object_list(payload, from_process=0)
+            info = payload[0]
+            if info["stop"]:
+                return
+            yield self._slice(info["batch"], last=info["last"])
+
+
 def prepare_data_loader(dataloader: Any, device: str | torch.device | None = None,
                         use_seedable_sampler: bool = True, seed: int = 0,
-                        prefetch: str = "none") -> DataLoaderShard:
-    """Wrap ``dataloader`` in a `DataLoaderShard` (reference
-    `data_loader.py:744`, at one process: no `BatchSamplerShard`). A
-    `torch.utils.data.DataLoader` over a map-style dataset that shuffles is
-    rebuilt around a `SeedableRandomSampler`, keeping its collate function
-    and workers; any other iterable is wrapped as it is."""
+                        prefetch: str = "none", num_processes: int | None = None,
+                        process_index: int | None = None, split_batches: bool = False,
+                        even_batches: bool = True, dispatch_batches: bool | None = None
+                        ) -> DataLoaderShard:
+    """Wrap ``dataloader`` for this process (reference
+    `data_loader.py:744`); ``num_processes`` and ``process_index`` default to
+    the process group's. A `torch.utils.data.DataLoader` is rebuilt, keeping
+    its collate function and workers: over a map-style dataset that
+    shuffles, around a `SeedableRandomSampler`; at several processes around
+    a `BatchSamplerShard` (``split_batches``, ``even_batches``), or for an
+    iterable dataset an `IterableDatasetShard`, or with ``dispatch_batches``
+    (the default for iterable datasets at several processes) left whole
+    for a `DataLoaderDispatcher`. Any other iterable yields global batches
+    (a `DataLoaderShard` that slices them, or a dispatcher)."""
+    from .state import topology
+
+    top = topology()
+    num_processes = top.num_processes if num_processes is None else num_processes
+    process_index = top.process_index if process_index is None else process_index
+    shard = dict(num_processes=num_processes, process_index=process_index)
     if not isinstance(dataloader, torch.utils.data.DataLoader):
-        return DataLoaderShard(dataloader, device=device,
-                               total_dataset_length=getattr(dataloader, "total_dataset_length", None),
-                               total_batch_size=getattr(dataloader, "total_batch_size", None),
-                               prefetch=prefetch)
+        cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
+        return cls(dataloader, device=device,
+                   total_dataset_length=getattr(dataloader, "total_dataset_length", None),
+                   total_batch_size=getattr(dataloader, "total_batch_size", None),
+                   prefetch=prefetch, **shard)
     dataset = dataloader.dataset
     batch_size = dataloader.batch_size
     if batch_size is None and dataloader.batch_sampler is not None:
@@ -330,9 +485,19 @@ def prepare_data_loader(dataloader: Any, device: str | torch.device | None = Non
     drop_last = dataloader.drop_last
     common = dict(num_workers=dataloader.num_workers, collate_fn=dataloader.collate_fn,
                   timeout=dataloader.timeout, worker_init_fn=dataloader.worker_init_fn)
+    iterable = isinstance(dataset, torch.utils.data.IterableDataset)
+    if dispatch_batches is None:
+        dispatch_batches = num_processes > 1 and iterable
     sampler = None
-    if isinstance(dataset, torch.utils.data.IterableDataset):
-        loader = torch.utils.data.DataLoader(dataset, batch_size=batch_size, drop_last=drop_last,
+    if iterable:
+        local_bs = batch_size
+        if num_processes > 1 and not dispatch_batches:
+            dataset = IterableDatasetShard(
+                dataset, batch_size=batch_size if split_batches else batch_size * num_processes,
+                num_processes=num_processes, process_index=process_index, drop_last=drop_last,
+                split_batches=True, seed=seed)
+            local_bs = batch_size // num_processes if split_batches else batch_size
+        loader = torch.utils.data.DataLoader(dataset, batch_size=local_bs, drop_last=drop_last,
                                              **common)
     else:
         batch_sampler = dataloader.batch_sampler
@@ -341,11 +506,21 @@ def prepare_data_loader(dataloader: Any, device: str | torch.device | None = Non
             sampler = SeedableRandomSampler(len(dataset), seed=seed)
             batch_sampler = torch.utils.data.BatchSampler(sampler, batch_size=batch_size,
                                                           drop_last=drop_last)
+        if num_processes > 1 and not dispatch_batches:
+            batch_sampler = BatchSamplerShard(batch_sampler, num_processes, process_index,
+                                              split_batches=split_batches,
+                                              even_batches=even_batches)
         loader = torch.utils.data.DataLoader(dataset, batch_sampler=batch_sampler, **common)
     total = len(dataset) if hasattr(dataset, "__len__") else None
-    return DataLoaderShard(loader, device=device, synchronized_generator=sampler,
-                           total_dataset_length=total, total_batch_size=batch_size,
-                           _drop_last=drop_last, prefetch=prefetch)
+    global_batch = batch_size if (split_batches or dispatch_batches or batch_size is None) \
+        else batch_size * num_processes
+    cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
+    # the sampler or the dataset shard already split the data unless rank 0 dispatches it
+    return cls(loader, device=device, synchronized_generator=sampler,
+               total_dataset_length=total, total_batch_size=global_batch,
+               _drop_last=drop_last, prefetch=prefetch,
+               num_processes=num_processes if dispatch_batches else 1,
+               process_index=process_index if dispatch_batches else 0)
 
 
 class SkipBatchSampler:

@@ -4,7 +4,9 @@
 process by default, on every process with ``main_process_only=False``, and
 one process after another in rank order, each record stamped ``[rank i]``,
 with ``in_order=True``. The level may come from
-``ACCELERATE_TPU_LOG_LEVEL``. At one process every record is the main
+``ACCELERATE_TPU_LOG_LEVEL``. The rank is the process-wide topology
+(`state.topology`): the process group's, or the launcher's environment
+before the group exists; at one process every record is the main
 process's.
 """
 
@@ -14,17 +16,13 @@ import logging
 import os
 from typing import Any
 
-from .state import PartialState
-
-
-def _state() -> PartialState:
-    return PartialState(device="cpu")  # the process topology; the device is not read
+from .state import barrier, topology
 
 
 class MultiProcessAdapter(logging.LoggerAdapter):
     @staticmethod
     def _should_log(main_process_only: bool) -> bool:
-        return not main_process_only or _state().is_main_process
+        return not main_process_only or topology().process_index == 0
 
     def log(self, level: int, msg: str, *args: Any, **kwargs: Any) -> None:
         main_process_only = kwargs.pop("main_process_only", True)
@@ -37,12 +35,16 @@ class MultiProcessAdapter(logging.LoggerAdapter):
                 msg, kwargs = self.process(msg, kwargs)
                 self.logger.log(level, msg, *args, **kwargs)
             return
-        state = _state()
-        for i in range(state.num_processes):
-            if i == state.process_index:
+        import torch.distributed as dist
+
+        top = topology()
+        grouped = dist.is_available() and dist.is_initialized() and top.num_processes > 1
+        for i in range(top.num_processes):
+            if i == top.process_index:
                 msg_i, kwargs_i = self.process(msg, kwargs)
                 self.logger.log(level, f"[rank {i}] {msg_i}", *args, **kwargs_i)
-            state.wait_for_everyone()
+            if grouped:
+                barrier()
 
     def process(self, msg: str, kwargs: dict) -> tuple[str, dict]:
         return msg, kwargs

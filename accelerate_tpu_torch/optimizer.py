@@ -40,6 +40,9 @@ class AcceleratedOptimizer:
         self.skipped_updates = 0
         self.step_was_skipped = False
         self._unscaled = False  # the gradients of this boundary are unscaled already
+        # across processes: the 0-d finite flag every rank agrees on (set by
+        # the accelerator at more than one process)
+        self.agree_finite: Callable[[torch.Tensor], torch.Tensor] | None = None
 
     @property
     def param_groups(self) -> list[dict]:
@@ -64,7 +67,12 @@ class AcceleratedOptimizer:
         boundary: a second call does nothing."""
         if self.scaler is None or self._unscaled:
             return
-        self.scaler_state, finite = self.scaler.unscale_and_update(self.grads(), self.scaler_state)
+        grads = self.grads()
+        torch._foreach_mul_(grads, 1.0 / self.scaler_state.scale)
+        finite = self.scaler.all_finite(grads)
+        if self.agree_finite is not None:
+            finite = self.agree_finite(finite)
+        self.scaler_state = self.scaler.update_state(self.scaler_state, finite)
         self.step_was_skipped = not bool(finite)
         self._unscaled = True
 

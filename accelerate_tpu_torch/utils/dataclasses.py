@@ -1,5 +1,5 @@
 """Kwargs handlers and configuration dataclasses: the port of
-`accelerate_tpu.utils.dataclasses` at one process.
+`accelerate_tpu.utils.dataclasses`.
 
 `Accelerator(kwargs_handlers=[...])` takes `GradScalerKwargs` (the fp16
 scaler's settings), `AutocastKwargs` (what ``Accelerator.autocast`` does by
@@ -9,10 +9,12 @@ for a model's ``fp8_recipe``, and the optimizer's opt level);
 `DataLoaderConfiguration` goes to ``dataloader_config=``. `CompilationConfig`
 is data only: the port has no compiled step (ROADMAP Queue 1, item 25).
 
-The multi-process plugins and handlers (`FullyShardedDataParallelPlugin`,
-`DeepSpeedPlugin`, `MegatronLMPlugin`, `InitProcessGroupKwargs`,
-`DistributedDataParallelKwargs`) wait for the multi-process runtime: each
-raises NotImplementedError (ROADMAP Queue 1, item 21.3).
+The data-parallel handlers are real: `InitProcessGroupKwargs` (the process
+group's backend and timeout) and `DistributedDataParallelKwargs` (the
+gradient reduction's comm hook, which ``make_train_step`` applies). The
+engine plugins (`FullyShardedDataParallelPlugin`, `DeepSpeedPlugin`,
+`MegatronLMPlugin`) wait for the sharded axes: each raises
+NotImplementedError (ROADMAP Queue 1, item 21.3).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import copy
 import itertools
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
@@ -155,19 +157,62 @@ class AutocastKwargs(KwargsHandler):
     cache_enabled: bool | None = None
 
 
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """How `state.init_distributed` makes the process group: the reference's
+    ``timeout_seconds`` (rendezvous and every collective after), and the
+    backend (None: NCCL for a CUDA device, gloo for the CPU)."""
+
+    timeout_seconds: int = 1800
+    backend: str | None = None
+
+
+@dataclass
+class DistributedDataParallelKwargs(KwargsHandler):
+    """The data-parallel knobs, the reference's fields: ``comm_hook`` (one
+    of ``parallel.compression.COMM_HOOK_TYPES``) with PowerSGD's
+    ``matrix_approximation_rank`` and ``start_powerSGD_iter``, which
+    ``make_train_step`` applies to its gradient reduction; ``bucket_cap_mb``
+    sizes the flat buckets of the plain all-reduce. ``comm_wrapper`` (``"no"``,
+    ``"fp16"`` or ``"bf16"``) carries PowerSGD's P and Q factors in that
+    dtype, and ``comm_state_option`` overrides PowerSGD's settings by name
+    (``matrix_approximation_rank``, ``start_powerSGD_iter``,
+    ``min_compression_elems``), as the reference library's names do.
+    ``find_unused_parameters`` and ``static_graph`` change nothing: the
+    module is never wrapped in ``DistributedDataParallel``."""
+
+    bucket_cap_mb: int = 25
+    find_unused_parameters: bool = False
+    static_graph: bool = False
+    comm_hook: str = "no"
+    matrix_approximation_rank: int = 1
+    start_powerSGD_iter: int = 2
+    comm_wrapper: str = "no"
+    comm_state_option: dict = field(default_factory=dict)
+
+    def to_comm_hook_config(self):
+        """The `parallel.compression.CommHookConfig` this asks for, None for
+        ``comm_hook="no"``."""
+        from ..parallel.compression import CommHookConfig
+
+        if self.comm_hook == "no":
+            return None
+        options = {"matrix_approximation_rank": self.matrix_approximation_rank,
+                   "start_powerSGD_iter": self.start_powerSGD_iter, **self.comm_state_option}
+        return CommHookConfig(comm_hook=self.comm_hook, wrapper=self.comm_wrapper, **options)
+
+
 def _multi_process(name: str) -> type:
     def __init__(self, *args: Any, **kwargs: Any) -> None:
         raise NotImplementedError(
-            f"{name} configures the multi-process runtime, which is not ported yet "
-            "(ROADMAP Queue 1, item 21.3)")
+            f"{name} configures a sharded engine (FSDP, DeepSpeed, Megatron-LM), whose mesh "
+            "axes are not ported yet (ROADMAP Queue 1, item 21.3)")
 
     return type(name, (KwargsHandler,), {"__init__": __init__, "__doc__":
                                          f"The reference's ``{name}``: raises until the "
-                                         "multi-process runtime is ported (item 21.3)."})
+                                         "sharded axes are ported (item 21.3)."})
 
 
 FullyShardedDataParallelPlugin = _multi_process("FullyShardedDataParallelPlugin")
 DeepSpeedPlugin = _multi_process("DeepSpeedPlugin")
 MegatronLMPlugin = _multi_process("MegatronLMPlugin")
-InitProcessGroupKwargs = _multi_process("InitProcessGroupKwargs")
-DistributedDataParallelKwargs = _multi_process("DistributedDataParallelKwargs")

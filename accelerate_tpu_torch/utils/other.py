@@ -48,13 +48,13 @@ def extract_model_from_parallel(model: Any, keep_fp32_wrapper: bool = True) -> A
 def save(obj: Any, f: str | os.PathLike, save_on_each_node: bool = False,
          safe_serialization: bool = False) -> None:
     """Write ``obj`` from the main process (every node's local main with
-    ``save_on_each_node``): a tensor tree to safetensors with
-    ``safe_serialization``, anything to ``torch.save`` otherwise; tensors
-    are copied to the host first."""
-    from ..state import PartialState
+    ``save_on_each_node``; the rank is `state.topology`'s): a tensor tree
+    to safetensors with ``safe_serialization``, anything to ``torch.save``
+    otherwise; tensors are copied to the host first."""
+    from ..state import topology
 
-    state = PartialState(device="cpu")
-    if not (state.is_local_main_process if save_on_each_node else state.is_main_process):
+    top = topology()
+    if (top.local_process_index if save_on_each_node else top.process_index) != 0:
         return
     host = recursively_apply(lambda t: t.detach().to("cpu", copy=True), obj)
     if safe_serialization:

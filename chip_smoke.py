@@ -149,7 +149,7 @@ Phases run in order; any failure exits non-zero:
    weights;
 19. big-model inference, the reference tool's flow
    (``tools/bench_inference.py`` at its defaults): Llama-2-7B's width cut
-   to ``BIG_MODEL_LAYERS`` (8) of its 32 layers, 512 positions, a synthetic fp16 safetensors
+   to ``BIG_MODEL_LAYERS`` (4) of its 32 layers, 512 positions, a synthetic fp16 safetensors
    checkpoint written to a temporary directory (removed after), a 64-token
    prompt and 20 new tokens through `generate` (a second call, its decode
    step replayed from the CUDA graph the first captured, its nf4 launches
@@ -265,8 +265,9 @@ Phases run in order; any failure exits non-zero:
    (`fp32_frontend_streams`, stream lag p50/p99). bf16: (d) the reference
    benchmark's 5-tenant shared-prefix trace (256-token prefix), 1 replica,
    then 2 under ``prefix`` and ``round_robin``: tokens/s, TTFT, trie hit
-   rate, the device's idle share and peak memory, reported only
-   (`bf16_cluster_routing`); (e) a surge then idle under
+   rate and peak memory, and in the 2-replica ``prefix`` run the device's
+   idle share, reported only (`bf16_cluster_routing`); (e) a surge then
+   idle under
    `FleetAutoscaler(min_replicas=1, max_replicas=3)`, a spawn while
    replica 0 has dispatches in flight, the scale events in order, then three
    spawn-and-retire cycles that must leave ``memory_allocated()`` within
@@ -312,7 +313,7 @@ Phases run in order; any failure exits non-zero:
    (`by_feature_examples`, `vision_facade_phase_s`);
 29. precision on one card, at GPT-2 small and bench.py's shape (batch 8 x
    1024, flash attention, the fused loss): (a) five training variants, each
-   12 steps (2 untimed) from one seed over two fixed batches in turn, with
+   7 steps (2 untimed) from one seed over two fixed batches in turn, with
    step ms, tokens/s, MFU against the bf16 dense rate (the fp8 runs also
    against the fp8 rate), peak memory, optimizer state bytes and launches:
    bf16; ``BENCH_FP8=model`` (`DelayedScalingRecipe(backend="native")`
@@ -379,13 +380,29 @@ Phases run in order; any failure exits non-zero:
    port's `examples/inference/distributed/image_classification.py` and
    `batch_text_generation.py` at their defaults, exit 0 with 10
    predictions and 5 generated rows (`inference_examples`); `t5_vit_phase_s`;
-32. the script's seconds (`chip_smoke_s`, the build included), the
+32. data-parallel training across processes through ``python -m
+   accelerate_tpu_torch.commands.launch``: (a) one NCCL rank runs phase
+   29's bf16 variant (GPT-2 small, 8 x 1024, flash, `lm_loss_fn_pallas`, 2
+   untimed and 10 timed steps): backend, world, step ms beside phase 29's,
+   tokens/s, the launches of #2-#4 and #8-#10 (`data_parallel_nccl_world1`);
+   (b) two ranks sharing the card over gloo (CUDA tensors staged through
+   host memory), GPT-2 small fp32 (TF32 off), one global batch 8 x 512 split
+   4 + 4: 3 AdamW steps plainly and with the bf16 hook against one process
+   on the whole batch within `DP_LOSS_RTOL` / `DP_BF16_LOSS_RTOL` and their
+   parameter bars, 6 with PowerSGD (rank 1, warm-up 2) whose loss falls;
+   the ranks bit for bit equal; all-reduce bytes, ms and calls a step beside
+   the step ms (`data_parallel_gloo_{plain,bf16,power_sgd}`); (c) the
+   reference's multi-process collective checks on CUDA tensors at 2 ranks
+   (`data_parallel_collectives`) and `examples/by_feature/
+   multi_process_metrics.py` at 2 ranks, its 151 eval samples counted once
+   (`data_parallel_multi_process_metrics`); `data_parallel_phase_s`;
+33. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop, phase 29's variants, phase 30's runs and phase 31's T5 steps to
-   phases 8 and 11; kernel #1's add phases 26's replicas and 27's
-   engines to phases 5 and 24; the band kernels' add phase 28 (e)'s
-   sliding-window example to phase 14), the card line, and the final
-   ``{"ok": true, ...}`` line.
+   loop, phase 29's variants, phase 30's runs, phase 31's T5 steps and
+   phase 32 (a)'s rank to phases 8 and 11; kernel #1's add phases 26's
+   replicas and 27's engines to phases 5 and 24; the band kernels' add
+   phase 28 (e)'s sliding-window example to phase 14), the card line, and
+   the final ``{"ok": true, ...}`` line.
 
 Every phase ends with a ``*_phase_s`` line of its seconds (phases 1-22
 through `phase_done`).
@@ -501,7 +518,7 @@ PRECISION_PROFILED = ("bf16", "fp8_model", "fp8_all_remat_dots", "fp16")
 # fp8 against bf16, every step of 12 from one seed: the reference's
 # loss-parity bar (benchmarks/fp8/loss_parity.py, loss units)
 FP8_LOSS_TOL = 0.15
-# fp8 O2 with and without remat "dots", 12 steps: the recompute runs on the
+# fp8 O2 with and without remat "dots", 7 steps: the recompute runs on the
 # forward's compute-dtype weights and replays its fp8 scales, so the two
 # runs do the same arithmetic and are expected equal; the bar allows a
 # last-bit difference that fp8 rounding flips would amplify. The phase also
@@ -1930,7 +1947,7 @@ def kv_capacity(torch, np, seed: int, card: str) -> dict:
 LLAMA_7B_PROMPT, LLAMA_7B_NEW_TOKENS, LLAMA_7B_POSITIONS = 64, 20, 512
 # the big-model phase's depth: 8 of Llama-2-7B's 32 layers (a 3.8 GB fp16
 # checkpoint for the whole model's 13.5 GB), cut to keep the script's time
-BIG_MODEL_LAYERS = 8
+BIG_MODEL_LAYERS = 4
 
 
 def top2_margin(torch, logits) -> float:
@@ -3466,8 +3483,9 @@ def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> 
     (`fp32_frontend_streams`, `stream_lag_s` p50/p99). bf16: (d) the
     reference benchmark's 5-tenant shared-prefix trace with a 256-token
     prefix, 1 replica, then 2 under ``prefix`` and ``round_robin``: tokens/s,
-    TTFT p50/p99, trie hit rate, peak memory and the device's idle share
-    over the run, profiled (`bf16_cluster_routing`, reported, not gated);
+    TTFT p50/p99, trie hit rate, peak memory, and the device's idle share
+    over the 2-replica ``prefix`` run, profiled (`bf16_cluster_routing`,
+    reported, not gated);
     (e) a surge then idle under `FleetAutoscaler(min_replicas=1,
     max_replicas=3)` with a spawn under traffic, the scale events in order,
     then three spawn-and-retire cycles after which ``memory_allocated()`` is
@@ -3735,16 +3753,24 @@ def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> 
         trace = tenant_trace(np, seed, 60, 256, 5, 50257)
         interval = 0.03  # a tenant returns every 150 ms: after its last request donated
 
-        def routed(n_reps, policy):
-            """One paced run of the trace in a fresh cluster, inside a
-            CUDA-only profiler window (no host-side events recorded)."""
+        def routed(n_reps, policy, profiled):
+            """One paced run of the trace in a fresh cluster; ``profiled``
+            inside a CUDA-only profiler window (no host-side events
+            recorded), whose events take most of the run's seconds to read."""
             settle()
             torch.cuda.reset_peak_memory_stats()
             # a fresh workdir each run: a used one would be resumed
             workdir = Path(tempfile.mkdtemp(prefix="route_", dir=tmp))
             cluster = ServingCluster(factory(model), workdir, replicas=n_reps,
                                      config=ClusterConfig(policy=policy))
-            wall_us, busy_us = device_busy(lambda: paced(cluster, trace, interval))
+            if profiled:
+                wall_us, busy_us = device_busy(lambda: paced(cluster, trace, interval))
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                paced(cluster, trace, interval)
+                torch.cuda.synchronize()
+                wall_us, busy_us = (time.perf_counter() - t0) * 1e6, None
             snap = cluster.metrics.snapshot()
             hits, misses = snap["serving/prefix_hits"], snap["serving/prefix_misses"]
             out = {"tokens_per_s": snap["serving/tokens_generated"] / (wall_us / 1e6),
@@ -3754,17 +3780,19 @@ def fleet_serving(torch, np, seed: int, card: str, prompts: list[list[int]]) -> 
                    "route_match_tokens": snap["cluster/route_match_tokens"],
                    "placements_per_replica": [rep.metrics.requests_submitted.value
                                               for rep in cluster.replicas],
-                   "device_idle_share": max(0.0, 1.0 - busy_us / wall_us),
+                   "device_idle_share": (None if busy_us is None
+                                         else max(0.0, 1.0 - busy_us / wall_us)),
                    "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                    "kernel1_launches_per_replica": replica_launches(cluster)}
             shut(cluster)
             return out
 
         # one replica routes every request to itself whatever the policy:
-        # its run is the baseline, once
+        # its run is the baseline, once; the device's idle share is read
+        # in the 2-replica prefix run only
         for n_reps, policy in ((1, "prefix"), (2, "prefix"), (2, "round_robin")):
             t0 = time.perf_counter()
-            row = routed(n_reps, policy)
+            row = routed(n_reps, policy, profiled=(n_reps, policy) == (2, "prefix"))
             launches += sum(row["kernel1_launches_per_replica"])
             print(json.dumps({"phase": "bf16_cluster_routing", "replicas": n_reps,
                               "policy": policy, "requests": len(trace), "tenants": 5,
@@ -4803,7 +4831,7 @@ def vision_and_facade(torch, np, card: str) -> dict:
 
 
 def precision_run(torch, card: str, seed: int, name: str, mixed: str, cfg_kw: dict, o2: bool,
-                  batches: list, warmup: int = 2, steps: int = 10) -> dict:
+                  batches: list, warmup: int = 2, steps: int = 5) -> dict:
     """One of phase 29's training variants: GPT-2 small at bench.py's shape,
     flash attention, the fused loss (`lm_loss_fn_pallas`), AdamW (lr 1e-4,
     weight decay 1e-4, optax's default) or ``adamw_fp8(1e-4,
@@ -4929,7 +4957,7 @@ def fp8_gemm_line(torch, card: str, seed: int, flush) -> dict:
 
 def precision_phase(torch, np, seed: int, card: str) -> dict:
     """Phase 29: precision on one card. (a) GPT-2 small's five training
-    variants (`PRECISION_RUNS`), each 12 steps from one seed over the same
+    variants (`PRECISION_RUNS`), each 7 steps (2 untimed) from one seed over the same
     two batches; (b) the fp8 curves against bf16's and fp8 O2 with remat
     against without; (c) the fp8 GEMM at the projection shapes; (d) the fp16
     instances of the flash (#2-#4) and fused-CE (#8-#10) kernels against
@@ -4977,7 +5005,8 @@ def precision_phase(torch, np, seed: int, card: str) -> dict:
     print(json.dumps({"phase": "precision_phase_s", "seconds": time.perf_counter() - t0,
                       "launches": launches, "fp16_run_launches": runs["fp16"]["launches"],
                       "card": card}), flush=True)
-    return {"launches": launches, "flash_case": flash, "fused_case": fused}
+    return {"launches": launches, "flash_case": flash, "fused_case": fused,
+            "bf16_step_ms": runs["bf16"]["step_ms"]}
 
 
 # phase 30: big models on one card (placement and streaming, Mixtral-8x7B).
@@ -5905,6 +5934,339 @@ def t5_vit_phase(torch, np, seed: int, card: str) -> dict:
     return {"launches": launches, "fused_case": fused}
 
 
+# phase 32: data-parallel training across processes, through the launcher.
+# (a) one NCCL rank at phase 29's bf16 variant; (b) two ranks sharing the
+# card over gloo against one process on the whole batch; (c) the collectives
+# and the multi-process metrics example at two ranks.
+DP_LR = 1e-4
+DP_STEPS = 3
+# (b), fp32 with TF32 off: 2 ranks of 4 x 512 against 1 process of 8 x 512.
+# Only the order of the gradient mean's sum differs (and the fused loss's
+# split over 2048 rows instead of 4096): every loss within 1e-5 relative;
+# every parameter within 2 lr a step of the one-process run's (AdamW moves
+# an element at most about lr a step: where a gradient nearly cancels, near
+# eps, the other summation order changes its update by a large share of
+# lr), and all but a millionth of them within 5% of lr
+DP_LOSS_RTOL = 1e-5
+DP_PARAM_SHARE = 1 - 1e-6
+# the bf16 hook rounds each rank's gradient and their sum to 8 bits; where
+# the ranks' gradients nearly cancel the rounded mean can change sign and
+# AdamW moves that element by about lr either way: the loss within 1e-3
+# relative, every parameter within 2 lr a step, 99% within 5% of lr
+DP_BF16_LOSS_RTOL = 1e-3
+DP_BF16_PARAM_SHARE = 0.99
+DP_TIMEOUT_S = 300
+
+DATA_PARALLEL_CHILD = r"""
+import hashlib, json, math, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from accelerate_tpu_torch.accelerator import Accelerator
+from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn_pallas
+from accelerate_tpu_torch.ops import flash_attention as fa, fused_ce
+from accelerate_tpu_torch.parallel.compression import CommHookConfig
+from accelerate_tpu_torch.utils import operations as ops
+from accelerate_tpu_torch.utils.dataclasses import InitProcessGroupKwargs
+
+spec = json.loads(sys.argv[1])
+seed = spec["seed"]
+DP_LR, DP_STEPS = spec.get("lr"), spec.get("steps")
+KERNELS = (fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv,
+           fused_ce.fused_ce_fwd, fused_ce.fused_ce_dh, fused_ce.fused_ce_dw)
+
+
+def emit(rec):
+    print(json.dumps(rec), flush=True)
+
+
+def nccl_world1():
+    acc = Accelerator(mixed_precision="bf16")
+    cfg = GPT2Config.small(dtype=torch.bfloat16, attention_impl="flash")
+    model = GPT2LMHead(cfg, device=acc.device, seed=seed)
+    model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=1e-4,
+                                                      weight_decay=1e-4))
+    step = acc.make_train_step(lm_loss_fn_pallas)
+    rng = np.random.default_rng(seed)  # phase 29's two batches
+    batches = [{"input_ids": torch.from_numpy(rng.integers(0, 50257, (8, 1024))).to(acc.device)}
+               for _ in range(2)]
+    losses = [step(batches[i % 2]).item() for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    timed = [step(batches[i % 2]) for i in range(10)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses += [t.item() for t in timed]
+    emit({"phase": "data_parallel_nccl_world1", "backend": acc.state.partial.backend,
+          "world": acc.num_processes, "device": str(acc.device), "distributed_type":
+          str(acc.distributed_type), "model": "gpt2-small", "batch": 8, "seq": 1024,
+          "steps": 10, "step_ms": wall / 10 * 1e3, "tokens_per_s": 8 * 1024 * 10 / wall,
+          "losses": losses, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": {k.__name__: k.launches for k in KERNELS}})
+
+
+class AllReduceMeter:
+    # bytes and host seconds of every all_reduce (gloo runs them on host copies)
+    def __init__(self):
+        self.bytes = self.calls = 0
+        self.seconds = 0.0
+        self.inner = dist.all_reduce
+        dist.all_reduce = self
+
+    def __call__(self, tensor, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.inner(tensor, *args, **kwargs)
+        self.seconds += time.perf_counter() - t0
+        self.bytes += tensor.numel() * tensor.element_size()
+        self.calls += 1
+        return out
+
+    def take(self):
+        out = (self.bytes, self.seconds, self.calls)
+        self.bytes = self.calls = 0
+        self.seconds = 0.0
+        return out
+
+
+def gloo_two_ranks():
+    init = InitProcessGroupKwargs(backend="gloo", timeout_seconds=300)
+    ref = torch.load(spec["reference"], weights_only=False)
+    meter = AllReduceMeter()
+    ids = np.random.default_rng(seed + 1).integers(0, 50257, (8, 512))  # one fixed global batch
+
+    def run(hook, steps, start=2):
+        acc = Accelerator(device="cuda:0", kwargs_handlers=[init])
+        r, n = acc.process_index, acc.num_processes
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, attention_impl="flash"),
+                           device=acc.device, seed=seed)
+        model, opt = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=DP_LR,
+                                                          weight_decay=1e-4))
+        cfg = None if hook is None else CommHookConfig(hook, start_powerSGD_iter=start)
+        step = acc.make_train_step(lm_loss_fn_pallas, comm_hook=cfg)
+        per = 8 // n
+        losses, step_s, reduced = [], [], []
+        meter.take()
+        for i in range(steps):
+            batch = {"input_ids": torch.from_numpy(ids[r * per:(r + 1) * per]).to(acc.device)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(batch).item())
+            step_s.append(time.perf_counter() - t0)
+            reduced.append(meter.take())
+        digests = ops.gather_object([hashlib.sha256(b"".join(
+            p.detach().cpu().numpy().tobytes() for p in model.module.parameters())).hexdigest()])
+        params = {k: p.detach().cpu() for k, p in model.module.named_parameters()}
+        return acc, losses, step_s, reduced, digests, params
+
+    def against(params, losses, want):
+        # the key third of each qkv bias apart: its gradient is zero in exact
+        # arithmetic, so both runs move it by Adam-scaled rounding noise
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+        diffs, key = [], 0.0
+        for k, p in params.items():
+            d = (p - want["params"][k]).abs().reshape(-1)
+            if k.endswith("attn.qkv.bias"):
+                e = d.shape[0] // 3
+                key = max(key, float(d[e:2 * e].max()))
+                d = torch.cat([d[:e], d[2 * e:]])
+            diffs.append(d)
+        d = torch.cat(diffs)
+        return {"loss_max_rel_diff": loss_rel, "param_max_abs_diff": float(d.max()),
+                "param_share_within_lr_20th": float((d <= 0.05 * DP_LR).double().mean()),
+                "qkv_key_bias_max_abs_diff": key}
+
+    for hook, steps in ((None, DP_STEPS), ("bf16", DP_STEPS), ("power_sgd", 2 * DP_STEPS)):
+        acc, losses, step_s, reduced, digests, params = run(hook, steps)
+        name = hook or "plain"
+        rec = {"phase": f"data_parallel_gloo_{name}", "backend": acc.state.partial.backend,
+               "world": acc.num_processes, "device": str(acc.device), "model": "gpt2-small",
+               "dtype": "float32", "global_batch": [8, 512], "steps": steps, "losses": losses,
+               "step_ms": [t * 1e3 for t in step_s],
+               "all_reduce_bytes_per_step": [b for b, _, _ in reduced],
+               "all_reduce_ms_per_step": [t * 1e3 for _, t, _ in reduced],
+               "all_reduce_calls_per_step": [c for _, _, c in reduced],
+               "ranks_bit_equal": len(set(digests)) == 1}
+        if hook == "power_sgd":
+            rec.update({"rank": 1, "start_powerSGD_iter": 2,
+                        "loss_falls": losses[-1] < losses[0]})
+        else:
+            rec.update({"one_process_losses": ref["losses"], **against(params, losses, ref)})
+        if acc.is_main_process:
+            emit(rec)
+        del acc, params
+
+    # the reference's test_multiprocess_ops checks, on CUDA tensors
+    acc = Accelerator(device="cuda:0", kwargs_handlers=[init])
+    r, n, dev = acc.process_index, acc.num_processes, acc.device
+    checks = {
+        "gather": ops.gather(torch.full((2,), float(r), device=dev)).tolist()
+        == [float(i) for i in range(n) for _ in range(2)],
+        "gather_ragged": ops.gather(torch.arange(r + 1, device=dev)).tolist()
+        == [x for i in range(n) for x in range(i + 1)],
+        "gather_object": ops.gather_object([f"proc{r}"]) == [f"proc{i}" for i in range(n)],
+        "broadcast_last": ops.broadcast(torch.full((3,), float(r + 5), device=dev),
+                                        from_process=n - 1).tolist() == [float(n + 4)] * 3,
+        "broadcast_object_list_last": ops.broadcast_object_list([f"payload{r}", r * 10],
+                                                                from_process=n - 1)
+        == [f"payload{n - 1}", (n - 1) * 10],
+        "pad_across_processes": ops.pad_across_processes(torch.arange(float(r + 1), device=dev)
+                                                         ).tolist()
+        == [float(x) for x in range(r + 1)] + [0.0] * (n - 1 - r),
+        "reduce": ops.reduce(torch.tensor([1.0 + r], device=dev), reduction="sum").tolist()
+        == [sum(1.0 + i for i in range(n))],
+        "results_on_device": ops.gather(torch.zeros(1, device=dev)).device == dev,
+    }
+    everyone = ops.gather_object([checks])
+    if acc.is_main_process:
+        emit({"phase": "data_parallel_collectives", "backend": acc.state.partial.backend,
+              "world": n, "device": str(dev), "checks": everyone,
+              "ok": all(all(c.values()) for c in everyone)})
+    acc.state.partial.shutdown()
+
+
+{"nccl": nccl_world1, "gloo": gloo_two_ranks}[spec["mode"]]()
+"""
+
+
+def launch_child(args: list[str], timeout: float = DP_TIMEOUT_S) -> tuple[list[dict], str, float]:
+    """``python -m accelerate_tpu_torch.commands.launch`` with ``args`` from the
+    repository root: (the JSON lines it printed, its stdout, seconds); raises
+    on a non-zero exit or past ``timeout``."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}  # for a script outside ROOT
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch.commands.launch", *args],
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout, env=env)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"launch {args[:6]} exited {out.returncode}:\n{out.stdout[-4000:]}\n"
+                             f"{out.stderr[-8000:]}")
+    lines = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+    return lines, out.stdout, seconds
+
+
+def dp_one_process_reference(torch, np, seed: int, path: Path) -> dict:
+    """Phase 32 (b)'s yardstick: GPT-2 small fp32 (TF32 off), flash and the
+    fused loss, 3 AdamW steps in this process on the whole 8 x 512 batch
+    (one, repeated); the losses and final parameters go to ``path``."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead, lm_loss_fn_pallas
+
+    model = GPT2LMHead(GPT2Config.small(dtype=torch.float32, attention_impl="flash"),
+                       device="cuda", seed=seed)
+    acc = Accelerator(mixed_precision="no", device="cuda")
+    model, _ = acc.prepare(model, torch.optim.AdamW(model.parameters(), lr=DP_LR,
+                                                    weight_decay=1e-4))
+    step = acc.make_train_step(lm_loss_fn_pallas)
+    ids = torch.from_numpy(np.random.default_rng(seed + 1).integers(0, 50257, (8, 512)))
+    losses = [step({"input_ids": ids.to("cuda")}).item() for _ in range(DP_STEPS)]
+    ref = {"losses": losses,
+           "params": {k: p.detach().cpu() for k, p in model.module.named_parameters()}}
+    torch.save(ref, path)
+    del model, acc, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def data_parallel_phase(torch, np, seed: int, card: str, bf16_step_ms: float) -> dict:
+    """Phase 32: data-parallel training across processes through
+    ``python -m accelerate_tpu_torch.commands.launch``. (a) one NCCL rank
+    (``--num_processes 1``) runs phase 29's bf16 variant (GPT-2 small, 8 x
+    1024, flash, `lm_loss_fn_pallas`, 2 untimed and 10 timed steps): backend,
+    world, step ms beside phase 29's (the data-parallel path's cost at
+    world 1), tokens/s, the launches of #2-#4 and #8-#10; the loss falls.
+    (b) two ranks sharing the card over gloo (``--backend gloo``, CUDA
+    tensors), GPT-2 small fp32 with TF32 off, one global batch 8 x 512 split
+    4 + 4: 3 AdamW steps plainly and with the bf16 hook against one process
+    on the whole batch (`DP_LOSS_RTOL`, `DP_BF16_LOSS_RTOL`), 6 with PowerSGD
+    (rank 1, warm-up 2) whose loss falls; every run's ranks end bit for bit
+    equal; all-reduce bytes and ms a step beside the step ms. (c) the
+    reference's multi-process collective checks on CUDA tensors at 2 ranks,
+    and `examples/by_feature/multi_process_metrics.py` at 2 ranks: its
+    ragged eval set of 151 samples counted once. Returns (a)'s launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        child = work / "dp_child.py"
+        child.write_text(DATA_PARALLEL_CHILD)
+        lines, _, seconds = launch_child(["--num_processes", "1", str(child),
+                                          json.dumps({"mode": "nccl", "seed": seed})])
+        world1 = lines[-1]
+        world1.update({"phase29_bf16_step_ms": bf16_step_ms,
+                       "step_ms_over_phase29": world1["step_ms"] / bf16_step_ms,
+                       "child_s": seconds, "card": card})
+        print(json.dumps(world1), flush=True)
+        if world1["backend"] != "nccl" or world1["world"] != 1:
+            raise AssertionError(f"phase 32 (a): {world1}")
+        losses = world1["losses"]
+        if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"phase 32 (a): the loss did not fall: {losses}")
+        launches = {**{n: world1["launches"][n] for n in FLASH_REPLACES},
+                    **{n: world1["launches"][n] for n in FUSED_CE_REPLACES}}
+        expected = {**{n: 12 * 10 for n in FLASH_REPLACES}, **{n: 10 for n in FUSED_CE_REPLACES}}
+        if launches != expected:
+            raise AssertionError(f"phase 32 (a): launches {launches}, expected {expected}")
+
+        dp_one_process_reference(torch, np, seed, work / "reference.pt")
+        lines, _, seconds = launch_child(["--num_processes", "2", "--backend", "gloo", str(child),
+                                          json.dumps({"mode": "gloo", "seed": seed,
+                                                      "reference": str(work / "reference.pt"),
+                                                      "lr": DP_LR, "steps": DP_STEPS})])
+        for rec in lines:
+            rec.update({"card": card})
+            print(json.dumps(rec), flush=True)
+        runs = {rec["phase"]: rec for rec in lines}
+        step_bound = 2 * DP_LR * DP_STEPS
+        for name in ("plain", "bf16", "power_sgd"):
+            rec = runs[f"data_parallel_gloo_{name}"]
+            if not rec["ranks_bit_equal"] or rec["backend"] != "gloo" or rec["world"] != 2:
+                raise AssertionError(f"phase 32 (b) {name}: {rec}")
+            within = {
+                "plain": rec.get("loss_max_rel_diff", 1) <= DP_LOSS_RTOL
+                and rec.get("param_max_abs_diff", 1) <= step_bound
+                and rec.get("param_share_within_lr_20th", 0) >= DP_PARAM_SHARE,
+                "bf16": rec.get("loss_max_rel_diff", 1) <= DP_BF16_LOSS_RTOL
+                and rec.get("param_max_abs_diff", 1) <= step_bound
+                and rec.get("param_share_within_lr_20th", 0) >= DP_BF16_PARAM_SHARE,
+                "power_sgd": True}[name]
+            if not within or rec.get("qkv_key_bias_max_abs_diff", 0) > step_bound:
+                raise AssertionError(f"phase 32 (b) {name}: beyond its bar against one process: "
+                                     f"{rec}")
+        if not runs["data_parallel_gloo_power_sgd"]["loss_falls"]:
+            raise AssertionError(f"phase 32 (b) power_sgd: {runs['data_parallel_gloo_power_sgd']}")
+        if not runs["data_parallel_collectives"]["ok"]:
+            raise AssertionError(f"phase 32 (c): {runs['data_parallel_collectives']}")
+
+        _, stdout, seconds = launch_child([
+            "--num_processes", "2", "--backend", "gloo", "-m",
+            "accelerate_tpu_torch.examples.by_feature.multi_process_metrics", "--device",
+            "cuda:0", "--tiny"])
+        metrics = {"phase": "data_parallel_multi_process_metrics", "world": 2, "backend": "gloo",
+                   "stdout": stdout.strip().splitlines()[-1], "seconds": seconds, "card": card}
+        print(json.dumps(metrics), flush=True)
+        if "eval set 151 samples on 2 process(es)" not in stdout:
+            raise AssertionError(f"phase 32 (c): multi_process_metrics printed {stdout[-2000:]}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"phase": "data_parallel_phase_s", "seconds": time.perf_counter() - t0,
+                      "launches": launches, "card": card}), flush=True)
+    return {"launches": launches}
+
+
 def phase_done(name: str, t0: float) -> float:
     """Prints ``{name}_phase_s``, the seconds since ``t0``; returns the time
     now, where the next phase starts."""
@@ -6313,17 +6675,19 @@ def main() -> int:
                   dtype=torch.float32, seed=args.seed + 9, pad_to=128, **band_common),
         # head_dim 192 and 256 (the scalar bodies) at the Mistral sequence,
         # window and GQA ratio, 16 query heads over 4
+        # (no main path launches them: 10 timed samples, not 30)
         band_case(torch, "d192_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=192, window=4096,
-                  dtype=torch.bfloat16, seed=args.seed + 5, by_group=True, **band_common),
+                  dtype=torch.bfloat16, seed=args.seed + 5, by_group=True, samples=10,
+                  **band_common),
         band_case(torch, "d256_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=256, window=4096,
-                  dtype=torch.bfloat16, seed=args.seed + 6, by_group=True, **band_common),
-        # above 256: the run-time head_dim body at d 320 and 384, fewer timed
-        # samples
+                  dtype=torch.bfloat16, seed=args.seed + 6, by_group=True, samples=10,
+                  **band_common),
+        # above 256: the run-time head_dim body at d 320 and 384, 5 samples
         band_case(torch, "d320_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=320, window=4096,
-                  dtype=torch.bfloat16, seed=args.seed + 8, by_group=True, samples=10,
+                  dtype=torch.bfloat16, seed=args.seed + 8, by_group=True, samples=5,
                   **band_common),
         band_case(torch, "d384_bf16_w4096", b=1, hq=16, hkv=4, s=8192, d=384, window=4096,
-                  dtype=torch.bfloat16, seed=args.seed + 7, by_group=True, samples=10,
+                  dtype=torch.bfloat16, seed=args.seed + 7, by_group=True, samples=5,
                   **band_common),
     ]
     del flush
@@ -6432,7 +6796,10 @@ def main() -> int:
     # 31. T5-v1.1-base on the fused-CE kernels, ViT-B/16, the inference examples
     t5_vit = t5_vit_phase(torch, np, args.seed, card)
 
-    # 32. summary lines
+    # 32. data-parallel training across processes, through the launcher
+    data_parallel = data_parallel_phase(torch, np, args.seed, card, precision["bf16_step_ms"])
+
+    # 33. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -6453,7 +6820,8 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
             "launches": (train["launches"][kname] + facade["launches_loop"][kname]
-                         + precision["launches"][kname] + big["launches"][kname]),
+                         + precision["launches"][kname] + big["launches"][kname]
+                         + data_parallel["launches"][kname]),
             "max_abs_err": max(c[kname]["max_abs_err"] for c in
                                flash_cases + [precision["flash_case"], big["flash_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],
@@ -6467,7 +6835,7 @@ def main() -> int:
             "source": "accelerate_tpu_torch/ops/csrc/fused_ce.cu", "replaces": replaces,
             "launches": (fused_train["launches"][kname] + facade["launches_loop"][kname]
                          + precision["launches"][kname] + big["launches"][kname]
-                         + t5_vit["launches"][kname]),
+                         + t5_vit["launches"][kname] + data_parallel["launches"][kname]),
             "max_abs_err": max(c[kname]["max_abs_err"] for c in
                                fused_cases + [precision["fused_case"], big["fused_case"],
                                               t5_vit["fused_case"]]),

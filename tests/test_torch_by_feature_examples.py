@@ -2,7 +2,8 @@
 against the reference's, on the CPU.
 
 Every ported example runs from the command line, ``--tiny --num_epochs 1
---device cpu``, and exits 0 (all at once, one process each). Five of them,
+--device cpu``, and exits 0 (all at once, one process each; the three
+multi-process ones run at 2 processes in `tests/test_torch_launch.py`). Five of them,
 `gradient_accumulation`, `checkpointing`, `early_stopping`,
 `cross_validation` and `schedule_free`, run beside the reference's script of the same name, in
 this process, from the same weights (both draw the MLP's weights from
@@ -34,12 +35,13 @@ REFERENCE = ROOT / "examples" / "by_feature"
 PORT = ROOT / "accelerate_tpu_torch" / "examples" / "by_feature"
 PORTED = ("gradient_accumulation", "checkpointing", "automatic_gradient_accumulation",
           "early_stopping", "memory", "profiler", "tracking", "cross_validation",
-          "sliding_window_long_context", "schedule_free")
+          "sliding_window_long_context", "schedule_free", "multi_process_metrics", "local_sgd",
+          "ddp_comm_hook")
 # the reference's examples the port has not taken, each with its reason
 DEFERRED = {
-    **{name: "multi-process: waits for the torch.distributed runtime (ROADMAP item 21.3)"
-       for name in ("ddp_comm_hook", "local_sgd", "multi_process_metrics",
-                    "fsdp_with_peak_mem_tracking", "deepspeed_dummy_optim_scheduler",
+    **{name: "sharded axes: wait for FSDP, tensor, pipeline and expert parallelism on "
+             "torch.distributed (ROADMAP item 21.3)"
+       for name in ("fsdp_with_peak_mem_tracking", "deepspeed_dummy_optim_scheduler",
                     "deepspeed_with_config_support", "tensor_parallel_gpt_pretraining",
                     "pipeline_parallel_training", "moe_expert_parallel")},
 }

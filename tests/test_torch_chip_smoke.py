@@ -6,9 +6,10 @@ dH and dW; and its serving bookkeeping: kernel launches counted through
 decode graph replays, the fields of a serving line, the admission counter
 through prefix-cached admissions, phase 21's prompts and its verify
 counts; the head_dim 192 and 256 kernels' ptxas entries and the run-time
-head_dim body's (d 0); and the reliability phase's serving child (what it
-imports, the engine modes it serves). Runs on the CPU against a log in
-ptxas's format and a CPU engine."""
+head_dim body's (d 0); the reliability phase's serving child (what it
+imports, the engine modes it serves); and the data-parallel phase's child
+and its launch through the port's launcher. Runs on the CPU against a log
+in ptxas's format and a CPU engine."""
 
 import importlib.util
 import re
@@ -581,3 +582,29 @@ def test_t5_train_flops_counts_every_projection_and_attention_pair():
     assert got["attention"] == 12 * 768 * b * (12 * src * src + 12 * (tgt * tgt + tgt * src))
     assert got["total"] == sum(v for k, v in got.items() if k != "total")
     assert 6.4e12 < got["total"] < 6.5e12
+
+
+def test_data_parallel_child_imports_only_the_port_and_launches(tmp_path):
+    """Phase 32's child is a script of its own (torch and the port, never
+    JAX or the JAX package) with a mode for one NCCL rank and one for two
+    gloo ranks; `launch_child` runs a script through the port's launcher
+    from the repository root and returns its JSON lines."""
+    import ast
+
+    cs = _chip_smoke()
+    roots = set()
+    for node in ast.walk(ast.parse(cs.DATA_PARALLEL_CHILD)):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert roots == {"hashlib", "json", "math", "sys", "time", "numpy", "torch",
+                     "accelerate_tpu_torch"}
+    assert '{"nccl": nccl_world1, "gloo": gloo_two_ranks}' in cs.DATA_PARALLEL_CHILD
+    script = tmp_path / "child.py"
+    script.write_text("import json, os\n"
+                      "print(json.dumps({'rank': int(os.environ['RANK']), "
+                      "'world': int(os.environ['WORLD_SIZE'])}))\n")
+    lines, stdout, seconds = cs.launch_child(["--debug_cpu", "2", str(script)], timeout=120)
+    assert sorted(line["rank"] for line in lines) == [0, 1]
+    assert all(line["world"] == 2 for line in lines) and seconds > 0

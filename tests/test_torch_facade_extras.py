@@ -137,10 +137,41 @@ def test_kwargs_handlers_reach_the_accelerator():
         Accelerator(device="cpu", kwargs_handlers=[dc.DataLoaderConfiguration()])
     with pytest.raises(ValueError, match="Unsupported"):
         Accelerator(device="cpu", kwargs_handlers=[object()])
-    for plugin in (dc.FullyShardedDataParallelPlugin, dc.DeepSpeedPlugin, dc.MegatronLMPlugin,
-                   dc.InitProcessGroupKwargs, dc.DistributedDataParallelKwargs):
+    for plugin in (dc.FullyShardedDataParallelPlugin, dc.DeepSpeedPlugin, dc.MegatronLMPlugin):
         with pytest.raises(NotImplementedError, match="item 21.3"):
             plugin()
+
+
+def test_data_parallel_handlers_are_built_and_read():
+    """`InitProcessGroupKwargs` and `DistributedDataParallelKwargs` keep the
+    reference's fields and defaults, and the latter gives the comm hook's
+    config (`to_comm_hook_config`), which the accelerator takes."""
+    for name in ("InitProcessGroupKwargs", "DistributedDataParallelKwargs"):
+        mine = [(f.name, f.default) for f in dataclasses.fields(getattr(dc, name))]
+        theirs = [(f.name, f.default) for f in dataclasses.fields(getattr(jax_dataclasses, name))]
+        assert mine[:len(theirs)] == theirs, name
+    assert dc.DistributedDataParallelKwargs().to_comm_hook_config() is None
+    cfg = dc.DistributedDataParallelKwargs(comm_hook="power_sgd", matrix_approximation_rank=2,
+                                           start_powerSGD_iter=5).to_comm_hook_config()
+    want = jax_dataclasses.DistributedDataParallelKwargs(
+        comm_hook="power_sgd", matrix_approximation_rank=2,
+        start_powerSGD_iter=5).to_comm_hook_config()
+    assert (cfg.comm_hook, cfg.matrix_approximation_rank, cfg.start_powerSGD_iter,
+            cfg.min_compression_elems, cfg.warmup_updates) == \
+        (want.comm_hook, want.matrix_approximation_rank, want.start_powerSGD_iter,
+         want.min_compression_elems, want.warmup_updates)
+    wrapped = dc.DistributedDataParallelKwargs(
+        comm_hook="batched_power_sgd", comm_wrapper="bf16",
+        comm_state_option={"min_compression_elems": 64}).to_comm_hook_config()
+    assert (wrapped.wrapper, wrapped.min_compression_elems, wrapped.is_powersgd) == \
+        ("bf16", 64, True)
+    assert dc.DistributedDataParallelKwargs(comm_hook="bf16").to_comm_hook_config().comm_hook == \
+        "bf16"
+    init = dc.InitProcessGroupKwargs(timeout_seconds=60, backend="gloo")
+    acc = Accelerator(device="cpu", kwargs_handlers=[init, dc.DistributedDataParallelKwargs(
+        comm_hook="fp16")])
+    assert acc.init_handler is init and acc.ddp_handler.comm_hook == "fp16"
+    assert acc.num_processes == 1  # no launcher environment: no process group
 
 
 def test_one_process_properties(tmp_path):

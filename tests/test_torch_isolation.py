@@ -69,7 +69,12 @@ def test_port_imports_no_jax_and_no_reference_package():
                     "_common", "gradient_accumulation", "checkpointing",
                     "automatic_gradient_accumulation", "early_stopping", "memory", "profiler",
                     "tracking", "cross_validation", "sliding_window_long_context",
-                    "schedule_free"))):
+                    "schedule_free", "multi_process_metrics", "local_sgd", "ddp_comm_hook")),
+                "accelerate_tpu_torch.parallel", "accelerate_tpu_torch.parallel.mesh",
+                "accelerate_tpu_torch.parallel.compression", "accelerate_tpu_torch.commands",
+                "accelerate_tpu_torch.commands.config", "accelerate_tpu_torch.commands.launch",
+                "accelerate_tpu_torch.commands.cli", "accelerate_tpu_torch.launchers",
+                "accelerate_tpu_torch.local_sgd"):
         assert mod in got["modules"]
 
 
