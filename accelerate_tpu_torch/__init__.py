@@ -53,10 +53,30 @@ through ``torch._scaled_mm``) and their O2 AdamW, rematerialization
 schedule-free AdamW (`optimizer.AdamWScheduleFree`) and the Hugging Face
 name maps (`models.gpt2.params_from_hf_gpt2`,
 `models.llama.params_from_hf_llama`).
-Import submodules directly;
-this package imports nothing eagerly, so ``import accelerate_tpu_torch`` is
-cheap. The quantization names below are also exported here, loaded at first
-access.
+And big models on one card (`big_modeling`: device maps, CPU and disk
+offload streaming, `hooks`) with Mixtral-8x7B and its MoE layer
+(`models.mixtral`, `ops.moe`); T5 (`models.t5`) on the fused-CE kernels and
+ViT (`models.vit`) with the one-process inference examples
+(``examples.inference``); data parallelism across processes over
+``torch.distributed`` (`state`, the collectives of `utils.operations`,
+rank-sharded loaders, gradient all-reduce with the comm hooks of
+`parallel.compression`, `local_sgd`, `launchers` and
+``python -m accelerate_tpu_torch.commands.launch``).
+And the rest of the one-machine surface: every name of the reference's
+package root that has a port is exported here (`__all__`), the
+``Accelerator``'s remaining keywords (``cpu``, ``device_placement``,
+``split_batches``, ``even_batches``, ``dispatch_batches``, ``rng_types``,
+``step_scheduler_with_optimizer``) and ``clear``, the serving example
+(``python -m accelerate_tpu_torch.examples.serving_gpt2``), the config
+templates (``examples/config_yaml_templates/run_me.py``) and the commands
+``env``, ``estimate-memory`` and ``test`` beside ``config``,
+``config-update`` and ``launch`` (``python -m
+accelerate_tpu_torch.commands.cli``).
+
+The root imports nothing eagerly, so ``import accelerate_tpu_torch`` is
+cheap: each name is loaded from its module at first access. The nine names
+of `DEFERRED_ROOT_NAMES` belong to modules that shard parameters or span
+devices, which are not ported yet; each cites the ROADMAP item it waits for.
 """
 
 import importlib
@@ -64,21 +84,109 @@ import importlib
 __version__ = "0.1.0"
 
 _LAZY = {
-    "QuantizationConfig": "utils.quantization",
-    "QuantizedTensor": "utils.quantization",
-    "quantize_params": "utils.quantization",
-    "dequantize_params": "utils.quantization",
-    "quantize_module": "utils.quantization",
-    "dequantize_module": "utils.quantization",
-    "quantized_nbytes": "utils.quantization",
-    "quantize_model": "utils.quantization",
-    "load_and_quantize_model": "utils.quantization",
-    "WeightQuantConfig": "serving.engine",
+    # accelerator
+    "Accelerator": "accelerator", "BoundModel": "accelerator",
+    "GradientAccumulationPlugin": "accelerator", "PreparedModel": "accelerator",
+    "ProjectConfiguration": "accelerator",
+    # data_loader
+    "BatchSamplerShard": "data_loader", "DataLoaderDispatcher": "data_loader",
+    "DataLoaderShard": "data_loader", "IterableDatasetShard": "data_loader",
+    "SeedableRandomSampler": "data_loader", "SkipBatchSampler": "data_loader",
+    "get_sampler": "data_loader", "prepare_data_loader": "data_loader",
+    "skip_first_batches": "data_loader",
+    # launchers, logging, memory, optimizer, scheduler
+    "debug_launcher": "launchers", "notebook_launcher": "launchers",
+    "get_logger": "logging",
+    "find_executable_batch_size": "memory", "release_memory": "memory",
+    "AcceleratedOptimizer": "optimizer",
+    "AcceleratedScheduler": "scheduler", "OptaxSchedule": "scheduler",
+    # parallel
+    "ParallelismConfig": "parallel.mesh", "build_mesh": "parallel.mesh",
+    "CommHookConfig": "parallel.compression", "DDPCommunicationHookType": "parallel.compression",
+    # reliability
+    "FaultInjector": "reliability", "FaultSpec": "reliability",
+    "PreemptionHandler": "reliability", "RetryError": "reliability",
+    "RetryPolicy": "reliability", "install_preemption_handler": "reliability",
+    # serving
+    "FIFOScheduler": "serving", "Request": "serving", "RequestOutput": "serving",
+    "SamplingParams": "serving", "ServingEngine": "serving", "ServingMetrics": "serving",
+    # state
+    "AcceleratorState": "state", "DistributedType": "state", "GradientState": "state",
+    "PartialState": "state",
+    # utils.operations
+    "broadcast": "utils.operations", "broadcast_object_list": "utils.operations",
+    "concatenate": "utils.operations", "gather": "utils.operations",
+    "gather_object": "utils.operations", "pad_across_processes": "utils.operations",
+    "reduce": "utils.operations", "send_to_device": "utils.operations",
+    "ConvertOutputsToFp32": "utils.operations", "convert_outputs_to_fp32": "utils.operations",
+    # precision, fp8 and quantization
+    "DelayedScalingRecipe": "ops.fp8", "adamw_fp8": "ops.fp8",
+    "DynamicGradScaler": "utils.precision", "PrecisionPolicy": "utils.precision",
+    "QuantizationConfig": "utils.quantization", "QuantizedTensor": "utils.quantization",
+    "dequantize_params": "utils.quantization", "load_and_quantize_model": "utils.quantization",
+    "quantize_model": "utils.quantization", "quantize_params": "utils.quantization",
+    # big_modeling
+    "BlockwiseModel": "big_modeling", "cpu_offload": "big_modeling",
+    "cpu_offload_with_hook": "big_modeling", "disk_offload": "big_modeling",
+    "dispatch_model": "big_modeling", "infer_auto_device_map": "big_modeling",
+    "init_empty_weights": "big_modeling", "init_on_device": "big_modeling",
+    "load_checkpoint_and_dispatch": "big_modeling",
+    # utils
+    "is_rich_available": "utils.imports",
+    "AutocastKwargs": "utils.dataclasses", "DataLoaderConfiguration": "utils.dataclasses",
+    "DeepSpeedPlugin": "utils.dataclasses", "DistributedDataParallelKwargs": "utils.dataclasses",
+    "FP8RecipeKwargs": "utils.dataclasses", "FullyShardedDataParallelPlugin": "utils.dataclasses",
+    "GradScalerKwargs": "utils.dataclasses", "InitProcessGroupKwargs": "utils.dataclasses",
+    "MegatronLMPlugin": "utils.dataclasses", "ProfileKwargs": "utils.dataclasses",
+    "convert_bytes": "utils.other", "extract_model_from_parallel": "utils.other",
+    "get_pretty_name": "utils.other", "load": "utils.other", "save": "utils.other",
+    "write_basic_config": "commands.config",
+    "set_seed": "utils.random", "synchronize_rng_states": "utils.random",
+    "load_checkpoint_in_model": "utils.safetensors_io",
+    "load_safetensors_checkpoint": "utils.safetensors_io",
+    "save_safetensors_checkpoint": "utils.safetensors_io",
 }
-__all__ = sorted(_LAZY)
+# names exported under another name in the port: the reference's Fp8Dense is
+# the port's Fp8Linear
+_RENAMED = {"Fp8Dense": ("ops.fp8", "Fp8Linear")}
+# the port's own names that its root resolved before it had the reference's:
+# still resolved, not in __all__, which holds the reference's names only
+_PORT_ONLY = {"WeightQuantConfig": "serving.engine", "quantize_module": "utils.quantization",
+              "dequantize_module": "utils.quantization", "quantized_nbytes": "utils.quantization"}
+# names of the reference's root whose modules are not ported yet, each with
+# the ROADMAP item it waits for
+DEFERRED_ROOT_NAMES = (
+    ("prepare_pippy", "ROADMAP Queue 1, item 21.3: pipeline-parallel inference"),
+    ("pipeline_apply", "ROADMAP Queue 1, item 21.3: pipeline stages over a mesh"),
+    ("stack_stage_params", "ROADMAP Queue 1, item 21.3: pipeline stages over a mesh"),
+    ("ring_attention", "ROADMAP Queue 1, item 21.3: sequence-sharded ring attention"),
+    ("ring_attention_sharded", "ROADMAP Queue 1, item 21.3: sequence-sharded ring attention"),
+    ("ShardingRules", "ROADMAP Queue 1, item 21.3: sharded parameter axes"),
+    ("infer_param_shardings", "ROADMAP Queue 1, item 21.3: sharded parameter axes"),
+    ("DummyOptim", "ROADMAP Queue 1, item 21.3: the DeepSpeed engine's placeholders"),
+    ("DummyScheduler", "ROADMAP Queue 1, item 21.3: the DeepSpeed engine's placeholders"),
+)
+
+
+def _rich_available() -> bool:
+    from .utils.imports import is_rich_available
+
+    return is_rich_available()
+
+
+__all__ = sorted([*_LAZY, *_RENAMED, *(["rich"] if _rich_available() else [])])
 
 
 def __getattr__(name: str):
-    if name not in _LAZY:
-        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    if name in _LAZY or name in _PORT_ONLY:
+        module = _LAZY.get(name) or _PORT_ONLY[name]
+        return getattr(importlib.import_module(f".{module}", __name__), name)
+    if name in _RENAMED:
+        module, attr = _RENAMED[name]
+        return getattr(importlib.import_module(f".{module}", __name__), attr)
+    if name == "rich" and _rich_available():
+        return importlib.import_module(".utils.rich", __name__)
+    deferred = dict(DEFERRED_ROOT_NAMES)
+    if name in deferred:
+        raise AttributeError(f"{name} is not ported to accelerate_tpu_torch yet ({deferred[name]})")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -248,7 +248,17 @@ class _RemovableHandle:
 
 class Accelerator:
     """``device=None`` means CUDA (RuntimeError when it is absent; pass
-    ``device="cpu"`` for the plain path). ``mixed_precision`` is ``"no"``,
+    ``device="cpu"``, or the reference's ``cpu=True``, for the plain path).
+    The reference's other keywords keep their meanings:
+    ``device_placement=False`` leaves prepared models and batches where they
+    are; ``split_batches``, ``even_batches`` and ``dispatch_batches`` reach
+    the prepared loaders as the same fields of ``dataloader_config`` do
+    (passing both forms is a ValueError); ``rng_types`` reaches every
+    prepared `DataLoaderShard`; ``step_scheduler_with_optimizer`` every
+    `AcceleratedScheduler`. ``sharding_rules`` and the three engine plugins
+    raise NotImplementedError when set (ROADMAP Queue 1, item 21.3); other
+    keywords are accepted and unused, as the reference's ``**kwargs``.
+    ``mixed_precision`` is ``"no"``,
     ``"bf16"`` or ``"fp16"`` (with a `DynamicGradScaler` at torch
     GradScaler's defaults, or at a `GradScalerKwargs`' settings); ``"fp8"``
     computes in bf16 around the fp8 projections of a model built with an
@@ -264,15 +274,37 @@ class Accelerator:
     ``ACCELERATE_TPU_MIXED_PRECISION``, ``ACCELERATE_TPU_GRAD_ACCUM_STEPS``
     and ``ACCELERATE_TPU_PARALLELISM`` when set, as in the reference."""
 
-    def __init__(self, mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
-                 device: str | torch.device | None = None,
+    def __init__(self, device_placement: bool = True, split_batches: bool = False,
+                 mixed_precision: str | None = None, gradient_accumulation_steps: int = 1,
                  gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
-                 log_with: Any = None, project_dir: str | None = None,
-                 project_config: ProjectConfiguration | None = None,
-                 dataloader_config: Any = None, kwargs_handlers: list[Any] | None = None,
-                 parallelism_config: ParallelismConfig | None = None):
+                 cpu: bool = False, parallelism_config: ParallelismConfig | None = None,
+                 sharding_rules: Any = None, log_with: Any = None, project_dir: str | None = None,
+                 project_config: ProjectConfiguration | None = None, even_batches: bool = True,
+                 step_scheduler_with_optimizer: bool = True, rng_types: list[str] | None = None,
+                 dispatch_batches: bool | None = None, dataloader_config: Any = None,
+                 deepspeed_plugin: Any = None, fsdp_plugin: Any = None,
+                 megatron_lm_plugin: Any = None, kwargs_handlers: list[Any] | None = None,
+                 device: str | torch.device | None = None, **kwargs: Any):
         import os
 
+        for name, value in (("sharding_rules", sharding_rules), ("deepspeed_plugin", deepspeed_plugin),
+                            ("fsdp_plugin", fsdp_plugin), ("megatron_lm_plugin", megatron_lm_plugin)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}: sharded parameters and the engines that shard them are not ported "
+                    "to the PyTorch port yet (ROADMAP Queue 1, item 21.3)")
+        if dataloader_config is not None:
+            if split_batches or not even_batches or dispatch_batches is not None:
+                raise ValueError(
+                    "Pass dataloader behavior EITHER via dataloader_config= OR via the "
+                    "split_batches/even_batches/dispatch_batches kwargs, not both.")
+            split_batches = dataloader_config.split_batches
+            even_batches = dataloader_config.even_batches
+            dispatch_batches = dataloader_config.dispatch_batches
+        if cpu:
+            if device is not None and torch.device(device).type != "cpu":
+                raise ValueError(f"cpu=True and device={device!r} disagree")
+            device = "cpu"
         if mixed_precision is None:
             mixed_precision = os.environ.get("ACCELERATE_TPU_MIXED_PRECISION")
         if gradient_accumulation_steps == 1:
@@ -297,13 +329,14 @@ class Accelerator:
         if self.policy.requires_loss_scaling and scaler_config.pop("enabled", True):
             self.scaler = DynamicGradScaler(**scaler_config)
         self._use_seedable_sampler = self._use_stateful_dataloader = True
-        self.split_batches, self.even_batches, self.dispatch_batches = False, True, None
         if dataloader_config is not None:
             self._use_seedable_sampler = dataloader_config.use_seedable_sampler
             self._use_stateful_dataloader = dataloader_config.use_stateful_dataloader
-            self.split_batches = dataloader_config.split_batches
-            self.even_batches = dataloader_config.even_batches
-            self.dispatch_batches = dataloader_config.dispatch_batches
+        self.device_placement = device_placement
+        self.split_batches, self.even_batches = split_batches, even_batches
+        self.dispatch_batches = dispatch_batches
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        self.rng_types = rng_types
         self.flag_tensor: torch.Tensor | None = None
         self.step = 0
         self.trackers: list = []
@@ -530,8 +563,8 @@ class Accelerator:
         parameters and buffers, so all start equal."""
         if isinstance(model, PreparedModel):
             model = model.module
-        if any(t.device != self.device for t in itertools.chain(model.parameters(),
-                                                                 model.buffers())):
+        if self.device_placement and any(
+                t.device != self.device for t in itertools.chain(model.parameters(), model.buffers())):
             model.to(self.device)
         if self.num_processes > 1:
             with torch.no_grad():
@@ -579,10 +612,13 @@ class Accelerator:
             data_loader = prepare_data_loader(
                 data_loader, device=self.device, use_seedable_sampler=self.use_seedable_sampler,
                 split_batches=self.split_batches, even_batches=self.even_batches,
-                dispatch_batches=self.dispatch_batches)
+                dispatch_batches=self.dispatch_batches, device_placement=self.device_placement,
+                rng_types=self.rng_types)
         else:
             if data_loader.device is None:
                 data_loader.device = self.device
+            if data_loader.rng_types is None and self.rng_types is not None:
+                data_loader.rng_types = list(self.rng_types)
             sharded = isinstance(data_loader.batch_sampler, BatchSamplerShard) or isinstance(
                 data_loader.dataset, IterableDatasetShard)
             if data_loader.num_processes == 1 and not sharded:
@@ -598,6 +634,8 @@ class Accelerator:
         if isinstance(scheduler, AcceleratedScheduler):
             scheduler = scheduler.scheduler
         wrapped = AcceleratedScheduler(scheduler, optimizers=self._optimizers,
+                                       step_with_optimizer=self.step_scheduler_with_optimizer,
+                                       split_batches=self.split_batches,
                                        gradient_state=self.gradient_state)
         self._schedulers.append(wrapped)
         return wrapped
@@ -1107,6 +1145,10 @@ class Accelerator:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         return objects
+
+    def clear(self, *objects: Any) -> tuple:
+        """`free_memory` (reference `accelerator.py:1577`)."""
+        return self.free_memory(*objects)
 
     # ------------------------------------------------------------ tracking
     def init_trackers(self, project_name: str, config: dict | None = None,

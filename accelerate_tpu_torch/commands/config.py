@@ -113,12 +113,14 @@ def write_basic_config(mixed_precision: str = "no", save_location: str | None = 
 
 
 def _ask(prompt: str, default: str, choices: list[str] | None = None) -> str:
-    hint = f" [{'/'.join(choices)}]" if choices else ""
-    while True:
-        raw = input(f"{prompt}{hint} ({default}): ").strip() or default
-        if not choices or raw in choices:
-            return raw
-        print(f"choose one of {choices}")
+    """A choice through `menu.choose` (arrow keys on a TTY, a number
+    otherwise), else a typed value (reference `commands/config.py:111`)."""
+    if choices:
+        from .menu import choose
+
+        return choose(prompt, choices, default)
+    raw = input(f"{prompt} ({default}): ").strip()
+    return raw or default
 
 
 def config_command(args: argparse.Namespace) -> None:

@@ -38,6 +38,8 @@ repeats.
 from __future__ import annotations
 
 import math
+import warnings
+from collections.abc import Mapping
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -193,6 +195,11 @@ class _PrefetchIterator:
         self._lookahead: Any = None
         self._primed = False
 
+    @property
+    def in_flight(self) -> int:
+        """Batches pulled from the source but not yet handed out."""
+        return 1 if self._lookahead is not None else 0
+
     def __iter__(self) -> "_PrefetchIterator":
         return self
 
@@ -209,6 +216,55 @@ class _PrefetchIterator:
             self._on_last()
             self._lookahead = None
         return current
+
+
+# the counters of a stateful loader's snapshot that count what it consumed:
+# in batches (torchdata's StatefulDataLoader) or in samples (sampler
+# positions); each rewinds in its own unit
+_PREFETCH_BATCH_KEYS = frozenset(
+    {"_snapshot_step", "_num_yielded", "_sampler_iter_yielded",
+     "_num_batches_fetched", "num_batches_yielded"})
+_PREFETCH_SAMPLE_KEYS = frozenset({"samples_yielded"})
+
+
+def adjust_state_dict_for_prefetch(snapshot: Any, in_flight: int,
+                                   batch_size: int | None = None) -> Any:
+    """A stateful base loader's snapshot rewound by the ``in_flight``
+    batches the lookahead pulled past the training step (reference
+    `data_loader.py:364-410`): every nested batch counter less
+    ``in_flight``, every sample counter less ``in_flight * batch_size``,
+    clamped at 0; the rest as it is. With no ``batch_size`` a sample counter
+    stays, with a warning."""
+    sample_rewind = in_flight * batch_size if batch_size else None
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, Mapping):
+            items = {}
+            for k, v in node.items():
+                if k in _PREFETCH_BATCH_KEYS and isinstance(v, int):
+                    items[k] = max(v - in_flight, 0)
+                elif k in _PREFETCH_SAMPLE_KEYS and isinstance(v, int):
+                    if sample_rewind is None:
+                        warnings.warn(
+                            f"stateful loader snapshot has sample-unit counter {k!r} "
+                            "but the base loader exposes no batch_size; leaving it "
+                            "unadjusted may desync the sampler by up to "
+                            f"{in_flight} prefetched batch(es) on resume.")
+                        items[k] = v
+                    else:
+                        items[k] = max(v - sample_rewind, 0)
+                else:
+                    items[k] = walk(v)
+            try:
+                return type(node)(items)
+            except TypeError:  # a Mapping without a dict constructor
+                return items
+        if isinstance(node, (list, tuple)):
+            walked = [walk(v) for v in node]
+            return type(node)(*walked) if hasattr(node, "_fields") else type(node)(walked)
+        return node
+
+    return walk(snapshot)
 
 
 def _is_array(x: Any) -> bool:
@@ -274,17 +330,33 @@ class DataLoaderShard:
 
     With ``num_processes > 1`` every batch of ``base_loader`` is a global
     batch and process ``process_index`` yields its slice (see the module
-    docstring); `Accelerator.prepare` sets both from the process group."""
+    docstring); `Accelerator.prepare` sets both from the process group.
+
+    ``device_placement=False`` yields the batches as ``base_loader`` gives
+    them, where they are. ``rng_types`` names the RNG states that every
+    process takes from rank 0 at the start of each epoch
+    (`utils.random.synchronize_rng_states`): ``"python"``, ``"numpy"``,
+    ``"torch"`` (PyTorch's CPU generator), ``"cuda"`` (the current CUDA
+    device's) and ``"generator"``, the ``generator`` of the base loader's
+    sampler (`get_sampler`); the reference moves every host state together
+    whatever it names. A base loader with its own ``state_dict`` (torchdata's
+    ``StatefulDataLoader``) has its snapshot carried in this loader's, its
+    counters rewound by the batch the lookahead holds
+    (`adjust_state_dict_for_prefetch`)."""
 
     def __init__(self, base_loader: Iterable, device: str | torch.device | None = None,
                  synchronized_generator: SeedableRandomSampler | None = None,
                  total_dataset_length: int | None = None, total_batch_size: int | None = None,
                  _drop_last: bool = False, prefetch: str = "none", num_processes: int = 1,
-                 process_index: int = 0):
+                 process_index: int = 0, device_placement: bool = True,
+                 rng_types: list[str] | None = None):
         if prefetch not in ("none", "auto", "native"):
             raise ValueError(f"prefetch must be none|auto|native, got {prefetch!r}")
         self.base_loader = base_loader
         self.device = device
+        self.device_placement = device_placement
+        self.rng_types = list(rng_types) if rng_types is not None else None
+        self._live: _PrefetchIterator | None = None
         self.synchronized_generator = synchronized_generator
         self.skip_batches = 0
         self.total_dataset_length = total_dataset_length
@@ -369,8 +441,17 @@ class DataLoaderShard:
             current = following
         yield self._slice(current, last=True)
 
+    def _synchronize_rng(self) -> None:
+        from .utils.random import synchronize_rng_states
+
+        generator = getattr(get_sampler(self), "generator", None)
+        types = [t for t in self.rng_types if t != "generator" or generator is not None]
+        synchronize_rng_states(types, generator)
+
     def __iter__(self) -> Iterator[Any]:
-        device = resolve_device(self.device)
+        if self.rng_types:
+            self._synchronize_rng()
+        device = resolve_device(self.device) if self.device_placement else None
         if self.prefetch == "native":
             raise RuntimeError(
                 "prefetch='native' asks for the reference's C++ staging ring, which the PyTorch "
@@ -383,25 +464,40 @@ class DataLoaderShard:
         def mark_last() -> None:
             self.end_of_dataloader = True
 
-        ahead = self.prefetch == "auto" and device.type == "cuda"
+        ahead = device is not None and self.prefetch == "auto" and device.type == "cuda"
         try:
             source: Iterator = self._global_batches()
             if ahead:  # placed as the lookahead pulls it: one batch ahead of the step
                 source = (self._place(b, device, pinned=True) for b in source)
-            for idx, batch in enumerate(_PrefetchIterator(source, mark_last)):
+            self._live = _PrefetchIterator(source, mark_last)
+            for idx, batch in enumerate(self._live):
                 if idx < self.skip_batches:
                     continue
                 self.batches_seen_in_epoch = idx + 1
-                yield batch if ahead else self._place(batch, device, pinned=False)
+                placed = ahead or device is None
+                yield batch if placed else self._place(batch, device, pinned=False)
         finally:
             self.gradient_state._remove_dataloader(self)
             self.skip_batches = 0
+            self._live = None
 
     def state_dict(self) -> dict[str, Any]:
         """Where the epoch stands: a resumed loader skips the batches already
-        seen (reference `data_loader.py:572`)."""
+        seen, or a stateful base loader resumes from its own snapshot, under
+        ``"base_loader"`` (reference `data_loader.py:572-616`)."""
         state = {"iteration": self.iteration, "batches_seen_in_epoch": self.batches_seen_in_epoch,
                  "end_of_dataloader": self.end_of_dataloader}
+        if hasattr(self.base_loader, "state_dict"):
+            try:
+                snapshot = self.base_loader.state_dict()
+            except Exception:  # a loader that advertises a state it cannot produce
+                snapshot = None
+            if snapshot is not None:
+                in_flight = self._live.in_flight if self._live is not None else 0
+                if in_flight:
+                    snapshot = adjust_state_dict_for_prefetch(
+                        snapshot, in_flight, batch_size=getattr(self.base_loader, "batch_size", None))
+                state["base_loader"] = snapshot
         if self.synchronized_generator is not None:
             state["sampler_epoch"] = self.synchronized_generator.epoch
         return state
@@ -409,6 +505,12 @@ class DataLoaderShard:
     def load_state_dict(self, state: dict[str, Any]) -> None:
         self.iteration = state["iteration"]
         self.set_epoch(self.iteration)
+        if "base_loader" in state and hasattr(self.base_loader, "load_state_dict"):
+            try:
+                self.base_loader.load_state_dict(state["base_loader"])
+                return  # the base loader resumes mid-epoch itself: no skip
+            except Exception:
+                pass
         if "sampler_epoch" in state and self.synchronized_generator is not None:
             self.synchronized_generator.set_epoch(state["sampler_epoch"])
         if not state.get("end_of_dataloader", False):
@@ -454,7 +556,8 @@ def prepare_data_loader(dataloader: Any, device: str | torch.device | None = Non
                         use_seedable_sampler: bool = True, seed: int = 0,
                         prefetch: str = "none", num_processes: int | None = None,
                         process_index: int | None = None, split_batches: bool = False,
-                        even_batches: bool = True, dispatch_batches: bool | None = None
+                        even_batches: bool = True, dispatch_batches: bool | None = None,
+                        device_placement: bool = True, rng_types: list[str] | None = None
                         ) -> DataLoaderShard:
     """Wrap ``dataloader`` for this process (reference
     `data_loader.py:744`); ``num_processes`` and ``process_index`` default to
@@ -472,12 +575,13 @@ def prepare_data_loader(dataloader: Any, device: str | torch.device | None = Non
     num_processes = top.num_processes if num_processes is None else num_processes
     process_index = top.process_index if process_index is None else process_index
     shard = dict(num_processes=num_processes, process_index=process_index)
+    placement = dict(device_placement=device_placement, rng_types=rng_types)
     if not isinstance(dataloader, torch.utils.data.DataLoader):
         cls = DataLoaderDispatcher if dispatch_batches else DataLoaderShard
         return cls(dataloader, device=device,
                    total_dataset_length=getattr(dataloader, "total_dataset_length", None),
                    total_batch_size=getattr(dataloader, "total_batch_size", None),
-                   prefetch=prefetch, **shard)
+                   prefetch=prefetch, **shard, **placement)
     dataset = dataloader.dataset
     batch_size = dataloader.batch_size
     if batch_size is None and dataloader.batch_sampler is not None:
@@ -520,7 +624,7 @@ def prepare_data_loader(dataloader: Any, device: str | torch.device | None = Non
                total_dataset_length=total, total_batch_size=global_batch,
                _drop_last=drop_last, prefetch=prefetch,
                num_processes=num_processes if dispatch_batches else 1,
-               process_index=process_index if dispatch_batches else 0)
+               process_index=process_index if dispatch_batches else 0, **placement)
 
 
 class SkipBatchSampler:
@@ -560,6 +664,17 @@ class _SkipIterable:
 
     def __len__(self) -> int:
         return max(len(self.base) - self.skip, 0)
+
+
+def get_sampler(dataloader: Any) -> Any:
+    """The index sampler behind a loader, prepared or not, under any
+    `BatchSamplerShard` or `SkipBatchSampler` (reference
+    `data_loader.py:875-882`)."""
+    base = getattr(dataloader, "base_loader", dataloader)
+    batch_sampler = getattr(base, "batch_sampler", None)
+    while batch_sampler is not None and hasattr(batch_sampler, "batch_sampler"):
+        batch_sampler = batch_sampler.batch_sampler
+    return getattr(batch_sampler, "sampler", getattr(base, "sampler", None))
 
 
 def skip_first_batches(dataloader: Any, num_batches: int = 0) -> Any:

@@ -104,16 +104,25 @@ class OptaxSchedule:
 class AcceleratedScheduler:
     """Steps ``scheduler`` once per applied update: a no-op off an
     accumulation boundary of ``gradient_state`` and after a step one of
-    ``optimizers`` skipped (fp16 overflow). `Accelerator.prepare` binds it
-    to the accelerator's state and optimizers."""
+    ``optimizers`` skipped (fp16 overflow). With ``step_with_optimizer=False``
+    every call steps it, as the reference's does (`scheduler.py:46-81`);
+    ``split_batches`` is kept for the reference's signature and changes no
+    count there either. `Accelerator.prepare` binds it to the accelerator's
+    state and optimizers."""
 
     def __init__(self, scheduler: Any, optimizers: list | None = None,
+                 step_with_optimizer: bool = True, split_batches: bool = False,
                  gradient_state: GradientState | None = None):
         self.scheduler = scheduler
         self.optimizers = optimizers if optimizers is not None else []
+        self.step_with_optimizer = step_with_optimizer
+        self.split_batches = split_batches
         self.gradient_state = gradient_state if gradient_state is not None else GradientState()
 
     def step(self, *args: Any, **kwargs: Any) -> None:
+        if not self.step_with_optimizer:
+            self.scheduler.step(*args, **kwargs)
+            return
         if not self.gradient_state.sync_gradients:
             return
         if any(opt.step_was_skipped for opt in self.optimizers):

@@ -280,7 +280,9 @@ class PartialState:
         lists, tuples, numpy arrays and tensors on their first dimension, a
         dict value by value (equal lengths). The first ``len % processes``
         processes take one more element; with ``apply_padding`` the others
-        repeat the last element so every slice has that length."""
+        are padded to that length: an array or tensor repeats its slice's
+        last element (an empty slice stays empty), a list or tuple repeats
+        the input's last element, as the reference's branches do."""
         n, rank = self.num_processes, self.process_index
         if n == 1:
             yield inputs
@@ -296,9 +298,9 @@ class PartialState:
             if pad_n <= 0 or length == 0:
                 return piece
             if isinstance(piece, np.ndarray):
-                return np.concatenate([piece, np.repeat(obj[-1:], pad_n, axis=0)])
+                return np.concatenate([piece, np.repeat(piece[-1:], pad_n, axis=0)])
             if isinstance(piece, torch.Tensor):
-                return torch.cat([piece, obj[-1:].expand(pad_n, *obj.shape[1:])])
+                return torch.cat([piece, piece[-1:].repeat_interleave(pad_n, dim=0)])
             return type(piece)(list(piece) + [obj[-1]] * pad_n) if isinstance(piece, tuple) \
                 else list(piece) + [obj[-1]] * pad_n
 

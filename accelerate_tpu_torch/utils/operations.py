@@ -68,6 +68,25 @@ def send_to_device(tensor: Any, device: str | torch.device, non_blocking: bool =
     return recursively_apply(send, tensor, test_type=lambda x: isinstance(x, (torch.Tensor, np.ndarray)))
 
 
+def _dtype_name(t: Any) -> str:
+    return np.dtype(t.dtype).name if isinstance(t, np.ndarray) else str(t.dtype).split(".")[-1]
+
+
+def get_data_structure(data: Any) -> Any:
+    """The shape and dtype skeleton of ``data``: each tensor or numpy leaf
+    as ``(shape, dtype name)``, numpy's names (``"float32"``,
+    ``"bfloat16"``), as the reference's (`utils/operations.py:110`)."""
+    return recursively_apply(lambda t: (tuple(t.shape), _dtype_name(t)), data,
+                             test_type=lambda x: isinstance(x, (torch.Tensor, np.ndarray)))
+
+
+def slice_tensors(data: Any, tensor_slice: slice) -> Any:
+    """Every tensor and numpy leaf indexed by ``tensor_slice`` (reference
+    `utils/operations.py:115`)."""
+    return recursively_apply(lambda t: t[tensor_slice], data,
+                             test_type=lambda x: isinstance(x, (torch.Tensor, np.ndarray)))
+
+
 def concatenate(data: list, dim: int = 0) -> Any:
     """Leafwise ``torch.cat`` of a list of containers of one structure."""
     first = data[0]
@@ -331,6 +350,31 @@ def convert_to_fp32(tensor: Any) -> Any:
         return t.float() if t.is_floating_point() and t.dtype != torch.float32 else t
 
     return recursively_apply(upcast, tensor)
+
+
+def convert_outputs_to_fp32(model_forward: Callable) -> Callable:
+    """``model_forward`` with its outputs' bf16 and fp16 tensors upcast to
+    fp32 (reference `utils/operations.py:375`)."""
+    return ConvertOutputsToFp32(model_forward)
+
+
+class ConvertOutputsToFp32:
+    """A picklable callable that runs ``model_forward`` and upcasts its
+    outputs with `convert_to_fp32` (reference `ConvertOutputsToFp32`,
+    `utils/operations.py:381-395`)."""
+
+    def __init__(self, model_forward: Callable):
+        self.model_forward = model_forward
+        functools.update_wrapper(self, model_forward)
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return convert_to_fp32(self.model_forward(*args, **kwargs))
+
+    def __getstate__(self) -> dict:
+        return {"model_forward": self.model_forward}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__init__(state["model_forward"])
 
 
 def find_batch_size(data: Any) -> int | None:

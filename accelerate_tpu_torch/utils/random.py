@@ -73,6 +73,10 @@ def synchronize_rng_state(rng_type: str | None = None, generator: torch.Generato
         raise ValueError(f"unknown rng_type {rng_type!r}; one of {sorted(k for k in getters if k)}")
     if rng_type == "generator" and generator is None:
         raise ValueError("rng_type='generator' needs the generator")
+    from ..state import topology
+
+    if topology().num_processes == 1:  # the reference's early return
+        return
     get, put = getters[rng_type]
     payload = [get()]
     broadcast_object_list(payload, from_process=0)

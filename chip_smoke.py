@@ -327,19 +327,19 @@ Phases run in order; any failure exits non-zero:
    fp8 GEMM (``torch._scaled_mm``) at the four projection shapes, M 8192:
    error against the fp32 product of the dequantized operands, ms, bf16
    ``F.linear``'s ms, bound (`fp8_gemm`); a profiler window over 3 steps of
-   the bf16, fp8 model, remat and fp16 variants (`precision_train_*_profile`:
-   host against device ms, device ms by kind); (d) the fp16 instances against
+   the bf16 variant (`precision_train_bf16_profile`: host against device
+   ms, device ms by kind); (d) the fp16 instances against
    their plain versions at phase 6's and phase 9's main shapes, with SDPA
    and the unfused head as the library yardsticks (`precision_phase_s`);
 30. big models on one card: first the flash kernels #2-#4 (bf16, b 1,
    32 heads, s 4096, d 128, causal) and the fused-CE kernels #8-#10 (bf16,
    N 4096, e 4096, V 32000) against their plain versions at the Mixtral
-   train step's shapes; (a) fp32 (TF32 off) Llama-2-7B width and
-   Mixtral-8x7B width at 2 layers through their blockwise decompositions,
-   embed on the device, layer_0 in pinned host memory, layer_1 on disk,
-   the head on the device, give the resident model's logits on a 1 x 512
-   prompt in two calls (`fp32_blockwise_parity_*`, max |err| <=
-   BIG_MODEL_ATOL, expected 0); (b) bf16 Mixtral-8x7B at full width and 4
+   train step's shapes; (a) fp32 (TF32 off) Llama-2-7B width at 2 layers
+   through its blockwise decomposition, embed on the device, layer_0 in
+   pinned host memory, layer_1 on disk, the head on the device, gives the
+   resident model's logits on a 1 x 512 prompt in two calls
+   (`fp32_blockwise_parity_llama2_7b_width`, max |err| <= BIG_MODEL_ATOL,
+   expected 0; Mixtral's decomposition is held in (b)); (b) bf16 Mixtral-8x7B at full width and 4
    layers, a seeded 12.1 GB checkpoint in a temporary directory, loaded by
    ``load_checkpoint_and_dispatch(device_map="auto", max_memory={"device":
    4 GiB, "cpu": 6 GiB})``: the map uses all three tiers, the logits equal
@@ -393,14 +393,35 @@ Phases run in order; any failure exits non-zero:
    the ranks bit for bit equal; all-reduce bytes, ms and calls a step beside
    the step ms (`data_parallel_gloo_{plain,bf16,power_sgd}`); (c) the
    reference's multi-process collective checks on CUDA tensors at 2 ranks
-   (`data_parallel_collectives`) and `examples/by_feature/
+   (`data_parallel_collectives`); `examples/by_feature/
    multi_process_metrics.py` at 2 ranks, its 151 eval samples counted once
-   (`data_parallel_multi_process_metrics`); `data_parallel_phase_s`;
-33. the script's seconds (`chip_smoke_s`, the build included), the
+   (`data_parallel_multi_process_metrics`), runs among phase 33's
+   children; `data_parallel_phase_s`;
+33. the rest of the one-machine surface: its children start together: (b)
+   ``python -m accelerate_tpu_torch.commands.cli env`` (exit 0, names the
+   card) and ``estimate-memory gpt2 gpt2-medium gpt2-large`` (each count
+   the numel sum of the port's model at that size), (c) ``cli test``
+   through the launcher at one NCCL rank and at two gloo ranks sharing the
+   card (the success line on each rank, the four chained scripts at two),
+   (d) the config templates' ``run_me.py`` through the launcher with
+   ``single_chip.yaml`` and ``fp8.yaml`` (the printed mesh, a finite loss),
+   and phase 32 (c)'s metrics example; while they run, (a) the serving
+   example (`examples/serving_gpt2.py`: the reference's six requests and
+   engine settings) at GPT-2 small, seeded fp32 weights, TF32 off, through
+   the default engine and the paged fused engine, both synchronous
+   (``pipeline_depth=1``): equal greedy streams, the decode forwards a
+   synchronous engine makes for the streams' lengths, and kernel #1
+   n_layer times a decode forward, counted through the replays
+   (`fp32_serving_example`), and ``run_me``'s step in this process with
+   its flash launches counted (`run_me_in_process`); after them the bf16
+   fused engine's tokens/s and steps with its JSONL metrics stream
+   (`bf16_serving_example`); `one_machine_surface_phase_s`;
+34. the script's seconds (`chip_smoke_s`, the build included), the
    kernels line (its flash and fused-CE launches add phase 25 (b)'s
-   loop, phase 29's variants, phase 30's runs, phase 31's T5 steps and
-   phase 32 (a)'s rank to phases 8 and 11; kernel #1's add phases 26's
-   replicas and 27's engines to phases 5 and 24; the band kernels' add
+   loop, phase 29's variants, phase 30's runs, phase 31's T5 steps,
+   phase 32 (a)'s rank and phase 33's ``run_me`` steps to phases 8 and 11;
+   kernel #1's add phases 26's replicas, 27's engines and 33's serving
+   example to phases 5 and 24; the band kernels' add
    phase 28 (e)'s sliding-window example to phase 14), the card line, and
    the final ``{"ok": true, ...}`` line.
 
@@ -413,7 +434,9 @@ Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import math
 import re
@@ -514,7 +537,7 @@ PRECISION_RUNS = (
 )
 # the variants whose steps a profiler window splits into host and device
 # time by kind of kernel (after the timed steps)
-PRECISION_PROFILED = ("bf16", "fp8_model", "fp8_all_remat_dots", "fp16")
+PRECISION_PROFILED = ("bf16",)
 # fp8 against bf16, every step of 12 from one seed: the reference's
 # loss-parity bar (benchmarks/fp8/loss_parity.py, loss units)
 FP8_LOSS_TOL = 0.15
@@ -5201,9 +5224,9 @@ def profile_mixtral_step(torch, run_step, cfg, seq: int, steps: int = 2) -> dict
 
 
 def blockwise_parity(torch, np, seed: int, card: str) -> dict:
-    """Phase 30 (a): fp32 (TF32 off) Llama-2-7B width (phase 18's) and
-    Mixtral-8x7B width, each at 2 layers with ``attention_impl="flash"``,
-    through their blockwise decompositions dispatched as embed -> device,
+    """Phase 30 (a): fp32 (TF32 off) Llama-2-7B width (phase 18's) at 2
+    layers with ``attention_impl="flash"``, through its blockwise
+    decomposition dispatched as embed -> device,
     layer_0 -> cpu, layer_1 -> disk, head -> device: two calls on one 1 x 512
     prompt give the resident model's logits (max |err| <= BIG_MODEL_ATOL,
     expected 0). Returns the flash forward launches."""
@@ -5213,8 +5236,6 @@ def blockwise_parity(torch, np, seed: int, card: str) -> dict:
     from accelerate_tpu_torch.big_modeling import dispatch_model
     from accelerate_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, llama_blockwise,
                                                    llama_blockwise_state_dict)
-    from accelerate_tpu_torch.models.mixtral import (MixtralForCausalLM, mixtral_blockwise,
-                                                     mixtral_blockwise_state_dict)
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     ids = torch.from_numpy(np.random.default_rng(seed).integers(0, 32000, (1, 512))).to("cuda")
@@ -5224,11 +5245,7 @@ def blockwise_parity(torch, np, seed: int, card: str) -> dict:
             ("llama2_7b_width", LlamaConfig.llama2_7b(
                 num_layers=2, dtype=torch.float32, param_dtype=torch.float32,
                 max_position_embeddings=LLAMA_7B_POSITIONS, attention_impl="flash"),
-             LlamaForCausalLM, llama_blockwise, llama_blockwise_state_dict),
-            ("mixtral_8x7b_width", mixtral_config(
-                torch, num_layers=2, dtype=torch.float32, param_dtype=torch.float32,
-                attention_impl="flash"),
-             MixtralForCausalLM, mixtral_blockwise, mixtral_blockwise_state_dict)):
+             LlamaForCausalLM, llama_blockwise, llama_blockwise_state_dict),):
         model = cls(cfg, seed=seed)
         reset_counts(fa)
         with torch.no_grad():
@@ -6189,9 +6206,9 @@ def data_parallel_phase(torch, np, seed: int, card: str, bf16_step_ms: float) ->
     on the whole batch (`DP_LOSS_RTOL`, `DP_BF16_LOSS_RTOL`), 6 with PowerSGD
     (rank 1, warm-up 2) whose loss falls; every run's ranks end bit for bit
     equal; all-reduce bytes and ms a step beside the step ms. (c) the
-    reference's multi-process collective checks on CUDA tensors at 2 ranks,
-    and `examples/by_feature/multi_process_metrics.py` at 2 ranks: its
-    ragged eval set of 151 samples counted once. Returns (a)'s launches."""
+    reference's multi-process collective checks on CUDA tensors at 2 ranks;
+    its `examples/by_feature/multi_process_metrics.py` at 2 ranks runs
+    among phase 33's children. Returns (a)'s launches."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -6249,20 +6266,328 @@ def data_parallel_phase(torch, np, seed: int, card: str, bf16_step_ms: float) ->
         if not runs["data_parallel_collectives"]["ok"]:
             raise AssertionError(f"phase 32 (c): {runs['data_parallel_collectives']}")
 
-        _, stdout, seconds = launch_child([
-            "--num_processes", "2", "--backend", "gloo", "-m",
-            "accelerate_tpu_torch.examples.by_feature.multi_process_metrics", "--device",
-            "cuda:0", "--tiny"])
-        metrics = {"phase": "data_parallel_multi_process_metrics", "world": 2, "backend": "gloo",
-                   "stdout": stdout.strip().splitlines()[-1], "seconds": seconds, "card": card}
-        print(json.dumps(metrics), flush=True)
-        if "eval set 151 samples on 2 process(es)" not in stdout:
-            raise AssertionError(f"phase 32 (c): multi_process_metrics printed {stdout[-2000:]}")
     finally:
         import shutil
 
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"phase": "data_parallel_phase_s", "seconds": time.perf_counter() - t0,
+                      "launches": launches, "card": card}), flush=True)
+    return {"launches": launches}
+
+
+# phase 33: the rest of the one-machine surface. The children of (b)-(d) and
+# phase 32 (c)'s metrics example start together and run while (a)'s fp32
+# engines serve; each child and the batch are bounded by this
+SURFACE_TIMEOUT_S = 300
+SURFACE_TEMPLATES = ("single_chip", "fp8")
+SURFACE_PAGED = dict(paged_kv=True, paged_attention="fused")
+# the fp32 pair runs synchronously: at the default depth 2 a finish the
+# next step's non-blocking reap misses (`Event.query`) frees its slot one
+# step late, so the count of decode forwards follows host and device timing
+SURFACE_FP32_DEPTH = 1
+
+
+def synchronous_decode_forwards(lengths, slots: int) -> int:
+    """The decode forwards of a synchronous engine (``pipeline_depth=1``,
+    ``tokens_per_sync=1``) that serves requests of ``lengths`` tokens in
+    order over ``slots`` slots: a request admitted at a step takes its
+    first token from the prefill and one token from that step's forward
+    and each after it; its slot is free at the next step after its last."""
+    queue, active, forwards = list(lengths), [], 0
+    while queue or active:
+        while queue and len(active) < slots:
+            n = queue.pop(0)
+            if n > 1:
+                active.append(n - 1)
+        if active:
+            forwards += 1
+            active = [left - 1 for left in active if left > 1]
+    return forwards
+GPT2_ESTIMATE_SIZES = {"gpt2": "small", "gpt2-medium": "medium", "gpt2-large": "large"}
+
+
+def start_children(specs: dict[str, list[str]], work: Path) -> dict:
+    """Start ``python <argv>`` for each named spec from the repository root,
+    all at once, each in a process group of its own with its output in
+    ``work``; returns {name: (process, started)}."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+    started = {}
+    try:
+        for name, argv in specs.items():
+            with open(work / f"{name}.out", "w") as out:
+                started[name] = (subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                                  stdout=out, stderr=subprocess.STDOUT,
+                                                  start_new_session=True), time.perf_counter())
+    except BaseException:
+        stop_children(started)
+        raise
+    return started
+
+
+def stop_children(started: dict) -> None:
+    """SIGTERM, then SIGKILL, the process group of every child still
+    running."""
+    import os
+    import signal
+
+    for proc, _ in started.values():
+        if proc.poll() is None:
+            for sig in (signal.SIGTERM, signal.SIGKILL):
+                try:
+                    os.killpg(proc.pid, sig)
+                    proc.wait(timeout=10)
+                    break
+                except ProcessLookupError:
+                    break
+                except subprocess.TimeoutExpired:
+                    continue
+
+
+def finish_children(started: dict, work: Path, timeout: float = SURFACE_TIMEOUT_S) -> dict:
+    """Wait for every child of `start_children`; returns {name: (output,
+    seconds)}. A child that fails or outlives ``timeout`` fails the phase,
+    and every child's process group is stopped (SIGTERM, then SIGKILL)."""
+    deadline = min(t for _, t in started.values()) + timeout
+    done, failed = {}, []
+    try:
+        for name, (proc, t0) in started.items():
+            try:
+                code = proc.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired:
+                code = "timeout"
+            text = (work / f"{name}.out").read_text()
+            done[name] = (text, time.perf_counter() - t0)
+            if code != 0:
+                failed.append(f"--- {name} exited {code} ---\n{text[-4000:]}")
+    finally:
+        stop_children(started)
+    if failed:
+        raise AssertionError("phase 33: a child failed\n" + "\n".join(failed))
+    return done
+
+
+def surface_serving(torch, card: str, model, mode: str, logging_dir: Path,
+                    **engine_kwargs) -> dict:
+    """The serving example's six requests through one engine over
+    ``model`` (``mode``: the default slot engine, or the paged fused one;
+    ``engine_kwargs`` beside), with the launch counts set to 0 after the
+    engine is built: its outputs, wall seconds and kernel #1's launches
+    counted through the replays."""
+    from accelerate_tpu_torch.examples import serving_gpt2
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    engine, tracker = serving_gpt2.make_engine(model=model, logging_dir=str(logging_dir),
+                                               **(SURFACE_PAGED if mode == "fused" else {}),
+                                               **engine_kwargs)
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    outs = serving_gpt2.serve(engine, tracker, quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = engine.metrics
+    rec = {"outs": [o.tokens for o in outs], "reasons": [o.finish_reason for o in outs],
+           "wall_s": wall, "tokens": m.tokens_generated.value, "steps": m.steps.value,
+           "replays": m.decode_dispatches.value,
+           "forwards": m.decode_dispatches.value * engine.tokens_per_sync,
+           "per_replay": engine.graph_launches.get("paged_decode_attention", 0),
+           "launches": replay_launches(engine, "paged_decode_attention",
+                                       fa.paged_decode_attention.launches),
+           "tracker_path": tracker.path}
+    tracker.finish()
+    del engine
+    return rec
+
+
+def one_machine_surface(torch, np, seed: int, card: str) -> dict:
+    """Phase 33: the rest of the one-machine surface. The children start
+    first, all at once: (b) ``cli env`` and ``cli estimate-memory gpt2
+    gpt2-medium gpt2-large``; (c) ``cli test`` through the launcher at one
+    NCCL rank and at two gloo ranks sharing the card (``--device cuda:0``);
+    (d) the config templates' ``run_me.py`` through the launcher with
+    ``single_chip.yaml`` and ``fp8.yaml``; and phase 32 (c)'s
+    ``multi_process_metrics`` example at two gloo ranks. While they run, (a)
+    the serving example at GPT-2 small (seeded weights, the reference's six
+    requests and engine settings) in fp32 through the default engine and
+    the paged fused engine: equal greedy streams, kernel #1 n_layer times a
+    decode forward through the replays; then ``run_me``'s step in this
+    process (its flash launches counted). After the children: (a)'s bf16
+    fused engine, tokens/s and steps, its JSONL stream holding the metrics
+    lines. Returns #1's and the flash kernels' launches."""
+    import shutil
+    import tempfile
+
+    from accelerate_tpu_torch.examples.config_yaml_templates import run_me
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops.fp8 import Fp8Linear
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_surface_"))
+    templates = ROOT / "accelerate_tpu_torch" / "examples" / "config_yaml_templates"
+    no_config = str(work / "no_config.yaml")  # absent: the launch defaults
+    cli = ["-m", "accelerate_tpu_torch.commands.cli"]
+    launch = ["-m", "accelerate_tpu_torch.commands.launch"]
+    specs = {
+        "env": [*cli, "env"],
+        "estimate": [*cli, "estimate-memory", *GPT2_ESTIMATE_SIZES],
+        "test_nccl_1": [*launch, "--num_processes", "1", *cli, "test", "--config_file", no_config],
+        "test_gloo_2": [*launch, "--num_processes", "2", "--backend", "gloo", *cli, "test",
+                        "--device", "cuda:0", "--config_file", no_config],
+        **{f"run_me_{t}": [*launch, "--config_file", str(templates / f"{t}.yaml"), "-m",
+                           "accelerate_tpu_torch.examples.config_yaml_templates.run_me",
+                           "--config_file", str(templates / f"{t}.yaml")]
+           for t in SURFACE_TEMPLATES},
+        "multi_process_metrics": [*launch, "--num_processes", "2", "--backend", "gloo", "-m",
+                                  "accelerate_tpu_torch.examples.by_feature.multi_process_metrics",
+                                  "--device", "cuda:0", "--tiny"],
+    }
+    launches = {"paged_decode_attention": 0, **{n: 0 for n in FLASH_REPLACES}}
+    started: dict = {}
+    try:
+        started = start_children(specs, work)
+
+        # (a) fp32, TF32 off: the default engine and the paged fused engine
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.float32), device="cuda", seed=seed)
+        n_layer = model.config.n_layer
+        fp32 = {mode: surface_serving(torch, card, model, mode, work / f"fp32_{mode}",
+                                      pipeline_depth=SURFACE_FP32_DEPTH)
+                for mode in ("slot", "fused")}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        from accelerate_tpu_torch.examples.serving_gpt2 import ENGINE_SETTINGS, REQUESTS
+
+        greedy = [i for i, (_, kw) in enumerate(REQUESTS) if "temperature" not in kw]
+        slot, fused = fp32["slot"], fp32["fused"]
+        want_forwards = {mode: synchronous_decode_forwards(
+            [len(t) for t in fp32[mode]["outs"]], ENGINE_SETTINGS["max_concurrency"])
+            for mode in fp32}
+        rec = {"phase": "fp32_serving_example", "model": "gpt2-small", "requests": len(REQUESTS),
+               "greedy": greedy,
+               "greedy_streams_equal": all(slot["outs"][i] == fused["outs"][i] for i in greedy),
+               "sampled_streams_equal": slot["outs"] == fused["outs"],
+               "tokens": fused["tokens"], "pipeline_depth": SURFACE_FP32_DEPTH,
+               "decode_forwards": fused["forwards"],
+               "slot_engine_decode_forwards": slot["forwards"],
+               "synchronous_decode_forwards": want_forwards["fused"],
+               "paged_launches_per_replay": fused["per_replay"],
+               "paged_launches": fused["launches"], "slot_engine_paged_launches": slot["launches"],
+               "card": card}
+        print(json.dumps(rec), flush=True)
+        if not rec["greedy_streams_equal"]:
+            raise AssertionError(f"phase 33 (a): fp32 greedy streams differ: {slot['outs']} "
+                                 f"against {fused['outs']}")
+        if any(fp32[mode]["forwards"] != want_forwards[mode] for mode in fp32):
+            raise AssertionError(f"phase 33 (a): decode forwards {slot['forwards']} (slot) and "
+                                 f"{fused['forwards']} (fused), not the synchronous "
+                                 f"{want_forwards['slot']} and {want_forwards['fused']}")
+        if fused["launches"] != n_layer * fused["forwards"] or fused["forwards"] == 0 \
+                or slot["launches"] != 0:
+            raise AssertionError(f"phase 33 (a): kernel #1 ran {fused['launches']} times over "
+                                 f"{fused['forwards']} decode forwards, not {n_layer} each")
+        launches["paged_decode_attention"] += fused["launches"]
+
+        # run_me's step in this process: what its attention resolves to
+        for t in SURFACE_TEMPLATES:
+            reset_counts(fa)
+            with contextlib.redirect_stdout(io.StringIO()):
+                step = run_me.main(["--config_file", str(templates / f"{t}.yaml"),
+                                    "--device", "cuda"])
+            torch.cuda.synchronize()
+            counts = flash_counts(fa)
+            model = step.pop("model")
+            n_fp8 = sum(isinstance(m, Fp8Linear) for m in model.modules())
+            del model
+            print(json.dumps({"phase": "run_me_in_process", "template": t, **step,
+                              "fp8_projections": n_fp8, "flash_launches": counts,
+                              "card": card}), flush=True)
+            if not math.isfinite(step["loss"]) \
+                    or n_fp8 != (4 * GPT2Config.tiny().n_layer if t == "fp8" else 0):
+                raise AssertionError(f"phase 33 (d): run_me {t}: loss {step['loss']}, "
+                                     f"{n_fp8} fp8 projections")
+            for n in FLASH_REPLACES:
+                launches[n] += counts[n]
+
+        done = finish_children(started, work)
+
+        # (b) the commands
+        env_out, env_s = done["env"]
+        name = torch.cuda.get_device_name(0)
+        if name not in env_out:
+            raise AssertionError(f"phase 33 (b): env does not name the card {name!r}:\n{env_out}")
+        counted = {m.group(1): int(m.group(2).replace(",", "")) for m in re.finditer(
+            r"Model: (\S+) — ([\d,]+) parameters", done["estimate"][0])}
+        expected = {}
+        for model_name, size in GPT2_ESTIMATE_SIZES.items():
+            meta = GPT2LMHead(getattr(GPT2Config, size)(), device="meta")
+            expected[model_name] = sum(p.numel() for p in meta.parameters())
+        print(json.dumps({"phase": "surface_commands", "env_names_card": True, "env_s": env_s,
+                          "env": [x for x in env_out.splitlines() if x.startswith("- ")],
+                          "estimate_counts": counted, "numel_counts": expected,
+                          "estimate_s": done["estimate"][1], "card": card}), flush=True)
+        if counted != expected:
+            raise AssertionError(f"phase 33 (b): estimate-memory {counted} != numel {expected}")
+
+        # (c) the install check
+        from accelerate_tpu_torch.commands.test import SUCCESS
+
+        for run, world in (("test_nccl_1", 1), ("test_gloo_2", 2)):
+            out, seconds = done[run]
+            ok = (out.count(SUCCESS) == world and out.count(f"{world} process(es)") == world
+                  and (world == 1 or out.count("launched-script chain [test_metrics]: OK") == 2))
+            print(json.dumps({"phase": f"surface_cli_{run}", "world": world, "seconds": seconds,
+                              "success_lines": out.count(SUCCESS),
+                              "checks_ok": out.count(": OK"), "card": card}), flush=True)
+            if not ok:
+                raise AssertionError(f"phase 33 (c): cli test {run}:\n{out[-4000:]}")
+
+        # (d) the templates through the launcher
+        for t in SURFACE_TEMPLATES:
+            out, seconds = done[f"run_me_{t}"]
+            loss = re.search(r"one step ok, loss = (\S+)", out)
+            mesh = re.search(r"mesh: (\{.*\})", out)
+            rec = {"phase": f"surface_run_me_{t}", "mesh": mesh.group(1) if mesh else None,
+                   "loss": float(loss.group(1)) if loss else None, "seconds": seconds,
+                   "card": card}
+            print(json.dumps(rec), flush=True)
+            if rec["mesh"] is None or rec["loss"] is None or not math.isfinite(rec["loss"]):
+                raise AssertionError(f"phase 33 (d): run_me {t}:\n{out[-4000:]}")
+
+        # phase 32 (c)'s example, run in this batch
+        out, seconds = done["multi_process_metrics"]
+        print(json.dumps({"phase": "data_parallel_multi_process_metrics", "world": 2,
+                          "backend": "gloo", "stdout": out.strip().splitlines()[-1],
+                          "seconds": seconds, "card": card}), flush=True)
+        if "eval set 151 samples on 2 process(es)" not in out:
+            raise AssertionError(f"phase 32 (c): multi_process_metrics printed {out[-2000:]}")
+
+        # (a) bf16: the fused engine's speed and its metrics stream
+        model = GPT2LMHead(GPT2Config.small(dtype=torch.bfloat16, param_dtype=torch.bfloat16),
+                           device="cuda", seed=seed)
+        bf16 = surface_serving(torch, card, model, "fused", work / "bf16_fused")
+        del model
+        lines = [json.loads(x) for x in Path(bf16["tracker_path"]).read_text().splitlines()]
+        rec = {"phase": "bf16_serving_example", "model": "gpt2-small", "engine": "paged fused",
+               "tokens": bf16["tokens"], "steps": bf16["steps"], "wall_s": bf16["wall_s"],
+               "tokens_per_s": bf16["tokens"] / bf16["wall_s"],
+               "decode_forwards": bf16["forwards"], "paged_launches": bf16["launches"],
+               "metrics_lines": len(lines), "card": card}
+        print(json.dumps(rec), flush=True)
+        if not lines or not all("serving/tokens_generated" in x for x in lines) \
+                or bf16["launches"] != n_layer * bf16["forwards"] or bf16["tokens"] == 0:
+            raise AssertionError(f"phase 33 (a): bf16 serving example: {rec}")
+        launches["paged_decode_attention"] += bf16["launches"]
+    finally:
+        stop_children(started)
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "one_machine_surface_phase_s", "seconds": time.perf_counter() - t0,
                       "launches": launches, "card": card}), flush=True)
     return {"launches": launches}
 
@@ -6799,7 +7124,11 @@ def main() -> int:
     # 32. data-parallel training across processes, through the launcher
     data_parallel = data_parallel_phase(torch, np, args.seed, card, precision["bf16_step_ms"])
 
-    # 33. summary lines
+    # 33. the rest of the one-machine surface: the serving example, the
+    # commands, the install check, the config templates
+    surface = one_machine_surface(torch, np, args.seed, card)
+
+    # 34. summary lines
     print(json.dumps({"phase": "chip_smoke_s", "seconds": time.perf_counter() - t_script}),
           flush=True)
     main_case = cases[0]
@@ -6808,7 +7137,7 @@ def main() -> int:
         "source": "accelerate_tpu_torch/ops/csrc/paged_decode.cu",
         "replaces": "accelerate_tpu/ops/flash_attention.py:734",
         "launches": (serving["kernel_launches"] + observability["launches"] + fleet["launches"]
-                     + kv_tier["launches"]),
+                     + kv_tier["launches"] + surface["launches"]["paged_decode_attention"]),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
@@ -6821,7 +7150,7 @@ def main() -> int:
             "source": "accelerate_tpu_torch/ops/csrc/flash_attention.cu", "replaces": replaces,
             "launches": (train["launches"][kname] + facade["launches_loop"][kname]
                          + precision["launches"][kname] + big["launches"][kname]
-                         + data_parallel["launches"][kname]),
+                         + data_parallel["launches"][kname] + surface["launches"][kname]),
             "max_abs_err": max(c[kname]["max_abs_err"] for c in
                                flash_cases + [precision["flash_case"], big["flash_case"]]),
             "ms": main_rec["kernel_ms"], "plain_ms": main_rec["plain_ms"],

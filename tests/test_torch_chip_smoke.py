@@ -8,8 +8,9 @@ through prefix-cached admissions, phase 21's prompts and its verify
 counts; the head_dim 192 and 256 kernels' ptxas entries and the run-time
 head_dim body's (d 0); the reliability phase's serving child (what it
 imports, the engine modes it serves); and the data-parallel phase's child
-and its launch through the port's launcher. Runs on the CPU against a log
-in ptxas's format and a CPU engine."""
+and its launch through the port's launcher; and phase 33's count of a
+synchronous engine's decode forwards. Runs on the CPU against a log in
+ptxas's format and a CPU engine."""
 
 import importlib.util
 import re
@@ -608,3 +609,20 @@ def test_data_parallel_child_imports_only_the_port_and_launches(tmp_path):
     lines, stdout, seconds = cs.launch_child(["--debug_cpu", "2", str(script)], timeout=120)
     assert sorted(line["rank"] for line in lines) == [0, 1]
     assert all(line["world"] == 2 for line in lines) and seconds > 0
+
+
+def test_synchronous_decode_forwards_is_the_engine_s_count_at_depth_1(tmp_path):
+    """Phase 33 (a) pins the fp32 pair's decode forwards to this count: it
+    equals a synchronous CPU engine's over the serving example's requests,
+    at the example's four slots and at two."""
+    from accelerate_tpu_torch.examples import serving_gpt2
+    from accelerate_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHead
+
+    count = _chip_smoke().synchronous_decode_forwards
+    model = GPT2LMHead(GPT2Config.tiny(dtype=torch.float32), device="cpu", seed=0)
+    for slots in (4, 2):
+        run = serving_gpt2.main(model=model, device="cpu", logging_dir=str(tmp_path), quiet=True,
+                                pipeline_depth=1, max_concurrency=slots)
+        lengths = [len(o.tokens) for o in run["outputs"]]
+        assert run["engine"].metrics.decode_dispatches.value == count(lengths, slots), slots
+    assert count([12, 20, 8, 30, 16, 6], 4) == 29 and count([1, 3], 4) == 2

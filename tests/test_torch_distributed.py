@@ -20,6 +20,8 @@ In this process: with no launcher environment an `Accelerator` makes no
 process group, and ``WORLD_SIZE`` without ``MASTER_ADDR`` raises.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -28,9 +30,11 @@ pytest.importorskip("jax")
 
 from accelerate_tpu.data_loader import BatchSamplerShard as JaxBatchSamplerShard  # noqa: E402
 from accelerate_tpu.data_loader import IterableDatasetShard as JaxIterableDatasetShard  # noqa: E402
+from accelerate_tpu.state import PartialState as JaxPartialState  # noqa: E402
 from accelerate_tpu_torch.accelerator import Accelerator  # noqa: E402
 from accelerate_tpu_torch.data_loader import BatchSamplerShard  # noqa: E402
-from torch_dist_worker import LOADER_CASES  # noqa: E402
+from accelerate_tpu_torch.state import PartialState  # noqa: E402
+from torch_dist_worker import LOADER_CASES, SPLIT_ARRAYS  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 from torch_world import ROOT, World, result  # noqa: E402
 
@@ -106,24 +110,81 @@ def test_main_process_first_runs_main_first(worlds, n):
     assert _all(worlds[n], "main_process_first") == [True] * n
 
 
-def _split(seq, n, r, pad):
-    base, extra = divmod(len(seq), n)
-    start = r * base + min(r, extra)
-    piece = list(seq[start:start + base + (1 if r < extra else 0)])
-    if pad and extra and len(piece) < base + 1:
-        piece += [seq[-1]] * (base + 1 - len(piece))
-    return piece
+def _reference_split(inputs, n, r, pad):
+    """The reference's `PartialState.split_between_processes` at rank ``r``
+    of ``n``, on a stand-in state."""
+    stand_in = SimpleNamespace(num_processes=n, process_index=r)
+    with JaxPartialState.split_between_processes(stand_in, inputs, apply_padding=pad) as piece:
+        return piece
+
+
+def _as_list(piece):
+    return piece.tolist() if isinstance(piece, np.ndarray) else list(piece)
 
 
 @pytest.mark.parametrize("n", SIZES)
 def test_split_between_processes(worlds, n):
+    """Each rank's slice equals the reference's: arrays and tensors (held to
+    the reference's numpy branch) repeat the slice's last element and leave
+    an empty slice empty; lists, tuples and dict values repeat the input's
+    last element."""
     for r, got in enumerate(_all(worlds[n], "split_between_processes")):
         for pad in (False, True):
-            assert got[f"list_{pad}"] == _split(list(range(7)), n, r, pad)
-            assert got[f"dict_{pad}"] == {"a": _split(list(range(5)), n, r, pad),
-                                          "b": _split(list("abcde"), n, r, pad)}
-            assert got[f"numpy_{pad}"] == _split([float(x) for x in range(6)], n, r, pad)
-            assert got[f"tensor_{pad}"] == _split(list(range(9)), n, r, pad)
+            assert got[f"list_{pad}"] == _reference_split(list(range(7)), n, r, pad)
+            tup = _reference_split(tuple(range(7)), n, r, pad)
+            assert got[f"tuple_{pad}"] == (tuple(tup) if pad else tup)
+            assert type(got[f"tuple_{pad}"]) is tuple
+            want = _reference_split({"a": list(range(5)), "b": list("abcde")}, n, r, pad)
+            assert got[f"dict_{pad}"] == {k: list(v) for k, v in want.items()}
+            for name, data in SPLIT_ARRAYS.items():
+                want = _as_list(_reference_split(np.asarray(data), n, r, pad))
+                assert got[f"numpy_{name}_{pad}"] == want, (name, r, pad)
+                assert got[f"tensor_{name}_{pad}"] == want, (name, r, pad)
+                assert got[f"list_{name}_{pad}"] == _reference_split(list(data), n, r, pad)
+
+
+def _port_split(inputs, n, r, pad):
+    stand_in = SimpleNamespace(num_processes=n, process_index=r)
+    with PartialState.split_between_processes(stand_in, inputs, apply_padding=pad) as piece:
+        return piece
+
+
+def test_split_pads_arrays_with_the_slice_s_last_element():
+    """At 3 ranks over ``np.arange(7)`` rank 1 takes ``[3, 4]`` padded with
+    its own 4; at 4 ranks over ``np.arange(2)`` the last ranks' slices stay
+    empty, while a list repeats the input's last element."""
+    assert _port_split(np.arange(7), 3, 1, True).tolist() == [3, 4, 4]
+    assert _port_split(torch.arange(7), 3, 1, True).tolist() == [3, 4, 4]
+    assert _port_split(np.arange(2), 4, 3, True).tolist() == []
+    assert _port_split(torch.arange(2), 4, 3, True).tolist() == []
+    assert _port_split(list(range(2)), 4, 3, True) == [1]
+
+
+@pytest.mark.parametrize("n", (3, 5))
+def test_split_between_processes_at_other_world_sizes(n):
+    """The same rule at world sizes no world of this file runs, in process."""
+    for r in range(n):
+        for pad in (False, True):
+            for data in SPLIT_ARRAYS.values():
+                want = _as_list(_reference_split(np.asarray(data), n, r, pad))
+                assert _port_split(np.asarray(data), n, r, pad).tolist() == want
+                assert _port_split(torch.as_tensor(data), n, r, pad).tolist() == want
+                assert _port_split(list(data), n, r, pad) == _reference_split(list(data), n, r, pad)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_rng_types_give_every_rank_rank_0_s_state_at_each_epoch(worlds, n):
+    """A `DataLoaderShard` with ``rng_types`` gives every rank rank 0's
+    Python, numpy and torch states as each epoch starts (the reference's
+    rule, `data_loader.py:521-522`): two epochs' draws on every rank are
+    rank 0's, which are one process's seeded as rank 0 was."""
+    import random
+
+    from accelerate_tpu_torch.utils.random import set_seed
+
+    set_seed(100)
+    want = [[random.random(), float(np.random.rand()), torch.rand(1).item()] for _ in range(2)]
+    assert _all(worlds[n], "rng_types_epochs") == [want] * n
 
 
 COLLECTIVES = ["gather_equal", "gather_ragged", "gather_scalar", "gather_numpy_nested",

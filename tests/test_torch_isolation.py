@@ -74,7 +74,17 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "accelerate_tpu_torch.parallel.compression", "accelerate_tpu_torch.commands",
                 "accelerate_tpu_torch.commands.config", "accelerate_tpu_torch.commands.launch",
                 "accelerate_tpu_torch.commands.cli", "accelerate_tpu_torch.launchers",
-                "accelerate_tpu_torch.local_sgd"):
+                "accelerate_tpu_torch.local_sgd", "accelerate_tpu_torch.utils.rich",
+                "accelerate_tpu_torch.examples.serving_gpt2",
+                "accelerate_tpu_torch.examples.config_yaml_templates",
+                "accelerate_tpu_torch.examples.config_yaml_templates.run_me",
+                "accelerate_tpu_torch.commands.env", "accelerate_tpu_torch.commands.estimate",
+                "accelerate_tpu_torch.commands.menu", "accelerate_tpu_torch.commands.test",
+                "accelerate_tpu_torch.test_utils", "accelerate_tpu_torch.test_utils.test_script",
+                "accelerate_tpu_torch.test_utils.training",
+                "accelerate_tpu_torch.test_utils.scripts",
+                *(f"accelerate_tpu_torch.test_utils.scripts.{name}" for name in (
+                    "test_multiprocess_ops", "test_sync", "test_dispatcher", "test_metrics"))):
         assert mod in got["modules"]
 
 

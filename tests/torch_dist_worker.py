@@ -42,6 +42,11 @@ def _ids(loader) -> list[list[int]]:
     return [b["idx"].tolist() for b in loader]
 
 
+# inputs split by rank as arrays, tensors and lists: ragged, even, and
+# shorter than the world (the last ranks' slices are empty)
+SPLIT_ARRAYS = {"f6": [float(x) for x in range(6)], "i7": list(range(7)), "i9": list(range(9)),
+                "i2": list(range(2)), "rows5": [[x, -x] for x in range(5)]}
+
 LOADER_CASES = [  # (dataset length, batch size, split_batches, even_batches, drop_last)
     (17, 4, False, True, False), (17, 4, False, False, False), (16, 4, False, True, False),
     (17, 4, True, True, False), (18, 4, True, False, False), (17, 4, False, True, True),
@@ -99,10 +104,15 @@ def run(out: str) -> None:
             with state.split_between_processes({"a": list(range(5)), "b": list("abcde")},
                                                apply_padding=pad) as s:
                 got[f"dict_{pad}"] = s
-            with state.split_between_processes(np.arange(6.0), apply_padding=pad) as s:
-                got[f"numpy_{pad}"] = s.tolist()
-            with state.split_between_processes(torch.arange(9), apply_padding=pad) as s:
-                got[f"tensor_{pad}"] = s.tolist()
+            with state.split_between_processes(tuple(range(7)), apply_padding=pad) as s:
+                got[f"tuple_{pad}"] = s
+            for name, data in SPLIT_ARRAYS.items():
+                with state.split_between_processes(np.asarray(data), apply_padding=pad) as s:
+                    got[f"numpy_{name}_{pad}"] = s.tolist()
+                with state.split_between_processes(torch.as_tensor(data), apply_padding=pad) as s:
+                    got[f"tensor_{name}_{pad}"] = s.tolist()
+                with state.split_between_processes(list(data), apply_padding=pad) as s:
+                    got[f"list_{name}_{pad}"] = list(s)
         return got
 
     check("split_between_processes", split)
@@ -161,6 +171,20 @@ def run(out: str) -> None:
         return {"own": own, "synced": synced}
 
     check("rng", rng)
+
+    def rng_types_epochs():
+        import random
+
+        set_seed(100 + r)  # each rank starts elsewhere
+        dl = DataLoaderShard([np.zeros(2)] * 2, device="cpu", rng_types=["python", "numpy", "torch"])
+        draws = []
+        for _ in range(2):
+            for i, _batch in enumerate(dl):
+                if i == 0:
+                    draws.append([random.random(), float(np.random.rand()), torch.rand(1).item()])
+        return draws
+
+    check("rng_types_epochs", rng_types_epochs)
 
     # ------------------------------------------------------------- loaders
     def loaders():
